@@ -1,0 +1,171 @@
+"""The fusion model: Sim(3) global alignment + EKF/RTS local fusion (port of
+``gps_optimize_slam_tpu.models.fusion``).
+
+Given SLAM and GPS tensors on one device, ``fuse_core`` runs temporal
+alignment, Sim3 window selection, RANSAC + Umeyama alignment, the trajectory
+transform, the EKF forward pass and the outage-gated RTS smoothing: the
+reference's recipe (main_process_gui, EKFGPSSLAM.py:940-1123) minus host I/O.
+The alignment is computed once and reused (the reference recomputes it,
+quirk Q9). ``evaluate`` gives the reference's NN metric and the paired ATE.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from gps_optimize_slam_tpu_torch.config import FusionConfig
+from gps_optimize_slam_tpu_torch.ops import (
+    alignment,
+    kalman,
+    kalman_parallel,
+    metrics,
+    ransac,
+    se3,
+)
+from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
+
+
+class FusionOutputs(NamedTuple):
+    """Everything the evaluation and export layers need."""
+
+    corrected_pos: torch.Tensor  # (N,3) EKF+RTS fused trajectory
+    corrected_quat: torch.Tensor  # (N,4)
+    sim3_pos: torch.Tensor  # (N,3) Sim3-aligned trajectory (EKF input)
+    sim3_quat: torch.Tensor  # (N,4)
+    sim3: Sim3  # global transform (R, t, scale, ok)
+    sim3_inliers: torch.Tensor  # (N,) bool RANSAC inliers within the window
+    aligned_gps: torch.Tensor  # (N,3) GPS interpolated to SLAM timestamps
+    gps_valid: torch.Tensor  # (N,) bool
+    ok: torch.Tensor  # () bool — pipeline succeeded
+
+
+def resolve_platform(config: FusionConfig, device: torch.device) -> FusionConfig:
+    """``platform="auto"`` → "gpu" for CUDA tensors, "cpu" otherwise."""
+    if config.platform != "auto":
+        return config
+    return config.replace(platform="gpu" if device.type == "cuda" else "cpu")
+
+
+def fuse_core(
+    slam_times: torch.Tensor,
+    slam_pos: torch.Tensor,
+    slam_quat: torch.Tensor,
+    gps_times: torch.Tensor,
+    gps_positions: torch.Tensor,
+    gps_valid: torch.Tensor,
+    config: FusionConfig = FusionConfig(),
+    seed: int = 0,
+    slam_mask: Optional[torch.Tensor] = None,
+    time_offset: float = 0.0,
+    sim3_draws: Optional[torch.Tensor] = None,
+) -> FusionOutputs:
+    """Full fusion of one sequence; every tensor on one device. Invalid GPS
+    samples are masked by ``gps_valid`` (the outlier gate's output).
+
+    ``slam_mask`` marks real (unpadded) SLAM poses; padded ones are forced
+    GPS-invalid. ``seed`` seeds the RANSAC generator on the tensors' device;
+    ``sim3_draws`` replaces its draws (see ``ops.ransac.sim3_ransac``).
+    ``ekf_scan="auto"`` takes the parallel scans off-CPU and the sequential
+    filter on CPU (the JAX package's rule), and the sequential filter
+    whenever transition blending is on.
+    """
+    config = resolve_platform(config, slam_pos.device)
+    aligned = alignment.align_gps_to_slam(
+        slam_times,
+        gps_times,
+        gps_positions,
+        gps_valid=gps_valid,
+        time_offset=time_offset,
+        cfg=config.time_alignment,
+        assume_sorted=config.gps_sorted,
+    )
+    if slam_mask is not None:
+        aligned = alignment.AlignedGPS(
+            aligned=torch.where(slam_mask[:, None], aligned.aligned, float("nan")),
+            valid=aligned.valid & slam_mask,
+        )
+    window = alignment.sim3_window_mask(
+        slam_times,
+        aligned.valid,
+        gap_threshold=config.time_alignment.max_gps_gap_threshold,
+        max_duration=config.sim3_ransac.max_initial_duration,
+        min_samples=config.sim3_ransac.min_samples,
+    )
+    sim3_res = ransac.sim3_ransac(
+        slam_pos,
+        torch.nan_to_num(aligned.aligned, nan=0.0),
+        valid=window,
+        cfg=config.sim3_ransac,
+        seed=seed,
+        draws=sim3_draws,
+    )
+    sim3 = sim3_res.sim3
+    sim3_pos, sim3_quat = se3.transform_trajectory(slam_pos, slam_quat, sim3.R, sim3.t, sim3.scale)
+
+    use_parallel = config.ekf_scan == "parallel" or (
+        config.ekf_scan == "auto"
+        and config.rts_decision.default_ekf_transition_steps_on_sharp_turn == 0
+        and config.platform != "cpu"
+    )
+    fuse_fn = kalman_parallel.fuse_ekf_rts_parallel if use_parallel else kalman.fuse_ekf_rts
+    corrected_pos, corrected_quat = fuse_fn(
+        slam_times,
+        slam_pos,
+        slam_quat,
+        sim3_pos,
+        sim3_quat,
+        aligned.aligned,
+        aligned.valid,
+        config.ekf,
+        config.rts_decision,
+        rts_mode=config.rts_mode,
+    )
+    return FusionOutputs(
+        corrected_pos=corrected_pos,
+        corrected_quat=corrected_quat,
+        sim3_pos=sim3_pos,
+        sim3_quat=sim3_quat,
+        sim3=sim3,
+        sim3_inliers=sim3_res.inlier_mask,
+        aligned_gps=aligned.aligned,
+        gps_valid=aligned.valid,
+        ok=sim3_res.ok,
+    )
+
+
+class Evaluation(NamedTuple):
+    nn_slam: metrics.ErrorStats
+    nn_sim3: metrics.ErrorStats
+    nn_ekf: metrics.ErrorStats
+    ate_sim3: metrics.ErrorStats
+    ate_ekf: metrics.ErrorStats
+
+
+def evaluate(
+    slam_times: torch.Tensor,
+    slam_pos: torch.Tensor,
+    outputs: FusionOutputs,
+    skip_seconds: float = 5.0,
+) -> Evaluation:
+    """Reference-metric (NN, post-5 s — quirk Q6) and paired-ATE stats for
+    raw SLAM / Sim3-aligned / EKF-fused trajectories against the aligned GPS.
+    The three NN evaluations go through K3 on CUDA."""
+    gate = metrics.eval_mask(slam_times, outputs.gps_valid, skip_seconds)
+    cands = torch.nan_to_num(outputs.aligned_gps, nan=0.0)
+
+    def nn(traj):
+        e = metrics.nn_errors_auto(traj, cands, gate, gate)
+        return metrics.error_stats(e, gate)
+
+    def ate(traj):
+        return metrics.error_stats(metrics.paired_errors(traj, outputs.aligned_gps, gate), gate)
+
+    return Evaluation(
+        nn_slam=nn(slam_pos),
+        nn_sim3=nn(outputs.sim3_pos),
+        nn_ekf=nn(outputs.corrected_pos),
+        ate_sim3=ate(outputs.sim3_pos),
+        ate_ekf=ate(outputs.corrected_pos),
+    )

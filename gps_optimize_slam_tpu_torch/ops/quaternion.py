@@ -1,0 +1,126 @@
+"""Quaternion algebra on tensors (port of ``gps_optimize_slam_tpu.ops.quaternion``).
+
+Convention: quaternions are stored ``[qx, qy, qz, qw]`` (scalar-last), as
+scipy's Rotation, which the reference uses (EKFGPSSLAM.py:4). Rotations act
+on column vectors: ``rotate(q, v) = R(q) v``. All functions broadcast over
+leading batch dimensions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS_NORM = 1e-9
+
+
+def identity_like(q: torch.Tensor) -> torch.Tensor:
+    """Identity quaternion broadcast to q's shape."""
+    out = torch.zeros_like(q)
+    out[..., 3] = 1.0
+    return out
+
+
+def norm(q: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(q * q, dim=-1))
+
+
+def normalize(q: torch.Tensor, eps: float = _EPS_NORM) -> torch.Tensor:
+    """``q/|q|`` if ``|q| > eps`` else the identity (reference
+    normalize_quaternion, EKFGPSSLAM.py:697-700)."""
+    n = norm(q)[..., None]
+    safe = torch.where(n > eps, n, torch.ones_like(n))
+    return torch.where(n > eps, q / safe, identity_like(q))
+
+
+def mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1 ⊗ q2 in xyzw layout: R(q1 q2) = R(q1) R(q2)."""
+    x1, y1, z1, w1 = q1.unbind(-1)
+    x2, y2, z2, w2 = q2.unbind(-1)
+    return torch.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        dim=-1,
+    )
+
+
+def conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (= inverse for unit quaternions)."""
+    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack(
+        [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1
+    )
+
+
+def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by unit quaternion(s) q:
+    v' = v + 2 w (u × v) + 2 u × (u × v), u = q.xyz."""
+    u = q[..., :3]
+    w = q[..., 3:4]
+    uv = cross(u, v)
+    uuv = cross(u, uv)
+    return v + 2.0 * (w * uv + uuv)
+
+
+def from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """3×3 rotation matrix → unit quaternion xyzw (batched, branchless,
+    Shepperd-style; non-negative w like scipy's from_matrix)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    qw = torch.stack([m21 - m12, m02 - m20, m10 - m01, 1.0 + tr], dim=-1)
+    qx = torch.stack([1.0 + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12], dim=-1)
+    qy = torch.stack([m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21, m02 - m20], dim=-1)
+    qz = torch.stack([m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22, m10 - m01], dim=-1)
+    d = torch.stack(
+        [
+            1.0 + m00 - m11 - m22,
+            1.0 - m00 + m11 - m22,
+            1.0 - m00 - m11 + m22,
+            1.0 + tr,
+        ],
+        dim=-1,
+    )
+    choice = torch.argmax(d, dim=-1)
+    cands = torch.stack([qx, qy, qz, qw], dim=-2)  # (..., 4 candidates, 4)
+    idx = choice[..., None, None].expand(*choice.shape, 1, 4)
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    q = q / norm(q)[..., None]
+    sign = torch.where(q[..., 3:4] < 0, -1.0, 1.0).to(q.dtype)
+    return q * sign
+
+
+def nlerp(q1: torch.Tensor, q2: torch.Tensor, weight_q2) -> torch.Tensor:
+    """Normalised linear interpolation with hemisphere flip (reference
+    quaternion_nlerp, EKFGPSSLAM.py:94-105)."""
+    weight_q2 = torch.as_tensor(weight_q2, dtype=q1.dtype, device=q1.device)
+    w = torch.clamp(weight_q2, 0.0, 1.0)
+    dot = torch.sum(q1 * q2, dim=-1, keepdim=True)
+    q2f = torch.where(dot < 0.0, -q2, q2)
+    q = (1.0 - w) * q1 + w * q2f
+    n = norm(q)[..., None]
+    fallback = torch.where(weight_q2 < 0.5, q1, q2)
+    safe = torch.where(n < _EPS_NORM, torch.ones_like(n), n)
+    return torch.where(n < _EPS_NORM, fallback, q / safe)
+
+
+def yaw(q: torch.Tensor) -> torch.Tensor:
+    """First angle of scipy's ``as_euler('zyx')`` (extrinsic): the yaw of
+    the reference's sharp-turn detector (EKFGPSSLAM.py:819-820)."""
+    x, y, z, w = q.unbind(-1)
+    return torch.atan2(2.0 * (w * z - x * y), 1.0 - 2.0 * (y * y + z * z))
+
+
+def wrap_angle(a: torch.Tensor) -> torch.Tensor:
+    """Wrap angle(s) to (-pi, pi] via atan2 (reference EKFGPSSLAM.py:822)."""
+    return torch.atan2(torch.sin(a), torch.cos(a))

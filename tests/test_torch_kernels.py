@@ -1,0 +1,148 @@
+"""K3 (nearest-neighbour distance) and K5 (RANSAC counts) of ``ops.kernels``.
+
+On the CPU the wrappers take their plain versions; these are held against
+the JAX package's Pallas kernels in interpret mode and its exact counting
+form. The array code around the CUDA NN kernel (tile bounds, keep lists,
+candidate packing) runs here too: a NumPy walk over exactly the operands
+the kernel receives must give the brute-force minimum.
+
+Tolerances: NN ≤1e-6 relative against the JAX kernel, which computes in
+float32 (inputs are rounded to float32 first, so only the kernel's own
+rounding remains); the emulated kernel walk equals the brute force to
+1e-14 relative; counts exactly equal to JAX's elementwise form, and within
+2 of its float32 quadratic-form kernel (which the JAX package re-ranks for
+that reason).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gps_optimize_slam_tpu.ops import pallas_kernels as jpk
+from gps_optimize_slam_tpu_torch.ops import kernels
+
+
+def walk(rng, n, scale=1.0, offset=0.0):
+    """A random-walk trajectory (spatially coherent, like the main path's),
+    rounded to float32 so both sides see the same inputs."""
+    x = np.cumsum(rng.normal(size=(n, 3)) * scale, axis=0) + offset
+    return x.astype(np.float32).astype(np.float64)
+
+
+def jax_nn(traj, cands, mask):
+    return np.asarray(
+        jpk.nn_min_dist2(jnp.asarray(traj), jnp.asarray(cands), jnp.asarray(mask), interpret=True)
+    ).astype(np.float64)
+
+
+@pytest.mark.parametrize("n,m", [(300, 1500), (5, 7)])
+def test_plain_nn_matches_jax_kernel(n, m):
+    rng = np.random.default_rng(n)
+    traj, cands = walk(rng, n), walk(rng, m, offset=0.5)
+    mask = rng.uniform(size=m) > 0.2
+    got = kernels.nn_min_dist2(torch.tensor(traj), torch.tensor(cands), torch.tensor(mask)).numpy()
+    np.testing.assert_allclose(got, jax_nn(traj, cands, mask), rtol=1e-6)
+
+
+def test_plain_nn_all_masked_and_nan_rows():
+    rng = np.random.default_rng(3)
+    traj, cands = walk(rng, 300), walk(rng, 1500)
+    traj[[7, 123]] = np.nan  # unspecified rows; the others must not notice
+    none = np.zeros(1500, bool)
+    got = kernels.nn_min_dist2(torch.tensor(traj), torch.tensor(cands), torch.tensor(none)).numpy()
+    assert np.isinf(got[np.isfinite(traj).all(1)]).all()
+    mask = rng.uniform(size=1500) > 0.5
+    got = kernels.nn_min_dist2(torch.tensor(traj), torch.tensor(cands), torch.tensor(mask)).numpy()
+    want = jax_nn(traj, cands, mask)
+    ok = np.isfinite(traj).all(1)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-6)
+
+
+def emulate_kernel(traj, cands, mask):
+    """What csrc/nn.cu computes from the wrapper's operands, in NumPy."""
+    order, nkept, cand4 = (x.numpy() for x in kernels.nn_tiles(traj, cands, mask))
+    a = traj.numpy()
+    out = np.full(len(a), np.inf)
+    for i in range(order.shape[0]):
+        q = a[i * kernels.TILE_N : (i + 1) * kernels.TILE_N]
+        best = np.full(len(q), np.inf)
+        for k in range(nkept[i]):
+            blk = cand4[order[i, k]]  # (4, TILE_M)
+            d = ((q[:, 0, None] - blk[0]) ** 2 + (q[:, 1, None] - blk[1]) ** 2
+                 + (q[:, 2, None] - blk[2]) ** 2 + (0.0 - blk[3]) ** 2)
+            best = np.minimum(best, d.min(1))
+        out[i * kernels.TILE_N : (i + 1) * kernels.TILE_N] = best
+    return out, nkept, order.shape[1]
+
+
+@pytest.mark.parametrize("n,m,scale", [(2000, 3000, 1.0), (700, 2500, 5.0), (130, 1025, 0.3)])
+def test_kernel_operands_give_the_exact_minimum(n, m, scale):
+    rng = np.random.default_rng(m)
+    traj = torch.tensor(walk(rng, n, scale))
+    cands = torch.tensor(walk(rng, m, scale, offset=2.0))
+    mask = torch.tensor(rng.uniform(size=m) > 0.1)
+    got, nkept, m_tiles = emulate_kernel(traj, cands, mask)
+    want = kernels.nn_min_dist2_plain(traj, cands, mask).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-14)
+    if n >= 700:
+        assert nkept.sum() < nkept.size * m_tiles  # the pruning did skip tiles
+
+
+def test_keep_mask_never_drops_the_true_nn_tile():
+    rng = np.random.default_rng(11)
+    for scale in (0.2, 1.0, 20.0):
+        traj, cands = walk(rng, 1500, scale), walk(rng, 2200, scale, offset=1.0)
+        mask = rng.uniform(size=2200) > 0.3
+        d2 = ((traj[:, None] - cands[None]) ** 2).sum(-1)
+        nn = np.where(mask[None], d2, np.inf).argmin(1)
+        n_pad = -(-1500 // kernels.TILE_N) * kernels.TILE_N
+        m_pad = -(-2200 // kernels.TILE_M) * kernels.TILE_M
+        tp = np.concatenate([traj, np.repeat(traj[-1:], n_pad - 1500, 0)])
+        cp = np.zeros((m_pad, 3))
+        cp[:2200] = cands
+        vm = np.zeros(m_pad, bool)
+        vm[:2200] = mask
+        keep = kernels.tile_keep_mask(torch.tensor(tp), torch.tensor(cp), torch.tensor(vm)).numpy()
+        q = np.arange(1500)
+        assert keep[q // kernels.TILE_N, nn // kernels.TILE_M].all()
+
+
+def sim3_trials(rng, n, T):
+    src = rng.normal(size=(n, 3)) * 20
+    dst = 0.98 * src + np.array([3.0, -2.0, 1.0]) + rng.normal(size=(n, 3)) * 2.0
+    q = rng.normal(size=(T, 4))
+    q[:, :3] *= 0.02
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    x, y, z, w = q.T
+    R = np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], -1).reshape(T, 3, 3)
+    t = np.array([3.0, -2.0, 1.0]) + rng.normal(size=(T, 3)) * 0.5
+    s = 0.98 + rng.normal(size=T) * 0.01
+    valid = rng.uniform(size=n) > 0.1
+    return src, dst, valid, R, t, s
+
+
+def jax_exact_counts(src, dst, valid, R, t, s, thr2):
+    """The JAX package's exact counting form (ransac.py trial_mask)."""
+    pred = s[:, None, None] * (jnp.asarray(src)[None] @ jnp.swapaxes(jnp.asarray(R), 1, 2)) + t[:, None]
+    res2 = jnp.sum((pred - jnp.asarray(dst)[None]) ** 2, axis=-1)
+    return np.asarray(jnp.sum((res2 < thr2) & jnp.asarray(valid)[None], axis=1))
+
+
+def test_plain_counts_match_jax_exact_and_kernel():
+    rng = np.random.default_rng(5)
+    src, dst, valid, R, t, s = sim3_trials(rng, 1500, 300)
+    args = [torch.tensor(a) for a in (src, dst, valid, R, t, s)]
+    got = kernels.ransac_counts(*args, 16.0).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, jax_exact_counts(src, dst, valid, R, t, s, 16.0))
+    approx = np.asarray(jpk.ransac_counts(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), jnp.asarray(R),
+        jnp.asarray(t), jnp.asarray(s), thr2=16.0, interpret=True,
+    ))
+    assert np.abs(got - approx).max() <= 2
+    assert 0 < got.min() and got.max() < valid.sum()  # the threshold cuts

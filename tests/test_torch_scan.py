@@ -1,0 +1,200 @@
+"""K1: the port's associative scan (``ops.scan``) against the JAX package.
+
+The plain version of all eight combines is held against the JAX package's
+scans on the CPU in float64: the Pallas kernel ``associative_scan_vmem`` in
+interpret mode and ``jax.lax.associative_scan``, for N ∈ {1, 127, 128, 300,
+1000}, forward and reverse. The 27-leaf filter and 12-leaf RTS combines are
+held against ``associative_scan_fori``, the JAX package's own CPU scan for
+exactly these combines: XLA:CPU needs minutes to compile their unrolled
+ladders (measured on an 8-core Xeon host: 64 s for the interpret-mode
+kernel and 349 s for ``lax.associative_scan`` of the filter at N = 1024).
+
+Each JAX reference is computed once per (combine, direction) at N = 1000;
+the scan of a prefix is the prefix of the scan (the suffix, in reverse), so
+the port runs at every N on the first (last) N elements.
+
+Tolerance: ≤1e-10 relative to the leaf's magnitude (the scans associate in
+different orders). The Möbius combine is projective (its consumer reads the
+scale-free ratio p00/p10, and lax leaves the first element unnormalised),
+so its elements are compared after dividing by their largest entry.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gps_optimize_slam_tpu.ops import alignment as jal
+from gps_optimize_slam_tpu.ops import kalman_parallel as jkp
+from gps_optimize_slam_tpu.ops import tridiag as jtd
+from gps_optimize_slam_tpu.ops.pallas_scan import associative_scan_fori, associative_scan_vmem
+from gps_optimize_slam_tpu_torch.ops import scan
+from gps_optimize_slam_tpu_torch.ops.kalman_parallel import filter_elements
+
+N_MAX = 1000
+SIZES = [1, 127, 128, 300, 1000]
+RTOL = 1e-10
+
+
+def _quat_combine(a, b):
+    x1, y1, z1, w1 = a
+    x2, y2, z2, w2 = b
+    x = w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2
+    y = w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2
+    z = w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2
+    w = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2
+    n = jnp.sqrt(x * x + y * y + z * z + w * w)
+    inv = jnp.where(n > 1e-9, 1.0 / jnp.where(n > 1e-9, n, 1.0), 1.0)
+    return (x * inv, y * inv, z * inv, w * inv)
+
+
+def _rts_combine(earlier, later):
+    M2, c2 = earlier["M"], earlier["c"]
+    M1, c1 = later["M"], later["c"]
+    return dict(M=jkp._mmul(M1, M2), c=jkp._vadd(jkp._mvec(M1, c2), c1))
+
+
+# name → (JAX combine, pytree from the (L, n) leaves, its identity)
+def _flat(x):
+    return tuple(x)
+
+
+JAX_COMBINES = {
+    "quat_chain": (_quat_combine, _flat, (0.0, 0.0, 0.0, 1.0)),
+    "mobius": (jtd._mobius_combine, _flat, (1.0, 0.0, 0.0, 1.0)),
+    "affine3": (jtd._affine_combine, lambda x: (x[0], tuple(x[1:])), (1.0, (0.0, 0.0, 0.0))),
+    "add2": (jal._add_combine, _flat, (0.0, 0.0)),
+    "max3": (jal._max_combine, _flat, (-float("inf"),) * 3),
+    "min3": (jal._min_combine, _flat, (float("inf"),) * 3),
+    "filter": (
+        jkp._combine_filter,
+        lambda x: dict(A=tuple(x[0:9]), b=tuple(x[9:12]), C=tuple(x[12:18]),
+                       eta=tuple(x[18:21]), J=tuple(x[21:27])),
+        jkp._FILTER_IDENTITY,
+    ),
+    "rts": (_rts_combine, lambda x: dict(M=tuple(x[0:9]), c=tuple(x[9:12])), jkp._RTS_IDENTITY),
+}
+
+
+def _leaves_back(op, tree):
+    if op == "filter":
+        return np.stack([np.asarray(v) for k in ("A", "b", "C", "eta", "J") for v in tree[k]])
+    if op == "rts":
+        return np.stack([np.asarray(v) for k in ("M", "c") for v in tree[k]])
+    return np.stack([np.asarray(v) for v in jax.tree.leaves(tree)])
+
+
+def scan_input(op, n, seed=0):
+    """(L, n) float64 leaves shaped like the main path's."""
+    rng = np.random.default_rng(seed)
+    if op == "quat_chain":
+        q = np.concatenate([0.05 * rng.normal(size=(n, 3)), np.ones((n, 1))], 1)
+        return (q / np.linalg.norm(q, axis=1, keepdims=True)).T.copy()
+    if op == "filter":
+        d = torch.tensor(rng.normal(size=(n - 1, 3)))
+        qd = torch.tensor([0.1, 0.1, 0.7])[None] * torch.tensor(rng.uniform(0.09, 0.11, n - 1))[:, None]
+        z = torch.cumsum(d, 0) + 0.2 * torch.tensor(rng.normal(size=(n - 1, 3)))
+        avail = torch.tensor(rng.uniform(size=n - 1) > 0.2)
+        return filter_elements(
+            torch.zeros(3, dtype=torch.float64), 0.1 * torch.eye(3, dtype=torch.float64),
+            d.double(), qd.double(), torch.full((3,), 0.2, dtype=torch.float64), z.double(), avail,
+        ).numpy()
+    if op == "rts":
+        e = np.zeros((9, n))
+        for i in (0, 4, 8):
+            e[i] = rng.uniform(0.5, 0.9, n)
+        e[1] = e[3] = 0.05 * rng.normal(size=n)
+        e[:, rng.uniform(size=n) > 0.8] = 0.0  # segment resets
+        return np.concatenate([e, 10 * rng.normal(size=(3, n))])
+    if op == "mobius":
+        h = rng.uniform(0.08, 0.12, n)
+        a = np.where(rng.uniform(size=n) > 0.1, h / 6, 0.0)  # zero rows decouple
+        return np.stack([2 * h / 3, -(a * a), np.ones(n), np.zeros(n)])
+    if op == "affine3":
+        return np.concatenate([rng.uniform(-0.3, 0.0, (1, n)), rng.normal(size=(3, n))])
+    if op == "add2":
+        return (rng.uniform(size=(2, n)) > 0.5).astype(float)
+    marked = rng.uniform(size=n) > 0.9
+    fill = -np.inf if op == "max3" else np.inf
+    idx = np.arange(n, dtype=float)
+    return np.stack([np.where(marked, idx, fill), np.where(marked, 0.1 * idx, fill),
+                     np.where(marked, np.floor(idx / 50), fill)])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_reference(op, reverse, kind):
+    combine, tree_of, ident = JAX_COMBINES[op]
+    x = scan_input(op, N_MAX)
+    tree = tree_of([jnp.asarray(v) for v in x])
+    if kind == "vmem":
+        out = associative_scan_vmem(combine, tree, ident, reverse=reverse, interpret=True)
+    elif kind == "lax":
+        out = jax.jit(lambda e: jax.lax.associative_scan(combine, e, reverse=reverse))(tree)
+    else:
+        out = jax.jit(lambda e: associative_scan_fori(combine, e, ident, reverse=reverse))(tree)
+    return x, _leaves_back(op, out)
+
+
+def _projective(x):
+    return x / np.max(np.abs(x), axis=0, keepdims=True)
+
+
+def _assert_close(op, got, want):
+    if op == "mobius":
+        got, want = _projective(got), _projective(want)
+    scale = np.where(np.isfinite(want), np.abs(want), 0.0).max(1, keepdims=True) + 1e-300
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    with np.errstate(invalid="ignore"):
+        err = np.where(same, 0.0, np.abs(got - want)) / scale
+    assert err.max() <= RTOL, f"{op}: rel err {err.max():.3e}"
+
+
+CASES = [(op, kind) for op in ("quat_chain", "mobius", "affine3", "add2", "max3", "min3")
+         for kind in ("vmem", "lax")] + [("filter", "fori"), ("rts", "fori")]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op,kind", CASES)
+def test_plain_scan_matches_jax(op, kind, reverse):
+    x, want = jax_reference(op, reverse, kind)
+    for n in SIZES:
+        sl = slice(N_MAX - n, N_MAX) if reverse else slice(0, n)
+        got = scan.associative_scan(op, torch.tensor(x[:, sl]), reverse=reverse).numpy()
+        _assert_close(op, got, want[:, sl])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_noncommutative_mobius_products(reverse):
+    """2×2 products are order-sensitive: the prefix is T_k ··· T_0, the
+    suffix T_k ··· T_{n-1}; any argument-order slip is a gross mismatch."""
+    rng = np.random.default_rng(7)
+    n = 300
+    m = np.eye(2)[None] + 0.1 * rng.normal(size=(n, 2, 2))
+    x = np.stack([m[:, 0, 0], m[:, 0, 1], m[:, 1, 0], m[:, 1, 1]])
+    got = scan.associative_scan("mobius", torch.tensor(x), reverse=reverse).numpy()
+    want = np.empty_like(x)
+    acc = np.eye(2)
+    for k in (range(n - 1, -1, -1) if reverse else range(n)):
+        acc = m[k] @ acc
+        acc = acc / np.abs(acc).max()
+        want[:, k] = acc.reshape(4)
+    np.testing.assert_allclose(_projective(got), _projective(want), rtol=1e-10, atol=1e-12)
+
+
+def test_cpu_tensors_take_the_plain_scan_without_launching():
+    before = dict(scan.associative_scan.launches)
+    x = torch.tensor(scan_input("affine3", 77))
+    torch.testing.assert_close(scan.associative_scan("affine3", x), scan.scan_plain("affine3", x))
+    assert scan.associative_scan.launches == before
+
+
+def test_scan_rejects_bad_leaves():
+    with pytest.raises(ValueError):
+        scan.associative_scan("filter", torch.zeros(4, 10, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        scan.associative_scan("add2", torch.zeros(2, 10, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        scan.associative_scan("nope", torch.zeros(2, 10))
