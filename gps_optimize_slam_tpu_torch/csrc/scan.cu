@@ -5,328 +5,34 @@
 // associative_scan_vmem (_scan_kernel -> _ladder). That kernel holds the
 // leaves in VMEM and runs a Hillis-Steele ladder over (R, 128) tiles. Here the
 // leaves (L, n) stay in device memory and one block of 256 threads runs
-// reduce-then-scan:
-//   1. each thread scans its own contiguous chunk sequentially, writing the
-//      local prefixes to `out`;
-//   2. the 256 thread totals are scanned in shared memory (Hillis-Steele,
-//      8 rounds);
-//   3. each thread folds its exclusive carry into every element of its chunk.
-// Any n runs in one launch, the lengths of the tiled Pallas kernel (K2)
-// included. `reverse` walks the indices back to front; the accumulated
-// composite (the later one, under reverse) is always the FIRST combine
-// argument, as in jax.lax.associative_scan (pallas_scan.py:137-142).
+// reduce-then-scan (scan_kernel in scan_ops.cuh, with the eight combines).
+// The wrapper (ops/scan.py) routes a scan here while the JAX package's
+// VMEM budget holds (2 * L * n_pad * itemsize <= 4 MiB, n_pad = n rounded
+// up to 128) and to K2 (scan_tiled.cu) beyond it; the kernel itself takes
+// any n.
 //
 // What bounds it on this card: latency on one SM. At the main path's sizes
 // (n = 271 .. 4661) the data is a few hundred KB at most, and the scan is a
 // chain of ~2n/256 + 8 dependent combines per thread, each of which runs
 // ~300 flops for the 27-leaf filter. The design keeps every intermediate in
 // registers (spilled to local memory for the filter in float64) and touches
-// device memory twice per element. A multi-block decoupled look-back and a
-// batch grid over sequences are later work.
-//
-// Every combine below writes its arithmetic in the order of the JAX combine
-// it ports, so that results agree to rounding. The library is built with
-// --fmad=false so no multiply-add is contracted behind the source's back.
-#include "common.cuh"
+// device memory twice per element. A batch grid over sequences is later
+// work.
+#include "scan_ops.cuh"
 
 namespace {
 
-constexpr int kScanThreads = 256;
-
-template <typename T>
-__device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
-template <typename T>
-__device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
-
-// 3x3 helpers on row-major 9-arrays, summed in the order of
-// kalman_parallel._mmul / _mvec: (x0*y0 + x1*y1) + x2*y2.
-template <typename T>
-__device__ __forceinline__ void mmul(const T* a, const T* b, T* o) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      o[3 * i + j] = a[3 * i] * b[j] + a[3 * i + 1] * b[3 + j] + a[3 * i + 2] * b[6 + j];
-}
-
-template <typename T>
-__device__ __forceinline__ void mvec(const T* a, const T* v, T* o) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) o[i] = a[3 * i] * v[0] + a[3 * i + 1] * v[1] + a[3 * i + 2] * v[2];
-}
-
-template <typename T>
-__device__ __forceinline__ void mT(const T* a, T* o) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) o[3 * i + j] = a[3 * j + i];
-}
-
-// Adjugate inverse, kalman_parallel._minv.
-template <typename T>
-__device__ __forceinline__ void minv(const T* m, T* o) {
-  const T c00 = m[4] * m[8] - m[5] * m[7];
-  const T c01 = m[2] * m[7] - m[1] * m[8];
-  const T c02 = m[1] * m[5] - m[2] * m[4];
-  const T c10 = m[5] * m[6] - m[3] * m[8];
-  const T c11 = m[0] * m[8] - m[2] * m[6];
-  const T c12 = m[2] * m[3] - m[0] * m[5];
-  const T c20 = m[3] * m[7] - m[4] * m[6];
-  const T c21 = m[1] * m[6] - m[0] * m[7];
-  const T c22 = m[0] * m[4] - m[1] * m[3];
-  const T inv_det = T(1) / (m[0] * c00 + m[1] * c10 + m[2] * c20);
-  o[0] = c00 * inv_det; o[1] = c01 * inv_det; o[2] = c02 * inv_det;
-  o[3] = c10 * inv_det; o[4] = c11 * inv_det; o[5] = c12 * inv_det;
-  o[6] = c20 * inv_det; o[7] = c21 * inv_det; o[8] = c22 * inv_det;
-}
-
-// (xx, xy, xz, yy, yz, zz) -> row-major 9-array (kalman_parallel._sym_expand).
-template <typename T>
-__device__ __forceinline__ void sym_expand(const T* s, T* o) {
-  o[0] = s[0]; o[1] = s[1]; o[2] = s[2];
-  o[3] = s[1]; o[4] = s[3]; o[5] = s[4];
-  o[6] = s[2]; o[7] = s[4]; o[8] = s[5];
-}
-
-// Quaternion chain, kalman_parallel.parallel_quat_chain.combine (4 leaves).
-template <typename T>
-struct QuatChain {
-  static constexpr int L = 4;
-  __device__ static void identity(T* e) { e[0] = 0; e[1] = 0; e[2] = 0; e[3] = 1; }
-  __device__ static void apply(const T* a, const T* b, T* o) {
-    const T x1 = a[0], y1 = a[1], z1 = a[2], w1 = a[3];
-    const T x2 = b[0], y2 = b[1], z2 = b[2], w2 = b[3];
-    const T x = w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2;
-    const T y = w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2;
-    const T z = w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2;
-    const T w = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2;
-    const T n = sqrt(x * x + y * y + z * z + w * w);
-    const T inv = n > T(1e-9) ? T(1) / n : T(1);
-    o[0] = x * inv; o[1] = y * inv; o[2] = z * inv; o[3] = w * inv;
-  }
-};
-
-// Affine Kalman filter elements, kalman_parallel._combine_filter (27 leaves:
-// A[9], b[3], C[6], eta[3], J[6]; C and J symmetric, upper triangle).
-template <typename T>
-struct Filter {
-  static constexpr int L = 27;
-  __device__ static void identity(T* e) {
-#pragma unroll
-    for (int i = 0; i < L; ++i) e[i] = 0;
-    e[0] = 1; e[4] = 1; e[8] = 1;
-  }
-  __device__ static void apply(const T* e1, const T* e2, T* o) {
-    const T* A1 = e1; const T* b1 = e1 + 9; const T* eta1 = e1 + 18;
-    const T* A2 = e2; const T* b2 = e2 + 9; const T* eta2 = e2 + 18;
-    T C1[9], J1[9], C2[9], J2[9];
-    sym_expand(e1 + 12, C1); sym_expand(e1 + 21, J1);
-    sym_expand(e2 + 12, C2); sym_expand(e2 + 21, J2);
-    T tmp[9], M[9];
-    mmul(C1, J2, tmp);  // I + C1 J2
-    tmp[0] = tmp[0] + T(1); tmp[4] = tmp[4] + T(1); tmp[8] = tmp[8] + T(1);
-    minv(tmp, M);
-    T A2M[9];
-    mmul(A2, M, A2M);
-    mmul(A2M, A1, o);  // A
-    T v[3], w[3];
-    mvec(C1, eta2, v);
-    v[0] = b1[0] + v[0]; v[1] = b1[1] + v[1]; v[2] = b1[2] + v[2];
-    mvec(A2M, v, w);
-    o[9] = w[0] + b2[0]; o[10] = w[1] + b2[1]; o[11] = w[2] + b2[2];  // b
-    T A2MC1[9], A2T[9], C[9];
-    mmul(A2M, C1, A2MC1);
-    mT(A2, A2T);
-    mmul(A2MC1, A2T, C);
-    o[12] = C[0] + C2[0]; o[13] = C[1] + C2[1]; o[14] = C[2] + C2[2];
-    o[15] = C[4] + C2[4]; o[16] = C[5] + C2[5]; o[17] = C[8] + C2[8];  // C
-    T MA1[9], A1tMt[9];
-    mmul(M, A1, MA1);
-    mT(MA1, A1tMt);
-    mvec(J2, b1, v);
-    v[0] = eta2[0] - v[0]; v[1] = eta2[1] - v[1]; v[2] = eta2[2] - v[2];
-    mvec(A1tMt, v, w);
-    o[18] = w[0] + eta1[0]; o[19] = w[1] + eta1[1]; o[20] = w[2] + eta1[2];  // eta
-    T AJ[9], J[9];
-    mmul(A1tMt, J2, AJ);
-    mmul(AJ, A1, J);
-    o[21] = J[0] + J1[0]; o[22] = J[1] + J1[1]; o[23] = J[2] + J1[2];
-    o[24] = J[4] + J1[4]; o[25] = J[5] + J1[5]; o[26] = J[8] + J1[8];  // J
-  }
-};
-
-// RTS suffix, kalman_parallel.fuse_ekf_rts_parallel.combine (12 leaves:
-// M[9], c[3]). First argument = accumulated (later-in-time) composite.
-template <typename T>
-struct RtsSuffix {
-  static constexpr int L = 12;
-  __device__ static void identity(T* e) {
-#pragma unroll
-    for (int i = 0; i < L; ++i) e[i] = 0;
-    e[0] = 1; e[4] = 1; e[8] = 1;
-  }
-  __device__ static void apply(const T* first, const T* second, T* o) {
-    const T* M2 = first; const T* c2 = first + 9;
-    const T* M1 = second; const T* c1 = second + 9;
-    mmul(M1, M2, o);
-    T v[3];
-    mvec(M1, c2, v);
-    o[9] = v[0] + c1[0]; o[10] = v[1] + c1[1]; o[11] = v[2] + c1[2];
-  }
-};
-
-// Normalised 2x2 homogeneous products, tridiag._mobius_combine (4 leaves).
-template <typename T>
-struct Mobius {
-  static constexpr int L = 4;
-  __device__ static void identity(T* e) { e[0] = 1; e[1] = 0; e[2] = 0; e[3] = 1; }
-  __device__ static void apply(const T* p, const T* q, T* o) {
-    const T m00 = q[0] * p[0] + q[1] * p[2];
-    const T m01 = q[0] * p[1] + q[1] * p[3];
-    const T m10 = q[2] * p[0] + q[3] * p[2];
-    const T m11 = q[2] * p[1] + q[3] * p[3];
-    const T scale = tmax(tmax(fabs(m00), fabs(m01)), tmax(fabs(m10), fabs(m11)));
-    const T inv = T(1) / tmax(scale, Limits<T>::tiny());
-    o[0] = m00 * inv; o[1] = m01 * inv; o[2] = m10 * inv; o[3] = m11 * inv;
-  }
-};
-
-// Affine composition (alpha, beta[3]), tridiag._affine_combine (4 leaves).
-template <typename T>
-struct Affine3 {
-  static constexpr int L = 4;
-  __device__ static void identity(T* e) { e[0] = 1; e[1] = 0; e[2] = 0; e[3] = 0; }
-  __device__ static void apply(const T* a, const T* b, T* o) {
-    o[0] = b[0] * a[0];
-#pragma unroll
-    for (int i = 1; i < 4; ++i) o[i] = b[0] * a[i] + b[i];
-  }
-};
-
-// Segment-structure scans, alignment._add/_max/_min_combine.
-template <typename T>
-struct Add2 {
-  static constexpr int L = 2;
-  __device__ static void identity(T* e) { e[0] = 0; e[1] = 0; }
-  __device__ static void apply(const T* a, const T* b, T* o) { o[0] = a[0] + b[0]; o[1] = a[1] + b[1]; }
-};
-
-template <typename T>
-struct Max3 {
-  static constexpr int L = 3;
-  __device__ static void identity(T* e) { e[0] = e[1] = e[2] = -Limits<T>::inf(); }
-  __device__ static void apply(const T* a, const T* b, T* o) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) o[i] = tmax(a[i], b[i]);
-  }
-};
-
-template <typename T>
-struct Min3 {
-  static constexpr int L = 3;
-  __device__ static void identity(T* e) { e[0] = e[1] = e[2] = Limits<T>::inf(); }
-  __device__ static void apply(const T* a, const T* b, T* o) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) o[i] = tmin(a[i], b[i]);
-  }
-};
-
 template <class Op, typename T>
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int reverse) {
-  constexpr int L = Op::L;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tot = reinterpret_cast<T*>(smem_raw);  // [L][kScanThreads]
-  const int tid = threadIdx.x;
-  const int chunk = (n + kScanThreads - 1) / kScanThreads;
-  const int lo = min(n, tid * chunk);
-  const int hi = min(n, lo + chunk);
-
-  T acc[L], x[L], y[L];
-  Op::identity(acc);
-  // 1. Sequential scan of this thread's chunk.
-  for (int k = lo; k < hi; ++k) {
-    const int p = reverse ? n - 1 - k : k;
-#pragma unroll
-    for (int l = 0; l < L; ++l) x[l] = in[(size_t)l * n + p];
-    if (k == lo) {
-#pragma unroll
-      for (int l = 0; l < L; ++l) acc[l] = x[l];
-    } else {
-      Op::apply(acc, x, y);
-#pragma unroll
-      for (int l = 0; l < L; ++l) acc[l] = y[l];
-    }
-#pragma unroll
-    for (int l = 0; l < L; ++l) out[(size_t)l * n + p] = acc[l];
-  }
-  // 2. Inclusive Hillis-Steele scan of the thread totals in shared memory.
-#pragma unroll
-  for (int l = 0; l < L; ++l) tot[l * kScanThreads + tid] = acc[l];
-  __syncthreads();
-  for (int s = 1; s < kScanThreads; s <<= 1) {
-    const bool has = tid >= s;
-    if (has) {
-#pragma unroll
-      for (int l = 0; l < L; ++l) x[l] = tot[l * kScanThreads + tid - s];
-    }
-    __syncthreads();
-    if (has) {
-      Op::apply(x, acc, y);
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        acc[l] = y[l];
-        tot[l * kScanThreads + tid] = y[l];
-      }
-    }
-    __syncthreads();
-  }
-  // 3. Fold the exclusive carry into every element of the chunk.
-  T carry[L];
-  if (tid == 0) {
-    Op::identity(carry);
-  } else {
-#pragma unroll
-    for (int l = 0; l < L; ++l) carry[l] = tot[l * kScanThreads + tid - 1];
-  }
-  for (int k = lo; k < hi; ++k) {
-    const int p = reverse ? n - 1 - k : k;
-#pragma unroll
-    for (int l = 0; l < L; ++l) x[l] = out[(size_t)l * n + p];
-    Op::apply(carry, x, y);
-#pragma unroll
-    for (int l = 0; l < L; ++l) out[(size_t)l * n + p] = y[l];
-  }
-}
-
-template <class Op, typename T>
-cudaError_t launch(const void* in, void* out, int n, int reverse, cudaStream_t stream) {
-  const size_t smem = (size_t)Op::L * kScanThreads * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        scan_kernel<Op, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+struct BlockScan {
+  static cudaError_t run(const void* in, void* out, int n, int reverse, cudaStream_t stream) {
+    const size_t smem = scan_smem_bytes<Op, T>();
+    cudaError_t e = allow_smem(scan_kernel<Op, T>, smem);
     if (e != cudaSuccess) return e;
+    scan_kernel<Op, T><<<1, kScanThreads, smem, stream>>>(
+        static_cast<const T*>(in), static_cast<T*>(out), n, reverse);
+    return cudaGetLastError();
   }
-  scan_kernel<Op, T><<<1, kScanThreads, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), n, reverse);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int op, const void* in, void* out, int n, int reverse, cudaStream_t s) {
-  switch (op) {
-    case 0: return launch<QuatChain<T>, T>(in, out, n, reverse, s);
-    case 1: return launch<Filter<T>, T>(in, out, n, reverse, s);
-    case 2: return launch<RtsSuffix<T>, T>(in, out, n, reverse, s);
-    case 3: return launch<Mobius<T>, T>(in, out, n, reverse, s);
-    case 4: return launch<Affine3<T>, T>(in, out, n, reverse, s);
-    case 5: return launch<Add2<T>, T>(in, out, n, reverse, s);
-    case 6: return launch<Max3<T>, T>(in, out, n, reverse, s);
-    case 7: return launch<Min3<T>, T>(in, out, n, reverse, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
+};
 
 }  // namespace
 
@@ -334,8 +40,8 @@ cudaError_t dispatch(int op, const void* in, void* out, int n, int reverse, cuda
 GPS_EXPORT int gps_scan(int op, int dtype, const void* in, void* out, int n, int reverse,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == GPS_F32) return (int)dispatch<float>(op, in, out, n, reverse, s);
-  if (dtype == GPS_F64) return (int)dispatch<double>(op, in, out, n, reverse, s);
+  if (dtype == GPS_F32) return (int)dispatch_op<BlockScan, float>(op, in, out, n, reverse, s);
+  if (dtype == GPS_F64) return (int)dispatch_op<BlockScan, double>(op, in, out, n, reverse, s);
   return (int)cudaErrorInvalidValue;
 }
 

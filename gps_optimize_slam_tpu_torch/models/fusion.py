@@ -151,7 +151,7 @@ def evaluate(
 ) -> Evaluation:
     """Reference-metric (NN, post-5 s — quirk Q6) and paired-ATE stats for
     raw SLAM / Sim3-aligned / EKF-fused trajectories against the aligned GPS.
-    The three NN evaluations go through K3 on CUDA."""
+    The three NN evaluations go through K3 (or K4) on CUDA."""
     gate = metrics.eval_mask(slam_times, outputs.gps_valid, skip_seconds)
     cands = torch.nan_to_num(outputs.aligned_gps, nan=0.0)
 

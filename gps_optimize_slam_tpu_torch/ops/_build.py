@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 At first use, ``nvcc`` compiles every source under ``csrc/`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ctypes. The library lives in ``build/kernels/`` at the repository
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, which is loaded
+with ctypes. The library lives in ``build/kernels/`` at the repository
 root, and its name carries a hash of the sources and flags, so that an edited
 source is rebuilt and a stale library is never loaded. Nothing here runs when
 a module is imported: the CPU tests import every module on a host with no
@@ -32,7 +33,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -41,10 +42,13 @@ _lib: Optional[ctypes.CDLL] = None
 # memory and spills of every kernel).
 BUILD_INFO: dict = {}
 
-_VP, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_VP, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
     "gps_scan": [_I, _I, _VP, _VP, _I, _I, _VP],
+    "gps_scan_tiled": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "gps_scan_tiled_tile": [],
     "gps_nn_min_dist2": [_I, _VP, _I, _VP, _VP, _VP, _I, _I, _VP, _VP],
+    "gps_nn_grid": [_I, _VP, _I, _VP, _VP, _LL, _VP, _I, _I, _VP, _VP],
     "gps_ransac_counts": [_I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _D, _VP, _VP],
 }
 
@@ -59,8 +63,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _cu_sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
 def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return _cu_sources() + sorted(CSRC.glob("*.cuh"))
 
 
 def library() -> ctypes.CDLL:
@@ -78,12 +86,24 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(p) for p in sorted(CSRC.glob("*.cu"))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _cu_sources()]
+        nvcc = _nvcc()
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_cu_sources(), objs)
+        ]
+        outs = [(p.communicate()[0], p.returncode) for p in procs]
+        log = "".join(out for out, _ in outs)
+        if any(rc != 0 for _, rc in outs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

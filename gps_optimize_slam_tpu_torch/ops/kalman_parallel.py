@@ -47,19 +47,17 @@ def parallel_quat_chain(init_quat: torch.Tensor, dq: torch.Tensor) -> torch.Tens
     return associative_scan("quat_chain", qs.T.contiguous()).T.contiguous()
 
 
-def filter_elements(
-    m0: torch.Tensor,  # (3,)
-    P0: torch.Tensor,  # (3,3)
-    d: torch.Tensor,  # (N-1,3) world-frame motion deltas
-    Qd_diag: torch.Tensor,  # (N-1,3) per-step process noise diagonal
+def filter_step_elements(
+    avail: torch.Tensor,  # (L,) bool
+    d: torch.Tensor,  # (L,3) world-frame motion deltas
+    Qd_diag: torch.Tensor,  # (L,3) per-step process noise diagonal
+    z: torch.Tensor,  # (L,3) measurements (arbitrary where invalid)
     R_diag: torch.Tensor,  # (3,) measurement noise diagonal
-    z: torch.Tensor,  # (N-1,3) measurements (arbitrary where invalid)
-    avail: torch.Tensor,  # (N-1,) bool
 ) -> torch.Tensor:
-    """The (27, N) filtering elements (A[9], b[3], C[6], eta[3], J[6]) of the
-    affine KF x←x+d, H=I, with the prior (A=0, b=m₀, C=P₀) first. Diagonal Q
-    and R make every element's matrices diagonal; only the combine mixes
-    components."""
+    """The (27, L) per-step filtering elements (A[9], b[3], C[6], eta[3],
+    J[6]) of the affine KF x←x+d, H=I (``kalman_chunked._filter_step_elements``
+    of the JAX package). Diagonal Q and R make every element's matrices
+    diagonal; only the combine mixes components."""
     S = Qd_diag + R_diag[None, :]
     K = Qd_diag / S
     IK = 1.0 - K
@@ -74,11 +72,31 @@ def filter_elements(
     A = [ikd[:, 0], zeros, zeros, zeros, ikd[:, 1], zeros, zeros, zeros, ikd[:, 2]]
     C = [Cd[:, 0], zeros, zeros, Cd[:, 1], zeros, Cd[:, 2]]
     J = [Jd[:, 0], zeros, zeros, Jd[:, 1], zeros, Jd[:, 2]]
-    leaves = A + list(b.unbind(1)) + C + list(eta.unbind(1)) + J
-    prior = torch.zeros((27,), dtype=d.dtype, device=d.device)
+    return torch.stack(A + list(b.unbind(1)) + C + list(eta.unbind(1)) + J)
+
+
+def prior_element(m0: torch.Tensor, P0_diag: torch.Tensor) -> torch.Tensor:
+    """The (27,) prior element (A=0, b=m₀, C=diag(P₀), η=0, J=0)."""
+    prior = torch.zeros((27,), dtype=m0.dtype, device=m0.device)
     prior[9:12] = m0
-    prior[12], prior[15], prior[17] = P0[0, 0], P0[1, 1], P0[2, 2]
-    return torch.cat([prior[:, None], torch.stack(leaves)], dim=1)
+    prior[12], prior[15], prior[17] = P0_diag[0], P0_diag[1], P0_diag[2]
+    return prior
+
+
+def filter_elements(
+    m0: torch.Tensor,  # (3,)
+    P0: torch.Tensor,  # (3,3)
+    d: torch.Tensor,  # (N-1,3) world-frame motion deltas
+    Qd_diag: torch.Tensor,  # (N-1,3) per-step process noise diagonal
+    R_diag: torch.Tensor,  # (3,) measurement noise diagonal
+    z: torch.Tensor,  # (N-1,3) measurements (arbitrary where invalid)
+    avail: torch.Tensor,  # (N-1,) bool
+) -> torch.Tensor:
+    """The (27, N) filtering elements with the prior (A=0, b=m₀, C=P₀)
+    first."""
+    prior = prior_element(m0.to(d.dtype), torch.diagonal(P0).to(d.dtype))
+    steps = filter_step_elements(avail, d, Qd_diag, z, R_diag)
+    return torch.cat([prior[:, None], steps], dim=1)
 
 
 def parallel_position_filter(m0, P0, d, Qd_diag, R_diag, z, avail):

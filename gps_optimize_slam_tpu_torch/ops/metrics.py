@@ -3,8 +3,8 @@
 
 * ``nn_errors_auto``: distance from each trajectory point to its nearest
   valid interpolated-GPS candidate (the reference's metric, quirk Q6),
-  through K3 (``ops.kernels.nn_min_dist2``) on CUDA at every size, and
-  ``nn_errors``, the same by brute force;
+  through ``ops.kernels.nn_min_dist2`` on CUDA at every size (K3, or K4
+  above 262,144 candidates), and ``nn_errors``, the same by brute force;
 * ``paired_errors``: timestamp-paired ATE;
 * ``error_stats``: masked mean / median / RMSE / max.
 
@@ -52,9 +52,9 @@ def nn_errors_auto(
     traj_mask: torch.Tensor,
     cand_mask: torch.Tensor,
 ) -> torch.Tensor:
-    """``nn_errors`` through ``ops.kernels.nn_min_dist2``: the pruned K3
-    kernel on CUDA tensors, the brute-force plain version on CPU ones. The
-    JAX package's size cross-over (``PALLAS_NN_MIN_WORK``) was the TPU's
+    """``nn_errors`` through ``ops.kernels.nn_min_dist2``: the pruned K3 or
+    K4 kernel on CUDA tensors, the brute-force plain version on CPU ones.
+    The JAX package's size cross-over (``PALLAS_NN_MIN_WORK``) was the TPU's
     and is not carried over."""
     err = torch.sqrt(nn_min_dist2(traj.contiguous(), candidates, cand_mask))
     return torch.where(traj_mask, err, float("inf"))

@@ -1,12 +1,16 @@
-"""K1: associative scans over structure-of-arrays leaves.
+"""K1 and K2: associative scans over structure-of-arrays leaves.
 
 ``associative_scan(op, x, reverse)`` is the inclusive prefix (suffix when
 ``reverse``) of one of eight fixed combines over ``x`` of shape (L, n): L
-leaves of n elements, the layout the JAX package scans. It ports the Pallas
-kernel ``gps_optimize_slam_tpu/ops/pallas_scan.py:associative_scan_vmem``:
+leaves of n elements, the layout the JAX package scans. It ports the two
+Pallas scans of ``gps_optimize_slam_tpu/ops/pallas_scan.py`` and their
+routing (``make_scan_fn``, :func:`scan_route`):
 
-* on a CUDA tensor it launches the kernel of ``csrc/scan.cu`` (one thread
-  block, reduce-then-scan), or raises;
+* on a CUDA tensor it launches :func:`scan_block` (K1, ``csrc/scan.cu``: one
+  thread block, reduce-then-scan; ports ``associative_scan_vmem``) while the
+  JAX package's VMEM budget holds, and :func:`scan_tiled` (K2,
+  ``csrc/scan_tiled.cu``: reduce-then-scan over many blocks with a carried
+  composite; ports ``associative_scan_tiled``) beyond it, or raises;
 * on a CPU tensor it runs :func:`scan_plain`, the same function as a
   Hillis-Steele ladder of whole-tensor combines (the JAX package's CPU scan,
   ``pallas_scan.associative_scan_fori``).
@@ -19,7 +23,8 @@ Pallas ladder; only the Möbius scan notices (its first element comes out
 normalised), and its consumer reads a scale-free ratio.
 
 The combines are the JAX package's, written once here for the plain version
-and once in ``csrc/scan.cu`` in the same arithmetic order.
+and once in ``csrc/scan_ops.cuh`` (shared by both kernels) in the same
+arithmetic order.
 """
 
 from __future__ import annotations
@@ -152,8 +157,8 @@ def _min(a: Leaves, b: Leaves) -> Leaves:
 _INF = float("inf")
 _EYE9 = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
-# name → (code in csrc/scan.cu, combine, two-sided identity). The leaf count
-# is the identity's length.
+# name → (code in csrc/scan_ops.cuh:dispatch_op, combine, two-sided
+# identity). The leaf count is the identity's length.
 OPS: Dict[str, Tuple[int, Callable, Tuple[float, ...]]] = {
     "quat_chain": (0, _quat_chain, (0.0, 0.0, 0.0, 1.0)),
     "filter": (1, _filter, _EYE9 + (0.0,) * 18),
@@ -200,10 +205,35 @@ def scan_plain(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     return out.flip(1) if reverse else out
 
 
+# The JAX package's budget for its single-kernel scan (pallas_scan.py:62,
+# 156-157): inputs and outputs, lane-padded, within 4 MiB.
+BLOCK_BUDGET_BYTES = 4 * 1024 * 1024
+_LANES = 128
+
+
+def scan_route(n_leaves: int, n: int, itemsize: int) -> str:
+    """"block" (K1) or "tiled" (K2) for a scan of ``n_leaves`` leaves of
+    ``n`` elements: the rule of ``pallas_scan.make_scan_fn``, K1 while
+    2·L·round_up(max(n, 128), 128)·itemsize ≤ 4 MiB. Phase 4's 4,661 poses
+    (27 leaves: 1.0 MB in float32, 2.0 MB in float64) stay on K1; the
+    chunked path's 262,145-element chunks take K2."""
+    n_pad = -(-max(n, _LANES) // _LANES) * _LANES
+    return "block" if 2 * n_leaves * n_pad * itemsize <= BLOCK_BUDGET_BYTES else "tiled"
+
+
 def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive scan of ``op`` over the (L, n) leaves ``x`` (suffix scan
-    when ``reverse``). CPU tensors take :func:`scan_plain`; CUDA tensors
-    launch the kernel."""
+    when ``reverse``), routed to K1 or K2 by :func:`scan_route`; both take
+    :func:`scan_plain` for CPU tensors."""
+    _check(op, x)
+    if scan_route(x.shape[0], x.shape[1], x.element_size()) == "block":
+        return scan_block(op, x, reverse)
+    return scan_tiled(op, x, reverse)
+
+
+def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """K1: the scan in one thread block (``csrc/scan.cu``), at any n. CPU
+    tensors take :func:`scan_plain`."""
     _check(op, x)
     if x.device.type == "cpu":
         return scan_plain(op, x, reverse)
@@ -217,9 +247,34 @@ def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.T
         x.shape[1], int(reverse), _build.stream(),
     )
     _build.check(rc, f"scan {op}")
-    associative_scan.launches[op] += 1
+    scan_block.launches[op] += 1
     return out
 
 
-# Kernel launches per combine, counted where the kernel is launched.
-associative_scan.launches = {op: 0 for op in OPS}
+def scan_tiled(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """K2: the scan over many thread blocks with a carried composite
+    (``csrc/scan_tiled.cu``), at any n. CPU tensors take
+    :func:`scan_plain`."""
+    _check(op, x)
+    if x.device.type == "cpu":
+        return scan_plain(op, x, reverse)
+    _build.require_cuda(x)
+    out = torch.empty_like(x)
+    L, n = x.shape
+    if n == 0:
+        return out
+    lib = _build.library()
+    n_blocks = -(-n // lib.gps_scan_tiled_tile())
+    scratch = torch.empty((2 * L * n_blocks,), dtype=x.dtype, device=x.device)
+    rc = lib.gps_scan_tiled(
+        OPS[op][0], _build.dtype_code(x), x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), n, int(reverse), _build.stream(),
+    )
+    _build.check(rc, f"tiled scan {op}")
+    scan_tiled.launches[op] += 1
+    return out
+
+
+# Kernel launches per combine, counted where each kernel is launched.
+scan_block.launches = {op: 0 for op in OPS}
+scan_tiled.launches = {op: 0 for op in OPS}

@@ -4,18 +4,21 @@ export (port of ``gps_optimize_slam_tpu.pipeline``).
 Load → project (float64, CPU) → RANSAC outlier gate → ``fuse_core`` →
 ``evaluate`` → TUM export in the working frame and WGS84, as the reference's
 main_process_gui (EKFGPSSLAM.py:940-1123) without its GUI.
+``fuse_files_chunked`` runs the same recipe out of core
+(``models.fusion_chunked``) for trajectories larger than device memory.
 
 ``frame="utm"`` reproduces the reference's UTM working frame (golden
 parity); ``frame="enu"`` uses a local East/North/Up frame whose small
 coordinates keep float32 usable on the card. ``device`` and ``dtype`` pick
-where and in which precision the fusion runs; the projection always runs in
-float64 on the CPU.
+where and in which precision the fusion runs: the card unless the caller
+passes another device (``device="cpu"``), and an error when there is no
+card. The projection always runs in float64 on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -23,8 +26,9 @@ import torch
 from gps_optimize_slam_tpu_torch.config import FusionConfig, GPSFilterConfig
 from gps_optimize_slam_tpu_torch.io import gps as gps_io
 from gps_optimize_slam_tpu_torch.io import tum as tum_io
-from gps_optimize_slam_tpu_torch.models import fusion
+from gps_optimize_slam_tpu_torch.models import fusion, fusion_chunked
 from gps_optimize_slam_tpu_torch.ops import alignment, geodesy, ransac
+from gps_optimize_slam_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -71,26 +75,21 @@ class FusionResult:
             f"sim3: scale={self.sim3_scale:.6f} ok={bool(self.outputs.ok)} "
             f"inliers={int(self.outputs.sim3_inliers.sum())}",
         ]
-        ev = self.evaluation
+        return "\n".join(lines + _evaluation_lines(self.evaluation))
+
+
+def _evaluation_lines(ev: fusion.Evaluation):
+    return [
+        f"{name}: mean={float(st.mean):.3f}m median={float(st.median):.3f}m "
+        f"rmse={float(st.rmse):.3f}m max={float(st.max):.3f}m n={int(st.count)}"
         for name, st in [
             ("raw SLAM  (NN)", ev.nn_slam),
             ("Sim3      (NN)", ev.nn_sim3),
             ("EKF fused (NN)", ev.nn_ekf),
             ("Sim3     (ATE)", ev.ate_sim3),
             ("EKF      (ATE)", ev.ate_ekf),
-        ]:
-            lines.append(
-                f"{name}: mean={float(st.mean):.3f}m median={float(st.median):.3f}m "
-                f"rmse={float(st.rmse):.3f}m max={float(st.max):.3f}m "
-                f"n={int(st.count)}"
-            )
-        return "\n".join(lines)
-
-
-def _device(device) -> torch.device:
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(device)
+        ]
+    ]
 
 
 def load_and_project_gps(
@@ -107,7 +106,7 @@ def load_and_project_gps(
     returning a mask). The projection runs in float64 on the CPU: ECEF/UTM
     intermediates are ~6.4e6 m, and float32 would lose ~0.5 m. The gate runs
     on ``device`` in ``dtype``."""
-    device = _device(device)
+    device = resolve_device(device)
     raw = gps_io.read_gps_fixes(path, lon_first=lon_first)
     valid = raw["valid"]
     if valid.sum() == 0:
@@ -177,7 +176,7 @@ def fuse_arrays(
     """Fusion + evaluation of loaded arrays on ``device`` in ``dtype``.
     Raises RuntimeError when the Sim3 alignment failed; reading that flag is
     the one host sync before the result returns."""
-    device = _device(device)
+    device = resolve_device(device)
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
@@ -233,7 +232,102 @@ def fuse_files(
     return fuse_arrays(slam, gps, config=config, seed=seed, dtype=dtype, device=device)
 
 
-def export_result(result: FusionResult, utm_path: str, wgs84_path: Optional[str] = None) -> None:
+@dataclasses.dataclass
+class ChunkedPipelineResult:
+    """Out-of-core fusion of one file pair (the pipeline front of
+    ``models.fusion_chunked``): host arrays, O(chunk) device residency.
+    ``export_result`` takes it as it takes a ``FusionResult``."""
+
+    slam: Dict[str, np.ndarray]
+    gps: GPSData
+    result: fusion_chunked.ChunkedFusionResult
+    evaluation: Optional[fusion.Evaluation]
+    config: FusionConfig
+    time_offset: float = 0.0
+
+    @property
+    def corrected_pos(self) -> np.ndarray:
+        return np.asarray(self.result.corrected_pos)
+
+    @property
+    def corrected_quat(self) -> np.ndarray:
+        return np.asarray(self.result.corrected_quat)
+
+    @property
+    def sim3_scale(self) -> float:
+        return float(self.result.sim3.scale)
+
+    def summary(self) -> str:
+        r = self.result
+        lines = [
+            f"poses: {len(self.slam['timestamps'])} (chunked/out-of-core), "
+            f"gps fixes kept: {int(self.gps.valid.sum())}/{len(self.gps.valid)}, "
+            f"frame: {self.gps.frame}",
+            f"sim3: scale={self.sim3_scale:.6f} ok={r.ok} inliers={r.num_inliers}",
+        ]
+        if self.evaluation is not None:
+            lines += _evaluation_lines(self.evaluation)
+        return "\n".join(lines)
+
+
+def fuse_files_chunked(
+    slam_path: str,
+    gps_path: str,
+    config: FusionConfig = FusionConfig(),
+    frame: str = "utm",
+    seed: int = 0,
+    chunk_size: int = 262144,
+    halo: int = 64,
+    dtype: torch.dtype = torch.float64,
+    evaluate: bool = True,
+    gt_path: Optional[str] = None,
+    robust: bool = False,
+    device=None,
+) -> ChunkedPipelineResult:
+    """End-to-end OUT-OF-CORE fusion, for trajectories larger than device
+    memory: the recipe of ``fuse_files`` with every pose-length stage
+    streaming host chunks of ``chunk_size`` poses (``models.fusion_chunked``:
+    alignment, Sim3 window/RANSAC, EKF + RTS and, with ``evaluate``, the
+    NN/ATE evaluation), device residency O(chunk_size). GNSS fixes are
+    projected and outlier-gated in core at load time. Runs on ``device``
+    (the card unless the caller names another) in ``dtype``.
+
+    ``gt_path`` (the streamed ground-truth evaluation) raises
+    NotImplementedError until a ground-truth GNSS file is in the repository;
+    so does ``robust`` until ``models/robust.py`` is ported."""
+    if gt_path is not None:
+        raise NotImplementedError("the ground-truth GNSS evaluation is not ported yet")
+    device = resolve_device(device)
+    slam = tum_io.read_tum(slam_path)
+    gps = load_and_project_gps(
+        gps_path, config.gps_filtering_ransac, frame=frame, seed=seed, dtype=dtype, device=device
+    )
+    offset = estimate_offset(slam, gps, config)
+    result = fusion_chunked.fuse_core_chunked(
+        slam["timestamps"], slam["positions"], slam["quaternions"],
+        gps.timestamps, gps.positions, gps_valid=gps.valid,
+        seed=seed, config=config, time_offset=float(offset), chunk_size=chunk_size, halo=halo,
+        dtype=dtype, robust=robust, device=device,
+    )
+    if not result.ok:
+        raise RuntimeError(
+            "Sim3 global alignment failed (not enough temporally aligned "
+            "points or RANSAC consensus too small)"
+        )
+    ev = None
+    if evaluate:
+        ev = fusion_chunked.evaluate_chunked(
+            slam["timestamps"], slam["positions"], slam["quaternions"], result,
+            chunk_size=chunk_size, dtype=dtype, device=device,
+        )
+    return ChunkedPipelineResult(
+        slam=slam, gps=gps, result=result, evaluation=ev, config=config, time_offset=float(offset)
+    )
+
+
+def export_result(
+    result: Union[FusionResult, ChunkedPipelineResult], utm_path: str, wgs84_path: Optional[str] = None
+) -> None:
     """Write the corrected trajectory in the working frame (TUM format) and
     optionally in WGS84 (reference exporter: EKFGPSSLAM.py:1086-1105)."""
     ts = result.slam["timestamps"]

@@ -7,10 +7,12 @@ suite's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: relative to (max |plain| + 1) per leaf, 1e-4 in float32 and
-1e-10 in float64 (the kernels associate or sum in another order); NN 1e-5 /
-1e-12 relative; counts within 2 of the plain version (a residual within
-rounding of the threshold), the re-ranked winner identical; seq-04 on the
-card within 1e-6 m of the golden trajectory.
+1e-10 in float64 (the kernels associate or sum in another order; K2 is
+also held to K1 on the same input); NN 1e-5 / 1e-12 relative, and K4 equal
+to K3 bit for bit (the same pairs, the same arithmetic); counts within 2 of
+the plain version (a residual within rounding of the threshold), the
+re-ranked winner identical; seq-04 on the card within 1e-6 m of the golden
+trajectory.
 """
 
 import os
@@ -42,14 +44,36 @@ def cuda():
 @pytest.mark.parametrize("op", list(scan.OPS))
 def test_scan_kernel_matches_plain(cuda, op, dtype):
     gen = torch.Generator().manual_seed(0)
-    before = scan.associative_scan.launches[op]
+    before = scan.scan_block.launches[op]
     for n in (1, 271, 4661):
         x = chip_smoke.scan_inputs(op, n, gen, dtype, cuda)
         for reverse in (False, True):
             got = scan.associative_scan(op, x, reverse)
             torch.cuda.synchronize()
             assert chip_smoke.rel_err(got, scan.scan_plain(op, x, reverse)) <= TOL[dtype]
-    assert scan.associative_scan.launches[op] == before + 6
+    assert scan.scan_block.launches[op] == before + 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", list(scan.OPS))
+def test_tiled_scan_kernel_matches_plain_and_block_scan(cuda, op, dtype):
+    """K2 at a ragged length beyond the single-block budget (a partial last
+    tile), both directions; the router sends it there."""
+    gen = torch.Generator().manual_seed(1)
+    n = chip_smoke.TILED_N + 777
+    x = chip_smoke.scan_inputs(op, n, gen, dtype, cuda)
+    assert scan.scan_route(x.shape[0], n, x.element_size()) == "tiled"
+    before = scan.scan_tiled.launches[op]
+    for reverse in (False, True):
+        got = scan.associative_scan(op, x, reverse)
+        k1 = scan.scan_block(op, x, reverse)
+        torch.cuda.synchronize()
+        assert chip_smoke.rel_err(got, scan.scan_plain(op, x, reverse)) <= TOL[dtype]
+        assert chip_smoke.rel_err(got, k1) <= TOL[dtype]
+    assert scan.scan_tiled.launches[op] == before + 2
+    small = x[:, :5].contiguous()  # one partial tile
+    torch.testing.assert_close(scan.scan_tiled(op, small), scan.scan_plain(op, small),
+                               rtol=TOL[dtype], atol=TOL[dtype])
 
 
 def walk(gen, n, dtype, device, offset=0.0):
@@ -91,15 +115,44 @@ def test_counts_kernel_matches_plain_and_keeps_the_winner(cuda, dtype):
     )
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grid_nn_kernel_equals_resident_kernel_and_plain(cuda, dtype):
+    gen = torch.Generator().manual_seed(3)
+    m = 300_000  # m_pad 300,032 > 262,144: K4 by the routing rule
+    assert kernels.nn_route(m) == "grid"
+    traj, cands = walk(gen, 4000, dtype, cuda), walk(gen, m, dtype, cuda, offset=0.3)
+    mask = (torch.rand(m, generator=gen) > 0.1).to(cuda)
+    before = kernels.nn_grid.launches
+    got = kernels.nn_min_dist2(traj, cands, mask)
+    assert kernels.nn_grid.launches == before + 1
+    k3 = kernels.nn_resident(traj, cands, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k3)
+    want = kernels.nn_min_dist2_plain(traj, cands, mask)
+    torch.testing.assert_close(got, want, rtol=1e-5 if dtype == torch.float32 else 1e-12, atol=0.0)
+    assert torch.isinf(kernels.nn_grid(traj, cands, torch.zeros_like(mask))).all()
+    for n, m in ((5, 1), (300, 777)):
+        t, c = walk(gen, n, dtype, cuda), walk(gen, m, dtype, cuda, offset=0.3)
+        mk = (torch.rand(m, generator=gen) > 0.1).to(cuda)
+        assert torch.equal(kernels.nn_grid(t, c, mk), kernels.nn_resident(t, c, mk))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(2, 10, dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError):
-        scan.associative_scan("add2", x[:, ::2])  # not contiguous
+    for fn in (scan.associative_scan, scan.scan_block, scan.scan_tiled):
+        with pytest.raises(ValueError):
+            fn("add2", x[:, ::2])  # not contiguous
+        with pytest.raises(TypeError):
+            fn("add2", x.to(torch.float16))
     traj = torch.zeros(10, 3, device=cuda)
-    with pytest.raises(TypeError):
-        kernels.nn_min_dist2(traj, traj.double(), torch.ones(10, dtype=torch.bool, device=cuda))
-    with pytest.raises(ValueError):
-        kernels.nn_min_dist2(traj.T.contiguous().T, traj, torch.ones(10, dtype=torch.bool, device=cuda))
+    ones = torch.ones(10, dtype=torch.bool, device=cuda)
+    for fn in (kernels.nn_min_dist2, kernels.nn_resident, kernels.nn_grid):
+        with pytest.raises(TypeError):
+            fn(traj, traj.double(), ones)
+        with pytest.raises(ValueError):
+            fn(traj.T.contiguous().T, traj, ones)
+        with pytest.raises(ValueError):
+            fn(traj, traj.cpu(), ones)  # another device
 
 
 def test_seq04_golden_on_the_card(cuda):

@@ -1,10 +1,13 @@
-"""K3 (nearest-neighbour distance) and K5 (RANSAC counts) of ``ops.kernels``.
+"""K3 and K4 (nearest-neighbour distance) and K5 (RANSAC counts) of
+``ops.kernels``.
 
 On the CPU the wrappers take their plain versions; these are held against
-the JAX package's Pallas kernels in interpret mode and its exact counting
-form. The array code around the CUDA NN kernel (tile bounds, keep lists,
-candidate packing) runs here too: a NumPy walk over exactly the operands
-the kernel receives must give the brute-force minimum.
+the JAX package's Pallas kernels in interpret mode (K4's function against
+the pipelined 2-D grid, forced by a zero resident budget) and its exact
+counting form. The array code around the CUDA NN kernels (tile bounds in
+row blocks, keep lists, candidate packing) runs here too: a NumPy walk over
+exactly the operands each kernel receives must give the brute-force
+minimum, and the K3/K4 routing equals the JAX package's.
 
 Tolerances: NN ≤1e-6 relative against the JAX kernel, which computes in
 float32 (inputs are rounded to float32 first, so only the kernel's own
@@ -146,3 +149,79 @@ def test_plain_counts_match_jax_exact_and_kernel():
     ))
     assert np.abs(got - approx).max() <= 2
     assert 0 < got.min() and got.max() < valid.sum()  # the threshold cuts
+
+
+def test_nn_route_matches_jax():
+    for m in (1, 1024, 262_143, 262_144, 262_145, 300_000, 524_288):
+        m_pad = jpk._round_up(max(m, 8), jpk.TILE_M)
+        want = "resident" if m_pad * jpk._PAD_DIM * 4 <= jpk._RESIDENT_BUDGET_BYTES else "grid"
+        assert kernels.nn_route(m) == want, m
+    assert kernels.nn_route(262_144) == "resident" and kernels.nn_route(262_145) == "grid"
+
+
+@pytest.mark.parametrize("n,m", [(300, 2500), (40, 777)])
+def test_plain_nn_matches_jax_pipelined_kernel(n, m):
+    rng = np.random.default_rng(n + m)
+    traj, cands = walk(rng, n), walk(rng, m, offset=0.5)
+    mask = rng.uniform(size=m) > 0.2
+    orig = jpk._RESIDENT_BUDGET_BYTES
+    jpk._RESIDENT_BUDGET_BYTES = 0  # force the pipelined 2-D grid
+    try:
+        want = np.asarray(jpk.nn_min_dist2.__wrapped__(
+            jnp.asarray(traj), jnp.asarray(cands), jnp.asarray(mask), interpret=True
+        )).astype(np.float64)
+    finally:
+        jpk._RESIDENT_BUDGET_BYTES = orig
+    for fn in (kernels.nn_min_dist2, kernels.nn_grid, kernels.nn_resident):
+        got = fn(torch.tensor(traj), torch.tensor(cands), torch.tensor(mask)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def emulate_grid_kernel(traj, cands, mask):
+    """What csrc/nn_grid.cu computes from the wrapper's operands, in NumPy."""
+    keep, cand3, valid = (x.numpy() for x in kernels.nn_grid_operands(traj, cands, mask))
+    a = traj.numpy()
+    out = np.full(len(a), np.inf)
+    for i, j in zip(*np.nonzero(keep)):
+        q = a[i * kernels.TILE_N : (i + 1) * kernels.TILE_N]
+        c = slice(j * kernels.TILE_M, (j + 1) * kernels.TILE_M)
+        d = (q[:, 0, None] - cand3[0, c]) ** 2 + (q[:, 1, None] - cand3[1, c]) ** 2 + (
+            q[:, 2, None] - cand3[2, c]) ** 2
+        d = np.where(valid[c][None] != 0, d, np.inf)
+        rows = slice(i * kernels.TILE_N, i * kernels.TILE_N + len(q))
+        out[rows] = np.minimum(out[rows], d.min(1))
+    return out, keep
+
+
+@pytest.mark.parametrize("n,m,scale", [(2000, 3000, 1.0), (130, 1025, 0.3)])
+def test_grid_kernel_operands_give_the_exact_minimum(n, m, scale):
+    rng = np.random.default_rng(m + 1)
+    traj = torch.tensor(walk(rng, n, scale))
+    cands = torch.tensor(walk(rng, m, scale, offset=2.0))
+    mask = torch.tensor(rng.uniform(size=m) > 0.1)
+    got, keep = emulate_grid_kernel(traj, cands, mask)
+    want = kernels.nn_min_dist2_plain(traj, cands, mask).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, emulate_kernel(traj, cands, mask)[0])  # K3's walk
+    if n >= 700:
+        assert keep.sum() < keep.size
+
+
+def test_blocked_keep_mask_equals_the_unblocked_one(monkeypatch):
+    rng = np.random.default_rng(21)
+    n_pad, m_pad = 40 * kernels.TILE_N, 9 * kernels.TILE_M
+    n_sub, m_sub = n_pad // kernels.SUB, m_pad // kernels.SUB
+    tp = torch.tensor(walk(rng, n_pad, 2.0))
+    cp = torch.tensor(walk(rng, m_pad, 2.0, offset=1.0))
+    vm = torch.tensor(rng.uniform(size=m_pad) > 0.2)
+    default = kernels.tile_keep_mask(tp, cp, vm)
+    monkeypatch.setattr(kernels, "_KEEP_BLOCK_ELEMS", n_sub * m_sub)  # one block
+    whole = kernels.tile_keep_mask(tp, cp, vm)
+    assert whole.shape == (40, 9) and 0 < int(whole.sum()) < whole.numel()
+    assert torch.equal(default, whole)
+    # One query tile per block, three per block (a ragged last block), and
+    # a budget below one tile, which still takes one tile.
+    per_tile = kernels.TILE_N // kernels.SUB
+    for elems in (per_tile * m_sub, 3 * per_tile * m_sub, 1):
+        monkeypatch.setattr(kernels, "_KEEP_BLOCK_ELEMS", elems)
+        assert torch.equal(kernels.tile_keep_mask(tp, cp, vm), whole), elems

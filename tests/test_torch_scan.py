@@ -1,4 +1,5 @@
-"""K1: the port's associative scan (``ops.scan``) against the JAX package.
+"""K1 and K2: the port's associative scan (``ops.scan``) against the JAX
+package.
 
 The plain version of all eight combines is held against the JAX package's
 scans on the CPU in float64: the Pallas kernel ``associative_scan_vmem`` in
@@ -8,6 +9,13 @@ held against ``associative_scan_fori``, the JAX package's own CPU scan for
 exactly these combines: XLA:CPU needs minutes to compile their unrolled
 ladders (measured on an 8-core Xeon host: 64 s for the interpret-mode
 kernel and 349 s for ``lax.associative_scan`` of the filter at N = 1024).
+
+K2's function (the scan beyond the single-block budget) is the same
+``scan_plain``; it is held against the JAX package's tiled kernel
+``associative_scan_tiled`` in interpret mode with 8-row blocks (1024
+elements, so N = 2500 crosses two block carries), and for the filter and
+RTS against ``associative_scan_fori`` at N = 2500. The routing between the
+two kernels equals the JAX package's ``_kernel_fits`` rule.
 
 Each JAX reference is computed once per (combine, direction) at N = 1000;
 the scan of a prefix is the prefix of the scan (the suffix, in reverse), so
@@ -30,7 +38,12 @@ import torch
 from gps_optimize_slam_tpu.ops import alignment as jal
 from gps_optimize_slam_tpu.ops import kalman_parallel as jkp
 from gps_optimize_slam_tpu.ops import tridiag as jtd
-from gps_optimize_slam_tpu.ops.pallas_scan import associative_scan_fori, associative_scan_vmem
+from gps_optimize_slam_tpu.ops import pallas_scan as jps
+from gps_optimize_slam_tpu.ops.pallas_scan import (
+    associative_scan_fori,
+    associative_scan_tiled,
+    associative_scan_vmem,
+)
 from gps_optimize_slam_tpu_torch.ops import scan
 from gps_optimize_slam_tpu_torch.ops.kalman_parallel import filter_elements
 
@@ -185,10 +198,11 @@ def test_noncommutative_mobius_products(reverse):
 
 
 def test_cpu_tensors_take_the_plain_scan_without_launching():
-    before = dict(scan.associative_scan.launches)
+    before = (dict(scan.scan_block.launches), dict(scan.scan_tiled.launches))
     x = torch.tensor(scan_input("affine3", 77))
-    torch.testing.assert_close(scan.associative_scan("affine3", x), scan.scan_plain("affine3", x))
-    assert scan.associative_scan.launches == before
+    for fn in (scan.associative_scan, scan.scan_block, scan.scan_tiled):
+        torch.testing.assert_close(fn("affine3", x), scan.scan_plain("affine3", x))
+    assert (scan.scan_block.launches, scan.scan_tiled.launches) == before
 
 
 def test_scan_rejects_bad_leaves():
@@ -198,3 +212,51 @@ def test_scan_rejects_bad_leaves():
         scan.associative_scan("add2", torch.zeros(2, 10, dtype=torch.int64))
     with pytest.raises(ValueError):
         scan.associative_scan("nope", torch.zeros(2, 10))
+
+
+def _jax_routes_to_block(n_leaves, n, itemsize):
+    return jps._kernel_fits(n_leaves, jps._round_up(max(n, jps._LANES), jps._LANES), itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n_leaves", [2, 3, 4, 12, 27])
+def test_scan_route_matches_jax(n_leaves, itemsize):
+    last_fit = jps._VMEM_BUDGET_BYTES // (2 * n_leaves * itemsize) // 128 * 128
+    sizes = {1, 127, 128, 129, 4661, last_fit - 1, last_fit, last_fit + 1, last_fit + 128,
+             262_145, 524_289}
+    for n in sorted(sizes):
+        want = "block" if _jax_routes_to_block(n_leaves, n, itemsize) else "tiled"
+        assert scan.scan_route(n_leaves, n, itemsize) == want, (n_leaves, n, itemsize)
+    # The main path's shapes: 4,661 poses stay on K1, a chunk takes K2.
+    assert scan.scan_route(27, 4661, 8) == "block"
+    assert scan.scan_route(27, 262_145, 4) == "tiled"
+
+
+TILED_CASES = [("add2", False), ("affine3", False), ("affine3", True), ("mobius", False),
+               ("quat_chain", False)]
+
+
+@pytest.mark.parametrize("op,reverse", TILED_CASES)
+def test_plain_scan_matches_jax_tiled_kernel(op, reverse):
+    combine, tree_of, ident = JAX_COMBINES[op]
+    for n in (5, 1024, 2500):
+        x = scan_input(op, n, seed=n)
+        tree = tree_of([jnp.asarray(v) for v in x])
+        out = associative_scan_tiled(combine, tree, ident, reverse=reverse, interpret=True,
+                                     block_rows=8)
+        got = scan.associative_scan(op, torch.tensor(x), reverse=reverse).numpy()
+        _assert_close(op, got, _leaves_back(op, out))
+
+
+@pytest.mark.parametrize("op,reverse", [("filter", False), ("rts", True)])
+def test_plain_scan_matches_jax_beyond_one_tile(op, reverse):
+    combine, tree_of, ident = JAX_COMBINES[op]
+    n = 2500
+    x = scan_input(op, n, seed=3)
+    tree = tree_of([jnp.asarray(v) for v in x])
+    want = _leaves_back(op, jax.jit(lambda e: associative_scan_fori(combine, e, ident,
+                                                                   reverse=reverse))(tree))
+    for m in (5, 1024, 2500):
+        sl = slice(n - m, n) if reverse else slice(0, m)
+        got = scan.associative_scan(op, torch.tensor(x[:, sl]), reverse=reverse).numpy()
+        _assert_close(op, got, want[:, sl])

@@ -150,6 +150,11 @@ def test_importing_the_port_leaves_jax_out():
     modules = [
         "gps_optimize_slam_tpu_torch.pipeline",
         "gps_optimize_slam_tpu_torch.models.fusion",
+        "gps_optimize_slam_tpu_torch.models.fusion_chunked",
+        "gps_optimize_slam_tpu_torch.ops.kalman_chunked",
+        "gps_optimize_slam_tpu_torch.ops.alignment_chunked",
+        "gps_optimize_slam_tpu_torch.utils.streaming",
+        "gps_optimize_slam_tpu_torch.utils.device",
         "gps_optimize_slam_tpu_torch.ops._build",
         "gps_optimize_slam_tpu_torch.ops.kernels",
         "gps_optimize_slam_tpu_torch.ops.scan",
