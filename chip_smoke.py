@@ -28,14 +28,17 @@ Phases:
      computes the same function, that call's time: K1, 8 combines at N = 271
      and 4661; K2, 8 combines at N = 262,145 (a default chunk plus its
      carry), 262,145 + 777 and 524,289 (phase 5's chunk plus its carry: 257
-     block totals), also held against K1; K3, 4661 x 4661, an all-masked and
-     a ragged case; K4, 16,384 x 300,000 (m_pad > 262,144, so K4 by the real
-     rule) and 524,288 x 524,288 (phase 5's NN blocks; the plain version on
-     every 64th query), bit for bit against K3, and all-masked; K5, 1000
-     trials x 4661 points; float32 and float64; and K1 against K2 (at
-     4661 and at the last length the routing gives K1), K3 against K4 (at
-     262,144 candidates, the last K3 takes) on the same inputs, the times
-     that place the routing thresholds on this card;
+     block totals), also held against K1; the keep-list kernel's lists
+     against the plain mask's compaction at 4661 x 4661 and 524,288 x
+     524,288; K3, 4661 x 4661, an all-masked and a ragged case; K4, 16,384 x
+     300,000 (m_pad > 262,144, so K4 by the real rule) and 524,288 x 524,288
+     (phase 5's NN blocks; the plain version on every 64th query; the
+     kernel alone and with its wrapper), bit for bit against K3, and
+     all-masked; K5, 1000 trials x 4661 points; float32 and float64; and
+     the routes: K1 against K2 (and against the plain version) at 271,
+     1024, 2048, 4661 and the last length the routing gives K1, K3 against
+     K4 at 4661, 65,536 and 262,144 candidates (the last K3 takes), on the
+     same inputs, the times that place the routing thresholds on this card;
   2. seq-04 golden arrays, float64 UTM, ``fuse_arrays`` on the card, held
      against tests/golden/seq04_golden.npz and seq04_meta.json;
   3. seq-04 from TUM + GNSS files rebuilt from the npz, ``fuse_files`` in
@@ -104,6 +107,12 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 COMBINE_FLOPS = {"quat_chain": 41, "filter": 489, "rts": 63, "mobius": 25, "affine3": 7,
                  "add2": 2, "max3": 3, "min3": 3}
 NN_PAIR_FLOPS = 8  # 3 differences, 3 squares, 2 sums per (query, candidate)
+# Float64 operations of the keep-list kernel per (query segment, candidate
+# segment) pair, counted from csrc/nn_keep.cu: the upper bound and its
+# running minimum (6 differences, 3 maxima, 3 squares, 2 sums, 1 minimum)
+# and the lower bound and its test (6 differences, 6 maxima, 3 squares, 2
+# sums, 1 comparison).
+KEEP_PAIR_FLOPS = 33
 COUNT_FLOPS = 30  # s*R*p + t - d, squared and summed, compared, per (trial, point)
 
 
@@ -128,6 +137,45 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+def device_profile(fn, reps: int = 20) -> dict:
+    """Device ms per call of each kernel, memset or copy ``fn`` runs on the
+    card, by name, from a torch.profiler trace of ``reps`` calls after a
+    warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / reps / 1e3 for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of everything ``fn`` runs on the card. Unlike
+    ``cuda_ms`` it leaves out the host time between launches, so a call
+    whose time is the wrapper's host work shows it."""
+    return sum(device_profile(fn, reps).values())
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Host time per call of ``fn`` (what it takes to enqueue its work),
+    over ``reps`` calls with no synchronisation between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / reps
+
+
 def bound(bytes_moved: float, flops: float, dtype: str):
     """(bound_ms, bound_by): the larger of the bytes' time at the card's
     memory rate and the operations' time at its peak for ``dtype``."""
@@ -147,14 +195,25 @@ def scan_bound(op: str, x):
 
 
 def scan_library_ms(op: str, x, reverse: bool):
-    """One PyTorch call that computes the same scan, where there is one."""
+    """One PyTorch call that computes the same scan, where there is one
+    (``torch.cumsum``, ``torch.cummax``, ``torch.cummin`` along the leaves).
+    A reverse scan is timed on a copy flipped beforehand: the flip is not
+    the scan's work."""
     import torch
 
-    if op == "add2" and not reverse:
-        return cuda_ms(lambda: torch.cumsum(x, dim=1))
-    if op == "max3" and not reverse:
-        return cuda_ms(lambda: torch.cummax(x, dim=1))
-    return None
+    fn = library_call(op, x, reverse)
+    return None if fn is None else cuda_ms(fn)
+
+
+def library_call(op: str, x, reverse: bool):
+    """The call ``scan_library_ms`` times, or None."""
+    import torch
+
+    call = {"add2": torch.cumsum, "max3": torch.cummax, "min3": torch.cummin}.get(op)
+    if call is None:
+        return None
+    y = x.flip(1).contiguous() if reverse else x
+    return lambda: call(y, dim=1)
 
 
 def nn_bound(traj, cand, mask):
@@ -162,11 +221,24 @@ def nn_bound(traj, cand, mask):
     work of the candidate tiles this run's data keeps."""
     from gps_optimize_slam_tpu_torch.ops import kernels
 
-    keep, _ = kernels._keep(traj, cand, mask)
-    pairs = int(keep.sum()) * kernels.TILE_N * kernels.TILE_M
+    _, nkept, _ = kernels.keep_lists(traj, cand, mask)
+    pairs = int(nkept.sum()) * kernels.TILE_N * kernels.TILE_M
     size = traj.element_size()
     moved = (traj.numel() + cand.numel() + traj.shape[0]) * size + mask.numel()
     return bound(moved, NN_PAIR_FLOPS * pairs, dtype_name(traj.dtype))
+
+
+def keep_bound(traj, cand, mask, nkept):
+    """The coordinates and the mask read once, the kept entries of the lists
+    and their counts written once; both passes over every (query segment,
+    candidate segment) pair in float64."""
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    n_sub = -(-traj.shape[0] // kernels.TILE_N) * kernels.TILE_N // kernels.SUB
+    m_sub = -(-cand.shape[0] // kernels.TILE_M) * kernels.TILE_M // kernels.SUB
+    moved = (traj.numel() + cand.numel()) * traj.element_size() + mask.numel() + 4 * (
+        int(nkept.sum()) + nkept.numel())
+    return bound(moved, KEEP_PAIR_FLOPS * n_sub * m_sub, "float64")
 
 
 def launch_counts() -> dict:
@@ -175,8 +247,8 @@ def launch_counts() -> dict:
 
     counts = {f"scan_block/{op}": c for op, c in scan.scan_block.launches.items()}
     counts.update({f"scan_tiled/{op}": c for op, c in scan.scan_tiled.launches.items()})
-    counts.update(nn_resident=kernels.nn_resident.launches, nn_grid=kernels.nn_grid.launches,
-                  ransac_counts=kernels.ransac_counts.launches)
+    counts.update(nn_keep=kernels.keep_lists.launches, nn_resident=kernels.nn_resident.launches,
+                  nn_grid=kernels.nn_grid.launches, ransac_counts=kernels.ransac_counts.launches)
     return counts
 
 
@@ -186,6 +258,7 @@ def reset_launch_counts() -> None:
     for op in scan.OPS:
         scan.scan_block.launches[op] = 0
         scan.scan_tiled.launches[op] = 0
+    kernels.keep_lists.launches = 0
     kernels.nn_resident.launches = 0
     kernels.nn_grid.launches = 0
     kernels.ransac_counts.launches = 0
@@ -265,11 +338,14 @@ def scan_inputs(op: str, n: int, gen, dtype, device):
     return x.to(dtype=dtype, device=device).contiguous()
 
 
-def kernel_entry(name, source, replaces, dtype, err, ms, plain_ms, bound_ms_by, library_ms=None):
+def kernel_entry(name, source, replaces, dtype, err, ms, plain_ms, bound_ms_by, library_ms=None,
+                 dev_ms=None):
+    """One entry of the ``{"kernels": [...]}`` line; ``device_ms`` is the
+    call's device time alone (``device_ms``), where it was taken."""
     return {"name": name, "route": "cuda", "source": f"gps_optimize_slam_tpu_torch/csrc/{source}",
             "replaces": f"gps_optimize_slam_tpu/ops/{replaces}", "dtype": dtype,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
-            "bound_by": bound_ms_by[1], "library_ms": library_ms}
+            "bound_by": bound_ms_by[1], "library_ms": library_ms, "device_ms": dev_ms}
 
 
 # The directions the main paths scan each combine in.
@@ -307,10 +383,16 @@ def phase1_block_scan(device, gen):
         ms = cuda_ms(lambda: scan.scan_block(op, x, rev))
         plain_ms = cuda_ms(lambda: scan.scan_plain(op, x, rev))
         lib_ms = scan_library_ms(op, x, rev)
+        dev = device_ms(lambda: scan.scan_block(op, x, rev))
+        lib = library_call(op, x, rev)
         emit({"phase": 1, "kernel": f"scan_block/{op}", "rel_err": worst, "ms": ms,
-              "plain_ms": plain_ms, "library_ms": lib_ms, "shape": list(x.shape), "dtype": "float32"})
+              "plain_ms": plain_ms, "library_ms": lib_ms, "device_ms": dev,
+              "host_ms": host_ms(lambda: scan.scan_block(op, x, rev)),
+              "library_device_ms": None if lib is None else device_ms(lib),
+              "library_host_ms": None if lib is None else host_ms(lib),
+              "shape": list(x.shape), "dtype": "float32"})
         entries.append(kernel_entry(f"scan_block/{op}", "scan.cu", "pallas_scan.py:227", "float32",
-                                    aerr, ms, plain_ms, scan_bound(op, x), lib_ms))
+                                    aerr, ms, plain_ms, scan_bound(op, x), lib_ms, dev))
     return entries
 
 
@@ -348,6 +430,7 @@ def phase1_tiled_scan(device, gen):
             x, rev, aerr = timed
             times[name] = {
                 "ms": cuda_ms(lambda: scan.scan_tiled(op, x, rev)),
+                "device_ms": device_ms(lambda: scan.scan_tiled(op, x, rev)),
                 "plain_ms": cuda_ms(lambda: scan.scan_plain(op, x, rev), reps=3),
                 "k1_ms": cuda_ms(lambda: scan.scan_block(op, x, rev), reps=3),
                 "library_ms": scan_library_ms(op, x, rev),
@@ -356,7 +439,8 @@ def phase1_tiled_scan(device, gen):
         emit({"phase": 1, "kernel": f"scan_tiled/{op}", "rel_err": worst, "n": TILED_N, "times": times})
         t = times["float64"]  # the chunked path runs in float64 (phase 5)
         entries.append(kernel_entry(f"scan_tiled/{op}", "scan_tiled.cu", "pallas_scan.py:361", "float64",
-                                    t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"]))
+                                    t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"],
+                                    t["device_ms"]))
     return entries
 
 
@@ -389,10 +473,14 @@ def phase1_nn(device, gen):
     traj, cand, mask, aerr = timed
     ms = cuda_ms(lambda: kernels.nn_resident(traj, cand, mask))
     plain_ms = cuda_ms(lambda: kernels.nn_min_dist2_plain(traj, cand, mask))
+    by_kernel = device_profile(lambda: kernels.nn_resident(traj, cand, mask))
+    dev = sum(by_kernel.values())
     emit({"phase": 1, "kernel": "nn_resident", "rel_err": nn_err, "ms": ms, "plain_ms": plain_ms,
+          "device_ms": dev, "device_ms_by_kernel": by_kernel,
+          "host_ms": host_ms(lambda: kernels.nn_resident(traj, cand, mask)),
           "shape": [SEQ02_LEN, SEQ02_LEN], "dtype": "float32"})
     entries = [kernel_entry("nn_resident", "nn.cu", "pallas_kernels.py:283", "float32", aerr, ms,
-                            plain_ms, nn_bound(traj, cand, mask))]
+                            plain_ms, nn_bound(traj, cand, mask), None, dev)]
 
     def check_grid(shape, stride):
         """K4 at ``shape`` in both dtypes: bit for bit against K3, within
@@ -432,6 +520,7 @@ def phase1_nn(device, gen):
         grid_err[name] = err
         times[name] = {
             "ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask)),
+            "device_ms": device_ms(lambda: kernels.nn_grid(traj, cand, mask)),
             "plain_ms": cuda_ms(lambda: kernels.nn_min_dist2_plain(traj, cand, mask), reps=3),
             "k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask), reps=3),
             "bound": nn_bound(traj, cand, mask), "max_abs_err": abs_err(got, want),
@@ -440,23 +529,87 @@ def phase1_nn(device, gen):
           "shape": [n, m], "times": times})
     t = times["float64"]
     entries.append(kernel_entry("nn_grid", "nn_grid.cu", "pallas_kernels.py:302", "float64",
-                                t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"]))
+                                t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], None, t["device_ms"]))
 
     main = {}
     for name, (traj, cand, mask, got, want, err) in check_grid(GRID_NN_MAIN, PLAIN_STRIDE).items():
-        main[name] = {"rel_err": err, "ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=3),
-                      "k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask), reps=3)}
+        operands = kernels.nn_grid_operands(traj, cand, mask)
+        n_items = int(operands[3][-1])
+        main[name] = {"rel_err": err, "ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=5),
+                      "device_ms": device_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=5),
+                      "kernel_ms": cuda_ms(lambda: kernels.grid_launch(traj, operands, n_items), reps=5),
+                      "k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask), reps=5),
+                      "blocks": n_items, "kept_tile_pairs": int(operands[1].sum()),
+                      "bound": nn_bound(traj, cand, mask)}
+        del operands
     emit({"phase": 1, "kernel": "nn_grid", "shape": list(GRID_NN_MAIN), "plain_queries_every": PLAIN_STRIDE,
           "equal_to_k3": True, "checks": main})
     torch.cuda.empty_cache()
     return entries
 
 
+def phase1_keep(device, gen):
+    """The keep-list kernel: its lists equal the plain mask's compaction
+    (the same float64 bounds in the same order) and its packed candidates
+    the plain packing, at seq-02's length and at phase 5's NN block, float32
+    and float64 coordinates, also with every candidate masked (every tile
+    kept, as in the JAX mask); times at 524,288 x 524,288 in float64
+    (phase 5's shape)."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    def plain(traj, cand, mask):
+        order, nkept = kernels.keep_lists_plain(kernels.tile_keep_mask(*kernels.bounds_operands(traj, cand, mask)))
+        return order, nkept, kernels.pack_candidates_plain(cand, mask, order.shape[1])
+
+    def check(traj, cand, mask, what):
+        order, nkept, cand4 = kernels.keep_lists(traj, cand, mask)
+        want_order, want_nkept, want_cand4 = plain(traj, cand, mask)
+        if not torch.equal(nkept, want_nkept):
+            raise AssertionError(f"keep lists {what}: counts differ in "
+                                 f"{int((nkept != want_nkept).sum())} query tiles")
+        cols = torch.arange(order.shape[1], device=device)[None] < nkept[:, None]
+        if not torch.equal(torch.where(cols, order, -1), torch.where(cols, want_order, -1)):
+            raise AssertionError(f"keep lists {what}: the lists differ")
+        if not torch.equal(cand4, want_cand4):
+            raise AssertionError(f"keep lists {what}: the packed candidates differ")
+        return nkept, want_nkept, order.numel()
+
+    checks = {}
+    for n, m in ((SEQ02_LEN, SEQ02_LEN), GRID_NN_MAIN):
+        for dtype in (torch.float32, torch.float64):
+            traj, cand = walk(gen, n, dtype, device), walk(gen, m, dtype, device) + 0.3
+            mask = (torch.rand(m, generator=gen) > 0.1).to(device)
+            what = f"{n}x{m}/{dtype_name(dtype)}"
+            nkept, want_nkept, pairs = check(traj, cand, mask, what)
+            # Every candidate masked: no finite upper bound, every tile kept
+            # (as in the JAX mask); K3 and K4 then give +inf.
+            check(traj, cand, torch.zeros_like(mask), what + "/all-masked")
+            checks[what] = {"kept_tile_pairs": int(nkept.sum()), "tile_pairs": pairs}
+    ms = cuda_ms(lambda: kernels.keep_lists(traj, cand, mask))
+    plain_ms = cuda_ms(lambda: plain(traj, cand, mask), reps=3)
+    dev = device_ms(lambda: kernels.keep_lists(traj, cand, mask), reps=5)
+    aerr = float((nkept - want_nkept).abs().max())
+    emit({"phase": 1, "kernel": "nn_keep", "equal_to_plain": True, "checks": checks, "ms": ms,
+          "plain_ms": plain_ms, "device_ms": dev, "shape": list(GRID_NN_MAIN), "dtype": "float64"})
+    entry = kernel_entry("nn_keep", "nn_keep.cu", "pallas_kernels.py:174", "float64", aerr, ms, plain_ms,
+                         keep_bound(traj, cand, mask, nkept), None, dev)
+    torch.cuda.empty_cache()
+    return [entry]
+
+
+ROUTE_LENGTHS = (271, 1024, 2048, SEQ02_LEN)  # K1 against K2, besides the last K1 length
+ROUTE_CANDIDATES = (SEQ02_LEN, 65_536, 262_144)  # K3 against K4, 16,384 queries
+
+
 def phase1_routes(device, gen):
     """The times that place the routing thresholds on this card, each pair
-    on the same inputs: K1 against K2 for every combine in both dtypes at
-    4,661 elements and at the last length the routing gives K1; K3 against
-    K4 at 16,384 queries x 262,144 candidates, the last K3 takes."""
+    on the same inputs: K1 against K2 (both held against the plain version)
+    for every combine in both dtypes at ``ROUTE_LENGTHS`` and at the last
+    length the routing gives K1, with the library call where there is one;
+    K3 against K4 at 16,384 queries and ``ROUTE_CANDIDATES`` candidates,
+    the last of which is the last K3 takes. Neither threshold moves here."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import kernels, scan
@@ -464,29 +617,39 @@ def phase1_routes(device, gen):
     scans = {}
     for op in scan.OPS:
         for dtype in (torch.float32, torch.float64):
+            name = dtype_name(dtype)
             x = scan_inputs(op, 8, gen, dtype, device)
             L, size = x.shape[0], x.element_size()
             last = scan.BLOCK_BUDGET_BYTES // (2 * L * size) // 128 * 128
             if scan.scan_route(L, last, size) != "block" or scan.scan_route(L, last + 1, size) != "tiled":
                 raise AssertionError(f"scan {op}: {last} is not the last K1 length")
             rev = REVERSE_OF.get(op, False)
-            for n in (SEQ02_LEN, last):
+            for n in ROUTE_LENGTHS + (last,):
                 x = scan_inputs(op, n, gen, dtype, device)
-                scans[f"{op}/{dtype_name(dtype)}/{n}"] = {
+                want = scan.scan_plain(op, x, rev)
+                err = max(rel_err(scan.scan_block(op, x, rev), want), rel_err(scan.scan_tiled(op, x, rev), want))
+                if not err <= TOL[name]:
+                    raise AssertionError(f"scan {op} {name} n={n} rev={rev}: K1 or K2 rel err {err:.3e}")
+                scans[f"{op}/{name}/{n}"] = {
                     "k1_ms": cuda_ms(lambda: scan.scan_block(op, x, rev), reps=5),
-                    "k2_ms": cuda_ms(lambda: scan.scan_tiled(op, x, rev), reps=5)}
+                    "k2_ms": cuda_ms(lambda: scan.scan_tiled(op, x, rev), reps=5),
+                    "library_ms": scan_library_ms(op, x, rev), "rel_err": err}
     emit({"phase": 1, "routes": "scan", "times": scans})
 
-    n, m = GRID_NN_SHAPE[0], 262_144
-    if kernels.nn_route(m) != "resident" or kernels.nn_route(m + 1) != "grid":
-        raise AssertionError(f"{m} is not the last K3 candidate count")
+    n = GRID_NN_SHAPE[0]
+    if kernels.nn_route(ROUTE_CANDIDATES[-1]) != "resident" or kernels.nn_route(ROUTE_CANDIDATES[-1] + 1) != "grid":
+        raise AssertionError(f"{ROUTE_CANDIDATES[-1]} is not the last K3 candidate count")
     nns = {}
-    for dtype in (torch.float32, torch.float64):
-        traj, cand = walk(gen, n, dtype, device), walk(gen, m, dtype, device) + 0.3
-        mask = (torch.rand(m, generator=gen) > 0.1).to(device)
-        nns[dtype_name(dtype)] = {"k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask)),
-                                  "k4_ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask))}
-    emit({"phase": 1, "routes": "nn", "shape": [n, m], "times": nns})
+    for m in ROUTE_CANDIDATES:
+        for dtype in (torch.float32, torch.float64):
+            traj, cand = walk(gen, n, dtype, device), walk(gen, m, dtype, device) + 0.3
+            mask = (torch.rand(m, generator=gen) > 0.1).to(device)
+            k3, k4 = kernels.nn_resident(traj, cand, mask), kernels.nn_grid(traj, cand, mask)
+            if not torch.equal(k3, k4):
+                raise AssertionError(f"nn {n}x{m} {dtype}: K4 differs from K3")
+            nns[f"{m}/{dtype_name(dtype)}"] = {"k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask)),
+                                               "k4_ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask))}
+    emit({"phase": 1, "routes": "nn", "queries": n, "times": nns})
 
 
 def phase1_counts(device, gen):
@@ -523,13 +686,14 @@ def phase1_counts(device, gen):
     args, diff32 = timed
     ms = cuda_ms(lambda: kernels.ransac_counts(*args))
     plain_ms = cuda_ms(lambda: kernels.ransac_counts_plain(*args))
+    dev = device_ms(lambda: kernels.ransac_counts(*args))
     emit({"phase": 1, "kernel": "ransac_counts", "max_count_diff": worst, "ms": ms,
-          "plain_ms": plain_ms, "shape": [1000, SEQ02_LEN], "dtype": "float32"})
+          "plain_ms": plain_ms, "device_ms": dev, "shape": [1000, SEQ02_LEN], "dtype": "float32"})
     src, T = args[0], args[3].shape[0]
     moved = (2 * src.numel() + T * 13) * src.element_size() + src.shape[0] + 4 * T
     return [kernel_entry("ransac_counts", "ransac_counts.cu", "pallas_kernels.py:450", "float32",
                          float(diff32), ms, plain_ms,
-                         bound(moved, COUNT_FLOPS * T * src.shape[0], "float32"))]
+                         bound(moved, COUNT_FLOPS * T * src.shape[0], "float32"), None, dev)]
 
 
 def phase1(device):
@@ -539,6 +703,7 @@ def phase1(device):
     gen = torch.Generator().manual_seed(0)
     entries = phase1_block_scan(device, gen)
     entries += phase1_tiled_scan(device, gen)
+    entries += phase1_keep(device, gen)
     entries += phase1_nn(device, gen)
     entries += phase1_counts(device, gen)
     phase1_routes(device, gen)
@@ -706,7 +871,7 @@ def phase4(device):
           "gpu_wall_ms_median5": 1e3 * float(np.median(walls)), "cpu_plain_wall_ms": 1e3 * cpu_s})
     if not err64 <= 1e-6 or not err32 <= 1e-2:
         raise AssertionError(f"card runs off the CPU float64 run: {err32:.3e} m (f32), {err64:.3e} m (f64)")
-    required = [f"scan_block/{op}" for op in scan.OPS] + ["nn_resident", "ransac_counts"]
+    required = [f"scan_block/{op}" for op in scan.OPS] + ["nn_keep", "nn_resident", "ransac_counts"]
     missing = [k for k in required if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the in-core path: {missing}")
@@ -914,11 +1079,11 @@ def phase5(device):
         raise AssertionError(f"seq-04 chunked off in-core ({err04:.3e} m) or malformed export")
     # At 524,288-pose chunks every scan is past K1's budget and every NN
     # block past K3's; seq-04's single short chunk takes K1 and K3.
-    required = [f"scan_tiled/{op}" for op in scan.OPS] + ["nn_grid", "ransac_counts"]
+    required = [f"scan_tiled/{op}" for op in scan.OPS] + ["nn_keep", "nn_grid", "ransac_counts"]
     missing = [k for k in required if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the chunked path: {missing}")
-    missing = [k for k in ("nn_resident", "ransac_counts") if launches04[k] <= 0]
+    missing = [k for k in ("nn_keep", "nn_resident", "ransac_counts") if launches04[k] <= 0]
     if not any(v for k, v in launches04.items() if k.startswith("scan_block/")):
         missing.append("scan_block")
     if missing:

@@ -3,12 +3,13 @@
 // pruning kept for the query's tile.
 //
 // Replaces the Pallas kernel gps_optimize_slam_tpu/ops/pallas_kernels.py:
-// nn_min_dist2 (_nn_kernel_resident). The torch wrapper
-// (ops/kernels.py:nn_min_dist2) ports the array code around it: the
-// per-32-point AABB bounds (_tile_keep_mask) and the stable keep-list
-// compaction. Distances stay in difference form: the |a|^2 - 2ab + |b|^2
-// expansion cancels catastrophically at UTM/ENU magnitudes (0.18 m against
-// 7e-8 m error in float32, pallas_kernels.py:11-20).
+// nn_min_dist2 (_nn_kernel_resident). Its keep lists (the per-32-point AABB
+// bounds of _tile_keep_mask and their stable compaction) come from the
+// keep-list kernel (nn_keep.cu), which K4 (nn_grid.cu) shares; the torch
+// wrapper is ops/kernels.py:nn_resident. Distances stay in difference form:
+// the |a|^2 - 2ab + |b|^2 expansion cancels catastrophically at UTM/ENU
+// magnitudes (0.18 m against 7e-8 m error in float32,
+// pallas_kernels.py:11-20).
 //
 // Design: one block per tile of 128 queries, one query per thread. For each
 // kept candidate tile (1024 candidates, rows x, y, z and a validity row that

@@ -1,42 +1,44 @@
 // K4: per query, the minimum over valid candidates of the squared distance
-// sum_k (a_k - b_k)^2, on a 2-D grid of (query tile, candidate tile) blocks
-// gated by the spatial-pruning keep mask.
+// sum_k (a_k - b_k)^2, on a 1-D grid over the kept work only: one block per
+// (query tile, run of at most kRun kept candidate tiles).
 //
 // Replaces the Pallas kernel gps_optimize_slam_tpu/ops/pallas_kernels.py:
 // nn_min_dist2 (_nn_kernel, the pipelined 2-D grid), which the JAX package
 // takes when the candidate image exceeds its 8 MiB VMEM budget
-// (m_pad * 8 * 4 B, m_pad > 262,144: pallas_kernels.py:263). The wrapper
-// (ops/kernels.py:nn_grid) computes the same keep mask as K3's, in row
-// blocks of query tiles, and the same routing rule.
+// (m_pad * 8 * 4 B, m_pad > 262,144: pallas_kernels.py:263). That kernel
+// visits every (query tile, candidate tile) pair and skips the pairs its
+// keep mask drops. Here the keep lists come from the keep-list kernel
+// (nn_keep.cu) as K3 takes them, order[i, :nkept[i]] ascending, and the
+// wrapper (ops/kernels.py:nn_grid) cuts each query tile's list into runs of
+// kRun tiles: ends[i] is the inclusive prefix sum of ceil(nkept / kRun), so
+// block b finds its query tile by a binary search over ends. No block
+// exists for a dropped pair, and a query tile with many kept tiles is
+// spread over several blocks.
 //
-// Design: block (i, j) takes query tile i (128 queries, one per thread) and
-// candidate tile j (1024 candidates). It returns at once when keep[i, j] is
-// 0; the branch is uniform across the block and comes before any barrier.
-// Otherwise it stages tile j's x, y and z rows and its validity bytes in
-// shared memory (12 KB in float32, 24 KB in float64), every thread runs the
-// unrolled 3-term difference form against the 1024 candidates in the order
-// K3 (nn.cu) uses, invalid candidates at +inf, and the block folds its
-// per-query minimum into the output with an atomicMin on the bit pattern:
-// non-negative IEEE values order like their bits as integers (int for
-// float32, unsigned long long for float64). The wrapper fills the output with
-// +inf first. A NaN distance never wins a block's minimum, so it never
-// reaches the atomic. The minimum does not depend on block order, and K3's
-// fourth term is (0 - 0)^2 = +0 for a valid candidate, so K4 equals K3 bit
-// for bit on the same inputs (--fmad=false: no contraction).
+// Each block (128 queries, one per thread) double-buffers its candidate
+// tiles in shared memory with cp.async: K3's operand layout, (m_tiles, 4,
+// 1024) rows x, y, z and a validity row (0 valid, +inf invalid or padded),
+// so validity is folded into the staged tile. While tile k is scanned,
+// tile k + 1 loads. Every thread runs K3's 4-term difference form in K3's
+// order, and the block folds its per-query minimum into the output with an
+// atomicMin on the bit pattern: non-negative IEEE values order like their
+// bits as integers (int for float32, unsigned long long for float64). The
+// wrapper fills the output with +inf first; a NaN distance never wins a
+// minimum, so it never reaches the atomic. The minimum does not depend on
+// the order of blocks or tiles, so K4 equals K3 bit for bit on the same
+// inputs (--fmad=false: no contraction).
 //
-// What bounds it on this card: with the car-like trajectories of the
-// chunked evaluation a few percent of the (i, j) pairs are kept, so the
-// floor is reading the operands once (n * 3 + m * 3.x values) and the cost
-// is the kept pairs' subtract-multiply-adds (128 x 1024 x 8 flops a kept
-// block) plus one scheduling slot for each skipped block; at 524,288 x
-// 524,288 that is a 4,096 x 512 grid. A persistent walk over compacted
-// keep lists (as K3 does) is later work.
+// What bounds it on this card: operations, 8 flops a kept (query,
+// candidate) pair for the 3-term function (the kernel spends 11 with the
+// validity term), 128 x 1024 pairs a kept tile pair; the keep lists are
+// nn_keep.cu's cost.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kGridTileN = 128;   // queries per block, one per thread
 constexpr int kGridTileM = 1024;  // candidates per tile
+constexpr int kRun = 4;           // kept candidate tiles per block at most
 
 __device__ __forceinline__ void atomic_min_nonneg(float* addr, float v) {
   atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
@@ -47,23 +49,46 @@ __device__ __forceinline__ void atomic_min_nonneg(double* addr, double v) {
             static_cast<unsigned long long>(__double_as_longlong(v)));
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kGridTileN)
 nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
-               const unsigned char* __restrict__ valid, long long m_pad,
-               const int* __restrict__ keep, int m_tiles, T* __restrict__ out) {
-  const int i = blockIdx.x;
-  const int j = blockIdx.y;
-  if (keep[(size_t)i * m_tiles + j] == 0) return;
-  __shared__ T sb[3][kGridTileM];
-  __shared__ unsigned char sv[kGridTileM];
-  const size_t c0 = (size_t)j * kGridTileM;
-  for (int c = threadIdx.x; c < kGridTileM; c += kGridTileN) {
-    sb[0][c] = cand[c0 + c];
-    sb[1][c] = cand[(size_t)m_pad + c0 + c];
-    sb[2][c] = cand[2 * (size_t)m_pad + c0 + c];
-    sv[c] = valid[c0 + c];
+               const int* __restrict__ order, const int* __restrict__ nkept,
+               const int* __restrict__ ends, int n_tiles, int m_tiles, T* __restrict__ out) {
+  constexpr int kTileElems = 4 * kGridTileM;
+  constexpr int kChunks = kTileElems * (int)sizeof(T) / 16;  // 16-byte copies a tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [2][4][kGridTileM]
+  const int b = blockIdx.x;
+  int lo = 0, hi = n_tiles - 1;  // first query tile i with ends[i] > b
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ends[mid] > b) hi = mid;
+    else lo = mid + 1;
   }
+  const int i = lo;
+  const int k0 = (b - (i > 0 ? ends[i - 1] : 0)) * kRun;
+  const int k1 = min(nkept[i], k0 + kRun);
+  const int* tiles = order + (size_t)i * m_tiles;
+
+  auto stage = [&](int k, int slot) {
+    const char* src = reinterpret_cast<const char*>(cand + (size_t)tiles[k] * kTileElems);
+    char* dst = reinterpret_cast<char*>(buf + slot * kTileElems);
+    for (int c = threadIdx.x; c < kChunks; c += kGridTileN) cp_async16(dst + 16 * c, src + 16 * c);
+    cp_async_commit();
+  };
+
   const int q = i * kGridTileN + threadIdx.x;
   T ax = 0, ay = 0, az = 0;
   if (q < n) {
@@ -71,45 +96,68 @@ nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
     ay = traj[3 * (size_t)q + 1];
     az = traj[3 * (size_t)q + 2];
   }
-  __syncthreads();
   const T inf = Limits<T>::inf();
   T best = inf;
+  stage(k0, 0);
+  for (int k = k0; k < k1; ++k) {
+    const int slot = (k - k0) & 1;
+    if (k + 1 < k1) {
+      stage(k + 1, slot ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* sb = buf + slot * kTileElems;
 #pragma unroll 4
-  for (int c = 0; c < kGridTileM; ++c) {
-    const T d0 = ax - sb[0][c];
-    const T d1 = ay - sb[1][c];
-    const T d2 = az - sb[2][c];
-    const T d = sv[c] ? d0 * d0 + d1 * d1 + d2 * d2 : inf;
-    best = d < best ? d : best;
+    for (int c = 0; c < kGridTileM; ++c) {
+      const T d0 = ax - sb[c];
+      const T d1 = ay - sb[kGridTileM + c];
+      const T d2 = az - sb[2 * kGridTileM + c];
+      const T d3 = T(0) - sb[3 * kGridTileM + c];
+      const T d = d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+      best = d < best ? d : best;
+    }
+    __syncthreads();  // the slot is restaged two tiles on
   }
   if (q < n && best < inf) atomic_min_nonneg(out + q, best);
 }
 
 template <typename T>
-cudaError_t launch(const void* traj, int n, const void* cand, const unsigned char* valid,
-                   long long m_pad, const int* keep, int n_tiles, int m_tiles, void* out,
+cudaError_t launch(const void* traj, int n, const void* cand, const int* order, const int* nkept,
+                   const int* ends, int n_tiles, int m_tiles, int n_items, void* out,
                    cudaStream_t s) {
-  if (m_pad != (long long)m_tiles * kGridTileM || m_tiles > 65535 || (long long)n_tiles * kGridTileN < n)
+  if ((long long)n_tiles * kGridTileN < n || n_tiles < 1 || n_items < 0)
     return cudaErrorInvalidValue;
-  const dim3 grid(n_tiles, m_tiles);
-  nn_grid_kernel<T><<<grid, kGridTileN, 0, s>>>(static_cast<const T*>(traj), n,
-                                               static_cast<const T*>(cand), valid, m_pad, keep,
-                                               m_tiles, static_cast<T*>(out));
+  if (n_items == 0) return cudaSuccess;
+  const size_t smem = 2 * 4 * kGridTileM * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(nn_grid_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  nn_grid_kernel<T><<<n_items, kGridTileN, smem, s>>>(
+      static_cast<const T*>(traj), n, static_cast<const T*>(cand), order, nkept, ends, n_tiles,
+      m_tiles, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// traj (n, 3); cand (3, m_pad) rows x, y, z; valid (m_pad,) bytes; keep
-// (n_tiles, m_tiles) int32; out (n,) filled with +inf by the caller.
-// Returns a cudaError_t.
-GPS_EXPORT int gps_nn_grid(int dtype, const void* traj, int n, const void* cand,
-                           const unsigned char* valid, long long m_pad, const int* keep,
-                           int n_tiles, int m_tiles, void* out, void* stream) {
+// Kept candidate tiles per block; the wrapper cuts the keep lists by it.
+GPS_EXPORT int gps_nn_grid_run() { return kRun; }
+
+// traj (n, 3); cand (m_tiles, 4, 1024) as K3 takes it; order (n_tiles,
+// m_tiles) kept tiles first, ascending; nkept (n_tiles,); ends (n_tiles,)
+// the inclusive prefix sum of ceil(nkept / kRun), n_items its last value;
+// out (n,) filled with +inf by the caller. Returns a cudaError_t.
+GPS_EXPORT int gps_nn_grid(int dtype, const void* traj, int n, const void* cand, const int* order,
+                           const int* nkept, const int* ends, int n_tiles, int m_tiles, int n_items,
+                           void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == GPS_F32)
-    return (int)launch<float>(traj, n, cand, valid, m_pad, keep, n_tiles, m_tiles, out, s);
+    return (int)launch<float>(traj, n, cand, order, nkept, ends, n_tiles, m_tiles, n_items, out, s);
   if (dtype == GPS_F64)
-    return (int)launch<double>(traj, n, cand, valid, m_pad, keep, n_tiles, m_tiles, out, s);
+    return (int)launch<double>(traj, n, cand, order, nkept, ends, n_tiles, m_tiles, n_items, out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
-// The eight scan combines of ops/scan.py:OPS and the block-level scan that K1
-// (scan.cu) and K2 (scan_tiled.cu) share: one copy of each combine, so the
-// single-block and the multi-block scans cannot drift apart.
+// The eight scan combines of ops/scan.py:OPS that K1 (scan.cu,
+// scan_lookback.cuh) and K2 (scan_tiled.cu) share, one copy of each, so the
+// two scans cannot drift apart, and K2's block-level scan.
 //
 // Every combine writes its arithmetic in the order of the JAX combine it
 // ports, so that results agree to rounding. The library is built with
@@ -280,52 +280,8 @@ __device__ __forceinline__ void block_exclusive(const T* tot, T* carry) {
   }
 }
 
-// K1's kernel: the whole scan in one thread block of kScanThreads threads,
-// reduce-then-scan:
-//   1. each thread scans its own contiguous chunk sequentially, writing the
-//      local prefixes to `out`;
-//   2. the thread totals are scanned in shared memory (block_scan);
-//   3. each thread folds its exclusive carry into every element of its chunk.
-// Every output is combined with its exclusive prefix at least once (the
-// first with the identity), as in the Pallas ladder. K2 (scan_tiled.cu)
-// launches it too, on its (L, n_blocks) block totals.
-template <class Op, typename T>
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int reverse) {
-  constexpr int L = Op::L;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tot = reinterpret_cast<T*>(smem_raw);  // [L][kScanThreads]
-  const int tid = threadIdx.x;
-  const int chunk = (n + kScanThreads - 1) / kScanThreads;
-  const int lo = min(n, tid * chunk);
-  const int hi = min(n, lo + chunk);
-
-  T acc[L], x[L], y[L];
-  Op::identity(acc);
-  for (int k = lo; k < hi; ++k) {
-    const int p = reverse ? n - 1 - k : k;
-    load_leaves<L>(in, n, p, x);
-    if (k == lo) {
-      copy_leaves<L>(x, acc);
-    } else {
-      Op::apply(acc, x, y);
-      copy_leaves<L>(y, acc);
-    }
-    store_leaves<L>(out, n, p, acc);
-  }
-  block_scan<Op, T>(acc, tot);
-  T carry[L];
-  block_exclusive<Op, T>(tot, carry);
-  for (int k = lo; k < hi; ++k) {
-    const int p = reverse ? n - 1 - k : k;
-    load_leaves<L>(out, n, p, x);
-    Op::apply(carry, x, y);
-    store_leaves<L>(out, n, p, y);
-  }
-}
-
-// Dynamic shared memory of the block scans: L x kScanThreads elements; above
-// 48 KB (the 27-leaf filter in float64: 55 KB) only after the opt-in.
+// Dynamic shared memory of K2's block scans: L x kScanThreads elements;
+// above 48 KB (the 27-leaf filter in float64: 55 KB) only after the opt-in.
 template <class Op, typename T>
 size_t scan_smem_bytes() { return (size_t)Op::L * kScanThreads * sizeof(T); }
 
@@ -336,7 +292,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // Op codes are the order of ops/scan.py:OPS. `Launch<Op, T>::run(args...)`
-// for the combine named by `op`.
+// for the combine named by `op`; cudaErrorInvalidValue for an unknown op.
 template <template <class, typename> class Launch, typename T, typename... Args>
 cudaError_t dispatch_op(int op, Args... args) {
   switch (op) {

@@ -10,8 +10,9 @@
 // launches over tiles of kTile = 256 threads x 8 elements:
 //   1. tile_totals_kernel: each block reduces its contiguous tile (in scan
 //      order) to one composite, in the JAX combine's argument order;
-//   2. K1's single-block scan_kernel (scan_ops.cuh) scans the (L, n_blocks)
-//      block totals; block b reads its exclusive carry at b - 1;
+//   2. K1's look-back scan (LookbackScan, scan_lookback.cuh) scans the
+//      (L, n_blocks) block totals; block b reads its exclusive carry at
+//      b - 1;
 //   3. tile_scan_kernel: each block reduces its threads' sub-ranges again,
 //      scans them in shared memory as K1 does, and every thread then walks
 //      its elements from the carry: combine(block carry, thread prefix)
@@ -31,7 +32,7 @@
 // neighbouring elements); the filter's 27-leaf combine (~300 flops, a 3x3
 // inverse) keeps 255 registers and one block per SM in float64. A
 // one-pass decoupled look-back and coalesced staging are later work.
-#include "scan_ops.cuh"
+#include "scan_lookback.cuh"
 
 namespace {
 
@@ -107,45 +108,71 @@ tile_scan_kernel(const T* __restrict__ in, const T* __restrict__ scanned, T* __r
   }
 }
 
+// Scratch of one tiled scan of n elements: K1's scratch for the block
+// totals' scan, then the totals and their scan (L x n_blocks each).
+template <class Op, typename T>
+struct TiledLayout {
+  static int blocks(int n) { return (n + kTile - 1) / kTile; }
+  static size_t totals_offset(int n) {
+    return (LookbackLayout<Op, T>::scratch_bytes(blocks(n)) + 15) / 16 * 16;
+  }
+  static size_t scratch_bytes(int n) {
+    return totals_offset(n) + 2 * (size_t)Op::L * blocks(n) * sizeof(T);
+  }
+};
+
 template <class Op, typename T>
 struct TiledScan {
-  static cudaError_t run(const void* in, void* out, void* scratch, int scratch_elems, int n,
+  static cudaError_t run(const void* in, void* out, void* scratch, long long scratch_bytes, int n,
                          int reverse, cudaStream_t stream) {
-    const int n_blocks = (n + kTile - 1) / kTile;
-    if ((size_t)scratch_elems < 2 * (size_t)Op::L * n_blocks) return cudaErrorInvalidValue;
-    T* totals = static_cast<T*>(scratch);
+    using Layout = TiledLayout<Op, T>;
+    const int n_blocks = Layout::blocks(n);
+    if (scratch_bytes < (long long)Layout::scratch_bytes(n)) return cudaErrorInvalidValue;
+    T* totals = reinterpret_cast<T*>(static_cast<char*>(scratch) + Layout::totals_offset(n));
     T* scanned = totals + (size_t)Op::L * n_blocks;
     const size_t smem = scan_smem_bytes<Op, T>();
     cudaError_t e = allow_smem(tile_totals_kernel<Op, T>, smem);
-    if (e == cudaSuccess) e = allow_smem(scan_kernel<Op, T>, smem);
     if (e == cudaSuccess) e = allow_smem(tile_scan_kernel<Op, T>, smem);
     if (e != cudaSuccess) return e;
     const T* x = static_cast<const T*>(in);
     tile_totals_kernel<Op, T><<<n_blocks, kScanThreads, smem, stream>>>(x, totals, n, n_blocks,
                                                                        reverse);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    scan_kernel<Op, T><<<1, kScanThreads, smem, stream>>>(totals, scanned, n_blocks, 0);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    e = LookbackScan<Op, T>::run(totals, scanned, n_blocks, 0, scratch, stream);
+    if (e != cudaSuccess) return e;
     tile_scan_kernel<Op, T><<<n_blocks, kScanThreads, smem, stream>>>(
         x, scanned, static_cast<T*>(out), n, n_blocks, reverse);
     return cudaGetLastError();
   }
 };
 
+template <class Op, typename T>
+struct TiledScratch {
+  static cudaError_t run(int n, long long* bytes) {
+    *bytes = (long long)TiledLayout<Op, T>::scratch_bytes(n);
+    return cudaSuccess;
+  }
+};
+
 }  // namespace
 
-// Elements per block tile; the wrapper sizes the scratch from it.
-GPS_EXPORT int gps_scan_tiled_tile() { return kTile; }
-
 // Op codes are the order of ops/scan.py:OPS. `scratch` holds
-// 2 * L * ceil(n / kTile) elements of the leaves' dtype (block totals and
-// their scan). Returns a cudaError_t.
+// gps_scan_tiled_scratch_bytes(op, dtype, n) bytes. Returns a cudaError_t.
 GPS_EXPORT int gps_scan_tiled(int op, int dtype, const void* in, void* out, void* scratch,
-                              int scratch_elems, int n, int reverse, void* stream) {
+                              long long scratch_bytes, int n, int reverse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == GPS_F32)
-    return (int)dispatch_op<TiledScan, float>(op, in, out, scratch, scratch_elems, n, reverse, s);
+    return (int)dispatch_op<TiledScan, float>(op, in, out, scratch, scratch_bytes, n, reverse, s);
   if (dtype == GPS_F64)
-    return (int)dispatch_op<TiledScan, double>(op, in, out, scratch, scratch_elems, n, reverse, s);
+    return (int)dispatch_op<TiledScan, double>(op, in, out, scratch, scratch_bytes, n, reverse, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Scratch bytes of gps_scan_tiled for n elements; -1 for an unknown op or
+// dtype.
+GPS_EXPORT long long gps_scan_tiled_scratch_bytes(int op, int dtype, int n) {
+  long long bytes = -1;
+  if (dtype == GPS_F32) dispatch_op<TiledScratch, float>(op, n, &bytes);
+  if (dtype == GPS_F64) dispatch_op<TiledScratch, double>(op, n, &bytes);
+  return bytes;
 }

@@ -43,13 +43,18 @@ _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
 
 _VP, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+# name -> (argtypes, restype); a cudaError_t comes back as an int.
 _SIGNATURES = {
-    "gps_scan": [_I, _I, _VP, _VP, _I, _I, _VP],
-    "gps_scan_tiled": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
-    "gps_scan_tiled_tile": [],
-    "gps_nn_min_dist2": [_I, _VP, _I, _VP, _VP, _VP, _I, _I, _VP, _VP],
-    "gps_nn_grid": [_I, _VP, _I, _VP, _VP, _LL, _VP, _I, _I, _VP, _VP],
-    "gps_ransac_counts": [_I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _D, _VP, _VP],
+    "gps_scan": ([_I, _I, _VP, _VP, _I, _I, _VP, _VP], _I),
+    "gps_scan_scratch_bytes": ([_I, _I, _I], _LL),
+    "gps_scan_tile": ([_I], _I),
+    "gps_scan_tiled": ([_I, _I, _VP, _VP, _VP, _LL, _I, _I, _VP], _I),
+    "gps_scan_tiled_scratch_bytes": ([_I, _I, _I], _LL),
+    "gps_nn_min_dist2": ([_I, _VP, _I, _VP, _VP, _VP, _I, _I, _VP, _VP], _I),
+    "gps_nn_keep": ([_I, _VP, _I, _VP, _VP, _I, _VP, _I, _I, _VP, _VP, _VP, _VP], _I),
+    "gps_nn_grid": ([_I, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP], _I),
+    "gps_nn_grid_run": ([], _I),
+    "gps_ransac_counts": ([_I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _D, _VP, _VP], _I),
 }
 
 
@@ -106,10 +111,10 @@ def library() -> ctypes.CDLL:
             obj.unlink()
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     lib.gps_error_string.argtypes = [ctypes.c_int]
     lib.gps_error_string.restype = ctypes.c_char_p
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(so), log=log)

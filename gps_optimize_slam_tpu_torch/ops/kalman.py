@@ -38,7 +38,7 @@ class EKFParams(NamedTuple):
     R: torch.Tensor  # (3,3) measurement noise
 
 
-def ekf_params(cfg: EKFConfig, dtype=torch.float64, device="cpu") -> EKFParams:
+def ekf_params(cfg: EKFConfig, *, device, dtype=torch.float64) -> EKFParams:
     def diag(v):
         return torch.diag(torch.tensor(v, dtype=dtype, device=device))
 

@@ -1,4 +1,5 @@
-"""K3 and K4 (nearest-neighbour distance) and K5 (RANSAC consensus counts).
+"""K3 and K4 (nearest-neighbour distance), their keep lists, and K5
+(RANSAC consensus counts).
 
 Ports the three Pallas kernels of ``gps_optimize_slam_tpu/ops/pallas_kernels.py``
 and the array code around them:
@@ -8,16 +9,18 @@ and the array code around them:
   :func:`nn_resident` (K3, ``csrc/nn.cu``; ports the resident form) while
   the candidate image fits the JAX package's 8 MiB budget, :func:`nn_grid`
   (K4, ``csrc/nn_grid.cu``; ports the pipelined 2-D grid) beyond it. Both
-  wrappers compute the per-32-point AABB bounds (:func:`tile_keep_mask`);
-  K3's compacts each query tile's kept candidate tiles to the front with a
-  stable sort and walks only those, K4's launches one block per (query
-  tile, candidate tile) pair and skips the pairs the mask drops.
+  take the per-query-tile lists of kept candidate tiles and the packed
+  candidates from :func:`keep_lists` (``csrc/nn_keep.cu``: the per-32-point
+  AABB bounds of :func:`tile_keep_mask`, their compaction and the packing,
+  on the card). K3 walks each query tile's list in one block; K4 launches
+  one block per run of ``RUN_TILES`` kept tiles, so no block exists for a
+  dropped pair.
 * :func:`ransac_counts`: per Sim(3) trial, the number of valid points within
   the residual threshold (``ransac_counts``), launched from
   ``csrc/ransac_counts.cu`` in the exact elementwise form.
 
 Each wrapper takes its plain PyTorch version (``*_plain``, below) for CPU
-tensors only; a CUDA tensor launches the kernel or raises. Both kernels
+tensors only; a CUDA tensor launches the kernel or raises. Both NN kernels
 compute in the inputs' dtype: the golden run works in float64 UTM
 coordinates (~5.4e6 m), where a float32 distance would be off by ~0.5 m.
 """
@@ -31,6 +34,7 @@ from gps_optimize_slam_tpu_torch.ops import _build
 TILE_N = 128  # queries per block of csrc/nn.cu and csrc/nn_grid.cu
 TILE_M = 1024  # candidates per tile of both
 SUB = 32  # AABB segment length of the pruning bounds (divides both tiles)
+RUN_TILES = 4  # kept candidate tiles per K4 block (csrc/nn_grid.cu kRun)
 _BIG = 3.4e38  # non-finite coordinates are clamped here for the bounds only
 # The JAX package's budget for its resident kernel (pallas_kernels.py:85,
 # 263): the (8, m_pad) float32 candidate image within 8 MiB.
@@ -54,7 +58,8 @@ def nn_route(m: int) -> str:
 
 def tile_keep_mask(tp: torch.Tensor, cp: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
     """(n_pad/TILE_N, m_pad/TILE_M) bool mask of the kernel tiles that may
-    hold a nearest neighbour (port of ``pallas_kernels._tile_keep_mask``).
+    hold a nearest neighbour (port of ``pallas_kernels._tile_keep_mask``),
+    the plain version of the keep-list kernel (``csrc/nn_keep.cu``).
 
     ``tp`` (n_pad, 3) finite queries (pad rows replicate the last query so
     boxes stay tight), ``cp`` (m_pad, 3) finite candidates, ``vm`` (m_pad,)
@@ -62,7 +67,9 @@ def tile_keep_mask(tp: torch.Tensor, cp: torch.Tensor, vm: torch.Tensor) -> torc
     distance is compared with the per-query-segment minimum of the upper
     bounds; a few-ulp relative slack keeps rounding from flipping a keep into
     a skip, so the segment pair of every query's true NN is kept. Bounds are
-    taken in float64 whatever the working dtype.
+    taken in float64 whatever the working dtype, and each three-term sum as
+    ``(x0*x0 + x1*x1) + x2*x2``, the kernel's order, so the kernel's lists
+    equal this mask bit for bit.
 
     The (query segment × candidate segment) bounds are taken in row blocks
     of whole query tiles, each intermediate near ``_KEEP_BLOCK_ELEMS``
@@ -84,17 +91,28 @@ def tile_keep_mask(tp: torch.Tensor, cp: torch.Tensor, vm: torch.Tensor) -> torc
     inf = torch.tensor(float("inf"), dtype=cp.dtype, device=cp.device)
     c_lo = torch.where(vmr, cb, inf).amin(1)
     c_hi = torch.where(vmr, cb, -inf).amax(1)
+
+    def sq3(v):
+        return (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2]
+
     rows = []
     for r in range(0, n_sub, block_rows):
         lo, hi = t_lo[r : r + block_rows, None], t_hi[r : r + block_rows, None]
-        gap = torch.clamp(torch.maximum(lo - c_hi[None], c_lo[None] - hi), min=0.0)
-        lb = torch.sum(gap * gap, dim=-1)
-        span = torch.maximum(hi - c_lo[None], c_hi[None] - lo)
-        ub = torch.sum(span * span, dim=-1)
+        lb = sq3(torch.clamp(torch.maximum(lo - c_hi[None], c_lo[None] - hi), min=0.0))
+        ub = sq3(torch.maximum(hi - c_lo[None], c_hi[None] - lo))
         thr = ub.amin(1, keepdim=True)
         keep_sub = lb <= thr + 1e-5 * (thr + 1.0)
         rows.append(keep_sub.reshape(-1, per_tile, m_pad // TILE_M, TILE_M // SUB).any(3).any(1))
     return torch.cat(rows)
+
+
+def keep_lists_plain(keep: torch.Tensor):
+    """``order`` (n_tiles, m_tiles) int32, each query tile's kept candidate
+    tiles first in ascending order (a stable sort, ``pallas_kernels.py:267-269``),
+    and ``nkept`` (n_tiles,) int32, from a :func:`tile_keep_mask` mask."""
+    keep = keep.to(torch.int32)
+    order = torch.sort(1 - keep, dim=1, stable=True).indices.to(torch.int32).contiguous()
+    return order, keep.sum(1, dtype=torch.int32).contiguous()
 
 
 def nn_min_dist2_plain(
@@ -112,52 +130,80 @@ def nn_min_dist2_plain(
     return out
 
 
-def _keep(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
-    """The tile keep mask (n_tiles, m_tiles) int32 of both NN kernels, and
-    the padded validity (m_pad,). The bounds see ``nan_to_num``-sanitised
-    coordinates, with the last query replicated into the pad
-    (``pallas_kernels.py:241-252``)."""
+def _tiles(n: int, m: int):
+    """(n_tiles, m_tiles) of the kernels' padded operands."""
+    return _round_up(max(n, 1), TILE_N) // TILE_N, _round_up(max(m, 1), TILE_M) // TILE_M
+
+
+def bounds_operands(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
+    """The operands of :func:`tile_keep_mask`: ``nan_to_num``-sanitised
+    float64 coordinates, the last query replicated into the pad, zeros and
+    invalid past m (``pallas_kernels.py:241-252``)."""
     n, m = traj.shape[0], candidates.shape[0]
+    n_tiles, m_tiles = _tiles(n, m)
     device = traj.device
-    n_pad = _round_up(max(n, 1), TILE_N)
-    m_pad = _round_up(max(m, 1), TILE_M)
     tf = torch.nan_to_num(traj.double(), nan=0.0, posinf=_BIG, neginf=-_BIG)
-    tp = torch.cat([tf, tf[-1:].expand(n_pad - n, 3)])
-    cp = torch.zeros((m_pad, 3), dtype=torch.float64, device=device)
+    tp = torch.cat([tf, tf[-1:].expand(n_tiles * TILE_N - n, 3)])
+    cp = torch.zeros((m_tiles * TILE_M, 3), dtype=torch.float64, device=device)
     cp[:m] = torch.nan_to_num(candidates.double(), nan=0.0, posinf=_BIG, neginf=-_BIG)
-    vm = torch.zeros((m_pad,), dtype=torch.bool, device=device)
+    vm = torch.zeros((m_tiles * TILE_M,), dtype=torch.bool, device=device)
     vm[:m] = cand_mask
-    return tile_keep_mask(tp, cp, vm).to(torch.int32), vm
+    return tp, cp, vm
 
 
-def nn_tiles(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
-    """K3's operands besides ``traj``: ``order`` (n_tiles, m_tiles) int32,
-    each query tile's kept candidate tiles first in ascending order (a
-    stable sort, ``pallas_kernels.py:267-269``); ``nkept`` (n_tiles,) int32;
-    ``cand4`` (m_tiles, 4, TILE_M), the raw candidate coordinates and a
-    validity row (0 valid, +inf invalid or padding)."""
+def pack_candidates_plain(candidates: torch.Tensor, cand_mask: torch.Tensor, m_tiles: int) -> torch.Tensor:
+    """``cand4`` (m_tiles, 4, TILE_M) in the candidates' dtype: the raw
+    coordinates as rows x, y, z (zeros in the pad) and a validity row (0
+    valid, +inf masked out or padding), the operand both NN kernels walk."""
     m = candidates.shape[0]
-    keep, vm = _keep(traj, candidates, cand_mask)
-    m_pad = vm.shape[0]
-    order = torch.sort(1 - keep, dim=1, stable=True).indices.to(torch.int32).contiguous()
-    nkept = keep.sum(1, dtype=torch.int32).contiguous()
-    cand4 = torch.zeros((4, m_pad), dtype=traj.dtype, device=traj.device)
+    m_pad = m_tiles * TILE_M
+    cand4 = torch.zeros((4, m_pad), dtype=candidates.dtype, device=candidates.device)
     cand4[:3, :m] = candidates.T
-    cand4[3] = torch.where(vm, 0.0, float("inf")).to(traj.dtype)
-    cand4 = cand4.reshape(4, m_pad // TILE_M, TILE_M).permute(1, 0, 2).contiguous()
+    cand4[3] = float("inf")
+    cand4[3, :m] = torch.where(cand_mask, 0.0, float("inf")).to(candidates.dtype)
+    return cand4.reshape(4, m_tiles, TILE_M).permute(1, 0, 2).contiguous()
+
+
+def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
+    """The operands of both NN kernels besides ``traj``: ``order``
+    (n_tiles, m_tiles) and ``nkept`` (n_tiles,) int32, each query tile's
+    kept candidate tiles in ascending order and their count, and ``cand4``
+    (m_tiles, 4, TILE_M), the packed candidates. On CUDA the keep-list
+    kernel (``csrc/nn_keep.cu``) builds all three from the raw coordinates
+    in one call (entries of ``order`` past ``nkept`` unspecified); CPU
+    tensors take :func:`keep_lists_plain` of :func:`tile_keep_mask` and
+    :func:`pack_candidates_plain`."""
+    n_tiles, m_tiles = _tiles(traj.shape[0], candidates.shape[0])
+    if traj.device.type == "cpu":
+        order, nkept = keep_lists_plain(tile_keep_mask(*bounds_operands(traj, candidates, cand_mask)))
+        return order, nkept, pack_candidates_plain(candidates, cand_mask, m_tiles)
+    _check_nn(traj, candidates, cand_mask)
+    order = torch.empty((n_tiles, m_tiles), dtype=torch.int32, device=traj.device)
+    nkept = torch.empty((n_tiles,), dtype=torch.int32, device=traj.device)
+    cand4 = torch.empty((m_tiles, 4, TILE_M), dtype=traj.dtype, device=traj.device)
+    boxes = torch.empty((6 * (n_tiles * TILE_N + m_tiles * TILE_M) // SUB,), dtype=torch.float64,
+                        device=traj.device)  # lo and hi per axis of every segment
+    cand = candidates.contiguous()
+    mask = cand_mask.contiguous()
+    rc = _build.library().gps_nn_keep(
+        _build.dtype_code(traj), traj.data_ptr(), traj.shape[0], cand.data_ptr(), mask.data_ptr(),
+        cand.shape[0], boxes.data_ptr(), n_tiles, m_tiles, order.data_ptr(), nkept.data_ptr(),
+        cand4.data_ptr(), _build.stream(),
+    )
+    _build.check(rc, "nn keep lists")
+    keep_lists.launches += 1
     return order, nkept, cand4
 
 
 def nn_grid_operands(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
-    """K4's operands besides ``traj``: ``keep`` (n_tiles, m_tiles) int32,
-    ``cand3`` (3, m_pad) the raw candidate coordinates as rows (zeros in the
-    pad), ``valid`` (m_pad,) uint8 (the JAX kernel's separate ``bm``
-    operand)."""
-    m = candidates.shape[0]
-    keep, vm = _keep(traj, candidates, cand_mask)
-    cand3 = torch.zeros((3, vm.shape[0]), dtype=traj.dtype, device=traj.device)
-    cand3[:, :m] = candidates.T
-    return keep.contiguous(), cand3, vm.to(torch.uint8)
+    """K4's operands besides ``traj``: ``order``, ``nkept`` and ``cand4`` of
+    :func:`keep_lists`, and ``ends`` (n_tiles,) int32, the inclusive prefix
+    sum of each query tile's runs of at most ``RUN_TILES`` kept tiles (K4's
+    work list: block b takes query tile i with ends[i-1] <= b < ends[i])."""
+    order, nkept, cand4 = keep_lists(traj, candidates, cand_mask)
+    ends = torch.cumsum(torch.div(nkept + RUN_TILES - 1, RUN_TILES, rounding_mode="floor"), 0,
+                        dtype=torch.int32)
+    return order, nkept, cand4, ends
 
 
 def _check_nn(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor) -> None:
@@ -200,7 +246,7 @@ def nn_resident(
     out = torch.empty((n,), dtype=traj.dtype, device=traj.device)
     if n == 0:
         return out
-    order, nkept, cand4 = nn_tiles(traj, candidates, cand_mask)
+    order, nkept, cand4 = keep_lists(traj, candidates, cand_mask)
     lib = _build.library()
     rc = lib.gps_nn_min_dist2(
         _build.dtype_code(traj), traj.data_ptr(), n, cand4.data_ptr(),
@@ -215,30 +261,41 @@ def nn_resident(
 def nn_grid(
     traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor
 ) -> torch.Tensor:
-    """K4 (``csrc/nn_grid.cu``): one block per kept (query tile, candidate
-    tile) pair, minima folded with atomics, at any M. Equals K3 bit for bit
-    on the same inputs. CPU tensors take :func:`nn_min_dist2_plain`."""
+    """K4 (``csrc/nn_grid.cu``): one block per run of kept candidate tiles
+    of a query tile, minima folded with atomics, at any M. Equals K3 bit
+    for bit on the same inputs. CPU tensors take :func:`nn_min_dist2_plain`."""
     if traj.device.type == "cpu":
         return nn_min_dist2_plain(traj, candidates, cand_mask)
     _check_nn(traj, candidates, cand_mask)
+    if traj.shape[0] == 0:
+        return torch.empty((0,), dtype=traj.dtype, device=traj.device)
+    operands = nn_grid_operands(traj, candidates, cand_mask)
+    return grid_launch(traj, operands, int(operands[3][-1]))
+
+
+def grid_launch(traj: torch.Tensor, operands, n_items: int) -> torch.Tensor:
+    """K4's launch alone on :func:`nn_grid_operands`' ``operands``, over
+    ``n_items`` blocks (``ends[-1]``, read by the caller: the grid's size is
+    the one value the host needs from the keep lists)."""
+    order, nkept, cand4, ends = operands
     n = traj.shape[0]
     out = torch.full((n,), float("inf"), dtype=traj.dtype, device=traj.device)
-    if n == 0:
-        return out
-    keep, cand3, valid = nn_grid_operands(traj, candidates, cand_mask)
-    if keep.shape[1] > 65535:
-        raise ValueError(f"nn_grid takes at most 65535 candidate tiles, got {keep.shape[1]}")
     lib = _build.library()
+    if lib.gps_nn_grid_run() != RUN_TILES:
+        raise RuntimeError("csrc/nn_grid.cu cuts the keep lists by another run length")
+    if n_items == 0:
+        return out
     rc = lib.gps_nn_grid(
-        _build.dtype_code(traj), traj.data_ptr(), n, cand3.data_ptr(), valid.data_ptr(),
-        cand3.shape[1], keep.data_ptr(), keep.shape[0], keep.shape[1], out.data_ptr(),
-        _build.stream(),
+        _build.dtype_code(traj), traj.data_ptr(), n, cand4.data_ptr(), order.data_ptr(),
+        nkept.data_ptr(), ends.data_ptr(), order.shape[0], order.shape[1], n_items,
+        out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "nn_min_dist2 (grid)")
     nn_grid.launches += 1
     return out
 
 
+keep_lists.launches = 0
 nn_resident.launches = 0
 nn_grid.launches = 0
 

@@ -6,9 +6,10 @@ leaves of n elements, the layout the JAX package scans. It ports the two
 Pallas scans of ``gps_optimize_slam_tpu/ops/pallas_scan.py`` and their
 routing (``make_scan_fn``, :func:`scan_route`):
 
-* on a CUDA tensor it launches :func:`scan_block` (K1, ``csrc/scan.cu``: one
-  thread block, reduce-then-scan; ports ``associative_scan_vmem``) while the
-  JAX package's VMEM budget holds, and :func:`scan_tiled` (K2,
+* on a CUDA tensor it launches :func:`scan_block` (K1, ``csrc/scan.cu``: a
+  single pass over many blocks with decoupled look-back; ports
+  ``associative_scan_vmem``) while the JAX package's VMEM budget holds, and
+  :func:`scan_tiled` (K2,
   ``csrc/scan_tiled.cu``: reduce-then-scan over many blocks with a carried
   composite; ports ``associative_scan_tiled``) beyond it, or raises;
 * on a CPU tensor it runs :func:`scan_plain`, the same function as a
@@ -231,21 +232,29 @@ def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.T
     return scan_tiled(op, x, reverse)
 
 
+def block_tile(op: str) -> int:
+    """Elements per tile (one thread block) of K1 for ``op``: kScanThreads
+    times the combine's items per thread (``csrc/scan_lookback.cuh``).
+    Builds the kernels on first use."""
+    return _build.library().gps_scan_tile(OPS[op][0])
+
+
 def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """K1: the scan in one thread block (``csrc/scan.cu``), at any n. CPU
+    """K1: the single-pass look-back scan (``csrc/scan.cu``), at any n. CPU
     tensors take :func:`scan_plain`."""
     _check(op, x)
     if x.device.type == "cpu":
         return scan_plain(op, x, reverse)
     _build.require_cuda(x)
     out = torch.empty_like(x)
-    if x.shape[1] == 0:
+    n = x.shape[1]
+    if n == 0:
         return out
     lib = _build.library()
-    rc = lib.gps_scan(
-        OPS[op][0], _build.dtype_code(x), x.data_ptr(), out.data_ptr(),
-        x.shape[1], int(reverse), _build.stream(),
-    )
+    code, dt = OPS[op][0], _build.dtype_code(x)
+    scratch = torch.empty((lib.gps_scan_scratch_bytes(code, dt, n),), dtype=torch.uint8, device=x.device)
+    rc = lib.gps_scan(code, dt, x.data_ptr(), out.data_ptr(), n, int(reverse), scratch.data_ptr(),
+                      _build.stream())
     _build.check(rc, f"scan {op}")
     scan_block.launches[op] += 1
     return out
@@ -260,16 +269,15 @@ def scan_tiled(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         return scan_plain(op, x, reverse)
     _build.require_cuda(x)
     out = torch.empty_like(x)
-    L, n = x.shape
+    n = x.shape[1]
     if n == 0:
         return out
     lib = _build.library()
-    n_blocks = -(-n // lib.gps_scan_tiled_tile())
-    scratch = torch.empty((2 * L * n_blocks,), dtype=x.dtype, device=x.device)
-    rc = lib.gps_scan_tiled(
-        OPS[op][0], _build.dtype_code(x), x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        scratch.numel(), n, int(reverse), _build.stream(),
-    )
+    code, dt = OPS[op][0], _build.dtype_code(x)
+    scratch = torch.empty((lib.gps_scan_tiled_scratch_bytes(code, dt, n),), dtype=torch.uint8,
+                          device=x.device)
+    rc = lib.gps_scan_tiled(code, dt, x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                            scratch.numel(), n, int(reverse), _build.stream())
     _build.check(rc, f"tiled scan {op}")
     scan_tiled.launches[op] += 1
     return out

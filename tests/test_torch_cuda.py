@@ -54,6 +54,37 @@ def test_scan_kernel_matches_plain(cuda, op, dtype):
     assert scan.scan_block.launches[op] == before + 6
 
 
+def last_block_length(op, dtype):
+    """The last n the routing gives K1 for ``op`` in ``dtype``."""
+    L = len(scan.OPS[op][2])
+    size = torch.tensor([], dtype=dtype).element_size()
+    last = scan.BLOCK_BUDGET_BYTES // (2 * L * size) // 128 * 128
+    assert scan.scan_route(L, last, size) == "block" and scan.scan_route(L, last + 1, size) == "tiled"
+    return last
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", list(scan.OPS))
+def test_lookback_scan_matches_plain_across_tiles(cuda, op, dtype):
+    """K1's single-pass look-back at one tile, two tiles, a ragged tail of
+    several tiles and the last length the routing gives it (up to 128
+    tiles: several look-back windows of 32), both directions; the long
+    case is repeated, since which predecessors have published their prefix
+    changes from run to run."""
+    gen = torch.Generator().manual_seed(4)
+    tile = scan.block_tile(op)
+    last = last_block_length(op, dtype)
+    for n in (tile, tile + 1, 2 * tile, 7 * tile + 3, last):
+        x = chip_smoke.scan_inputs(op, n, gen, dtype, cuda)
+        for reverse in (False, True):
+            want = scan.scan_plain(op, x, reverse)
+            for _ in range(3 if n == last else 1):
+                got = scan.scan_block(op, x, reverse)
+                torch.cuda.synchronize()
+                err = chip_smoke.rel_err(got, want)
+                assert err <= TOL[dtype], f"{op} n={n} reverse={reverse}: rel err {err:.3e}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("op", list(scan.OPS))
 def test_tiled_scan_kernel_matches_plain_and_block_scan(cuda, op, dtype):
@@ -115,12 +146,53 @@ def test_counts_kernel_matches_plain_and_keeps_the_winner(cuda, dtype):
     )
 
 
+def same_bits(t):
+    """``t``'s bits as integers, so that NaNs compare equal."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def plain_keep_lists(traj, cands, mask):
+    return kernels.keep_lists_plain(kernels.tile_keep_mask(*kernels.bounds_operands(traj, cands, mask)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_keep_list_kernel_equals_plain_lists(cuda, dtype):
+    """The keep-list kernel's lists equal the plain mask's compaction
+    exactly (the same float64 bounds in the same order), and its packed
+    candidates equal the plain packing bit for bit. Cases: seq-02's
+    length, ragged shapes, UTM magnitudes, shuffled candidates (every tile
+    kept), non-finite coordinates, and each with every candidate masked
+    (no finite upper bound, so every tile is kept, as in the JAX mask)."""
+    gen = torch.Generator().manual_seed(5)
+    cases = [(4661, 4661, 0.0, False), (300, 777, 0.0, False), (5, 1, 0.0, False),
+             (2000, 9000, 5.4e6, False), (700, 9000, 0.0, True), (1000, 3000, 0.0, False)]
+    for k, (n, m, offset, shuffle) in enumerate(cases):
+        traj, cands = walk(gen, n, dtype, cuda, offset), walk(gen, m, dtype, cuda, offset + 0.3)
+        if shuffle:
+            cands = cands[torch.randperm(m, generator=gen).to(cuda)].contiguous()
+        mask = (torch.rand(m, generator=gen) > 0.1).to(cuda)
+        if k == len(cases) - 1:
+            traj[7, 1] = float("nan")
+            traj[200, 0] = float("inf")
+            cands[11, 2] = float("-inf")
+            cands[2999, 0] = float("nan")
+        for mk in (mask, torch.zeros_like(mask)):
+            before = kernels.keep_lists.launches
+            order, nkept, cand4 = kernels.keep_lists(traj, cands, mk)
+            assert kernels.keep_lists.launches == before + 1
+            want_order, want_nkept = plain_keep_lists(traj, cands, mk)
+            assert torch.equal(nkept, want_nkept), (n, m)
+            for i in range(order.shape[0]):
+                assert torch.equal(order[i, : nkept[i]], want_order[i, : nkept[i]]), (n, m, i)
+            assert torch.equal(same_bits(cand4), same_bits(kernels.pack_candidates_plain(cands, mk, order.shape[1])))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_grid_nn_kernel_equals_resident_kernel_and_plain(cuda, dtype):
     gen = torch.Generator().manual_seed(3)
     m = 300_000  # m_pad 300,032 > 262,144: K4 by the routing rule
     assert kernels.nn_route(m) == "grid"
-    traj, cands = walk(gen, 4000, dtype, cuda), walk(gen, m, dtype, cuda, offset=0.3)
+    traj, cands = walk(gen, 16_384, dtype, cuda), walk(gen, m, dtype, cuda, offset=0.3)
     mask = (torch.rand(m, generator=gen) > 0.1).to(cuda)
     before = kernels.nn_grid.launches
     got = kernels.nn_min_dist2(traj, cands, mask)
@@ -131,6 +203,11 @@ def test_grid_nn_kernel_equals_resident_kernel_and_plain(cuda, dtype):
     want = kernels.nn_min_dist2_plain(traj, cands, mask)
     torch.testing.assert_close(got, want, rtol=1e-5 if dtype == torch.float32 else 1e-12, atol=0.0)
     assert torch.isinf(kernels.nn_grid(traj, cands, torch.zeros_like(mask))).all()
+    # Shuffled candidates: every tile kept, each query tile's list spread
+    # over many K4 blocks.
+    t, c = walk(gen, 700, dtype, cuda), walk(gen, m, dtype, cuda, offset=0.3)
+    c = c[torch.randperm(m, generator=gen).to(cuda)].contiguous()
+    assert torch.equal(kernels.nn_grid(t, c, mask), kernels.nn_resident(t, c, mask))
     for n, m in ((5, 1), (300, 777)):
         t, c = walk(gen, n, dtype, cuda), walk(gen, m, dtype, cuda, offset=0.3)
         mk = (torch.rand(m, generator=gen) > 0.1).to(cuda)

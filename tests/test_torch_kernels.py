@@ -64,7 +64,7 @@ def test_plain_nn_all_masked_and_nan_rows():
 
 def emulate_kernel(traj, cands, mask):
     """What csrc/nn.cu computes from the wrapper's operands, in NumPy."""
-    order, nkept, cand4 = (x.numpy() for x in kernels.nn_tiles(traj, cands, mask))
+    order, nkept, cand4 = (x.numpy() for x in kernels.keep_lists(traj, cands, mask))
     a = traj.numpy()
     out = np.full(len(a), np.inf)
     for i in range(order.shape[0]):
@@ -92,10 +92,14 @@ def test_kernel_operands_give_the_exact_minimum(n, m, scale):
         assert nkept.sum() < nkept.size * m_tiles  # the pruning did skip tiles
 
 
-def test_keep_mask_never_drops_the_true_nn_tile():
+@pytest.mark.parametrize("offset", [0.0, 5.4e6])  # local frame and UTM magnitudes
+def test_keep_mask_never_drops_the_true_nn_tile(offset):
+    """The explicit-order float64 bounds ((x0² + x1²) + x2², the kernel's
+    order) keep the tile of every query's true nearest neighbour, in the
+    mask and in the compacted keep lists."""
     rng = np.random.default_rng(11)
     for scale in (0.2, 1.0, 20.0):
-        traj, cands = walk(rng, 1500, scale), walk(rng, 2200, scale, offset=1.0)
+        traj, cands = walk(rng, 1500, scale, offset), walk(rng, 2200, scale, offset + 1.0)
         mask = rng.uniform(size=2200) > 0.3
         d2 = ((traj[:, None] - cands[None]) ** 2).sum(-1)
         nn = np.where(mask[None], d2, np.inf).argmin(1)
@@ -109,6 +113,26 @@ def test_keep_mask_never_drops_the_true_nn_tile():
         keep = kernels.tile_keep_mask(torch.tensor(tp), torch.tensor(cp), torch.tensor(vm)).numpy()
         q = np.arange(1500)
         assert keep[q // kernels.TILE_N, nn // kernels.TILE_M].all()
+        order, nkept, _ = (x.numpy() for x in kernels.keep_lists(
+            torch.tensor(traj), torch.tensor(cands), torch.tensor(mask)))
+        for i in range(order.shape[0]):
+            assert set(nn[i * kernels.TILE_N : (i + 1) * kernels.TILE_N] // kernels.TILE_M) <= set(
+                order[i, : nkept[i]])
+
+
+def test_keep_lists_plain_compacts_the_mask_in_ascending_order():
+    rng = np.random.default_rng(17)
+    keep = torch.tensor(rng.uniform(size=(9, 13)) > 0.6)
+    keep[2] = False  # a row with nothing kept
+    keep[5] = True  # a row with everything kept
+    order, nkept = kernels.keep_lists_plain(keep)
+    assert order.dtype == torch.int32 and nkept.dtype == torch.int32
+    assert torch.equal(order, torch.sort(1 - keep.to(torch.int32), dim=1, stable=True).indices.to(torch.int32))
+    assert torch.equal(nkept, keep.sum(1).to(torch.int32))
+    for i in range(keep.shape[0]):
+        kept = order[i, : nkept[i]]
+        assert torch.equal(kept, torch.nonzero(keep[i]).flatten().to(torch.int32))  # ascending
+        assert bool((kept[1:] > kept[:-1]).all())
 
 
 def sim3_trials(rng, n, T):
@@ -178,33 +202,46 @@ def test_plain_nn_matches_jax_pipelined_kernel(n, m):
 
 
 def emulate_grid_kernel(traj, cands, mask):
-    """What csrc/nn_grid.cu computes from the wrapper's operands, in NumPy."""
-    keep, cand3, valid = (x.numpy() for x in kernels.nn_grid_operands(traj, cands, mask))
+    """What csrc/nn_grid.cu computes from the wrapper's operands, in NumPy:
+    block b of the work list takes query tile i (ends[i-1] <= b < ends[i])
+    and its run of at most RUN_TILES kept tiles, and folds its minima."""
+    order, nkept, cand4, ends = (x.numpy() for x in kernels.nn_grid_operands(traj, cands, mask))
     a = traj.numpy()
     out = np.full(len(a), np.inf)
-    for i, j in zip(*np.nonzero(keep)):
-        q = a[i * kernels.TILE_N : (i + 1) * kernels.TILE_N]
-        c = slice(j * kernels.TILE_M, (j + 1) * kernels.TILE_M)
-        d = (q[:, 0, None] - cand3[0, c]) ** 2 + (q[:, 1, None] - cand3[1, c]) ** 2 + (
-            q[:, 2, None] - cand3[2, c]) ** 2
-        d = np.where(valid[c][None] != 0, d, np.inf)
-        rows = slice(i * kernels.TILE_N, i * kernels.TILE_N + len(q))
-        out[rows] = np.minimum(out[rows], d.min(1))
-    return out, keep
+    for b in range(int(ends[-1])):
+        i = int(np.searchsorted(ends, b, side="right"))
+        k0 = (b - (ends[i - 1] if i else 0)) * kernels.RUN_TILES
+        rows = slice(i * kernels.TILE_N, min(len(a), (i + 1) * kernels.TILE_N))
+        q = a[rows]
+        for k in range(k0, min(nkept[i], k0 + kernels.RUN_TILES)):
+            blk = cand4[order[i, k]]  # (4, TILE_M), validity folded in row 3
+            d = ((q[:, 0, None] - blk[0]) ** 2 + (q[:, 1, None] - blk[1]) ** 2
+                 + (q[:, 2, None] - blk[2]) ** 2 + (0.0 - blk[3]) ** 2)
+            out[rows] = np.minimum(out[rows], d.min(1))
+    return out, nkept, ends
 
 
-@pytest.mark.parametrize("n,m,scale", [(2000, 3000, 1.0), (130, 1025, 0.3)])
-def test_grid_kernel_operands_give_the_exact_minimum(n, m, scale):
+@pytest.mark.parametrize("n,m,scale,shuffle", [(2000, 3000, 1.0, False), (130, 1025, 0.3, False),
+                                               (700, 9000, 3.0, True)])
+def test_grid_kernel_operands_give_the_exact_minimum(n, m, scale, shuffle):
+    """Shuffled candidates spread every tile over the whole track, so every
+    tile is kept and each query tile's list spans several K4 blocks."""
     rng = np.random.default_rng(m + 1)
     traj = torch.tensor(walk(rng, n, scale))
-    cands = torch.tensor(walk(rng, m, scale, offset=2.0))
+    cands = walk(rng, m, scale, offset=2.0)
+    cands = torch.tensor(cands[rng.permutation(m)] if shuffle else cands)
     mask = torch.tensor(rng.uniform(size=m) > 0.1)
-    got, keep = emulate_grid_kernel(traj, cands, mask)
+    got, nkept, ends = emulate_grid_kernel(traj, cands, mask)
     want = kernels.nn_min_dist2_plain(traj, cands, mask).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, emulate_kernel(traj, cands, mask)[0])  # K3's walk
-    if n >= 700:
-        assert keep.sum() < keep.size
+    runs = -(-nkept // kernels.RUN_TILES)
+    np.testing.assert_array_equal(ends, np.cumsum(runs))
+    if shuffle:
+        assert (runs > 1).all()  # a query tile's list spans several blocks
+    elif n >= 700:
+        m_tiles = -(-m // kernels.TILE_M)
+        assert nkept.sum() < nkept.size * m_tiles  # the grid covers kept work only
 
 
 def test_blocked_keep_mask_equals_the_unblocked_one(monkeypatch):

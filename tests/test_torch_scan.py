@@ -155,14 +155,14 @@ def _projective(x):
     return x / np.max(np.abs(x), axis=0, keepdims=True)
 
 
-def _assert_close(op, got, want):
+def _assert_close(op, got, want, rtol=RTOL):
     if op == "mobius":
         got, want = _projective(got), _projective(want)
     scale = np.where(np.isfinite(want), np.abs(want), 0.0).max(1, keepdims=True) + 1e-300
     same = (got == want) | (np.isnan(got) & np.isnan(want))
     with np.errstate(invalid="ignore"):
         err = np.where(same, 0.0, np.abs(got - want)) / scale
-    assert err.max() <= RTOL, f"{op}: rel err {err.max():.3e}"
+    assert err.max() <= rtol, f"{op}: rel err {err.max():.3e}"
 
 
 CASES = [(op, kind) for op in ("quat_chain", "mobius", "affine3", "add2", "max3", "min3")
@@ -260,3 +260,153 @@ def test_plain_scan_matches_jax_beyond_one_tile(op, reverse):
         sl = slice(n - m, n) if reverse else slice(0, m)
         got = scan.associative_scan(op, torch.tensor(x[:, sl]), reverse=reverse).numpy()
         _assert_close(op, got, want[:, sl])
+
+
+# --- K1's cross-tile structure (csrc/scan_lookback.cuh), emulated ----------
+#
+# The kernel cannot run here, so its association order is emulated with the
+# port's own combines (the same arithmetic as csrc/scan_ops.cuh), at small
+# warps and tiles: per tile, each thread folds its items into running
+# prefixes, each warp scans its thread totals (shift-up steps, the earlier
+# composite first) and puts each lane's exclusive prefix in front of its
+# running prefixes (with one item a thread, the lane's inclusive prefix is
+# taken as it is), the warp totals are scanned, the tile looks back over its
+# predecessors a window at a time (aggregates until an inclusive prefix; the
+# window folded in a shuffle-down tree, the farther half first; the window
+# goes on the left of what was walked), and the warp's exclusive composite
+# (tile carry, warp prefix) goes in front of every element, the very first
+# element of the scan meeting the identity. Which predecessors have published their
+# inclusive prefix is a schedule: at random, or only tile 0 (the longest
+# walk). An argument-order slip in any step shows as a gross mismatch in
+# these non-commutative combines.
+
+
+def _comb(op, a, b):
+    return torch.stack(scan.OPS[op][1](list(a), list(b)))
+
+
+def _ident(op, *shape):
+    ident = torch.tensor(scan.OPS[op][2], dtype=torch.float64)
+    return ident.reshape(-1, *([1] * len(shape))).expand(-1, *shape).clone()
+
+
+def _shift(v, d, fill):
+    """v shifted d lanes up along the last axis (lane k reads lane k - d)."""
+    return torch.cat([fill[..., :d], v[..., :-d]], -1)
+
+
+def _lane_scan(op, v, width):
+    """Inclusive shift-up scan over the last axis (width lanes)."""
+    lane = torch.arange(width)
+    d = 1
+    while d < width:
+        new = _comb(op, _shift(v, d, _ident(op, *v.shape[1:])), v)
+        v = torch.where(lane >= d, new, v)
+        d *= 2
+    return v
+
+
+def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, seed=0):
+    rng = np.random.default_rng(seed)
+    xs = x.flip(1) if reverse else x  # scan order
+    L, n = xs.shape
+    T = warp * warps
+    tile = T * items
+    n_tiles = -(-n // tile)
+    padded = torch.cat([xs, _ident(op, n_tiles * tile - n)], 1)
+    out = torch.empty_like(padded)
+    agg, incl = {}, {}
+    for t in range(n_tiles):
+        v = padded[:, t * tile : (t + 1) * tile].reshape(L, T, items)
+        loc = [v[:, :, 0]]  # running prefixes of each thread's items
+        for i in range(1, items):
+            loc.append(_comb(op, loc[-1], v[:, :, i]))
+        acc = _lane_scan(op, loc[-1].reshape(L, warps, warp), warp)  # (L, warps, warp)
+        lane = torch.arange(warp)[None, :].expand(warps, warp)
+        if items == 1:
+            wl = [acc.reshape(L, T)]
+        else:
+            lane_excl = _shift(acc, 1, _ident(op, warps, warp)).reshape(L, T)
+            wl = [torch.where(lane.reshape(T) > 0, _comb(op, lane_excl, p), p) for p in loc]
+        wscan = _lane_scan(op, acc[:, :, -1], warps)  # inclusive warp prefixes
+        tot = wscan[:, -1]
+        if t == 0:
+            incl[0] = tot
+        else:
+            agg[t] = tot
+            has_prefix = {j: j == 0 or (schedule == "random" and rng.uniform() < 0.3) for j in range(t)}
+            run, base = None, t - 1
+            while True:
+                preds = [base - k for k in range(window)]
+                prefix = [p >= 0 and has_prefix[p] for p in preds]
+                last = prefix.index(True) if any(prefix) else window - 1
+                vals = torch.stack([
+                    (incl[p] if prefix[k] else agg[p]) if (k <= last and p >= 0) else _ident(op)
+                    for k, p in enumerate(preds)], 1)  # (L, window), lane 0 the nearest
+                d = 1
+                while d <= last:
+                    moved = torch.cat([vals[:, d:], _ident(op, d)], 1)  # lane k reads lane k + d
+                    new = _comb(op, moved, vals)
+                    vals = torch.where(torch.arange(window) + d < window, new, vals)
+                    d *= 2
+                run = vals[:, 0] if run is None else _comb(op, vals[:, 0], run)
+                if any(prefix):
+                    break
+                base -= window
+            carry = run
+            incl[t] = _comb(op, run, tot)
+        wid = torch.arange(warps)[:, None].expand(warps, warp).reshape(T)
+        warp_pre = torch.cat([_ident(op, 1), wscan[:, :-1]], 1)[:, :, None].expand(L, warps, warp).reshape(L, T)
+        if t > 0:
+            pre = carry[:, None].expand(L, T)
+            pre = torch.where(wid > 0, _comb(op, pre, warp_pre), pre)
+        else:
+            pre = warp_pre
+        res = torch.empty(L, T, items, dtype=torch.float64)
+        for i in range(items):
+            res[:, :, i] = torch.where((wid > 0) | (t > 0), _comb(op, pre, wl[i]), wl[i])
+        if t == 0:
+            res[:, 0, 0] = _comb(op, _ident(op, 1), wl[0][:, :1])[:, 0]
+        out[:, t * tile : (t + 1) * tile] = res.reshape(L, tile)
+    out = out[:, :n]
+    return out.flip(1) if reverse else out
+
+
+# (warp, warps, items, window) per combine: small tiles, so that 7 tiles
+# stay short where the JAX references compile slowly (lax.associative_scan
+# of the 27-leaf filter: ~27 s at 31 elements on an 8-core Xeon host).
+EMULATED = {"mobius": (4, 2, 2, 4), "rts": (4, 2, 2, 4), "filter": (2, 2, 1, 2)}
+
+
+@functools.lru_cache(maxsize=None)
+def lookback_reference(op, reverse):
+    """The input at 7 tiles plus a ragged tail of 3, and the JAX scan of it:
+    lax.associative_scan, but associative_scan_fori for the reverse filter
+    (the main path scans the filter forward only, and lax's reverse filter
+    would compile for another ~27 s)."""
+    warp, warps, items, _ = EMULATED[op]
+    n = 7 * warp * warps * items + 3
+    combine, tree_of, ident = JAX_COMBINES[op]
+    x = scan_input(op, n, seed=5)
+    tree = tree_of([jnp.asarray(v) for v in x])
+    if op == "filter" and reverse:
+        out = jax.jit(lambda e: associative_scan_fori(combine, e, ident, reverse=True))(tree)
+    else:
+        out = jax.jit(lambda e: jax.lax.associative_scan(combine, e, reverse=reverse))(tree)
+    return x, _leaves_back(op, out)
+
+
+@pytest.mark.parametrize("schedule", ["random", "aggregates"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", list(EMULATED))
+def test_lookback_structure_matches_plain_and_jax(op, reverse, schedule):
+    warp, warps, items, window = EMULATED[op]
+    tile = warp * warps * items
+    x, want = lookback_reference(op, reverse)
+    n_max = x.shape[1]
+    for n in (tile, 2 * tile, n_max):  # 1, 2 and 7 tiles plus a ragged tail
+        sl = slice(n_max - n, n_max) if reverse else slice(0, n)
+        xt = torch.tensor(x[:, sl])
+        got = emulate_lookback_scan(op, xt, reverse, schedule, warp, warps, items, window).numpy()
+        _assert_close(op, got, scan.scan_plain(op, xt, reverse).numpy(), rtol=1e-12)
+        _assert_close(op, got, want[:, sl], rtol=1e-12)
