@@ -27,16 +27,19 @@ Phases:
      published peak, whichever is larger) and, where one PyTorch call
      computes the same function, that call's time: K1, 8 combines at N = 271
      and 4661; K2, 8 combines at N = 262,145 (a default chunk plus its
-     carry), 262,145 + 777 and 524,289 (phase 5's chunk plus its carry: 257
-     block totals), also held against K1; the keep-list kernel's lists
-     against the plain mask's compaction at 4661 x 4661 and 524,288 x
-     524,288; K3, 4661 x 4661, an all-masked and a ragged case; K4, 16,384 x
+     carry), 262,145 + 777, 524,289 (phase 5's chunk plus its carry), 20,001
+     (fewer tiles than persistent blocks) and 1,048,577 (many more), also
+     held against K1; the keep-list kernel's lists against the plain mask's
+     compaction at 4661 x 4661 (also part-masked, at UTM magnitudes and with
+     one candidate tile) and 524,288 x 524,288; K3, 4661 x 4661, an
+     all-masked and a ragged case; K4, 16,384 x
      300,000 (m_pad > 262,144, so K4 by the real rule) and 524,288 x 524,288
      (phase 5's NN blocks; the plain version on every 64th query; the
      kernel alone and with its wrapper), bit for bit against K3, and
      all-masked; K5, 1000 trials x 4661 points; float32 and float64; and
-     the routes: K1 against K2 (and against the plain version) at 271,
-     1024, 2048, 4661 and the last length the routing gives K1, K3 against
+     the routes: K1 against K2 (and against the plain version) from 271 to
+     524,289 elements and at the last length the JAX package's budget gave
+     K1, K3 against
      K4 at 4661, 65,536 and 262,144 candidates (the last K3 takes), on the
      same inputs, the times that place the routing thresholds on this card;
   2. seq-04 golden arrays, float64 UTM, ``fuse_arrays`` on the card, held
@@ -89,10 +92,11 @@ TOL = {"float32": 1e-4, "float64": 1e-10}
 TILED_N = 262_145  # one default chunk (262,144 steps) plus its carried composite
 CHUNKED_N = 1_048_576  # phase 5's poses
 CHUNK = 524_288  # phase 5's chunk: its NN blocks take K4 (> 262,144 candidates)
-# K2's lengths in phase 1: a default chunk plus its carry, a ragged one, and
-# phase 5's chunk plus its carry (257 block totals, more than one block's
-# 256 threads in the totals scan).
-TILED_LENGTHS = (TILED_N, TILED_N + 777, CHUNK + 1)
+# K2's lengths in phase 1: a default chunk plus its carry, a ragged one,
+# phase 5's chunk plus its carry, one with fewer tiles than the card has
+# persistent blocks (79 tiles of the float64 filter) and one with many more
+# (4,097 of them).
+TILED_LENGTHS = (TILED_N, TILED_N + 777, CHUNK + 1, 20_001, 1_048_577)
 GRID_NN_SHAPE = (16_384, 300_000)  # K4's check: m_pad 300,032 > 262,144
 GRID_NN_MAIN = (CHUNK, CHUNK)  # phase 5's NN block: queries x candidates
 PLAIN_STRIDE = 64  # phase 1 holds K4 at GRID_NN_MAIN against plain on every 64th query
@@ -107,11 +111,13 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 COMBINE_FLOPS = {"quat_chain": 41, "filter": 489, "rts": 63, "mobius": 25, "affine3": 7,
                  "add2": 2, "max3": 3, "min3": 3}
 NN_PAIR_FLOPS = 8  # 3 differences, 3 squares, 2 sums per (query, candidate)
-# Float64 operations of the keep-list kernel per (query segment, candidate
-# segment) pair, counted from csrc/nn_keep.cu: the upper bound and its
-# running minimum (6 differences, 3 maxima, 3 squares, 2 sums, 1 minimum)
-# and the lower bound and its test (6 differences, 6 maxima, 3 squares, 2
-# sums, 1 comparison).
+# Float64 operations per (query segment, candidate segment) pair of the
+# keep lists' bounds when every pair is taken (the plain version, and the
+# kernel's first design): the upper bound and its running minimum (6
+# differences, 3 maxima, 3 squares, 2 sums, 1 minimum) and the lower bound
+# and its test (6 differences, 6 maxima, 3 squares, 2 sums, 1 comparison).
+# Printed beside the kernel's bound; the kernel's exact tile-level test
+# makes the pairs it takes a property of its design, so its bound is bytes.
 KEEP_PAIR_FLOPS = 33
 COUNT_FLOPS = 30  # s*R*p + t - d, squared and summed, compared, per (trial, point)
 
@@ -146,12 +152,16 @@ def device_profile(fn, reps: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: e.device_time_total / reps / 1e3 for e in prof.key_averages()
-            if e.device_time_total > 0}
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key[:60]: e.device_time_total / reps / 1e3 for e in prof.key_averages()
+                 if e.device_time_total > 0}
+        if times:
+            break
+    return times
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -228,17 +238,43 @@ def nn_bound(traj, cand, mask):
     return bound(moved, NN_PAIR_FLOPS * pairs, dtype_name(traj.dtype))
 
 
-def keep_bound(traj, cand, mask, nkept):
-    """The coordinates and the mask read once, the kept entries of the lists
-    and their counts written once; both passes over every (query segment,
-    candidate segment) pair in float64."""
+def keep_bound(traj, cand, mask, nkept, cand4):
+    """The coordinates and the mask read once; the packed candidates, the
+    kept entries of the lists and their counts written once."""
+    moved = (traj.numel() + cand.numel() + cand4.numel()) * traj.element_size() + mask.numel() + 4 * (
+        int(nkept.sum()) + nkept.numel())
+    return bound(moved, 0.0, "float64")
+
+
+def keep_all_pairs_ms(traj, cand) -> float:
+    """The time of both bounds over every segment pair at the float64 peak:
+    the operations bound of the kernel's first design."""
     from gps_optimize_slam_tpu_torch.ops import kernels
 
     n_sub = -(-traj.shape[0] // kernels.TILE_N) * kernels.TILE_N // kernels.SUB
     m_sub = -(-cand.shape[0] // kernels.TILE_M) * kernels.TILE_M // kernels.SUB
-    moved = (traj.numel() + cand.numel()) * traj.element_size() + mask.numel() + 4 * (
-        int(nkept.sum()) + nkept.numel())
-    return bound(moved, KEEP_PAIR_FLOPS * n_sub * m_sub, "float64")
+    return 1e3 * KEEP_PAIR_FLOPS * n_sub * m_sub / PEAK_FLOPS["float64"]
+
+
+def build_registers(log: str) -> dict:
+    """{kernel: [registers, bytes of spill stores]} from nvcc's ``-Xptxas -v``
+    output, for the keep-list kernels and the 12- and 27-leaf scans (the
+    kernels whose registers decide how many blocks share an SM); empty
+    when an up-to-date library was found and nothing was compiled."""
+    import re
+
+    wanted = re.compile(r"(keep_lists_kernelILi\d+|segment_boxes_kernelI[fd]"
+                        r"|(?:tiled|lookback)_scan_kernelINS_\d+(?:Filter|RtsSuffix)I[fd])")
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = wanted.search(line)
+            name = m.group(1) if m else None
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            out[name] = [None, int(m.group(1))]
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out.setdefault(name, [None, 0])[0] = int(m.group(1))
+    return out
 
 
 def launch_counts() -> dict:
@@ -397,11 +433,11 @@ def phase1_block_scan(device, gen):
 
 
 def phase1_tiled_scan(device, gen):
-    """K2: all eight combines beyond the single-block budget, at a default
-    chunk plus its carry, at a ragged length and at phase 5's chunk plus
-    its carry, against the plain version and against K1 on the same input;
-    times at 262,145 in float32 and float64 beside K1's (the single-block
-    yardstick of the routing)."""
+    """K2: all eight combines at ``TILED_LENGTHS`` (a default chunk plus
+    its carry, a ragged length, phase 5's chunk plus its carry, fewer tiles
+    than persistent blocks, many more), against the plain version and
+    against K1 on the same input; times at 262,145 in float32 and float64
+    beside K1's and the library call's."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import scan
@@ -413,7 +449,7 @@ def phase1_tiled_scan(device, gen):
             name = dtype_name(dtype)
             for n in TILED_LENGTHS:
                 x = scan_inputs(op, n, gen, dtype, device)
-                if scan.scan_route(x.shape[0], n, x.element_size()) != "tiled":
+                if n >= TILED_N and scan.scan_route(x.shape[0], n, x.element_size()) != "tiled":
                     raise AssertionError(f"scan {op} {name} n={n} routes to K1")
                 for rev in directions(op):
                     got = scan.scan_tiled(op, x, rev)
@@ -436,7 +472,10 @@ def phase1_tiled_scan(device, gen):
                 "library_ms": scan_library_ms(op, x, rev),
                 "bound": scan_bound(op, x), "max_abs_err": aerr,
             }
-        emit({"phase": 1, "kernel": f"scan_tiled/{op}", "rel_err": worst, "n": TILED_N, "times": times})
+        emit({"phase": 1, "kernel": f"scan_tiled/{op}", "rel_err": worst, "n": TILED_N,
+              "lengths": list(TILED_LENGTHS),
+              "tile": {dtype_name(d): scan.tiled_tile(op, d) for d in (torch.float32, torch.float64)},
+              "times": times})
         t = times["float64"]  # the chunked path runs in float64 (phase 5)
         entries.append(kernel_entry(f"scan_tiled/{op}", "scan_tiled.cu", "pallas_scan.py:361", "float64",
                                     t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"],
@@ -550,11 +589,15 @@ def phase1_nn(device, gen):
 
 def phase1_keep(device, gen):
     """The keep-list kernel: its lists equal the plain mask's compaction
-    (the same float64 bounds in the same order) and its packed candidates
-    the plain packing, at seq-02's length and at phase 5's NN block, float32
-    and float64 coordinates, also with every candidate masked (every tile
-    kept, as in the JAX mask); times at 524,288 x 524,288 in float64
-    (phase 5's shape)."""
+    (the same float64 bounds in the same order; the kernel's tile-level
+    test is exact) and its packed candidates the plain packing, float32 and
+    float64 coordinates: at seq-02's length (37 query tiles, one a block),
+    with one candidate tile, at UTM magnitudes, with whole tiles and runs of
+    segments masked out, and at phase 5's NN block (4,096 query tiles, four
+    a block); each also with every candidate masked (every tile kept, as in
+    the JAX mask). Times at 524,288 x 524,288 in float64 (phase 5's shape):
+    the call, its device time by kernel, and the bytes bound beside the
+    operations bound of taking every segment pair."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import kernels
@@ -574,32 +617,49 @@ def phase1_keep(device, gen):
             raise AssertionError(f"keep lists {what}: the lists differ")
         if not torch.equal(cand4, want_cand4):
             raise AssertionError(f"keep lists {what}: the packed candidates differ")
-        return nkept, want_nkept, order.numel()
+        return nkept, want_nkept, order.numel(), cand4
 
+    # (queries, candidates, coordinate offset, part-masked)
+    cases = ((SEQ02_LEN, SEQ02_LEN, 0.0, False), (SEQ02_LEN, 777, 0.0, False),
+             (SEQ02_LEN, SEQ02_LEN, 5.4e6, False), (SEQ02_LEN, 9000, 0.0, True),
+             GRID_NN_MAIN + (0.0, False))
     checks = {}
-    for n, m in ((SEQ02_LEN, SEQ02_LEN), GRID_NN_MAIN):
+    for n, m, offset, part in cases:
         for dtype in (torch.float32, torch.float64):
-            traj, cand = walk(gen, n, dtype, device), walk(gen, m, dtype, device) + 0.3
+            traj = walk(gen, n, torch.float64, device) + offset
+            cand = walk(gen, m, torch.float64, device) + (offset + 0.3)
+            traj, cand = traj.to(dtype), cand.to(dtype)
             mask = (torch.rand(m, generator=gen) > 0.1).to(device)
-            what = f"{n}x{m}/{dtype_name(dtype)}"
-            nkept, want_nkept, pairs = check(traj, cand, mask, what)
+            if part:  # a whole tile, a run of segments, and a tile with one fix left
+                mask[:1024] = False
+                mask[3000:3100] = False
+                mask[8192:] = False
+                mask[8500] = True
+            what = f"{n}x{m}/{dtype_name(dtype)}" + ("/utm" if offset else "") + ("/part-masked" if part else "")
+            nkept, want_nkept, pairs, cand4 = check(traj, cand, mask, what)
             # Every candidate masked: no finite upper bound, every tile kept
             # (as in the JAX mask); K3 and K4 then give +inf.
             check(traj, cand, torch.zeros_like(mask), what + "/all-masked")
             checks[what] = {"kept_tile_pairs": int(nkept.sum()), "tile_pairs": pairs}
     ms = cuda_ms(lambda: kernels.keep_lists(traj, cand, mask))
     plain_ms = cuda_ms(lambda: plain(traj, cand, mask), reps=3)
-    dev = device_ms(lambda: kernels.keep_lists(traj, cand, mask), reps=5)
+    by_kernel = device_profile(lambda: kernels.keep_lists(traj, cand, mask), reps=5)
+    dev = sum(by_kernel.values())
     aerr = float((nkept - want_nkept).abs().max())
+    bound_ms_by = keep_bound(traj, cand, mask, nkept, cand4)
     emit({"phase": 1, "kernel": "nn_keep", "equal_to_plain": True, "checks": checks, "ms": ms,
-          "plain_ms": plain_ms, "device_ms": dev, "shape": list(GRID_NN_MAIN), "dtype": "float64"})
+          "plain_ms": plain_ms, "device_ms": dev, "device_ms_by_kernel": by_kernel,
+          "bound_ms": bound_ms_by[0], "all_segment_pairs_bound_ms": keep_all_pairs_ms(traj, cand),
+          "shape": list(GRID_NN_MAIN), "dtype": "float64"})
     entry = kernel_entry("nn_keep", "nn_keep.cu", "pallas_kernels.py:174", "float64", aerr, ms, plain_ms,
-                         keep_bound(traj, cand, mask, nkept), None, dev)
+                         bound_ms_by, None, dev)
+    del cand4
     torch.cuda.empty_cache()
     return [entry]
 
 
-ROUTE_LENGTHS = (271, 1024, 2048, SEQ02_LEN)  # K1 against K2, besides the last K1 length
+# K1 against K2, besides the last length within the JAX package's budget
+ROUTE_LENGTHS = (271, 1024, 2048, SEQ02_LEN, 16_385, 65_537, 131_073, TILED_N, CHUNK + 1)
 ROUTE_CANDIDATES = (SEQ02_LEN, 65_536, 262_144)  # K3 against K4, 16,384 queries
 
 
@@ -607,9 +667,10 @@ def phase1_routes(device, gen):
     """The times that place the routing thresholds on this card, each pair
     on the same inputs: K1 against K2 (both held against the plain version)
     for every combine in both dtypes at ``ROUTE_LENGTHS`` and at the last
-    length the routing gives K1, with the library call where there is one;
-    K3 against K4 at 16,384 queries and ``ROUTE_CANDIDATES`` candidates,
-    the last of which is the last K3 takes. Neither threshold moves here."""
+    length within the JAX package's 4 MiB budget, with the library call
+    where there is one (``scan.scan_route`` is set from these times); K3
+    against K4 at 16,384 queries and ``ROUTE_CANDIDATES`` candidates, the
+    last of which is the last K3 takes."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import kernels, scan
@@ -620,11 +681,9 @@ def phase1_routes(device, gen):
             name = dtype_name(dtype)
             x = scan_inputs(op, 8, gen, dtype, device)
             L, size = x.shape[0], x.element_size()
-            last = scan.BLOCK_BUDGET_BYTES // (2 * L * size) // 128 * 128
-            if scan.scan_route(L, last, size) != "block" or scan.scan_route(L, last + 1, size) != "tiled":
-                raise AssertionError(f"scan {op}: {last} is not the last K1 length")
+            last = 4 * 1024 * 1024 // (2 * L * size) // 128 * 128
             rev = REVERSE_OF.get(op, False)
-            for n in ROUTE_LENGTHS + (last,):
+            for n in sorted(ROUTE_LENGTHS + (last,)):
                 x = scan_inputs(op, n, gen, dtype, device)
                 want = scan.scan_plain(op, x, rev)
                 err = max(rel_err(scan.scan_block(op, x, rev), want), rel_err(scan.scan_tiled(op, x, rev), want))
@@ -633,7 +692,8 @@ def phase1_routes(device, gen):
                 scans[f"{op}/{name}/{n}"] = {
                     "k1_ms": cuda_ms(lambda: scan.scan_block(op, x, rev), reps=5),
                     "k2_ms": cuda_ms(lambda: scan.scan_tiled(op, x, rev), reps=5),
-                    "library_ms": scan_library_ms(op, x, rev), "rel_err": err}
+                    "library_ms": scan_library_ms(op, x, rev), "rel_err": err,
+                    "route": scan.scan_route(L, n, size)}
     emit({"phase": 1, "routes": "scan", "times": scans})
 
     n = GRID_NN_SHAPE[0]
@@ -1077,8 +1137,8 @@ def phase5(device):
         raise AssertionError(f"evaluation on the K4 route off the K3 route: {eval_rel:.3e}")
     if not err04 <= 1e-6 or back.shape != (271, 8) or not np.isfinite(back).all():
         raise AssertionError(f"seq-04 chunked off in-core ({err04:.3e} m) or malformed export")
-    # At 524,288-pose chunks every scan is past K1's budget and every NN
-    # block past K3's; seq-04's single short chunk takes K1 and K3.
+    # At 524,288-pose chunks every scan is past K1's longest and every NN
+    # block past K3's budget; seq-04's single short chunk takes K1 and K3.
     required = [f"scan_tiled/{op}" for op in scan.OPS] + ["nn_keep", "nn_grid", "ransac_counts"]
     missing = [k for k in required if launches[k] <= 0]
     if missing:
@@ -1109,7 +1169,8 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t0
     emit({"phase": 0, "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": build_s, "library": os.path.basename(_build.BUILD_INFO["path"])})
+          "kernel_build_s": build_s, "library": os.path.basename(_build.BUILD_INFO["path"]),
+          "registers_and_spills": build_registers(_build.BUILD_INFO["log"])})
     entries = phase1(device)
     phase2(device)
     phase3(device)

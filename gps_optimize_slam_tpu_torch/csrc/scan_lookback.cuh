@@ -1,10 +1,12 @@
 // K1's kernel: a single-pass inclusive scan (suffix scan under `reverse`)
 // with decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
 // Scan with Decoupled Look-back", NVIDIA NVR-2016-002), over L
-// structure-of-arrays leaves, any n, one launch. K1 (scan.cu) launches it on
-// the leaves; K2 (scan_tiled.cu) on its block totals.
+// structure-of-arrays leaves, any n, one launch, and the parts of it that K2
+// (scan_tiled.cu: persistent blocks that stage the next tile ahead) shares:
+// the scratch layout, the tile's steps 3 and 5 (tile_reduce, tile_finish),
+// the look-back (look_back) and the store (tile_store).
 //
-// One block of kScanThreads threads scans one tile of kScanThreads x ITEMS
+// In K1 (scan.cu) one block of kScanThreads threads scans one tile of kScanThreads x ITEMS
 // scan-order elements:
 //   1. a ticket (atomicAdd) names the tile, so every tile a block waits on
 //      belongs to a block that has already started (forward progress);
@@ -100,10 +102,11 @@ __device__ __forceinline__ void fold_after(T* run, const T* x, bool have) {
   }
 }
 
-// Scratch layout of one scan of n elements.
-template <class Op, typename T>
+// Scratch layout of one scan of n elements over tiles of kScanThreads x
+// ITEMS (K1's items by default; K2 picks its own).
+template <class Op, typename T, int ITEMS = scan_items(Op::L)>
 struct LookbackLayout {
-  static constexpr int kItems = scan_items(Op::L);
+  static constexpr int kItems = ITEMS;
   static constexpr int kTile = kScanThreads * kItems;
   static constexpr int kStride = padded(kTile);  // shared elements per leaf row
   static int tiles(int n) { return (n + kTile - 1) / kTile; }
@@ -182,28 +185,12 @@ __device__ __forceinline__ void look_back(int tile, const T* tot, int* flags, T*
   }
 }
 
-template <class Op, typename T>
-__global__ void __launch_bounds__(kScanThreads)
-lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int reverse,
-                     int* ticket, T* agg, T* incl) {
+// Step 2 as K1 takes it: the tile's leaves into `s` ([L][padded(TILE)]) with
+// plain loads, consecutive threads on consecutive elements.
+template <class Op, typename T, int ITEMS>
+__device__ __forceinline__ void tile_load(const T* __restrict__ in, int n, int reverse, int k0, T* s) {
   constexpr int L = Op::L;
-  using Layout = LookbackLayout<Op, T>;
-  constexpr int ITEMS = Layout::kItems;
-  constexpr int TILE = Layout::kTile;
-  constexpr int STRIDE = Layout::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);  // [L][STRIDE]
-  __shared__ T s_warp[kScanWarps][L];    // warp totals, then inclusive warp prefixes
-  __shared__ T s_carry[L];               // the tile's exclusive composite
-  __shared__ int s_tile;
-  int* flags = ticket + 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  if (tid == 0) s_tile = atomicAdd(ticket, 1);
-  __syncthreads();
-  const int tile = s_tile;
-  const int k0 = tile * TILE;
-
+  constexpr int STRIDE = padded(kScanThreads * ITEMS);
   T ident[L];
   Op::identity(ident);
 #pragma unroll
@@ -211,14 +198,21 @@ lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int r
     const T* row = in + (size_t)l * n;
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
-      const int e = i * kScanThreads + tid;
+      const int e = i * kScanThreads + (int)threadIdx.x;
       const int k = k0 + e;
       s[l * STRIDE + padded(e)] = k < n ? row[reverse ? n - 1 - k : k] : ident[l];
     }
   }
-  __syncthreads();
+}
 
-  // Step 3: this thread's running prefixes in place, its total in acc.
+// Step 3 on a staged tile: every element's inclusive prefix within its warp
+// in place in `s`, the inclusive warp prefixes in `s_warp` (the last is the
+// tile aggregate). Barriers inside; one ends the call.
+template <class Op, typename T, int ITEMS>
+__device__ __forceinline__ void tile_reduce(T* s, T (*s_warp)[Op::L]) {
+  constexpr int L = Op::L;
+  constexpr int STRIDE = padded(kScanThreads * ITEMS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   T acc[L], x[L], y[L];
   const int e0 = tid * ITEMS;
 #pragma unroll
@@ -275,14 +269,18 @@ lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int r
     if (lane < kScanWarps) copy_leaves<L>(w, s_warp[lane]);
   }
   __syncthreads();
-  if (warp == 0) {
-    look_back<Op, T>(tile, s_warp[kScanWarps - 1], flags, agg, incl, s_carry);
-  }
-  __syncthreads();
+}
 
-  // Step 5: the warp's exclusive composite (tile carry, warp prefix) in
-  // front of each element; without one (tile 0, warp 0) the elements are
-  // final, but the very first still meets the identity.
+// Step 5: the warp's exclusive composite (tile carry, warp prefix) in front
+// of each element; without one (tile 0, warp 0) the elements are final, but
+// the very first still meets the identity. A barrier ends the call.
+template <class Op, typename T, int ITEMS>
+__device__ __forceinline__ void tile_finish(int tile, T* s, T (*s_warp)[Op::L], const T* s_carry) {
+  constexpr int L = Op::L;
+  constexpr int STRIDE = padded(kScanThreads * ITEMS);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int e0 = tid * ITEMS;
+  T acc[L], x[L], y[L];
   bool have = false;
   if (tile > 0) {
     copy_leaves<L>(s_carry, acc);
@@ -308,17 +306,53 @@ lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int r
     }
   }
   __syncthreads();
+}
 
+// The finished tile from `s` to the output leaves, coalesced.
+template <class Op, typename T, int ITEMS>
+__device__ __forceinline__ void tile_store(const T* s, T* __restrict__ out, int n, int reverse, int k0) {
+  constexpr int L = Op::L;
+  constexpr int STRIDE = padded(kScanThreads * ITEMS);
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     T* row = out + (size_t)l * n;
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
-      const int e = i * kScanThreads + tid;
+      const int e = i * kScanThreads + (int)threadIdx.x;
       const int k = k0 + e;
       if (k < n) row[reverse ? n - 1 - k : k] = s[l * STRIDE + padded(e)];
     }
   }
+}
+
+template <class Op, typename T>
+__global__ void __launch_bounds__(kScanThreads)
+lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int reverse,
+                     int* ticket, T* agg, T* incl) {
+  constexpr int L = Op::L;
+  using Layout = LookbackLayout<Op, T>;
+  constexpr int ITEMS = Layout::kItems;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);  // [L][padded(TILE)]
+  __shared__ T s_warp[kScanWarps][L];    // warp totals, then inclusive warp prefixes
+  __shared__ T s_carry[L];               // the tile's exclusive composite
+  __shared__ int s_tile;
+  int* flags = ticket + 1;
+
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  const int k0 = tile * Layout::kTile;
+
+  tile_load<Op, T, ITEMS>(in, n, reverse, k0, s);
+  __syncthreads();
+  tile_reduce<Op, T, ITEMS>(s, s_warp);
+  if (threadIdx.x < 32) {
+    look_back<Op, T>(tile, s_warp[kScanWarps - 1], flags, agg, incl, s_carry);
+  }
+  __syncthreads();
+  tile_finish<Op, T, ITEMS>(tile, s, s_warp, s_carry);
+  tile_store<Op, T, ITEMS>(s, out, n, reverse, k0);
 }
 
 // K1's launch: zero the ticket and flags, then one grid over the tiles.

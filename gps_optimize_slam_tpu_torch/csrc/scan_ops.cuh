@@ -1,6 +1,6 @@
 // The eight scan combines of ops/scan.py:OPS that K1 (scan.cu,
 // scan_lookback.cuh) and K2 (scan_tiled.cu) share, one copy of each, so the
-// two scans cannot drift apart, and K2's block-level scan.
+// two scans cannot drift apart.
 //
 // Every combine writes its arithmetic in the order of the JAX combine it
 // ports, so that results agree to rounding. The library is built with
@@ -219,72 +219,12 @@ struct Min3 {
 };
 
 template <int L, typename T>
-__device__ __forceinline__ void load_leaves(const T* __restrict__ base, int n, int p, T* x) {
-#pragma unroll
-  for (int l = 0; l < L; ++l) x[l] = base[(size_t)l * n + p];
-}
-
-template <int L, typename T>
-__device__ __forceinline__ void store_leaves(T* __restrict__ base, int n, int p, const T* x) {
-#pragma unroll
-  for (int l = 0; l < L; ++l) base[(size_t)l * n + p] = x[l];
-}
-
-template <int L, typename T>
 __device__ __forceinline__ void copy_leaves(const T* src, T* dst) {
 #pragma unroll
   for (int l = 0; l < L; ++l) dst[l] = src[l];
 }
 
-// Inclusive Hillis-Steele scan of the block's per-thread composites, 8
-// rounds over kScanThreads in shared memory `tot` ([L][kScanThreads]). On
-// return `acc` holds this thread's inclusive composite and `tot` every
-// thread's; a barrier ends the call, so `tot` may be read at once.
-template <class Op, typename T>
-__device__ __forceinline__ void block_scan(T* acc, T* tot) {
-  constexpr int L = Op::L;
-  const int tid = threadIdx.x;
-  T x[L], y[L];
-#pragma unroll
-  for (int l = 0; l < L; ++l) tot[l * kScanThreads + tid] = acc[l];
-  __syncthreads();
-  for (int s = 1; s < kScanThreads; s <<= 1) {
-    const bool has = tid >= s;
-    if (has) {
-#pragma unroll
-      for (int l = 0; l < L; ++l) x[l] = tot[l * kScanThreads + tid - s];
-    }
-    __syncthreads();
-    if (has) {
-      Op::apply(x, acc, y);
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        acc[l] = y[l];
-        tot[l * kScanThreads + tid] = y[l];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// This thread's exclusive composite after block_scan: the identity for
-// thread 0, else the inclusive composite of the thread before it.
-template <class Op, typename T>
-__device__ __forceinline__ void block_exclusive(const T* tot, T* carry) {
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    Op::identity(carry);
-  } else {
-#pragma unroll
-    for (int l = 0; l < Op::L; ++l) carry[l] = tot[l * kScanThreads + tid - 1];
-  }
-}
-
-// Dynamic shared memory of K2's block scans: L x kScanThreads elements;
-// above 48 KB (the 27-leaf filter in float64: 55 KB) only after the opt-in.
-template <class Op, typename T>
-size_t scan_smem_bytes() { return (size_t)Op::L * kScanThreads * sizeof(T); }
-
+// Dynamic shared memory above 48 KB needs the opt-in.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

@@ -15,8 +15,8 @@ The carries stay device tensors. In the port's structure-of-arrays layout a
 filtering element already is the packed 27-vector of the JAX package's
 ``_pack_fwd`` (A, b, C, η, J), so packing is the identity here. Each chunk's
 scans run over chunk_size + 1 elements and go through ``ops.scan``: K1 on
-the card while the single-block budget holds, K2 (the tiled scan) beyond it,
-which is every chunk of the default 262,144 poses.
+the card up to 65,536 elements, K2 (the tiled scan) beyond, which is every
+chunk of the default 262,144 poses.
 
 The host loop streams chunk inputs (NumPy arrays or memmaps) with
 ``torch.as_tensor(..., device=device)`` and writes outputs into host NumPy

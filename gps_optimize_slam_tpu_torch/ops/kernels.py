@@ -12,7 +12,9 @@ and the array code around them:
   take the per-query-tile lists of kept candidate tiles and the packed
   candidates from :func:`keep_lists` (``csrc/nn_keep.cu``: the per-32-point
   AABB bounds of :func:`tile_keep_mask`, their compaction and the packing,
-  on the card). K3 walks each query tile's list in one block; K4 launches
+  on the card, pruned exactly at two levels: a box per 1024-candidate tile
+  rules most tiles out before any of their 32 segment boxes is read, and a
+  block of several query tiles shares the candidate boxes it reads). K3 walks each query tile's list in one block; K4 launches
   one block per run of ``RUN_TILES`` kept tiles, so no block exists for a
   dropped pair.
 * :func:`ransac_counts`: per Sim(3) trial, the number of valid points within
@@ -170,7 +172,12 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
     kept candidate tiles in ascending order and their count, and ``cand4``
     (m_tiles, 4, TILE_M), the packed candidates. On CUDA the keep-list
     kernel (``csrc/nn_keep.cu``) builds all three from the raw coordinates
-    in one call (entries of ``order`` past ``nkept`` unspecified); CPU
+    in one call of two launches (entries of ``order`` past ``nkept``
+    unspecified). Its lists equal the plain ones bit for bit: a tile is only
+    skipped when its own box, which contains its segments' boxes, already
+    fails the test that each segment would fail. Its floor on the card is
+    the bytes (coordinates read once, packed candidates and lists written
+    once), since the tile-level test leaves few segment pairs. CPU
     tensors take :func:`keep_lists_plain` of :func:`tile_keep_mask` and
     :func:`pack_candidates_plain`."""
     n_tiles, m_tiles = _tiles(traj.shape[0], candidates.shape[0])
@@ -181,8 +188,9 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
     order = torch.empty((n_tiles, m_tiles), dtype=torch.int32, device=traj.device)
     nkept = torch.empty((n_tiles,), dtype=torch.int32, device=traj.device)
     cand4 = torch.empty((m_tiles, 4, TILE_M), dtype=traj.dtype, device=traj.device)
-    boxes = torch.empty((6 * (n_tiles * TILE_N + m_tiles * TILE_M) // SUB,), dtype=torch.float64,
-                        device=traj.device)  # lo and hi per axis of every segment
+    # lo and hi per axis of every segment and of every candidate tile
+    boxes = torch.empty((6 * ((n_tiles * TILE_N + m_tiles * TILE_M) // SUB + m_tiles),),
+                        dtype=torch.float64, device=traj.device)
     cand = candidates.contiguous()
     mask = cand_mask.contiguous()
     rc = _build.library().gps_nn_keep(

@@ -3,15 +3,17 @@
 ``associative_scan(op, x, reverse)`` is the inclusive prefix (suffix when
 ``reverse``) of one of eight fixed combines over ``x`` of shape (L, n): L
 leaves of n elements, the layout the JAX package scans. It ports the two
-Pallas scans of ``gps_optimize_slam_tpu/ops/pallas_scan.py`` and their
-routing (``make_scan_fn``, :func:`scan_route`):
+Pallas scans of ``gps_optimize_slam_tpu/ops/pallas_scan.py`` and routes
+between them as ``make_scan_fn`` does, at this card's own crossover
+(:func:`scan_route`):
 
 * on a CUDA tensor it launches :func:`scan_block` (K1, ``csrc/scan.cu``: a
   single pass over many blocks with decoupled look-back; ports
-  ``associative_scan_vmem``) while the JAX package's VMEM budget holds, and
-  :func:`scan_tiled` (K2,
-  ``csrc/scan_tiled.cu``: reduce-then-scan over many blocks with a carried
-  composite; ports ``associative_scan_tiled``) beyond it, or raises;
+  ``associative_scan_vmem``) up to the length :func:`scan_route` gives it, and
+  :func:`scan_tiled` (K2, ``csrc/scan_tiled.cu``: the same look-back protocol
+  in one launch of persistent blocks that stage the next tile while they
+  scan the present one, each element read once; ports
+  ``associative_scan_tiled``) beyond it, or raises;
 * on a CPU tensor it runs :func:`scan_plain`, the same function as a
   Hillis-Steele ladder of whole-tensor combines (the JAX package's CPU scan,
   ``pallas_scan.associative_scan_fori``).
@@ -206,20 +208,26 @@ def scan_plain(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     return out.flip(1) if reverse else out
 
 
-# The JAX package's budget for its single-kernel scan (pallas_scan.py:62,
-# 156-157): inputs and outputs, lane-padded, within 4 MiB.
-BLOCK_BUDGET_BYTES = 4 * 1024 * 1024
-_LANES = 128
+# The longest scan K1 takes. The JAX package routes by a 4 MiB VMEM budget
+# (pallas_scan.py:62, 156-157: K1 while 2·L·n_pad·itemsize fits), which means
+# nothing on this card. Measured on an NVIDIA H100 80GB HBM3 at a 700.00 W
+# power limit (chip_smoke.py, phase 1 "routes", 271 to 524,289 elements, two
+# runs): the 2-4-leaf combines and the 12-leaf RTS scan take the same time on
+# both kernels at every length, within the runs' spread; the 27-leaf filter
+# is 1.2-1.7x faster on K1 up to 16,385 elements (K2's larger tiles leave
+# most SMs idle there), level at 65,537, and 1.1-1.3x faster on K2 from
+# 131,073.
+BLOCK_MAX_ELEMENTS = 65_536
 
 
 def scan_route(n_leaves: int, n: int, itemsize: int) -> str:
     """"block" (K1) or "tiled" (K2) for a scan of ``n_leaves`` leaves of
-    ``n`` elements: the rule of ``pallas_scan.make_scan_fn``, K1 while
-    2·L·round_up(max(n, 128), 128)·itemsize ≤ 4 MiB. Phase 4's 4,661 poses
-    (27 leaves: 1.0 MB in float32, 2.0 MB in float64) stay on K1; the
-    chunked path's 262,145-element chunks take K2."""
-    n_pad = -(-max(n, _LANES) // _LANES) * _LANES
-    return "block" if 2 * n_leaves * n_pad * itemsize <= BLOCK_BUDGET_BYTES else "tiled"
+    ``n`` elements of ``itemsize`` bytes: K1 up to ``BLOCK_MAX_ELEMENTS``
+    elements, K2 beyond, the crossover measured on this card (it did not
+    depend on the leaf count or the dtype within the runs' spread). Phase
+    4's 4,661 poses stay on K1; the chunked path's 262,145-element chunks
+    take K2."""
+    return "block" if n <= BLOCK_MAX_ELEMENTS else "tiled"
 
 
 def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -260,10 +268,21 @@ def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     return out
 
 
+def tiled_tile(op: str, dtype: torch.dtype) -> int:
+    """Elements per tile of K2 for ``op`` in ``dtype``: kScanThreads times
+    the items per thread that two staging buffers allow
+    (``csrc/scan_tiled.cu``). Builds the kernels on first use."""
+    return _build.library().gps_scan_tiled_tile(OPS[op][0], _build.dtype_code(torch.empty(0, dtype=dtype)))
+
+
 def scan_tiled(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """K2: the scan over many thread blocks with a carried composite
-    (``csrc/scan_tiled.cu``), at any n. CPU tensors take
-    :func:`scan_plain`."""
+    """K2: the single-pass look-back scan for long leaves
+    (``csrc/scan_tiled.cu``), at any n: one launch of about one block per SM
+    slot, each drawing tiles in ticket order and copying the next tile into
+    a second shared-memory buffer (``cp.async``) while the present one is
+    folded, looked back and written. The 2-4-leaf combines are bound by
+    their bytes, the 27-leaf filter by the operations of the scan's own
+    structure. CPU tensors take :func:`scan_plain`."""
     _check(op, x)
     if x.device.type == "cpu":
         return scan_plain(op, x, reverse)

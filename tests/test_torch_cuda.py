@@ -55,10 +55,11 @@ def test_scan_kernel_matches_plain(cuda, op, dtype):
 
 
 def last_block_length(op, dtype):
-    """The last n the routing gives K1 for ``op`` in ``dtype``."""
+    """The last n the routing gives K1 (the same for every combine and
+    dtype on this card)."""
     L = len(scan.OPS[op][2])
     size = torch.tensor([], dtype=dtype).element_size()
-    last = scan.BLOCK_BUDGET_BYTES // (2 * L * size) // 128 * 128
+    last = scan.BLOCK_MAX_ELEMENTS
     assert scan.scan_route(L, last, size) == "block" and scan.scan_route(L, last + 1, size) == "tiled"
     return last
 
@@ -67,7 +68,7 @@ def last_block_length(op, dtype):
 @pytest.mark.parametrize("op", list(scan.OPS))
 def test_lookback_scan_matches_plain_across_tiles(cuda, op, dtype):
     """K1's single-pass look-back at one tile, two tiles, a ragged tail of
-    several tiles and the last length the routing gives it (up to 128
+    several tiles and the last length the routing gives it (32 to 256
     tiles: several look-back windows of 32), both directions; the long
     case is repeated, since which predecessors have published their prefix
     changes from run to run."""
@@ -88,20 +89,30 @@ def test_lookback_scan_matches_plain_across_tiles(cuda, op, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("op", list(scan.OPS))
 def test_tiled_scan_kernel_matches_plain_and_block_scan(cuda, op, dtype):
-    """K2 at a ragged length beyond the single-block budget (a partial last
-    tile), both directions; the router sends it there."""
+    """K2 at a ragged length beyond K1's longest (a partial last tile; the
+    router sends it there), at three tiles and
+    one element (fewer tiles than persistent blocks, odd n, so rows are only
+    element-aligned) and at 1,048,577 (more tiles than blocks for every
+    combine: each block scans several in ticket order), both directions;
+    the long case is repeated, since which predecessors have published
+    their prefix changes from run to run."""
     gen = torch.Generator().manual_seed(1)
-    n = chip_smoke.TILED_N + 777
-    x = chip_smoke.scan_inputs(op, n, gen, dtype, cuda)
-    assert scan.scan_route(x.shape[0], n, x.element_size()) == "tiled"
+    n_routed = chip_smoke.TILED_N + 777
     before = scan.scan_tiled.launches[op]
-    for reverse in (False, True):
-        got = scan.associative_scan(op, x, reverse)
-        k1 = scan.scan_block(op, x, reverse)
-        torch.cuda.synchronize()
-        assert chip_smoke.rel_err(got, scan.scan_plain(op, x, reverse)) <= TOL[dtype]
-        assert chip_smoke.rel_err(got, k1) <= TOL[dtype]
-    assert scan.scan_tiled.launches[op] == before + 2
+    calls = 0
+    for n in (3 * scan.tiled_tile(op, dtype) + 1, n_routed, 1_048_577):
+        x = chip_smoke.scan_inputs(op, n, gen, dtype, cuda)
+        for reverse in (False, True):
+            want = scan.scan_plain(op, x, reverse)
+            k1 = scan.scan_block(op, x, reverse)
+            for _ in range(3 if n > n_routed else 1):
+                got = scan.associative_scan(op, x, reverse) if n == n_routed else scan.scan_tiled(op, x, reverse)
+                calls += 1
+                torch.cuda.synchronize()
+                err = max(chip_smoke.rel_err(got, want), chip_smoke.rel_err(got, k1))
+                assert err <= TOL[dtype], f"{op} n={n} reverse={reverse}: rel err {err:.3e}"
+    assert scan.scan_route(x.shape[0], n_routed, x.element_size()) == "tiled"
+    assert scan.scan_tiled.launches[op] == before + calls
     small = x[:, :5].contiguous()  # one partial tile
     torch.testing.assert_close(scan.scan_tiled(op, small), scan.scan_plain(op, small),
                                rtol=TOL[dtype], atol=TOL[dtype])
@@ -158,19 +169,30 @@ def plain_keep_lists(traj, cands, mask):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_keep_list_kernel_equals_plain_lists(cuda, dtype):
     """The keep-list kernel's lists equal the plain mask's compaction
-    exactly (the same float64 bounds in the same order), and its packed
-    candidates equal the plain packing bit for bit. Cases: seq-02's
-    length, ragged shapes, UTM magnitudes, shuffled candidates (every tile
-    kept), non-finite coordinates, and each with every candidate masked
-    (no finite upper bound, so every tile is kept, as in the JAX mask)."""
+    exactly (the same float64 bounds in the same order; its tile-level test
+    is exact), and its packed candidates equal the plain packing bit for
+    bit. Cases: seq-02's length, ragged shapes, one candidate tile, UTM
+    magnitudes, shuffled candidates (every tile kept), two and four query
+    tiles a block with a ragged last block (529 and 1,058 query tiles),
+    more candidate tiles than the kernel holds boxes of in shared memory
+    (977), non-finite coordinates, whole tiles and runs of segments masked
+    out, and each with every candidate masked (no finite upper bound, so
+    every tile is kept, as in the JAX mask)."""
     gen = torch.Generator().manual_seed(5)
     cases = [(4661, 4661, 0.0, False), (300, 777, 0.0, False), (5, 1, 0.0, False),
-             (2000, 9000, 5.4e6, False), (700, 9000, 0.0, True), (1000, 3000, 0.0, False)]
+             (2000, 9000, 5.4e6, False), (700, 9000, 0.0, True), (67_700, 3000, 0.0, False),
+             (135_300, 5000, 0.0, False), (2000, 1_000_000, 0.0, False), (2000, 9000, 0.0, False),
+             (1000, 3000, 0.0, False)]
     for k, (n, m, offset, shuffle) in enumerate(cases):
         traj, cands = walk(gen, n, dtype, cuda, offset), walk(gen, m, dtype, cuda, offset + 0.3)
         if shuffle:
             cands = cands[torch.randperm(m, generator=gen).to(cuda)].contiguous()
         mask = (torch.rand(m, generator=gen) > 0.1).to(cuda)
+        if k == len(cases) - 2:  # part-masked tiles
+            mask[:1024] = False
+            mask[3000:3100] = False
+            mask[8192:] = False
+            mask[8500] = True
         if k == len(cases) - 1:
             traj[7, 1] = float("nan")
             traj[200, 0] = float("inf")
@@ -182,8 +204,8 @@ def test_keep_list_kernel_equals_plain_lists(cuda, dtype):
             assert kernels.keep_lists.launches == before + 1
             want_order, want_nkept = plain_keep_lists(traj, cands, mk)
             assert torch.equal(nkept, want_nkept), (n, m)
-            for i in range(order.shape[0]):
-                assert torch.equal(order[i, : nkept[i]], want_order[i, : nkept[i]]), (n, m, i)
+            cols = torch.arange(order.shape[1], device=cuda)[None] < nkept[:, None]
+            assert torch.equal(torch.where(cols, order, -1), torch.where(cols, want_order, -1)), (n, m)
             assert torch.equal(same_bits(cand4), same_bits(kernels.pack_candidates_plain(cands, mk, order.shape[1])))
 
 

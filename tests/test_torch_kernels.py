@@ -262,3 +262,122 @@ def test_blocked_keep_mask_equals_the_unblocked_one(monkeypatch):
     for elems in (per_tile * m_sub, 3 * per_tile * m_sub, 1):
         monkeypatch.setattr(kernels, "_KEEP_BLOCK_ELEMS", elems)
         assert torch.equal(kernels.tile_keep_mask(tp, cp, vm), whole), elems
+
+
+# --- The keep-list kernel's order of work (csrc/nn_keep.cu), emulated ------
+#
+# The kernel cannot run here, so its two-level pruning is emulated in NumPy
+# with the plain version's float64 expressions: a box per candidate tile (the
+# min/max over its 32 segment boxes), thr seeded from the upper bounds
+# between the tile boxes and the box around the block's query segments, the
+# tile-level test before any segment is looked at in both passes (against
+# the running thr, which is folded in after each chunk of tiles, and
+# against the slackened bound; the block box's bound against the largest
+# thr goes first and alone rules a tile out), and blocks of Q query tiles
+# that share one test and one thr sweep (the last block replicating its
+# last segment).
+# The mask must equal ``kernels.tile_keep_mask`` bit for bit: that is what
+# proves the tile-level test exact where no card is.
+
+
+def _sq3(v):
+    return (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2]
+
+
+def _lb(qlo, qhi, clo, chi):
+    return _sq3(np.maximum(np.maximum(qlo - chi, clo - qhi), 0.0))
+
+
+def _ub(qlo, qhi, clo, chi):
+    return _sq3(np.maximum(qhi - clo, chi - qlo))
+
+
+def emulate_keep_kernel(traj, cands, mask, Q, chunk):
+    """(keep mask, segment boxes read) of the kernel's order of work with
+    ``Q`` query tiles a block and ``chunk`` candidate tiles a sweep step."""
+    tp, cp, vm = (x.numpy() for x in kernels.bounds_operands(traj, cands, mask))
+    per_q, per_c = kernels.TILE_N // kernels.SUB, kernels.TILE_M // kernels.SUB
+    tb = tp.reshape(-1, kernels.SUB, 3)
+    t_lo, t_hi = tb.min(1), tb.max(1)
+    cb, v = cp.reshape(-1, kernels.SUB, 3), vm.reshape(-1, kernels.SUB, 1)
+    c_lo, c_hi = np.where(v, cb, np.inf).min(1), np.where(v, cb, -np.inf).max(1)
+    n_sub, m_tiles = len(t_lo), len(c_lo) // per_c
+    n_tiles = n_sub // per_q
+    tile_lo = c_lo.reshape(m_tiles, per_c, 3).min(1)
+    tile_hi = c_hi.reshape(m_tiles, per_c, 3).max(1)
+    keep = np.zeros((n_tiles, m_tiles), bool)
+    read = 0
+    for first in range(0, n_tiles, Q):
+        segs = np.minimum(first * per_q + np.arange(Q * per_q), n_sub - 1)
+        qlo, qhi = t_lo[segs][:, None], t_hi[segs][:, None]  # (QS, 1, 3)
+        blo, bhi = qlo.min(0), qhi.max(0)  # (1, 3): the block box
+        thr = np.full(len(segs), _ub(blo, bhi, tile_lo, tile_hi).min())  # the seed
+        for base in range(0, m_tiles, chunk):
+            t = np.arange(base, min(base + chunk, m_tiles))
+            coarse = _lb(blo, bhi, tile_lo[t], tile_hi[t]) <= thr.max()
+            near = (_lb(qlo, qhi, tile_lo[t][None], tile_hi[t][None]) <= thr[:, None]).any(0)
+            assert not (near & ~coarse).any()  # the block box's bound alone decides nothing else
+            near &= coarse
+            for tile in t[near]:
+                s = slice(tile * per_c, (tile + 1) * per_c)
+                read += per_c
+                new = _ub(qlo, qhi, c_lo[s][None], c_hi[s][None]).min(1)
+                near_thr = new if tile == t[near][0] else np.minimum(near_thr, new)
+            if near.any():
+                thr = np.minimum(thr, near_thr)  # folded in after the chunk
+        bound = thr + 1e-5 * (thr + 1.0)
+        for base in range(0, m_tiles, chunk):
+            t = np.arange(base, min(base + chunk, m_tiles))
+            coarse = _lb(blo, bhi, tile_lo[t], tile_hi[t]) <= bound.max()
+            near = (_lb(qlo, qhi, tile_lo[t][None], tile_hi[t][None]) <= bound[:, None]).any(0)
+            assert not (near & ~coarse).any()
+            near &= coarse
+            for tile in t[near]:
+                s = slice(tile * per_c, (tile + 1) * per_c)
+                read += per_c
+                passes = (_lb(qlo, qhi, c_lo[s][None], c_hi[s][None]) <= bound[:, None]).any(1)
+                for i in range(min(Q, n_tiles - first)):
+                    keep[first + i, tile] = passes[i * per_q : (i + 1) * per_q].any()
+    return keep, read
+
+
+def track(rng, n, offset, kind):
+    """float64 points: a drive (steady motion plus a random walk, the main
+    path's kind of track) or uniform scatter, in a local frame or at UTM
+    magnitudes."""
+    if kind == "walk":
+        return np.cumsum(rng.normal(size=(n, 3)) * 0.3 + np.array([0.8, 0.1, 0.0]), axis=0) + offset
+    return rng.uniform(-40.0, 40.0, size=(n, 3)) + offset
+
+
+KEEP_MASKS = ("random", "all-masked", "part-masked")
+
+
+@pytest.mark.parametrize("Q,chunk", [(1, 256), (2, 2), (4, 3)])
+@pytest.mark.parametrize("masking", KEEP_MASKS)
+@pytest.mark.parametrize("offset", [0.0, 5.4e6])
+@pytest.mark.parametrize("kind,n,m", [("walk", 1500, 5000), ("walk", 700, 1025), ("walk", 130, 7),
+                                      ("scatter", 900, 5000)])
+def test_emulated_keep_kernel_equals_plain_mask(kind, n, m, offset, masking, Q, chunk):
+    rng = np.random.default_rng(n + m + Q)
+    traj, cands = track(rng, n, offset, kind), track(rng, m, offset + 0.3, kind)
+    if masking == "random":
+        mask = rng.uniform(size=m) > 0.1
+    elif masking == "all-masked":
+        mask = np.zeros(m, bool)
+    else:  # whole tiles and runs of segments masked out, one tile left with a single fix
+        mask = rng.uniform(size=m) > 0.1
+        mask[: min(m, kernels.TILE_M)] = False
+        mask[min(m - 1, 3)] = True
+        mask[m // 2 : m // 2 + 3 * kernels.SUB] = False
+    args = [torch.tensor(a) for a in (traj, cands, mask)]
+    want = kernels.tile_keep_mask(*kernels.bounds_operands(*args)).numpy()
+    got, read = emulate_keep_kernel(*args, Q, chunk)
+    np.testing.assert_array_equal(got, want)
+    n_tiles, m_tiles = want.shape
+    if masking == "all-masked":
+        assert want.all()  # no finite upper bound: every tile kept, as in the JAX mask
+    elif kind == "walk" and m == 5000 and masking == "random":
+        # The tile-level test bites: under half of the first version's two
+        # reads of every segment box per query tile.
+        assert read < n_tiles * m_tiles * (kernels.TILE_M // kernels.SUB)

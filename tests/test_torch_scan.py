@@ -10,12 +10,13 @@ exactly these combines: XLA:CPU needs minutes to compile their unrolled
 ladders (measured on an 8-core Xeon host: 64 s for the interpret-mode
 kernel and 349 s for ``lax.associative_scan`` of the filter at N = 1024).
 
-K2's function (the scan beyond the single-block budget) is the same
+K2's function (the scan for long leaves) is the same
 ``scan_plain``; it is held against the JAX package's tiled kernel
 ``associative_scan_tiled`` in interpret mode with 8-row blocks (1024
 elements, so N = 2500 crosses two block carries), and for the filter and
 RTS against ``associative_scan_fori`` at N = 2500. The routing between the
-two kernels equals the JAX package's ``_kernel_fits`` rule.
+two kernels is the crossover measured on the card, held beside the JAX
+package's ``_kernel_fits`` rule.
 
 Each JAX reference is computed once per (combine, direction) at N = 1000;
 the scan of a prefix is the prefix of the scan (the suffix, in reverse), so
@@ -221,15 +222,29 @@ def _jax_routes_to_block(n_leaves, n, itemsize):
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("n_leaves", [2, 3, 4, 12, 27])
 def test_scan_route_matches_jax(n_leaves, itemsize):
+    """The port routes at the crossover measured on the H100
+    (``scan.BLOCK_MAX_ELEMENTS`` elements, whatever the leaves), not by the
+    JAX package's 4 MiB VMEM budget. The two rules agree on the main path's
+    shapes and part in between, either way: past the budget's last fit the
+    port stays on K1 up to the crossover (12 and 27 leaves), and past the
+    crossover it takes K2 where the budget would still hold (2-4 leaves)."""
     last_fit = jps._VMEM_BUDGET_BYTES // (2 * n_leaves * itemsize) // 128 * 128
+    last = scan.BLOCK_MAX_ELEMENTS
     sizes = {1, 127, 128, 129, 4661, last_fit - 1, last_fit, last_fit + 1, last_fit + 128,
-             262_145, 524_289}
+             last - 1, last, last + 1, 262_145, 524_289}
     for n in sorted(sizes):
-        want = "block" if _jax_routes_to_block(n_leaves, n, itemsize) else "tiled"
+        want = "block" if n <= last else "tiled"
         assert scan.scan_route(n_leaves, n, itemsize) == want, (n_leaves, n, itemsize)
-    # The main path's shapes: 4,661 poses stay on K1, a chunk takes K2.
-    assert scan.scan_route(27, 4661, 8) == "block"
-    assert scan.scan_route(27, 262_145, 4) == "tiled"
+    assert _jax_routes_to_block(n_leaves, last_fit, itemsize)
+    assert not _jax_routes_to_block(n_leaves, last_fit + 1, itemsize)
+    for n in (1, 271, 4661):  # the in-core path's shapes: K1 by both rules
+        assert scan.scan_route(n_leaves, n, itemsize) == "block" and _jax_routes_to_block(n_leaves, n, itemsize)
+    for n in (262_145, 524_289):  # the chunked path's: K2 by both rules
+        assert scan.scan_route(n_leaves, n, itemsize) == "tiled" and not _jax_routes_to_block(n_leaves, n, itemsize)
+    if last_fit < last:
+        assert scan.scan_route(n_leaves, last_fit + 1, itemsize) == "block"
+    elif last_fit > last:
+        assert scan.scan_route(n_leaves, last_fit, itemsize) == "tiled"
 
 
 TILED_CASES = [("add2", False), ("affine3", False), ("affine3", True), ("mobius", False),
@@ -276,9 +291,13 @@ def test_plain_scan_matches_jax_beyond_one_tile(op, reverse):
 # goes on the left of what was walked), and the warp's exclusive composite
 # (tile carry, warp prefix) goes in front of every element, the very first
 # element of the scan meeting the identity. Which predecessors have published their
-# inclusive prefix is a schedule: at random, or only tile 0 (the longest
-# walk). An argument-order slip in any step shows as a gross mismatch in
-# these non-commutative combines.
+# inclusive prefix is a schedule: at random, only tile 0 (the longest
+# walk), or "persistent": K2's (csrc/scan_tiled.cu), where a few blocks
+# each scan several tiles in ticket order, so the tiles the other blocks
+# hold show aggregates and every older one its prefix. K2 shares the tile's
+# steps with K1 and differs in its tile shape (more items a thread), which
+# EMULATED_TILED mirrors. An argument-order slip in any step shows as a
+# gross mismatch in these non-commutative combines.
 
 
 def _comb(op, a, b):
@@ -306,7 +325,7 @@ def _lane_scan(op, v, width):
     return v
 
 
-def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, seed=0):
+def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, seed=0, blocks=3):
     rng = np.random.default_rng(seed)
     xs = x.flip(1) if reverse else x  # scan order
     L, n = xs.shape
@@ -334,7 +353,8 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
             incl[0] = tot
         else:
             agg[t] = tot
-            has_prefix = {j: j == 0 or (schedule == "random" and rng.uniform() < 0.3) for j in range(t)}
+            has_prefix = {j: j == 0 or (schedule == "random" and rng.uniform() < 0.3)
+                          or (schedule == "persistent" and j <= t - blocks) for j in range(t)}
             run, base = None, t - 1
             while True:
                 preds = [base - k for k in range(window)]
@@ -376,21 +396,24 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
 # stay short where the JAX references compile slowly (lax.associative_scan
 # of the 27-leaf filter: ~27 s at 31 elements on an 8-core Xeon host).
 EMULATED = {"mobius": (4, 2, 2, 4), "rts": (4, 2, 2, 4), "filter": (2, 2, 1, 2)}
+# K2's tile shape: more items a thread (the float32 filter has 2).
+EMULATED_TILED = {"mobius": (4, 2, 4, 4), "rts": (4, 2, 4, 4), "filter": (2, 2, 2, 2)}
 
 
 @functools.lru_cache(maxsize=None)
-def lookback_reference(op, reverse):
+def lookback_reference(op, reverse, tiled=False):
     """The input at 7 tiles plus a ragged tail of 3, and the JAX scan of it:
     lax.associative_scan, but associative_scan_fori for the reverse filter
     (the main path scans the filter forward only, and lax's reverse filter
-    would compile for another ~27 s)."""
-    warp, warps, items, _ = EMULATED[op]
+    would compile for another ~27 s) and for the filter at K2's longer
+    tiles."""
+    warp, warps, items, _ = (EMULATED_TILED if tiled else EMULATED)[op]
     n = 7 * warp * warps * items + 3
     combine, tree_of, ident = JAX_COMBINES[op]
     x = scan_input(op, n, seed=5)
     tree = tree_of([jnp.asarray(v) for v in x])
-    if op == "filter" and reverse:
-        out = jax.jit(lambda e: associative_scan_fori(combine, e, ident, reverse=True))(tree)
+    if op == "filter" and (reverse or tiled):
+        out = jax.jit(lambda e: associative_scan_fori(combine, e, ident, reverse=reverse))(tree)
     else:
         out = jax.jit(lambda e: jax.lax.associative_scan(combine, e, reverse=reverse))(tree)
     return x, _leaves_back(op, out)
@@ -408,5 +431,24 @@ def test_lookback_structure_matches_plain_and_jax(op, reverse, schedule):
         sl = slice(n_max - n, n_max) if reverse else slice(0, n)
         xt = torch.tensor(x[:, sl])
         got = emulate_lookback_scan(op, xt, reverse, schedule, warp, warps, items, window).numpy()
+        _assert_close(op, got, scan.scan_plain(op, xt, reverse).numpy(), rtol=1e-12)
+        _assert_close(op, got, want[:, sl], rtol=1e-12)
+
+
+@pytest.mark.parametrize("schedule", ["persistent", "random"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", list(EMULATED_TILED))
+def test_tiled_lookback_structure_matches_plain_and_jax(op, reverse, schedule):
+    """K2: 7 tiles and a ragged tail over 3 persistent blocks (each scans
+    two or three tiles in ticket order), 2 tiles (fewer tiles than blocks)
+    and one partial tile."""
+    warp, warps, items, window = EMULATED_TILED[op]
+    tile = warp * warps * items
+    x, want = lookback_reference(op, reverse, tiled=True)
+    n_max = x.shape[1]
+    for n in (tile - 1, 2 * tile, n_max):
+        sl = slice(n_max - n, n_max) if reverse else slice(0, n)
+        xt = torch.tensor(x[:, sl])
+        got = emulate_lookback_scan(op, xt, reverse, schedule, warp, warps, items, window, blocks=3).numpy()
         _assert_close(op, got, scan.scan_plain(op, xt, reverse).numpy(), rtol=1e-12)
         _assert_close(op, got, want[:, sl], rtol=1e-12)
