@@ -31,17 +31,23 @@ Phases:
      (fewer tiles than persistent blocks) and 1,048,577 (many more), also
      held against K1; the keep-list kernel's lists against the plain mask's
      compaction at 4661 x 4661 (also part-masked, at UTM magnitudes and with
-     one candidate tile) and 524,288 x 524,288; K3, 4661 x 4661, an
-     all-masked and a ragged case; K4, 16,384 x
-     300,000 (m_pad > 262,144, so K4 by the real rule) and 524,288 x 524,288
-     (phase 5's NN blocks; the plain version on every 64th query; the
-     kernel alone and with its wrapper), bit for bit against K3, and
-     all-masked; K5, 1000 trials x 4661 points; float32 and float64; and
-     the routes: K1 against K2 (and against the plain version) from 271 to
-     524,289 elements and at the last length the JAX package's budget gave
-     K1, K3 against
-     K4 at 4661, 65,536 and 262,144 candidates (the last K3 takes), on the
-     same inputs, the times that place the routing thresholds on this card;
+     one candidate tile) and 524,288 x 524,288; K3, 4661 x 4661 (also at
+     UTM magnitudes), one candidate tile, fewer queries than one block
+     takes, a ragged last block, 16,384 x 262,144, each all-masked too and
+     bit for bit against K4, beside the reference's own method
+     (``torch.cdist`` and ``min``) as its library yardstick; K4, 16,384 x
+     300,000 and 524,288 x 524,288 (phase 5's NN blocks, K4 by the routing
+     rule; the plain version on every 64th query; the kernel alone and with
+     its wrapper), bit for bit against K3, and all-masked; K5, counts equal
+     to the plain version's at 1000 trials x 4661 and 279 points and 333 x
+     5003 (ragged point and trial chunks), with every point invalid, and
+     twice on the same inputs; float32 and float64; and the routes: K1
+     against K2 (and against the plain version) from 271 to 524,289 elements
+     and at the last length the JAX package's budget gave K1, K3 against K4
+     at 16,384 queries and 4661 to 1,048,576 candidates and, with shuffled
+     candidates (every tile kept, long keep lists), at 700 and 4661
+     queries, on the same inputs, the times that place the routing
+     thresholds on this card;
   2. seq-04 golden arrays, float64 UTM, ``fuse_arrays`` on the card, held
      against tests/golden/seq04_golden.npz and seq04_meta.json;
   3. seq-04 from TUM + GNSS files rebuilt from the npz, ``fuse_files`` in
@@ -53,8 +59,8 @@ Phases:
   5. the chunked path at 1,048,576 poses (3,870 seq-04 replicas, GNSS
      outages straddling the 262,144-pose boundaries), float64 on the card:
      ``fuse_core_chunked`` (524,288-pose chunks) against the in-core
-     ``fusion.fuse_core``, ``evaluate_chunked`` on the K4 route (524,288)
-     against the K3 route (262,144), launch counts, warm wall times, poses
+     ``fusion.fuse_core``, ``evaluate_chunked`` on the K4 route (524,288-candidate
+     blocks) against the K3 route (262,144), launch counts, warm wall times, poses
      per second and peak device memory; and ``fuse_files_chunked`` +
      ``export_result`` on the seq-04 files against the in-core
      ``fuse_files``, with launch counts of its own.
@@ -91,13 +97,13 @@ TOL = {"float32": 1e-4, "float64": 1e-10}
 
 TILED_N = 262_145  # one default chunk (262,144 steps) plus its carried composite
 CHUNKED_N = 1_048_576  # phase 5's poses
-CHUNK = 524_288  # phase 5's chunk: its NN blocks take K4 (> 262,144 candidates)
+CHUNK = 524_288  # phase 5's chunk: its NN blocks take K4 (kernels.GRID_MIN_CANDIDATES)
 # K2's lengths in phase 1: a default chunk plus its carry, a ragged one,
 # phase 5's chunk plus its carry, one with fewer tiles than the card has
 # persistent blocks (79 tiles of the float64 filter) and one with many more
 # (4,097 of them).
 TILED_LENGTHS = (TILED_N, TILED_N + 777, CHUNK + 1, 20_001, 1_048_577)
-GRID_NN_SHAPE = (16_384, 300_000)  # K4's check: m_pad 300,032 > 262,144
+GRID_NN_SHAPE = (16_384, 300_000)  # K4's check and times below its route, a ragged last tile
 GRID_NN_MAIN = (CHUNK, CHUNK)  # phase 5's NN block: queries x candidates
 PLAIN_STRIDE = 64  # phase 1 holds K4 at GRID_NN_MAIN against plain on every 64th query
 
@@ -120,6 +126,7 @@ NN_PAIR_FLOPS = 8  # 3 differences, 3 squares, 2 sums per (query, candidate)
 # makes the pairs it takes a property of its design, so its bound is bytes.
 KEEP_PAIR_FLOPS = 33
 COUNT_FLOPS = 30  # s*R*p + t - d, squared and summed, compared, per (trial, point)
+CDIST_BYTES_MAX = 4e9  # the library yardstick of K3 is timed where its n x m matrix fits in this
 
 
 def emit(obj) -> None:
@@ -238,6 +245,23 @@ def nn_bound(traj, cand, mask):
     return bound(moved, NN_PAIR_FLOPS * pairs, dtype_name(traj.dtype))
 
 
+def cdist_library_ms(traj, cand, mask, reps: int = 5):
+    """The reference pipeline's own method for the NN distance, as K3's and
+    K4's library yardstick: ``torch.cdist`` without the matrix-product
+    expansion, then ``min`` (two calls, the n x m matrix between them in
+    device memory; distances, not their squares). Timed only: the port
+    never calls it. None where the matrix would not fit in
+    ``CDIST_BYTES_MAX``."""
+    import torch
+
+    if traj.shape[0] * cand.shape[0] * traj.element_size() > CDIST_BYTES_MAX:
+        return None
+    kept = cand[mask]
+    ms = cuda_ms(lambda: torch.cdist(traj, kept, compute_mode="donot_use_mm_for_euclid_dist").min(1), reps)
+    torch.cuda.empty_cache()
+    return ms
+
+
 def keep_bound(traj, cand, mask, nkept, cand4):
     """The coordinates and the mask read once; the packed candidates, the
     kept entries of the lists and their counts written once."""
@@ -258,13 +282,15 @@ def keep_all_pairs_ms(traj, cand) -> float:
 
 def build_registers(log: str) -> dict:
     """{kernel: [registers, bytes of spill stores]} from nvcc's ``-Xptxas -v``
-    output, for the keep-list kernels and the 12- and 27-leaf scans (the
-    kernels whose registers decide how many blocks share an SM); empty
-    when an up-to-date library was found and nothing was compiled."""
+    output, for the keep-list kernels, the 12- and 27-leaf scans (the
+    kernels whose registers decide how many blocks share an SM) and K3, K4
+    and K5; empty when an up-to-date library was found and nothing was
+    compiled."""
     import re
 
     wanted = re.compile(r"(keep_lists_kernelILi\d+|segment_boxes_kernelI[fd]"
-                        r"|(?:tiled|lookback)_scan_kernelINS_\d+(?:Filter|RtsSuffix)I[fd])")
+                        r"|(?:tiled|lookback)_scan_kernelINS_\d+(?:Filter|RtsSuffix)I[fd]"
+                        r"|nn_kernelI[fd]Li\d+ELi\d+|nn_grid_kernelI[fd]|count_kernelI[fd])")
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -483,9 +509,20 @@ def phase1_tiled_scan(device, gen):
     return entries
 
 
+# K3's checks: (queries, candidates, coordinate offset). Seq-02's length
+# (a ragged last block of 5 queries), one candidate tile, fewer queries than
+# one block takes, a ragged last block past a whole query tile, UTM
+# magnitudes, and 16,384 x 262,144 (the larger block size's grid is taken
+# from 257 query tiles on: GRID_NN_MAIN, below).
+RESIDENT_CASES = ((SEQ02_LEN, SEQ02_LEN, 0.0), (300, 777, 0.0), (5, 1, 0.0), (1000 + 131, 3000, 0.0),
+                  (SEQ02_LEN, SEQ02_LEN, 5.4e6), (16_384, 262_144, 0.0))
+
+
 def phase1_nn(device, gen):
-    """K3 at the in-core path's sizes; K4 at 16,384 x 300,000 (K4 by the
-    real rule), bit for bit against K3 on the same inputs."""
+    """K3 at ``RESIDENT_CASES`` against the plain version and bit for bit
+    against K4, times at the in-core path's size beside the library
+    yardstick; K4 at 16,384 x 300,000 and at phase 5's NN block, bit for
+    bit against K3 on the same inputs."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import kernels
@@ -493,33 +530,44 @@ def phase1_nn(device, gen):
     nn_err, timed = {}, None
     for dtype in (torch.float32, torch.float64):
         name = dtype_name(dtype)
-        for n, m in ((SEQ02_LEN, SEQ02_LEN), (300, 777)):
-            traj, cand = walk(gen, n, dtype, device), walk(gen, m, dtype, device) + 0.3
+        for n, m, offset in RESIDENT_CASES:
+            if offset and dtype == torch.float32:
+                continue  # float32 cannot hold UTM coordinates to better than 0.5 m
+            traj = (walk(gen, n, torch.float64, device) + offset).to(dtype)
+            cand = (walk(gen, m, torch.float64, device) + (offset + 0.3)).to(dtype)
             mask = (torch.rand(m, generator=gen) > 0.1).to(device)
             got = kernels.nn_resident(traj, cand, mask)
+            k4 = kernels.nn_grid(traj, cand, mask)
             torch.cuda.synchronize()
-            want = kernels.nn_min_dist2_plain(traj, cand, mask)
+            want = kernels.nn_min_dist2_plain(traj, cand, mask, block=128 if m > 65_536 else 512)
             err = rel_err(got[None], want[None])
             if not err <= TOL[name]:
                 raise AssertionError(f"nn {name} {n}x{m}: rel err {err:.3e}")
+            if not torch.equal(got, k4):
+                raise AssertionError(f"nn {name} {n}x{m}: K3 differs from K4 in {int((got != k4).sum())} queries")
             nn_err[name] = max(nn_err.get(name, 0.0), err)
-            if n == SEQ02_LEN and dtype == torch.float32:
+            if (n, m, offset) == RESIDENT_CASES[0] and dtype == torch.float32:
                 timed = (traj, cand, mask, abs_err(got, want))
-        none = kernels.nn_resident(traj, cand, torch.zeros_like(mask))
-        torch.cuda.synchronize()
-        if not bool(torch.isinf(none).all()):
-            raise AssertionError("nn: all-masked candidates must give +inf")
+            none = kernels.nn_resident(traj, cand, torch.zeros_like(mask))
+            torch.cuda.synchronize()
+            if none.shape != (n,) or not bool(torch.isinf(none).all()):
+                raise AssertionError("nn: all-masked candidates must give +inf")
+            del want, k4, none
     traj, cand, mask, aerr = timed
     ms = cuda_ms(lambda: kernels.nn_resident(traj, cand, mask))
     plain_ms = cuda_ms(lambda: kernels.nn_min_dist2_plain(traj, cand, mask))
+    library_ms = cdist_library_ms(traj, cand, mask, reps=10)
     by_kernel = device_profile(lambda: kernels.nn_resident(traj, cand, mask))
     dev = sum(by_kernel.values())
-    emit({"phase": 1, "kernel": "nn_resident", "rel_err": nn_err, "ms": ms, "plain_ms": plain_ms,
+    n_tiles, m_tiles = kernels._tiles(*RESIDENT_CASES[0][:2])
+    emit({"phase": 1, "kernel": "nn_resident", "rel_err": nn_err, "equal_to_k4": True, "ms": ms,
+          "plain_ms": plain_ms, "library_ms": library_ms,
           "device_ms": dev, "device_ms_by_kernel": by_kernel,
           "host_ms": host_ms(lambda: kernels.nn_resident(traj, cand, mask)),
-          "shape": [SEQ02_LEN, SEQ02_LEN], "dtype": "float32"})
+          "kept_tile_pairs": int(kernels.keep_lists(traj, cand, mask)[1].sum()), "tile_pairs": n_tiles * m_tiles,
+          "cases": [list(c) for c in RESIDENT_CASES], "shape": [SEQ02_LEN, SEQ02_LEN], "dtype": "float32"})
     entries = [kernel_entry("nn_resident", "nn.cu", "pallas_kernels.py:283", "float32", aerr, ms,
-                            plain_ms, nn_bound(traj, cand, mask), None, dev)]
+                            plain_ms, nn_bound(traj, cand, mask), library_ms, dev)]
 
     def check_grid(shape, stride):
         """K4 at ``shape`` in both dtypes: bit for bit against K3, within
@@ -528,8 +576,6 @@ def phase1_nn(device, gen):
         candidate is masked. Returns per dtype the operands, K4's output,
         the plain one on the sampled queries and the relative error."""
         n, m = shape
-        if kernels.nn_route(m) != "grid":
-            raise AssertionError(f"{m} candidates must route to K4")
         out = {}
         for dtype in (torch.float32, torch.float64):
             name = dtype_name(dtype)
@@ -570,6 +616,8 @@ def phase1_nn(device, gen):
     entries.append(kernel_entry("nn_grid", "nn_grid.cu", "pallas_kernels.py:302", "float64",
                                 t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], None, t["device_ms"]))
 
+    if kernels.nn_route(GRID_NN_MAIN[1]) != "grid" or kernels.nn_route(SEQ02_LEN) != "resident":
+        raise AssertionError("the routing rule must send phase 5's NN blocks to K4 and phase 4's calls to K3")
     main = {}
     for name, (traj, cand, mask, got, want, err) in check_grid(GRID_NN_MAIN, PLAIN_STRIDE).items():
         operands = kernels.nn_grid_operands(traj, cand, mask)
@@ -660,7 +708,11 @@ def phase1_keep(device, gen):
 
 # K1 against K2, besides the last length within the JAX package's budget
 ROUTE_LENGTHS = (271, 1024, 2048, SEQ02_LEN, 16_385, 65_537, 131_073, TILED_N, CHUNK + 1)
-ROUTE_CANDIDATES = (SEQ02_LEN, 65_536, 262_144)  # K3 against K4, 16,384 queries
+# K3 against K4: candidate counts at 16,384 queries on random walks, and
+# (queries, candidates) with the candidates shuffled, so that every tile is
+# kept and a few query tiles each hold a long keep list
+ROUTE_CANDIDATES = (SEQ02_LEN, 65_536, 262_144, CHUNK, 1_048_576)
+ROUTE_LONG_LISTS = ((700, 65_536), (700, CHUNK), (SEQ02_LEN, CHUNK))
 
 
 def phase1_routes(device, gen):
@@ -669,8 +721,12 @@ def phase1_routes(device, gen):
     for every combine in both dtypes at ``ROUTE_LENGTHS`` and at the last
     length within the JAX package's 4 MiB budget, with the library call
     where there is one (``scan.scan_route`` is set from these times); K3
-    against K4 at 16,384 queries and ``ROUTE_CANDIDATES`` candidates, the
-    last of which is the last K3 takes."""
+    against K4, bit for bit equal, at 16,384 queries and
+    ``ROUTE_CANDIDATES`` candidates on random walks and at
+    ``ROUTE_LONG_LISTS`` with shuffled candidates, each call with its
+    device time and, where its matrix fits, the library yardstick
+    (``kernels.nn_route`` is set from these times and phase 5's block in
+    ``phase1_nn``)."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import kernels, scan
@@ -696,24 +752,43 @@ def phase1_routes(device, gen):
                     "route": scan.scan_route(L, n, size)}
     emit({"phase": 1, "routes": "scan", "times": scans})
 
-    n = GRID_NN_SHAPE[0]
-    if kernels.nn_route(ROUTE_CANDIDATES[-1]) != "resident" or kernels.nn_route(ROUTE_CANDIDATES[-1] + 1) != "grid":
-        raise AssertionError(f"{ROUTE_CANDIDATES[-1]} is not the last K3 candidate count")
+    edge = kernels.GRID_MIN_CANDIDATES
+    if [kernels.nn_route(m) for m in (1, SEQ02_LEN, edge - 1, edge, CHUNK, 2 * CHUNK)] != 3 * ["resident"] + 3 * ["grid"]:
+        raise AssertionError(f"K3 must take fewer than {edge} candidates and K4 the rest")
     nns = {}
-    for m in ROUTE_CANDIDATES:
+    cases = [(GRID_NN_SHAPE[0], m, False) for m in ROUTE_CANDIDATES] + [(n, m, True) for n, m in ROUTE_LONG_LISTS]
+    for n, m, shuffled in cases:
         for dtype in (torch.float32, torch.float64):
             traj, cand = walk(gen, n, dtype, device), walk(gen, m, dtype, device) + 0.3
+            if shuffled:
+                cand = cand[torch.randperm(m, generator=gen).to(device)].contiguous()
             mask = (torch.rand(m, generator=gen) > 0.1).to(device)
             k3, k4 = kernels.nn_resident(traj, cand, mask), kernels.nn_grid(traj, cand, mask)
             if not torch.equal(k3, k4):
                 raise AssertionError(f"nn {n}x{m} {dtype}: K4 differs from K3")
-            nns[f"{m}/{dtype_name(dtype)}"] = {"k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask)),
-                                               "k4_ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask))}
-    emit({"phase": 1, "routes": "nn", "queries": n, "times": nns})
+            del k3, k4
+            key = f"{n}x{m}/{dtype_name(dtype)}" + ("/shuffled" if shuffled else "")
+            nns[key] = {"k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask)),
+                        "k4_ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask)),
+                        "k3_device_ms": device_ms(lambda: kernels.nn_resident(traj, cand, mask), reps=5),
+                        "k4_device_ms": device_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=5),
+                        "kept_tile_pairs": int(kernels.keep_lists(traj, cand, mask)[1].sum()),
+                        "library_ms": cdist_library_ms(traj, cand, mask),
+                        "route": kernels.nn_route(m)}
+    emit({"phase": 1, "routes": "nn", "times": nns})
+    torch.cuda.empty_cache()
+
+
+# K5's checks: (points, trials, every point invalid). The main path's size,
+# seq-04's 279 fixes, ragged point and trial chunks, and no valid point.
+COUNT_CASES = ((SEQ02_LEN, 1000, False), (279, 1000, False), (5003, 333, False), (SEQ02_LEN, 1000, True))
 
 
 def phase1_counts(device, gen):
-    """K5: 1000 four-point Umeyama trials on a noisy Sim(3) pair."""
+    """K5: four-point Umeyama trials on a noisy Sim(3) pair at
+    ``COUNT_CASES``; the counts equal the plain version's (the same
+    elementwise order, uncontracted), twice over, and the re-ranked winner
+    with them."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import kernels
@@ -722,33 +797,42 @@ def phase1_counts(device, gen):
 
     timed, worst = None, 0
     for dtype in (torch.float32, torch.float64):
-        src = walk(gen, SEQ02_LEN, torch.float64, device, scale=2.0)
-        dst = 0.987 * src + torch.tensor([3.0, -2.0, 1.0], dtype=torch.float64, device=device)
-        dst = dst + 2.0 * torch.randn(SEQ02_LEN, 3, generator=gen, dtype=torch.float64).to(device)
-        src, dst = src.to(dtype), dst.to(dtype)
-        valid = (torch.rand(SEQ02_LEN, generator=gen) > 0.05).to(device)
-        draws = torch.randint(0, SEQ02_LEN, (1000, 4), generator=gen).to(device)
-        fits = umeyama_sim3(src[draws], dst[draws])
-        args = (src, dst, valid, fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), 16.0)
-        got = kernels.ransac_counts(*args)
-        torch.cuda.synchronize()
-        want = kernels.ransac_counts_plain(*args)
-        diff = int((got - want).abs().max())
-        if diff > 2:
-            raise AssertionError(f"ransac_counts {dtype}: counts differ by {diff}")
-        w_k = int(select_winner(src, dst, valid, fits, got, 16.0))
-        w_p = int(select_winner(src, dst, valid, fits, want, 16.0))
-        if w_k != w_p:
-            raise AssertionError(f"ransac_counts {dtype}: winner {w_k} != {w_p}")
-        worst = max(worst, diff)
-        if dtype == torch.float32:
-            timed = (args, diff)
+        for n, trials, none_valid in COUNT_CASES:
+            src = walk(gen, n, torch.float64, device, scale=2.0)
+            dst = 0.987 * src + torch.tensor([3.0, -2.0, 1.0], dtype=torch.float64, device=device)
+            dst = dst + 2.0 * torch.randn(n, 3, generator=gen, dtype=torch.float64).to(device)
+            src, dst = src.to(dtype), dst.to(dtype)
+            valid = (torch.rand(n, generator=gen) > (1.0 if none_valid else 0.05)).to(device)
+            draws = torch.randint(0, n, (trials, 4), generator=gen).to(device)
+            fits = umeyama_sim3(src[draws], dst[draws])
+            args = (src, dst, valid, fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), 16.0)
+            got, again = kernels.ransac_counts(*args), kernels.ransac_counts(*args)
+            torch.cuda.synchronize()
+            want = kernels.ransac_counts_plain(*args)
+            diff = int((got - want).abs().max())
+            what = f"ransac_counts {dtype} {trials}x{n}" + (" (no valid point)" if none_valid else "")
+            if diff != 0 or got.dtype != torch.int32:
+                raise AssertionError(f"{what}: counts differ from the plain version's by {diff}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two runs on the same inputs differ")
+            if none_valid != (int(got.max()) == 0):
+                raise AssertionError(f"{what}: largest count {int(got.max())}")
+            w_k = int(select_winner(src, dst, valid, fits, got, 16.0))
+            w_p = int(select_winner(src, dst, valid, fits, want, 16.0))
+            if w_k != w_p:
+                raise AssertionError(f"{what}: winner {w_k} != {w_p}")
+            worst = max(worst, diff)
+            if dtype == torch.float32 and (n, trials, none_valid) == COUNT_CASES[0]:
+                timed = (args, diff)
     args, diff32 = timed
     ms = cuda_ms(lambda: kernels.ransac_counts(*args))
     plain_ms = cuda_ms(lambda: kernels.ransac_counts_plain(*args))
-    dev = device_ms(lambda: kernels.ransac_counts(*args))
-    emit({"phase": 1, "kernel": "ransac_counts", "max_count_diff": worst, "ms": ms,
-          "plain_ms": plain_ms, "device_ms": dev, "shape": [1000, SEQ02_LEN], "dtype": "float32"})
+    by_kernel = device_profile(lambda: kernels.ransac_counts(*args))
+    dev = sum(by_kernel.values())
+    emit({"phase": 1, "kernel": "ransac_counts", "max_count_diff": worst, "identical_runs": True, "ms": ms,
+          "plain_ms": plain_ms, "device_ms": dev, "device_ms_by_kernel": by_kernel,
+          "host_ms": host_ms(lambda: kernels.ransac_counts(*args)),
+          "cases": [list(c) for c in COUNT_CASES], "shape": [1000, SEQ02_LEN], "dtype": "float32"})
     src, T = args[0], args[3].shape[0]
     moved = (2 * src.numel() + T * 13) * src.element_size() + src.shape[0] + 4 * T
     return [kernel_entry("ransac_counts", "ransac_counts.cu", "pallas_kernels.py:450", "float32",
@@ -1138,7 +1222,7 @@ def phase5(device):
     if not err04 <= 1e-6 or back.shape != (271, 8) or not np.isfinite(back).all():
         raise AssertionError(f"seq-04 chunked off in-core ({err04:.3e} m) or malformed export")
     # At 524,288-pose chunks every scan is past K1's longest and every NN
-    # block past K3's budget; seq-04's single short chunk takes K1 and K3.
+    # block at K4's first candidate count; seq-04's single short chunk takes K1 and K3.
     required = [f"scan_tiled/{op}" for op in scan.OPS] + ["nn_keep", "nn_grid", "ransac_counts"]
     missing = [k for k in required if launches[k] <= 0]
     if missing:

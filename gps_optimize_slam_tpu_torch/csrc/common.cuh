@@ -23,3 +23,15 @@ struct Limits<double> {
   __device__ static double inf() { return __longlong_as_double(0x7ff0000000000000LL); }
   __device__ static double tiny() { return 2.22507385850720138309e-308; }  // DBL_MIN
 };
+
+// The 16-byte vector of T (4 float32 or 2 float64): one shared-memory load.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};

@@ -19,8 +19,10 @@
 // tiles in shared memory with cp.async: K3's operand layout, (m_tiles, 4,
 // 1024) rows x, y, z and a validity row (0 valid, +inf invalid or padded),
 // so validity is folded into the staged tile. While tile k is scanned,
-// tile k + 1 loads. Every thread runs K3's 4-term difference form in K3's
-// order, and the block folds its per-query minimum into the output with an
+// tile k + 1 loads. Every thread scans the staged tile with the function K3
+// scans it with (nn_tile.cuh: tile_min, 16-byte shared-memory loads, the
+// validity row added as the distance's last term), and the block folds its
+// per-query minimum into the output with an
 // atomicMin on the bit pattern: non-negative IEEE values order like their
 // bits as integers (int for float32, unsigned long long for float64). The
 // wrapper fills the output with +inf first; a NaN distance never wins a
@@ -29,16 +31,15 @@
 // inputs (--fmad=false: no contraction).
 //
 // What bounds it on this card: operations, 8 flops a kept (query,
-// candidate) pair for the 3-term function (the kernel spends 11 with the
+// candidate) pair for the 3-term function (the kernel spends 10 with the
 // validity term), 128 x 1024 pairs a kept tile pair; the keep lists are
 // nn_keep.cu's cost.
-#include "common.cuh"
+#include "nn_tile.cuh"
 
 namespace {
 
-constexpr int kGridTileN = 128;   // queries per block, one per thread
-constexpr int kGridTileM = 1024;  // candidates per tile
-constexpr int kRun = 4;           // kept candidate tiles per block at most
+constexpr int kGridTileN = kNnTileN;  // queries per block, one per thread
+constexpr int kRun = 4;               // kept candidate tiles per block at most
 
 __device__ __forceinline__ void atomic_min_nonneg(float* addr, float v) {
   atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
@@ -49,27 +50,14 @@ __device__ __forceinline__ void atomic_min_nonneg(double* addr, double v) {
             static_cast<unsigned long long>(__double_as_longlong(v)));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kGridTileN)
 nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
                const int* __restrict__ order, const int* __restrict__ nkept,
                const int* __restrict__ ends, int n_tiles, int m_tiles, T* __restrict__ out) {
-  constexpr int kTileElems = 4 * kGridTileM;
-  constexpr int kChunks = kTileElems * (int)sizeof(T) / 16;  // 16-byte copies a tile
+  constexpr int kTileElems = 4 * kNnTileM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* buf = reinterpret_cast<T*>(smem_raw);  // [2][4][kGridTileM]
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [2][4][kNnTileM]
   const int b = blockIdx.x;
   int lo = 0, hi = n_tiles - 1;  // first query tile i with ends[i] > b
   while (lo < hi) {
@@ -83,21 +71,18 @@ nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
   const int* tiles = order + (size_t)i * m_tiles;
 
   auto stage = [&](int k, int slot) {
-    const char* src = reinterpret_cast<const char*>(cand + (size_t)tiles[k] * kTileElems);
-    char* dst = reinterpret_cast<char*>(buf + slot * kTileElems);
-    for (int c = threadIdx.x; c < kChunks; c += kGridTileN) cp_async16(dst + 16 * c, src + 16 * c);
-    cp_async_commit();
+    stage_tile<T, kGridTileN>(buf + slot * kTileElems, cand + (size_t)tiles[k] * kTileElems);
   };
 
   const int q = i * kGridTileN + threadIdx.x;
-  T ax = 0, ay = 0, az = 0;
+  T ax[1] = {0}, ay[1] = {0}, az[1] = {0};
   if (q < n) {
-    ax = traj[3 * (size_t)q];
-    ay = traj[3 * (size_t)q + 1];
-    az = traj[3 * (size_t)q + 2];
+    ax[0] = traj[3 * (size_t)q];
+    ay[0] = traj[3 * (size_t)q + 1];
+    az[0] = traj[3 * (size_t)q + 2];
   }
   const T inf = Limits<T>::inf();
-  T best = inf;
+  T best[1] = {inf};
   stage(k0, 0);
   for (int k = k0; k < k1; ++k) {
     const int slot = (k - k0) & 1;
@@ -108,19 +93,10 @@ nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* sb = buf + slot * kTileElems;
-#pragma unroll 4
-    for (int c = 0; c < kGridTileM; ++c) {
-      const T d0 = ax - sb[c];
-      const T d1 = ay - sb[kGridTileM + c];
-      const T d2 = az - sb[2 * kGridTileM + c];
-      const T d3 = T(0) - sb[3 * kGridTileM + c];
-      const T d = d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
-      best = d < best ? d : best;
-    }
+    tile_min<T, 1>(buf + slot * kTileElems, 0, 1, ax, ay, az, best);
     __syncthreads();  // the slot is restaged two tiles on
   }
-  if (q < n && best < inf) atomic_min_nonneg(out + q, best);
+  if (q < n && best[0] < inf) atomic_min_nonneg(out + q, best[0]);
 }
 
 template <typename T>
@@ -130,7 +106,7 @@ cudaError_t launch(const void* traj, int n, const void* cand, const int* order, 
   if ((long long)n_tiles * kGridTileN < n || n_tiles < 1 || n_items < 0)
     return cudaErrorInvalidValue;
   if (n_items == 0) return cudaSuccess;
-  const size_t smem = 2 * 4 * kGridTileM * sizeof(T);
+  const size_t smem = 2 * 4 * kNnTileM * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(nn_grid_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -5,21 +5,26 @@ Ports the three Pallas kernels of ``gps_optimize_slam_tpu/ops/pallas_kernels.py`
 and the array code around them:
 
 * :func:`nn_min_dist2`: per query, the minimum squared distance to any
-  valid candidate, routed as the JAX package routes it (:func:`nn_route`):
-  :func:`nn_resident` (K3, ``csrc/nn.cu``; ports the resident form) while
-  the candidate image fits the JAX package's 8 MiB budget, :func:`nn_grid`
-  (K4, ``csrc/nn_grid.cu``; ports the pipelined 2-D grid) beyond it. Both
+  valid candidate, routed by the number of candidates (:func:`nn_route`, a
+  rule set from times measured on the H100, not the JAX package's VMEM
+  budget): :func:`nn_resident` (K3, ``csrc/nn.cu``; ports the resident
+  form) below ``GRID_MIN_CANDIDATES``, :func:`nn_grid` (K4,
+  ``csrc/nn_grid.cu``; ports the pipelined 2-D grid) from there on. Both
   take the per-query-tile lists of kept candidate tiles and the packed
   candidates from :func:`keep_lists` (``csrc/nn_keep.cu``: the per-32-point
   AABB bounds of :func:`tile_keep_mask`, their compaction and the packing,
   on the card, pruned exactly at two levels: a box per 1024-candidate tile
   rules most tiles out before any of their 32 segment boxes is read, and a
-  block of several query tiles shares the candidate boxes it reads). K3 walks each query tile's list in one block; K4 launches
-  one block per run of ``RUN_TILES`` kept tiles, so no block exists for a
-  dropped pair.
+  block of several query tiles shares the candidate boxes it reads), and
+  both scan a staged tile with one function (``csrc/nn_tile.cuh``), so they
+  agree bit for bit. In K3 the blocks of a query tile (16 or 32 queries
+  each) share its list and each walks all of it; K4 launches one block per
+  run of ``RUN_TILES`` kept tiles, so a long list is spread over many
+  blocks and no block exists for a dropped pair.
 * :func:`ransac_counts`: per Sim(3) trial, the number of valid points within
   the residual threshold (``ransac_counts``), launched from
-  ``csrc/ransac_counts.cu`` in the exact elementwise form.
+  ``csrc/ransac_counts.cu`` in the exact elementwise form: blocks of 256
+  points by 32 trials, integer partial counts added into a zeroed output.
 
 Each wrapper takes its plain PyTorch version (``*_plain``, below) for CPU
 tensors only; a CUDA tensor launches the kernel or raises. Both NN kernels
@@ -33,14 +38,22 @@ import torch
 
 from gps_optimize_slam_tpu_torch.ops import _build
 
-TILE_N = 128  # queries per block of csrc/nn.cu and csrc/nn_grid.cu
+TILE_N = 128  # queries per keep list: a block of csrc/nn_grid.cu, 4-8 blocks of csrc/nn.cu
 TILE_M = 1024  # candidates per tile of both
 SUB = 32  # AABB segment length of the pruning bounds (divides both tiles)
 RUN_TILES = 4  # kept candidate tiles per K4 block (csrc/nn_grid.cu kRun)
 _BIG = 3.4e38  # non-finite coordinates are clamped here for the bounds only
-# The JAX package's budget for its resident kernel (pallas_kernels.py:85,
-# 263): the (8, m_pad) float32 candidate image within 8 MiB.
-RESIDENT_BUDGET_BYTES = 8 * 1024 * 1024
+# K4 from this many candidates on, K3 below (:func:`nn_route`). On
+# spatially coherent tracks K3's call was the faster at every size measured
+# on the H100 (16,384 queries against 4,661 to 1,048,576 candidates, and
+# 524,288 x 524,288, float32 and float64), so the rule sits at the upper end
+# of the range the two main paths leave it: 4,661-candidate calls of the
+# in-core path take K3, the chunked evaluation's 524,288-candidate blocks
+# K4. What K4 is for starts there too: with 512 or more candidate tiles a
+# keep list can get long, and at a few query tiles with every tile kept K4's
+# split of the list over blocks was 1.1-2x faster than K3 (PERF.md, "Routing
+# thresholds").
+GRID_MIN_CANDIDATES = 524_288
 # Bound elements per row block of tile_keep_mask (about 50 MB for each of
 # its float64 (rows, m_sub, 3) intermediates).
 _KEEP_BLOCK_ELEMS = 1 << 21
@@ -51,11 +64,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 def nn_route(m: int) -> str:
-    """"resident" (K3) or "grid" (K4) for ``m`` candidates: the rule of
-    ``pallas_kernels.nn_min_dist2``, K3 while m_pad·8·4 B ≤ 8 MiB
-    (m_pad = m rounded up to TILE_M; K4 above 262,144 candidates)."""
-    m_pad = _round_up(max(m, 8), TILE_M)
-    return "resident" if m_pad * 8 * 4 <= RESIDENT_BUDGET_BYTES else "grid"
+    """"resident" (K3) or "grid" (K4) for ``m`` candidates: K4 from
+    ``GRID_MIN_CANDIDATES`` on. (The JAX package's rule, its resident
+    kernel's 8 MiB VMEM budget, put the change above 262,144.)"""
+    return "resident" if m < GRID_MIN_CANDIDATES else "grid"
 
 
 def tile_keep_mask(tp: torch.Tensor, cp: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
@@ -245,8 +257,9 @@ def nn_min_dist2(
 def nn_resident(
     traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor
 ) -> torch.Tensor:
-    """K3 (``csrc/nn.cu``): each 128-query block walks its kept candidate
-    tiles, at any M. CPU tensors take :func:`nn_min_dist2_plain`."""
+    """K3 (``csrc/nn.cu``): blocks of 16 or 32 queries walk the kept
+    candidate tiles of their 128-query tile, at any M. CPU tensors take
+    :func:`nn_min_dist2_plain`."""
     if traj.device.type == "cpu":
         return nn_min_dist2_plain(traj, candidates, cand_mask)
     _check_nn(traj, candidates, cand_mask)
@@ -364,8 +377,8 @@ def ransac_counts(
         raise ValueError("R, t, s must be (T, 3, 3), (T, 3), (T,)")
     if len({x.dtype for x in (src, dst, R, t, s)}) != 1 or valid.dtype != torch.bool:
         raise TypeError("src, dst, R, t, s must share one float dtype; valid must be bool")
-    out = torch.empty((T,), dtype=torch.int32, device=src.device)
-    if T == 0:
+    out = torch.zeros((T,), dtype=torch.int32, device=src.device)
+    if T == 0 or n == 0:
         return out
     lib = _build.library()
     rc = lib.gps_ransac_counts(

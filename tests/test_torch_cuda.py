@@ -9,10 +9,10 @@ suite's conftest:
 Tolerances: relative to (max |plain| + 1) per leaf, 1e-4 in float32 and
 1e-10 in float64 (the kernels associate or sum in another order; K2 is
 also held to K1 on the same input); NN 1e-5 / 1e-12 relative, and K4 equal
-to K3 bit for bit (the same pairs, the same arithmetic); counts within 2 of
-the plain version (a residual within rounding of the threshold), the
-re-ranked winner identical; seq-04 on the card within 1e-6 m of the golden
-trajectory.
+to K3 bit for bit (the same pairs, the same arithmetic: both scan a tile
+with csrc/nn_tile.cuh); counts equal to the plain version's (the same
+elementwise order, uncontracted) and from run to run, the re-ranked winner
+identical; seq-04 on the card within 1e-6 m of the golden trajectory.
 """
 
 import os
@@ -125,36 +125,76 @@ def walk(gen, n, dtype, device, offset=0.0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_nn_kernel_matches_plain(cuda, dtype):
+    """K3 against the plain version and bit for bit against K4: seq-02's
+    length, one candidate tile, fewer queries than a block takes, a ragged
+    last block, more than 256 query tiles (the larger block size),
+    16,384 x 262,144 and, in float64, UTM magnitudes."""
     gen = torch.Generator().manual_seed(1)
-    for n, m in ((4661, 4661), (300, 777), (5, 1)):
-        traj, cands = walk(gen, n, dtype, cuda), walk(gen, m, dtype, cuda, offset=0.3)
+    cases = [(4661, 4661, 0.0), (300, 777, 0.0), (5, 1, 0.0), (1131, 3000, 0.0), (33_000, 40_000, 0.0),
+             (16_384, 262_144, 0.0)]
+    if dtype == torch.float64:
+        cases.append((4661, 4661, 5.4e6))
+    for n, m, offset in cases:
+        traj, cands = walk(gen, n, dtype, cuda, offset), walk(gen, m, dtype, cuda, offset + 0.3)
         mask = (torch.rand(m, generator=gen) > 0.1).to(cuda)
+        before = kernels.nn_resident.launches
         got = kernels.nn_min_dist2(traj, cands, mask)
+        assert kernels.nn_resident.launches == before + 1
         torch.cuda.synchronize()
-        want = kernels.nn_min_dist2_plain(traj, cands, mask)
+        want = kernels.nn_min_dist2_plain(traj, cands, mask, block=128)
         torch.testing.assert_close(got, want, rtol=1e-5 if dtype == torch.float32 else 1e-12, atol=0.0)
-    none = kernels.nn_min_dist2(traj, cands, torch.zeros_like(mask))
-    assert torch.isinf(none).all()
+        assert torch.equal(got, kernels.nn_grid(traj, cands, mask)), (n, m)
+        none = kernels.nn_min_dist2(traj, cands, torch.zeros_like(mask))
+        assert none.shape == (n,) and torch.isinf(none).all()
+    assert kernels.nn_resident(traj[:0], cands, mask).shape == (0,)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_counts_kernel_matches_plain_and_keeps_the_winner(cuda, dtype):
+    """K5's counts equal the plain version's and do not change from run to
+    run: the main path's size, seq-04's, ragged point and trial chunks
+    (5003 = 19 x 256 + 139 points, 333 = 10 x 32 + 13 trials), one point
+    and one trial, and no valid point."""
     gen = torch.Generator().manual_seed(2)
-    n = 4661
-    src = walk(gen, n, torch.float64, cuda) * 2.0
-    dst = 0.987 * src + 2.0 * torch.randn(n, 3, generator=gen, dtype=torch.float64).to(cuda)
-    src, dst = src.to(dtype), dst.to(dtype)
-    valid = (torch.rand(n, generator=gen) > 0.05).to(cuda)
-    draws = torch.randint(0, n, (1000, 4), generator=gen).to(cuda)
-    fits = umeyama_sim3(src[draws], dst[draws])
-    args = (src, dst, valid, fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), 16.0)
-    got = kernels.ransac_counts(*args)
-    torch.cuda.synchronize()
-    want = kernels.ransac_counts_plain(*args)
-    assert int((got - want).abs().max()) <= 2
-    assert int(select_winner(src, dst, valid, fits, got, 16.0)) == int(
-        select_winner(src, dst, valid, fits, want, 16.0)
-    )
+    for n, trials, none_valid in ((4661, 1000, False), (279, 1000, False), (5003, 333, False), (4, 1, False),
+                                  (4661, 1000, True)):
+        src = walk(gen, n, torch.float64, cuda) * 2.0
+        dst = 0.987 * src + 2.0 * torch.randn(n, 3, generator=gen, dtype=torch.float64).to(cuda)
+        src, dst = src.to(dtype), dst.to(dtype)
+        valid = (torch.rand(n, generator=gen) > (1.0 if none_valid else 0.05)).to(cuda)
+        draws = torch.randint(0, n, (trials, 4), generator=gen).to(cuda)
+        fits = umeyama_sim3(src[draws], dst[draws])
+        args = (src, dst, valid, fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), 16.0)
+        before = kernels.ransac_counts.launches
+        got, again = kernels.ransac_counts(*args), kernels.ransac_counts(*args)
+        assert kernels.ransac_counts.launches == before + 2
+        torch.cuda.synchronize()
+        want = kernels.ransac_counts_plain(*args)
+        assert got.dtype == torch.int32 and torch.equal(got, want), (n, trials)
+        assert torch.equal(got, again)
+        assert none_valid == (int(got.max()) == 0)
+        assert int(select_winner(src, dst, valid, fits, got, 16.0)) == int(
+            select_winner(src, dst, valid, fits, want, 16.0)
+        )
+
+
+def test_nn_route_rule_edges(cuda):
+    """One candidate below ``GRID_MIN_CANDIDATES`` launches K3, that many
+    K4, and the two agree bit for bit with each other and with the plain
+    version to its tolerance."""
+    gen = torch.Generator().manual_seed(6)
+    edge = kernels.GRID_MIN_CANDIDATES
+    traj, cands = walk(gen, 2000, torch.float64, cuda), walk(gen, edge, torch.float64, cuda, offset=0.3)
+    mask = (torch.rand(edge, generator=gen) > 0.1).to(cuda)
+    k3, k4 = kernels.nn_resident.launches, kernels.nn_grid.launches
+    below = kernels.nn_min_dist2(traj, cands[:-1].contiguous(), mask[:-1].contiguous())
+    assert (kernels.nn_resident.launches, kernels.nn_grid.launches) == (k3 + 1, k4)
+    at = kernels.nn_min_dist2(traj, cands, mask)
+    assert (kernels.nn_resident.launches, kernels.nn_grid.launches) == (k3 + 1, k4 + 1)
+    assert torch.equal(at, kernels.nn_resident(traj, cands, mask))
+    want = kernels.nn_min_dist2_plain(traj, cands, mask, block=128)
+    torch.testing.assert_close(at, want, rtol=1e-12, atol=0.0)
+    assert bool((below >= at).all())  # one candidate fewer: nothing nearer
 
 
 def same_bits(t):
@@ -212,12 +252,11 @@ def test_keep_list_kernel_equals_plain_lists(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_grid_nn_kernel_equals_resident_kernel_and_plain(cuda, dtype):
     gen = torch.Generator().manual_seed(3)
-    m = 300_000  # m_pad 300,032 > 262,144: K4 by the routing rule
-    assert kernels.nn_route(m) == "grid"
+    m = 300_000  # a ragged last candidate tile (m_pad 300,032)
     traj, cands = walk(gen, 16_384, dtype, cuda), walk(gen, m, dtype, cuda, offset=0.3)
     mask = (torch.rand(m, generator=gen) > 0.1).to(cuda)
     before = kernels.nn_grid.launches
-    got = kernels.nn_min_dist2(traj, cands, mask)
+    got = kernels.nn_grid(traj, cands, mask)
     assert kernels.nn_grid.launches == before + 1
     k3 = kernels.nn_resident(traj, cands, mask)
     torch.cuda.synchronize()

@@ -6,15 +6,18 @@ the JAX package's Pallas kernels in interpret mode (K4's function against
 the pipelined 2-D grid, forced by a zero resident budget) and its exact
 counting form. The array code around the CUDA NN kernels (tile bounds in
 row blocks, keep lists, candidate packing) runs here too: a NumPy walk over
-exactly the operands each kernel receives must give the brute-force
-minimum, and the K3/K4 routing equals the JAX package's.
+exactly the operands each kernel receives, in each kernel's order of work
+(K3's blocks of a query tile sharing one keep list, their slices of a
+staged tile and the fold; K4's runs; K5's point chunks by trial chunks and
+their partial counts), must give the brute-force minimum and the plain
+counts, and the K3/K4 routing rule is held at its edges.
 
 Tolerances: NN ≤1e-6 relative against the JAX kernel, which computes in
 float32 (inputs are rounded to float32 first, so only the kernel's own
 rounding remains); the emulated kernel walk equals the brute force to
-1e-14 relative; counts exactly equal to JAX's elementwise form, and within
-2 of its float32 quadratic-form kernel (which the JAX package re-ranks for
-that reason).
+1e-14 relative; counts, and the emulated kernel's, exactly equal to JAX's
+elementwise form, and within 2 of its float32 quadratic-form kernel (which
+the JAX package re-ranks for that reason).
 """
 
 import jax.numpy as jnp
@@ -62,34 +65,79 @@ def test_plain_nn_all_masked_and_nan_rows():
     np.testing.assert_allclose(got[ok], want[ok], rtol=1e-6)
 
 
-def emulate_kernel(traj, cands, mask):
-    """What csrc/nn.cu computes from the wrapper's operands, in NumPy."""
+NN_THREADS = 256  # csrc/nn.cu kNnThreads
+SMALL_GRID_TILES = 256  # csrc/nn.cu kSmallGridTiles: 16 queries a block up to here, 32 beyond
+
+
+def emulate_kernel(traj, cands, mask, sub=None, per_thread=None, per_vector=2):
+    """What csrc/nn.cu computes from the wrapper's operands, in NumPy, in
+    its order of work: each 128-query tile is cut into blocks of ``sub``
+    queries that share the tile's keep list; a block's 256 threads are
+    ``sub / per_thread`` query lanes by slices, a thread holding
+    ``per_thread`` queries and scanning every slices-th vector of
+    ``per_vector`` candidates (16 bytes: 4 in float32, 2 in float64) of each
+    kept tile; the slices' minima are folded at the end. A pair's distance
+    is the kernel's, the validity row added as the last term
+    (csrc/nn_tile.cuh). Blocks whose queries are all padding do nothing and
+    padding queries are never written: the output starts as NaN and must
+    come back without one. Returns (out, nkept, m_tiles)."""
     order, nkept, cand4 = (x.numpy() for x in kernels.keep_lists(traj, cands, mask))
+    if sub is None:
+        sub, per_thread = (16, 2) if order.shape[0] <= SMALL_GRID_TILES else (32, 4)
+    lanes = sub // per_thread
+    slices = NN_THREADS // lanes
+    vectors = kernels.TILE_M // per_vector
+    assert lanes * per_thread == sub and lanes * slices == NN_THREADS and kernels.TILE_N % sub == 0
+    # candidate columns of each slice: vectors slice, slice + slices, ...
+    cols = [(np.arange(sl, vectors, slices)[:, None] * per_vector + np.arange(per_vector)).ravel()
+            for sl in range(slices)]
+    assert sorted(np.concatenate(cols)) == list(range(kernels.TILE_M))  # every candidate once
     a = traj.numpy()
-    out = np.full(len(a), np.inf)
-    for i in range(order.shape[0]):
-        q = a[i * kernels.TILE_N : (i + 1) * kernels.TILE_N]
-        best = np.full(len(q), np.inf)
+    n = len(a)
+    out = np.full(n, np.nan)
+    for block in range(order.shape[0] * (kernels.TILE_N // sub)):
+        i, q0 = divmod(block * sub, kernels.TILE_N)
+        q0 += i * kernels.TILE_N
+        if q0 >= n:
+            continue
+        q = np.zeros((sub, 3))
+        q[: max(0, min(sub, n - q0))] = a[q0 : q0 + sub]
+        best = np.full((slices, sub), np.inf)
         for k in range(nkept[i]):
-            blk = cand4[order[i, k]]  # (4, TILE_M)
-            d = ((q[:, 0, None] - blk[0]) ** 2 + (q[:, 1, None] - blk[1]) ** 2
-                 + (q[:, 2, None] - blk[2]) ** 2 + (0.0 - blk[3]) ** 2)
-            best = np.minimum(best, d.min(1))
-        out[i * kernels.TILE_N : (i + 1) * kernels.TILE_N] = best
+            blk = cand4[order[i, k]]  # (4, TILE_M): x, y, z, validity (+0 or +inf)
+            for sl in range(slices):
+                c = cols[sl]
+                d = ((q[:, 0, None] - blk[0, c]) ** 2 + (q[:, 1, None] - blk[1, c]) ** 2
+                     + (q[:, 2, None] - blk[2, c]) ** 2 + blk[3, c])
+                best[sl] = np.fmin(best[sl], d.min(1))
+        rows = min(sub, n - q0)
+        out[q0 : q0 + rows] = best.min(0)[:rows]
+    assert not np.isnan(out).any()
     return out, nkept, order.shape[1]
 
 
-@pytest.mark.parametrize("n,m,scale", [(2000, 3000, 1.0), (700, 2500, 5.0), (130, 1025, 0.3)])
-def test_kernel_operands_give_the_exact_minimum(n, m, scale):
+NN_BLOCKS = [(16, 2, 2), (16, 2, 4), (32, 4, 2), (32, 4, 4)]  # (queries a block, a thread, candidates a vector)
+
+
+@pytest.mark.parametrize("sub,per_thread,per_vector", NN_BLOCKS)
+@pytest.mark.parametrize("n,m,scale", [(2000, 3000, 1.0), (700, 2500, 5.0), (130, 1025, 0.3),
+                                       (1131, 3000, 1.0), (5, 1, 1.0)])
+def test_kernel_operands_give_the_exact_minimum(n, m, scale, sub, per_thread, per_vector):
+    """Both block sizes of K3 and both vector widths, at a ragged last block
+    (2000 = 15 tiles + 80; 1131 = 8 tiles + 107, its last block 11 queries
+    of 16 or 32; 130 = one tile + 2) and at fewer queries than one block
+    takes (5)."""
     rng = np.random.default_rng(m)
     traj = torch.tensor(walk(rng, n, scale))
     cands = torch.tensor(walk(rng, m, scale, offset=2.0))
     mask = torch.tensor(rng.uniform(size=m) > 0.1)
-    got, nkept, m_tiles = emulate_kernel(traj, cands, mask)
+    got, nkept, m_tiles = emulate_kernel(traj, cands, mask, sub, per_thread, per_vector)
     want = kernels.nn_min_dist2_plain(traj, cands, mask).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-14)
-    if n >= 700:
+    if n in (2000, 700):
         assert nkept.sum() < nkept.size * m_tiles  # the pruning did skip tiles
+    none, _, _ = emulate_kernel(traj, cands, torch.zeros_like(mask), sub, per_thread, per_vector)
+    assert np.isinf(none).all()  # every candidate masked: +inf, not NaN
 
 
 @pytest.mark.parametrize("offset", [0.0, 5.4e6])  # local frame and UTM magnitudes
@@ -175,12 +223,71 @@ def test_plain_counts_match_jax_exact_and_kernel():
     assert 0 < got.min() and got.max() < valid.sum()  # the threshold cuts
 
 
+COUNT_THREADS, COUNT_TRIALS = 256, 32  # csrc/ransac_counts.cu: points and trials a block
+
+
+def emulate_count_kernel(src, dst, valid, R, t, s, thr2):
+    """What csrc/ransac_counts.cu computes, in NumPy, in its order of work:
+    a grid of (chunks of 256 points) x (chunks of 32 trials); a block's
+    threads hold one point each and walk the block's trials, each warp of 32
+    points adds its hits of a trial into the block's counter, and the block
+    adds its counters into the zeroed output. The residual is the kernel's
+    elementwise expression."""
+    n, T = len(src), len(R)
+    out = np.zeros(T, np.int32)
+    for p0 in range(0, n, COUNT_THREADS):
+        i = np.arange(p0, p0 + COUNT_THREADS)
+        ok = (i < n) & valid[np.minimum(i, n - 1)]
+        p = np.where(ok[:, None], src[np.minimum(i, n - 1)], 0.0)
+        d = np.where(ok[:, None], dst[np.minimum(i, n - 1)], 0.0)
+        for t0 in range(0, T, COUNT_TRIALS):
+            tc = min(COUNT_TRIALS, T - t0)
+            block = np.zeros(COUNT_TRIALS, np.int32)
+            for u in range(tc):
+                r, tt, sc = R[t0 + u], t[t0 + u], s[t0 + u]
+                e = [sc * (p[:, 0] * r[j, 0] + p[:, 1] * r[j, 1] + p[:, 2] * r[j, 2]) + tt[j] - d[:, j]
+                     for j in range(3)]
+                hit = ok & (e[0] * e[0] + e[1] * e[1] + e[2] * e[2] < thr2)
+                for warp in hit.reshape(-1, 32):  # one sum a warp, kept by lane u
+                    block[u] += warp.sum()
+            out[t0 : t0 + tc] += block[:tc]
+    return out
+
+
+@pytest.mark.parametrize("n,T,none_valid", [(1500, 300, False), (279, 1000, False), (5003, 333, False),
+                                            (1, 1, False), (1500, 300, True)])
+def test_emulated_count_kernel_equals_plain_and_jax_exact(n, T, none_valid):
+    """Ragged point chunks (1500 = 5 x 256 + 220, 279, 5003) and trial chunks
+    (300 = 9 x 32 + 12, 1000, 333), one point and one trial, and no valid
+    point: the per-chunk partial counts sum to the plain counts exactly."""
+    rng = np.random.default_rng(n + T)
+    src, dst, valid, R, t, s = sim3_trials(rng, n, T)
+    if none_valid:
+        valid = np.zeros(n, bool)
+    got = emulate_count_kernel(src, dst, valid, R, t, s, 16.0)
+    plain = kernels.ransac_counts_plain(*[torch.tensor(a) for a in (src, dst, valid, R, t, s)], 16.0).numpy()
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, jax_exact_counts(src, dst, valid, R, t, s, 16.0))
+    if none_valid:
+        assert (got == 0).all()
+    elif n >= 279:
+        assert 0 < got.max() < n  # the threshold cuts
+
+
 def test_nn_route_matches_jax():
-    for m in (1, 1024, 262_143, 262_144, 262_145, 300_000, 524_288):
-        m_pad = jpk._round_up(max(m, 8), jpk.TILE_M)
-        want = "resident" if m_pad * jpk._PAD_DIM * 4 <= jpk._RESIDENT_BUDGET_BYTES else "grid"
-        assert kernels.nn_route(m) == want, m
-    assert kernels.nn_route(262_144) == "resident" and kernels.nn_route(262_145) == "grid"
+    """The port's own rule at its edges: K3 below ``GRID_MIN_CANDIDATES``,
+    K4 from there on, whatever the padding; the in-core path's sizes take
+    K3 and the chunked evaluation's 524,288-candidate blocks K4."""
+    edge = kernels.GRID_MIN_CANDIDATES
+    assert edge == 524_288
+    for m in (0, 1, 1024, 4661, 262_144, 262_145, 300_000, edge - 1):
+        assert kernels.nn_route(m) == "resident", m
+    for m in (edge, edge + 1, 1_048_576):
+        assert kernels.nn_route(m) == "grid", m
+    # Where the JAX package's rule sat (its resident kernel's 8 MiB VMEM
+    # budget): the change above 262,144 candidates, half the port's edge.
+    jax_last = jpk._RESIDENT_BUDGET_BYTES // (jpk._PAD_DIM * 4)
+    assert jax_last == 262_144 and kernels.nn_route(jax_last + 1) == "resident"
 
 
 @pytest.mark.parametrize("n,m", [(300, 2500), (40, 777)])
