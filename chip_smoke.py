@@ -2,12 +2,16 @@
 """Smoke run of the PyTorch port (``gps_optimize_slam_tpu_torch``) on one
 NVIDIA GPU: builds the CUDA kernels from ``gps_optimize_slam_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, and drives the
-port's two paths on data built from the real KITTI seq-04 golden arrays:
+port's paths on data built from the real KITTI seq-04 golden arrays:
 the in-core path (``pipeline.fuse_files`` / ``fuse_arrays`` →
 ``fusion.fuse_core`` + ``fusion.evaluate`` → ``export_result``) on seq-04
-and on a 4,661-pose sequence, and the out-of-core chunked path
+and on a 4,661-pose sequence, the out-of-core chunked path
 (``pipeline.fuse_files_chunked`` → ``fusion_chunked.fuse_core_chunked`` +
-``evaluate_chunked``) on a 1,048,576-pose sequence and on seq-04.
+``evaluate_chunked``) on a 1,048,576-pose sequence and on seq-04, and the
+robust and ground-truth path (dirty GNSS through the χ² gate of
+``models.robust`` in core and out of core, ``evaluate_vs_track`` and its
+chunked form, the cross-correlation clock offsets, adaptive RANSAC stopping,
+and the ``fuse`` command) at both sizes.
 
 Usage (from the repository root, on a machine with a CUDA device):
 
@@ -63,14 +67,38 @@ Phases:
      blocks) against the K3 route (262,144), launch counts, warm wall times, poses
      per second and peak device memory; and ``fuse_files_chunked`` +
      ``export_result`` on the seq-04 files against the in-core
-     ``fuse_files``, with launch counts of its own.
+     ``fuse_files``, with launch counts of its own;
+  6. the robust and ground-truth path, float64 on the card. In core, the
+     4,661-pose sequence with 1 % gross outliers and an 8 s outage injected
+     by ``utils.faults``: ``fuse_arrays(robust=True)`` under the parallel
+     and the sequential gate (both at their fixed point, masks equal,
+     positions ≤1e-9 m; every injected outlier rejected; the gated
+     trajectory closer to the clean fusion than the ungated one; the card
+     against the CPU run ≤1e-6 m), ``evaluate_vs_track`` against an
+     independent track in core (K3) and chunked, the ``xcorr`` and
+     ``xcorr_device`` offsets on a GNSS clock moved by 1.7 s, and
+     ``sim3_ransac`` under ``stop_probability``. Out of core, the
+     1,048,576-pose sequence with 0.5 % outliers:
+     ``fuse_core_chunked(robust=True)`` against
+     ``fuse_robust(gate_mode="parallel")`` in core (masks equal, ≤1e-6 m,
+     quaternions ≤1e-8, NIS ≤1e-6 relative; K2 and no K1) and
+     ``evaluate_vs_track_chunked`` (K4) against ``evaluate_vs_track``
+     (≤1e-6 relative, aligned track ≤1e-6 m). Then ``python3 -m
+     gps_optimize_slam_tpu_torch fuse ... --robust --gt ... --json`` and the
+     same with ``--chunked`` as subprocesses on the seq-04 files. The walls
+     of a gate pass (both gates) and of the robust chunked fusion are
+     printed on lines of their own.
 
-The launch counts of the ``{"kernels": [...]}`` line are those of the two
+The launch counts of the ``{"kernels": [...]}`` line are those of the
 main-path runs (phase 4: ``fuse_arrays`` at 4,661 poses; phase 5:
 ``fuse_core_chunked`` + ``evaluate_chunked`` at 1,048,576 poses and
-524,288-pose chunks), each with the counts set to 0 just before it and
-read just after. The comparison launches of phase 1, phase 5's K3-route
-evaluation and its seq-04 run do not count there.
+524,288-pose chunks; phase 6: ``fuse_arrays(robust=True, gt=...)`` under
+each gate and the adaptive ``sim3_ransac`` at 4,661 poses,
+``fuse_core_chunked(robust=True)`` and ``evaluate_vs_track_chunked`` at
+1,048,576), each with the counts set to 0 just before it and read just
+after; ``launches`` is their sum and ``launches_by_phase`` the three terms.
+The comparison launches of phase 1, phase 5's K3-route evaluation and its
+seq-04 run, and phase 6's reference runs do not count there.
 """
 
 from __future__ import annotations
@@ -131,6 +159,11 @@ CDIST_BYTES_MAX = 4e9  # the library yardstick of K3 is timed where its n x m ma
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def say(text: str) -> None:
+    """A line of its own for a reader, between the JSON lines."""
+    print(text, flush=True)
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -908,6 +941,36 @@ def write_seq04_files(tmp: str):
     return slam_path, gps_path
 
 
+def independent_track(times, positions, m: int, seed: int, sigma: float = 0.05):
+    """An independent reference track made from a GNSS track: ``m`` sampling
+    times of its own (an even grid over the span, each time jittered by up
+    to 0.3 of a step, so no two fall together and the spline through the
+    noise stays tame), the positions interpolated there, and ``sigma``
+    metres of fresh noise, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    step = (times[-1] - times[0]) / (m - 1)
+    tt = np.clip(np.linspace(times[0], times[-1], m) + rng.uniform(-0.3, 0.3, m) * step, times[0], times[-1])
+    tp = np.stack([np.interp(tt, times, positions[:, k]) for k in range(3)], -1)
+    return tt, tp + rng.normal(size=tp.shape) * sigma
+
+
+def write_seq04_gt_file(tmp: str, seed: int = 7):
+    """A ground-truth GNSS file for the seq-04 files: an independent track
+    of the golden GNSS (``independent_track``, 250 fixes), written lon-first
+    (``ts lon lat alt``), the column order of a ground-truth file."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import geodesy
+
+    g, _ = golden_arrays()
+    tt, tp = independent_track(g["gps_times"], g["gps_utm"], 250, seed)
+    lon, lat = geodesy.utm_inverse(torch.from_numpy(tp[:, 0]), torch.from_numpy(tp[:, 1]), 32, False)
+    gt_path = os.path.join(tmp, "seq04_gt.txt")
+    np.savetxt(gt_path, np.column_stack([tt, lon.numpy(), lat.numpy(), tp[:, 2]]),
+               fmt=["%.6f", "%.10f", "%.10f", "%.4f"])
+    return gt_path
+
+
 def phase3(device):
     """seq-04 from files: float32 ENU on the card against CPU float64."""
     import torch
@@ -1235,12 +1298,338 @@ def phase5(device):
     return launches
 
 
+def faulty_gnss(gt, gp, st, seed: int, fraction: float, outage_s: float = 8.0):
+    """Dirty GNSS from a clean track, by the port's ``utils.faults`` from a
+    fixed seed: ``fraction`` of the fixes teleported by ~30 m (gross
+    outliers) and one outage of ``outage_s`` seconds at 0.6 of the SLAM
+    span (past the Sim(3) window). Returns (positions, valid, outlier)."""
+    from gps_optimize_slam_tpu_torch.utils import faults
+
+    bad, outlier = faults.inject_gross_outliers(gp, fraction=fraction, magnitude=30.0, seed=seed)
+    start = st[0] + 0.6 * (st[-1] - st[0])
+    valid = faults.inject_outages(np.ones(len(gt), bool), [(start, start + outage_s)], gt)
+    return bad, valid, outlier & valid
+
+
+def poses_at_fixes(st, gt, which, within: float = 0.06):
+    """Index of the SLAM pose nearest in time to each GNSS fix of the mask
+    ``which`` that has a pose within ``within`` seconds (half a fix
+    interval and a little: the replicas' seams hold fixes and no poses)."""
+    t = gt[which]
+    t = t[(t >= st[0]) & (t <= st[-1])]
+    right = np.clip(np.searchsorted(st, t), 1, len(st) - 1)
+    nearest = np.where(t - st[right - 1] <= st[right] - t, right - 1, right)
+    return nearest[np.abs(st[nearest] - t) <= within]
+
+
+def timed_s(fn):
+    """Wall seconds of ``fn()``, synchronised before and after, and its
+    result."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def counted(fn):
+    """(result, launch counts) of ``fn()`` alone: the counts are set to 0
+    just before it and read just after."""
+    import torch
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def eval_rel(a, b) -> float:
+    """Largest relative difference over every statistic of two evaluations."""
+    parts = ("nn_slam", "nn_sim3", "nn_ekf", "ate_sim3", "ate_ekf")
+    stats = ("mean", "median", "rmse", "max", "count")
+    return max(rel_diff(float(getattr(getattr(a, p), f)), float(getattr(getattr(b, p), f)))
+               for p in parts for f in stats)
+
+
+ROBUST_PASSES = 16  # cap of the gate iteration in phase 6; neighbouring outliers mask each other for a few passes
+OFFSET_SHIFT_S = 1.7  # phase 6 moves the GNSS clock by this much
+
+
+def phase6_in_core(device):
+    """Robust fusion, ground truth, offsets and adaptive stopping at 4,661
+    poses, float64 on the card. Returns the launch counts of its main-path
+    runs, one dict a run."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch import pipeline
+    from gps_optimize_slam_tpu_torch.config import FusionConfig, Sim3RansacConfig
+    from gps_optimize_slam_tpu_torch.models import fusion, fusion_chunked, robust
+    from gps_optimize_slam_tpu_torch.ops import alignment, kernels, ransac
+    from gps_optimize_slam_tpu_torch.ops.kalman import ekf_params
+
+    f64 = torch.float64
+    slam, gt, gp = replica_sequence(SEQ02_LEN)
+    st, sp = slam["timestamps"], slam["positions"]
+    bad, valid, outlier = faulty_gnss(gt, gp, st, seed=6, fraction=0.01)
+
+    def gps_data(positions, ok, times=gt):
+        return pipeline.GPSData(timestamps=times, positions=positions, valid=ok, frame="enu",
+                                utm_zone=32, utm_south=False)
+
+    tt, tp = independent_track(gt, gp, int(0.85 * len(gt)), seed=9)
+    track = gps_data(tp, np.ones(len(tt), bool), tt)
+    # The same draws on the card and on the CPU: indices into the first
+    # 1,500 poses of the Sim(3) window (180 s of poses at 10 Hz).
+    draws = torch.randint(0, 1500, (1000, 4), generator=torch.Generator().manual_seed(0))
+
+    def run(dev, gps, **kw):
+        return pipeline.fuse_arrays(slam, gps, dtype=f64, device=dev, sim3_draws=draws,
+                                    robust_iterations=ROBUST_PASSES, **kw)
+
+    dirty = gps_data(bad, valid)
+    clean = run(device, gps_data(gp, np.ones(len(gt), bool)))
+    ungated = run(device, dirty)
+    par, n_par = counted(lambda: run(device, dirty, robust=True, robust_gate_mode="parallel", gt=track))
+    seq, n_seq = counted(lambda: run(device, dirty, robust=True, robust_gate_mode="sequential"))
+    cpu = run("cpu", dirty, robust=True, robust_gate_mode="parallel")
+
+    # fuse_core's own fusion and the robust one's final fusion take a
+    # quaternion chain each; every other one is a gate pass. A gate that
+    # stops short of its cap stopped because a pass changed nothing: the
+    # fixed point (``gate_converged``).
+    passes = {"parallel": n_par["scan_block/quat_chain"] - 2, "sequential": n_seq["scan_block/quat_chain"] - 2}
+    at_outliers = poses_at_fixes(st, gt, outlier)
+    err = {name: float(np.abs(r.corrected_pos - clean.corrected_pos).max())
+           for name, r in (("gated", par), ("ungated", ungated))}
+    seq_par = float(np.abs(seq.corrected_pos - par.corrected_pos).max())
+    card_cpu = float(np.abs(par.corrected_pos - cpu.corrected_pos).max())
+
+    # One gate pass of each form at the fixed point, warm.
+    o = par.outputs
+    dev_t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64, device=device)  # noqa: E731
+    acc = torch.as_tensor(par.robust_accepted, device=device)
+    avail = o.gps_valid & ~torch.isnan(o.aligned_gps).any(-1)
+    gate_args = (dev_t(st), dev_t(sp), dev_t(slam["quaternions"]), o.sim3_pos[0], o.sim3_quat[0],
+                 o.aligned_gps, avail, acc, ekf_params(par.config.ekf, dtype=f64, device=device),
+                 robust.CHI2_3DOF_95)
+    pass_ms = {}
+    for name, fn in (("parallel", robust._parallel_nis), ("sequential", robust._gated_availability)):
+        fn(*gate_args)
+        pass_ms[name] = 1e3 * float(np.median([timed_s(lambda: fn(*gate_args))[0] for _ in range(5)]))
+    say(f"gate pass at {SEQ02_LEN} poses, float64, warm wall: parallel {pass_ms['parallel']:.3f} ms, "
+        f"sequential {pass_ms['sequential']:.3f} ms")
+
+    # Ground truth: in core (K3) against chunked, 2,048-pose chunks.
+    res = fusion_chunked.ChunkedFusionResult(
+        corrected_pos=par.corrected_pos, corrected_quat=par.corrected_quat, sim3=o.sim3,
+        aligned_gps=o.aligned_gps.cpu().numpy(), gps_valid=o.gps_valid.cpu().numpy(),
+        num_inliers=int(o.sim3_inliers.sum()), ok=True)
+    gt_ev, gt_al = fusion_chunked.evaluate_vs_track_chunked(
+        st, sp, slam["quaternions"], res, tt, tp, cfg=par.config, chunk_size=2048, dtype=f64, device=device)
+    gt_rel = eval_rel(gt_ev, par.gt_evaluation)
+    al_valid = par.gt_aligned.valid.cpu().numpy()
+    gt_al_err = float(np.abs(gt_al.aligned[al_valid] - par.gt_aligned.aligned.cpu().numpy()[al_valid]).max())
+
+    # Offsets: the GNSS clock moved by a known amount; each estimator's
+    # answer moves by minus that, to one cell of its grid.
+    cells = {"xcorr": 0.05, "xcorr_device": float((st[-1] - st[0] + 20.0) / 4096)}
+    offsets = {}
+    for mode in cells:
+        cfg = FusionConfig(offset_mode=mode)
+        base = pipeline.estimate_offset(slam, gps_data(gp, np.ones(len(gt), bool)), cfg, dtype=f64, device=device)
+        moved = pipeline.estimate_offset(slam, gps_data(gp, np.ones(len(gt), bool), gt + OFFSET_SHIFT_S), cfg,
+                                         dtype=f64, device=device)
+        offsets[mode] = {"unshifted_s": base, "shifted_s": moved, "cell_s": cells[mode]}
+
+    # Adaptive stopping on the Sim(3) window of the clean sequence.
+    al = alignment.align_gps_to_slam(dev_t(st), dev_t(gt), dev_t(gp), assume_sorted=True)
+    window = alignment.sim3_window_mask(dev_t(st), al.valid, 5.0, 180.0, 4)
+    dst = torch.nan_to_num(al.aligned, nan=0.0)
+    fixed = ransac.sim3_ransac(dev_t(sp), dst, window, Sim3RansacConfig(), seed=0)
+    adaptive, n_ada = counted(lambda: ransac.sim3_ransac(
+        dev_t(sp), dst, window, Sim3RansacConfig(stop_probability=0.9999), seed=0))
+    chunks = n_ada["ransac_counts"]
+    ada = {"chunks_run": chunks, "chunks_max": 8, "same_mask": bool(torch.equal(adaptive.inlier_mask, fixed.inlier_mask)),
+           "R_max_diff": float((adaptive.sim3.R - fixed.sim3.R).abs().max()),
+           "scale_rel": rel_diff(float(adaptive.sim3.scale), float(fixed.sim3.scale)),
+           "t_max_diff": float((adaptive.sim3.t - fixed.sim3.t).abs().max())}
+
+    emit({"phase": 6, "part": "in core", "poses": SEQ02_LEN, "gnss": int(len(gt)), "dtype": "float64",
+          "outliers": int(outlier.sum()), "outage_fixes": int((~valid).sum()),
+          "gate_passes": passes, "gate_passes_cap": ROBUST_PASSES,
+          "accepted": int(par.robust_accepted.sum()), "rejected": int((~par.robust_accepted & avail.cpu().numpy()).sum()),
+          "max_err_to_clean_fusion_m": err, "sequential_vs_parallel_m": seq_par, "card_vs_cpu_m": card_cpu,
+          "gate_pass_ms": pass_ms, "gt_chunked_vs_in_core": {"max_rel_err": gt_rel, "aligned_max_err_m": gt_al_err},
+          "gt_rmse_ekf_m": float(par.gt_evaluation.nn_ekf.rmse), "offsets": offsets, "adaptive": ada,
+          "launches": {"robust_parallel_gt": n_par, "robust_sequential": n_seq, "adaptive_ransac": n_ada}})
+    if max(passes.values()) >= ROBUST_PASSES:
+        raise AssertionError(f"a gate used all {ROBUST_PASSES} passes: no fixed point shown ({passes})")
+    if not np.array_equal(seq.robust_accepted, par.robust_accepted) or not seq_par <= 1e-9:
+        raise AssertionError(f"sequential and parallel gates differ at the fixed point: {seq_par:.3e} m")
+    if par.robust_accepted[at_outliers].any():
+        raise AssertionError("an injected outlier survived the gate")
+    if not 5 * err["gated"] < err["ungated"]:
+        raise AssertionError(f"the gate does not protect the trajectory: {err}")
+    if not np.array_equal(par.robust_accepted, cpu.robust_accepted) or not card_cpu <= 1e-6:
+        raise AssertionError(f"robust fusion on the card off the CPU run: {card_cpu:.3e} m")
+    if n_par["scan_block/quat_chain"] < passes["parallel"] or n_par["scan_block/filter"] < passes["parallel"]:
+        raise AssertionError(f"fewer K1 launches than gate passes: {n_par}")
+    if not (gt_rel <= 1e-6 and gt_al_err <= 1e-6):
+        raise AssertionError(f"ground truth, chunked off in-core: {gt_rel:.3e}, {gt_al_err:.3e} m")
+    for mode, o_ in offsets.items():
+        if abs(o_["shifted_s"] - o_["unshifted_s"] + OFFSET_SHIFT_S) > o_["cell_s"] + 1e-9:
+            raise AssertionError(f"{mode} did not recover the shift: {o_}")
+    if abs(offsets["xcorr"]["shifted_s"] - offsets["xcorr_device"]["shifted_s"]) > max(cells.values()) + 1e-9:
+        raise AssertionError(f"the two offset estimators disagree: {offsets}")
+    if not (1 <= chunks < 8 and bool(adaptive.ok) and ada["R_max_diff"] <= 5e-3 and ada["scale_rel"] <= 1e-3
+            and ada["t_max_diff"] <= 0.2):
+        raise AssertionError(f"adaptive stopping: {ada}")
+    required = [f"scan_block/{op}" for op in ("quat_chain", "filter", "rts", "add2", "max3", "min3", "mobius", "affine3")]
+    missing = [k for k in required + ["nn_keep", "nn_resident", "ransac_counts"] if n_par[k] <= 0]
+    if missing or n_par["nn_resident"] < 6:
+        raise AssertionError(f"robust + ground truth in core: kernels not launched: {missing}, {n_par}")
+    return [n_par, n_seq, n_ada]
+
+
+def phase6_chunked(device):
+    """Robust fusion and the ground-truth evaluation out of core at
+    1,048,576 poses, float64 on the card, against the in-core functions on
+    the same arrays and draws."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion, fusion_chunked, robust
+
+    f64 = torch.float64
+    slam, gt, gp = outage_sequence(CHUNKED_N)
+    st, sp, sq = slam["timestamps"], slam["positions"], slam["quaternions"]
+    gp, gv, outlier = faulty_gnss(gt, gp, st, seed=7, fraction=0.005)
+    cfg = FusionConfig(gps_sorted=True)
+    tt, tp = independent_track(gt, gp, int(0.85 * len(gt)), seed=10)
+
+    def dev(a, dt=f64):
+        return torch.as_tensor(a, device=device).to(dt)
+
+    def fuse():
+        return fusion_chunked.fuse_core_chunked(
+            st, sp, sq, gt, gp, gv, seed=0, config=cfg, chunk_size=CHUNK, dtype=f64, robust=True,
+            robust_iterations=ROBUST_PASSES, device=device)
+
+    res, n_fuse = counted(fuse)
+    fuse_s, _ = timed_s(fuse)
+    # Two chunks: each gate pass and the final fusion take two quaternion chains.
+    passes = n_fuse["scan_tiled/quat_chain"] // 2 - 1
+    say(f"fuse_core_chunked(robust=True) at {CHUNKED_N} poses, {CHUNK}-pose chunks, float64, warm wall: "
+        f"{fuse_s:.3f} s with {passes} gate passes")
+    (gt_ev, gt_al), n_gt = counted(lambda: fusion_chunked.evaluate_vs_track_chunked(
+        st, sp, sq, res, tt, tp, cfg=cfg, chunk_size=CHUNK, dtype=f64, device=device))
+    # The scores of the fixed point: one more pass with the final mask.
+    avail = res.gps_valid & ~np.isnan(res.aligned_gps).any(-1)
+    p0, q0 = fusion_chunked.transform_trajectory_chunked(sp[:1], sq[:1], res.sim3, dtype=f64, device=device)
+    pass_s, (_, nis) = timed_s(lambda: robust.gated_availability_chunked(
+        st, sp, sq, p0[0], q0[0], res.aligned_gps, avail, res.robust_accepted, cfg.ekf, chunk_size=CHUNK,
+        dtype=f64, device=device))
+    say(f"chunked gate pass at {CHUNKED_N} poses, float64, warm wall: {pass_s:.3f} s")
+
+    ref = fusion.fuse_core(dev(st), dev(sp), dev(sq), dev(gt), dev(gp), dev(gv, torch.bool), cfg, seed=0)
+    rres = robust.fuse_robust(dev(st), dev(sp), dev(sq), ref.sim3_pos, ref.sim3_quat, ref.aligned_gps,
+                              ref.gps_valid, cfg.ekf, cfg.rts_decision, n_iterations=ROBUST_PASSES,
+                              gate_mode="parallel")
+    ref = ref._replace(corrected_pos=rres.positions, corrected_quat=rres.quaternions)
+    ref_ev, ref_al = fusion.evaluate_vs_track(dev(st), dev(sp), ref, dev(tt), dev(tp),
+                                              torch.ones(len(tt), dtype=torch.bool, device=device), cfg=cfg)
+    same_mask = bool(np.array_equal(res.robust_accepted, rres.accepted.cpu().numpy()))
+    pos_err = float(np.abs(res.corrected_pos - rres.positions.cpu().numpy()).max())
+    quat_err = float(np.abs(res.corrected_quat - rres.quaternions.cpu().numpy()).max())
+    ref_nis = rres.nis.cpu().numpy()
+    nis_rel = float((np.abs(nis - ref_nis) / np.maximum(np.abs(ref_nis), 1e-9)).max())
+    gt_rel = eval_rel(gt_ev, ref_ev)
+    al_valid = ref_al.valid.cpu().numpy()
+    al_same = bool(np.array_equal(gt_al.valid, al_valid))
+    gt_al_err = float(np.abs(gt_al.aligned[al_valid] - ref_al.aligned.cpu().numpy()[al_valid]).max())
+    survived = int(res.robust_accepted[poses_at_fixes(st, gt, outlier)].sum())
+
+    emit({"phase": 6, "part": "out of core", "poses": CHUNKED_N, "gnss": int(len(gt)), "chunk": CHUNK,
+          "dtype": "float64", "outliers": int(outlier.sum()), "gate_passes": passes,
+          "gate_converged_in_core": bool(rres.gate_converged),
+          "accepted": int(res.robust_accepted.sum()), "rejected": int((~res.robust_accepted & avail).sum()),
+          "outliers_survived": survived, "robust_chunked_fuse_warm_s": fuse_s,
+          "chunked_gate_pass_warm_s": pass_s,
+          "chunked_vs_incore": {"same_mask": same_mask, "corrected_pos_max_err_m": pos_err,
+                                "corrected_quat_max_err": quat_err, "nis_max_rel_err": nis_rel},
+          "gt_chunked_vs_in_core": {"max_rel_err": gt_rel, "same_valid": al_same, "aligned_max_err_m": gt_al_err},
+          "gt_rmse_ekf_m": float(gt_ev.nn_ekf.rmse),
+          "launches": {"robust_chunked": n_fuse, "gt_chunked": n_gt}})
+    if not (res.ok and bool(ref.ok)) or passes >= ROBUST_PASSES or not rres.gate_converged:
+        raise AssertionError(f"robust chunked: Sim3 failed or no fixed point in {ROBUST_PASSES} passes ({passes})")
+    if not (same_mask and pos_err <= 1e-6 and quat_err <= 1e-8 and nis_rel <= 1e-6):
+        raise AssertionError(f"robust chunked off in-core: mask {same_mask}, {pos_err:.3e} m, quat "
+                             f"{quat_err:.3e}, NIS {nis_rel:.3e}")
+    if survived:
+        raise AssertionError(f"{survived} injected outliers survived the chunked gate")
+    if not (al_same and gt_rel <= 1e-6 and gt_al_err <= 1e-6):
+        raise AssertionError(f"ground truth, chunked off in-core: {gt_rel:.3e}, {gt_al_err:.3e} m")
+    k1 = {k: v for k, v in n_fuse.items() if k.startswith("scan_block/") and v}
+    missing = [k for k in ("scan_tiled/quat_chain", "scan_tiled/filter", "scan_tiled/rts", "ransac_counts")
+               if n_fuse[k] <= 0]
+    if k1 or missing or n_fuse["scan_tiled/filter"] < 2 * (passes + 1):
+        raise AssertionError(f"robust chunked: K1 launched {k1}, K2 missing {missing}, {n_fuse}")
+    if n_gt["nn_grid"] <= 0 or n_gt["nn_keep"] <= 0 or n_gt["nn_resident"]:
+        raise AssertionError(f"chunked ground truth off the K4 route: {n_gt}")
+    return [n_fuse, n_gt]
+
+
+def phase6_command():
+    """``python3 -m gps_optimize_slam_tpu_torch fuse ... --robust --gt ...
+    --json``, in core and with ``--chunked``, as subprocesses on the seq-04
+    files; a non-zero exit or output that is no JSON object fails."""
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        slam_path, gps_path = write_seq04_files(tmp)
+        gt_path = write_seq04_gt_file(tmp)
+        for name, extra in (("fuse", []), ("fuse --chunked", ["--chunked", "--chunk-size", "128"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "gps_optimize_slam_tpu_torch", "fuse", slam_path, gps_path, "--gt", gt_path,
+                 "--robust", "--json"] + extra,
+                cwd=REPO, capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": REPO})
+            if proc.returncode != 0:
+                raise AssertionError(f"{name}: exit code {proc.returncode}\n{proc.stderr[-2000:]}")
+            out = json.loads(proc.stdout)
+            keys = ["poses", "gps_kept", "sim3_scale", "time_offset_s", "nn_vs_primary", "ate_vs_primary",
+                    "robust_accepted", "robust_rejected", "nn_vs_ground_truth", "ate_vs_ground_truth"]
+            missing = [k for k in keys if k not in out]
+            if missing or out["poses"] != 271 or abs(out["nn_vs_primary"]["ekf"]["rmse_m"] - 0.0839) > 2e-3:
+                raise AssertionError(f"{name}: keys missing {missing} or values off: {proc.stdout[:600]}")
+            rows[name] = {"wall_s": time.perf_counter() - t0, "sim3_scale": out["sim3_scale"],
+                          "robust_accepted": out["robust_accepted"],
+                          "rmse_ekf_vs_gt_m": out["nn_vs_ground_truth"]["ekf"]["rmse_m"]}
+    emit({"phase": 6, "part": "command", "runs": rows})
+
+
+def phase6(device):
+    """This slice's path at full size: the robust gate in core and out of
+    core, the ground-truth evaluation, the offsets, adaptive stopping and
+    the command. Returns the launch counts of its main-path runs, summed."""
+    runs = phase6_in_core(device) + phase6_chunked(device)
+    phase6_command()
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    needed = [os.path.join(REPO, "gps_optimize_slam_tpu_torch", "__init__.py"), GOLDEN, META]
+    missing = [os.path.relpath(p, REPO) for p in needed if not os.path.exists(p)]
+    if missing:
+        print(f"chip_smoke: run it from a checkout of the repository; missing beside it: {', '.join(missing)}",
+              file=sys.stderr)
+        return 1
     sys.path.insert(0, REPO)
     from gps_optimize_slam_tpu_torch.ops import _build
 
@@ -1260,8 +1649,10 @@ def main() -> int:
     phase3(device)
     in_core = phase4(device)
     chunked = phase5(device)
+    robust = phase6(device)
     for e in entries:
-        e["launches"] = in_core[e["name"]] + chunked[e["name"]]
+        e["launches"] = in_core[e["name"]] + chunked[e["name"]] + robust[e["name"]]
+        e["launches_by_phase"] = {"4": in_core[e["name"]], "5": chunked[e["name"]], "6": robust[e["name"]]}
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

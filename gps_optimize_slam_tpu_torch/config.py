@@ -44,7 +44,6 @@ class Sim3RansacConfig:
     # a probability p runs trial chunks until the sklearn bound
     # ln(1−p)/ln(1−w^min_samples) is met (w = best inlier ratio so far).
     # On clean data (w≈1) one 128-trial chunk suffices — ~8× fewer trials.
-    # Not ported yet: the port raises when it is set.
     stop_probability: float | None = None
     adaptive_chunk: int = 128
     # Kept for config parity with the JAX package, where it unrolls the
@@ -68,7 +67,7 @@ class GPSFilterConfig:
     # Adaptive early stopping (framework extension, mirrors
     # Sim3RansacConfig.stop_probability): None = faithful fixed trial count
     # per window×axis; a probability p runs trial chunks until the sklearn
-    # ln(1−p)/ln(1−w^k) bound is met (not ported yet: the port raises).
+    # ln(1−p)/ln(1−w^k) bound is met.
     stop_probability: float | None = None
     adaptive_chunk: int = 10
 

@@ -48,6 +48,19 @@ def resolve_platform(config: FusionConfig, device: torch.device) -> FusionConfig
     return config.replace(platform="gpu" if device.type == "cuda" else "cpu")
 
 
+def ekf_fuse_fn(config: FusionConfig):
+    """The EKF + RTS function a resolved ``config`` takes: ``ekf_scan="auto"``
+    is the parallel scans off-CPU and the sequential filter on the CPU (the
+    JAX package's rule), and the sequential filter whenever transition
+    blending is on."""
+    use_parallel = config.ekf_scan == "parallel" or (
+        config.ekf_scan == "auto"
+        and config.rts_decision.default_ekf_transition_steps_on_sharp_turn == 0
+        and config.platform != "cpu"
+    )
+    return kalman_parallel.fuse_ekf_rts_parallel if use_parallel else kalman.fuse_ekf_rts
+
+
 def fuse_core(
     slam_times: torch.Tensor,
     slam_pos: torch.Tensor,
@@ -67,9 +80,7 @@ def fuse_core(
     ``slam_mask`` marks real (unpadded) SLAM poses; padded ones are forced
     GPS-invalid. ``seed`` seeds the RANSAC generator on the tensors' device;
     ``sim3_draws`` replaces its draws (see ``ops.ransac.sim3_ransac``).
-    ``ekf_scan="auto"`` takes the parallel scans off-CPU and the sequential
-    filter on CPU (the JAX package's rule), and the sequential filter
-    whenever transition blending is on.
+    The EKF + RTS function follows ``ekf_fuse_fn``.
     """
     config = resolve_platform(config, slam_pos.device)
     aligned = alignment.align_gps_to_slam(
@@ -104,13 +115,7 @@ def fuse_core(
     sim3 = sim3_res.sim3
     sim3_pos, sim3_quat = se3.transform_trajectory(slam_pos, slam_quat, sim3.R, sim3.t, sim3.scale)
 
-    use_parallel = config.ekf_scan == "parallel" or (
-        config.ekf_scan == "auto"
-        and config.rts_decision.default_ekf_transition_steps_on_sharp_turn == 0
-        and config.platform != "cpu"
-    )
-    fuse_fn = kalman_parallel.fuse_ekf_rts_parallel if use_parallel else kalman.fuse_ekf_rts
-    corrected_pos, corrected_quat = fuse_fn(
+    corrected_pos, corrected_quat = ekf_fuse_fn(config)(
         slam_times,
         slam_pos,
         slam_quat,
@@ -143,24 +148,20 @@ class Evaluation(NamedTuple):
     ate_ekf: metrics.ErrorStats
 
 
-def evaluate(
-    slam_times: torch.Tensor,
-    slam_pos: torch.Tensor,
-    outputs: FusionOutputs,
-    skip_seconds: float = 5.0,
-) -> Evaluation:
-    """Reference-metric (NN, post-5 s — quirk Q6) and paired-ATE stats for
-    raw SLAM / Sim3-aligned / EKF-fused trajectories against the aligned GPS.
-    The three NN evaluations go through K3 (or K4) on CUDA."""
-    gate = metrics.eval_mask(slam_times, outputs.gps_valid, skip_seconds)
-    cands = torch.nan_to_num(outputs.aligned_gps, nan=0.0)
+def _evaluate_against(slam_times, slam_pos, outputs, aligned, valid, skip_seconds) -> Evaluation:
+    """NN and paired-ATE stats of the raw SLAM / Sim3-aligned / EKF-fused
+    trajectories against the track ``(aligned, valid)`` on the SLAM
+    timestamps, with the post-skip gate. The three NN evaluations go through
+    K3 (or K4) on CUDA."""
+    gate = metrics.eval_mask(slam_times, valid, skip_seconds)
+    cands = torch.nan_to_num(aligned, nan=0.0)
 
     def nn(traj):
         e = metrics.nn_errors_auto(traj, cands, gate, gate)
         return metrics.error_stats(e, gate)
 
     def ate(traj):
-        return metrics.error_stats(metrics.paired_errors(traj, outputs.aligned_gps, gate), gate)
+        return metrics.error_stats(metrics.paired_errors(traj, aligned, gate), gate)
 
     return Evaluation(
         nn_slam=nn(slam_pos),
@@ -169,3 +170,38 @@ def evaluate(
         ate_sim3=ate(outputs.sim3_pos),
         ate_ekf=ate(outputs.corrected_pos),
     )
+
+
+def evaluate(
+    slam_times: torch.Tensor,
+    slam_pos: torch.Tensor,
+    outputs: FusionOutputs,
+    skip_seconds: float = 5.0,
+) -> Evaluation:
+    """Reference-metric (NN, post-5 s — quirk Q6) and paired-ATE stats for
+    raw SLAM / Sim3-aligned / EKF-fused trajectories against the aligned GPS."""
+    return _evaluate_against(
+        slam_times, slam_pos, outputs, outputs.aligned_gps, outputs.gps_valid, skip_seconds
+    )
+
+
+def evaluate_vs_track(
+    slam_times: torch.Tensor,
+    slam_pos: torch.Tensor,
+    outputs: FusionOutputs,
+    track_times: torch.Tensor,
+    track_positions: torch.Tensor,
+    track_valid: torch.Tensor,
+    cfg: FusionConfig = FusionConfig(),
+    skip_seconds: float = 5.0,
+):
+    """Evaluation against an INDEPENDENT reference track (e.g. ground-truth
+    GNSS), reference EKFGPSSLAM.py:1044-1067: the track is temporally
+    aligned onto the SLAM timestamps (its spline scans go through K1) and
+    the same NN/ATE statistics are computed for raw SLAM / Sim3 / EKF.
+    Returns ``(Evaluation, AlignedGPS)``; the aligned track is what a plot
+    overlays (EKFGPSSLAM.py:1069-1082)."""
+    al = alignment.align_gps_to_slam(
+        slam_times, track_times, track_positions, gps_valid=track_valid, cfg=cfg.time_alignment
+    )
+    return _evaluate_against(slam_times, slam_pos, outputs, al.aligned, al.valid, skip_seconds), al

@@ -21,8 +21,10 @@ import numpy as np
 import torch
 
 from gps_optimize_slam_tpu_torch.config import FusionConfig
+from gps_optimize_slam_tpu_torch.models import robust as robust_mod
 from gps_optimize_slam_tpu_torch.models.fusion import Evaluation
 from gps_optimize_slam_tpu_torch.ops import alignment_chunked, kalman_chunked, metrics, se3
+from gps_optimize_slam_tpu_torch.ops.alignment import AlignedGPS
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
 from gps_optimize_slam_tpu_torch.utils import streaming
 from gps_optimize_slam_tpu_torch.utils.device import numpy_dtype, resolve_device
@@ -36,6 +38,10 @@ class ChunkedFusionResult(NamedTuple):
     gps_valid: np.ndarray  # (N,)
     num_inliers: int
     ok: bool
+    # χ²-gated robust fusion (models.robust.fuse_robust_chunked), when
+    # requested: the measurements that survived the gate (None otherwise;
+    # corrected_pos/quat then hold the robust trajectory).
+    robust_accepted: Optional[np.ndarray] = None
 
 
 def _sim3_on(sim3: Sim3, dtype: torch.dtype, device: torch.device):
@@ -180,14 +186,60 @@ def evaluate_chunked(
     evaluation block, EKFGPSSLAM.py:1013-1083): NN + paired-ATE stats of the
     raw SLAM / Sim3-aligned / EKF-fused trajectories against the aligned
     GPS, with the post-5 s gate, from host arrays with O(chunk) device
-    residency. The Sim3 trajectory is generated chunk by chunk from the
-    stored transform. Returns ``fusion.Evaluation`` with host scalars."""
+    residency. Returns ``fusion.Evaluation`` with host scalars."""
+    return _evaluate_streamed(
+        slam_times, slam_pos, slam_quat, result,
+        np.asarray(result.aligned_gps), np.asarray(result.gps_valid, bool),
+        chunk_size=chunk_size, skip_seconds=skip_seconds, dtype=dtype, device=device,
+    )
+
+
+def evaluate_vs_track_chunked(
+    slam_times,
+    slam_pos,
+    slam_quat,
+    result: ChunkedFusionResult,
+    track_times,
+    track_positions,
+    track_valid=None,
+    cfg: FusionConfig = FusionConfig(),
+    chunk_size: int = 65536,
+    skip_seconds: float = 5.0,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+):
+    """Out-of-core counterpart of ``models.fusion.evaluate_vs_track``
+    (reference GT evaluation, EKFGPSSLAM.py:1044-1082): the INDEPENDENT
+    reference track (e.g. ground-truth GNSS) is temporally aligned onto the
+    SLAM timestamps with the chunk + halo cubic aligner, then the same
+    NN/ATE statistics stream over host chunks. Returns ``(Evaluation,
+    AlignedGPS(host aligned (N,3), host valid (N,)))``, as the in-core
+    function does with tensors."""
+    device = resolve_device(device)
+    aligned, valid = alignment_chunked.align_gps_to_slam_chunked(
+        slam_times, track_times, track_positions, gps_valid=track_valid,
+        cfg=cfg.time_alignment, chunk_size=chunk_size, dtype=dtype, device=device,
+    )
+    ev = _evaluate_streamed(
+        slam_times, slam_pos, slam_quat, result, aligned, valid,
+        chunk_size=chunk_size, skip_seconds=skip_seconds, dtype=dtype, device=device,
+    )
+    return ev, AlignedGPS(aligned=aligned, valid=valid)
+
+
+def _evaluate_streamed(
+    slam_times, slam_pos, slam_quat, result: ChunkedFusionResult, aligned: np.ndarray, valid: np.ndarray,
+    chunk_size: int, skip_seconds: float, dtype: torch.dtype, device,
+) -> Evaluation:
+    """The streamed NN/ATE machinery both evaluations share: statistics of
+    the three trajectories against the candidate track ``(aligned, valid)``
+    with the post-skip gate, O(chunk) device residency. The Sim3 trajectory
+    is generated chunk by chunk from the stored transform."""
     device = resolve_device(device)
     np_dt = numpy_dtype(dtype)
     n = len(slam_times)
     st = np.asarray(slam_times)
-    aligned = np.asarray(result.aligned_gps)
-    gate = np.asarray(result.gps_valid, bool) & (st > st[0] + skip_seconds)
+    gate = np.asarray(valid, bool) & (st > st[0] + skip_seconds)
     R, t, s = _sim3_on(result.sim3, dtype, device)
 
     def dev(x):
@@ -251,6 +303,8 @@ def fuse_core_chunked(
     dtype: torch.dtype = torch.float64,
     max_ransac_points: int = 32768,
     robust: bool = False,
+    robust_gate_chi2: Optional[float] = None,
+    robust_iterations: int = 2,
     sim3_draws: Optional[torch.Tensor] = None,
     device=None,
 ):
@@ -271,12 +325,13 @@ def fuse_core_chunked(
        EKF's motion model is the raw SLAM relative pose, faithful to
        reference EKFGPSSLAM.py:866; Sim3 enters through the initial state).
 
-    Returns ``ChunkedFusionResult`` (host arrays). ``robust=True`` (the
-    χ²-gated filter) raises NotImplementedError: ``models/robust.py`` is not
-    ported yet.
+    Returns ``ChunkedFusionResult`` (host arrays). ``robust=True`` replaces
+    stage 4 with the χ²-NIS-gated filter
+    (``models.robust.fuse_robust_chunked``: at most ``robust_iterations``
+    gate passes at the threshold ``robust_gate_chi2``, the 95th percentile
+    of χ²₃ when None); the result's ``robust_accepted`` records the
+    surviving measurements.
     """
-    if robust:
-        raise NotImplementedError("robust chunked fusion (models/robust.py) is not ported yet")
     device = resolve_device(device)
     aligned, valid = alignment_chunked.align_gps_to_slam_chunked(
         slam_times, gps_times, gps_positions, gps_valid=gps_valid, time_offset=time_offset,
@@ -300,11 +355,19 @@ def fuse_core_chunked(
         np.asarray(slam_pos[:1], np_dt), np.asarray(slam_quat[:1], np_dt), sres.sim3,
         dtype=dtype, device=device,
     )
-    out_pos, out_quat = kalman_chunked.fuse_ekf_rts_chunked(
-        slam_times, slam_pos, slam_quat, p0[0], q0[0], aligned, valid,
-        ekf_cfg=config.ekf, rts_cfg=config.rts_decision, rts_mode=config.rts_mode,
-        chunk_size=chunk_size, dtype=dtype, device=device,
-    )
+    ekf_args = dict(ekf_cfg=config.ekf, rts_cfg=config.rts_decision, rts_mode=config.rts_mode,
+                    chunk_size=chunk_size, dtype=dtype, device=device)
+    robust_accepted = None
+    if robust:
+        out_pos, out_quat, robust_accepted, _ = robust_mod.fuse_robust_chunked(
+            slam_times, slam_pos, slam_quat, p0[0], q0[0], aligned, valid,
+            gate_chi2=robust_mod.CHI2_3DOF_95 if robust_gate_chi2 is None else robust_gate_chi2,
+            n_iterations=robust_iterations, **ekf_args,
+        )
+    else:
+        out_pos, out_quat = kalman_chunked.fuse_ekf_rts_chunked(
+            slam_times, slam_pos, slam_quat, p0[0], q0[0], aligned, valid, **ekf_args
+        )
     return ChunkedFusionResult(
         corrected_pos=out_pos,
         corrected_quat=out_quat,
@@ -313,4 +376,5 @@ def fuse_core_chunked(
         gps_valid=valid,
         num_inliers=sres.num_inliers,
         ok=bool(sres.sim3.ok),
+        robust_accepted=robust_accepted,
     )

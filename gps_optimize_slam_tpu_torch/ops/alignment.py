@@ -16,6 +16,10 @@ Semantics notes (SURVEY.md §2.5):
 * A segment whose post-dedup steps are not all > 1e-9 is skipped
   (EKFGPSSLAM.py:364-366).
 
+``estimate_time_offset_xcorr`` (host) and ``estimate_time_offset_xcorr_device``
+(``torch.fft`` on the tensors' device) are the functional clock-offset
+estimators: cross-correlation of the two speed profiles.
+
 The JAX package's TPU gather work-arounds (the one-hot matmul gather and the
 compare-all searchsorted) are not carried over: ``torch.searchsorted`` and
 plain indexing do that work here.
@@ -64,6 +68,158 @@ def estimate_time_offset(slam_times, gps_times, max_samples: int = 500) -> float
     lag = int(corr.argmax()) - len(slam_n) + 1
     dt = (slam_s[-1] - slam_s[0]) / (num_samples - 1) if num_samples > 1 else 0.0
     return float(lag * dt)
+
+
+def estimate_time_offset_xcorr(
+    slam_times,
+    slam_positions,
+    gps_times,
+    gps_positions,
+    max_lag_seconds: float = 10.0,
+    grid_dt: float = 0.05,
+) -> float:
+    """FUNCTIONAL clock-offset estimation (extension beyond the reference).
+
+    The reference's estimator cross-correlates the resampled timestamp ramps
+    themselves and therefore always returns 0 (SURVEY Q1). This one
+    cross-correlates the two SPEED profiles (scale-free after z-scoring, so
+    the monocular SLAM scale ambiguity does not matter) and returns the
+    offset to ADD to the GPS timestamps so they align with SLAM time, the
+    sign convention the alignment consumes. Host-side NumPy.
+    """
+    import numpy as np
+
+    slam_times = np.asarray(slam_times, float)
+    gps_times = np.asarray(gps_times, float)
+    slam_positions = np.asarray(slam_positions, float)
+    gps_positions = np.asarray(gps_positions, float)
+    if len(slam_times) < 3 or len(gps_times) < 3:
+        return 0.0
+
+    def speed_series(t, p):
+        dt = np.diff(t)
+        ok = dt > 1e-9
+        v = np.linalg.norm(np.diff(p, axis=0), axis=1) / np.where(ok, dt, 1.0)
+        tm = (t[:-1] + t[1:]) / 2.0
+        return tm[ok], v[ok]
+
+    ts, vs = speed_series(slam_times, slam_positions)
+    tg, vg = speed_series(gps_times, gps_positions)
+    if len(ts) < 2 or len(tg) < 2:
+        return 0.0
+
+    lo = min(ts[0], tg[0]) - max_lag_seconds
+    hi = max(ts[-1], tg[-1]) + max_lag_seconds
+    grid = np.arange(lo, hi, grid_dt)
+    a = np.interp(grid, ts, vs, left=0.0, right=0.0)
+    b = np.interp(grid, tg, vg, left=0.0, right=0.0)
+
+    def z(x):
+        s = x.std()
+        return (x - x.mean()) / (s if s > 1e-12 else 1.0)
+
+    a, b = z(a), z(b)
+    max_lag = int(round(max_lag_seconds / grid_dt))
+    # corr[k] = Σ a[i] · b[i + k]  for k in [-max_lag, max_lag]:
+    # positive k ⇒ GPS events happen LATER on the grid ⇒ subtract k·dt.
+    # The same FFT circular cross-correlation as the device estimator.
+    lags = np.arange(-max_lag, max_lag + 1)
+    n_g = len(a)
+    corr_full = np.fft.irfft(np.conj(np.fft.rfft(a)) * np.fft.rfft(b), n=n_g)
+    corr = corr_full[lags % n_g]
+    best = lags[int(np.argmax(corr))]
+    return float(-best * grid_dt)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """``np.interp(x, xp, fp)`` for nondecreasing ``xp``: piecewise linear
+    inside, ``fp[0]`` left of ``xp[0]`` and ``fp[-1]`` right of ``xp[-1]``. A
+    tail of ``xp`` padded with +inf is allowed when ``fp`` repeats its last
+    real value there (the slope over an infinite step is 0)."""
+    m = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, m - 1)
+    x0, f0 = xp[i - 1], fp[i - 1]
+    dx, df = xp[i] - x0, fp[i] - f0
+    flat = torch.abs(dx) <= torch.finfo(x.dtype).eps ** 2  # the JAX package's zero-step test
+    f = torch.where(flat, f0, f0 + ((x - x0) / torch.where(flat, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def estimate_time_offset_xcorr_device(
+    slam_times: torch.Tensor,
+    slam_positions: torch.Tensor,
+    gps_times: torch.Tensor,
+    gps_positions: torch.Tensor,
+    slam_mask: Optional[torch.Tensor] = None,
+    gps_valid: Optional[torch.Tensor] = None,
+    max_lag_seconds: float = 10.0,
+    n_grid: int = 4096,
+) -> torch.Tensor:
+    """ON-DEVICE clock-offset estimation: FFT circular cross-correlation of
+    the two z-scored speed profiles (the counterpart of
+    ``estimate_time_offset_xcorr`` on the tensors' device, with no host
+    read, so padded sequences of a batch can estimate their offsets there).
+
+    The uniform resampling grid has a FIXED length ``n_grid`` spanning
+    [min_t − max_lag, max_t + max_lag] (the host version's grid step is a
+    fixed 0.05 s, so its lag resolution is constant while this one's scales
+    with the trajectory's duration; both recover real offsets to one grid
+    cell). Invalid and padded samples are masked out as the host version
+    drops them. The transforms are ``torch.fft``'s. Returns the () offset to
+    ADD to GPS timestamps.
+    """
+    dtype, device = slam_times.dtype, slam_times.device
+    if slam_mask is None:
+        slam_mask = torch.ones(slam_times.shape, dtype=torch.bool, device=device)
+    if gps_valid is None:
+        gps_valid = torch.ones(gps_times.shape, dtype=torch.bool, device=device)
+
+    def speeds(t, p, m):
+        t, p = t.to(dtype), p.to(dtype)
+        dt = t[1:] - t[:-1]
+        ok = (dt > 1e-9) & m[1:] & m[:-1]
+        v = torch.linalg.norm(p[1:] - p[:-1], dim=-1) / torch.where(ok, dt, 1.0)
+        tm = (t[1:] + t[:-1]) / 2.0
+        # Valid samples compacted to the front, the tail padded with +inf so
+        # ``interp`` sees a nondecreasing xp; the padding repeats the last
+        # valid value, and points right of the last REAL midpoint are zeroed
+        # by ``resample``.
+        order = torch.sort(torch.where(ok, tm, _INF), stable=True).indices
+        tm_c = torch.where(ok[order], tm[order], _INF)
+        v_c = torch.where(ok[order], v[order], 0.0)
+        n_ok = torch.sum(ok)
+        last = torch.clamp(n_ok - 1, 0, tm.shape[0] - 1)
+        v_c = torch.where(torch.arange(tm.shape[0], device=device) < n_ok, v_c, v_c[last])
+        return tm_c, v_c, tm_c[0], tm_c[last], n_ok
+
+    ts, vs, s_first, s_last, s_n = speeds(slam_times, slam_positions, slam_mask)
+    tg, vg, g_first, g_last, g_n = speeds(gps_times, gps_positions, gps_valid)
+
+    lo = torch.minimum(s_first, g_first) - max_lag_seconds
+    hi = torch.maximum(s_last, g_last) + max_lag_seconds
+    dt_g = torch.clamp(hi - lo, min=1e-6) / n_grid
+    grid = lo + dt_g * torch.arange(n_grid, dtype=dtype, device=device)
+
+    def resample(t_c, v_c, first_t, last_t):
+        y = interp(grid, t_c, v_c)
+        return torch.where((grid < first_t) | (grid > last_t), 0.0, y)
+
+    def z(x):
+        sd = torch.std(x, unbiased=False)
+        return (x - torch.mean(x)) / torch.where(sd > 1e-12, sd, 1.0)
+
+    a = z(resample(ts, vs, s_first, s_last))
+    b = z(resample(tg, vg, g_first, g_last))
+
+    # corr[k] = Σᵢ a[i]·b[i+k] (circular) = irfft(conj(rfft(a))·rfft(b)).
+    corr = torch.fft.irfft(torch.conj(torch.fft.rfft(a)) * torch.fft.rfft(b), n=n_grid)
+    k = torch.arange(n_grid, device=device)
+    signed = torch.where(k <= n_grid // 2, k, k - n_grid)
+    in_range = torch.abs(signed * dt_g) <= max_lag_seconds
+    best = torch.argmax(torch.where(in_range, corr, -_INF))
+    offset = -signed[best].to(dtype) * dt_g
+    return torch.where((s_n >= 2) & (g_n >= 2), offset, 0.0)
 
 
 class AlignedGPS(NamedTuple):

@@ -270,7 +270,8 @@ def sim3_ransac_streaming(
     RANSAC consensus voting runs in-core (``ransac.sim3_ransac``: K5) on the
     window points or, above ``max_ransac_points``, on a uniform stride
     subsample; ``seed``/``draws`` go to it (``draws`` index the points it
-    sees). The FINAL fit then streams over every window point: the winning
+    sees), and ``cfg.stop_probability`` stops its trials early as it does
+    there. The FINAL fit then streams over every window point: the winning
     model's inliers are found chunk by chunk in the working dtype, and the
     Umeyama sufficient statistics (centroids, then the centred
     cross-covariance and variance: two passes) accumulate in float64, as

@@ -108,11 +108,14 @@ def controls_numpy(
     return avail, rts_member, rts_end
 
 
-def _forward_chunk(times, pos, quats, z, avail, q_carry, elem_carry, Q_pos_diag, R_diag):
+def forward_chunk(times, pos, quats, z, avail, q_carry, elem_carry, Q_pos_diag, R_diag):
     """One forward chunk over L steps (L + 1 poses, the overlap pose first).
 
-    Returns (q_f (L,4) for poses 1..L of the chunk, m_f (L,3), P_f6 (L,6),
-    d (L,3), Qd (L,3), new_q_carry (4,), new_elem_carry (27,))."""
+    Row 0 of every (L + 1)-row output is the carried state at the chunk's
+    first pose, rows 1..L the chunk's own poses: the fusion keeps rows 1..L,
+    the robust gate (``models.robust``) predicts step k from row k. Returns
+    (q_f (L+1,4), m_f (L+1,3), P_f6 (L+1,6), d (L,3), Qd (L,3),
+    new_elem_carry (27,)); the next quaternion carry is ``q_f[-1]``."""
     dp, dq = se3.relative_poses_along(pos, quats)
     qf = parallel_quat_chain(q_carry, dq)  # (L+1, 4)
     d = quat.rotate(qf[:-1], dp)
@@ -120,9 +123,35 @@ def _forward_chunk(times, pos, quats, z, avail, q_carry, elem_carry, Q_pos_diag,
     Qd_diag = Q_pos_diag[None, :] * dt[:, None]
     steps = filter_step_elements(avail, d, Qd_diag, torch.nan_to_num(z, nan=0.0), R_diag)
     out = associative_scan("filter", torch.cat([elem_carry[:, None], steps], dim=1))
-    m_f = out[9:12, 1:].T
-    P_f6 = out[12:18, 1:].T
-    return qf[1:], m_f, P_f6, d, Qd_diag, qf[-1], out[:, -1].contiguous()
+    return qf, out[9:12].T, out[12:18].T, d, Qd_diag, out[:, -1].contiguous()
+
+
+def forward_chunk_bounds(n: int, chunk_size: int):
+    """The (first pose, last pose) pairs of the forward chunks over steps
+    0..n-2 (step k joins poses k and k+1)."""
+    return ((a, min(a + chunk_size, n - 1)) for a in range(0, n - 1, chunk_size))
+
+
+def stage_forward_chunk(ab, chunk_size, np_dt, device, slam_times, slam_pos, slam_quat, aligned_gps, *masks):
+    """Host prep + transfer of one forward chunk: poses a..b, the
+    measurements and the per-step ``masks`` of poses a+1..b. The last chunk
+    is padded to the fixed chunk shape with repeats (zero motion, masks
+    False: inert steps whose outputs are discarded; the carries are unused
+    after the final chunk)."""
+    a, b = ab
+    sl_t = np.asarray(slam_times[a : b + 1], np_dt)
+    sl_p = np.asarray(slam_pos[a : b + 1], np_dt)
+    sl_q = np.asarray(slam_quat[a : b + 1], np_dt)
+    z = np.asarray(aligned_gps[a + 1 : b + 1], np_dt)
+    masks = [np.asarray(m[a + 1 : b + 1], bool) for m in masks]
+    padp = chunk_size - (b - a)
+    if padp > 0:
+        sl_t = np.concatenate([sl_t, sl_t[-1] + 1e-3 * np.arange(1, padp + 1)])
+        sl_p = np.concatenate([sl_p, np.repeat(sl_p[-1:], padp, 0)])
+        sl_q = np.concatenate([sl_q, np.repeat(sl_q[-1:], padp, 0)])
+        z = np.concatenate([z, np.zeros((padp, 3), np_dt)])
+        masks = [np.concatenate([m, np.zeros(padp, bool)]) for m in masks]
+    return tuple(torch.as_tensor(x, device=device) for x in (sl_t, sl_p, sl_q, z, *masks))
 
 
 def _backward_chunk(m_f, P_f6, d, Qd_diag, interior, carry_M, carry_c):
@@ -206,31 +235,13 @@ def fuse_ekf_rts_chunked(
     L = int(chunk_size)
 
     def _fwd_stage(ab):
-        a, b = ab
-        # Pad the last chunk to the fixed chunk shape with repeats (zero
-        # motion, invalid GPS: inert steps whose outputs are discarded; the
-        # carries are unused after the final chunk).
-        lb = b - a
-        sl_t = np.asarray(slam_times[a : b + 1], np_dt)
-        sl_p = np.asarray(slam_pos[a : b + 1], np_dt)
-        sl_q = np.asarray(slam_quat[a : b + 1], np_dt)
-        z = np.asarray(aligned_gps[a + 1 : b + 1], np_dt)
-        av = avail[a + 1 : b + 1]
-        if lb < L:
-            padp = L - lb
-            sl_t = np.concatenate([sl_t, sl_t[-1] + 1e-3 * np.arange(1, padp + 1)])
-            sl_p = np.concatenate([sl_p, np.repeat(sl_p[-1:], padp, 0)])
-            sl_q = np.concatenate([sl_q, np.repeat(sl_q[-1:], padp, 0)])
-            z = np.concatenate([z, np.zeros((padp, 3), np_dt)])
-            av = np.concatenate([av, np.zeros(padp, bool)])
-        return tuple(dev(x) for x in (sl_t, sl_p, sl_q, z, av))
+        return stage_forward_chunk(ab, L, np_dt, device, slam_times, slam_pos, slam_quat, aligned_gps, avail)
 
     def _fwd_launch(ab, staged):
         nonlocal q_carry, elem_carry
-        qf, m_f, P_f6, d, Qd, q_carry, elem_carry = _forward_chunk(
-            *staged, q_carry, elem_carry, Q_pos_diag, R_diag
-        )
-        return qf, m_f, P_f6, d, Qd
+        qf, m_f, P_f6, d, Qd, elem_carry = forward_chunk(*staged, q_carry, elem_carry, Q_pos_diag, R_diag)
+        q_carry = qf[-1]
+        return qf[1:], m_f[1:], P_f6[1:], d, Qd
 
     def _fwd_drain(ab, launched):
         a, b = ab
@@ -242,9 +253,7 @@ def fuse_ekf_rts_chunked(
         d_all[a:b] = d
         Qd_all[a:b] = Qd
 
-    streaming.stream_chunks(
-        ((a, min(a + L, n - 1)) for a in range(0, n - 1, L)), _fwd_stage, _fwd_launch, _fwd_drain
-    )
+    streaming.stream_chunks(forward_chunk_bounds(n, L), _fwd_stage, _fwd_launch, _fwd_drain)
 
     # --- backward chunks (suffix scan) ---
     interior_steps = member[:-1] & ~end[:-1] if n > 1 else np.zeros(0, bool)

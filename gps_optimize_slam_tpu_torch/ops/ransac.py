@@ -15,10 +15,16 @@ cannot reproduce jax's threefry streams, so both estimators also accept the
 draws themselves (``draws=``), which is how the tests hand in exactly what
 the JAX package drew. On clean data the converged result does not depend on
 the draws (SURVEY §7 hard-part d).
+
+Both estimators stop early under ``cfg.stop_probability`` (sklearn-style):
+trials run in chunks of ``cfg.adaptive_chunk`` until the bound
+ln(1−p)/ln(1−w^k) on the number of trials is met, w the best inlier ratio so
+far. One host read a chunk decides whether another chunk runs.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -58,6 +64,48 @@ def sim3_draws(
     return torch.minimum(torch.floor(u * hi), hi - 1).long()
 
 
+def _integer_pow(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x**k for a positive integer k as a chain of products (squarings,
+    lowest bit first), the rounding of an integer power in the JAX package;
+    ``torch.pow`` rounds otherwise."""
+    acc = None
+    while k > 0:
+        if k & 1:
+            acc = x if acc is None else acc * x
+        k >>= 1
+        if k > 0:
+            x = x * x
+    return acc
+
+
+def _adaptive_schedule(max_trials: int, adaptive_chunk: int, stop_probability: Optional[float]):
+    """(chunk length, number of chunks): one chunk of ``max_trials`` without
+    early stopping, else ceil(max_trials / chunk) chunks of
+    min(adaptive_chunk, max_trials) trials (so up to one chunk's worth more
+    than ``max_trials`` draws)."""
+    if stop_probability is None:
+        return max_trials, 1
+    C = min(adaptive_chunk, max_trials)
+    return C, -(-max_trials // C)
+
+
+def _more_trials_needed(
+    trials_done: int, best_count: torch.Tensor, n_members: torch.Tensor, k: int,
+    stop_probability: float, dtype: torch.dtype,
+) -> torch.Tensor:
+    """Whether the sklearn bound ln(1−p)/ln(1−w^k) still exceeds
+    ``trials_done``, w = best_count / n_members, elementwise, in the working
+    dtype. The failure probability is clipped strictly inside (0, 1): w → 0
+    must give a huge bound, not ln(1) = 0, and the upper clip must survive
+    the dtype's rounding (1 − 1e-9 is 1 in float32), hence 16 eps."""
+    log1mp = math.log1p(-min(stop_probability, 1.0 - 1e-12))
+    w = torch.clamp(best_count.to(dtype) / torch.clamp(n_members, min=1), 0.0, 1.0)
+    eps1 = 16.0 * torch.finfo(dtype).eps
+    fail = torch.clamp(1.0 - _integer_pow(w, k), 1e-12, 1.0 - eps1)
+    n_needed = torch.where(w >= 1.0, torch.zeros_like(w), log1mp / torch.log(fail))
+    return trials_done < n_needed
+
+
 def select_winner(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -87,16 +135,18 @@ def sim3_ransac(
 ) -> Sim3RansacResult:
     """RANSAC-robust Sim(3) fit of dst onto src over the valid mask.
 
-    ``draws`` (max_trials, min_samples): the per-trial integer draws in
+    ``draws`` (trials, min_samples): the per-trial integer draws in
     [0, max(n_valid, 1)), taken BEFORE the compaction of the valid indices
     (``ransac.py:110-115`` of the JAX package); None draws them from a
-    generator seeded with ``seed`` on the tensors' device. Sampling is with
-    replacement, as in the JAX package. Counting runs through K5; the winner
-    is the first maximum of the exact counts over the top 16 trials, picked
-    with a stable descending sort.
+    generator seeded with ``seed`` on the tensors' device. ``trials`` is
+    ``max_trials``, or, under ``cfg.stop_probability``, the whole schedule's
+    ceil(max_trials / chunk) · chunk. Sampling is with replacement, as in the
+    JAX package. Counting runs through K5, one launch a chunk; a chunk's
+    winner is the first maximum of the exact counts over its top 16 trials,
+    picked with a stable descending sort, and a later chunk's winner
+    replaces the running best only with a strictly larger count, so the
+    earlier chunk wins ties.
     """
-    if cfg.stop_probability is not None:
-        raise NotImplementedError("adaptive stopping (stop_probability) is not ported yet")
     n = src.shape[0]
     device = src.device
     if valid is None:
@@ -113,20 +163,29 @@ def sim3_ransac(
     order[pos] = iota
     thr2 = float(cfg.residual_threshold) ** 2
 
-    T = cfg.max_trials
+    C, n_chunks = _adaptive_schedule(cfg.max_trials, cfg.adaptive_chunk, cfg.stop_probability)
     if draws is None:
-        draws = sim3_draws(n_valid, T, cfg.min_samples, _generator(device, seed))
-    idx = order[draws.to(device)]  # (T, k)
-    fits = umeyama_sim3(src[idx], dst[idx])
-    counts = ransac_counts(
-        src.contiguous(), dst.contiguous(), valid.contiguous(),
-        fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), thr2,
-    )
-
-    best = select_winner(src, dst, valid, fits, counts, thr2)
-    best_mask = (
-        sim3_residual2(src, dst, fits.R[best], fits.t[best], fits.scale[best]) < thr2
-    ) & valid & enough
+        draws = sim3_draws(n_valid, n_chunks * C, cfg.min_samples, _generator(device, seed))
+    draws = draws.to(device)
+    src_c, dst_c, valid_c = src.contiguous(), dst.contiguous(), valid.contiguous()
+    best_count = torch.full((), -1, dtype=torch.long, device=device)
+    best_mask = torch.zeros_like(valid)
+    for i in range(n_chunks):
+        if i > 0 and not bool(_more_trials_needed(
+                i * C, best_count, n_valid, cfg.min_samples, cfg.stop_probability, src.dtype)):
+            break
+        idx = order[draws[i * C : (i + 1) * C]]  # (C, k)
+        fits = umeyama_sim3(src[idx], dst[idx])
+        counts = ransac_counts(
+            src_c, dst_c, valid_c, fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), thr2
+        )
+        b = select_winner(src, dst, valid, fits, counts, thr2)
+        mask_b = (sim3_residual2(src, dst, fits.R[b], fits.t[b], fits.scale[b]) < thr2) & valid
+        count_b = torch.where(fits.ok[b], mask_b.sum(), -1)
+        better = count_b > best_count
+        best_count = torch.where(better, count_b, best_count)
+        best_mask = torch.where(better, mask_b, best_mask)
+    best_mask = best_mask & enough
     num_inliers = torch.sum(best_mask)
     # The refit runs in float64 whatever the working dtype: the 3×3 SVD of
     # a nearly planar trajectory's cross-covariance (σ₁/σ₃ ≈ 1e5 on KITTI)
@@ -199,12 +258,17 @@ def gps_poly_ransac_mask(
     the reference's global mode: one window, per-axis masks AND-ed; in
     sliding mode each window's AND-ed mask is OR-ed into the result (Q12).
 
-    ``draws`` (W, 3, max_trials, min_samples): each trial's subset of point
+    ``draws`` (W, 3, trials, min_samples): each trial's subset of point
     indices (the JAX package draws them by Gumbel top-k,
     ``ransac.py:44-54``); None draws uniform subsets of each window from a
-    generator seeded with ``seed``. Each trial's polynomial is the minimum-norm
-    least-squares fit (SVD-based, like ``jnp.linalg.lstsq``), so degenerate
-    subsets give the same finite-or-not coefficients as the JAX package.
+    generator seeded with ``seed``. ``trials`` is ``max_trials``, or the
+    whole schedule's ceil(max_trials / chunk) · chunk under
+    ``cfg.stop_probability``, where every window and axis stops on its own
+    bound and a later chunk's best trial replaces the running best only
+    with a strictly larger count. Each trial's polynomial is the
+    minimum-norm least-squares fit (SVD-based, like ``jnp.linalg.lstsq``),
+    so degenerate subsets give the same finite-or-not coefficients as the
+    JAX package.
 
     With cfg.enabled False, returns ``valid`` unchanged.
     """
@@ -214,8 +278,6 @@ def gps_poly_ransac_mask(
         valid = torch.ones((m,), dtype=torch.bool, device=device)
     if not cfg.enabled:
         return valid
-    if cfg.stop_probability is not None:
-        raise NotImplementedError("adaptive stopping (stop_probability) is not ported yet")
     dtype = positions.dtype
     times = times.to(dtype)
     use_windows = cfg.use_sliding_window and window_starts is not None
@@ -227,29 +289,44 @@ def gps_poly_ransac_mask(
     else:
         in_window = valid[None]
         window_ok = in_window.sum(1) >= cfg.min_samples
-    W, T, k = in_window.shape[0], cfg.max_trials, cfg.min_samples
+    W, k = in_window.shape[0], cfg.min_samples
+    C, n_chunks = _adaptive_schedule(cfg.max_trials, cfg.adaptive_chunk, cfg.stop_probability)
 
     if draws is None:
-        u = torch.rand((W, 3, T, m), generator=_generator(device, seed), dtype=dtype, device=device)
+        u = torch.rand((W, 3, n_chunks * C, m), generator=_generator(device, seed), dtype=dtype, device=device)
         scores = torch.where(in_window[:, None, None, :], u, -1.0)
         draws = torch.topk(scores, k, dim=-1).indices
-    idx = draws.to(device)  # (W, 3, T, k)
-    X = _poly_design(times[idx], cfg.polynomial_degree)  # (W, 3, T, k, D)
-    axis = torch.arange(3, device=device)[None, :, None, None]
-    Y = positions.T[axis, idx]  # (W, 3, T, k)
-    coef = (torch.linalg.pinv(X) @ Y[..., None])[..., 0]  # (W, 3, T, D)
-    trial_ok = torch.isfinite(coef).all(-1)
-
+    draws = draws.to(device)  # (W, 3, trials, k)
     design = _poly_design(times, cfg.polynomial_degree)  # (m, D)
-    pred = design[:, 0] * coef[..., 0, None]
-    for d in range(1, design.shape[1]):
-        pred = pred + design[:, d] * coef[..., d, None]
-    res = torch.abs(pred - positions.T[None, :, None, :])  # (W, 3, T, m)
-    inl = (res < cfg.residual_threshold_meters) & in_window[:, None, None, :]
-    counts = torch.where(trial_ok, inl.sum(-1), -1)
-    best = torch.argmax(counts, dim=-1, keepdim=True)  # first maximum
-    best_count = counts.gather(-1, best)[..., 0]  # (W, 3)
-    inl_best = inl.gather(2, best[..., None].expand(W, 3, 1, m))[:, :, 0]
+    axis = torch.arange(3, device=device)[None, :, None, None]
+    n_members = in_window.sum(1)[:, None]  # (W, 1): each axis of a window sees its members
+
+    best_count = torch.full((W, 3), -1, dtype=torch.long, device=device)
+    inl_best = torch.zeros((W, 3, m), dtype=torch.bool, device=device)
+    active = torch.ones((W, 3), dtype=torch.bool, device=device)
+    for i in range(n_chunks):
+        if i > 0:
+            active = active & _more_trials_needed(
+                i * C, best_count, n_members, k, cfg.stop_probability, dtype)
+            if not bool(active.any()):
+                break
+        idx = draws[:, :, i * C : (i + 1) * C]  # (W, 3, C, k)
+        X = _poly_design(times[idx], cfg.polynomial_degree)  # (W, 3, C, k, D)
+        Y = positions.T[axis, idx]  # (W, 3, C, k)
+        coef = (torch.linalg.pinv(X) @ Y[..., None])[..., 0]  # (W, 3, C, D)
+        trial_ok = torch.isfinite(coef).all(-1)
+        pred = design[:, 0] * coef[..., 0, None]
+        for d in range(1, design.shape[1]):
+            pred = pred + design[:, d] * coef[..., d, None]
+        res = torch.abs(pred - positions.T[None, :, None, :])  # (W, 3, C, m)
+        inl = (res < cfg.residual_threshold_meters) & in_window[:, None, None, :]
+        counts = torch.where(trial_ok, inl.sum(-1), -1)
+        best = torch.argmax(counts, dim=-1, keepdim=True)  # first maximum
+        count_b = counts.gather(-1, best)[..., 0]  # (W, 3)
+        inl_b = inl.gather(2, best[..., None].expand(W, 3, 1, m))[:, :, 0]
+        better = active & (count_b > best_count)
+        best_count = torch.where(better, count_b, best_count)
+        inl_best = torch.where(better[..., None], inl_b, inl_best)
     ok_axes = best_count >= 0
     combined = (inl_best & ok_axes[..., None]).all(1) & ok_axes.all(1, keepdim=True)
     per_window = combined & window_ok[:, None]
@@ -259,3 +336,59 @@ def gps_poly_ransac_mask(
         return torch.where(too_few, valid, per_window.any(0))
     mask = per_window[0]
     return torch.where(too_few | ~mask.any(), valid, mask)
+
+
+def window_starts_device(
+    times: torch.Tensor,
+    cfg: GPSFilterConfig,
+    max_windows: int,
+    valid: Optional[torch.Tensor] = None,
+):
+    """The device form of :func:`reference_window_starts`: the reference's
+    while-loop (EKFGPSSLAM.py:199-237) as ``max_windows`` fixed steps of
+    tensor operations with no host read, with the same accumulation order
+    (``cur += step``), the same jump to the next distinct timestamp when the
+    step is degenerate, and the same tail-window adjustment. Equal to the
+    host loop at the same dtype for nondecreasing ``times`` (the reference's
+    precondition; the first and last element are a masked min and max here,
+    so padded rows of a batch work).
+
+    ``valid``: optional (m,) mask of a padded row; the first and last time
+    and the next-distinct search honour only valid entries.
+
+    Returns ``(starts, count)``: (max_windows,) NaN-padded start times and
+    the number emitted. When the true count exceeds ``max_windows`` the
+    output is truncated (count == max_windows); size the bound from the
+    data (≈ span/step plus the tail window) or check the count.
+    """
+    m = times.shape[0]
+    dtype, device = times.dtype, times.device
+    nan = torch.full((), float("nan"), dtype=dtype, device=device)
+    if m == 0:
+        return nan.expand(max_windows).clone(), torch.zeros((), dtype=torch.int32, device=device)
+    if valid is None:
+        valid = torch.ones((m,), dtype=torch.bool, device=device)
+    inf = float("inf")
+    t0 = torch.min(torch.where(valid, times, inf))
+    end = torch.max(torch.where(valid, times, -inf))
+    duration = cfg.window_duration_seconds
+    step = duration * cfg.window_step_factor
+    degenerate = step <= 1e-6  # a property of the config, like the reference's branch
+
+    cur, active = t0, torch.any(valid)
+    starts = []
+    for _ in range(max_windows):
+        emit = active & (cur < end)
+        starts.append(torch.where(emit, cur, nan))
+        if degenerate:
+            # Jump to the next distinct valid timestamp; with none left the
+            # reference breaks BEFORE the tail adjustment.
+            nxt = torch.min(torch.where(valid & (times > cur), times, inf))
+            active = emit & torch.isfinite(nxt)
+        else:
+            nxt = cur + step
+            active = emit
+        adjust = (nxt >= end) & (end >= cur + duration)
+        cur = torch.where(adjust, torch.clamp(end - duration + 1e-6, min=t0), nxt)
+    starts = torch.stack(starts) if starts else nan.expand(0).clone()
+    return starts, torch.sum(torch.isfinite(starts)).to(torch.int32)

@@ -27,8 +27,10 @@ from gps_optimize_slam_tpu_torch.config import FusionConfig, GPSFilterConfig
 from gps_optimize_slam_tpu_torch.io import gps as gps_io
 from gps_optimize_slam_tpu_torch.io import tum as tum_io
 from gps_optimize_slam_tpu_torch.models import fusion, fusion_chunked
+from gps_optimize_slam_tpu_torch.models import robust as robust_mod
 from gps_optimize_slam_tpu_torch.ops import alignment, geodesy, ransac
 from gps_optimize_slam_tpu_torch.utils.device import resolve_device
+from gps_optimize_slam_tpu_torch.utils.logging import get_logger, step
 
 
 @dataclasses.dataclass
@@ -53,6 +55,14 @@ class FusionResult:
     config: FusionConfig
     # Estimated clock offset (s) added to GPS timestamps before alignment.
     time_offset: float = 0.0
+    # Optional ground-truth GNSS comparison (reference EKFGPSSLAM.py:1044-1082).
+    gt: Optional[GPSData] = None
+    gt_evaluation: Optional[fusion.Evaluation] = None
+    gt_aligned: Optional[alignment.AlignedGPS] = None
+    # χ²-gated robust fusion (models.robust), when requested: the mask of
+    # GNSS measurements that survived the NIS gate. corrected_pos/quat then
+    # hold the robust trajectory.
+    robust_accepted: Optional[np.ndarray] = None
 
     @property
     def corrected_pos(self) -> np.ndarray:
@@ -75,7 +85,15 @@ class FusionResult:
             f"sim3: scale={self.sim3_scale:.6f} ok={bool(self.outputs.ok)} "
             f"inliers={int(self.outputs.sim3_inliers.sum())}",
         ]
-        return "\n".join(lines + _evaluation_lines(self.evaluation))
+        lines += _evaluation_lines(self.evaluation)
+        if self.gt_evaluation is not None:
+            gv = self.gt_evaluation
+            lines += [
+                f"{name}: mean={float(st.mean):.3f}m rmse={float(st.rmse):.3f}m "
+                f"max={float(st.max):.3f}m n={int(st.count)}"
+                for name, st in [("vs GT: Sim3 (NN)", gv.nn_sim3), ("vs GT: EKF  (NN)", gv.nn_ekf)]
+            ]
+        return "\n".join(lines)
 
 
 def _evaluation_lines(ev: fusion.Evaluation):
@@ -100,28 +118,39 @@ def load_and_project_gps(
     seed: int = 0,
     dtype: torch.dtype = torch.float64,
     device=None,
+    like: Optional[GPSData] = None,
 ) -> GPSData:
     """Load GNSS fixes, project to the working frame, gate outliers
     (reference load_gps_data, EKFGPSSLAM.py:249-289, with the filter
     returning a mask). The projection runs in float64 on the CPU: ECEF/UTM
     intermediates are ~6.4e6 m, and float32 would lose ~0.5 m. The gate runs
-    on ``device`` in ``dtype``."""
+    on ``device`` in ``dtype``.
+
+    ``like``: project into the SAME frame as an already loaded track (its
+    UTM zone, its ENU origin), as comparing two tracks needs, e.g. the
+    primary GPS and a ground-truth GNSS."""
     device = resolve_device(device)
     raw = gps_io.read_gps_fixes(path, lon_first=lon_first)
     valid = raw["valid"]
     if valid.sum() == 0:
         raise ValueError(f"no valid GPS fixes in {path}")
+    if like is not None:
+        frame, zone, south = like.frame, like.utm_zone, like.utm_south
+    else:
+        zone, south = geodesy.utm_zone_from_lonlat(raw["lons"][valid], raw["lats"][valid])
     if frame not in ("utm", "enu"):
         raise ValueError(f"unknown frame {frame!r} (use 'utm' or 'enu')")
-    zone, south = geodesy.utm_zone_from_lonlat(raw["lons"][valid], raw["lats"][valid])
     lons, lats, alts = (torch.from_numpy(raw[k]).double() for k in ("lons", "lats", "alts"))
     enu_origin = None
     if frame == "utm":
         x, y = geodesy.utm_forward(lons, lats, zone, south)
         positions64 = torch.stack([x, y, alts], dim=-1).numpy()
     else:
-        first = int(np.argmax(valid))
-        enu_origin = np.array([raw["lons"][first], raw["lats"][first], raw["alts"][first]])
+        if like is not None and like.enu_origin is not None:
+            enu_origin = np.asarray(like.enu_origin)
+        else:
+            first = int(np.argmax(valid))
+            enu_origin = np.array([raw["lons"][first], raw["lats"][first], raw["alts"][first]])
         positions64 = geodesy.wgs84_to_enu(lons, lats, alts, *enu_origin.tolist()).numpy()
 
     times = torch.as_tensor(raw["timestamps"], dtype=dtype, device=device)
@@ -150,18 +179,38 @@ def load_and_project_gps(
     )
 
 
-def estimate_offset(slam: Dict[str, np.ndarray], gps: GPSData, config: FusionConfig) -> float:
-    """Clock offset to add to GPS timestamps, per ``config.offset_mode``
-    ("faithful" or "off"; the cross-correlation modes are not ported yet).
-    The reference's estimator is provably 0.0 for ≥2-sample inputs
-    (SURVEY Q1), so it is evaluated on the ungated timestamps."""
-    if config.offset_mode == "off":
+def estimate_offset(
+    slam: Dict[str, np.ndarray], gps: GPSData, config: FusionConfig,
+    dtype: torch.dtype = torch.float64, device=None,
+) -> float:
+    """Clock offset to add to GPS timestamps, per ``config.offset_mode``:
+    "off"; "faithful", the reference's estimator, provably 0.0 for ≥2-sample
+    inputs (SURVEY Q1), so it is evaluated on the ungated timestamps;
+    "xcorr", the speed-profile cross-correlation on the host; or
+    "xcorr_device", the same by FFT on ``device`` in ``dtype`` (the only
+    mode that touches the device)."""
+    mode = config.offset_mode
+    if mode == "off":
         return 0.0
-    if config.offset_mode == "faithful":
+    if mode == "faithful":
         return alignment.estimate_time_offset(
             slam["timestamps"], gps.timestamps, config.time_alignment.max_samples_for_corr
         )
-    raise NotImplementedError(f"offset_mode {config.offset_mode!r} is not ported yet")
+    if mode == "xcorr":
+        return alignment.estimate_time_offset_xcorr(
+            slam["timestamps"], slam["positions"], gps.timestamps[gps.valid], gps.positions[gps.valid]
+        )
+    if mode == "xcorr_device":
+        device = resolve_device(device)
+
+        def dev(a, dt=dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+        return float(alignment.estimate_time_offset_xcorr_device(
+            dev(slam["timestamps"]), dev(slam["positions"]), dev(gps.timestamps), dev(gps.positions),
+            gps_valid=dev(gps.valid, torch.bool),
+        ))
+    raise ValueError(f"unknown offset_mode {mode!r} (off|faithful|xcorr|xcorr_device)")
 
 
 def fuse_arrays(
@@ -172,10 +221,27 @@ def fuse_arrays(
     dtype: torch.dtype = torch.float64,
     device=None,
     sim3_draws: Optional[torch.Tensor] = None,
+    gt: Optional[GPSData] = None,
+    robust: bool = False,
+    robust_gate_chi2: Optional[float] = None,
+    robust_iterations: int = 2,
+    robust_gate_mode: str = "sequential",
 ) -> FusionResult:
     """Fusion + evaluation of loaded arrays on ``device`` in ``dtype``.
     Raises RuntimeError when the Sim3 alignment failed; reading that flag is
-    the one host sync before the result returns."""
+    the one host sync of the plain path before the result returns.
+
+    ``gt``: optional independent ground-truth GNSS track in the same working
+    frame (load it with ``load_and_project_gps(..., like=gps)``), evaluated
+    like the reference's GT flow (EKFGPSSLAM.py:1044-1082).
+
+    ``robust=True`` reruns the filter with the χ² NIS innovation gate
+    (``models.robust.fuse_robust``) on top of the standard pipeline:
+    measurements plausible to the polynomial pre-filter but inconsistent
+    with the filter state are rejected; the corrected trajectory and its
+    evaluation then reflect the gated filter. ``robust_gate_mode`` picks the
+    gate ("sequential", the JAX package's default, or "parallel", the two
+    scans; same fixed point)."""
     device = resolve_device(device)
 
     def dev(a, dt=dtype):
@@ -190,7 +256,7 @@ def fuse_arrays(
         ts_all = np.asarray(gps.timestamps)
         if ts_all.size == 0 or np.all(np.diff(ts_all) >= 0):
             config = config.replace(gps_sorted=True)
-    offset = estimate_offset(slam, gps, config)
+    offset = estimate_offset(slam, gps, config, dtype=dtype, device=device)
     outputs = fusion.fuse_core(
         slam_times,
         slam_pos,
@@ -203,16 +269,61 @@ def fuse_arrays(
         time_offset=offset,
         sim3_draws=sim3_draws,
     )
+    robust_accepted = None
+    if robust:
+        rres = robust_mod.fuse_robust(
+            slam_times, slam_pos, slam_quat, outputs.sim3_pos, outputs.sim3_quat,
+            outputs.aligned_gps, outputs.gps_valid,
+            ekf_cfg=config.ekf, rts_cfg=config.rts_decision,
+            gate_chi2=robust_mod.CHI2_3DOF_95 if robust_gate_chi2 is None else robust_gate_chi2,
+            n_iterations=robust_iterations, gate_mode=robust_gate_mode,
+        )
+        outputs = outputs._replace(corrected_pos=rres.positions, corrected_quat=rres.quaternions)
+        robust_accepted = rres.accepted.cpu().numpy()
     ev = fusion.evaluate(slam_times, slam_pos, outputs)
     if not bool(outputs.ok):
         raise RuntimeError(
             "Sim3 global alignment failed (not enough temporally aligned "
             "points or RANSAC consensus too small)"
         )
+    gt_ev = gt_al = None
+    if gt is not None:
+        _check_gt_frame(gt, gps)
+        gt_ev, gt_al = fusion.evaluate_vs_track(
+            slam_times, slam_pos, outputs,
+            dev(gt.timestamps), dev(gt.positions), dev(gt.valid, torch.bool), cfg=config,
+        )
     return FusionResult(
         slam=slam, gps=gps, outputs=outputs, evaluation=ev, config=config,
-        time_offset=float(offset),
+        time_offset=float(offset), gt=gt, gt_evaluation=gt_ev, gt_aligned=gt_al,
+        robust_accepted=robust_accepted,
     )
+
+
+def _check_gt_frame(gt: GPSData, gps: GPSData) -> None:
+    if gt.frame != gps.frame:
+        raise ValueError(f"ground-truth frame {gt.frame!r} != working frame {gps.frame!r}")
+
+
+def _load_tracks(slam_path, gps_path, gt_path, gt_lon_first, config, frame, seed, dtype, device):
+    """The three loads both file entry points share: the SLAM trajectory,
+    the primary GNSS and, with ``gt_path``, the ground-truth GNSS projected
+    into the primary's frame."""
+    n_steps = 4 if gt_path else 3
+    step(1, n_steps, f"loading SLAM trajectory {slam_path}")
+    slam = tum_io.read_tum(slam_path)
+    step(2, n_steps, f"loading + projecting + gating GNSS {gps_path} ({frame})")
+    gps = load_and_project_gps(
+        gps_path, config.gps_filtering_ransac, frame=frame, seed=seed, dtype=dtype, device=device
+    )
+    gt = None
+    if gt_path:
+        step(3, n_steps, f"loading ground-truth GNSS {gt_path}")
+        gt = load_and_project_gps(
+            gt_path, config.ground_truth_gps_filtering, lon_first=gt_lon_first, seed=seed,
+            dtype=dtype, device=device, like=gps,
+        )
+    return slam, gps, gt, n_steps
 
 
 def fuse_files(
@@ -223,13 +334,29 @@ def fuse_files(
     seed: int = 0,
     dtype: torch.dtype = torch.float64,
     device=None,
+    gt_path: Optional[str] = None,
+    gt_lon_first: bool = True,
+    robust: bool = False,
+    robust_gate_chi2: Optional[float] = None,
+    robust_iterations: int = 2,
 ) -> FusionResult:
-    """End-to-end: TUM SLAM file + GNSS fix file → fused trajectory."""
-    slam = tum_io.read_tum(slam_path)
-    gps = load_and_project_gps(
-        gps_path, config.gps_filtering_ransac, frame=frame, seed=seed, dtype=dtype, device=device
+    """End-to-end: TUM SLAM file + GNSS fix file → fused trajectory.
+
+    ``gt_path``: optional ground-truth GNSS file, loaded lon-first by
+    default (the convention of the reference's ground-truth file, SURVEY Q4)
+    and projected into the SAME frame as the primary GPS. ``robust`` and its
+    two knobs go to ``fuse_arrays``."""
+    device = resolve_device(device)
+    slam, gps, gt, n_steps = _load_tracks(
+        slam_path, gps_path, gt_path, gt_lon_first, config, frame, seed, dtype, device
     )
-    return fuse_arrays(slam, gps, config=config, seed=seed, dtype=dtype, device=device)
+    step(n_steps, n_steps, "device fusion (align + Sim3 RANSAC + EKF/RTS) + evaluation")
+    result = fuse_arrays(
+        slam, gps, config=config, seed=seed, dtype=dtype, device=device, gt=gt,
+        robust=robust, robust_gate_chi2=robust_gate_chi2, robust_iterations=robust_iterations,
+    )
+    get_logger().info("fusion done: %s", result.summary().replace("\n", " | "))
+    return result
 
 
 @dataclasses.dataclass
@@ -244,6 +371,9 @@ class ChunkedPipelineResult:
     evaluation: Optional[fusion.Evaluation]
     config: FusionConfig
     time_offset: float = 0.0
+    gt: Optional[GPSData] = None
+    gt_evaluation: Optional[fusion.Evaluation] = None
+    gt_aligned: Optional[alignment.AlignedGPS] = None  # host arrays
 
     @property
     def corrected_pos(self) -> np.ndarray:
@@ -265,8 +395,15 @@ class ChunkedPipelineResult:
             f"frame: {self.gps.frame}",
             f"sim3: scale={self.sim3_scale:.6f} ok={r.ok} inliers={r.num_inliers}",
         ]
+        if r.robust_accepted is not None:
+            lines.append(
+                f"robust χ² gate: accepted={int(r.robust_accepted.sum())} "
+                f"rejected={int((~r.robust_accepted & r.gps_valid).sum())}"
+            )
         if self.evaluation is not None:
             lines += _evaluation_lines(self.evaluation)
+        if self.gt_evaluation is not None:
+            lines += ["vs ground-truth GNSS:"] + _evaluation_lines(self.gt_evaluation)
         return "\n".join(lines)
 
 
@@ -281,7 +418,10 @@ def fuse_files_chunked(
     dtype: torch.dtype = torch.float64,
     evaluate: bool = True,
     gt_path: Optional[str] = None,
+    gt_lon_first: bool = True,
     robust: bool = False,
+    robust_gate_chi2: Optional[float] = None,
+    robust_iterations: int = 2,
     device=None,
 ) -> ChunkedPipelineResult:
     """End-to-end OUT-OF-CORE fusion, for trajectories larger than device
@@ -292,36 +432,45 @@ def fuse_files_chunked(
     projected and outlier-gated in core at load time. Runs on ``device``
     (the card unless the caller names another) in ``dtype``.
 
-    ``gt_path`` (the streamed ground-truth evaluation) raises
-    NotImplementedError until a ground-truth GNSS file is in the repository;
-    so does ``robust`` until ``models/robust.py`` is ported."""
-    if gt_path is not None:
-        raise NotImplementedError("the ground-truth GNSS evaluation is not ported yet")
+    ``gt_path``: optional ground-truth GNSS track (lon-first by default),
+    evaluated by the streamed ``fusion_chunked.evaluate_vs_track_chunked``.
+    ``robust=True``: the χ²-NIS-gated filter out of core
+    (``models.robust.fuse_robust_chunked``), the semantics of
+    ``fuse_arrays(robust=True, robust_gate_mode="parallel")``;
+    ``result.robust_accepted`` records the surviving measurements."""
     device = resolve_device(device)
-    slam = tum_io.read_tum(slam_path)
-    gps = load_and_project_gps(
-        gps_path, config.gps_filtering_ransac, frame=frame, seed=seed, dtype=dtype, device=device
+    slam, gps, gt, _ = _load_tracks(
+        slam_path, gps_path, gt_path, gt_lon_first, config, frame, seed, dtype, device
     )
-    offset = estimate_offset(slam, gps, config)
+    offset = estimate_offset(slam, gps, config, dtype=dtype, device=device)
     result = fusion_chunked.fuse_core_chunked(
         slam["timestamps"], slam["positions"], slam["quaternions"],
         gps.timestamps, gps.positions, gps_valid=gps.valid,
         seed=seed, config=config, time_offset=float(offset), chunk_size=chunk_size, halo=halo,
-        dtype=dtype, robust=robust, device=device,
+        dtype=dtype, robust=robust, robust_gate_chi2=robust_gate_chi2,
+        robust_iterations=robust_iterations, device=device,
     )
     if not result.ok:
         raise RuntimeError(
             "Sim3 global alignment failed (not enough temporally aligned "
             "points or RANSAC consensus too small)"
         )
+    streamed = dict(chunk_size=chunk_size, dtype=dtype, device=device)
     ev = None
     if evaluate:
         ev = fusion_chunked.evaluate_chunked(
+            slam["timestamps"], slam["positions"], slam["quaternions"], result, **streamed
+        )
+    gt_ev = gt_al = None
+    if gt is not None:
+        _check_gt_frame(gt, gps)
+        gt_ev, gt_al = fusion_chunked.evaluate_vs_track_chunked(
             slam["timestamps"], slam["positions"], slam["quaternions"], result,
-            chunk_size=chunk_size, dtype=dtype, device=device,
+            gt.timestamps, gt.positions, track_valid=gt.valid, cfg=config, **streamed,
         )
     return ChunkedPipelineResult(
-        slam=slam, gps=gps, result=result, evaluation=ev, config=config, time_offset=float(offset)
+        slam=slam, gps=gps, result=result, evaluation=ev, config=config, time_offset=float(offset),
+        gt=gt, gt_evaluation=gt_ev, gt_aligned=gt_al,
     )
 
 

@@ -12,7 +12,12 @@ also held to K1 on the same input); NN 1e-5 / 1e-12 relative, and K4 equal
 to K3 bit for bit (the same pairs, the same arithmetic: both scan a tile
 with csrc/nn_tile.cuh); counts equal to the plain version's (the same
 elementwise order, uncontracted) and from run to run, the re-ranked winner
-identical; seq-04 on the card within 1e-6 m of the golden trajectory.
+identical; seq-04 on the card within 1e-6 m of the golden trajectory; the
+robust fusion, the ground-truth evaluation and the device offset estimator
+on the card against the same functions on CPU tensors: accept masks equal,
+positions ≤1e-6 m, statistics ≤1e-9 relative, offsets ≤1e-9 s; robust
+chunked against in-core on the card ≤1e-6 m, quaternions ≤1e-8, the
+bounds of the JAX package's own chunked tests.
 """
 
 import os
@@ -295,3 +300,99 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 def test_seq04_golden_on_the_card(cuda):
     chip_smoke.phase2(cuda)
+
+
+def robust_case(n):
+    """``n`` poses of seq-04 replicas with dirty GNSS (1 % gross outliers, an
+    8 s outage) and an independent reference track."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch import pipeline
+
+    slam, gt, gp = chip_smoke.replica_sequence(n)
+    bad, valid, outlier = chip_smoke.faulty_gnss(gt, gp, slam["timestamps"], seed=6, fraction=0.01)
+    tt, tp = chip_smoke.independent_track(gt, gp, int(0.85 * len(gt)), seed=9)
+
+    def data(t, p, v):
+        return pipeline.GPSData(timestamps=t, positions=p, valid=v, frame="enu", utm_zone=32, utm_south=False)
+
+    return slam, gt, data(gt, bad, valid), data(tt, tp, np.ones(len(tt), bool)), outlier
+
+
+@pytest.mark.parametrize("gate", ["parallel", "sequential"])
+def test_robust_fusion_and_ground_truth_on_the_card_match_the_cpu(cuda, gate):
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch import pipeline
+
+    slam, gt, gps, track, outlier = robust_case(1500)
+    draws = torch.randint(0, 1000, (1000, 4), generator=torch.Generator().manual_seed(0))
+    chip_smoke.reset_launch_counts()
+    got, want = (pipeline.fuse_arrays(slam, gps, device=dev, sim3_draws=draws, gt=track, robust=True,
+                                      robust_iterations=12, robust_gate_mode=gate) for dev in (cuda, "cpu"))
+    n = chip_smoke.launch_counts()
+    np.testing.assert_array_equal(got.robust_accepted, want.robust_accepted)
+    assert not got.robust_accepted[chip_smoke.poses_at_fixes(slam["timestamps"], gt, outlier)].any()
+    assert np.abs(got.corrected_pos - want.corrected_pos).max() <= 1e-6
+    assert chip_smoke.eval_rel(got.gt_evaluation, want.gt_evaluation) <= 1e-9
+    assert chip_smoke.eval_rel(got.evaluation, want.evaluation) <= 1e-9
+    passes = n["scan_block/quat_chain"] - 2
+    assert 1 <= passes < 12 and n["nn_resident"] == 6 and n["nn_keep"] == 6
+    assert n["scan_block/filter"] == 2 + (passes if gate == "parallel" else 0)
+
+
+def test_robust_chunked_on_the_card_matches_in_core(cuda):
+    """70,000-pose chunks: every scan of the gate passes and of the fusion
+    is past K1's longest, so the run launches K2 and no K1."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion, fusion_chunked, robust
+
+    slam, gt, gps, _, _ = robust_case(150_000)
+    st, sp, sq = slam["timestamps"], slam["positions"], slam["quaternions"]
+    cfg = FusionConfig(gps_sorted=True)
+    chip_smoke.reset_launch_counts()
+    res = fusion_chunked.fuse_core_chunked(st, sp, sq, gt, gps.positions, gps.valid, config=cfg,
+                                           chunk_size=70_000, robust=True, robust_iterations=12, device=cuda)
+    n = chip_smoke.launch_counts()
+    assert not any(v for k, v in n.items() if k.startswith("scan_block/"))
+    assert n["scan_tiled/filter"] == n["scan_tiled/quat_chain"] >= 6 and n["scan_tiled/rts"] == 3
+
+    def dev(a, dt=torch.float64):
+        return torch.as_tensor(a, device=cuda).to(dt)
+
+    ref = fusion.fuse_core(dev(st), dev(sp), dev(sq), dev(gt), dev(gps.positions), dev(gps.valid, torch.bool), cfg)
+    want = robust.fuse_robust(dev(st), dev(sp), dev(sq), ref.sim3_pos, ref.sim3_quat, ref.aligned_gps,
+                              ref.gps_valid, n_iterations=12, gate_mode="parallel")
+    assert want.gate_converged and res.ok
+    np.testing.assert_array_equal(res.robust_accepted, want.accepted.cpu().numpy())
+    assert np.abs(res.corrected_pos - want.positions.cpu().numpy()).max() <= 1e-6
+    assert np.abs(res.corrected_quat - want.quaternions.cpu().numpy()).max() <= 1e-8
+
+
+def test_offset_estimator_and_adaptive_ransac_on_the_card(cuda):
+    from gps_optimize_slam_tpu_torch.config import Sim3RansacConfig
+    from gps_optimize_slam_tpu_torch.ops import alignment, ransac
+
+    slam, gt, gp = chip_smoke.replica_sequence(1500)
+    args = [slam["timestamps"], slam["positions"], gt + 1.7, gp]
+    got, want = (float(alignment.estimate_time_offset_xcorr_device(
+        *(torch.as_tensor(a, dtype=torch.float64, device=dev) for a in args))) for dev in (cuda, "cpu"))
+    assert abs(got - want) <= 1e-9 and -2.6 < got < -1.6  # the unshifted estimate is -0.7 s on this data
+
+    src = torch.as_tensor(slam["positions"], dtype=torch.float64, device=cuda)
+    R = torch.tensor([[0.8, -0.6, 0.0], [0.6, 0.8, 0.0], [0.0, 0.0, 1.0]], dtype=torch.float64, device=cuda)
+    dst = 0.98 * src @ R.T + 5.0
+    gen = torch.Generator().manual_seed(1)
+    dst = dst + 0.05 * torch.randn(dst.shape, generator=gen, dtype=torch.float64).to(cuda)
+    hit = torch.randperm(len(dst), generator=gen)[:600].to(cuda)  # 40 % gross outliers
+    dst[hit] += 100.0 * torch.randn((600, 3), generator=gen, dtype=torch.float64).to(cuda)
+    before = kernels.ransac_counts.launches
+    res = ransac.sim3_ransac(src, dst, cfg=Sim3RansacConfig(stop_probability=0.9999), seed=0)
+    chunks = kernels.ransac_counts.launches - before
+    fixed = ransac.sim3_ransac(src, dst, cfg=Sim3RansacConfig(), seed=0)
+    assert 1 <= chunks < 8 and bool(res.ok)
+    assert not res.inlier_mask[hit].any() and int(res.num_inliers) >= 880
+    assert torch.equal(res.inlier_mask, fixed.inlier_mask)
+    assert (res.sim3.R - fixed.sim3.R).abs().max() <= 1e-12  # the same inliers, the same refit

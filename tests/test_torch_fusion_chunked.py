@@ -146,8 +146,16 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """The ground-truth evaluation and the robust gate run out of core now;
+    what the chunked path still refuses is transition blending, which no
+    associative scan covers."""
     slam_path, gps_path = chip_smoke.write_seq04_files(str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        pipeline.fuse_files_chunked(slam_path, gps_path, gt_path=gps_path, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipeline.fuse_files_chunked(slam_path, gps_path, robust=True, device="cpu")
+    res = pipeline.fuse_files_chunked(slam_path, gps_path, gt_path=chip_smoke.write_seq04_gt_file(str(tmp_path)),
+                                      robust=True, device="cpu")
+    assert res.gt_evaluation is not None and res.result.robust_accepted is not None
+    blending = FusionConfig(rts_decision=dataclasses.replace(
+        FusionConfig().rts_decision, default_ekf_transition_steps_on_sharp_turn=3))
+    with pytest.raises(ValueError, match="hard updates"):
+        pipeline.fuse_files_chunked(slam_path, gps_path, config=blending, device="cpu")
+    with pytest.raises(ValueError, match="hard updates"):
+        pipeline.fuse_files_chunked(slam_path, gps_path, config=blending, robust=True, device="cpu")

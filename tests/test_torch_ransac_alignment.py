@@ -3,10 +3,14 @@ the JAX package, CPU float64.
 
 Random draws cannot be shared between jax's threefry and torch, so the
 tests reproduce the JAX package's key splits here (``ransac.py`` lines 177,
-423, 482 and 490) and hand the resulting draws to the port.
+423, 482 and 490, and 195 and 436 under ``stop_probability``, which split
+the whole chunk schedule's keys) and hand the resulting draws to the port.
+The number of chunks JAX's adaptive loop ran is read by wrapping
+``jax.lax.while_loop`` with a counter.
 
 Tolerances: masks and validity exactly equal; R, t, s ≤1e-10; aligned
-positions ≤1e-9 m; tridiagonal solutions ≤1e-10 relative.
+positions ≤1e-9 m; tridiagonal solutions ≤1e-10 relative; window starts of
+the device form equal to the host form's.
 """
 
 import functools
@@ -24,11 +28,37 @@ from gps_optimize_slam_tpu.ops import alignment as jal
 from gps_optimize_slam_tpu.ops import ransac as jr
 from gps_optimize_slam_tpu.ops import tridiag as jtd
 from gps_optimize_slam_tpu_torch.config import GPSFilterConfig, Sim3RansacConfig, TimeAlignConfig
-from gps_optimize_slam_tpu_torch.ops import alignment, ransac, tridiag
+from gps_optimize_slam_tpu_torch.ops import alignment, alignment_chunked, kernels, ransac, tridiag
+
+
+def n_trial_keys(cfg):
+    """Trials whose keys JAX splits: ``max_trials``, or the whole adaptive
+    schedule's n_chunks * chunk."""
+    if cfg.stop_probability is None:
+        return cfg.max_trials
+    chunk = min(cfg.adaptive_chunk, cfg.max_trials)
+    return -(-cfg.max_trials // chunk) * chunk
+
+
+@pytest.fixture
+def jax_loop_counts(monkeypatch):
+    """Every ``jax.lax.while_loop`` run while the fixture is active appends
+    the number of iterations it made (one entry a lane under ``vmap``)."""
+    counts = []
+    real = jax.lax.while_loop
+
+    def counting(cond, body, init):
+        state, n = real(lambda s: cond(s[0]), lambda s: (body(s[0]), s[1] + 1),
+                        (init, jnp.zeros((), jnp.int32)))
+        jax.debug.callback(lambda n: counts.extend(np.atleast_1d(np.asarray(n)).tolist()), n)
+        return state
+
+    monkeypatch.setattr(jax.lax, "while_loop", counting)
+    yield counts
 
 
 def jax_sim3_draws(key, valid, cfg):
-    keys = jax.random.split(key, cfg.max_trials)
+    keys = jax.random.split(key, n_trial_keys(cfg))
     hi = jnp.maximum(jnp.sum(jnp.asarray(valid)), 1)
     return np.asarray(jax.vmap(lambda k: jax.random.randint(k, (cfg.min_samples,), 0, hi))(keys))
 
@@ -86,6 +116,57 @@ def test_sim3_ransac_too_few_points_fails_like_jax():
     assert not got.inlier_mask.any()
 
 
+@pytest.mark.parametrize("seed,outliers,p,chunks", [(0, 0.25, 0.99, 1), (1, 0.45, 0.9999, 2), (2, 0.6, 0.999999, 7),
+                                                    (3, 0.0, 0.9999, 1)])
+def test_sim3_ransac_adaptive_stops_where_jax_stops(seed, outliers, p, chunks, jax_loop_counts, monkeypatch):
+    """``stop_probability`` with JAX's draws replayed: the same number of
+    chunks run (K5's wrapper is called once a chunk), the same winner and
+    inlier mask. 200 trials in chunks of 32 are 7 chunks and 224 keys."""
+    src, dst, valid = sim3_problem(seed, outliers=outliers)
+    kw = dict(max_trials=200, stop_probability=p, adaptive_chunk=32)
+    jcfg, cfg = JSim3RansacConfig(**kw), Sim3RansacConfig(**kw)
+    key = jax.random.PRNGKey(seed)
+    want = jr.sim3_ransac(key, jnp.asarray(src), jnp.asarray(dst), valid=jnp.asarray(valid), cfg=jcfg,
+                          platform="cpu")
+    jax.effects_barrier()
+    draws = jax_sim3_draws(key, valid, jcfg)
+    assert draws.shape == (224, 4)
+    calls = []
+    monkeypatch.setattr(ransac, "ransac_counts", lambda *a: calls.append(1) or kernels.ransac_counts(*a))
+    got = ransac.sim3_ransac(torch.tensor(src), torch.tensor(dst), torch.tensor(valid), cfg=cfg,
+                             draws=torch.tensor(draws))
+    assert len(calls) == jax_loop_counts[-1] == chunks
+    np.testing.assert_array_equal(got.inlier_mask.numpy(), np.asarray(want.inlier_mask))
+    assert int(got.num_inliers) == int(want.num_inliers) and bool(got.ok) == bool(want.ok) is True
+    np.testing.assert_allclose(got.sim3.R.numpy(), np.asarray(want.sim3.R), atol=1e-10)
+    np.testing.assert_allclose(got.sim3.t.numpy(), np.asarray(want.sim3.t), rtol=1e-10)
+    assert abs(float(got.sim3.scale) - float(want.sim3.scale)) <= 1e-10
+
+
+def test_sim3_ransac_adaptive_recovers_the_fixed_run_inliers():
+    """Own draws from a seed: early stopping finds the inlier set of the
+    fixed 1000-trial run on contaminated data
+    (tests/test_umeyama_ransac.py:309-340 of the JAX package)."""
+    rng = np.random.default_rng(11)
+    n = 300
+    src = rng.normal(size=(n, 3)) * 20
+    dst = 0.97 * src + np.array([5.0, -2.0, 1.0]) + rng.normal(size=(n, 3)) * 0.05
+    bad = rng.choice(n, 45, replace=False)
+    dst[bad] += rng.normal(size=(45, 3)) * 200.0
+    fixed = ransac.sim3_ransac(torch.tensor(src), torch.tensor(dst), cfg=Sim3RansacConfig())
+    adaptive = ransac.sim3_ransac(torch.tensor(src), torch.tensor(dst),
+                                  cfg=Sim3RansacConfig(stop_probability=0.9999))
+    assert bool(fixed.ok) and bool(adaptive.ok)
+    assert torch.equal(adaptive.inlier_mask, fixed.inlier_mask)
+    assert not adaptive.inlier_mask.numpy()[bad].any() and int(adaptive.num_inliers) >= n - 50
+    np.testing.assert_allclose(adaptive.sim3.R.numpy(), fixed.sim3.R.numpy(), atol=1e-12)
+    # The streaming form hands its config to the same trials: the same stop.
+    streamed = alignment_chunked.sim3_ransac_streaming(
+        src, dst, np.ones(n, bool), cfg=Sim3RansacConfig(stop_probability=0.9999), device="cpu")
+    assert streamed.num_inliers == int(adaptive.num_inliers) and not streamed.subsampled
+    np.testing.assert_allclose(streamed.sim3.R.numpy(), adaptive.sim3.R.numpy(), atol=1e-12)
+
+
 def gnss_track(seed, n=300):
     rng = np.random.default_rng(seed)
     t = np.arange(n) * 0.1 + rng.uniform(0, 0.01, n)
@@ -111,7 +192,7 @@ def jax_gate_draws(key, times, valid, window_starts, cfg):
         ks = jax.random.split(wk, 3)
 
         def per_axis(k):
-            keys = jax.random.split(k, cfg.max_trials)
+            keys = jax.random.split(k, n_trial_keys(cfg))
             return jax.vmap(lambda tk: jr._sample_without_replacement(tk, in_window, cfg.min_samples))(keys)
 
         return jax.vmap(per_axis)(ks)
@@ -142,6 +223,64 @@ def test_gps_gate_matches_jax_with_injected_draws(sliding):
     ).numpy()
     np.testing.assert_array_equal(got, want)
     assert 0 < (valid & ~got).sum() <= 20  # the spikes go, the track stays
+
+
+@pytest.mark.parametrize("sliding,p", [(True, 0.99), (False, 0.999999)])
+def test_gps_gate_adaptive_stops_where_jax_stops(sliding, p, jax_loop_counts, monkeypatch):
+    """The gate under ``stop_probability`` with JAX's draws replayed: the
+    same mask (every window and axis freezes at its own chunk), and the
+    port's loop runs as many chunks as JAX's slowest lane. 50 trials in
+    chunks of 8 are 7 chunks and 56 keys."""
+    t, pos, valid = gnss_track(12)
+    kw = dict(use_sliding_window=sliding, stop_probability=p, adaptive_chunk=8)
+    cfg, jcfg = GPSFilterConfig(**kw), JGPSFilterConfig(**kw)
+    starts = jr.reference_window_starts(t[valid], jcfg) if sliding else None
+    key = jax.random.PRNGKey(5)
+    gate = jax.jit(functools.partial(jr.gps_poly_ransac_mask, cfg=jcfg))
+    want = np.asarray(gate(key, jnp.asarray(t), jnp.asarray(pos), valid=jnp.asarray(valid),
+                           window_starts=None if starts is None else jnp.asarray(starts)))
+    jax.effects_barrier()
+    lanes = (len(starts) if sliding else 1) * 3
+    assert len(jax_loop_counts) == lanes and 1 <= max(jax_loop_counts) < 7
+    draws = jax_gate_draws(key, jnp.asarray(t), jnp.asarray(valid), starts, jcfg)
+    assert draws.shape[2:] == (56, 6)
+    fits = []
+    real_pinv = torch.linalg.pinv
+    monkeypatch.setattr(torch.linalg, "pinv", lambda x: fits.append(1) or real_pinv(x))
+    got = ransac.gps_poly_ransac_mask(
+        torch.tensor(t), torch.tensor(pos), valid=torch.tensor(valid),
+        window_starts=None if starts is None else torch.tensor(starts),
+        cfg=cfg, draws=torch.tensor(draws),
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert len(fits) == max(jax_loop_counts)
+    assert 0 < (valid & ~got).sum() <= 20
+
+
+@pytest.mark.parametrize("step_factor,duration,n_valid", [(0.5, 15.0, None), (0.5, 15.0, 140), (0.3, 7.0, None),
+                                                            (0.0, 15.0, None), (0.5, 500.0, None)])
+def test_window_starts_device_equals_the_host_form(step_factor, duration, n_valid):
+    """Half-overlapping windows, a padded row (``valid``), a short window, a
+    degenerate step (a window a distinct timestamp) and one window longer
+    than the track, each with room to spare and truncated."""
+    t, _, _ = gnss_track(13, n=200)
+    t[50] = t[49]  # a repeated timestamp
+    cfg = GPSFilterConfig(window_duration_seconds=duration, window_step_factor=step_factor)
+    real = t if n_valid is None else t[:n_valid]
+    want = ransac.reference_window_starts(real, cfg)
+    jcfg = JGPSFilterConfig(window_duration_seconds=duration, window_step_factor=step_factor)
+    np.testing.assert_array_equal(want, jr.reference_window_starts(real, jcfg))
+    valid = None if n_valid is None else torch.arange(len(t)) < n_valid
+    for room in (len(want) + 3, max(len(want) - 2, 0)):
+        starts, count = ransac.window_starts_device(torch.tensor(t), cfg, room, valid=valid)
+        jstarts, jcount = jr.window_starts_device(jnp.asarray(t), jcfg, room,
+                                                  valid=None if valid is None else jnp.asarray(valid.numpy()))
+        assert starts.shape == (room,) and int(count) == min(len(want), room) == int(jcount)
+        np.testing.assert_array_equal(starts.numpy()[: int(count)], want[: int(count)])
+        assert np.isnan(starts.numpy()[int(count):]).all()
+        np.testing.assert_array_equal(starts.numpy(), np.asarray(jstarts))
+    empty, none = ransac.window_starts_device(torch.zeros(0, dtype=torch.float64), cfg, 4)
+    assert np.isnan(empty.numpy()).all() and empty.shape == (4,) and int(none) == 0
 
 
 def test_gps_gate_disabled_passes_valid_through():

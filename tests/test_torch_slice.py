@@ -151,6 +151,10 @@ def test_importing_the_port_leaves_jax_out():
         "gps_optimize_slam_tpu_torch.pipeline",
         "gps_optimize_slam_tpu_torch.models.fusion",
         "gps_optimize_slam_tpu_torch.models.fusion_chunked",
+        "gps_optimize_slam_tpu_torch.models.robust",
+        "gps_optimize_slam_tpu_torch.cli",
+        "gps_optimize_slam_tpu_torch.utils.faults",
+        "gps_optimize_slam_tpu_torch.utils.logging",
         "gps_optimize_slam_tpu_torch.ops.kalman_chunked",
         "gps_optimize_slam_tpu_torch.ops.alignment_chunked",
         "gps_optimize_slam_tpu_torch.utils.streaming",
