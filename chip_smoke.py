@@ -11,7 +11,9 @@ and on a 4,661-pose sequence, the out-of-core chunked path
 robust and ground-truth path (dirty GNSS through the χ² gate of
 ``models.robust`` in core and out of core, ``evaluate_vs_track`` and its
 chunked form, the cross-correlation clock offsets, adaptive RANSAC stopping,
-and the ``fuse`` command) at both sizes.
+and the ``fuse`` command) at both sizes, and batched multi-sequence fusion
+(``parallel.mesh``: the eleven KITTI odometry sequences in length buckets,
+a 64-row fleet bucket, and the ``fuse-batch`` command).
 
 Usage (from the repository root, on a machine with a CUDA device):
 
@@ -51,7 +53,11 @@ Phases:
      at 16,384 queries and 4661 to 1,048,576 candidates and, with shuffled
      candidates (every tile kept, long keep lists), at 700 and 4661
      queries, on the same inputs, the times that place the routing
-     thresholds on this card;
+     thresholds on this card; the batch grids (``@batch`` entries): K1,
+     every combine, the keep lists with K3, and K5, each at the eleven KITTI
+     lengths as one ragged batch and at 64 x 4661, against the batched plain
+     version and row by row against the single-row kernel (K1 to TOL, the
+     others bit for bit), timed at 64 x 4661 in float32;
   2. seq-04 golden arrays, float64 UTM, ``fuse_arrays`` on the card, held
      against tests/golden/seq04_golden.npz and seq04_meta.json;
   3. seq-04 from TUM + GNSS files rebuilt from the npz, ``fuse_files`` in
@@ -87,7 +93,19 @@ Phases:
      gps_optimize_slam_tpu_torch fuse ... --robust --gt ... --json`` and the
      same with ``--chunked`` as subprocesses on the seq-04 files. The walls
      of a gate pass (both gates) and of the robust chunked fusion are
-     printed on lines of their own.
+     printed on lines of their own;
+  7. batched fusion. The eleven KITTI odometry sequences with ground truth
+     at their lengths (seq-04 the golden arrays, the others
+     ``replica_sequence`` with distinct seeds; every GNSS track in a local
+     frame), float64, ``bucket_by_length(max_waste=2.0)``: 3 buckets,
+     each ``fuse_batch`` + ``evaluate_batch`` counted alone and held to one
+     single-row fusion + evaluation's launches; every row within 1e-9 m of
+     its single-row ``fuse_core`` on the card (same seed, so the same
+     draws), masks equal, the evaluation within 1e-9 relative, seq-04
+     within 1e-6 m of golden; warm walls of ``fuse_buckets`` and of the
+     loop over the rows. The fleet bucket, 64 x 4661 float32: warm wall,
+     sequences per second, idle share, peak memory, the row loop's wall.
+     Then ``fuse-batch --json`` on two pairs as a subprocess.
 
 The launch counts of the ``{"kernels": [...]}`` line are those of the
 main-path runs (phase 4: ``fuse_arrays`` at 4,661 poses; phase 5:
@@ -97,8 +115,11 @@ each gate and the adaptive ``sim3_ransac`` at 4,661 poses,
 ``fuse_core_chunked(robust=True)`` and ``evaluate_vs_track_chunked`` at
 1,048,576), each with the counts set to 0 just before it and read just
 after; ``launches`` is their sum and ``launches_by_phase`` the three terms.
-The comparison launches of phase 1, phase 5's K3-route evaluation and its
-seq-04 run, and phase 6's reference runs do not count there.
+The ``@batch`` entries' launches are phase 7's (the KITTI buckets' fusion
+and evaluation, the fleet bucket's fusion), where every launch has a batch
+grid. The comparison launches of phase 1, phase 5's K3-route evaluation and
+its seq-04 run, and phase 6's and phase 7's reference runs do not count
+there.
 """
 
 from __future__ import annotations
@@ -239,14 +260,17 @@ def dtype_name(dtype) -> str:
 
 
 def scan_bound(op: str, x):
-    """Each leaf read once and written once; n - 1 combines at least."""
-    return bound(2 * x.numel() * x.element_size(), COMBINE_FLOPS[op] * (x.shape[1] - 1),
+    """Each leaf read once and written once; n - 1 combines at least, a row
+    of (L, B, n) leaves."""
+    rows = x.numel() // x.shape[0] // x.shape[-1]
+    return bound(2 * x.numel() * x.element_size(), COMBINE_FLOPS[op] * rows * (x.shape[-1] - 1),
                  dtype_name(x.dtype))
 
 
 def scan_library_ms(op: str, x, reverse: bool):
     """One PyTorch call that computes the same scan, where there is one
-    (``torch.cumsum``, ``torch.cummax``, ``torch.cummin`` along the leaves).
+    (``torch.cumsum``, ``torch.cummax``, ``torch.cummin`` along the last
+    axis of the (L, n) or (L, B, n) leaves).
     A reverse scan is timed on a copy flipped beforehand: the flip is not
     the scan's work."""
     import torch
@@ -262,8 +286,8 @@ def library_call(op: str, x, reverse: bool):
     call = {"add2": torch.cumsum, "max3": torch.cummax, "min3": torch.cummin}.get(op)
     if call is None:
         return None
-    y = x.flip(1).contiguous() if reverse else x
-    return lambda: call(y, dim=1)
+    y = x.flip(-1).contiguous() if reverse else x
+    return lambda: call(y, dim=-1)
 
 
 def nn_bound(traj, cand, mask):
@@ -668,6 +692,15 @@ def phase1_nn(device, gen):
     return entries
 
 
+def plain_keep_lists(traj, cand, mask):
+    """(order, nkept, cand4) of the keep-list kernel's plain version, with
+    the inputs' batch axis if they have one."""
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    order, nkept = kernels.keep_lists_plain(kernels.tile_keep_mask(*kernels.bounds_operands(traj, cand, mask)))
+    return order, nkept, kernels.pack_candidates_plain(cand, mask, order.shape[-1])
+
+
 def phase1_keep(device, gen):
     """The keep-list kernel: its lists equal the plain mask's compaction
     (the same float64 bounds in the same order; the kernel's tile-level
@@ -683,13 +716,9 @@ def phase1_keep(device, gen):
 
     from gps_optimize_slam_tpu_torch.ops import kernels
 
-    def plain(traj, cand, mask):
-        order, nkept = kernels.keep_lists_plain(kernels.tile_keep_mask(*kernels.bounds_operands(traj, cand, mask)))
-        return order, nkept, kernels.pack_candidates_plain(cand, mask, order.shape[1])
-
     def check(traj, cand, mask, what):
         order, nkept, cand4 = kernels.keep_lists(traj, cand, mask)
-        want_order, want_nkept, want_cand4 = plain(traj, cand, mask)
+        want_order, want_nkept, want_cand4 = plain_keep_lists(traj, cand, mask)
         if not torch.equal(nkept, want_nkept):
             raise AssertionError(f"keep lists {what}: counts differ in "
                                  f"{int((nkept != want_nkept).sum())} query tiles")
@@ -723,7 +752,7 @@ def phase1_keep(device, gen):
             check(traj, cand, torch.zeros_like(mask), what + "/all-masked")
             checks[what] = {"kept_tile_pairs": int(nkept.sum()), "tile_pairs": pairs}
     ms = cuda_ms(lambda: kernels.keep_lists(traj, cand, mask))
-    plain_ms = cuda_ms(lambda: plain(traj, cand, mask), reps=3)
+    plain_ms = cuda_ms(lambda: plain_keep_lists(traj, cand, mask), reps=3)
     by_kernel = device_profile(lambda: kernels.keep_lists(traj, cand, mask), reps=5)
     dev = sum(by_kernel.values())
     aerr = float((nkept - want_nkept).abs().max())
@@ -873,6 +902,239 @@ def phase1_counts(device, gen):
                          bound(moved, COUNT_FLOPS * T * src.shape[0], "float32"), None, dev)]
 
 
+# The batch grids' checks and times: the eleven KITTI odometry sequences
+# with ground truth (00-10) at their lengths as one ragged batch, and a
+# fleet bucket of 64 rows of seq-02's length (phase 7's two workloads).
+KITTI_LENGTHS = (4541, 1101, 4661, 801, 271, 2761, 1101, 1101, 4071, 1591, 1201)
+FLEET = (64, SEQ02_LEN)
+
+
+def ragged_walks(gen, ns, ms, dtype, device, offset: float = 0.0):
+    """(traj (B, n, 3), cands (B, m, 3), mask (B, m)): random walks, row r
+    real for its first ns[r] queries and ms[r] candidates and its last point
+    repeated after them, masked out (as ``parallel.batch.pad_batch`` pads);
+    with two or more rows the last has every candidate masked."""
+    import torch
+
+    n, m = max(ns), max(ms)
+    traj = torch.empty(len(ns), n, 3, dtype=dtype, device=device)
+    cands = torch.empty(len(ns), m, 3, dtype=dtype, device=device)
+    mask = torch.zeros(len(ns), m, dtype=torch.bool, device=device)
+    for r, (nr, mr) in enumerate(zip(ns, ms)):
+        t, c = walk(gen, nr, torch.float64, device) + offset, walk(gen, mr, torch.float64, device) + offset + 0.3
+        traj[r, :nr], traj[r, nr:] = t.to(dtype), t[-1].to(dtype)
+        cands[r, :mr], cands[r, mr:] = c.to(dtype), c[-1].to(dtype)
+        mask[r, :mr] = (torch.rand(mr, generator=gen) > 0.1).to(device)
+    if len(ns) > 1:
+        mask[-1] = False
+    return traj, cands, mask
+
+
+def same_bits(t):
+    """``t``'s bits as integers, so that NaNs compare equal."""
+    import torch
+
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def batched_scan_inputs(op: str, ns, gen, dtype, device):
+    """(L, B, max(ns)) leaves: row r is ``scan_inputs`` at ns[r] with its
+    last element repeated to the common length."""
+    import torch
+
+    n = max(ns)
+    rows = []
+    for nr in ns:
+        x = scan_inputs(op, nr, gen, dtype, device)
+        rows.append(torch.cat([x, x[:, -1:].expand(-1, n - nr)], 1))
+    return torch.stack(rows, 1).contiguous()
+
+
+def phase1_batched_scan(device, gen):
+    """K1's batch grid, every combine in both directions the main path
+    scans it, float32 and float64: the eleven KITTI lengths as one ragged
+    batch and the fleet bucket (64 x 4,661), one launch each, against the
+    batched plain ladder and, row by row, against the single-row K1 (every
+    row of the ragged batch, the first and last of the fleet), each to TOL:
+    the look-back folds whatever its predecessors have published, so two
+    K1 calls on one row agree to the scan's tolerance, not bit for bit.
+    Times of the fleet bucket in float32, with the bound over all rows and
+    the library call where there is one."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import scan
+
+    entries = []
+    for op in scan.OPS:
+        worst = {}
+        for dtype in (torch.float32, torch.float64):
+            name = dtype_name(dtype)
+            for ns in (KITTI_LENGTHS, (FLEET[1],) * FLEET[0]):
+                x = batched_scan_inputs(op, ns, gen, dtype, device)
+                for rev in directions(op):
+                    got = scan.scan_block(op, x, rev)
+                    torch.cuda.synchronize()
+                    want = scan.scan_plain(op, x, rev)
+                    err = rel_err(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]))
+                    if not err <= TOL[name]:
+                        raise AssertionError(f"batched scan {op} {name} B={len(ns)} rev={rev}: rel err {err:.3e}")
+                    rows = range(len(ns)) if len(ns) != FLEET[0] else (0, len(ns) - 1)
+                    for r in rows:
+                        alone = scan.scan_block(op, x[:, r].contiguous(), rev)
+                        err = max(err, rel_err(got[:, r], alone))
+                    if not err <= TOL[name]:
+                        raise AssertionError(f"batched scan {op} {name} B={len(ns)}: rows off K1 alone by {err:.3e}")
+                    worst[name] = max(worst.get(name, 0.0), err)
+                    if len(ns) == FLEET[0] and dtype == torch.float32 and rev == REVERSE_OF.get(op, False):
+                        timed = (x, rev, abs_err(got, want))
+        x, rev, aerr = timed
+        ms = cuda_ms(lambda: scan.scan_block(op, x, rev))
+        plain_ms = cuda_ms(lambda: scan.scan_plain(op, x, rev), reps=3)
+        lib_ms = scan_library_ms(op, x, rev)
+        dev = device_ms(lambda: scan.scan_block(op, x, rev))
+        emit({"phase": 1, "kernel": f"scan_block/{op}@batch", "rel_err": worst, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": lib_ms, "device_ms": dev, "rows_within_tol_of_k1_alone": True,
+              "shape": list(x.shape), "dtype": "float32", "ragged_rows": list(KITTI_LENGTHS)})
+        entries.append(kernel_entry(f"scan_block/{op}@batch", "scan.cu", "pallas_scan.py:227", "float32", aerr,
+                                    ms, plain_ms, scan_bound(op, x), lib_ms, dev))
+    return entries
+
+
+def phase1_batched_nn(device, gen):
+    """The keep lists and K3 with a batch grid, float32 and float64: the
+    eleven KITTI lengths as one ragged batch (its last row all-masked), the
+    fleet bucket (64 x 4,661: 2,368 query tiles, so the batch takes K3's
+    32-query blocks where each row alone takes 16), one row, and in float64
+    the KITTI batch at UTM magnitudes. The lists and packed candidates equal
+    the batched plain ones bit for bit, the minima the plain ones to TOL,
+    and each row equals the single-row kernels on it bit for bit. Times of
+    the fleet bucket in float32; the library yardstick (``torch.cdist`` of
+    the batch, masked, then ``min``) where its matrix fits."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    fleet = ((FLEET[1],) * FLEET[0],) * 2
+    cases = [(KITTI_LENGTHS, KITTI_LENGTHS, 0.0), fleet + (0.0,), ((SEQ02_LEN,), (SEQ02_LEN,), 0.0),
+             (KITTI_LENGTHS, KITTI_LENGTHS, 5.4e6)]
+    nn_err, checks = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        name = dtype_name(dtype)
+        for ns, ms, offset in cases:
+            if offset and dtype == torch.float32:
+                continue  # float32 cannot hold UTM coordinates to better than 0.5 m
+            traj, cand, mask = ragged_walks(gen, ns, ms, dtype, device, offset)
+            what = f"B{len(ns)}/{name}" + ("/utm" if offset else "")
+            order, nkept, cand4 = kernels.keep_lists(traj, cand, mask)
+            got = kernels.nn_resident(traj, cand, mask)
+            torch.cuda.synchronize()
+            w_order, w_nkept, w_cand4 = plain_keep_lists(traj, cand, mask)
+            cols = torch.arange(order.shape[-1], device=device) < nkept[..., None]
+            if not (torch.equal(nkept, w_nkept) and torch.equal(torch.where(cols, order, -1), torch.where(cols, w_order, -1))
+                    and torch.equal(same_bits(cand4), same_bits(w_cand4))):
+                raise AssertionError(f"batched keep lists {what}: differ from the plain ones")
+            want = kernels.nn_min_dist2_plain(traj, cand, mask, block=128)
+            err = rel_err(got, want)
+            if not err <= TOL[name]:
+                raise AssertionError(f"batched nn {what}: rel err {err:.3e}")
+            for r in (range(len(ns)) if len(ns) != FLEET[0] else (0, len(ns) - 1)):
+                o1, k1, c1 = kernels.keep_lists(traj[r], cand[r], mask[r])
+                c = torch.arange(o1.shape[-1], device=device) < k1[:, None]
+                if not (torch.equal(k1, nkept[r]) and torch.equal(torch.where(c, o1, -1), torch.where(c, order[r], -1))
+                        and torch.equal(same_bits(c1), same_bits(cand4[r]))):
+                    raise AssertionError(f"batched keep lists {what}: row {r} differs from the call alone")
+                if not torch.equal(kernels.nn_resident(traj[r], cand[r], mask[r]), got[r]):
+                    raise AssertionError(f"batched nn {what}: row {r} differs from K3 alone")
+            if len(ns) > 1 and not bool(torch.isinf(got[-1]).all()):
+                raise AssertionError(f"batched nn {what}: the all-masked row must give +inf")
+            nn_err[name] = max(nn_err.get(name, 0.0), err)
+            checks[what] = {"kept_tile_pairs": int(nkept.sum()), "tile_pairs": order.numel()}
+            if len(ns) == FLEET[0] and dtype == torch.float32:
+                timed = (traj, cand, mask, abs_err(got, want), float((nkept - w_nkept).abs().max()), nkept, cand4)
+            del want, w_order, w_cand4
+    traj, cand, mask, aerr, keep_err, nkept, cand4 = timed
+
+    def cdist_min():
+        d = torch.cdist(traj, cand, compute_mode="donot_use_mm_for_euclid_dist")
+        return torch.where(mask[:, None, :], d, float("inf")).amin(-1)
+
+    fits = traj.shape[0] * traj.shape[1] * cand.shape[1] * traj.element_size() <= CDIST_BYTES_MAX
+    library_ms = cuda_ms(cdist_min, reps=5) if fits else None
+    ms = cuda_ms(lambda: kernels.nn_resident(traj, cand, mask))
+    plain_ms = cuda_ms(lambda: kernels.nn_min_dist2_plain(traj, cand, mask, block=128), reps=3)
+    by_kernel = device_profile(lambda: kernels.nn_resident(traj, cand, mask))
+    keep_ms = cuda_ms(lambda: kernels.keep_lists(traj, cand, mask))
+    keep_plain_ms = cuda_ms(lambda: plain_keep_lists(traj, cand, mask), reps=3)
+    keep_dev = device_ms(lambda: kernels.keep_lists(traj, cand, mask))
+    emit({"phase": 1, "kernel": "nn_resident@batch", "rel_err": nn_err, "ms": ms, "plain_ms": plain_ms,
+          "library_ms": library_ms, "device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel,
+          "keep_ms": keep_ms, "keep_plain_ms": keep_plain_ms, "keep_device_ms": keep_dev,
+          "rows_equal_to_the_calls_alone": True, "checks": checks, "shape": list(traj.shape), "dtype": "float32"})
+    torch.cuda.empty_cache()
+    return [kernel_entry("nn_keep@batch", "nn_keep.cu", "pallas_kernels.py:174", "float32", keep_err, keep_ms,
+                         keep_plain_ms, keep_bound(traj, cand, mask, nkept, cand4), None, keep_dev),
+            kernel_entry("nn_resident@batch", "nn.cu", "pallas_kernels.py:283", "float32", aerr, ms, plain_ms,
+                         nn_bound(traj, cand, mask), library_ms, sum(by_kernel.values()))]
+
+
+def phase1_batched_counts(device, gen):
+    """K5 with a batch grid, float32 and float64: the eleven KITTI lengths
+    as one ragged batch (points past a row's length masked out, one row
+    with no valid point) and the fleet bucket, 1000 trials a row: counts
+    equal the batched plain ones and, row by row, the single-row kernel's;
+    the re-ranked winners equal. Times of the fleet bucket in float32."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels
+    from gps_optimize_slam_tpu_torch.ops.ransac import select_winner
+    from gps_optimize_slam_tpu_torch.ops.umeyama import umeyama_sim3
+
+    trials = 1000
+    for dtype in (torch.float32, torch.float64):
+        for ns in (KITTI_LENGTHS, (FLEET[1],) * FLEET[0]):
+            B, n = len(ns), max(ns)
+            src = torch.stack([walk(gen, n, torch.float64, device, scale=2.0) for _ in range(B)])
+            dst = 0.987 * src + torch.tensor([3.0, -2.0, 1.0], dtype=torch.float64, device=device)
+            dst = (dst + 2.0 * torch.randn(B, n, 3, generator=gen, dtype=torch.float64).to(device)).to(dtype)
+            src = src.to(dtype)
+            valid = (torch.rand(B, n, generator=gen) > 0.05).to(device)
+            for r, nr in enumerate(ns):
+                valid[r, nr:] = False
+            if B != FLEET[0]:
+                valid[1] = False
+            draws = torch.randint(0, min(ns), (B, trials, 4), generator=gen).to(device)
+            pick = torch.arange(B, device=device)[:, None, None]
+            fits = umeyama_sim3(src[pick, draws], dst[pick, draws])
+            args = (src, dst, valid, fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), 16.0)
+            got = kernels.ransac_counts(*args)
+            torch.cuda.synchronize()
+            want = kernels.ransac_counts_plain(*args)
+            what = f"batched ransac_counts {dtype} B={B}"
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: counts differ from the plain ones by {int((got - want).abs().max())}")
+            for r in (range(B) if B != FLEET[0] else (0, B - 1)):
+                if not torch.equal(got[r], kernels.ransac_counts(*(a[r].contiguous() for a in args[:6]), 16.0)):
+                    raise AssertionError(f"{what}: row {r} differs from the kernel alone")
+            if not torch.equal(select_winner(src, dst, valid, fits, got, 16.0),
+                               select_winner(src, dst, valid, fits, want, 16.0)):
+                raise AssertionError(f"{what}: winners differ")
+            if B != FLEET[0] and int(got[1].max()) != 0:
+                raise AssertionError(f"{what}: a row with no valid point counted hits")
+            if B == FLEET[0] and dtype == torch.float32:
+                timed = args
+    args = timed
+    ms = cuda_ms(lambda: kernels.ransac_counts(*args))
+    plain_ms = cuda_ms(lambda: kernels.ransac_counts_plain(*args), reps=3)
+    dev = device_ms(lambda: kernels.ransac_counts(*args))
+    src, B, T = args[0], args[0].shape[0], args[3].shape[1]
+    emit({"phase": 1, "kernel": "ransac_counts@batch", "equal_to_plain": True, "rows_equal_to_the_kernel_alone": True,
+          "ms": ms, "plain_ms": plain_ms, "device_ms": dev, "shape": [B, T, src.shape[1]], "dtype": "float32",
+          "ragged_rows": list(KITTI_LENGTHS)})
+    moved = (2 * src.numel() + B * T * 13) * src.element_size() + src.shape[0] * src.shape[1] + 4 * B * T
+    return [kernel_entry("ransac_counts@batch", "ransac_counts.cu", "pallas_kernels.py:450", "float32", 0.0, ms,
+                         plain_ms, bound(moved, COUNT_FLOPS * B * T * src.shape[1], "float32"), None, dev)]
+
+
 def phase1(device):
     """Kernels against their plain versions on the card."""
     import torch
@@ -883,6 +1145,9 @@ def phase1(device):
     entries += phase1_keep(device, gen)
     entries += phase1_nn(device, gen)
     entries += phase1_counts(device, gen)
+    entries += phase1_batched_scan(device, gen)
+    entries += phase1_batched_nn(device, gen)
+    entries += phase1_batched_counts(device, gen)
     phase1_routes(device, gen)
     return entries
 
@@ -998,10 +1263,11 @@ def phase3(device):
         raise AssertionError("export_result wrote a malformed trajectory")
 
 
-def replica_sequence(n: int):
+def replica_sequence(n: int, seed: int = 0):
     """A real-derived sequence of ``n`` poses: time-shifted replicas of the
     seq-04 golden arrays (real GNSS noise and timing), 2 cm of fresh noise
-    per replica, GNSS in a local frame (UTM minus its first fix).
+    per replica from ``seed``, GNSS in a local frame (UTM minus its first
+    fix).
 
     The SLAM replicas are shifted by the stream's end-start vector, and the
     GNSS replicas by the golden Sim(3)'s image of that shift (s·R·Δ), so all
@@ -1020,7 +1286,7 @@ def replica_sequence(n: int):
     period = max(st0[-1] - st0[0], gt0[-1] - gt0[0]) + 2.0
     dstep_s = (sp0[-1] - sp0[0]) * (1.0 + 1.0 / n0)
     dstep_g = float(g["sim3_scale"]) * g["sim3_R"] @ dstep_s
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     reps = -(-n // n0)
     ks = np.arange(reps)
     st = np.concatenate([st0 + k * period for k in ks])[:n]
@@ -1618,6 +1884,199 @@ def phase6(device):
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+def kitti_sequences():
+    """The eleven KITTI odometry sequences with ground truth, 00-10, at their
+    lengths (``KITTI_LENGTHS``): seq-04 is the golden arrays, the others
+    ``replica_sequence`` at their lengths with distinct seeds. Every row's
+    GNSS is in a local frame, seq-04's its UTM track minus its first fix
+    (returned as the fourth item, else None): at a 5.4e6 m northing one
+    float64 ulp is 9.3e-10 m, so a 1e-9 m comparison of two summation
+    orders would measure the frame, not the arithmetic. Returns
+    [(slam, gps_times, gps_positions, origin)]."""
+    g, slam04 = golden_arrays()
+    origin = g["gps_utm"][0]
+    return [(slam04, g["gps_times"], g["gps_utm"] - origin, origin) if i == 4
+            else replica_sequence(n, seed=100 + i) + (None,) for i, n in enumerate(KITTI_LENGTHS)]
+
+
+def phase7_kitti(device):
+    """The eleven KITTI sequences, float64, ``bucket_by_length(max_waste=2.0)``
+    (3 buckets), through ``fuse_buckets`` and, bucket by bucket, through
+    ``fuse_batch`` + ``evaluate_batch`` (the counted main path). Returns the
+    launch counts of that run."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+    from gps_optimize_slam_tpu_torch.ops import scan
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+
+    f64, cfg = torch.float64, FusionConfig()
+    g, _ = golden_arrays()
+    seqs = kitti_sequences()
+    slams, gts, gps = [s for s, _, _, _ in seqs], [t for _, t, _, _ in seqs], [p for _, _, p, _ in seqs]
+    buckets = pbatch.bucket_by_length(slams, gts, gps, max_waste=2.0)
+    seeds = list(range(len(seqs)))
+
+    def dev(a, dt=f64):
+        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+
+    def single(i):
+        s = slams[i]
+        out = fusion.fuse_core(dev(s["timestamps"]), dev(s["positions"]), dev(s["quaternions"]), dev(gts[i]),
+                               dev(gps[i]), dev(np.ones(len(gts[i]), bool), torch.bool),
+                               cfg.replace(gps_sorted=True), seed=i)
+        return out, fusion.evaluate(dev(s["timestamps"]), dev(s["positions"]), out)
+
+    def bucket(idxs, b):
+        out = mesh.fuse_batch(b, [seeds[i] for i in idxs], config=cfg, device=device, dtype=f64)
+        return out, mesh.evaluate_batch(b, out)
+
+    # The main path, bucket by bucket, each counted alone, beside one
+    # single-row fusion + evaluation of the bucket's first sequence.
+    total, per_bucket, outs = {}, [], []
+    for idxs, b in buckets:
+        (out, ev), n_b = counted(lambda: bucket(idxs, b))
+        _, n_1 = counted(lambda: single(int(idxs[0])))
+        per_bucket.append({"rows": len(idxs), "padded_poses": int(b.slam_times.shape[1]), "launches": n_b,
+                           "single_row_launches": n_1})
+        outs.append((idxs, b, out, ev))
+        total = {k: total.get(k, 0) + v for k, v in n_b.items()}
+    res = mesh.fuse_buckets(buckets, seeds, config=cfg, device=device, dtype=f64)
+
+    pos_err, eval_err, masks_equal, ok = 0.0, 0.0, True, True
+    for idxs, b, out, ev in outs:
+        for row, i in enumerate(idxs):
+            i, n = int(i), int(b.n_slam[row])
+            one, one_ev = single(i)
+            pos_err = max(pos_err, float((out.corrected_pos[row, :n] - one.corrected_pos).abs().max()),
+                          float(np.abs(res[i].corrected_pos - one.corrected_pos.cpu().numpy()).max()))
+            masks_equal &= bool(torch.equal(out.sim3_inliers[row, :n], one.sim3_inliers)
+                                and torch.equal(out.gps_valid[row, :n], one.gps_valid))
+            ok &= bool(out.ok[row]) and bool(one.ok)
+            for p_ in ("nn_slam", "nn_sim3", "nn_ekf", "ate_sim3", "ate_ekf"):
+                for f in ("mean", "median", "rmse", "max", "count"):
+                    eval_err = max(eval_err, rel_diff(float(getattr(getattr(ev, p_), f)[row]),
+                                                      float(getattr(getattr(one_ev, p_), f))))
+    golden_err = float(np.abs(res[4].corrected_pos + seqs[4][3] - g["corrected_pos"]).max())
+
+    def loop():
+        return [single(i)[0] for i in range(len(seqs))]
+
+    walls = {"fuse_buckets": [], "row_loop": []}
+    for _ in range(3):
+        for name, fn in (("fuse_buckets", lambda: mesh.fuse_buckets(buckets, seeds, config=cfg, device=device,
+                                                                     dtype=f64)),
+                         ("row_loop", lambda: [o.corrected_pos.cpu() for o in loop()])):
+            walls[name].append(1e3 * timed_s(fn)[0])
+    emit({"phase": 7, "part": "kitti", "sequences": len(seqs), "poses": list(KITTI_LENGTHS), "dtype": "float64",
+          "buckets": per_bucket, "row_vs_single_max_err_m": pos_err, "masks_equal": masks_equal,
+          "evaluate_vs_single_max_rel_err": eval_err, "seq04_vs_golden_m": golden_err,
+          "fuse_buckets_warm_ms": walls["fuse_buckets"], "row_loop_warm_ms": walls["row_loop"],
+          "launches": total})
+    if len(buckets) != 3 or not ok:
+        raise AssertionError(f"phase 7: {len(buckets)} buckets (3 expected) or a failed alignment")
+    if not (golden_err <= 1e-6 and pos_err <= 1e-9 and masks_equal and eval_err <= 1e-9):
+        raise AssertionError(f"phase 7: golden {golden_err:.3e} m, rows {pos_err:.3e} m, masks {masks_equal}, "
+                             f"evaluation {eval_err:.3e}")
+    for bk in per_bucket:
+        if bk["launches"] != bk["single_row_launches"]:
+            raise AssertionError(f"phase 7: a bucket launched otherwise than one row: {bk}")
+    want = {f"scan_block/{op}": 1 for op in scan.OPS}
+    want.update({"scan_block/affine3": 2, "nn_keep": 3, "nn_resident": 3, "ransac_counts": 1})
+    got = {k: v for k, v in per_bucket[0]["launches"].items() if v}
+    if got != want:
+        raise AssertionError(f"phase 7: a bucket's launches {got}, expected {want}")
+    return total
+
+
+def phase7_fleet(device):
+    """The fleet bucket: 64 sequences of seq-02's length (``replica_sequence``
+    with distinct seeds), float32, one ``fuse_batch``: warm wall, sequences
+    per second, the device's idle share, peak memory, and the loop of
+    single-row ``fuse_core`` over the rows in the same run; rows 0 and 63
+    against their single-row fusion (float32, the bound of phase 4)."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+
+    f32, cfg = torch.float32, FusionConfig(gps_sorted=True)
+    B, n = FLEET
+    seqs = [replica_sequence(n, seed=200 + i) for i in range(B)]
+    b = pbatch.pad_batch([s for s, _, _ in seqs], [t for _, t, _ in seqs], [p for _, _, p in seqs])
+    staged = mesh.stage_batch(b, device=device, dtype=f32)
+
+    def fuse():
+        return mesh.fuse_batch(staged, config=cfg)
+
+    def dev(a, dt=f32):
+        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+
+    rows = [[dev(a) for a in (s["timestamps"], s["positions"], s["quaternions"], t, p)]
+            + [dev(np.ones(len(t), bool), torch.bool)] for s, t, p in seqs]
+
+    def loop():
+        return [fusion.fuse_core(*r, cfg, seed=i).corrected_pos for i, r in enumerate(rows)]
+
+    out, launches = counted(fuse)
+    torch.cuda.reset_peak_memory_stats()
+    walls = {"batch": [], "row_loop": []}
+    for _ in range(3):
+        walls["batch"].append(1e3 * timed_s(fuse)[0])
+        walls["row_loop"].append(1e3 * timed_s(loop)[0])
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_device(fuse)
+    errs = [float((out.corrected_pos[i, :n] - fusion.fuse_core(*rows[i], cfg, seed=i).corrected_pos).abs().max())
+            for i in (0, B - 1)]
+    wall = float(np.median(walls["batch"]))
+    emit({"phase": 7, "part": "fleet", "rows": B, "poses": n, "dtype": "float32", "ok": bool(out.ok.all()),
+          "batch_warm_ms": walls["batch"], "row_loop_warm_ms": walls["row_loop"],
+          "sequences_per_s": B / (wall / 1e3), "loop_over_batch": float(np.median(walls["row_loop"])) / wall,
+          "max_memory_allocated_mb": peak / 2**20, "profile": prof, "rows_vs_single_m": errs,
+          "launches": launches})
+    if not bool(out.ok.all()) or not bool(torch.isfinite(out.corrected_pos).all()) or not max(errs) <= 1e-2:
+        raise AssertionError(f"phase 7 fleet: ok {bool(out.ok.all())}, rows off their single fusion by {errs} m")
+    return launches
+
+
+def phase7_command():
+    """``python3 -m gps_optimize_slam_tpu_torch fuse-batch ... --json`` on two
+    pairs of seq-04 files as a subprocess; a non-zero exit, other keys, or
+    values off the seq-04 fusion fail."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pair = ":".join(write_seq04_files(tmp))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "gps_optimize_slam_tpu_torch", "fuse-batch", pair, pair, "--json",
+                               "-o", os.path.join(tmp, "out")],
+                              cwd=REPO, capture_output=True, text=True, timeout=300,
+                              env={**os.environ, "PYTHONPATH": REPO})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"fuse-batch: exit code {proc.returncode}\n{proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout)
+        keys = ["slam", "poses", "ok", "sim3_scale", "ate_rmse_m", "ate_mean_m", "eval_points", "output"]
+        rows = out["sequences"]
+        if (list(out) != ["sequences", "buckets"] or out["buckets"] != 1 or len(rows) != 2
+                or any(list(r) != keys or r["poses"] != 271 or not r["ok"] or abs(r["ate_rmse_m"] - 0.0839) > 2e-3
+                       or np.loadtxt(r["output"]).shape != (271, 8) for r in rows)):
+            raise AssertionError(f"fuse-batch: keys or values off: {proc.stdout[:800]}")
+    emit({"phase": 7, "part": "command", "wall_s": wall, "sim3_scale": rows[0]["sim3_scale"],
+          "ate_rmse_m": rows[0]["ate_rmse_m"]})
+
+
+def phase7(device):
+    """Batched multi-sequence fusion: the eleven KITTI sequences in three
+    length buckets, the fleet bucket, and the ``fuse-batch`` command.
+    Returns the launch counts of its main-path runs, summed."""
+    runs = [phase7_kitti(device), phase7_fleet(device)]
+    phase7_command()
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def main() -> int:
     import torch
 
@@ -1650,9 +2109,15 @@ def main() -> int:
     in_core = phase4(device)
     chunked = phase5(device)
     robust = phase6(device)
+    batched = phase7(device)
     for e in entries:
-        e["launches"] = in_core[e["name"]] + chunked[e["name"]] + robust[e["name"]]
-        e["launches_by_phase"] = {"4": in_core[e["name"]], "5": chunked[e["name"]], "6": robust[e["name"]]}
+        # A batched entry is the same wrapper at phase 7's batch shapes:
+        # its launches are phase 7's, where every launch has a batch grid.
+        name, at_batch = e["name"].split("@")[0], "@" in e["name"]
+        by_phase = {"7": batched[name]} if at_batch else {
+            "4": in_core[name], "5": chunked[name], "6": robust[name]}
+        e["launches"] = sum(by_phase.values())
+        e["launches_by_phase"] = by_phase
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

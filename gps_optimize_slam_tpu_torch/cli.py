@@ -1,5 +1,5 @@
-"""Command-line front-end of the port (the ``fuse`` subcommand of
-``gps_optimize_slam_tpu.cli``).
+"""Command-line front-end of the port (the ``fuse`` and ``fuse-batch``
+subcommands of ``gps_optimize_slam_tpu.cli``).
 
 Replaces the reference's tkinter dialog flow (EKFGPSSLAM.py:669-674,
 940-956) with one command:
@@ -12,8 +12,16 @@ Replaces the reference's tkinter dialog flow (EKFGPSSLAM.py:669-674,
         [--no-gps-filter] [--robust [--robust-gate CHI2] [--robust-iters N]]
         [--chunked [--chunk-size N]]
 
-It runs on the card and fails without one; ``--device cpu`` runs it on the
-CPU. The JSON it prints has the keys of the JAX package's command.
+and fuses many sequences as length-bucketed batched programs with
+
+    python -m gps_optimize_slam_tpu_torch fuse-batch SLAM.tum:GPS.txt ... [-o OUT_DIR]
+        [--device cuda|cpu] [--dtype float64|float32] [--frame auto|utm|enu]
+        [--seed N] [--json] [--config cfg.json] [--rts-mode outage|full]
+        [--ekf-scan auto|sequential|parallel] [--max-waste W]
+        [--estimate-offsets] [--meas-noise SX SY SZ] [--no-gps-filter]
+
+Both run on the card and fail without one; ``--device cpu`` runs them on
+the CPU. The JSON they print has the keys of the JAX package's commands.
 """
 
 from __future__ import annotations
@@ -185,6 +193,86 @@ def _cmd_fuse_chunked(args, config, frame, dtype) -> int:
     return 0
 
 
+def _cmd_fuse_batch(args) -> int:
+    """Batched multi-sequence fusion: each PAIR is "slam.tum:gps.txt".
+    Sequences are length-bucketed (bounded padding waste), each bucket fused
+    as one batched program on the card (``parallel.mesh.fuse_buckets``),
+    and reported and exported per sequence. Exit code 1 unless every
+    sequence's alignment succeeded."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from gps_optimize_slam_tpu_torch import pipeline
+    from gps_optimize_slam_tpu_torch.io import tum as tum_io
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+    from gps_optimize_slam_tpu_torch.utils.logging import enable as enable_logging
+
+    if args.verbose:
+        enable_logging()
+    config = _build_config(args)
+    frame = _resolve_frame(args.frame, args.dtype)
+    dtype = getattr(torch, args.dtype)
+
+    slams, gts, gps_list, valids, names = [], [], [], [], []
+    for pair in args.pairs:
+        try:
+            slam_path, gps_path = pair.rsplit(":", 1)
+        except ValueError:
+            print(f"bad pair {pair!r} (expected slam.tum:gps.txt)", file=sys.stderr)
+            return 2
+        slam = tum_io.read_tum(slam_path)
+        gps = pipeline.load_and_project_gps(
+            gps_path, config.gps_filtering_ransac, frame=frame, dtype=dtype, device=args.device
+        )
+        slams.append(slam)
+        gts.append(gps.timestamps)
+        gps_list.append(gps.positions)
+        valids.append(gps.valid)
+        names.append(slam_path)
+
+    buckets = pbatch.bucket_by_length(slams, gts, gps_list, valids, max_waste=args.max_waste)
+    per_seq = mesh.fuse_buckets(
+        buckets, [args.seed + i for i in range(len(slams))], config=config, device=args.device,
+        dtype=dtype, estimate_offsets=args.estimate_offsets,
+    )
+
+    rows = []
+    for i, out in enumerate(per_seq):
+        ts = np.asarray(slams[i]["timestamps"])
+        gate = out.gps_valid & np.isfinite(out.aligned_gps).all(-1) & (ts > ts[0] + 5.0)
+        err = np.linalg.norm(out.corrected_pos - out.aligned_gps, axis=-1)[gate]
+        rows.append(
+            {
+                "slam": names[i],
+                "poses": int(out.corrected_pos.shape[0]),
+                "ok": bool(out.ok),
+                "sim3_scale": round(float(out.sim3.scale), 6),
+                "ate_rmse_m": round(float(np.sqrt(np.mean(err**2))), 4) if err.size else None,
+                "ate_mean_m": round(float(err.mean()), 4) if err.size else None,
+                "eval_points": int(err.size),
+            }
+        )
+        if args.out_dir:
+            os.makedirs(args.out_dir, exist_ok=True)
+            path = os.path.join(args.out_dir, f"seq{i:02d}_fused.txt")
+            tum_io.write_tum(path, ts, out.corrected_pos, out.corrected_quat)
+            rows[-1]["output"] = path
+
+    if args.json:
+        print(json.dumps({"sequences": rows, "buckets": len(buckets)}, indent=2))
+    else:
+        for r in rows:
+            print(
+                f"{r['slam']}: poses={r['poses']} ok={r['ok']} "
+                f"scale={r['sim3_scale']} ate_rmse={r['ate_rmse_m']}m"
+                + (f" -> {r['output']}" if "output" in r else "")
+            )
+    return 0 if all(r["ok"] for r in rows) else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gps_optimize_slam_tpu_torch",
@@ -283,6 +371,51 @@ def build_parser() -> argparse.ArgumentParser:
         help="poses per device chunk with --chunked",
     )
     f.set_defaults(fn=_cmd_fuse)
+
+    fb = sub.add_parser(
+        "fuse-batch",
+        help="fuse many sequences, one batched program a length bucket",
+    )
+    fb.add_argument("pairs", nargs="+", metavar="SLAM:GPS", help="slam.tum:gps.txt pairs")
+    fb.add_argument("-o", "--out-dir", help="write per-sequence fused TUM files here")
+    fb.add_argument(
+        "--device",
+        default=None,
+        help="where the fusion runs: the CUDA device by default (an error "
+        "without one), or cpu",
+    )
+    fb.add_argument(
+        "--dtype",
+        choices=["float64", "float32"],
+        default="float64",
+        help="working precision of the fusion",
+    )
+    fb.add_argument(
+        "--frame",
+        choices=["auto", "utm", "enu"],
+        default="auto",
+        help="auto = UTM in float64, local ENU in float32",
+    )
+    fb.add_argument("--seed", type=int, default=0, help="sequence i takes RANSAC seed SEED + i")
+    fb.add_argument("--json", action="store_true")
+    fb.add_argument("-v", "--verbose", action="store_true")
+    fb.add_argument("--config", help="JSON config file (reference CONFIG layout)")
+    fb.add_argument("--rts-mode", choices=["outage", "full"])
+    fb.add_argument("--ekf-scan", choices=["auto", "sequential", "parallel"])
+    fb.add_argument(
+        "--max-waste",
+        type=float,
+        default=2.0,
+        help="length-bucketing waste bound (max_len/min_len per bucket)",
+    )
+    fb.add_argument(
+        "--estimate-offsets",
+        action="store_true",
+        help="estimate per-sequence GPS clock offsets on the device (FFT xcorr)",
+    )
+    fb.add_argument("--meas-noise", type=float, nargs=3, metavar=("SX", "SY", "SZ"))
+    fb.add_argument("--no-gps-filter", action="store_true")
+    fb.set_defaults(fn=_cmd_fuse_batch)
     return p
 
 

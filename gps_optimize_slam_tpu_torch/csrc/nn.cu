@@ -40,6 +40,15 @@
 //     scanned.
 // Padding queries (past n) are computed on zeros and never written; a block
 // whose queries are all padding returns at once.
+//
+// Batch grid: a batch of B sequences (the JAX package's vmap of the kernel:
+// each row its own queries, packed candidates and keep lists) is the
+// grid's y dimension. A block offsets every pointer by its row and then
+// walks only its own row's lists, so each row's minima equal those of a
+// call on that row alone, bit for bit. The 16-or-32-query rule below is
+// decided from the B * n_tiles query tiles the launch really has; at
+// B = 64 rows of 4,661 poses that is 2,368 tiles, so a batch takes the
+// 32-query blocks that the single-row rule kept for large grids.
 #include "nn_tile.cuh"
 
 namespace {
@@ -49,8 +58,8 @@ constexpr int kNnThreads = 256;
 template <typename T, int kSub, int Q>
 __global__ void __launch_bounds__(kNnThreads)
 nn_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
-          const int* __restrict__ order, const int* __restrict__ nkept, int m_tiles,
-          T* __restrict__ out) {
+          const int* __restrict__ order, const int* __restrict__ nkept, int n_tiles,
+          int m_tiles, T* __restrict__ out) {
   constexpr int kLanes = kSub / Q;              // threads across the block's queries
   constexpr int kSlices = kNnThreads / kLanes;  // threads across a tile's vectors
   constexpr int kSubs = kNnTileN / kSub;        // blocks a query tile
@@ -61,6 +70,10 @@ nn_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
   T* buf = reinterpret_cast<T*>(smem_raw);  // [2][4][kNnTileM]
   __shared__ T fold[kSlices][kSub];
 
+  const size_t row = blockIdx.y;
+  traj += row * 3 * n, out += row * n;
+  cand += row * (size_t)m_tiles * kTileElems;
+  order += row * (size_t)n_tiles * m_tiles, nkept += row * n_tiles;
   const int i = blockIdx.x / kSubs;
   const int q0 = i * kNnTileN + (blockIdx.x % kSubs) * kSub;
   if (q0 >= n) return;
@@ -106,16 +119,17 @@ nn_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
 }
 
 template <typename T, int kSub, int Q>
-cudaError_t launch_as(const T* traj, int n, const T* cand, const int* order, const int* nkept,
-                      int n_tiles, int m_tiles, T* out, cudaStream_t s) {
+cudaError_t launch_as(int batch, const T* traj, int n, const T* cand, const int* order,
+                      const int* nkept, int n_tiles, int m_tiles, T* out, cudaStream_t s) {
   const size_t smem = 2 * 4 * kNnTileM * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(nn_kernel<T, kSub, Q>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  nn_kernel<T, kSub, Q><<<n_tiles * (kNnTileN / kSub), kNnThreads, smem, s>>>(
-      traj, n, cand, order, nkept, m_tiles, out);
+  const dim3 grid((unsigned)(n_tiles * (kNnTileN / kSub)), (unsigned)batch);
+  nn_kernel<T, kSub, Q><<<grid, kNnThreads, smem, s>>>(traj, n, cand, order, nkept, n_tiles,
+                                                       m_tiles, out);
   return cudaGetLastError();
 }
 
@@ -127,23 +141,28 @@ cudaError_t launch_as(const T* traj, int n, const T* cand, const int* order, con
 constexpr int kSmallGridTiles = 256;
 
 template <typename T>
-cudaError_t launch(const void* traj, int n, const void* cand, const int* order,
+cudaError_t launch(int batch, const void* traj, int n, const void* cand, const int* order,
                    const int* nkept, int n_tiles, int m_tiles, void* out, cudaStream_t s) {
-  if ((long long)n_tiles * kNnTileN < n || n_tiles < 1) return cudaErrorInvalidValue;
-  const auto run = n_tiles <= kSmallGridTiles ? launch_as<T, 16, 2> : launch_as<T, 32, 4>;
-  return run(static_cast<const T*>(traj), n, static_cast<const T*>(cand), order, nkept, n_tiles,
-             m_tiles, static_cast<T*>(out), s);
+  if ((long long)n_tiles * kNnTileN < n || n_tiles < 1 || batch < 1 || batch > 65535)
+    return cudaErrorInvalidValue;
+  const long long tiles = (long long)batch * n_tiles;  // the launch's query tiles
+  const auto run = tiles <= kSmallGridTiles ? launch_as<T, 16, 2> : launch_as<T, 32, 4>;
+  return run(batch, static_cast<const T*>(traj), n, static_cast<const T*>(cand), order, nkept,
+             n_tiles, m_tiles, static_cast<T*>(out), s);
 }
 
 }  // namespace
 
+// Per row of a batch of `batch` rows, rows contiguous one after another:
 // traj (n, 3); cand (m_tiles, 4, 1024); order (n_tiles, m_tiles) kept tiles
 // first; nkept (n_tiles,); out (n,). Returns a cudaError_t.
-GPS_EXPORT int gps_nn_min_dist2(int dtype, const void* traj, int n, const void* cand,
+GPS_EXPORT int gps_nn_min_dist2(int dtype, int batch, const void* traj, int n, const void* cand,
                                 const int* order, const int* nkept, int n_tiles, int m_tiles,
                                 void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == GPS_F32) return (int)launch<float>(traj, n, cand, order, nkept, n_tiles, m_tiles, out, s);
-  if (dtype == GPS_F64) return (int)launch<double>(traj, n, cand, order, nkept, n_tiles, m_tiles, out, s);
+  if (dtype == GPS_F32)
+    return (int)launch<float>(batch, traj, n, cand, order, nkept, n_tiles, m_tiles, out, s);
+  if (dtype == GPS_F64)
+    return (int)launch<double>(batch, traj, n, cand, order, nkept, n_tiles, m_tiles, out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -71,6 +71,16 @@
 // candidates and the lists written once. A block reads 24 KB of tile boxes
 // and 1.5 KB a surviving tile and pass from L2, where the first version
 // read 1.6 MB a query tile.
+//
+// Batch grid: a batch of B sequences (the JAX package's vmap: each row its
+// own queries, candidates and mask) is the y dimension of both launches. A
+// block offsets every pointer by its row (coordinates, mask, its row's
+// slice of the box scratch, lists and packed tiles) and does the work of
+// the single-row kernel on them, so a query tile lists and tests only its
+// own row's candidate tiles, and each row's lists and packed candidates
+// equal those of a call on that row alone, bit for bit (the lists do not
+// depend on Q). Q is chosen from the B * n_tiles query tiles of the
+// launch; a block's Q query tiles never span two rows.
 #include "common.cuh"
 
 namespace {
@@ -114,6 +124,10 @@ segment_boxes_kernel(const T* __restrict__ traj, int n, int n_sub, int q_blocks,
                      int m_sub, int m_tiles, double* __restrict__ tbox, double* __restrict__ cbox,
                      double* __restrict__ tilebox, T* __restrict__ cand4) {
   __shared__ double s_box[6][kSegsPerTile];
+  const size_t batch_row = blockIdx.y, box_stride = 6 * ((size_t)n_sub + m_sub + m_tiles);
+  traj += batch_row * 3 * n, cand += batch_row * 3 * m, mask += batch_row * m;
+  tbox += batch_row * box_stride, cbox += batch_row * box_stride, tilebox += batch_row * box_stride;
+  cand4 += batch_row * (size_t)m_tiles * 4 * kTileM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool query = (int)blockIdx.x < q_blocks;  // uniform across the block
   const int tile = (int)blockIdx.x - q_blocks;    // of a candidate block
@@ -306,6 +320,9 @@ keep_lists_kernel(const double* __restrict__ tbox, int n_sub, int n_tiles,
   __shared__ int s_wcount[kKeepWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int first_tile = blockIdx.x * Q;
+  const size_t batch_row = blockIdx.y, box_stride = 6 * ((size_t)n_sub + m_sub + m_tiles);
+  tbox += batch_row * box_stride, cbox += batch_row * box_stride, tilebox += batch_row * box_stride;
+  order += batch_row * (size_t)n_tiles * m_tiles, nkept += batch_row * n_tiles;
   const double inf = Limits<double>::inf();
 
   // The last block may hold fewer than Q query tiles: the missing ones
@@ -422,53 +439,59 @@ keep_lists_kernel(const double* __restrict__ tbox, int n_sub, int n_tiles,
 }
 
 template <int Q>
-cudaError_t launch_keep(const double* tbox, int n_sub, int n_tiles, const double* cbox, int m_sub,
-                        const double* tilebox, int m_tiles, int* order, int* nkept, cudaStream_t s) {
+cudaError_t launch_keep(int batch, const double* tbox, int n_sub, int n_tiles, const double* cbox,
+                        int m_sub, const double* tilebox, int m_tiles, int* order, int* nkept,
+                        cudaStream_t s) {
   const int cached = m_tiles <= kCachedTiles;
   const size_t smem = cached ? 6 * (size_t)m_tiles * sizeof(double) : 0;
-  keep_lists_kernel<Q><<<(n_tiles + Q - 1) / Q, kKeepThreads, smem, s>>>(
+  const dim3 grid((unsigned)((n_tiles + Q - 1) / Q), (unsigned)batch);
+  keep_lists_kernel<Q><<<grid, kKeepThreads, smem, s>>>(
       tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, cached, order, nkept);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* traj, int n, const void* cand, const unsigned char* mask, int m,
-                   double* boxes, int n_tiles, int m_tiles, int* order, int* nkept, void* cand4,
-                   cudaStream_t s) {
-  if (n < 1 || m < 0 || (long long)n_tiles * 128 < n || (long long)m_tiles * kTileM < m)
+cudaError_t launch(int batch, const void* traj, int n, const void* cand, const unsigned char* mask,
+                   int m, double* boxes, int n_tiles, int m_tiles, int* order, int* nkept,
+                   void* cand4, cudaStream_t s) {
+  if (n < 1 || m < 0 || (long long)n_tiles * 128 < n || (long long)m_tiles * kTileM < m ||
+      batch < 1 || batch > 65535)
     return cudaErrorInvalidValue;
   const int n_sub = n_tiles * kQuerySegs, m_sub = m_tiles * kSegsPerTile;
   double* tbox = boxes;
   double* cbox = tbox + 6 * (size_t)n_sub;
   double* tilebox = cbox + 6 * (size_t)m_sub;
   const int q_blocks = (n_sub + kSegsPerTile - 1) / kSegsPerTile;
-  segment_boxes_kernel<T><<<q_blocks + m_tiles, kBoxThreads, 0, s>>>(
+  segment_boxes_kernel<T><<<dim3((unsigned)(q_blocks + m_tiles), (unsigned)batch), kBoxThreads, 0, s>>>(
       static_cast<const T*>(traj), n, n_sub, q_blocks, static_cast<const T*>(cand), mask, m, m_sub,
       m_tiles, tbox, cbox, tilebox, static_cast<T*>(cand4));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  // As many query tiles a block as still leave kFillBlocks blocks.
-  if (n_tiles >= kMaxQ * kFillBlocks)
-    return launch_keep<kMaxQ>(tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, order, nkept, s);
-  if (n_tiles >= 2 * kFillBlocks)
-    return launch_keep<2>(tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, order, nkept, s);
-  return launch_keep<1>(tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, order, nkept, s);
+  // As many query tiles a block as still leave kFillBlocks blocks, counted
+  // over the launch's B * n_tiles query tiles.
+  const long long tiles = (long long)batch * n_tiles;
+  if (tiles >= kMaxQ * kFillBlocks)
+    return launch_keep<kMaxQ>(batch, tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, order, nkept, s);
+  if (tiles >= 2 * kFillBlocks)
+    return launch_keep<2>(batch, tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, order, nkept, s);
+  return launch_keep<1>(batch, tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, order, nkept, s);
 }
 
 }  // namespace
 
+// Per row of a batch of `batch` rows, rows contiguous one after another:
 // traj (n, 3), cand (m, 3) in the working dtype, mask (m,) bytes; boxes
 // 6 * (4 * n_tiles + 33 * m_tiles) float64 of scratch (the query segments',
 // the candidate segments' and the candidate tiles' boxes); out: order (n_tiles,
 // m_tiles) and nkept (n_tiles,) int32, cand4 (m_tiles, 4, 1024) in the
 // working dtype. Returns a cudaError_t.
-GPS_EXPORT int gps_nn_keep(int dtype, const void* traj, int n, const void* cand,
+GPS_EXPORT int gps_nn_keep(int dtype, int batch, const void* traj, int n, const void* cand,
                            const unsigned char* mask, int m, double* boxes, int n_tiles,
                            int m_tiles, int* order, int* nkept, void* cand4, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == GPS_F32)
-    return (int)launch<float>(traj, n, cand, mask, m, boxes, n_tiles, m_tiles, order, nkept, cand4, s);
+    return (int)launch<float>(batch, traj, n, cand, mask, m, boxes, n_tiles, m_tiles, order, nkept, cand4, s);
   if (dtype == GPS_F64)
-    return (int)launch<double>(traj, n, cand, mask, m, boxes, n_tiles, m_tiles, order, nkept, cand4, s);
+    return (int)launch<double>(batch, traj, n, cand, mask, m, boxes, n_tiles, m_tiles, order, nkept, cand4, s);
   return (int)cudaErrorInvalidValue;
 }

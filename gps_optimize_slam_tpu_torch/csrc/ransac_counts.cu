@@ -31,6 +31,13 @@
 // to run. The wrapper zeroes the output. Several points a thread and longer
 // trial chunks were measured too: they win only at tens of thousands of
 // points, which no caller sends (PERF.md).
+//
+// Batch grid: a batch of B sequences (each its own points and trials, the
+// JAX package's vmap of the kernel) is a third grid dimension, blockIdx.z
+// the row; a block offsets its pointers by its row and does the work of
+// the single-row kernel on them, so each row's counts equal those of a
+// call on that row alone. The grid's B times more blocks are what fills the
+// card for short rows; the 256 x 32 block shape is the single-row one.
 #include "common.cuh"
 
 namespace {
@@ -48,6 +55,9 @@ count_kernel(const T* __restrict__ src, const T* __restrict__ dst,
   constexpr int kVecs = (int)sizeof(T);  // a record of 16 values is sizeof(T) 16-byte loads
   __shared__ __align__(16) T par[kCountTrials][16];
   __shared__ int cnt[kCountTrials];
+  const size_t row = blockIdx.z;
+  src += row * 3 * n, dst += row * 3 * n, valid += row * n;
+  R += row * 9 * n_trials, t += row * 3 * n_trials, s += row * n_trials, out += row * n_trials;
   const int trial0 = blockIdx.y * kCountTrials;
   const int tc = min(kCountTrials, n_trials - trial0);
   for (int idx = threadIdx.x; idx < tc * 16; idx += kCountThreads) {
@@ -92,13 +102,13 @@ count_kernel(const T* __restrict__ src, const T* __restrict__ dst,
 }
 
 template <typename T>
-cudaError_t launch(const void* src, const void* dst, const uint8_t* valid, int n,
+cudaError_t launch(int batch, const void* src, const void* dst, const uint8_t* valid, int n,
                    const void* R, const void* t, const void* s, int n_trials, double thr2,
                    int* out, cudaStream_t st) {
-  if (n < 1 || n_trials < 1) return cudaErrorInvalidValue;
+  if (batch < 1 || n < 1 || n_trials < 1) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n + kCountThreads - 1) / kCountThreads),
-                  (unsigned)((n_trials + kCountTrials - 1) / kCountTrials));
-  if (grid.y > 65535) return cudaErrorInvalidValue;
+                  (unsigned)((n_trials + kCountTrials - 1) / kCountTrials), (unsigned)batch);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   count_kernel<T><<<grid, kCountThreads, 0, st>>>(
       static_cast<const T*>(src), static_cast<const T*>(dst), valid, n,
       static_cast<const T*>(R), static_cast<const T*>(t), static_cast<const T*>(s), n_trials,
@@ -108,16 +118,17 @@ cudaError_t launch(const void* src, const void* dst, const uint8_t* valid, int n
 
 }  // namespace
 
-// src, dst (n, 3); valid (n,) bool; R (T, 3, 3); t (T, 3); s (T,); out (T,)
-// int32, zeroed by the caller. Returns a cudaError_t.
-GPS_EXPORT int gps_ransac_counts(int dtype, const void* src, const void* dst,
+// Per row of a batch of `batch` rows: src, dst (n, 3); valid (n,) bool;
+// R (T, 3, 3); t (T, 3); s (T,); out (T,) int32, zeroed by the caller; rows
+// contiguous one after another. Returns a cudaError_t.
+GPS_EXPORT int gps_ransac_counts(int dtype, int batch, const void* src, const void* dst,
                                  const void* valid, int n, const void* R, const void* t,
                                  const void* s, int n_trials, double thr2, void* out,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   int* o = static_cast<int*>(out);
-  if (dtype == GPS_F32) return (int)launch<float>(src, dst, v, n, R, t, s, n_trials, thr2, o, st);
-  if (dtype == GPS_F64) return (int)launch<double>(src, dst, v, n, R, t, s, n_trials, thr2, o, st);
+  if (dtype == GPS_F32) return (int)launch<float>(batch, src, dst, v, n, R, t, s, n_trials, thr2, o, st);
+  if (dtype == GPS_F64) return (int)launch<double>(batch, src, dst, v, n, R, t, s, n_trials, thr2, o, st);
   return (int)cudaErrorInvalidValue;
 }

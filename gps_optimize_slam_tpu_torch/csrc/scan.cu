@@ -17,23 +17,25 @@
 // 2-4 leaves and the 27-leaf filter's operations (see scan_lookback.cuh).
 #include "scan_lookback.cuh"
 
-// Op codes are the order of ops/scan.py:OPS. `scratch` holds
-// gps_scan_scratch_bytes(op, dtype, n) bytes. Returns a cudaError_t.
-GPS_EXPORT int gps_scan(int op, int dtype, const void* in, void* out, int n, int reverse,
-                        void* scratch, void* stream) {
+// Op codes are the order of ops/scan.py:OPS. `in` and `out` are (L, batch,
+// n) leaves, each of the `batch` rows scanned on its own; `scratch` holds
+// gps_scan_scratch_bytes(op, dtype, n, batch) bytes. Returns a cudaError_t.
+GPS_EXPORT int gps_scan(int op, int dtype, const void* in, void* out, int n, int batch,
+                        int reverse, void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == GPS_F32)
-    return (int)dispatch_op<LookbackScan, float>(op, in, out, n, reverse, scratch, s);
+    return (int)dispatch_op<LookbackScan, float>(op, in, out, n, batch, reverse, scratch, s);
   if (dtype == GPS_F64)
-    return (int)dispatch_op<LookbackScan, double>(op, in, out, n, reverse, scratch, s);
+    return (int)dispatch_op<LookbackScan, double>(op, in, out, n, batch, reverse, scratch, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Scratch bytes of gps_scan for n elements; -1 for an unknown op or dtype.
-GPS_EXPORT long long gps_scan_scratch_bytes(int op, int dtype, int n) {
+// Scratch bytes of gps_scan for `batch` rows of n elements; -1 for an
+// unknown op or dtype.
+GPS_EXPORT long long gps_scan_scratch_bytes(int op, int dtype, int n, int batch) {
   long long bytes = -1;
-  if (dtype == GPS_F32) dispatch_op<LookbackScratch, float>(op, n, &bytes);
-  if (dtype == GPS_F64) dispatch_op<LookbackScratch, double>(op, n, &bytes);
+  if (dtype == GPS_F32) dispatch_op<LookbackScratch, float>(op, n, batch, &bytes);
+  if (dtype == GPS_F64) dispatch_op<LookbackScratch, double>(op, n, batch, &bytes);
   return bytes;
 }
 

@@ -45,6 +45,25 @@
 // aggregate and L inclusive values. A flag goes 0 -> A -> P; the aggregate
 // slot is never rewritten once flagged, so a reader never sees it torn.
 //
+// Batch grid (K1 only): leaves (L, B, n) hold B independent rows, each
+// scanned along n (the JAX package's vmap of the scan). One launch covers
+// every row's tiles, B * tiles(n) blocks, and the one ticket counter runs
+// over all of them in row-major order (ticket t is tile t % tiles of row
+// t / tiles), so every tile a block waits on still belongs to a block that
+// started before it. The flags and values stay one slot per (row, tile),
+// and the look-back gets its row's slice of them, so its walk stops at its
+// own row's first tile (tile 0 of a row publishes its prefix at once, as
+// tile 0 of a single row does). One counter and not one per row: a row's
+// tiles then start in order and rows in order, which the single-row proof
+// of progress covers as it is; per-row counters would need a row picked
+// for each block by some other means. Each row meets the same tiles and
+// the same combines within a tile as a call on that row alone; the
+// look-back folds what its predecessors have published by then, as it does
+// for a single row, so a row agrees with the call alone as two calls on one
+// row agree: bit for bit where the combine is exact (add2 on counts, max3,
+// min3), to the scan's tolerance where the walk's association rounds (the
+// float64 filter showed it on the card).
+//
 // What bounds it on this card: bytes for the 2-4-leaf combines at long n
 // (each leaf read once and written once), operations for the 27-leaf filter
 // (489 flops a combine, about two combines an element), and below a few
@@ -109,11 +128,14 @@ struct LookbackLayout {
   static constexpr int kItems = ITEMS;
   static constexpr int kTile = kScanThreads * kItems;
   static constexpr int kStride = padded(kTile);  // shared elements per leaf row
-  static int tiles(int n) { return (n + kTile - 1) / kTile; }
-  static size_t flag_bytes(int n) { return (size_t)(1 + tiles(n)) * sizeof(int); }
-  static size_t values_offset(int n) { return (flag_bytes(n) + 15) / 16 * 16; }
-  static size_t scratch_bytes(int n) {
-    return values_offset(n) + 2 * (size_t)tiles(n) * Op::L * sizeof(T);
+  __host__ __device__ static int tiles(int n) { return (n + kTile - 1) / kTile; }
+  // For `batch` rows of n elements: one ticket, a flag per (row, tile).
+  static size_t flag_bytes(int n, int batch = 1) {
+    return (size_t)(1 + (size_t)batch * tiles(n)) * sizeof(int);
+  }
+  static size_t values_offset(int n, int batch = 1) { return (flag_bytes(n, batch) + 15) / 16 * 16; }
+  static size_t scratch_bytes(int n, int batch = 1) {
+    return values_offset(n, batch) + 2 * (size_t)batch * tiles(n) * Op::L * sizeof(T);
   }
   static size_t smem_bytes() { return (size_t)Op::L * kStride * sizeof(T); }
 };
@@ -186,16 +208,18 @@ __device__ __forceinline__ void look_back(int tile, const T* tot, int* flags, T*
 }
 
 // Step 2 as K1 takes it: the tile's leaves into `s` ([L][padded(TILE)]) with
-// plain loads, consecutive threads on consecutive elements.
+// plain loads, consecutive threads on consecutive elements. Leaf l of the
+// row starts at in + l * ld.
 template <class Op, typename T, int ITEMS>
-__device__ __forceinline__ void tile_load(const T* __restrict__ in, int n, int reverse, int k0, T* s) {
+__device__ __forceinline__ void tile_load(const T* __restrict__ in, int n, size_t ld, int reverse,
+                                          int k0, T* s) {
   constexpr int L = Op::L;
   constexpr int STRIDE = padded(kScanThreads * ITEMS);
   T ident[L];
   Op::identity(ident);
 #pragma unroll
   for (int l = 0; l < L; ++l) {
-    const T* row = in + (size_t)l * n;
+    const T* row = in + l * ld;
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
       const int e = i * kScanThreads + (int)threadIdx.x;
@@ -308,14 +332,16 @@ __device__ __forceinline__ void tile_finish(int tile, T* s, T (*s_warp)[Op::L], 
   __syncthreads();
 }
 
-// The finished tile from `s` to the output leaves, coalesced.
+// The finished tile from `s` to the output leaves, coalesced; leaf l of the
+// row starts at out + l * ld.
 template <class Op, typename T, int ITEMS>
-__device__ __forceinline__ void tile_store(const T* s, T* __restrict__ out, int n, int reverse, int k0) {
+__device__ __forceinline__ void tile_store(const T* s, T* __restrict__ out, int n, size_t ld,
+                                           int reverse, int k0) {
   constexpr int L = Op::L;
   constexpr int STRIDE = padded(kScanThreads * ITEMS);
 #pragma unroll
   for (int l = 0; l < L; ++l) {
-    T* row = out + (size_t)l * n;
+    T* row = out + l * ld;
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
       const int e = i * kScanThreads + (int)threadIdx.x;
@@ -327,7 +353,7 @@ __device__ __forceinline__ void tile_store(const T* s, T* __restrict__ out, int 
 
 template <class Op, typename T>
 __global__ void __launch_bounds__(kScanThreads)
-lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int reverse,
+lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int batch, int reverse,
                      int* ticket, T* agg, T* incl) {
   constexpr int L = Op::L;
   using Layout = LookbackLayout<Op, T>;
@@ -341,10 +367,15 @@ lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int r
 
   if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
   __syncthreads();
-  const int tile = s_tile;
+  // The ticket names a (row, tile); the row's leaves and its scratch slice.
+  const int tiles = Layout::tiles(n);
+  const int row = s_tile / tiles, tile = s_tile % tiles;
+  const size_t ld = (size_t)batch * n;
+  in += (size_t)row * n, out += (size_t)row * n;
+  flags += (size_t)row * tiles, agg += (size_t)row * tiles * L, incl += (size_t)row * tiles * L;
   const int k0 = tile * Layout::kTile;
 
-  tile_load<Op, T, ITEMS>(in, n, reverse, k0, s);
+  tile_load<Op, T, ITEMS>(in, n, ld, reverse, k0, s);
   __syncthreads();
   tile_reduce<Op, T, ITEMS>(s, s_warp);
   if (threadIdx.x < 32) {
@@ -352,37 +383,38 @@ lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int r
   }
   __syncthreads();
   tile_finish<Op, T, ITEMS>(tile, s, s_warp, s_carry);
-  tile_store<Op, T, ITEMS>(s, out, n, reverse, k0);
+  tile_store<Op, T, ITEMS>(s, out, n, ld, reverse, k0);
 }
 
-// K1's launch: zero the ticket and flags, then one grid over the tiles.
-// `scratch` holds LookbackLayout<Op, T>::scratch_bytes(n) bytes.
+// K1's launch: zero the ticket and flags, then one grid over every row's
+// tiles. `scratch` holds LookbackLayout<Op, T>::scratch_bytes(n, batch) bytes.
 template <class Op, typename T>
 struct LookbackScan {
-  static cudaError_t run(const void* in, void* out, int n, int reverse, void* scratch,
+  static cudaError_t run(const void* in, void* out, int n, int batch, int reverse, void* scratch,
                          cudaStream_t stream) {
     using Layout = LookbackLayout<Op, T>;
-    if (n <= 0) return cudaSuccess;
-    const int tiles = Layout::tiles(n);
+    if (n <= 0 || batch <= 0) return batch < 0 ? cudaErrorInvalidValue : cudaSuccess;
+    const long long blocks = (long long)batch * Layout::tiles(n);
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
     char* base = static_cast<char*>(scratch);
-    T* agg = reinterpret_cast<T*>(base + Layout::values_offset(n));
-    T* incl = agg + (size_t)tiles * Op::L;
+    T* agg = reinterpret_cast<T*>(base + Layout::values_offset(n, batch));
+    T* incl = agg + (size_t)blocks * Op::L;
     const size_t smem = Layout::smem_bytes();
     cudaError_t e = allow_smem(lookback_scan_kernel<Op, T>, smem);
-    if (e == cudaSuccess) e = cudaMemsetAsync(scratch, 0, Layout::flag_bytes(n), stream);
+    if (e == cudaSuccess) e = cudaMemsetAsync(scratch, 0, Layout::flag_bytes(n, batch), stream);
     if (e != cudaSuccess) return e;
-    lookback_scan_kernel<Op, T><<<tiles, kScanThreads, smem, stream>>>(
-        static_cast<const T*>(in), static_cast<T*>(out), n, reverse, reinterpret_cast<int*>(base),
-        agg, incl);
+    lookback_scan_kernel<Op, T><<<(unsigned)blocks, kScanThreads, smem, stream>>>(
+        static_cast<const T*>(in), static_cast<T*>(out), n, batch, reverse,
+        reinterpret_cast<int*>(base), agg, incl);
     return cudaGetLastError();
   }
 };
 
-// Scratch bytes of LookbackScan, written to *bytes.
+// Scratch bytes of LookbackScan for `batch` rows, written to *bytes.
 template <class Op, typename T>
 struct LookbackScratch {
-  static cudaError_t run(int n, long long* bytes) {
-    *bytes = (long long)LookbackLayout<Op, T>::scratch_bytes(n);
+  static cudaError_t run(int n, int batch, long long* bytes) {
+    *bytes = (long long)LookbackLayout<Op, T>::scratch_bytes(n, batch);
     return cudaSuccess;
   }
 };

@@ -207,7 +207,7 @@ tiled_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int reve
     GPS_CLOCK(2);
     tile_finish<Op, T, ITEMS>(tile, cur, s_warp, s_carry);
     GPS_CLOCK(3);
-    tile_store<Op, T, ITEMS>(cur, out, n, reverse, tile * TILE);
+    tile_store<Op, T, ITEMS>(cur, out, n, (size_t)n, reverse, tile * TILE);
     GPS_CLOCK(4);
     tile = next;
   }

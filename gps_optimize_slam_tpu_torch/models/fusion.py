@@ -7,6 +7,11 @@ transform, the EKF forward pass and the outage-gated RTS smoothing: the
 reference's recipe (main_process_gui, EKFGPSSLAM.py:940-1123) minus host I/O.
 The alignment is computed once and reused (the reference recomputes it,
 quirk Q9). ``evaluate`` gives the reference's NN metric and the paired ATE.
+
+Both take a leading batch axis, one padded sequence a row (the JAX
+package vmaps them, ``parallel/mesh.py``): every stage is then issued once
+for all rows, and its kernels launch once with a grid over the rows. Every
+leaf of ``FusionOutputs`` and ``Evaluation`` gains the leading B.
 """
 
 from __future__ import annotations
@@ -69,9 +74,9 @@ def fuse_core(
     gps_positions: torch.Tensor,
     gps_valid: torch.Tensor,
     config: FusionConfig = FusionConfig(),
-    seed: int = 0,
+    seed=0,
     slam_mask: Optional[torch.Tensor] = None,
-    time_offset: float = 0.0,
+    time_offset=0.0,
     sim3_draws: Optional[torch.Tensor] = None,
 ) -> FusionOutputs:
     """Full fusion of one sequence; every tensor on one device. Invalid GPS
@@ -81,6 +86,11 @@ def fuse_core(
     GPS-invalid. ``seed`` seeds the RANSAC generator on the tensors' device;
     ``sim3_draws`` replaces its draws (see ``ops.ransac.sim3_ransac``).
     The EKF + RTS function follows ``ekf_fuse_fn``.
+
+    A batch of B padded sequences (slam (B, N), (B, N, 3), (B, N, 4); GPS
+    (B, M), (B, M, 3), (B, M); ``slam_mask`` (B, N)) is fused as one
+    program: ``time_offset`` is then a float or a (B,) tensor, ``seed`` an
+    int or B ints (one a row) and ``sim3_draws`` (B, trials, k).
     """
     config = resolve_platform(config, slam_pos.device)
     aligned = alignment.align_gps_to_slam(
@@ -94,7 +104,7 @@ def fuse_core(
     )
     if slam_mask is not None:
         aligned = alignment.AlignedGPS(
-            aligned=torch.where(slam_mask[:, None], aligned.aligned, float("nan")),
+            aligned=torch.where(slam_mask[..., None], aligned.aligned, float("nan")),
             valid=aligned.valid & slam_mask,
         )
     window = alignment.sim3_window_mask(

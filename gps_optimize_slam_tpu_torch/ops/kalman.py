@@ -18,7 +18,10 @@ State ``[x y z qx qy qz qw]``, the quaternion filtered as a raw 4-vector and
 renormalised, F = I for the covariance (Q7), H = [I₃ 0], Joseph-form update.
 The two passes are Python loops over small tensors: this is the CPU path
 (``ekf_scan="auto"`` on CPU) and the only path with transition blending;
-``ops.kalman_parallel`` is the log-depth path for accelerators.
+``ops.kalman_parallel`` is the log-depth path for accelerators. Under a
+leading batch axis (one sequence a row) ``precompute_controls`` runs on all
+rows at once and ``fuse_ekf_rts``, a host recurrence already, loops over
+the rows.
 """
 
 from __future__ import annotations
@@ -76,39 +79,40 @@ def precompute_controls(
     outage [s, i−1] of length ≥2 is sharp when any within-run yaw rate
     exceeds the threshold or any quaternion is degenerate; sharp ⇒ no RTS
     and the configured transition steps, else RTS + hard update."""
-    n = slam_times.shape[0]
+    n = slam_times.shape[-1]
+    lead = slam_times.shape[:-1]
     device = slam_times.device
     avail = valid_mask & ~torch.any(torch.isnan(aligned_gps), dim=-1)
     idx = torch.arange(n, device=device)
-    avail_prev = torch.cat([avail[:1], avail[:-1]])
+    avail_prev = torch.cat([avail[..., :1], avail[..., :-1]], -1)
     is_recovery = avail & ~avail_prev & (idx != 0)
 
-    last_avail = torch.cummax(torch.where(avail, idx, -1), 0).values
+    last_avail = torch.cummax(torch.where(avail, idx, -1), -1).values
     run_start = last_avail + 1
     run_len_at = idx - last_avail
 
     yaws = quat.yaw(slam_quats)
-    dyaw = quat.wrap_angle(yaws[1:] - yaws[:-1])
-    dts = slam_times[1:] - slam_times[:-1]
+    dyaw = quat.wrap_angle(yaws[..., 1:] - yaws[..., :-1])
+    dts = slam_times[..., 1:] - slam_times[..., :-1]
     rate = torch.where(
         dts > 0, torch.abs(dyaw / torch.where(dts > 0, dts, torch.ones_like(dts))), 0.0
     )
     thresh = torch.deg2rad(
         torch.tensor(rts_cfg.sharp_turn_yaw_rate_threshold_deg_per_sec, dtype=slam_times.dtype)
     ).item()
-    pair_in_run = (~avail[:-1]) & (~avail[1:])
+    pair_in_run = (~avail[..., :-1]) & (~avail[..., 1:])
     high = pair_in_run & (rate > thresh)
-    zero1 = torch.zeros((1,), dtype=torch.long, device=device)
-    cum_high = torch.cat([zero1, torch.cumsum(high.long(), 0)])
+    zero1 = torch.zeros((*lead, 1), dtype=torch.long, device=device)
+    cum_high = torch.cat([zero1, torch.cumsum(high.long(), -1)], -1)
     bad_quat = (quat.norm(slam_quats) < 1e-15) & ~avail
-    cum_bad = torch.cat([zero1, torch.cumsum(bad_quat.long(), 0)])
+    cum_bad = torch.cat([zero1, torch.cumsum(bad_quat.long(), -1)], -1)
 
-    prev_run_start = torch.cat([zero1, run_start[:-1]])
-    prev_run_len = torch.cat([zero1, run_len_at[:-1]])
+    prev_run_start = torch.cat([zero1, run_start[..., :-1]], -1)
+    prev_run_len = torch.cat([zero1, run_len_at[..., :-1]], -1)
     analyse = is_recovery & (prev_run_len >= 2)
     s_clip = torch.clamp(prev_run_start, 0, n - 1)
-    any_high = (cum_high[torch.clamp(idx - 1, 0, n - 1)] - cum_high[s_clip]) > 0
-    any_bad = (cum_bad[idx] - cum_bad[s_clip]) > 0
+    any_high = (cum_high[..., torch.clamp(idx - 1, 0, n - 1)] - torch.gather(cum_high, -1, s_clip)) > 0
+    any_bad = (cum_bad[..., idx] - torch.gather(cum_bad, -1, s_clip)) > 0
     sharp_at_recovery = analyse & (any_high | any_bad)
 
     perform_rts = is_recovery & ~sharp_at_recovery
@@ -120,12 +124,12 @@ def precompute_controls(
 
     # RTS membership: the outage run [s..i−1] of a perform_rts recovery i,
     # plus i itself; a trailing run (no recovery) stays unsmoothed.
-    run_last = (~avail) & torch.cat([avail[1:], torch.zeros((1,), dtype=torch.bool, device=device)])
-    e_rev = torch.cummax(torch.flip(torch.where(run_last, (n - 1) - idx, -1), (0,)), 0).values
-    e = torch.flip(e_rev, (0,))
+    run_last = (~avail) & torch.cat([avail[..., 1:], torch.zeros((*lead, 1), dtype=torch.bool, device=device)], -1)
+    e_rev = torch.cummax(torch.flip(torch.where(run_last, (n - 1) - idx, -1), (-1,)), -1).values
+    e = torch.flip(e_rev, (-1,))
     found = e >= 0
     run_end = (n - 1) - torch.where(found, e, 0)
-    member_invalid = (~avail) & found & perform_rts[torch.clamp(run_end + 1, 0, n - 1)]
+    member_invalid = (~avail) & found & torch.gather(perform_rts, -1, torch.clamp(run_end + 1, 0, n - 1))
     return FusionControls(
         avail=avail,
         is_recovery=is_recovery,
@@ -244,9 +248,10 @@ def rts_backward(history: EKFHistory, controls: FusionControls) -> torch.Tensor:
 def full_smoother_controls(controls: FusionControls) -> FusionControls:
     """Full fixed-interval smoothing: one RTS segment over the whole
     trajectory, anchored at the last pose (extension, SURVEY §7 step 9)."""
-    n = controls.avail.shape[0]
+    n = controls.avail.shape[-1]
     idx = torch.arange(n, device=controls.avail.device)
-    return controls._replace(rts_member=torch.ones_like(controls.avail), rts_end=idx == n - 1)
+    return controls._replace(rts_member=torch.ones_like(controls.avail),
+                             rts_end=(idx == n - 1).expand_as(controls.avail))
 
 
 def fuse_ekf_rts(
@@ -264,7 +269,13 @@ def fuse_ekf_rts(
     """EKF + RTS fusion (reference apply_ekf_correction,
     EKFGPSSLAM.py:831-935). ``rts_mode``: "outage" (reference behaviour) or
     "full" (fixed-interval smoothing over the whole trajectory). Returns
-    (positions (N,3), quaternions (N,4))."""
+    (positions (N,3), quaternions (N,4)); a batch of sequences (B, N, ...)
+    is fused a row at a time."""
+    if slam_pos.ndim == 3:
+        rows = [fuse_ekf_rts(*(x[r] for x in (slam_times, slam_pos, slam_quat, sim3_pos, sim3_quat,
+                                              aligned_gps, valid_mask)), ekf_cfg, rts_cfg, rts_mode)
+                for r in range(slam_pos.shape[0])]
+        return torch.stack([p for p, _ in rows]), torch.stack([q for _, q in rows])
     controls = precompute_controls(slam_times, slam_quat, aligned_gps, valid_mask, rts_cfg)
     if rts_mode == "full":
         controls = full_smoother_controls(controls)

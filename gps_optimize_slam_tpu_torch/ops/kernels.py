@@ -26,6 +26,16 @@ and the array code around them:
   ``csrc/ransac_counts.cu`` in the exact elementwise form: blocks of 256
   points by 32 trials, integer partial counts added into a zeroed output.
 
+Batch axis: :func:`keep_lists`, :func:`nn_resident`, :func:`nn_min_dist2`
+and :func:`ransac_counts` (and their plain versions) also take a leading
+batch of B rows, queries (B, n, 3) and candidates (B, m, 3) with a mask
+(B, m), or points (B, N, 3) with trials (B, T, ...): the JAX package's
+``vmap`` of its kernels, which gives each Pallas call a batch grid. Each
+kernel takes the row as one more grid dimension, in one launch for all
+rows, and each row's output equals the call on that row alone bit for
+bit. A batched NN call always takes K3 (a K4 batch grid is still to
+come).
+
 Each wrapper takes its plain PyTorch version (``*_plain``, below) for CPU
 tensors only; a CUDA tensor launches the kernel or raises. Both NN kernels
 compute in the inputs' dtype: the golden run works in float64 UTM
@@ -66,7 +76,10 @@ def _round_up(x: int, m: int) -> int:
 def nn_route(m: int) -> str:
     """"resident" (K3) or "grid" (K4) for ``m`` candidates: K4 from
     ``GRID_MIN_CANDIDATES`` on. (The JAX package's rule, its resident
-    kernel's 8 MiB VMEM budget, put the change above 262,144.)"""
+    kernel's 8 MiB VMEM budget, put the change above 262,144.) The rule is
+    for single rows: a batched call (:func:`nn_min_dist2` with a leading
+    batch axis) always takes K3, which runs at any M, since K4 has no batch
+    grid yet."""
     return "resident" if m < GRID_MIN_CANDIDATES else "grid"
 
 
@@ -77,7 +90,8 @@ def tile_keep_mask(tp: torch.Tensor, cp: torch.Tensor, vm: torch.Tensor) -> torc
 
     ``tp`` (n_pad, 3) finite queries (pad rows replicate the last query so
     boxes stay tight), ``cp`` (m_pad, 3) finite candidates, ``vm`` (m_pad,)
-    validity. Per 32-point segment pair, the lower bound of the box-to-box
+    validity; or each with a leading batch axis B, giving (B, n_tiles,
+    m_tiles), each row's mask that of the row alone. Per 32-point segment pair, the lower bound of the box-to-box
     distance is compared with the per-query-segment minimum of the upper
     bounds; a few-ulp relative slack keeps rounding from flipping a keep into
     a skip, so the segment pair of every query's true NN is kept. Bounds are
@@ -92,55 +106,62 @@ def tile_keep_mask(tp: torch.Tensor, cp: torch.Tensor, vm: torch.Tensor) -> torc
     float64 tensors of 6.4 GB. Each row's threshold is its own minimum, so
     every block size gives the same mask bit for bit.
     """
+    if tp.ndim == 2:
+        return tile_keep_mask(tp[None], cp[None], vm[None])[0]
     tp = tp.double()
     cp = cp.double()
-    n_pad, m_pad = tp.shape[0], cp.shape[0]
+    B, n_pad, m_pad = tp.shape[0], tp.shape[1], cp.shape[1]
     n_sub, m_sub = n_pad // SUB, m_pad // SUB
     per_tile = TILE_N // SUB
-    block_rows = max(per_tile, _KEEP_BLOCK_ELEMS // m_sub // per_tile * per_tile)
-    tb = tp.reshape(n_sub, SUB, 3)
-    t_lo, t_hi = tb.amin(1), tb.amax(1)
-    cb = cp.reshape(m_sub, SUB, 3)
-    vmr = vm.reshape(m_sub, SUB, 1)
+    block_rows = max(per_tile, _KEEP_BLOCK_ELEMS // max(B * m_sub, 1) // per_tile * per_tile)
+    tb = tp.reshape(B, n_sub, SUB, 3)
+    t_lo, t_hi = tb.amin(2), tb.amax(2)
+    cb = cp.reshape(B, m_sub, SUB, 3)
+    vmr = vm.reshape(B, m_sub, SUB, 1)
     inf = torch.tensor(float("inf"), dtype=cp.dtype, device=cp.device)
-    c_lo = torch.where(vmr, cb, inf).amin(1)
-    c_hi = torch.where(vmr, cb, -inf).amax(1)
+    c_lo = torch.where(vmr, cb, inf).amin(2)[:, None]
+    c_hi = torch.where(vmr, cb, -inf).amax(2)[:, None]
 
     def sq3(v):
         return (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2]
 
     rows = []
     for r in range(0, n_sub, block_rows):
-        lo, hi = t_lo[r : r + block_rows, None], t_hi[r : r + block_rows, None]
-        lb = sq3(torch.clamp(torch.maximum(lo - c_hi[None], c_lo[None] - hi), min=0.0))
-        ub = sq3(torch.maximum(hi - c_lo[None], c_hi[None] - lo))
-        thr = ub.amin(1, keepdim=True)
+        lo, hi = t_lo[:, r : r + block_rows, None], t_hi[:, r : r + block_rows, None]
+        lb = sq3(torch.clamp(torch.maximum(lo - c_hi, c_lo - hi), min=0.0))
+        ub = sq3(torch.maximum(hi - c_lo, c_hi - lo))
+        thr = ub.amin(2, keepdim=True)
         keep_sub = lb <= thr + 1e-5 * (thr + 1.0)
-        rows.append(keep_sub.reshape(-1, per_tile, m_pad // TILE_M, TILE_M // SUB).any(3).any(1))
-    return torch.cat(rows)
+        rows.append(keep_sub.reshape(B, -1, per_tile, m_pad // TILE_M, TILE_M // SUB).any(4).any(2))
+    return torch.cat(rows, 1)
 
 
 def keep_lists_plain(keep: torch.Tensor):
     """``order`` (n_tiles, m_tiles) int32, each query tile's kept candidate
     tiles first in ascending order (a stable sort, ``pallas_kernels.py:267-269``),
-    and ``nkept`` (n_tiles,) int32, from a :func:`tile_keep_mask` mask."""
+    and ``nkept`` (n_tiles,) int32, from a :func:`tile_keep_mask` mask (with
+    the mask's leading batch axis, if it has one)."""
     keep = keep.to(torch.int32)
-    order = torch.sort(1 - keep, dim=1, stable=True).indices.to(torch.int32).contiguous()
-    return order, keep.sum(1, dtype=torch.int32).contiguous()
+    order = torch.sort(1 - keep, dim=-1, stable=True).indices.to(torch.int32).contiguous()
+    return order, keep.sum(-1, dtype=torch.int32).contiguous()
 
 
 def nn_min_dist2_plain(
     traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor, block: int = 512
 ) -> torch.Tensor:
     """Brute-force minimum over valid candidates of Σₖ(aₖ−bₖ)², in blocks of
-    queries (bounded memory); +inf where no candidate is valid."""
-    n = traj.shape[0]
-    out = torch.empty((n,), dtype=traj.dtype, device=traj.device)
+    queries (bounded memory); +inf where no candidate is valid. With a
+    leading batch axis (traj (B, n, 3), candidates (B, m, 3), cand_mask
+    (B, m)) each row against its own candidates, ``block`` (row, query)
+    pairs a block."""
+    n = traj.shape[-2]
+    out = torch.empty(traj.shape[:-1], dtype=traj.dtype, device=traj.device)
     inf = torch.tensor(float("inf"), dtype=traj.dtype, device=traj.device)
-    for s in range(0, n, block):
-        d2 = torch.sum((traj[s : s + block, None, :] - candidates[None, :, :]) ** 2, dim=-1)
-        d2 = torch.where(cand_mask[None, :], d2, inf)
-        out[s : s + block] = d2.amin(1) if candidates.shape[0] else inf
+    step = max(1, block // (traj.shape[0] if traj.ndim == 3 else 1))
+    for s in range(0, n, step):
+        d2 = torch.sum((traj[..., s : s + step, None, :] - candidates[..., None, :, :]) ** 2, dim=-1)
+        d2 = torch.where(cand_mask[..., None, :], d2, inf)
+        out[..., s : s + step] = d2.amin(-1) if candidates.shape[-2] else inf
     return out
 
 
@@ -152,37 +173,41 @@ def _tiles(n: int, m: int):
 def bounds_operands(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
     """The operands of :func:`tile_keep_mask`: ``nan_to_num``-sanitised
     float64 coordinates, the last query replicated into the pad, zeros and
-    invalid past m (``pallas_kernels.py:241-252``)."""
-    n, m = traj.shape[0], candidates.shape[0]
+    invalid past m (``pallas_kernels.py:241-252``); with the inputs' leading
+    batch axis, if they have one."""
+    n, m = traj.shape[-2], candidates.shape[-2]
     n_tiles, m_tiles = _tiles(n, m)
-    device = traj.device
+    lead, device = traj.shape[:-2], traj.device
     tf = torch.nan_to_num(traj.double(), nan=0.0, posinf=_BIG, neginf=-_BIG)
-    tp = torch.cat([tf, tf[-1:].expand(n_tiles * TILE_N - n, 3)])
-    cp = torch.zeros((m_tiles * TILE_M, 3), dtype=torch.float64, device=device)
-    cp[:m] = torch.nan_to_num(candidates.double(), nan=0.0, posinf=_BIG, neginf=-_BIG)
-    vm = torch.zeros((m_tiles * TILE_M,), dtype=torch.bool, device=device)
-    vm[:m] = cand_mask
+    tp = torch.cat([tf, tf[..., -1:, :].expand(*lead, n_tiles * TILE_N - n, 3)], -2)
+    cp = torch.zeros((*lead, m_tiles * TILE_M, 3), dtype=torch.float64, device=device)
+    cp[..., :m, :] = torch.nan_to_num(candidates.double(), nan=0.0, posinf=_BIG, neginf=-_BIG)
+    vm = torch.zeros((*lead, m_tiles * TILE_M), dtype=torch.bool, device=device)
+    vm[..., :m] = cand_mask
     return tp, cp, vm
 
 
 def pack_candidates_plain(candidates: torch.Tensor, cand_mask: torch.Tensor, m_tiles: int) -> torch.Tensor:
     """``cand4`` (m_tiles, 4, TILE_M) in the candidates' dtype: the raw
     coordinates as rows x, y, z (zeros in the pad) and a validity row (0
-    valid, +inf masked out or padding), the operand both NN kernels walk."""
-    m = candidates.shape[0]
+    valid, +inf masked out or padding), the operand both NN kernels walk;
+    (B, m_tiles, 4, TILE_M) for a batch of rows."""
+    m = candidates.shape[-2]
+    lead = candidates.shape[:-2]
     m_pad = m_tiles * TILE_M
-    cand4 = torch.zeros((4, m_pad), dtype=candidates.dtype, device=candidates.device)
-    cand4[:3, :m] = candidates.T
-    cand4[3] = float("inf")
-    cand4[3, :m] = torch.where(cand_mask, 0.0, float("inf")).to(candidates.dtype)
-    return cand4.reshape(4, m_tiles, TILE_M).permute(1, 0, 2).contiguous()
+    cand4 = torch.zeros((*lead, 4, m_pad), dtype=candidates.dtype, device=candidates.device)
+    cand4[..., :3, :m] = candidates.transpose(-1, -2)
+    cand4[..., 3, :] = float("inf")
+    cand4[..., 3, :m] = torch.where(cand_mask, 0.0, float("inf")).to(candidates.dtype)
+    return cand4.reshape(*lead, 4, m_tiles, TILE_M).transpose(-3, -2).contiguous()
 
 
 def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
     """The operands of both NN kernels besides ``traj``: ``order``
     (n_tiles, m_tiles) and ``nkept`` (n_tiles,) int32, each query tile's
     kept candidate tiles in ascending order and their count, and ``cand4``
-    (m_tiles, 4, TILE_M), the packed candidates. On CUDA the keep-list
+    (m_tiles, 4, TILE_M), the packed candidates; each with a leading B for
+    a batch of rows (traj (B, n, 3)), built in the same one call. On CUDA the keep-list
     kernel (``csrc/nn_keep.cu``) builds all three from the raw coordinates
     in one call of two launches (entries of ``order`` past ``nkept``
     unspecified). Its lists equal the plain ones bit for bit: a tile is only
@@ -192,23 +217,26 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
     once), since the tile-level test leaves few segment pairs. CPU
     tensors take :func:`keep_lists_plain` of :func:`tile_keep_mask` and
     :func:`pack_candidates_plain`."""
-    n_tiles, m_tiles = _tiles(traj.shape[0], candidates.shape[0])
+    n_tiles, m_tiles = _tiles(traj.shape[-2], candidates.shape[-2])
     if traj.device.type == "cpu":
         order, nkept = keep_lists_plain(tile_keep_mask(*bounds_operands(traj, candidates, cand_mask)))
         return order, nkept, pack_candidates_plain(candidates, cand_mask, m_tiles)
     _check_nn(traj, candidates, cand_mask)
-    order = torch.empty((n_tiles, m_tiles), dtype=torch.int32, device=traj.device)
-    nkept = torch.empty((n_tiles,), dtype=torch.int32, device=traj.device)
-    cand4 = torch.empty((m_tiles, 4, TILE_M), dtype=traj.dtype, device=traj.device)
-    # lo and hi per axis of every segment and of every candidate tile
-    boxes = torch.empty((6 * ((n_tiles * TILE_N + m_tiles * TILE_M) // SUB + m_tiles),),
+    lead, batch = traj.shape[:-2], (traj.shape[0] if traj.ndim == 3 else 1)
+    order = torch.empty((*lead, n_tiles, m_tiles), dtype=torch.int32, device=traj.device)
+    nkept = torch.empty((*lead, n_tiles), dtype=torch.int32, device=traj.device)
+    cand4 = torch.empty((*lead, m_tiles, 4, TILE_M), dtype=traj.dtype, device=traj.device)
+    if batch == 0:
+        return order, nkept, cand4
+    # lo and hi per axis of every segment and of every candidate tile, a row's after another
+    boxes = torch.empty((batch * 6 * ((n_tiles * TILE_N + m_tiles * TILE_M) // SUB + m_tiles),),
                         dtype=torch.float64, device=traj.device)
     cand = candidates.contiguous()
     mask = cand_mask.contiguous()
     rc = _build.library().gps_nn_keep(
-        _build.dtype_code(traj), traj.data_ptr(), traj.shape[0], cand.data_ptr(), mask.data_ptr(),
-        cand.shape[0], boxes.data_ptr(), n_tiles, m_tiles, order.data_ptr(), nkept.data_ptr(),
-        cand4.data_ptr(), _build.stream(),
+        _build.dtype_code(traj), batch, traj.data_ptr(), traj.shape[-2], cand.data_ptr(),
+        mask.data_ptr(), cand.shape[-2], boxes.data_ptr(), n_tiles, m_tiles, order.data_ptr(),
+        nkept.data_ptr(), cand4.data_ptr(), _build.stream(),
     )
     _build.check(rc, "nn keep lists")
     keep_lists.launches += 1
@@ -220,6 +248,8 @@ def nn_grid_operands(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: to
     :func:`keep_lists`, and ``ends`` (n_tiles,) int32, the inclusive prefix
     sum of each query tile's runs of at most ``RUN_TILES`` kept tiles (K4's
     work list: block b takes query tile i with ends[i-1] <= b < ends[i])."""
+    if traj.ndim != 2:
+        raise ValueError("K4 takes one row; a batch of rows takes K3")
     order, nkept, cand4 = keep_lists(traj, candidates, cand_mask)
     ends = torch.cumsum(torch.div(nkept + RUN_TILES - 1, RUN_TILES, rounding_mode="floor"), 0,
                         dtype=torch.int32)
@@ -231,10 +261,14 @@ def _check_nn(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Ten
     _build.require_cuda(traj, candidates, cand_mask, contiguous=False)
     if candidates.dtype != traj.dtype or cand_mask.dtype != torch.bool:
         raise TypeError("candidates must share traj's dtype; cand_mask must be bool")
-    if traj.ndim != 2 or traj.shape[1] != 3 or candidates.ndim != 2 or candidates.shape[1] != 3:
-        raise ValueError("traj and candidates must be (N, 3) and (M, 3)")
-    if cand_mask.shape != (candidates.shape[0],):
-        raise ValueError("cand_mask must be (M,)")
+    lead = traj.shape[:-2]
+    if (traj.ndim not in (2, 3) or traj.shape[-1] != 3 or candidates.shape[:-2] != lead
+            or candidates.ndim != traj.ndim or candidates.shape[-1] != 3):
+        raise ValueError("traj and candidates must be (N, 3) and (M, 3), or (B, N, 3) and (B, M, 3)")
+    if cand_mask.shape != candidates.shape[:-1]:
+        raise ValueError("cand_mask must be (M,), or (B, M)")
+    if traj.ndim == 3 and traj.shape[0] > 65_535:
+        raise ValueError("a batch holds at most 65,535 rows (the grid's y dimension)")
 
 
 def nn_min_dist2(
@@ -244,12 +278,13 @@ def nn_min_dist2(
 
     traj (N,3) contiguous, candidates (M,3), cand_mask (M,) bool → (N,) in
     traj's dtype, routed to K3 or K4 by :func:`nn_route`; both take
-    :func:`nn_min_dist2_plain` for CPU tensors. On CUDA the bounds see sanitised
-    coordinates and the kernel the raw ones; outputs for queries with
-    non-finite coordinates are unspecified, and a NaN distance never wins
-    the minimum.
+    :func:`nn_min_dist2_plain` for CPU tensors. A batch of rows, (B, N, 3),
+    (B, M, 3) and (B, M) → (B, N), takes K3 at any M. On CUDA the bounds see
+    sanitised coordinates and the kernel the raw ones; outputs for queries
+    with non-finite coordinates are unspecified, and a NaN distance never
+    wins the minimum.
     """
-    if nn_route(candidates.shape[0]) == "resident":
+    if traj.ndim == 3 or nn_route(candidates.shape[0]) == "resident":
         return nn_resident(traj, candidates, cand_mask)
     return nn_grid(traj, candidates, cand_mask)
 
@@ -258,20 +293,21 @@ def nn_resident(
     traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor
 ) -> torch.Tensor:
     """K3 (``csrc/nn.cu``): blocks of 16 or 32 queries walk the kept
-    candidate tiles of their 128-query tile, at any M. CPU tensors take
+    candidate tiles of their 128-query tile, at any M; a batch of rows
+    (B, N, 3) in one launch, a grid row a sequence. CPU tensors take
     :func:`nn_min_dist2_plain`."""
     if traj.device.type == "cpu":
         return nn_min_dist2_plain(traj, candidates, cand_mask)
     _check_nn(traj, candidates, cand_mask)
-    n = traj.shape[0]
-    out = torch.empty((n,), dtype=traj.dtype, device=traj.device)
-    if n == 0:
+    n, batch = traj.shape[-2], (traj.shape[0] if traj.ndim == 3 else 1)
+    out = torch.empty(traj.shape[:-1], dtype=traj.dtype, device=traj.device)
+    if n == 0 or batch == 0:
         return out
     order, nkept, cand4 = keep_lists(traj, candidates, cand_mask)
     lib = _build.library()
     rc = lib.gps_nn_min_dist2(
-        _build.dtype_code(traj), traj.data_ptr(), n, cand4.data_ptr(),
-        order.data_ptr(), nkept.data_ptr(), order.shape[0], order.shape[1],
+        _build.dtype_code(traj), batch, traj.data_ptr(), n, cand4.data_ptr(),
+        order.data_ptr(), nkept.data_ptr(), order.shape[-2], order.shape[-1],
         out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "nn_min_dist2 (resident)")
@@ -283,8 +319,9 @@ def nn_grid(
     traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor
 ) -> torch.Tensor:
     """K4 (``csrc/nn_grid.cu``): one block per run of kept candidate tiles
-    of a query tile, minima folded with atomics, at any M. Equals K3 bit
-    for bit on the same inputs. CPU tensors take :func:`nn_min_dist2_plain`."""
+    of a query tile, minima folded with atomics, at any M, one row (no batch
+    grid yet). Equals K3 bit for bit on the same inputs. CPU tensors take
+    :func:`nn_min_dist2_plain`."""
     if traj.device.type == "cpu":
         return nn_min_dist2_plain(traj, candidates, cand_mask)
     _check_nn(traj, candidates, cand_mask)
@@ -326,12 +363,14 @@ def sim3_residual2(
 ) -> torch.Tensor:
     """‖s·R·p + t − d‖² per trial and point, elementwise in the order of
     ``gps_optimize_slam_tpu/ops/ransac.py`` trial_mask (s·(R p) + t − d,
-    squared, summed). R (...,3,3), t (...,3), s (...) → (..., N)."""
-    p0, p1, p2 = src[:, 0], src[:, 1], src[:, 2]
+    squared, summed). src/dst (..., N, 3) broadcast against R (..., 3, 3),
+    t (..., 3), s (...) → (..., N): (N, 3) points with (T, 3, 3) trials
+    give (T, N), and (B, 1, N, 3) points with (B, T, 3, 3) trials (B, T, N)."""
+    p0, p1, p2 = src[..., 0], src[..., 1], src[..., 2]
     e = []
     for j in range(3):
         q = p0 * R[..., j, 0, None] + p1 * R[..., j, 1, None] + p2 * R[..., j, 2, None]
-        e.append(s[..., None] * q + t[..., j, None] - dst[:, j])
+        e.append(s[..., None] * q + t[..., j, None] - dst[..., j])
     return e[0] * e[0] + e[1] * e[1] + e[2] * e[2]
 
 
@@ -345,14 +384,21 @@ def ransac_counts_plain(
     thr2: float,
     block: int = 64,
 ) -> torch.Tensor:
-    """#{i : validᵢ ∧ residual² < thr2} per trial, in blocks of trials."""
+    """#{i : validᵢ ∧ residual² < thr2} per trial, in blocks of trials; with
+    a leading batch axis (src, dst (B, N, 3), valid (B, N), trials (B, T,
+    ...)) each row's trials against its own points, ``block`` (row, trial)
+    pairs a block."""
+    if src.ndim == 3:
+        src, dst, valid = src[:, None], dst[:, None], valid[:, None]
+    T = R.shape[-3]
+    step = max(1, block // (R.shape[0] if R.ndim == 4 else 1))
     out = []
-    for b in range(0, R.shape[0], block):
-        r2 = sim3_residual2(src, dst, R[b : b + block], t[b : b + block], s[b : b + block])
+    for b in range(0, T, step):
+        r2 = sim3_residual2(src, dst, R[..., b : b + step, :, :], t[..., b : b + step, :], s[..., b : b + step])
         out.append(((r2 < thr2) & valid).sum(-1, dtype=torch.int32))
     if not out:
-        return torch.zeros((0,), dtype=torch.int32, device=src.device)
-    return torch.cat(out)
+        return torch.zeros(R.shape[:-2], dtype=torch.int32, device=src.device)
+    return torch.cat(out, -1)
 
 
 def ransac_counts(
@@ -365,24 +411,30 @@ def ransac_counts(
     thr2: float,
 ) -> torch.Tensor:
     """Per-trial Sim(3) consensus counts. src/dst (N,3), valid (N,) bool,
-    R (T,3,3), t (T,3), s (T,) → (T,) int32. CPU tensors take
+    R (T,3,3), t (T,3), s (T,) → (T,) int32; with a leading batch axis B on
+    every operand → (B, T), one launch for all rows. CPU tensors take
     :func:`ransac_counts_plain`."""
     if src.device.type == "cpu":
         return ransac_counts_plain(src, dst, valid, R, t, s, thr2)
     _build.require_cuda(src, dst, valid, R, t, s)
-    n, T = src.shape[0], R.shape[0]
-    if src.shape != (n, 3) or dst.shape != (n, 3) or valid.shape != (n,):
-        raise ValueError("src/dst must be (N, 3) and valid (N,)")
-    if R.shape != (T, 3, 3) or t.shape != (T, 3) or s.shape != (T,):
-        raise ValueError("R, t, s must be (T, 3, 3), (T, 3), (T,)")
+    lead = src.shape[:-2]
+    n, T = src.shape[-2], R.shape[-3]
+    if src.ndim not in (2, 3) or src.shape != (*lead, n, 3) or dst.shape != (*lead, n, 3) \
+            or valid.shape != (*lead, n):
+        raise ValueError("src/dst must be (N, 3) and valid (N,), with one leading batch axis at most")
+    if R.shape != (*lead, T, 3, 3) or t.shape != (*lead, T, 3) or s.shape != (*lead, T):
+        raise ValueError("R, t, s must be (T, 3, 3), (T, 3), (T,), with src's batch axis")
     if len({x.dtype for x in (src, dst, R, t, s)}) != 1 or valid.dtype != torch.bool:
         raise TypeError("src, dst, R, t, s must share one float dtype; valid must be bool")
-    out = torch.zeros((T,), dtype=torch.int32, device=src.device)
-    if T == 0 or n == 0:
+    batch = lead[0] if lead else 1
+    out = torch.zeros((*lead, T), dtype=torch.int32, device=src.device)
+    if T == 0 or n == 0 or batch == 0:
         return out
+    if batch > 65_535:
+        raise ValueError("a batch holds at most 65,535 rows (the grid's z dimension)")
     lib = _build.library()
     rc = lib.gps_ransac_counts(
-        _build.dtype_code(src), src.data_ptr(), dst.data_ptr(), valid.data_ptr(), n,
+        _build.dtype_code(src), batch, src.data_ptr(), dst.data_ptr(), valid.data_ptr(), n,
         R.data_ptr(), t.data_ptr(), s.data_ptr(), T, float(thr2), out.data_ptr(),
         _build.stream(),
     )

@@ -9,7 +9,8 @@
 * ``paired_errors``: timestamp-paired ATE;
 * ``error_stats``: masked mean / median / RMSE / max.
 
-Invalid entries carry +inf and are excluded from the statistics.
+Invalid entries carry +inf and are excluded from the statistics. Under a
+leading batch axis (one sequence a row) every statistic is taken per row.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ class ErrorStats(NamedTuple):
 
 def eval_mask(slam_times: torch.Tensor, valid: torch.Tensor, skip_seconds: float = 5.0):
     """GPS-valid AND strictly later than t₀ + skip (reference
-    EKFGPSSLAM.py:1021-1023)."""
-    return valid & (slam_times > slam_times[0] + skip_seconds)
+    EKFGPSSLAM.py:1021-1023), t₀ each row's first time."""
+    return valid & (slam_times > slam_times[..., :1] + skip_seconds)
 
 
 def nn_errors(
@@ -69,16 +70,20 @@ def paired_errors(traj: torch.Tensor, aligned_ref: torch.Tensor, mask: torch.Ten
 
 
 def error_stats(errors: torch.Tensor, mask: torch.Tensor) -> ErrorStats:
-    """Masked mean/median/RMSE/max over the valid entries."""
-    n = torch.sum(mask)
+    """Masked mean/median/RMSE/max over the valid entries (of each row)."""
+    n = torch.sum(mask, -1)
     safe_n = torch.clamp(n, min=1)
     e = torch.where(mask, errors, 0.0)
-    mean = torch.sum(e) / safe_n
-    rmse = torch.sqrt(torch.sum(e**2) / safe_n)
-    mx = torch.max(torch.where(mask, errors, float("-inf")))
+    mean = torch.sum(e, -1) / safe_n
+    rmse = torch.sqrt(torch.sum(e**2, -1) / safe_n)
+    mx = torch.amax(torch.where(mask, errors, float("-inf")), -1)
     # Masked median: sort with +inf padding, average the two middle ranks.
-    s = torch.sort(torch.where(mask, errors, float("inf"))).values
-    last = s.shape[0] - 1
-    lo = s[torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), 0, last)]
-    hi = s[torch.clamp(torch.div(n, 2, rounding_mode="floor"), 0, last)]
+    s = torch.sort(torch.where(mask, errors, float("inf")), dim=-1).values
+    last = s.shape[-1] - 1
+
+    def rank(k):
+        return torch.gather(s, -1, torch.clamp(k, 0, last)[..., None])[..., 0]
+
+    lo = rank(torch.div(n - 1, 2, rounding_mode="floor"))
+    hi = rank(torch.div(n, 2, rounding_mode="floor"))
     return ErrorStats(mean=mean, median=(lo + hi) / 2.0, rmse=rmse, max=mx, count=n)

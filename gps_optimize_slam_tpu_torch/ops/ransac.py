@@ -20,6 +20,10 @@ Both estimators stop early under ``cfg.stop_probability`` (sklearn-style):
 trials run in chunks of ``cfg.adaptive_chunk`` until the bound
 ln(1−p)/ln(1−w^k) on the number of trials is met, w the best inlier ratio so
 far. One host read a chunk decides whether another chunk runs.
+
+``sim3_ransac`` also takes a leading batch axis, one sequence a row (the
+JAX package's ``vmap`` of it): every chunk is one batched fit, one K5
+launch over all rows and one batched re-rank.
 """
 
 from __future__ import annotations
@@ -42,13 +46,21 @@ RERANK_K = 16
 
 class Sim3RansacResult(NamedTuple):
     sim3: Sim3
-    inlier_mask: torch.Tensor  # (N,) bool — best consensus set ∩ valid
-    num_inliers: torch.Tensor  # () — derived from inlier_mask
-    ok: torch.Tensor  # () bool — enough inliers found
+    inlier_mask: torch.Tensor  # (..., N) bool — best consensus set ∩ valid
+    num_inliers: torch.Tensor  # (...) — derived from inlier_mask
+    ok: torch.Tensor  # (...) bool — enough inliers found
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def _gather_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Points x (..., N, 3) at per-row indices idx (..., C, k) → (..., C, k, 3)."""
+    if idx.ndim == 2:
+        return x[idx]
+    flat = idx.reshape(idx.shape[0], -1)
+    return torch.gather(x, 1, flat[..., None].expand(*flat.shape, 3)).reshape(*idx.shape, 3)
 
 
 def sim3_draws(
@@ -106,6 +118,16 @@ def _more_trials_needed(
     return trials_done < n_needed
 
 
+def _trials(x: torch.Tensor, idx: torch.Tensor, tail: int) -> torch.Tensor:
+    """``x[..., idx, ...]`` along the trial axis with per-row indices: x
+    (..., T, *tail dims), idx (..., K) → (..., K, *tail dims)."""
+    lead = idx.shape[:-1]
+    if not lead:
+        return x[idx]
+    trail = x.shape[x.ndim - tail:]
+    return torch.gather(x, len(lead), idx.reshape(*idx.shape, *(1,) * tail).expand(*idx.shape, *trail))
+
+
 def select_winner(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -117,12 +139,17 @@ def select_winner(
     """Index of the winning trial: the RERANK_K trials with the largest
     ``counts`` (a stable descending sort, so equal counts keep ascending
     trial order, which ``torch.topk`` does not promise) are re-counted
-    exactly, and the first maximum wins. Trials whose fit failed count -1."""
+    exactly, and the first maximum wins. Trials whose fit failed count -1.
+    With a leading batch axis, a winner a row, each re-ranked on its own."""
     counts = torch.where(fits.ok, counts, -1)
-    topi = torch.sort(counts, descending=True, stable=True).indices[:RERANK_K]
-    r2 = sim3_residual2(src, dst, fits.R[topi], fits.t[topi], fits.scale[topi])
-    exact = torch.where(fits.ok[topi], ((r2 < thr2) & valid).sum(-1), -1)
-    return torch.min(torch.where(exact == exact.max(), topi, counts.shape[0]))
+    topi = torch.sort(counts, dim=-1, descending=True, stable=True).indices[..., :RERANK_K]
+    if counts.ndim == 2:  # a row's points meet each of its trials
+        src, dst, valid = src[:, None], dst[:, None], valid[:, None]
+    r2 = sim3_residual2(src, dst, _trials(fits.R, topi, 2), _trials(fits.t, topi, 1),
+                        _trials(fits.scale, topi, 0))
+    exact = torch.where(_trials(fits.ok, topi, 0), ((r2 < thr2) & valid).sum(-1), -1)
+    best = exact.amax(-1, keepdim=True)
+    return torch.amin(torch.where(exact == best, topi, counts.shape[-1]), -1)
 
 
 def sim3_ransac(
@@ -134,6 +161,14 @@ def sim3_ransac(
     draws: Optional[torch.Tensor] = None,
 ) -> Sim3RansacResult:
     """RANSAC-robust Sim(3) fit of dst onto src over the valid mask.
+
+    A batch of sequences (src, dst (B, N, 3), valid (B, N)) is fitted as one
+    program: ``seed`` is then an int (every row) or B ints (a generator a
+    row, so a row draws what it would alone; the generator has no batched
+    form, so that is one small draw a row) and ``draws`` (B, trials,
+    min_samples). Under ``stop_probability`` the batch runs another chunk
+    while any row needs one; a row that needs no more keeps its result, as
+    under the JAX package's vmapped ``while_loop``.
 
     ``draws`` (trials, min_samples): the per-trial integer draws in
     [0, max(n_valid, 1)), taken BEFORE the compaction of the valid indices
@@ -147,46 +182,57 @@ def sim3_ransac(
     replaces the running best only with a strictly larger count, so the
     earlier chunk wins ties.
     """
-    n = src.shape[0]
+    n = src.shape[-2]
+    lead = src.shape[:-2]
     device = src.device
     if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=device)
-    n_valid = torch.sum(valid)
+        valid = torch.ones((*lead, n), dtype=torch.bool, device=device)
+    n_valid = torch.sum(valid, -1)
     enough = n_valid >= cfg.min_samples
 
     # Valid indices compacted to the front once (a stable partition by
-    # scatter); each trial's draws index into them.
-    iota = torch.arange(n, device=device)
-    cv = torch.cumsum(valid.long(), 0)
-    pos = torch.where(valid, cv - 1, n_valid + iota - cv)
-    order = torch.empty_like(iota)
-    order[pos] = iota
+    # scatter, along each row); each trial's draws index into them.
+    iota = torch.arange(n, device=device).expand(*lead, n)
+    cv = torch.cumsum(valid.long(), -1)
+    pos = torch.where(valid, cv - 1, n_valid[..., None] + iota - cv)
+    order = torch.empty_like(iota).scatter_(-1, pos, iota)
     thr2 = float(cfg.residual_threshold) ** 2
 
     C, n_chunks = _adaptive_schedule(cfg.max_trials, cfg.adaptive_chunk, cfg.stop_probability)
     if draws is None:
-        draws = sim3_draws(n_valid, n_chunks * C, cfg.min_samples, _generator(device, seed))
+        if not lead:
+            draws = sim3_draws(n_valid, n_chunks * C, cfg.min_samples, _generator(device, seed))
+        else:
+            seeds = [int(x) for x in torch.as_tensor(seed).expand(lead[0]).tolist()]
+            draws = torch.stack([sim3_draws(n_valid[r], n_chunks * C, cfg.min_samples, _generator(device, sd))
+                                 for r, sd in enumerate(seeds)])
     draws = draws.to(device)
     src_c, dst_c, valid_c = src.contiguous(), dst.contiguous(), valid.contiguous()
-    best_count = torch.full((), -1, dtype=torch.long, device=device)
+    best_count = torch.full(lead, -1, dtype=torch.long, device=device)
     best_mask = torch.zeros_like(valid)
+    active = torch.ones(lead, dtype=torch.bool, device=device)
     for i in range(n_chunks):
-        if i > 0 and not bool(_more_trials_needed(
-                i * C, best_count, n_valid, cfg.min_samples, cfg.stop_probability, src.dtype)):
-            break
-        idx = order[draws[i * C : (i + 1) * C]]  # (C, k)
-        fits = umeyama_sim3(src[idx], dst[idx])
+        if i > 0:
+            active = active & _more_trials_needed(
+                i * C, best_count, n_valid, cfg.min_samples, cfg.stop_probability, src.dtype)
+            if not bool(active.any()):
+                break
+        chunk = draws[..., i * C : (i + 1) * C, :]  # (..., C, k)
+        idx = torch.gather(order, -1, chunk.reshape(*lead, -1)).reshape(chunk.shape)
+        fits = umeyama_sim3(_gather_points(src, idx), _gather_points(dst, idx))
         counts = ransac_counts(
             src_c, dst_c, valid_c, fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), thr2
         )
         b = select_winner(src, dst, valid, fits, counts, thr2)
-        mask_b = (sim3_residual2(src, dst, fits.R[b], fits.t[b], fits.scale[b]) < thr2) & valid
-        count_b = torch.where(fits.ok[b], mask_b.sum(), -1)
-        better = count_b > best_count
+        R_b, t_b, s_b, ok_b = (_trials(x, b[..., None], tail).select(len(lead), 0)
+                               for x, tail in ((fits.R, 2), (fits.t, 1), (fits.scale, 0), (fits.ok, 0)))
+        mask_b = (sim3_residual2(src, dst, R_b, t_b, s_b) < thr2) & valid
+        count_b = torch.where(ok_b, mask_b.sum(-1), -1)
+        better = active & (count_b > best_count)
         best_count = torch.where(better, count_b, best_count)
-        best_mask = torch.where(better, mask_b, best_mask)
-    best_mask = best_mask & enough
-    num_inliers = torch.sum(best_mask)
+        best_mask = torch.where(better[..., None], mask_b, best_mask)
+    best_mask = best_mask & enough[..., None]
+    num_inliers = torch.sum(best_mask, -1)
     # The refit runs in float64 whatever the working dtype: the 3×3 SVD of
     # a nearly planar trajectory's cross-covariance (σ₁/σ₃ ≈ 1e5 on KITTI)
     # loses ~1e-4 rad of tilt in float32, which moved every pose by up to

@@ -2,7 +2,9 @@
 
 ``associative_scan(op, x, reverse)`` is the inclusive prefix (suffix when
 ``reverse``) of one of eight fixed combines over ``x`` of shape (L, n): L
-leaves of n elements, the layout the JAX package scans. It ports the two
+leaves of n elements, the layout the JAX package scans; or of shape
+(L, B, n), B independent rows each scanned along n (the JAX package's
+``vmap`` of the scan, which gives its Pallas kernel a batch grid). It ports the two
 Pallas scans of ``gps_optimize_slam_tpu/ops/pallas_scan.py`` and routes
 between them as ``make_scan_fn`` does, at this card's own crossover
 (:func:`scan_route`):
@@ -17,6 +19,13 @@ between them as ``make_scan_fn`` does, at this card's own crossover
 * on a CPU tensor it runs :func:`scan_plain`, the same function as a
   Hillis-Steele ladder of whole-tensor combines (the JAX package's CPU scan,
   ``pallas_scan.associative_scan_fori``).
+
+A batched scan always takes K1, in one launch over every row's tiles (a
+K2 batch grid is still to come), whatever n is; each row meets the tiles
+and the in-tile combines of the single-row K1 call on it, and agrees with
+that call as two single-row calls agree with each other (the look-back's
+walk, which folds whatever its predecessors have published, changes from
+run to run).
 
 Argument order follows ``jax.lax.associative_scan``: the accumulated
 composite is the FIRST combine argument in both directions (under
@@ -178,8 +187,8 @@ def _check(op: str, x: torch.Tensor) -> None:
     if op not in OPS:
         raise ValueError(f"unknown scan op {op!r}")
     L = len(OPS[op][2])
-    if x.ndim != 2 or x.shape[0] != L:
-        raise ValueError(f"{op} scans ({L}, n) leaves, got {tuple(x.shape)}")
+    if x.ndim not in (2, 3) or x.shape[0] != L:
+        raise ValueError(f"{op} scans ({L}, n) or ({L}, B, n) leaves, got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"scan leaves must be float32 or float64, got {x.dtype}")
 
@@ -187,17 +196,19 @@ def _check(op: str, x: torch.Tensor) -> None:
 def scan_plain(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """The plain PyTorch scan: a Hillis-Steele ladder of ceil(log2 n)
     whole-tensor combines (at least one, so the first element also meets
-    the identity, as in the kernel)."""
+    the identity, as in the kernel), along the last axis; with (L, B, n)
+    leaves every row takes the same elementwise combines as alone."""
     _check(op, x)
     _, combine, ident = OPS[op]
-    n = x.shape[1]
+    n = x.shape[-1]
     if n == 0:
         return x.clone()
-    xs = list((x.flip(1) if reverse else x).unbind(0))
+    xs = list((x.flip(-1) if reverse else x).unbind(0))
     off = 1
     while True:
         shifted = [
-            torch.cat([torch.full((min(off, n),), v, dtype=x.dtype, device=x.device), leaf[: n - off]])
+            torch.cat([torch.full((*leaf.shape[:-1], min(off, n)), v, dtype=x.dtype, device=x.device),
+                       leaf[..., : n - off]], -1)
             for v, leaf in zip(ident, xs)
         ]
         xs = combine(shifted, xs)
@@ -205,7 +216,7 @@ def scan_plain(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         if off >= n:
             break
     out = torch.stack(xs)
-    return out.flip(1) if reverse else out
+    return out.flip(-1) if reverse else out
 
 
 # The longest scan K1 takes. The JAX package routes by a 4 MiB VMEM budget
@@ -233,9 +244,10 @@ def scan_route(n_leaves: int, n: int, itemsize: int) -> str:
 def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive scan of ``op`` over the (L, n) leaves ``x`` (suffix scan
     when ``reverse``), routed to K1 or K2 by :func:`scan_route`; both take
-    :func:`scan_plain` for CPU tensors."""
+    :func:`scan_plain` for CPU tensors. (L, B, n) leaves scan each row on
+    its own, through K1 at any n."""
     _check(op, x)
-    if scan_route(x.shape[0], x.shape[1], x.element_size()) == "block":
+    if x.ndim == 3 or scan_route(x.shape[0], x.shape[1], x.element_size()) == "block":
         return scan_block(op, x, reverse)
     return scan_tiled(op, x, reverse)
 
@@ -248,21 +260,24 @@ def block_tile(op: str) -> int:
 
 
 def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """K1: the single-pass look-back scan (``csrc/scan.cu``), at any n. CPU
-    tensors take :func:`scan_plain`."""
+    """K1: the single-pass look-back scan (``csrc/scan.cu``), at any n, on
+    (L, n) leaves or, in one launch over every row's tiles, on (L, B, n)
+    leaves. CPU tensors take :func:`scan_plain`."""
     _check(op, x)
     if x.device.type == "cpu":
         return scan_plain(op, x, reverse)
     _build.require_cuda(x)
     out = torch.empty_like(x)
-    n = x.shape[1]
-    if n == 0:
+    n = x.shape[-1]
+    batch = x.shape[1] if x.ndim == 3 else 1
+    if n == 0 or batch == 0:
         return out
     lib = _build.library()
     code, dt = OPS[op][0], _build.dtype_code(x)
-    scratch = torch.empty((lib.gps_scan_scratch_bytes(code, dt, n),), dtype=torch.uint8, device=x.device)
-    rc = lib.gps_scan(code, dt, x.data_ptr(), out.data_ptr(), n, int(reverse), scratch.data_ptr(),
-                      _build.stream())
+    scratch = torch.empty((lib.gps_scan_scratch_bytes(code, dt, n, batch),), dtype=torch.uint8,
+                          device=x.device)
+    rc = lib.gps_scan(code, dt, x.data_ptr(), out.data_ptr(), n, batch, int(reverse),
+                      scratch.data_ptr(), _build.stream())
     _build.check(rc, f"scan {op}")
     scan_block.launches[op] += 1
     return out
@@ -284,6 +299,8 @@ def scan_tiled(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     their bytes, the 27-leaf filter by the operations of the scan's own
     structure. CPU tensors take :func:`scan_plain`."""
     _check(op, x)
+    if x.ndim != 2:
+        raise ValueError("K2 scans (L, n) leaves; a batch of rows takes K1")
     if x.device.type == "cpu":
         return scan_plain(op, x, reverse)
     _build.require_cuda(x)

@@ -1,5 +1,6 @@
 """SE(3)/Sim(3) pose operations on tensors (port of
-``gps_optimize_slam_tpu.ops.se3``)."""
+``gps_optimize_slam_tpu.ops.se3``). Trajectories are (..., N, 3) and
+(..., N, 4): a leading batch axis holds one sequence a row."""
 
 from __future__ import annotations
 
@@ -33,9 +34,10 @@ def relative_poses_along(
     positions: torch.Tensor, quaternions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(delta_pos[N-1,3], delta_quat[N-1,4]): motion pose i → pose i+1 in
-    pose i's frame, the EKF's motion input (reference EKFGPSSLAM.py:866)."""
+    pose i's frame, the EKF's motion input (reference EKFGPSSLAM.py:866),
+    along the time axis -2 of (..., N, 3) and (..., N, 4)."""
     return relative_pose(
-        positions[:-1], quaternions[:-1], positions[1:], quaternions[1:]
+        positions[..., :-1, :], quaternions[..., :-1, :], positions[..., 1:, :], quaternions[..., 1:, :]
     )
 
 
@@ -56,7 +58,11 @@ def transform_trajectory(
     t: torch.Tensor,
     scale,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """p' = s · p Rᵀ + t; q' = quat(R) ⊗ q (reference EKFGPSSLAM.py:461-467)."""
-    new_pos = scale * (positions @ R.T) + t
-    new_quat = quat.mul(quat.from_matrix(R), quaternions)
+    """p' = s · p Rᵀ + t; q' = quat(R) ⊗ q (reference EKFGPSSLAM.py:461-467).
+    A batch of sequences, (B, N, 3) and (B, N, 4), takes one transform a
+    row: R (B, 3, 3), t (B, 3), scale (B,)."""
+    if torch.is_tensor(scale):
+        scale = scale[..., None, None]
+    new_pos = scale * (positions @ R.transpose(-1, -2)) + t[..., None, :]
+    new_quat = quat.mul(quat.from_matrix(R)[..., None, :], quaternions)
     return new_pos, new_quat

@@ -107,8 +107,8 @@ def test_human_readable_output_and_chunked_export(files, tmp_path, capsys):
     text = capsys.readouterr().out
     assert "poses: 271" in text and "scale=0.98" in text and "EKF fused (NN)" in text
     out = str(tmp_path / "chunked.tum")
-    assert cli.main(["fuse", slam_path, gps_path, "--gt", gt_path, "--robust", "--chunked", "--device", "cpu",
-                     "-o", out]) == 0
+    assert cli.main(["fuse", slam_path, gps_path, "--gt", gt_path, "--robust", "--chunked", "--chunk-size", "128",
+                     "--device", "cpu", "-o", out]) == 0
     text = capsys.readouterr().out
     assert "(chunked/out-of-core)" in text and "robust χ² gate" in text and "vs ground-truth GNSS:" in text
     assert f"saved: {out}" in text and np.loadtxt(out).shape == (271, 8)
@@ -150,8 +150,12 @@ def test_config_file_and_flag_overrides(files, tmp_path, capsys):
 
 
 def test_parser_knows_fuse_only_and_leaves_plotting_out(files):
+    """The parser refuses a subcommand the port has not taken over yet
+    (``refine-graph``; ``fuse`` and ``fuse-batch`` it knows), the plotting
+    flags, and no subcommand at all."""
     slam_path, gps_path, _ = files
-    for argv in (["fuse-batch", f"{slam_path}:{gps_path}"], ["fuse", slam_path, gps_path, "--plot", "x.png"],
+    assert cli.build_parser().parse_args(["fuse-batch", f"{slam_path}:{gps_path}"]).fn is cli._cmd_fuse_batch
+    for argv in (["refine-graph", slam_path, gps_path], ["fuse", slam_path, gps_path, "--plot", "x.png"],
                  ["fuse", slam_path, gps_path, "--show"], []):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(argv)

@@ -202,11 +202,6 @@ def test_nn_route_rule_edges(cuda):
     assert bool((below >= at).all())  # one candidate fewer: nothing nearer
 
 
-def same_bits(t):
-    """``t``'s bits as integers, so that NaNs compare equal."""
-    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
-
-
 def plain_keep_lists(traj, cands, mask):
     return kernels.keep_lists_plain(kernels.tile_keep_mask(*kernels.bounds_operands(traj, cands, mask)))
 
@@ -251,7 +246,7 @@ def test_keep_list_kernel_equals_plain_lists(cuda, dtype):
             assert torch.equal(nkept, want_nkept), (n, m)
             cols = torch.arange(order.shape[1], device=cuda)[None] < nkept[:, None]
             assert torch.equal(torch.where(cols, order, -1), torch.where(cols, want_order, -1)), (n, m)
-            assert torch.equal(same_bits(cand4), same_bits(kernels.pack_candidates_plain(cands, mk, order.shape[1])))
+            assert torch.equal(chip_smoke.same_bits(cand4), chip_smoke.same_bits(kernels.pack_candidates_plain(cands, mk, order.shape[1])))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -396,3 +391,124 @@ def test_offset_estimator_and_adaptive_ransac_on_the_card(cuda):
     assert not res.inlier_mask[hit].any() and int(res.num_inliers) >= 880
     assert torch.equal(res.inlier_mask, fixed.inlier_mask)
     assert (res.sim3.R - fixed.sim3.R).abs().max() <= 1e-12  # the same inliers, the same refit
+
+
+# --- The batch grids: each batched kernel against its batched plain version
+# and, row by row, against the single-row kernel (K1 within today's
+# tolerances: its look-back folds whatever its predecessors have published,
+# so even two single-row calls agree only to them in the float64 filter;
+# the keep lists, K3 and K5 bit for bit). Ragged rows (padded as pad_batch
+# pads), B = 1 and an all-masked row.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", list(scan.OPS))
+def test_batched_scan_kernel_matches_plain_and_each_row(cuda, op, dtype):
+    """K1's batch grid: one launch over B rows, at one tile, a ragged tail
+    of several tiles, seq-02's length, B = 1, 11 and 64."""
+    gen = torch.Generator().manual_seed(7)
+    for B, n in ((1, 271), (11, 2049), (11, 4661), (64, 300)):
+        x = torch.stack([chip_smoke.scan_inputs(op, n, gen, dtype, cuda) for _ in range(B)], 1).contiguous()
+        for reverse in (False, True):
+            before = scan.scan_block.launches[op]
+            got = scan.associative_scan(op, x, reverse)
+            assert scan.scan_block.launches[op] == before + 1
+            torch.cuda.synchronize()
+            assert chip_smoke.rel_err(got, scan.scan_plain(op, x, reverse)) <= TOL[dtype], (B, n)
+            for r in range(B):
+                alone = scan.scan_block(op, x[:, r].contiguous(), reverse)
+                assert chip_smoke.rel_err(got[:, r], alone) <= TOL[dtype], (B, n, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_keep_lists_and_nn_kernel_match_plain_and_each_row(cuda, dtype):
+    """The keep lists and K3 with a batch grid: ragged rows with an
+    all-masked one; B = 1; 8 rows of seq-02's length (296 query tiles, so
+    the batch takes K3's 32-query blocks while each row alone takes the
+    16-query ones) and, in float64, UTM magnitudes."""
+    gen = torch.Generator().manual_seed(8)
+    cases = [((300, 150, 1, 300), (1500, 700, 1025, 9), 0.0), ((5,), (1,), 0.0), ((4661,) * 8, (4661,) * 8, 0.0)]
+    if dtype == torch.float64:
+        cases.append(((4661, 2000, 3000), (4661, 4661, 900), 5.4e6))
+    for ns, ms, offset in cases:
+        traj, cands, mask = chip_smoke.ragged_walks(gen, ns, ms, dtype, cuda, offset)
+        before = (kernels.keep_lists.launches, kernels.nn_resident.launches)
+        order, nkept, cand4 = kernels.keep_lists(traj, cands, mask)
+        got = kernels.nn_min_dist2(traj, cands, mask)
+        assert (kernels.keep_lists.launches, kernels.nn_resident.launches) == (before[0] + 2, before[1] + 1)
+        torch.cuda.synchronize()
+        want = kernels.nn_min_dist2_plain(traj, cands, mask, block=256)
+        torch.testing.assert_close(got, want, rtol=1e-5 if dtype == torch.float32 else 1e-12, atol=0.0)
+        want_order, want_nkept = plain_keep_lists(traj, cands, mask)
+        assert torch.equal(nkept, want_nkept)
+        cols = torch.arange(order.shape[-1], device=cuda) < nkept[..., None]
+        assert torch.equal(torch.where(cols, order, -1), torch.where(cols, want_order, -1))
+        assert torch.equal(chip_smoke.same_bits(cand4), chip_smoke.same_bits(kernels.pack_candidates_plain(cands, mask, order.shape[-1])))
+        for r in range(len(ns)):
+            o1, k1, c1 = kernels.keep_lists(traj[r], cands[r], mask[r])
+            c = torch.arange(o1.shape[-1], device=cuda) < k1[:, None]
+            assert torch.equal(k1, nkept[r]) and torch.equal(torch.where(c, o1, -1), torch.where(c, order[r], -1))
+            assert torch.equal(chip_smoke.same_bits(c1), chip_smoke.same_bits(cand4[r]))
+            assert torch.equal(kernels.nn_resident(traj[r], cands[r], mask[r]), got[r]), (ns, r)
+        if len(ns) > 1:
+            assert torch.isinf(got[-1]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_counts_kernel_matches_plain_and_each_row(cuda, dtype):
+    """K5's batch grid: 11 ragged rows (points padded and masked out) with a
+    row of no valid point, B = 1, and 64 rows of seq-02's length."""
+    gen = torch.Generator().manual_seed(9)
+    for B, n, trials in ((11, 1500, 333), (1, 279, 1000), (64, 4661, 128)):
+        src = torch.stack([walk(gen, n, torch.float64, cuda) * 2.0 for _ in range(B)])
+        dst = 0.987 * src + 2.0 * torch.randn(B, n, 3, generator=gen, dtype=torch.float64).to(cuda)
+        src, dst = src.to(dtype), dst.to(dtype)
+        valid = (torch.rand(B, n, generator=gen) > 0.05).to(cuda)
+        for r in range(B):
+            valid[r, n - 37 * r:] = False  # ragged rows
+        if B > 1:
+            valid[1] = False
+        draws = torch.randint(0, n, (B, trials, 4), generator=gen).to(cuda)
+        pick = torch.arange(B, device=cuda)[:, None, None]
+        fits = umeyama_sim3(src[pick, draws], dst[pick, draws])
+        args = (src, dst, valid, fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), 16.0)
+        before = kernels.ransac_counts.launches
+        got = kernels.ransac_counts(*args)
+        assert kernels.ransac_counts.launches == before + 1 and got.shape == (B, trials)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.ransac_counts_plain(*args))
+        for r in range(B):
+            assert torch.equal(got[r], kernels.ransac_counts(*(a[r].contiguous() for a in args[:6]), 16.0))
+        if B > 1:
+            assert int(got[1].max()) == 0
+
+
+def test_fuse_batch_on_the_card_matches_the_cpu_and_each_row(cuda):
+    """Three KITTI-length replica sequences fused as one batch on the card,
+    float64: within 1e-6 m of the same batch on CPU tensors and within 1e-9
+    m of each row's single-row fusion on the card, masks equal, one launch
+    of each kernel a batch."""
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+
+    seqs = [chip_smoke.replica_sequence(n, seed=s) for n, s in ((1101, 1), (801, 2), (1201, 3))]
+    b = pbatch.pad_batch([s for s, _, _ in seqs], [t for _, t, _ in seqs], [p for _, _, p in seqs])
+    cfg = FusionConfig()
+    chip_smoke.reset_launch_counts()
+    out = mesh.fuse_batch(b, config=cfg, device=cuda)
+    mesh.evaluate_batch(b, out)
+    torch.cuda.synchronize()
+    counts = chip_smoke.launch_counts()
+    assert counts["ransac_counts"] == 1 and counts["nn_resident"] == 3 and counts["nn_keep"] == 3
+    cpu = mesh.fuse_batch(b, config=cfg.replace(platform="gpu"), device="cpu")
+    assert float((out.corrected_pos.cpu() - cpu.corrected_pos).abs().max()) <= 1e-6
+    assert torch.equal(out.sim3_inliers.cpu(), cpu.sim3_inliers)
+    for i, (slam, gt, gp) in enumerate(seqs):
+        t = [torch.as_tensor(a, device=cuda) for a in (slam["timestamps"], slam["positions"], slam["quaternions"],
+                                                      gt, gp, torch.ones(len(gt), dtype=torch.bool))]
+        single = fusion.fuse_core(*t, cfg.replace(gps_sorted=True), seed=i)
+        n = len(slam["timestamps"])
+        assert float((out.corrected_pos[i, :n] - single.corrected_pos).abs().max()) <= 1e-9
+        assert torch.equal(out.sim3_inliers[i, :n], single.sim3_inliers)

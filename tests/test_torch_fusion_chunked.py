@@ -150,12 +150,14 @@ def test_unported_options_raise(tmp_path):
     what the chunked path still refuses is transition blending, which no
     associative scan covers."""
     slam_path, gps_path = chip_smoke.write_seq04_files(str(tmp_path))
+    # 128-pose chunks: a default 262,144-pose chunk would pad seq-04's 271
+    # poses a thousandfold on the CPU.
     res = pipeline.fuse_files_chunked(slam_path, gps_path, gt_path=chip_smoke.write_seq04_gt_file(str(tmp_path)),
-                                      robust=True, device="cpu")
+                                      robust=True, device="cpu", chunk_size=128)
     assert res.gt_evaluation is not None and res.result.robust_accepted is not None
     blending = FusionConfig(rts_decision=dataclasses.replace(
         FusionConfig().rts_decision, default_ekf_transition_steps_on_sharp_turn=3))
     with pytest.raises(ValueError, match="hard updates"):
-        pipeline.fuse_files_chunked(slam_path, gps_path, config=blending, device="cpu")
+        pipeline.fuse_files_chunked(slam_path, gps_path, config=blending, device="cpu", chunk_size=128)
     with pytest.raises(ValueError, match="hard updates"):
-        pipeline.fuse_files_chunked(slam_path, gps_path, config=blending, robust=True, device="cpu")
+        pipeline.fuse_files_chunked(slam_path, gps_path, config=blending, robust=True, device="cpu", chunk_size=128)

@@ -488,3 +488,162 @@ def test_emulated_keep_kernel_equals_plain_mask(kind, n, m, offset, masking, Q, 
         # The tile-level test bites: under half of the first version's two
         # reads of every segment box per query tile.
         assert read < n_tiles * m_tiles * (kernels.TILE_M // kernels.SUB)
+
+
+# --- The batch grids (the JAX package's vmap of each kernel), emulated -----
+#
+# A batched call lays its B rows one after another in device memory and
+# launches one grid whose extra dimension is the row; a block offsets every
+# pointer by its row (csrc/nn_keep.cu, csrc/nn.cu, csrc/ransac_counts.cu).
+# These emulations read flat buffers through those offsets and run the
+# single-row order of work on what they find, so a wrong stride shows as a
+# row reading its neighbour's data.
+
+
+def batch_of(rng, ns, ms, offset=0.0):
+    """(traj (B, n, 3), cands (B, m, 3), mask (B, m)) of B ragged rows:
+    row r's real queries and candidates fill its first ns[r] and ms[r]
+    entries, the rest repeats its last point and is masked out, as
+    ``pad_batch`` pads; the last row has every candidate masked."""
+    n, m = max(ns), max(ms)
+    traj, cands, mask = np.zeros((len(ns), n, 3)), np.zeros((len(ns), m, 3)), np.zeros((len(ns), m), bool)
+    for r, (nr, mr) in enumerate(zip(ns, ms)):
+        t, c = walk(rng, nr, 1.0, offset), walk(rng, mr, 1.0, offset + 2.0)
+        traj[r, :nr], traj[r, nr:] = t, t[-1]
+        cands[r, :mr], cands[r, mr:] = c, c[-1]
+        mask[r, :mr] = rng.uniform(size=mr) > 0.1
+    mask[-1] = False
+    return torch.tensor(traj), torch.tensor(cands), torch.tensor(mask)
+
+
+def emulate_batched_nn_kernel(traj, cands, mask):
+    """K3's batch grid from flat device-memory images of the batched
+    operands: block (x, y) takes row y's slices at the kernel's offsets
+    (traj + 3 n y, cand + 4096 m_tiles y, order + n_tiles m_tiles y,
+    nkept + n_tiles y, out + n y) and does the single-row tile's work."""
+    B, n, _ = traj.shape
+    order, nkept, cand4 = kernels.keep_lists(traj, cands, mask)
+    n_tiles, m_tiles = order.shape[1:]
+    flat = {k: v.reshape(-1).numpy() for k, v in
+            dict(traj=traj, cand=cand4, order=order, nkept=nkept).items()}
+    out = np.full(B * n, np.nan)
+    for y in range(B):
+        t = flat["traj"][3 * n * y : 3 * n * (y + 1)].reshape(n, 3)
+        c4 = flat["cand"][4 * kernels.TILE_M * m_tiles * y:][: 4 * kernels.TILE_M * m_tiles]
+        o = flat["order"][n_tiles * m_tiles * y:][: n_tiles * m_tiles].reshape(n_tiles, m_tiles)
+        k = flat["nkept"][n_tiles * y:][:n_tiles]
+        for i in range(n_tiles):
+            q = t[i * kernels.TILE_N : (i + 1) * kernels.TILE_N]
+            best = np.full(len(q), np.inf)
+            for kk in range(k[i]):
+                blk = c4.reshape(m_tiles, 4, kernels.TILE_M)[o[i, kk]]
+                d = ((q[:, 0, None] - blk[0]) ** 2 + (q[:, 1, None] - blk[1]) ** 2
+                     + (q[:, 2, None] - blk[2]) ** 2 + blk[3])
+                best = np.fmin(best, d.min(1))
+            out[n * y + i * kernels.TILE_N :][: len(q)] = best
+    assert not np.isnan(out).any()
+    return out.reshape(B, n)
+
+
+@pytest.mark.parametrize("ns,ms", [((300, 150, 1, 300), (1500, 700, 1025, 9)), ((5,), (1,)),
+                                   ((130,) * 3, (2100, 3000, 40))])
+def test_batched_nn_and_keep_lists_equal_each_row_alone(ns, ms):
+    """Ragged rows, B = 1 and an all-masked row: the batched plain keep
+    lists, packed candidates and minima equal the single-row ones on each
+    row bit for bit, and so does K3's batch grid read through its row
+    offsets; the batched wrapper routes to K3 whatever M is."""
+    rng = np.random.default_rng(sum(ns) + sum(ms))
+    traj, cands, mask = batch_of(rng, ns, ms)
+    order, nkept, cand4 = kernels.keep_lists(traj, cands, mask)
+    got = kernels.nn_min_dist2(traj, cands, mask)
+    assert torch.equal(got, kernels.nn_resident(traj, cands, mask))
+    emulated = emulate_batched_nn_kernel(traj, cands, mask)
+    np.testing.assert_array_equal(emulated, got.numpy())
+    for r in range(len(ns)):
+        o1, k1, c1 = kernels.keep_lists(traj[r], cands[r], mask[r])
+        assert torch.equal(order[r], o1) and torch.equal(nkept[r], k1) and torch.equal(cand4[r], c1)
+        assert torch.equal(got[r], kernels.nn_min_dist2_plain(traj[r], cands[r], mask[r]))
+    assert torch.isinf(got[-1]).all()  # every candidate of the last row masked
+    with pytest.raises(ValueError, match="a batch of rows takes K3"):
+        kernels.nn_grid_operands(traj, cands, mask)
+
+
+def emulate_batched_keep_boxes(traj, cands, mask):
+    """The keep-list kernel's box scratch for a batch: per row, at offset
+    box_stride * row with box_stride = 6 (n_sub + m_sub + m_tiles), the
+    query segments' boxes (6, n_sub), the candidate segments' (6, m_sub) and
+    the candidate tiles' (6, m_tiles), lo then hi per axis, written by the
+    segment-box step and read back through the same offsets; the keep step
+    then runs the single-row order of work (``emulate_keep_kernel``'s
+    passes) on each row's boxes."""
+    tp, cp, vm = (x.numpy() for x in kernels.bounds_operands(traj, cands, mask))
+    B = tp.shape[0]
+    per_c = kernels.TILE_M // kernels.SUB
+    n_sub, m_sub = tp.shape[1] // kernels.SUB, cp.shape[1] // kernels.SUB
+    m_tiles = m_sub // per_c
+    stride = 6 * (n_sub + m_sub + m_tiles)
+    scratch = np.full(B * stride, np.nan)
+    for y in range(B):
+        tb = tp[y].reshape(n_sub, kernels.SUB, 3)
+        cb, v = cp[y].reshape(m_sub, kernels.SUB, 3), vm[y].reshape(m_sub, kernels.SUB, 1)
+        c_lo, c_hi = np.where(v, cb, np.inf).min(1), np.where(v, cb, -np.inf).max(1)
+        boxes = [np.concatenate([tb.min(1), tb.max(1)], 1).T.ravel(),
+                 np.concatenate([c_lo, c_hi], 1).T.ravel(),
+                 np.concatenate([c_lo.reshape(m_tiles, per_c, 3).min(1),
+                                 c_hi.reshape(m_tiles, per_c, 3).max(1)], 1).T.ravel()]
+        scratch[stride * y : stride * (y + 1)] = np.concatenate(boxes)
+    assert not np.isnan(scratch).any()
+    rows = []
+    for y in range(B):
+        s = scratch[stride * y :]
+        tbox = s[: 6 * n_sub].reshape(6, n_sub)
+        cbox = s[6 * n_sub : 6 * (n_sub + m_sub)].reshape(6, m_sub)
+        tilebox = s[6 * (n_sub + m_sub) : stride].reshape(6, m_tiles)
+        rows.append((tbox, cbox, tilebox))
+    return rows
+
+
+def test_batched_keep_kernel_reads_its_rows_boxes():
+    """Each row's boxes, written and read through the batch grid's offsets,
+    are the row's own (the single-row emulation's operands), and the batched
+    plain mask equals the single-row mask on every row."""
+    rng = np.random.default_rng(3)
+    traj, cands, mask = batch_of(rng, (700, 300, 130), (5000, 1025, 7))
+    want = kernels.tile_keep_mask(*kernels.bounds_operands(traj, cands, mask))
+    for y, (tbox, cbox, tilebox) in enumerate(emulate_batched_keep_boxes(traj, cands, mask)):
+        tp, cp, vm = (x.numpy() for x in kernels.bounds_operands(traj[y], cands[y], mask[y]))
+        tb = tp.reshape(-1, kernels.SUB, 3)
+        np.testing.assert_array_equal(tbox, np.concatenate([tb.min(1), tb.max(1)], 1).T)
+        cb, v = cp.reshape(-1, kernels.SUB, 3), vm.reshape(-1, kernels.SUB, 1)
+        c_lo, c_hi = np.where(v, cb, np.inf).min(1), np.where(v, cb, -np.inf).max(1)
+        np.testing.assert_array_equal(cbox, np.concatenate([c_lo, c_hi], 1).T)
+        per_c = kernels.TILE_M // kernels.SUB
+        np.testing.assert_array_equal(tilebox[:3].T, c_lo.reshape(-1, per_c, 3).min(1))
+        single = kernels.tile_keep_mask(*kernels.bounds_operands(traj[y], cands[y], mask[y]))
+        assert torch.equal(want[y], single)
+        got, _ = emulate_keep_kernel(traj[y], cands[y], mask[y], Q=2, chunk=3)
+        np.testing.assert_array_equal(got, single.numpy())
+
+
+@pytest.mark.parametrize("n,T", [(700, 70), (279, 40)])
+def test_batched_counts_equal_each_row_alone(n, T):
+    """K5's batch grid (grid z the row): flat images of B rows of points and
+    trials, each block reading its row's at offsets 3 n z (points), n z
+    (mask), 9 T z, 3 T z, T z (trials) and T z (counts); the emulated counts
+    equal the batched plain counts and each row's single-row counts
+    exactly, with a row of no valid point."""
+    rng = np.random.default_rng(n)
+    rows = [sim3_trials(rng, n, T) for _ in range(3)]
+    src, dst, valid, R, t, s = (np.stack(x) for x in zip(*rows))
+    valid[1] = False
+    got = kernels.ransac_counts(*[torch.tensor(a) for a in (src, dst, valid, R, t, s)], 16.0).numpy()
+    assert got.shape == (3, T) and got.dtype == np.int32
+    flat = [a.reshape(-1) for a in (src, dst, valid, R, t, s)]
+    for z in range(3):
+        fs, fd, fv, fR, ft, fsc = flat
+        row = (fs[3 * n * z:][: 3 * n].reshape(n, 3), fd[3 * n * z:][: 3 * n].reshape(n, 3), fv[n * z:][:n],
+               fR[9 * T * z:][: 9 * T].reshape(T, 3, 3), ft[3 * T * z:][: 3 * T].reshape(T, 3), fsc[T * z:][:T])
+        np.testing.assert_array_equal(emulate_count_kernel(*row, 16.0), got[z])
+        np.testing.assert_array_equal(
+            kernels.ransac_counts_plain(*[torch.tensor(a) for a in row], 16.0).numpy(), got[z])
+    assert (got[1] == 0).all()

@@ -326,17 +326,29 @@ def _lane_scan(op, v, width):
 
 
 def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, seed=0, blocks=3):
+    """(L, n) leaves, or (L, B, n) for K1's batch grid: one ticket counter
+    over every row's tiles in row-major order (ticket g is tile g % n_tiles
+    of row g // n_tiles), the flags and values a slot per (row, tile), and a
+    look-back that walks its row's slots only and stops at the row's first
+    tile."""
     rng = np.random.default_rng(seed)
-    xs = x.flip(1) if reverse else x  # scan order
-    L, n = xs.shape
+    batched = x.ndim == 3
+    xs = x if batched else x[:, None]
+    xs = xs.flip(-1) if reverse else xs  # scan order
+    L, B, n = xs.shape
     T = warp * warps
     tile = T * items
     n_tiles = -(-n // tile)
-    padded = torch.cat([xs, _ident(op, n_tiles * tile - n)], 1)
+    padded = torch.cat([xs, _ident(op, B, n_tiles * tile - n)], -1)
     out = torch.empty_like(padded)
-    agg, incl = {}, {}
-    for t in range(n_tiles):
-        v = padded[:, t * tile : (t + 1) * tile].reshape(L, T, items)
+    agg, incl = {}, {}  # by slot: the row's first slot plus the tile
+    for ticket in range(B * n_tiles):
+        row, t = divmod(ticket, n_tiles)
+
+        def slot(p, row=row):
+            return row * n_tiles + p
+
+        v = padded[:, row, t * tile : (t + 1) * tile].reshape(L, T, items)
         loc = [v[:, :, 0]]  # running prefixes of each thread's items
         for i in range(1, items):
             loc.append(_comb(op, loc[-1], v[:, :, i]))
@@ -350,18 +362,18 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
         wscan = _lane_scan(op, acc[:, :, -1], warps)  # inclusive warp prefixes
         tot = wscan[:, -1]
         if t == 0:
-            incl[0] = tot
+            incl[slot(0)] = tot
         else:
-            agg[t] = tot
+            agg[slot(t)] = tot
             has_prefix = {j: j == 0 or (schedule == "random" and rng.uniform() < 0.3)
-                          or (schedule == "persistent" and j <= t - blocks) for j in range(t)}
+                          or (schedule == "persistent" and slot(j) <= ticket - blocks) for j in range(t)}
             run, base = None, t - 1
             while True:
                 preds = [base - k for k in range(window)]
                 prefix = [p >= 0 and has_prefix[p] for p in preds]
                 last = prefix.index(True) if any(prefix) else window - 1
                 vals = torch.stack([
-                    (incl[p] if prefix[k] else agg[p]) if (k <= last and p >= 0) else _ident(op)
+                    (incl[slot(p)] if prefix[k] else agg[slot(p)]) if (k <= last and p >= 0) else _ident(op)
                     for k, p in enumerate(preds)], 1)  # (L, window), lane 0 the nearest
                 d = 1
                 while d <= last:
@@ -374,7 +386,7 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
                     break
                 base -= window
             carry = run
-            incl[t] = _comb(op, run, tot)
+            incl[slot(t)] = _comb(op, run, tot)
         wid = torch.arange(warps)[:, None].expand(warps, warp).reshape(T)
         warp_pre = torch.cat([_ident(op, 1), wscan[:, :-1]], 1)[:, :, None].expand(L, warps, warp).reshape(L, T)
         if t > 0:
@@ -387,9 +399,10 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
             res[:, :, i] = torch.where((wid > 0) | (t > 0), _comb(op, pre, wl[i]), wl[i])
         if t == 0:
             res[:, 0, 0] = _comb(op, _ident(op, 1), wl[0][:, :1])[:, 0]
-        out[:, t * tile : (t + 1) * tile] = res.reshape(L, tile)
-    out = out[:, :n]
-    return out.flip(1) if reverse else out
+        out[:, row, t * tile : (t + 1) * tile] = res.reshape(L, tile)
+    out = out[..., :n]
+    out = out.flip(-1) if reverse else out
+    return out if batched else out[:, 0]
 
 
 # (warp, warps, items, window) per combine: small tiles, so that 7 tiles
@@ -452,3 +465,45 @@ def test_tiled_lookback_structure_matches_plain_and_jax(op, reverse, schedule):
         got = emulate_lookback_scan(op, xt, reverse, schedule, warp, warps, items, window, blocks=3).numpy()
         _assert_close(op, got, scan.scan_plain(op, xt, reverse).numpy(), rtol=1e-12)
         _assert_close(op, got, want[:, sl], rtol=1e-12)
+
+
+@pytest.mark.parametrize("schedule", ["random", "aggregates"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", list(EMULATED))
+def test_batched_lookback_stops_at_its_rows_first_tile(op, reverse, schedule):
+    """K1's batch grid: three rows of 2 tiles plus a ragged tail scanned in
+    one emulated launch (tickets over all rows' tiles, a slot per (row,
+    tile)). Every row equals the plain scan of that row, the batched plain
+    scan, and the single-row emulation bit for bit: a look-back that walked
+    past its row's first tile would fold the previous row in."""
+    warp, warps, items, window = EMULATED[op]
+    n = 2 * warp * warps * items + 3
+    x = torch.stack([torch.tensor(scan_input(op, n, seed=11 + r)) for r in range(3)], 1)  # (L, 3, n)
+    got = emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window)
+    plain = scan.scan_plain(op, x, reverse)
+    for r in range(3):
+        row = x[:, r].contiguous()
+        assert torch.equal(plain[:, r], scan.scan_plain(op, row, reverse))
+        _assert_close(op, got[:, r].numpy(), plain[:, r].numpy(), rtol=1e-12)
+        single = emulate_lookback_scan(op, row, reverse, "aggregates", warp, warps, items, window)
+        if schedule == "aggregates":  # the same walk as alone: the same bits
+            assert torch.equal(got[:, r], single)
+
+
+@pytest.mark.parametrize("op", list(scan.OPS))
+def test_batched_plain_scan_equals_each_row_alone(op):
+    """(L, B, n) leaves: each row of the batched ladder equals the scan of
+    that row alone bit for bit, in both directions, and the wrappers take
+    the batched ladder on CPU tensors without launching."""
+    L = len(scan.OPS[op][2])
+    x = torch.stack([torch.tensor(scan_input(op, 300, seed=r)) for r in range(4)], 1)
+    assert x.shape == (L, 4, 300)
+    before = dict(scan.scan_block.launches)
+    for reverse in (False, True):
+        got = scan.associative_scan(op, x, reverse)
+        assert torch.equal(got, scan.scan_block(op, x, reverse))
+        for r in range(4):
+            assert torch.equal(got[:, r], scan.scan_plain(op, x[:, r].contiguous(), reverse))
+    assert scan.scan_block.launches == before
+    with pytest.raises(ValueError, match="a batch of rows takes K1"):
+        scan.scan_tiled(op, x)

@@ -164,6 +164,8 @@ def test_importing_the_port_leaves_jax_out():
         "gps_optimize_slam_tpu_torch.ops.scan",
         "gps_optimize_slam_tpu_torch.ops.kalman_parallel",
         "gps_optimize_slam_tpu_torch.io.native",
+        "gps_optimize_slam_tpu_torch.parallel.batch",
+        "gps_optimize_slam_tpu_torch.parallel.mesh",
         "chip_smoke",
     ]
     code = (
