@@ -11,9 +11,11 @@ and on a 4,661-pose sequence, the out-of-core chunked path
 robust and ground-truth path (dirty GNSS through the χ² gate of
 ``models.robust`` in core and out of core, ``evaluate_vs_track`` and its
 chunked form, the cross-correlation clock offsets, adaptive RANSAC stopping,
-and the ``fuse`` command) at both sizes, and batched multi-sequence fusion
+and the ``fuse`` command) at both sizes, batched multi-sequence fusion
 (``parallel.mesh``: the eleven KITTI odometry sequences in length buckets,
-a 64-row fleet bucket, and the ``fuse-batch`` command).
+a 64-row fleet bucket, and the ``fuse-batch`` command), and the pose-graph
+refinement (``pipeline.refine_pose_graph`` after ``fuse_arrays`` on a
+4,541-pose shuttle, and the ``refine-graph`` and ``kitti2tum`` commands).
 
 Usage (from the repository root, on a machine with a CUDA device):
 
@@ -41,7 +43,9 @@ Phases:
      UTM magnitudes), one candidate tile, fewer queries than one block
      takes, a ragged last block, 16,384 x 262,144, each all-masked too and
      bit for bit against K4, beside the reference's own method
-     (``torch.cdist`` and ``min``) as its library yardstick; K4, 16,384 x
+     (``torch.cdist`` and ``min``, where its matrix fits in half the card's
+     free memory; past 2^31 - 1 pairs with the matrix-product expansion) as
+     its library yardstick; K4, 16,384 x
      300,000 and 524,288 x 524,288 (phase 5's NN blocks, K4 by the routing
      rule; the plain version on every 64th query; the kernel alone and with
      its wrapper), bit for bit against K3, and all-masked; K5, counts equal
@@ -105,7 +109,20 @@ Phases:
      within 1e-6 m of golden; warm walls of ``fuse_buckets`` and of the
      loop over the rows. The fleet bucket, 64 x 4661 float32: warm wall,
      sequences per second, idle share, peak memory, the row loop's wall.
-     Then ``fuse-batch --json`` on two pairs as a subprocess.
+     Then ``fuse-batch --json`` on two pairs as a subprocess;
+  8. the pose-graph refinement, float64. A shuttle at KITTI seq-00's length
+     (4,541 poses: seq-04's legs alternately forward and backward over one
+     road, 2 cm of fresh GNSS noise a leg, GNSS dropped over one backward
+     leg): ``fuse_arrays`` then ``refine_pose_graph`` (10 Gauss-Newton steps
+     of 50 CG iterations, closures proposed within 5 m and 30 s apart, a
+     checkpoint directory) on the card, held against the port's CPU run of
+     the same arrays (positions ≤1e-6 m, quaternions ≤1e-8, cost history
+     ≤1e-9 relative, the valid closures equal); a refinement stopped after 5
+     steps and resumed equal to the uninterrupted one bit for bit; warm
+     walls (median of 3), the refine's profile (kernels, launches, idle
+     share), its peak memory and the proposal's share of its wall. Then
+     ``refine-graph --json`` on the seq-04 files and ``kitti2tum`` on a
+     KITTI pose file written from the golden arrays, as subprocesses.
 
 The launch counts of the ``{"kernels": [...]}`` line are those of the
 main-path runs (phase 4: ``fuse_arrays`` at 4,661 poses; phase 5:
@@ -113,8 +130,9 @@ main-path runs (phase 4: ``fuse_arrays`` at 4,661 poses; phase 5:
 524,288-pose chunks; phase 6: ``fuse_arrays(robust=True, gt=...)`` under
 each gate and the adaptive ``sim3_ransac`` at 4,661 poses,
 ``fuse_core_chunked(robust=True)`` and ``evaluate_vs_track_chunked`` at
-1,048,576), each with the counts set to 0 just before it and read just
-after; ``launches`` is their sum and ``launches_by_phase`` the three terms.
+1,048,576; phase 8: ``fuse_arrays`` + ``refine_pose_graph`` on the
+shuttle), each with the counts set to 0 just before it and read just
+after; ``launches`` is their sum and ``launches_by_phase`` the four terms.
 The ``@batch`` entries' launches are phase 7's (the KITTI buckets' fusion
 and evaluation, the fleet bucket's fusion), where every launch has a batch
 grid. The comparison launches of phase 1, phase 5's K3-route evaluation and
@@ -175,7 +193,6 @@ NN_PAIR_FLOPS = 8  # 3 differences, 3 squares, 2 sums per (query, candidate)
 # makes the pairs it takes a property of its design, so its bound is bytes.
 KEEP_PAIR_FLOPS = 33
 COUNT_FLOPS = 30  # s*R*p + t - d, squared and summed, compared, per (trial, point)
-CDIST_BYTES_MAX = 4e9  # the library yardstick of K3 is timed where its n x m matrix fits in this
 
 
 def emit(obj) -> None:
@@ -302,19 +319,35 @@ def nn_bound(traj, cand, mask):
     return bound(moved, NN_PAIR_FLOPS * pairs, dtype_name(traj.dtype))
 
 
-def cdist_library_ms(traj, cand, mask, reps: int = 5):
-    """The reference pipeline's own method for the NN distance, as K3's and
-    K4's library yardstick: ``torch.cdist`` without the matrix-product
-    expansion, then ``min`` (two calls, the n x m matrix between them in
-    device memory; distances, not their squares). Timed only: the port
-    never calls it. None where the matrix would not fit in
-    ``CDIST_BYTES_MAX``."""
+def fits_on_card(nbytes: float) -> bool:
+    """Whether a library yardstick's intermediates of ``nbytes`` fit in half
+    of the card's free memory (read after the allocator's cache is
+    released; the other half leaves room for the call's own temporaries)."""
     import torch
 
-    if traj.shape[0] * cand.shape[0] * traj.element_size() > CDIST_BYTES_MAX:
-        return None
+    torch.cuda.empty_cache()
+    return nbytes <= 0.5 * torch.cuda.mem_get_info()[0]
+
+
+CDIST_PAIRS_DIFF_MAX = 2**31 - 1  # torch.cdist's difference form launches one block a pair
+
+
+def cdist_library_ms(traj, cand, mask, reps: int = 5):
+    """The reference pipeline's own method for the NN distance, as K3's and
+    K4's library yardstick: ``torch.cdist`` then ``min`` (two calls, the n x
+    m matrix between them in device memory; distances, not their squares),
+    without the matrix-product expansion up to ``CDIST_PAIRS_DIFF_MAX``
+    pairs and with it beyond, where the difference form's grid cannot
+    launch. Timed only: the port never calls it. None where the matrix does
+    not fit (``fits_on_card``)."""
+    import torch
+
     kept = cand[mask]
-    ms = cuda_ms(lambda: torch.cdist(traj, kept, compute_mode="donot_use_mm_for_euclid_dist").min(1), reps)
+    pairs = traj.shape[0] * kept.shape[0]
+    if not fits_on_card(pairs * traj.element_size()):
+        return None
+    mode = "donot_use_mm_for_euclid_dist" if pairs <= CDIST_PAIRS_DIFF_MAX else "use_mm_for_euclid_dist"
+    ms = cuda_ms(lambda: torch.cdist(traj, kept, compute_mode=mode).min(1), reps)
     torch.cuda.empty_cache()
     return ms
 
@@ -666,12 +699,14 @@ def phase1_nn(device, gen):
             "plain_ms": cuda_ms(lambda: kernels.nn_min_dist2_plain(traj, cand, mask), reps=3),
             "k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask), reps=3),
             "bound": nn_bound(traj, cand, mask), "max_abs_err": abs_err(got, want),
+            "library_ms": cdist_library_ms(traj, cand, mask),
         }
     emit({"phase": 1, "kernel": "nn_grid", "rel_err": grid_err, "equal_to_k3": True,
           "shape": [n, m], "times": times})
     t = times["float64"]
     entries.append(kernel_entry("nn_grid", "nn_grid.cu", "pallas_kernels.py:302", "float64",
-                                t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], None, t["device_ms"]))
+                                t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"],
+                                t["device_ms"]))
 
     if kernels.nn_route(GRID_NN_MAIN[1]) != "grid" or kernels.nn_route(SEQ02_LEN) != "resident":
         raise AssertionError("the routing rule must send phase 5's NN blocks to K4 and phase 4's calls to K3")
@@ -1058,8 +1093,10 @@ def phase1_batched_nn(device, gen):
         d = torch.cdist(traj, cand, compute_mode="donot_use_mm_for_euclid_dist")
         return torch.where(mask[:, None, :], d, float("inf")).amin(-1)
 
-    fits = traj.shape[0] * traj.shape[1] * cand.shape[1] * traj.element_size() <= CDIST_BYTES_MAX
-    library_ms = cuda_ms(cdist_min, reps=5) if fits else None
+    # The distances and their masked copy: two B x n x m matrices.
+    library_ms = cuda_ms(cdist_min, reps=5) if fits_on_card(2 * traj[..., 0].numel() * cand.shape[1]
+                                                            * traj.element_size()) else None
+    torch.cuda.empty_cache()
     ms = cuda_ms(lambda: kernels.nn_resident(traj, cand, mask))
     plain_ms = cuda_ms(lambda: kernels.nn_min_dist2_plain(traj, cand, mask, block=128), reps=3)
     by_kernel = device_profile(lambda: kernels.nn_resident(traj, cand, mask))
@@ -1351,18 +1388,22 @@ def phase4(device):
     return launches
 
 
-def profile_device(fn) -> dict:
+def profile_device(fn, host_ops: bool = True) -> dict:
     """One run of ``fn`` under torch.profiler: its wall time, the summed
-    device time of its kernels and of its copies, the busy time (the union
-    of those intervals, so overlap is counted once), the device's idle share
-    of the wall (1 − busy/wall, not clamped, so a busy time past the wall
-    shows as a negative share), and the five kernels with the most device
-    time."""
+    device time of its kernels and of its copies, the number of kernels, the
+    busy time (the union of those intervals, so overlap is counted once), the
+    device's idle share of the wall (1 − busy/wall, not clamped, so a busy
+    time past the wall shows as a negative share), and the five kernels with
+    the most device time. ``host_ops=False`` traces the device alone, as
+    phase 8 does for the refine's ~7·10⁵ launches: tracing their host ops
+    too slows the traced run and takes long to read (``PERF.md``, from
+    ``tools/torch_pose_graph_probe.py --profiler-cost``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1387,6 +1428,7 @@ def profile_device(fn) -> dict:
     kernel_ms = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "copy_ms": copy_ms, "busy_ms": busy_us / 1e3,
+            "kernels": sum(v[1] for v in kernels.values()),
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
             "top_kernels": [[name, ms, count] for name, (ms, count) in top]}
 
@@ -2077,6 +2119,195 @@ def phase7(device):
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+SHUTTLE_N = 4541  # KITTI odometry seq-00's poses, the longest of the loop sequences (00, 05, 06, 07, 09)
+SHUTTLE_OUTAGE_LEG = 3  # a backward leg with no GNSS at all
+REFINE = dict(iterations=10, cg_iters=50, propose_loops=True, loop_radius=5.0, loop_min_time_gap=30.0, max_loops=32)
+
+
+def shuttle_sequence(n: int = SHUTTLE_N, seed: int = 0):
+    """A real-derived shuttle of ``n`` poses: legs of the seq-04 golden arrays
+    alternately forward and backward over the same road. A backward leg is
+    the forward leg's SLAM and GNSS arrays in reverse time order, re-timed
+    to follow on (one time map for both streams, so they stay aligned); every
+    leg reuses the same SLAM coordinates, so one Sim(3) fits them all. Each
+    leg's GNSS carries 2 cm of fresh noise from ``seed`` and lies in a local
+    frame (UTM minus the first fix); leg ``SHUTTLE_OUTAGE_LEG`` has none, an
+    outage the loop closures carry. A return leg passes its forward twins
+    within centimetres and more than 30 s later for most of its length: the
+    revisits ``propose_loop_closures`` finds."""
+    g, _ = golden_arrays()
+    st0, sp0, sq0 = g["slam_times"], g["slam_pos"], g["slam_quat"]
+    gt0, gp0 = g["gps_times"], g["gps_utm"] - g["gps_utm"][0]
+    start, end = min(st0[0], gt0[0]), max(st0[-1], gt0[-1])
+    period = end - start + 2.0
+    rng = np.random.default_rng(seed)
+    st, sp, sq, gt, gp = [], [], [], [], []
+    for k in range(-(-n // len(st0))):
+        back = k % 2 == 1
+        remap = (lambda t: end - t[::-1]) if back else (lambda t: t - start)
+        flip = (lambda a: a[::-1]) if back else (lambda a: a)
+        st.append(remap(st0) + k * period)
+        sp.append(flip(sp0))
+        sq.append(flip(sq0))
+        if k != SHUTTLE_OUTAGE_LEG:
+            gt.append(remap(gt0) + k * period)
+            gp.append(flip(gp0) + rng.normal(size=gp0.shape) * 0.02)
+    st, sp, sq = (np.concatenate(a)[:n] for a in (st, sp, sq))
+    gt, gp = np.concatenate(gt), np.concatenate(gp)
+    keep = gt <= st[-1] + 2.0
+    return {"timestamps": st, "positions": sp, "quaternions": sq}, gt[keep], gp[keep]
+
+
+def shuttle_gps(gt, gp):
+    from gps_optimize_slam_tpu_torch import pipeline
+
+    return pipeline.GPSData(timestamps=gt, positions=gp, valid=np.ones(len(gt), bool), frame="enu", utm_zone=32,
+                            utm_south=False)
+
+
+def refine_gaps(gn, info, ref, ref_info) -> dict:
+    """The refinement against a reference run: positions (m), quaternions,
+    the cost history (relative), and whether the valid closures agree."""
+    a, b = gn.cost_history.cpu().double(), ref.cost_history.cpu().double()
+    return {"positions_m": float((gn.state.positions.cpu() - ref.state.positions.cpu()).abs().max()),
+            "quaternions": float((gn.state.quaternions.cpu() - ref.state.quaternions.cpu()).abs().max()),
+            "cost_history_rel": float(((a - b).abs() / b.abs()).max()),
+            "loop_ij_equal": info["loop_ij"] == ref_info["loop_ij"]}
+
+
+def phase8_refine(device):
+    """The pose-graph path at KITTI seq-00's length: ``fuse_arrays`` then
+    ``refine_pose_graph`` (10 Gauss-Newton steps of 50 CG iterations,
+    closures proposed, checkpointed) on the shuttle, float64, on the card;
+    launch counts of the pair; held against the port's own CPU float64 run
+    of the same arrays (positions ≤1e-6 m, quaternions ≤1e-8, cost history
+    ≤1e-9 relative, the valid closures equal); a run stopped after 5 of the
+    10 steps and resumed from its checkpoint equal to the uninterrupted card
+    run bit for bit; warm walls, the refine's profile, peak memory and the
+    proposal's share of the refine's wall."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch import pipeline
+    from gps_optimize_slam_tpu_torch.models import pose_graph
+
+    slam, gt, gp = shuttle_sequence()
+    gps = shuttle_gps(gt, gp)
+    with tempfile.TemporaryDirectory() as tmp:
+        def fuse_refine(dev, ckpt, **kw):
+            res = pipeline.fuse_arrays(slam, gps, dtype=torch.float64, device=dev)
+            return res, pipeline.refine_pose_graph(res, **{**REFINE, "checkpoint_dir": ckpt, **kw})
+
+        (res, (gn, info)), launches = counted(lambda: fuse_refine(device, os.path.join(tmp, "card")))
+        t0 = time.perf_counter()
+        res_cpu, (gn_cpu, info_cpu) = fuse_refine("cpu", os.path.join(tmp, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        stopped = os.path.join(tmp, "stopped")
+        pipeline.refine_pose_graph(res, **{**REFINE, "checkpoint_dir": stopped, "iterations": 5})
+        gn_resumed, _ = pipeline.refine_pose_graph(res, **{**REFINE, "checkpoint_dir": stopped})
+    resumed_equal = all(torch.equal(a, b) for a, b in zip(gn_resumed.state, gn.state)) and torch.equal(
+        gn_resumed.cost_history, gn.cost_history)
+    gaps = refine_gaps(gn, info, gn_cpu, info_cpu)
+    fuse_gap = float((res.outputs.corrected_pos.cpu() - res_cpu.outputs.corrected_pos).abs().max())
+
+    walls = {"fuse": [], "refine": []}
+    for _ in range(3):
+        s, r = timed_s(lambda: pipeline.fuse_arrays(slam, gps, dtype=torch.float64, device=device))
+        walls["fuse"].append(1e3 * s)
+        walls["refine"].append(1e3 * timed_s(lambda: pipeline.refine_pose_graph(r, **REFINE))[0])
+    times = torch.as_tensor(slam["timestamps"], device=device)
+    o = res.outputs
+    propose_ms = [1e3 * timed_s(lambda: pose_graph.propose_loop_closures(
+        o.corrected_pos, times, o.sim3_quat, radius=5.0, min_time_gap=30.0, max_loops=32))[0] for _ in range(3)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prof = profile_device(lambda: pipeline.refine_pose_graph(res, **REFINE), host_ops=False)
+    peak = torch.cuda.max_memory_allocated() - base
+    refine_ms = float(np.median(walls["refine"]))
+    emit({"phase": 8, "part": "refine", "poses": SHUTTLE_N, "gnss": int(len(gt)), "dtype": "float64",
+          "loops_proposed": info["n_loops"], "loop_pairs": info["loop_ij"][:8], "cost_history":
+          gn.cost_history.tolist(), "card_vs_cpu": gaps, "fuse_card_vs_cpu_m": fuse_gap,
+          "resumed_equal_bit_for_bit": resumed_equal, "launches": launches, "fuse_warm_ms": walls["fuse"],
+          "refine_warm_ms": walls["refine"], "fuse_refine_warm_ms_median3": float(np.median(
+              [a + b for a, b in zip(walls["fuse"], walls["refine"])])), "refine_warm_ms_median3": refine_ms,
+          "cpu_fuse_refine_wall_ms": 1e3 * cpu_s, "propose_ms": propose_ms,
+          "propose_share_of_refine": float(np.median(propose_ms)) / refine_ms, "refine_profile": prof,
+          "refine_peak_memory_mb": peak / 2**20})
+    say(f"phase 8: {info['n_loops']} loop closures proposed on the {SHUTTLE_N}-pose shuttle")
+    if info["n_loops"] < 1:
+        raise AssertionError("phase 8: no loop closure proposed on the shuttle")
+    if not (gaps["positions_m"] <= 1e-6 and gaps["quaternions"] <= 1e-8 and gaps["cost_history_rel"] <= 1e-9
+            and gaps["loop_ij_equal"]):
+        raise AssertionError(f"phase 8: the card's refinement off the CPU's: {gaps}")
+    if not resumed_equal:
+        raise AssertionError("phase 8: the resumed refinement differs from the uninterrupted one")
+    if not float(gn.final_cost) < float(gn.cost_history[0]) or not bool(torch.isfinite(gn.state.positions).all()):
+        raise AssertionError(f"phase 8: the refinement did not lower the cost: {gn.cost_history.tolist()}")
+    missing = [k for k in ("nn_keep", "nn_resident", "ransac_counts") if launches[k] <= 0]
+    missing += [] if any(launches[f"scan_block/{op}"] for op in ("quat_chain", "filter", "rts")) else ["scan_block"]
+    if missing:
+        raise AssertionError(f"phase 8: kernels not launched by fuse + refine: {missing}")
+    return launches
+
+
+def write_seq04_kitti_files(tmp: str):
+    """A KITTI pose file (12 columns a row, the row-major [R|t]) and its
+    timestamp file, from the seq-04 golden SLAM arrays."""
+    _, slam = golden_arrays()
+    x, y, z, w = slam["quaternions"].T
+    R = np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+    poses = np.concatenate([R, slam["positions"][:, :, None]], axis=2).reshape(-1, 12)
+    poses_path, times_path = os.path.join(tmp, "04.txt"), os.path.join(tmp, "times04.txt")
+    np.savetxt(poses_path, poses, fmt="%.12e")
+    np.savetxt(times_path, slam["timestamps"] - slam["timestamps"][0], fmt="%.6e")
+    return poses_path, times_path
+
+
+def phase8_commands():
+    """``refine-graph --json`` on the seq-04 files and ``kitti2tum`` on a KITTI
+    pose file written from the golden arrays, as subprocesses; a non-zero
+    exit, other keys or values off fail."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    with tempfile.TemporaryDirectory() as tmp:
+        slam_path, gps_path = write_seq04_files(tmp)
+        out = os.path.join(tmp, "refined.tum")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "gps_optimize_slam_tpu_torch", "refine-graph", slam_path, gps_path,
+                               "--json", "-o", out], cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"refine-graph: exit code {proc.returncode}\n{proc.stderr[-2000:]}")
+        rep = json.loads(proc.stdout[: proc.stdout.rindex("}") + 1])
+        keys = ["poses", "gn_iterations", "initial_cost", "final_cost", "cost_reduction_pct", "loops_proposed",
+                "loop_pairs", "ate_rmse_m"]
+        if (list(rep) != keys or rep["poses"] != 271 or not rep["final_cost"] <= rep["initial_cost"]
+                or rep["loops_proposed"] != 0 or np.loadtxt(out).shape != (271, 8)):
+            raise AssertionError(f"refine-graph: keys or values off: {proc.stdout[:800]}")
+        poses_path, times_path = write_seq04_kitti_files(tmp)
+        tum = os.path.join(tmp, "kitti04.tum")
+        proc = subprocess.run([sys.executable, "-m", "gps_optimize_slam_tpu_torch", "kitti2tum", poses_path,
+                               times_path, tum], cwd=REPO, capture_output=True, text=True, timeout=120, env=env)
+        back = np.loadtxt(tum) if proc.returncode == 0 else None
+        g, _ = golden_arrays()
+        if back is None or back.shape != (271, 8) or not np.abs(back[:, 1:4] - g["slam_pos"]).max() <= 1e-6:
+            raise AssertionError(f"kitti2tum: exit code {proc.returncode}\n{proc.stderr[-2000:]}")
+    emit({"phase": 8, "part": "command", "refine_graph_wall_s": wall, "initial_cost": rep["initial_cost"],
+          "final_cost": rep["final_cost"], "ate_rmse_m": rep["ate_rmse_m"], "kitti2tum_rows": int(back.shape[0])})
+
+
+def phase8(device):
+    """The pose-graph refinement path: the shuttle, fused and refined on the
+    card, and the ``refine-graph`` and ``kitti2tum`` commands. Returns the
+    launch counts of its main-path run."""
+    launches = phase8_refine(device)
+    phase8_commands()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2110,12 +2341,13 @@ def main() -> int:
     chunked = phase5(device)
     robust = phase6(device)
     batched = phase7(device)
+    refined = phase8(device)
     for e in entries:
         # A batched entry is the same wrapper at phase 7's batch shapes:
         # its launches are phase 7's, where every launch has a batch grid.
         name, at_batch = e["name"].split("@")[0], "@" in e["name"]
         by_phase = {"7": batched[name]} if at_batch else {
-            "4": in_core[name], "5": chunked[name], "6": robust[name]}
+            "4": in_core[name], "5": chunked[name], "6": robust[name], "8": refined[name]}
         e["launches"] = sum(by_phase.values())
         e["launches_by_phase"] = by_phase
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""Command-line front-end of the port (the ``fuse`` and ``fuse-batch``
-subcommands of ``gps_optimize_slam_tpu.cli``).
+"""Command-line front-end of the port (the ``fuse``, ``fuse-batch``,
+``refine-graph``, ``kitti2tum`` and ``oxts-extract`` subcommands of
+``gps_optimize_slam_tpu.cli``).
 
 Replaces the reference's tkinter dialog flow (EKFGPSSLAM.py:669-674,
 940-956) with one command:
@@ -20,8 +21,22 @@ and fuses many sequences as length-bucketed batched programs with
         [--ekf-scan auto|sequential|parallel] [--max-waste W]
         [--estimate-offsets] [--meas-noise SX SY SZ] [--no-gps-filter]
 
-Both run on the card and fail without one; ``--device cpu`` runs them on
+refines a fusion globally with the pose graph (Gauss-Newton + CG, loop
+closures proposed by proximity) with
+
+    python -m gps_optimize_slam_tpu_torch refine-graph SLAM.tum GPS.txt [-o OUT]
+        [--device cuda|cpu] [--dtype float64|float32] [--frame auto|utm|enu]
+        [--seed N] [--json] [--config cfg.json] [--iterations N] [--cg-iters N]
+        [--no-loops] [--loop-radius M] [--loop-min-gap S] [--max-loops N]
+        [--checkpoint-dir DIR]
+
+These run on the card and fail without one; ``--device cpu`` runs them on
 the CPU. The JSON they print has the keys of the JAX package's commands.
+Two host-only converters take no device:
+
+    python -m gps_optimize_slam_tpu_torch kitti2tum POSES TIMES OUT
+    python -m gps_optimize_slam_tpu_torch oxts-extract OXTS_DIR [-o OUT]
+        [--offset S] [--single-offset]
 """
 
 from __future__ import annotations
@@ -273,6 +288,87 @@ def _cmd_fuse_batch(args) -> int:
     return 0 if all(r["ok"] for r in rows) else 1
 
 
+def _cmd_refine_graph(args) -> int:
+    """Fuse, then refine globally with the matrix-free Gauss-Newton pose
+    graph (``models.pose_graph``) seeded from the fusion, with loop closures
+    proposed by proximity over the fused trajectory."""
+    import numpy as np
+    import torch
+
+    from gps_optimize_slam_tpu_torch import pipeline
+    from gps_optimize_slam_tpu_torch.io import tum as tum_io
+    from gps_optimize_slam_tpu_torch.utils.logging import enable as enable_logging
+
+    if args.verbose:
+        enable_logging()
+    config = _build_config(args)
+    frame = _resolve_frame(args.frame, args.dtype)
+    result = pipeline.fuse_files(
+        args.slam, args.gps, config=config, frame=frame, seed=args.seed, dtype=getattr(torch, args.dtype),
+        device=args.device,
+    )
+    gn, loop_info = pipeline.refine_pose_graph(
+        result,
+        iterations=args.iterations,
+        cg_iters=args.cg_iters,
+        propose_loops=not args.no_loops,
+        loop_radius=args.loop_radius,
+        loop_min_time_gap=args.loop_min_gap,
+        max_loops=args.max_loops,
+        checkpoint_dir=args.checkpoint_dir,
+    )
+    costs = gn.cost_history.cpu().numpy()
+    refined_pos = gn.state.positions.cpu().numpy()
+
+    # ATE after refinement against the aligned GNSS (the gate of fuse-batch).
+    ts = np.asarray(result.slam["timestamps"])
+    aligned = result.outputs.aligned_gps.cpu().numpy()
+    gate = result.outputs.gps_valid.cpu().numpy() & np.isfinite(aligned).all(-1) & (ts > ts[0] + 5.0)
+    err = np.linalg.norm(refined_pos - aligned, axis=-1)[gate]
+    ate_rmse = float(np.sqrt(np.mean(err**2))) if err.size else None
+
+    report = {
+        "poses": len(ts),
+        "gn_iterations": args.iterations,
+        "initial_cost": float(costs[0]),
+        "final_cost": float(costs[-1]),
+        "cost_reduction_pct": round(100.0 * (1.0 - float(costs[-1]) / max(float(costs[0]), 1e-30)), 2),
+        "loops_proposed": loop_info["n_loops"],
+        "loop_pairs": loop_info["loop_ij"],
+        "ate_rmse_m": round(ate_rmse, 4) if ate_rmse is not None else None,
+    }
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        print(
+            f"pose graph: {report['poses']} poses, {report['loops_proposed']} loop closures, cost "
+            f"{report['initial_cost']:.4g} -> {report['final_cost']:.4g} "
+            f"({report['cost_reduction_pct']}%), ate_rmse={report['ate_rmse_m']}m"
+        )
+    if args.output:
+        tum_io.write_tum(args.output, ts, refined_pos, gn.state.quaternions.cpu().numpy())
+        print(f"saved: {args.output}")
+    return 0
+
+
+def _cmd_kitti2tum(args) -> int:
+    from gps_optimize_slam_tpu_torch.io.kitti import kitti_to_tum_file
+
+    kitti_to_tum_file(args.poses, args.times, args.out)
+    print(f"wrote {args.out}")
+    return 0
+
+
+def _cmd_oxts(args) -> int:
+    from gps_optimize_slam_tpu_torch.io.oxts import extract_oxts
+
+    out = extract_oxts(
+        args.oxts_dir, time_offset=args.offset, cumulative_offset=not args.single_offset, output_file=args.output
+    )
+    print(f"extracted {len(out['timestamps'])} fixes" + (f" -> {args.output}" if args.output else ""))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gps_optimize_slam_tpu_torch",
@@ -416,6 +512,61 @@ def build_parser() -> argparse.ArgumentParser:
     fb.add_argument("--meas-noise", type=float, nargs=3, metavar=("SX", "SY", "SZ"))
     fb.add_argument("--no-gps-filter", action="store_true")
     fb.set_defaults(fn=_cmd_fuse_batch)
+
+    rg = sub.add_parser(
+        "refine-graph",
+        help="global pose-graph refinement (GN+CG) of a fusion result, with proximity-proposed loop closures",
+    )
+    rg.add_argument("slam", help="TUM-format SLAM trajectory")
+    rg.add_argument("gps", help="GNSS fixes: ts lat lon alt ...")
+    rg.add_argument("-o", "--output", help="output TUM path (refined trajectory)")
+    rg.add_argument(
+        "--device",
+        default=None,
+        help="where the fusion and the solve run: the CUDA device by default (an error without one), or cpu",
+    )
+    rg.add_argument(
+        "--dtype", choices=["float64", "float32"], default="float64", help="working precision"
+    )
+    rg.add_argument(
+        "--frame", choices=["auto", "utm", "enu"], default="auto", help="auto = UTM in float64, local ENU in float32"
+    )
+    rg.add_argument("--seed", type=int, default=0)
+    rg.add_argument("--json", action="store_true")
+    rg.add_argument("-v", "--verbose", action="store_true")
+    rg.add_argument("--config", help="JSON config file (reference CONFIG layout)")
+    rg.add_argument("--iterations", type=int, default=10, help="GN iterations")
+    rg.add_argument("--cg-iters", type=int, default=50, help="CG iterations per GN step")
+    rg.add_argument(
+        "--no-loops", action="store_true", help="skip loop-closure proposal (GNSS priors + odometry only)"
+    )
+    rg.add_argument(
+        "--loop-radius", type=float, default=5.0, help="max revisit distance (m) for a loop-closure candidate"
+    )
+    rg.add_argument(
+        "--loop-min-gap", type=float, default=30.0, help="min elapsed time (s) between the two poses of a closure"
+    )
+    rg.add_argument("--max-loops", type=int, default=32)
+    rg.add_argument("--checkpoint-dir", help="checkpoint/resume directory for the GN loop")
+    rg.set_defaults(fn=_cmd_refine_graph)
+
+    k = sub.add_parser("kitti2tum", help="KITTI poses+times -> TUM file (host only)")
+    k.add_argument("poses")
+    k.add_argument("times")
+    k.add_argument("out")
+    k.set_defaults(fn=_cmd_kitti2tum)
+
+    o = sub.add_parser("oxts-extract", help="extract GNSS fixes from KITTI oxts/ (host only)")
+    o.add_argument("oxts_dir")
+    o.add_argument("-o", "--output")
+    o.add_argument("--offset", type=float, default=0.0)
+    o.add_argument(
+        "--single-offset",
+        action="store_true",
+        help="apply the time offset once (the reference re-adds it every frame, quirk Q3; the default "
+        "reproduces that)",
+    )
+    o.set_defaults(fn=_cmd_oxts)
     return p
 
 

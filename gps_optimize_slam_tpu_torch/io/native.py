@@ -2,9 +2,11 @@
 (``native/libfastparse.so``, built from ``native/fastparse.cpp``).
 
 ``loadtxt(path)`` stands in for np.loadtxt on the numeric tables this package
-reads (TUM, GNSS fix files): '#'-comment lines skipped, spaces/tabs/commas as
-delimiters. When the shared library is absent it falls back to np.loadtxt:
-the native path is a host-throughput optimisation, not a dependency.
+reads (TUM, KITTI poses, GNSS fix files): '#'-comment lines skipped,
+spaces/tabs/commas as delimiters; ``oxts_scan`` reads a KITTI oxts ``data/``
+folder in one call. When the shared library is absent ``loadtxt`` falls back
+to np.loadtxt and ``oxts_scan`` returns None: the native path is a
+host-throughput optimisation, not a dependency.
 """
 
 from __future__ import annotations
@@ -50,8 +52,45 @@ def _get_lib() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int64),
     ]
     lib.fastparse_table.restype = ctypes.c_int
+    if hasattr(lib, "fastparse_oxts_dir"):
+        lib.fastparse_oxts_dir.argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64,
+        ]
+        lib.fastparse_oxts_dir.restype = ctypes.c_int
     _lib = lib
     return _lib
+
+
+def oxts_scan(data_dir: str, max_frames: int) -> Optional[np.ndarray]:
+    """Native scan of a KITTI oxts ``data/`` folder: one C call for the whole
+    directory instead of one np.loadtxt per frame file.
+
+    Returns an (n_rows, 6) array of ``[frame_idx, lat, lon, alt, numsats,
+    velmode]`` rows (oxts columns 0, 1, 2, 25, 27), or None when the native
+    library is absent (the caller then reads the files one by one). Frame
+    files that do not exist are skipped; a frame file of several rows gives
+    several rows. Raises ValueError on a malformed file."""
+    lib = _get_lib()
+    if lib is None or not hasattr(lib, "fastparse_oxts_dir"):
+        return None
+    rows = ctypes.c_int64(0)
+    rc = lib.fastparse_oxts_dir(data_dir.encode(), None, ctypes.byref(rows), max_frames)
+    if rc != 0:
+        raise ValueError(f"fastparse_oxts_dir({data_dir}): {_ERRORS.get(rc, rc)}")
+    out = np.empty((rows.value, 6), dtype=np.float64)
+    if rows.value:
+        rc = lib.fastparse_oxts_dir(
+            data_dir.encode(),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            ctypes.byref(rows),
+            max_frames,
+        )
+        if rc != 0:
+            raise ValueError(f"fastparse_oxts_dir({data_dir}): {_ERRORS.get(rc, rc)}")
+    return out
 
 
 def loadtxt(path: str) -> np.ndarray:

@@ -124,3 +124,41 @@ def yaw(q: torch.Tensor) -> torch.Tensor:
 def wrap_angle(a: torch.Tensor) -> torch.Tensor:
     """Wrap angle(s) to (-pi, pi] via atan2 (reference EKFGPSSLAM.py:822)."""
     return torch.atan2(torch.sin(a), torch.cos(a))
+
+
+def exp_map(omega: torch.Tensor) -> torch.Tensor:
+    """SO(3) exponential: rotation vector (axis·angle, rad) → unit quaternion.
+
+    Taylor-guarded near zero including its derivatives (the double where:
+    the square root never sees 0, so jvp and vjp at ω = 0 stay finite; the
+    pose graph's retraction differentiates through this at exactly ω = 0)."""
+    theta2 = torch.sum(omega * omega, dim=-1, keepdim=True)
+    small = theta2 < 1e-12
+    theta = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    # sin(θ/2)/θ with series 1/2 − θ²/48; cos(θ/2) with series 1 − θ²/8.
+    k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(theta / 2.0) / theta)
+    w = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(theta / 2.0))
+    return torch.cat([omega * k, w], dim=-1)
+
+
+def log_map(q: torch.Tensor) -> torch.Tensor:
+    """SO(3) logarithm: unit quaternion → rotation vector (rad).
+
+    Hemisphere-canonicalised (w ≥ 0), so the result is the minimal rotation;
+    guarded near the identity like ``exp_map``. The clip of w is a max then
+    a min, as the JAX package's ``jnp.clip``: its derivative at w = ±1 is
+    0.5 (ties split), where ``torch.clamp``'s is 1. Near the identity w is
+    exactly 1.0 in float64 whenever |v| < ~1e-8, so every converged
+    odometry residual of the pose graph sees that derivative."""
+    q = torch.where(q[..., 3:4] < 0, -q, q)
+    v = q[..., :3]
+    one = torch.ones((), dtype=q.dtype, device=q.device)
+    w = torch.minimum(torch.maximum(q[..., 3:4], -one), one)
+    vn2 = torch.sum(v * v, dim=-1, keepdim=True)
+    small = vn2 < 1e-18
+    vn = torch.sqrt(torch.where(small, torch.ones_like(vn2), vn2))
+    theta = 2.0 * torch.atan2(vn, w)
+    # Near the identity w ≈ 1: log(q) ≈ 2v/w (relative error O(|v|²)).
+    w_safe = torch.where(w > 0.5, w, torch.ones_like(w))
+    scale = torch.where(small, 2.0 / w_safe, theta / vn)
+    return v * scale

@@ -8,7 +8,9 @@ keep lists, K3, K5) launches once with a grid over the rows. The JAX package
 ``vmap``s ``fuse_core`` and shards the batch axis over a device mesh; the
 port runs on one card, so the mesh, its shardings and the padding of the
 batch to a mesh multiple are left out. ``fuse_buckets`` pipelines the
-length buckets through the card with ``utils.streaming.stream_chunks``.
+length buckets through the card with ``utils.streaming.stream_chunks``;
+``fuse_buckets_checkpointed`` saves each bucket as it drains and resumes a
+killed sweep from the buckets on disk.
 
 RANSAC draws: the JAX package takes a PRNG key a row; the port takes an
 integer seed a row (``seed + i``, as the ``fuse-batch`` command numbers its
@@ -18,6 +20,7 @@ draws what ``fuse_core`` on that sequence alone draws with ``seed=s``.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -158,6 +161,43 @@ def _to_host(out: fusion.FusionOutputs) -> fusion.FusionOutputs:
     return fusion.FusionOutputs(**d, sim3=Sim3(*(v.cpu().numpy() for v in out.sim3)))
 
 
+def _sweep(pending, seeds, results, config, device, dtype, estimate_offsets, on_bucket=None) -> None:
+    """Fuse the ``(j, (idxs, batch))`` buckets of ``pending`` into
+    ``results`` (in original order, each leaf sliced to its sequence's
+    length), pipelined with ``utils.streaming.stream_chunks``; then
+    ``on_bucket(j, idxs, rows)`` for each bucket as it drains."""
+
+    def _stage(jb):
+        idxs, b = jb[1]
+        toff = estimate_offsets_batch(b, device=device, dtype=dtype) if estimate_offsets else None
+        return stage_batch(b, seeds[idxs], device=device, dtype=dtype, time_offsets=toff)
+
+    def _launch(jb, staged):
+        return fuse_batch(staged, config=config)
+
+    def _drain(jb, out):
+        j, (idxs, b) = jb
+        host = _to_host(out)
+        n_max = b.slam_times.shape[1]
+        rows = []
+        for row, i in enumerate(idxs):
+            n = int(b.n_slam[row])
+
+            def slice_leaf(x):
+                x_row = x[row]
+                return x_row[:n] if x_row.ndim >= 1 and x_row.shape[0] == n_max else x_row
+
+            results[int(i)] = fusion.FusionOutputs(
+                **{k: slice_leaf(v) for k, v in host._asdict().items() if k != "sim3"},
+                sim3=Sim3(*(slice_leaf(v) for v in host.sim3)),
+            )
+            rows.append(results[int(i)])
+        if on_bucket is not None:
+            on_bucket(j, idxs, rows)
+
+    streaming.stream_chunks(pending, _stage, _launch, _drain)
+
+
 def fuse_buckets(
     buckets,
     seeds: Optional[Sequence[int]] = None,
@@ -181,32 +221,79 @@ def fuse_buckets(
     total = sum(len(idxs) for idxs, _ in buckets)
     seeds = np.arange(total) if seeds is None else np.asarray(seeds)
     results = [None] * total
+    _sweep(list(enumerate(buckets)), seeds, results, config, device, dtype, estimate_offsets)
+    return results
 
-    def _stage(bucket):
-        idxs, b = bucket
-        toff = estimate_offsets_batch(b, device=device, dtype=dtype) if estimate_offsets else None
-        return stage_batch(b, seeds[idxs], device=device, dtype=dtype, time_offsets=toff)
 
-    def _launch(bucket, staged):
-        return fuse_batch(staged, config=config)
+def _outputs_to_tree(out: fusion.FusionOutputs) -> dict:
+    d = out._asdict()
+    d["sim3"] = d["sim3"]._asdict()
+    return d
 
-    def _drain(bucket, out):
-        idxs, b = bucket
-        host = _to_host(out)
-        n_max = b.slam_times.shape[1]
-        for row, i in enumerate(idxs):
-            n = int(b.n_slam[row])
 
-            def slice_leaf(x):
-                x_row = x[row]
-                return x_row[:n] if x_row.ndim >= 1 and x_row.shape[0] == n_max else x_row
+def _outputs_from_tree(d: dict) -> fusion.FusionOutputs:
+    """Host ``FusionOutputs`` from a restored checkpoint's dict of CPU
+    tensors (the leaves ``fuse_buckets`` returns: NumPy arrays)."""
+    leaves = {k: v.numpy() for k, v in d.items() if k != "sim3"}
+    return fusion.FusionOutputs(**leaves, sim3=Sim3(**{k: v.numpy() for k, v in d["sim3"].items()}))
 
-            results[int(i)] = fusion.FusionOutputs(
-                **{k: slice_leaf(v) for k, v in host._asdict().items() if k != "sim3"},
-                sim3=Sim3(*(slice_leaf(v) for v in host.sim3)),
+
+def fuse_buckets_checkpointed(
+    buckets,
+    seeds: Optional[Sequence[int]],
+    ckpt_dir: str,
+    config: FusionConfig = FusionConfig(),
+    device=None,
+    dtype=None,
+    estimate_offsets: bool = False,
+):
+    """``fuse_buckets`` with a checkpoint a bucket and resume
+    (``utils.checkpoint``).
+
+    Each bucket is saved to ``ckpt_dir/bucket_NNNN`` as it drains (its state
+    first, ``metadata.json`` last: the metadata file marks it complete). A
+    rerun with the same ``ckpt_dir`` restores the finished buckets from disk
+    and fuses only the rest, so a killed sweep loses at most the buckets in
+    flight. Results equal ``fuse_buckets``'s.
+
+    The caller owns invalidation: pass a fresh ``ckpt_dir`` when the inputs
+    or the configuration change. A bucket whose stored sequence indices
+    differ from the bucket's now raises ValueError."""
+    from gps_optimize_slam_tpu_torch.utils import checkpoint as ckpt_util
+
+    device = resolve_device(device)
+    total = sum(len(idxs) for idxs, _ in buckets)
+    seeds = np.arange(total) if seeds is None else np.asarray(seeds)
+    results = [None] * total
+
+    def _bucket_path(j: int) -> str:
+        return os.path.join(ckpt_dir, f"bucket_{j:04d}")
+
+    pending = []
+    for j, bucket in enumerate(buckets):
+        idxs = np.asarray(bucket[0])
+        bpath = _bucket_path(j)
+        if not os.path.exists(os.path.join(bpath, "metadata.json")):
+            pending.append((j, bucket))
+            continue
+        state, meta = ckpt_util.restore_checkpoint_untyped(bpath)
+        stored = np.asarray(meta["indices"])
+        if not np.array_equal(stored, idxs):
+            raise ValueError(
+                f"checkpoint {bpath} was written for sequences {stored.tolist()}, bucket {j} now holds "
+                f"{idxs.tolist()}: pass a fresh ckpt_dir"
             )
+        for i in idxs:
+            results[int(i)] = _outputs_from_tree(state[f"seq_{int(i)}"])
 
-    streaming.stream_chunks(buckets, _stage, _launch, _drain)
+    def _save(j, idxs, rows):
+        ckpt_util.save_checkpoint(
+            _bucket_path(j),
+            {f"seq_{int(i)}": _outputs_to_tree(r) for i, r in zip(idxs, rows)},
+            metadata={"bucket": j, "indices": np.asarray(idxs).tolist()},
+        )
+
+    _sweep(pending, seeds, results, config, device, dtype, estimate_offsets, on_bucket=_save)
     return results
 
 

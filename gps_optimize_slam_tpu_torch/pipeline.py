@@ -5,7 +5,8 @@ Load → project (float64, CPU) → RANSAC outlier gate → ``fuse_core`` →
 ``evaluate`` → TUM export in the working frame and WGS84, as the reference's
 main_process_gui (EKFGPSSLAM.py:940-1123) without its GUI.
 ``fuse_files_chunked`` runs the same recipe out of core
-(``models.fusion_chunked``) for trajectories larger than device memory.
+(``models.fusion_chunked``) for trajectories larger than device memory;
+``refine_pose_graph`` refines a fusion globally (``models.pose_graph``).
 
 ``frame="utm"`` reproduces the reference's UTM working frame (golden
 parity); ``frame="enu"`` uses a local East/North/Up frame whose small
@@ -472,6 +473,64 @@ def fuse_files_chunked(
         slam=slam, gps=gps, result=result, evaluation=ev, config=config, time_offset=float(offset),
         gt=gt, gt_evaluation=gt_ev, gt_aligned=gt_al,
     )
+
+
+def refine_pose_graph(
+    result: FusionResult,
+    iterations: int = 10,
+    cg_iters: int = 50,
+    damping: float = 1e-6,
+    propose_loops: bool = True,
+    loop_radius: float = 5.0,
+    loop_min_time_gap: float = 30.0,
+    max_loops: int = 32,
+    checkpoint_dir: Optional[str] = None,
+    **weights,
+):
+    """Global pose-graph refinement of a fusion result (``models.pose_graph``),
+    on the device and in the dtype of the result's tensors.
+
+    Factors: odometry from the Sim3-transformed SLAM stream (metric scale,
+    locally drift-free), GNSS unary priors from the aligned track, and, with
+    ``propose_loops``, proximity-proposed loop closures over the fused
+    trajectory whose relative measurements are read from the Sim3
+    trajectory. The solve starts from the EKF/RTS output and runs
+    matrix-free Gauss-Newton + CG, checkpointed to ``checkpoint_dir`` when
+    one is given.
+
+    Returns ``(GNResult, loop_info)``, ``loop_info`` a dict with the number
+    of proposed closures and their valid pairs."""
+    from gps_optimize_slam_tpu_torch.models import pose_graph
+    from gps_optimize_slam_tpu_torch.ops import quaternion as quat_ops
+
+    o = result.outputs
+    times = torch.as_tensor(
+        np.asarray(result.slam["timestamps"]), dtype=o.corrected_pos.dtype, device=o.corrected_pos.device
+    )
+    loop_kwargs = {}
+    loop_info = {"n_loops": 0, "loop_ij": []}
+    if propose_loops:
+        loop_ij, _, _, loop_valid = pose_graph.propose_loop_closures(
+            o.corrected_pos, times, o.sim3_quat, radius=loop_radius, min_time_gap=loop_min_time_gap,
+            max_loops=max_loops,
+        )
+        # Measurements from the Sim3 trajectory (metric SLAM geometry).
+        i_sel, j_sel = loop_ij[:, 0], loop_ij[:, 1]
+        q_i_inv = quat_ops.conj(quat_ops.normalize(o.sim3_quat[i_sel]))
+        loop_dp = quat_ops.rotate(q_i_inv, o.sim3_pos[j_sel] - o.sim3_pos[i_sel])
+        loop_dq = quat_ops.mul(q_i_inv, quat_ops.normalize(o.sim3_quat[j_sel]))
+        loop_kwargs = dict(loop_ij=loop_ij, loop_dp=loop_dp, loop_dq=loop_dq, loop_valid=loop_valid)
+        valid = loop_valid.cpu().numpy()
+        loop_info = {"n_loops": int(valid.sum()), "loop_ij": loop_ij.cpu().numpy()[valid].tolist()}
+
+    data = pose_graph.build_data_from_fusion(
+        o.sim3_pos, o.sim3_quat, o.aligned_gps, o.gps_valid, **loop_kwargs, **weights
+    )
+    init = pose_graph.PoseGraphState(positions=o.corrected_pos, quaternions=o.corrected_quat)
+    gn = pose_graph.solve_pose_graph_checkpointed(
+        init, data, iterations=iterations, cg_iters=cg_iters, damping=damping, checkpoint_dir=checkpoint_dir
+    )
+    return gn, loop_info
 
 
 def export_result(

@@ -265,6 +265,57 @@ def test_adaptive_stopping_runs_the_chunks_the_neediest_row_needs(monkeypatch):
         assert torch.equal(batched.sim3.R[r], one.sim3.R) and torch.equal(batched.sim3.scale[r], one.sim3.scale)
 
 
+def test_checkpointed_sweep_resumes(tmp_path, monkeypatch):
+    """``fuse_buckets_checkpointed`` (JAX tests/test_batch_bucketing.py):
+    equal to ``fuse_buckets``; a full restore runs no fusion; losing one
+    bucket's checkpoint recomputes that bucket alone; a bucket whose
+    sequences changed is refused."""
+    import shutil
+
+    slams, gts, gps_list, valids = make_sequences(n_seqs=4, base_n=60)
+    buckets = pbatch.bucket_by_length(slams, gts, gps_list, valids, max_waste=1.3)
+    assert len(buckets) == 2
+    seeds, ckpt = [5, 6, 7, 8], str(tmp_path / "sweep")
+    kw = dict(config=GPU_LADDER, device="cpu")
+    ref = mesh.fuse_buckets(buckets, seeds, **kw)
+    got = mesh.fuse_buckets_checkpointed(buckets, seeds, ckpt, **kw)
+    assert sorted(os.listdir(ckpt)) == ["bucket_0000", "bucket_0001"]
+
+    def same(a, b):
+        for k, v in b._asdict().items():
+            if k == "sim3":
+                assert all(np.array_equal(x, y) for x, y in zip(a.sim3, v))
+            else:
+                assert not torch.is_tensor(getattr(a, k)) and np.array_equal(getattr(a, k), v)
+
+    for a, b in zip(got, ref):
+        same(a, b)
+
+    def boom(*a, **k):
+        raise AssertionError("fuse_batch called during a full restore")
+
+    monkeypatch.setattr(mesh, "fuse_batch", boom)
+    for a, b in zip(mesh.fuse_buckets_checkpointed(buckets, seeds, ckpt, **kw), ref):
+        same(a, b)
+    monkeypatch.undo()
+
+    shutil.rmtree(os.path.join(ckpt, "bucket_0000"))
+    calls, real = [], mesh.fuse_batch
+    monkeypatch.setattr(mesh, "fuse_batch", lambda *a, **k: calls.append(1) or real(*a, **k))
+    for a, b in zip(mesh.fuse_buckets_checkpointed(buckets, seeds, ckpt, **kw), ref):
+        same(a, b)
+    assert len(calls) == 1
+    monkeypatch.undo()
+
+    swapped = list(buckets)
+    swapped[0] = (swapped[0][0][::-1], swapped[0][1])
+    with pytest.raises(ValueError, match="fresh ckpt_dir"):
+        mesh.fuse_buckets_checkpointed(swapped, seeds, ckpt, **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.fuse_buckets_checkpointed(buckets, seeds, ckpt)
+
+
 @pytest.fixture(scope="module")
 def pair_files(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("batch_cli"))

@@ -1,8 +1,11 @@
-"""The port's command line (``python -m gps_optimize_slam_tpu_torch fuse``)
-on seq-04 files written from the golden arrays, on the CPU: its JSON has the
-keys of the JAX package's command in the same order, its values are those of
-the port's own ``pipeline`` call with the same seed (equal: the same code on
-the same inputs), and without ``--device cpu`` and without a card it raises.
+"""The port's command line (``python -m gps_optimize_slam_tpu_torch fuse``,
+``refine-graph``, ``kitti2tum``, ``oxts-extract``) on seq-04 files written
+from the golden arrays, on the CPU: its JSON has the keys of the JAX
+package's command in the same order, its values are those of the port's own
+``pipeline`` calls with the same seed (equal: the same code on the same
+inputs), the converters write the JAX package's files byte for byte, and
+without ``--device cpu`` and without a card ``fuse`` and ``refine-graph``
+raise.
 """
 
 import json
@@ -149,16 +152,86 @@ def test_config_file_and_flag_overrides(files, tmp_path, capsys):
     assert abs(got["time_offset_s"] + 1.09) < 0.05 and got["nn_vs_primary"]["ekf"]["count"] > 200
 
 
-def test_parser_knows_fuse_only_and_leaves_plotting_out(files):
-    """The parser refuses a subcommand the port has not taken over yet
-    (``refine-graph``; ``fuse`` and ``fuse-batch`` it knows), the plotting
-    flags, and no subcommand at all."""
+def test_parser_knows_the_ported_commands_and_leaves_plotting_out(files):
+    """The parser knows ``fuse``, ``fuse-batch``, ``refine-graph``,
+    ``kitti2tum`` and ``oxts-extract``, and refuses the plotting flags and no
+    subcommand at all."""
     slam_path, gps_path, _ = files
-    assert cli.build_parser().parse_args(["fuse-batch", f"{slam_path}:{gps_path}"]).fn is cli._cmd_fuse_batch
-    for argv in (["refine-graph", slam_path, gps_path], ["fuse", slam_path, gps_path, "--plot", "x.png"],
-                 ["fuse", slam_path, gps_path, "--show"], []):
+    parser = cli.build_parser()
+    assert parser.parse_args(["fuse-batch", f"{slam_path}:{gps_path}"]).fn is cli._cmd_fuse_batch
+    assert parser.parse_args(["refine-graph", slam_path, gps_path]).fn is cli._cmd_refine_graph
+    assert parser.parse_args(["kitti2tum", "p", "t", "o"]).fn is cli._cmd_kitti2tum
+    assert parser.parse_args(["oxts-extract", "d"]).fn is cli._cmd_oxts
+    for argv in (["fuse", slam_path, gps_path, "--plot", "x.png"], ["fuse", slam_path, gps_path, "--show"],
+                 ["refine-graph", slam_path, gps_path, "--plot", "x.png"], ["kitti2tum", "p", "t", "o", "--device", "cpu"],
+                 []):
         with pytest.raises(SystemExit):
-            cli.build_parser().parse_args(argv)
+            parser.parse_args(argv)
+
+
+def test_refine_graph_json_has_the_jax_keys_and_the_pipeline_values(files, tmp_path, capsys, monkeypatch):
+    """``refine-graph --json`` against the JAX command on the seq-04 files
+    (keys in order; values within the drift of other RANSAC draws, the same
+    consensus) and against the port's own pipeline calls (equal)."""
+    slam_path, gps_path, _ = files
+    from gps_optimize_slam_tpu.utils import cache as jcache
+
+    monkeypatch.setattr(jcache, "enable_persistent_cache", lambda *a, **k: "")
+    argv = ["refine-graph", slam_path, gps_path, "--iterations", "4", "--cg-iters", "25", "--json"]
+    assert jcli.main(argv + ["-o", str(tmp_path / "jax.tum")]) == 0
+    want = payload(capsys.readouterr().out)
+    out = str(tmp_path / "port.tum")
+    assert cli.main(argv + ["--device", "cpu", "-o", out, "--checkpoint-dir", str(tmp_path / "ck")]) == 0
+    text = capsys.readouterr().out
+    got = payload(text)
+    assert list(got) == list(want) == ["poses", "gn_iterations", "initial_cost", "final_cost", "cost_reduction_pct",
+                                       "loops_proposed", "loop_pairs", "ate_rmse_m"]
+    assert (got["poses"], got["gn_iterations"], got["loops_proposed"], got["loop_pairs"]) == (271, 4, 0, [])
+    assert (want["poses"], want["gn_iterations"], want["loops_proposed"], want["loop_pairs"]) == (271, 4, 0, [])
+    for k in ("initial_cost", "final_cost"):
+        assert abs(got[k] / want[k] - 1) < 1e-3
+    assert abs(got["ate_rmse_m"] - want["ate_rmse_m"]) <= 1e-3 and got["final_cost"] <= got["initial_cost"]
+    assert f"saved: {out}" in text and np.loadtxt(out).shape == np.loadtxt(str(tmp_path / "jax.tum")).shape == (271, 8)
+    assert sorted(os.listdir(tmp_path / "ck")) == ["metadata.json", "state"]
+
+    res = pipeline.fuse_files(slam_path, gps_path, frame="utm", seed=0, device="cpu")
+    gn, info = pipeline.refine_pose_graph(res, iterations=4, cg_iters=25)
+    costs = gn.cost_history.numpy()
+    assert (got["initial_cost"], got["final_cost"]) == (float(costs[0]), float(costs[-1]))
+    np.testing.assert_allclose(np.loadtxt(out)[:, 1:4], gn.state.positions.numpy(), atol=1e-6)
+    # Resumed from its checkpoint, the command prints the same report.
+    assert cli.main(argv + ["--device", "cpu", "--checkpoint-dir", str(tmp_path / "ck")]) == 0
+    assert payload(capsys.readouterr().out) == got
+    assert cli.main(["refine-graph", slam_path, gps_path, "--device", "cpu", "--iterations", "1", "--cg-iters",
+                     "5", "--no-loops"]) == 0
+    assert "pose graph: 271 poses, 0 loop closures" in capsys.readouterr().out
+
+
+def test_refine_graph_without_a_card_raises_unless_asked_for_the_cpu(files, monkeypatch):
+    slam_path, gps_path, _ = files
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["refine-graph", slam_path, gps_path, "--json"])
+
+
+def test_kitti2tum_and_oxts_extract_commands_write_what_jax_writes(tmp_path, capsys):
+    from tests.test_torch_io_kitti import write_kitti_files, write_oxts_folder
+
+    poses_path, times_path, _ = write_kitti_files(str(tmp_path))
+    got, want = str(tmp_path / "port.tum"), str(tmp_path / "jax.tum")
+    assert cli.main(["kitti2tum", poses_path, times_path, got]) == 0
+    assert capsys.readouterr().out == f"wrote {got}\n"
+    assert jcli.main(["kitti2tum", poses_path, times_path, want]) == 0
+    capsys.readouterr()
+    assert open(got).read() == open(want).read()
+    d = str(write_oxts_folder(tmp_path, n_frames=7, hole=3, multi=5, seed=1))
+    for extra in ([], ["--single-offset"]):
+        got, want = str(tmp_path / "port_gnss.txt"), str(tmp_path / "jax_gnss.txt")
+        assert cli.main(["oxts-extract", d, "-o", got, "--offset", "0.25"] + extra) == 0
+        assert capsys.readouterr().out == f"extracted 7 fixes -> {got}\n"
+        assert jcli.main(["oxts-extract", d, "-o", want, "--offset", "0.25"] + extra) == 0
+        capsys.readouterr()
+        assert open(got).read() == open(want).read()
 
 
 def test_chip_smoke_alone_names_what_it_misses(tmp_path):

@@ -512,3 +512,67 @@ def test_fuse_batch_on_the_card_matches_the_cpu_and_each_row(cuda):
         n = len(slam["timestamps"])
         assert float((out.corrected_pos[i, :n] - single.corrected_pos).abs().max()) <= 1e-9
         assert torch.equal(out.sim3_inliers[i, :n], single.sim3_inliers)
+
+
+def test_refine_on_the_card_matches_the_cpu_and_resumes_bit_for_bit(cuda, tmp_path):
+    """``fuse_arrays`` + ``refine_pose_graph`` on a 1,200-pose shuttle
+    (``chip_smoke.shuttle_sequence``) on the card against the same on CPU
+    tensors: positions ≤1e-6 m, quaternions ≤1e-8, cost history ≤1e-9
+    relative, the closures equal; a refinement stopped after 5 of 10 steps
+    and resumed from its checkpoint equals the uninterrupted one bit for
+    bit."""
+    from gps_optimize_slam_tpu_torch import pipeline
+
+    slam, gt, gp = chip_smoke.shuttle_sequence(1200)
+    gps = chip_smoke.shuttle_gps(gt, gp)
+    res = pipeline.fuse_arrays(slam, gps, device=cuda)
+    res_cpu = pipeline.fuse_arrays(slam, gps, device="cpu")
+    gn, info = pipeline.refine_pose_graph(res, **chip_smoke.REFINE, checkpoint_dir=str(tmp_path / "whole"))
+    gn_cpu, info_cpu = pipeline.refine_pose_graph(res_cpu, **chip_smoke.REFINE)
+    assert info["n_loops"] > 0 and gn.state.positions.device.type == cuda.type
+    gaps = chip_smoke.refine_gaps(gn, info, gn_cpu, info_cpu)
+    assert gaps["positions_m"] <= 1e-6 and gaps["quaternions"] <= 1e-8, gaps
+    assert gaps["cost_history_rel"] <= 1e-9 and gaps["loop_ij_equal"], gaps
+    stopped = str(tmp_path / "stopped")
+    pipeline.refine_pose_graph(res, **{**chip_smoke.REFINE, "iterations": 5}, checkpoint_dir=stopped)
+    resumed, _ = pipeline.refine_pose_graph(res, **chip_smoke.REFINE, checkpoint_dir=stopped)
+    assert all(torch.equal(a, b) for a, b in zip(resumed.state, gn.state))
+    assert torch.equal(resumed.cost_history, gn.cost_history)
+
+
+def test_pose_graph_pieces_on_the_card_match_the_cpu(cuda):
+    """``propose_loop_closures`` (every slot of ``loop_ij`` equal: the ties of
+    ``min`` and of the stable sort on the card), the residuals and one
+    Hessian-vector product (≤1e-12 relative) on the card against CPU
+    tensors."""
+    from gps_optimize_slam_tpu_torch.models import pose_graph
+    from gps_optimize_slam_tpu_torch.ops import quaternion as quat
+
+    gen = torch.Generator().manual_seed(3)
+    n = 2000
+    ang = torch.linspace(0, 6 * 3.141592653589793, n, dtype=torch.float64)
+    pos = torch.stack([torch.cos(ang) * 40, torch.sin(ang) * 40, torch.zeros(n, dtype=torch.float64)], -1)
+    pos = pos + 0.3 * torch.randn(n, 3, generator=gen, dtype=torch.float64)
+    q = quat.normalize(torch.randn(n, 4, generator=gen, dtype=torch.float64))
+    times = torch.arange(n, dtype=torch.float64) * 0.1
+    for radius, max_loops in ((2.0, 64), (0.5, 200)):
+        got = pose_graph.propose_loop_closures(pos.to(cuda), times.to(cuda), q.to(cuda), radius=radius,
+                                               max_loops=max_loops)
+        want = pose_graph.propose_loop_closures(pos, times, q, radius=radius, max_loops=max_loops)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[3].cpu(), want[3])
+        assert 0 < int(want[3].sum()) < max_loops
+    # The data from the trajectory, the state off it: every residual is of
+    # the order of the offsets, none a rounding of zero.
+    data = pose_graph.build_data_from_fusion(pos, q, pos, torch.rand(n, generator=gen) < 0.5, *want)
+    state = pose_graph.PoseGraphState(pos + 0.05 * torch.randn(n, 3, generator=gen, dtype=torch.float64),
+                                      quat.normalize(q + 0.01 * torch.randn(n, 4, generator=gen, dtype=torch.float64)))
+    v = torch.randn(n, 6, generator=gen, dtype=torch.float64)
+    to = lambda x: x.to(cuda) if torch.is_tensor(x) else x  # noqa: E731
+    data_c, state_c = pose_graph.PoseGraphData(*(to(x) for x in data)), pose_graph.PoseGraphState(*(to(x) for x in state))
+    r, rc = pose_graph.residuals(state, data), pose_graph.residuals(state_c, data_c).cpu()
+    assert float((r - rc).abs().max() / r.abs().max()) <= 1e-12
+    grad, hvp = pose_graph._normal_equations(state, data, 1e-6)
+    grad_c, hvp_c = pose_graph._normal_equations(state_c, data_c, 1e-6)
+    assert float((grad - grad_c.cpu()).abs().max() / grad.abs().max()) <= 1e-12
+    hv = hvp(v)
+    assert float((hv - hvp_c(v.to(cuda)).cpu()).abs().max() / hv.abs().max()) <= 1e-12
