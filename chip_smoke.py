@@ -15,7 +15,10 @@ and the ``fuse`` command) at both sizes, batched multi-sequence fusion
 (``parallel.mesh``: the eleven KITTI odometry sequences in length buckets,
 a 64-row fleet bucket, and the ``fuse-batch`` command), and the pose-graph
 refinement (``pipeline.refine_pose_graph`` after ``fuse_arrays`` on a
-4,541-pose shuttle, and the ``refine-graph`` and ``kitti2tum`` commands).
+4,541-pose shuttle, and the ``refine-graph`` and ``kitti2tum`` commands), and
+the multi-device paths on blocks sharing the card (``parallel.seqpar``,
+``mesh=`` shards, the ``distributed_launch`` example over gloo and NCCL,
+``decimated_view``).
 
 Usage (from the repository root, on a machine with a CUDA device):
 
@@ -122,7 +125,23 @@ Phases:
      walls (median of 3), the refine's profile (kernels, launches, idle
      share), its peak memory and the proposal's share of its wall. Then
      ``refine-graph --json`` on the seq-04 files and ``kitti2tum`` on a
-     KITTI pose file written from the golden arrays, as subprocesses.
+     KITTI pose file written from the golden arrays, as subprocesses;
+  9. the multi-device paths on one card, the mesh's blocks sharing it:
+     (a) ``fuse_ekf_rts_seqparallel`` on 4 blocks of phase 5's 1,048,576
+     poses (float64, the EKF stage's inputs from one ``fuse_core``; K2 a
+     block, K1 for the totals) against ``fuse_ekf_rts_parallel`` on the
+     card, both ``rts_mode``s, ≤1e-8 m and quaternions ≤1e-10; (b) the same
+     at 4,661 poses in float32 (padded to 4,664; K1 a block), ≤1e-2 m;
+     (c) ``fuse_core_chunked(scan_fn=...)`` at 1,048,576 poses in
+     524,287-pose chunks against the same without ``scan_fn``, ≤1e-8 m, the
+     same scale; (f) its ``decimated_view()``, ≤5,000 poses, equal to the
+     strided arrays; (d) ``fuse_batch(mesh=...)`` of phase 7's eleven KITTI
+     rows as one batch on 3 shards against the unsharded batch, ≤1e-9 m;
+     (e) ``python3 -m gps_optimize_slam_tpu_torch.examples.distributed_launch``
+     on the same rows, two gloo ranks sharing the card and then a one-rank
+     NCCL group, the gathered rows ≤1e-9 m from (d). Each beside its
+     single-device baseline (``utils.profiling.wallclock``), with the
+     profiles of (a), (b) and (d) and the ranks' fusion and gather times.
 
 The launch counts of the ``{"kernels": [...]}`` line are those of the
 main-path runs (phase 4: ``fuse_arrays`` at 4,661 poses; phase 5:
@@ -131,13 +150,14 @@ main-path runs (phase 4: ``fuse_arrays`` at 4,661 poses; phase 5:
 each gate and the adaptive ``sim3_ransac`` at 4,661 poses,
 ``fuse_core_chunked(robust=True)`` and ``evaluate_vs_track_chunked`` at
 1,048,576; phase 8: ``fuse_arrays`` + ``refine_pose_graph`` on the
-shuttle), each with the counts set to 0 just before it and read just
-after; ``launches`` is their sum and ``launches_by_phase`` the four terms.
-The ``@batch`` entries' launches are phase 7's (the KITTI buckets' fusion
-and evaluation, the fleet bucket's fusion), where every launch has a batch
-grid. The comparison launches of phase 1, phase 5's K3-route evaluation and
-its seq-04 run, and phase 6's and phase 7's reference runs do not count
-there.
+shuttle; phase 9: the seqpar runs of (a) and (b) and the chunked fusion of
+(c)), each with the counts set to 0 just before it and read just after;
+``launches`` is their sum and ``launches_by_phase`` the five terms. The
+``@batch`` entries' launches are phase 7's (the KITTI buckets' fusion and
+evaluation, the fleet bucket's fusion) and phase 9's mesh shards (d), where
+every launch has a batch grid. The comparison launches of phase 1, phase
+5's K3-route evaluation and its seq-04 run, phase 6's and phase 7's
+reference runs and phase 9's single-device baselines do not count there.
 """
 
 from __future__ import annotations
@@ -2308,6 +2328,245 @@ def phase8(device):
     return launches
 
 
+SEQPAR_BLOCKS = 4  # phase 9's sequence-parallel mesh: four blocks sharing the card
+SEQPAR_CHUNK = 524_287  # (c)'s chunks: 524,288 scan elements with the carry, blocks of 131,072 (K2)
+MESH_SHARDS = 3  # (d)'s mesh: the eleven KITTI rows padded to twelve
+# (e)'s runs of the distributed example: two gloo ranks sharing the card (NCCL
+# refuses two ranks on one card), then a one-rank NCCL group.
+DISTRIBUTED_RUNS = ((2, "gloo"), (1, "nccl"))
+
+
+def card_name() -> str:
+    import torch
+
+    return f"cuda:{torch.cuda.current_device()}"
+
+
+def card_mesh(k: int):
+    """A mesh of ``k`` blocks on the current card."""
+    from gps_optimize_slam_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[card_name()] * k)
+
+
+def ekf_inputs(slam, gt, gp, dtype, device):
+    """The EKF stage's seven inputs as ``fusion.fuse_core`` hands them to the
+    filter on the card (times, SLAM poses, the Sim(3) trajectory, the aligned
+    GNSS and its mask), from one fusion of the sequence."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+
+    st, sp, sq = dev(slam["timestamps"]), dev(slam["positions"]), dev(slam["quaternions"])
+    out = fusion.fuse_core(st, sp, sq, dev(gt), dev(gp), dev(np.ones(len(gt), bool), torch.bool),
+                           FusionConfig(gps_sorted=True), seed=0)
+    if not bool(out.ok):
+        raise AssertionError("phase 9: the Sim3 alignment failed")
+    return st, sp, sq, out.sim3_pos, out.sim3_quat, out.aligned_gps, out.gps_valid
+
+
+def seqpar_case(label, args, pos_tol, quat_tol, modes, expect):
+    """``fuse_ekf_rts_seqparallel`` on ``SEQPAR_BLOCKS`` blocks of the card
+    against ``fuse_ekf_rts_parallel`` on the card, for each ``rts_mode``:
+    the gaps, the launches of the first mode's run (held to ``expect``),
+    warm walls of both (``utils.profiling.wallclock``), and the first mode's
+    profile beside the single-device one. Returns the launch counts."""
+    from gps_optimize_slam_tpu_torch.ops import kalman_parallel
+    from gps_optimize_slam_tpu_torch.parallel import seqpar
+    from gps_optimize_slam_tpu_torch.utils import profiling
+
+    mesh = card_mesh(SEQPAR_BLOCKS)
+    gaps, launches, walls, prof = {}, None, {}, {}
+    for mode in modes:
+        def single():
+            return kalman_parallel.fuse_ekf_rts_parallel(*args, rts_mode=mode)
+
+        def split():
+            return seqpar.fuse_ekf_rts_seqparallel(mesh, *args, rts_mode=mode)
+
+        want = single()
+        got, counts = counted(split)
+        launches = launches or counts
+        gaps[mode] = {"positions_m": abs_err(got[0], want[0]), "quaternions": abs_err(got[1], want[1])}
+        walls[mode] = {"single_device": profiling.wallclock(single, runs=3),
+                       "seqpar": profiling.wallclock(split, runs=3)}
+        if not prof:
+            prof = {"seqpar": profile_device(split), "single_device": profile_device(single)}
+    emit({"phase": 9, "part": label, "poses": int(args[0].shape[0]), "blocks": SEQPAR_BLOCKS,
+          "dtype": dtype_name(args[1].dtype), "seqpar_vs_single_device": gaps,
+          "launches": {k: v for k, v in launches.items() if v}, "walls": walls, "profile": prof})
+    bad = {m: g for m, g in gaps.items() if not (g["positions_m"] <= pos_tol and g["quaternions"] <= quat_tol)}
+    if bad:
+        raise AssertionError(f"phase 9 {label}: seqpar off the single-device filter: {bad}")
+    got = {k: v for k, v in launches.items() if v}
+    if got != expect:
+        raise AssertionError(f"phase 9 {label}: launches {got}, expected {expect}")
+    return launches
+
+
+def phase9_chunked(device):
+    """(c) ``fuse_core_chunked`` at 1,048,576 poses in 524,287-pose chunks,
+    every chunk's filter scans split over four blocks of the card, against
+    the same chunked fusion with one scan a chunk: ≤1e-8 m, the same scale;
+    then (f) the ``decimated_view`` of that result against the strided host
+    arrays. Returns (the split run's launches, the result)."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch import pipeline
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion_chunked
+    from gps_optimize_slam_tpu_torch.parallel import seqpar
+    from gps_optimize_slam_tpu_torch.utils import profiling
+
+    f64, cfg = torch.float64, FusionConfig(gps_sorted=True)
+    slam, gt, gp = outage_sequence(CHUNKED_N)
+    st, sp, sq = slam["timestamps"], slam["positions"], slam["quaternions"]
+    gv = np.ones(len(gt), bool)
+    scan_fn = seqpar.sequence_parallel_scan(card_mesh(SEQPAR_BLOCKS))
+
+    def fuse(**kw):
+        return fusion_chunked.fuse_core_chunked(st, sp, sq, gt, gp, gv, seed=0, config=cfg, chunk_size=SEQPAR_CHUNK,
+                                                dtype=f64, device=device, **kw)
+
+    res, launches = counted(lambda: fuse(scan_fn=scan_fn))
+    ref = fuse()
+    pos_err = float(np.abs(res.corrected_pos - ref.corrected_pos).max())
+    quat_err = float(np.abs(res.corrected_quat - ref.corrected_quat).max())
+    scale_rel = rel_diff(float(res.sim3.scale), float(ref.sim3.scale))
+    walls = {"one_scan_a_chunk": profiling.wallclock(fuse, runs=2),
+             "seqpar": profiling.wallclock(lambda: fuse(scan_fn=scan_fn), runs=2)}
+    emit({"phase": 9, "part": "chunked", "poses": CHUNKED_N, "chunk": SEQPAR_CHUNK, "blocks": SEQPAR_BLOCKS,
+          "dtype": "float64", "ok": [res.ok, ref.ok], "seqpar_vs_one_scan": {
+              "corrected_pos_max_err_m": pos_err, "corrected_quat_max_err": quat_err, "scale_rel_err": scale_rel},
+          "launches": {k: v for k, v in launches.items() if v}, "walls": walls})
+    if not (res.ok and ref.ok and pos_err <= 1e-8 and quat_err <= 1e-10 and scale_rel <= 1e-12):
+        raise AssertionError(f"phase 9 chunked: {pos_err:.3e} m, quat {quat_err:.3e}, scale {scale_rel:.3e}")
+    if not all(launches[f"scan_tiled/{op}"] for op in ("quat_chain", "filter", "rts")) or not all(
+            launches[f"scan_block/{op}"] for op in ("quat_chain", "filter", "rts")):
+        raise AssertionError(f"phase 9 chunked: K2 blocks and K1 totals not all launched: {launches}")
+
+    # (f) The decimated overview of the split run's result.
+    gps = pipeline.GPSData(timestamps=gt, positions=gp, valid=gv, frame="enu", utm_zone=32, utm_south=False)
+    view = pipeline.ChunkedPipelineResult(slam=slam, gps=gps, result=res, evaluation=None, config=cfg,
+                                          device=device).decimated_view()
+    s = -(-CHUNKED_N // 5000)
+    full_sim3, _ = fusion_chunked.transform_trajectory_chunked(sp, sq, res.sim3, chunk_size=SEQPAR_CHUNK,
+                                                               dtype=f64, device=device)
+    n_view = len(view.slam["timestamps"])
+    strided = (np.array_equal(view.corrected_pos, res.corrected_pos[::s])
+               and np.array_equal(view.slam["positions"], sp[::s])
+               and np.array_equal(view.outputs.gps_valid, res.gps_valid[::s])
+               and np.array_equal(view.outputs.aligned_gps, res.aligned_gps[::s], equal_nan=True))
+    sim3_err = float(np.abs(view.outputs.sim3_pos - full_sim3[::s]).max())
+    emit({"phase": 9, "part": "decimated view", "poses": n_view, "stride": s, "strided_arrays_equal": strided,
+          "sim3_pos_vs_strided_full_m": sim3_err})
+    if not (n_view <= 5000 and strided and sim3_err <= 1e-9):
+        raise AssertionError(f"phase 9 decimated view: {n_view} poses, strided {strided}, sim3 {sim3_err:.3e} m")
+    return launches
+
+
+def phase9_mesh(device):
+    """(d) The eleven KITTI rows as one batch (B = 11, each row padded to the
+    longest) on a 3-shard mesh of the card against the unsharded batch on the
+    card: rows ≤1e-9 m. (e) The same rows through the ``distributed_launch``
+    example: two gloo ranks on the card, then a one-rank NCCL group; the
+    gathered rows equal (d)'s ≤1e-9 m. Returns the sharded run's launches."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.examples import distributed_launch
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+    from gps_optimize_slam_tpu_torch.utils import profiling
+
+    seqs = kitti_sequences()
+    b = pbatch.pad_batch([s for s, _, _, _ in seqs], [t for _, t, _, _ in seqs], [p for _, _, p, _ in seqs])
+    seeds, cfg, f64 = list(range(len(seqs))), FusionConfig(), torch.float64
+    shards = card_mesh(MESH_SHARDS)
+
+    def unsharded():
+        return mesh.fuse_batch(b, seeds, config=cfg, device=device, dtype=f64)
+
+    def sharded():
+        return mesh.fuse_batch(b, seeds, config=cfg, mesh=shards, dtype=f64)
+
+    want, want_launches = counted(unsharded)
+    got, launches = counted(sharded)
+    err = abs_err(got.corrected_pos, want.corrected_pos)
+    masks = bool(torch.equal(got.sim3_inliers, want.sim3_inliers) and torch.equal(got.gps_valid, want.gps_valid))
+    walls = {"unsharded": profiling.wallclock(unsharded, runs=3), "sharded": profiling.wallclock(sharded, runs=3)}
+    prof = {"sharded": profile_device(sharded), "unsharded": profile_device(unsharded)}
+    emit({"phase": 9, "part": "mesh shards", "rows": len(seqs), "shards": MESH_SHARDS,
+          "padded_poses": int(b.slam_times.shape[1]), "dtype": "float64", "ok": bool(got.ok.all()),
+          "rows_vs_unsharded_max_err_m": err, "masks_equal": masks,
+          "launches": {k: v for k, v in launches.items() if v},
+          "unsharded_launches": {k: v for k, v in want_launches.items() if v}, "walls": walls, "profile": prof})
+    if not (bool(got.ok.all()) and err <= 1e-9 and masks):
+        raise AssertionError(f"phase 9 mesh: rows off the unsharded batch by {err:.3e} m, masks {masks}")
+    if launches["ransac_counts"] != MESH_SHARDS * want_launches["ransac_counts"]:
+        raise AssertionError(f"phase 9 mesh: {launches} against one batch's {want_launches}")
+
+    want_pos = want.corrected_pos.cpu().numpy()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        batch_path = os.path.join(tmp, "batch.npz")
+        distributed_launch.save_batch(batch_path, b, seeds)
+        for nproc, backend in DISTRIBUTED_RUNS:
+            out = os.path.join(tmp, f"{backend}.npz")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "gps_optimize_slam_tpu_torch.examples.distributed_launch", "--nproc",
+                 str(nproc), "--backend", backend, "--device", card_name(), "--batch",
+                 batch_path, "--out", out, "--log-dir", os.path.join(tmp, backend), "--timeout", "300"],
+                cwd=REPO, capture_output=True, text=True, timeout=400, env={**os.environ, "PYTHONPATH": REPO})
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"distributed_launch {backend}: exit code {proc.returncode}\n"
+                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+            timing = [json.loads(line[len("timing "):]) for line in proc.stdout.splitlines()
+                      if line.startswith("timing ")]
+            with np.load(out) as f:
+                gathered = f["corrected_pos"]
+            gap = float(np.abs(gathered - want_pos).max()) if gathered.shape == want_pos.shape else float("inf")
+            runs.append({"backend": backend, "ranks": nproc, "wall_s": wall, "rows_vs_unsharded_max_err_m": gap,
+                         "ranks_timing": timing})
+    emit({"phase": 9, "part": "distributed", "rows": len(seqs), "runs": runs})
+    bad = [r for r in runs if not r["rows_vs_unsharded_max_err_m"] <= 1e-9 or len(r["ranks_timing"]) != r["ranks"]]
+    if bad:
+        raise AssertionError(f"phase 9 distributed: gathered rows off the unsharded batch: {bad}")
+    return launches
+
+
+def phase9(device):
+    """Multi-device paths on one card: (a) seqpar float64 at 1,048,576 poses,
+    (b) seqpar float32 at 4,661, (c) the chunked fusion with seqpar scans and
+    (f) its decimated view, (d) mesh shards and (e) the distributed example.
+    Returns (the launches of (a), (b) and (c), summed; those of (d))."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+
+    cfg = FusionConfig()
+    blocks = {f"scan_{route}/{op}": n for op in ("quat_chain", "filter", "rts")
+              for route, n in (("tiled", SEQPAR_BLOCKS), ("block", 1))}
+    slam, gt, gp = outage_sequence(CHUNKED_N)
+    args = ekf_inputs(slam, gt, gp, torch.float64, device) + (cfg.ekf, cfg.rts_decision)
+    runs = [seqpar_case("seqpar float64", args, 1e-8, 1e-10, ("outage", "full"), blocks)]
+    del args
+    torch.cuda.empty_cache()
+    slam, gt, gp = replica_sequence(SEQ02_LEN)
+    args = ekf_inputs(slam, gt, gp, torch.float32, device) + (cfg.ekf, cfg.rts_decision)
+    runs.append(seqpar_case("seqpar float32", args, 1e-2, TOL["float32"], ("outage",),
+                            {f"scan_block/{op}": SEQPAR_BLOCKS + 1 for op in ("quat_chain", "filter", "rts")}))
+    runs.append(phase9_chunked(device))
+    sharded = phase9_mesh(device)
+    return {k: sum(r[k] for r in runs) for k in runs[0]}, sharded
+
+
 def main() -> int:
     import torch
 
@@ -2342,12 +2601,13 @@ def main() -> int:
     robust = phase6(device)
     batched = phase7(device)
     refined = phase8(device)
+    split, sharded = phase9(device)
     for e in entries:
-        # A batched entry is the same wrapper at phase 7's batch shapes:
-        # its launches are phase 7's, where every launch has a batch grid.
+        # A batched entry is the same wrapper at the batch shapes of phase 7
+        # and of phase 9's mesh shards, where every launch has a batch grid.
         name, at_batch = e["name"].split("@")[0], "@" in e["name"]
-        by_phase = {"7": batched[name]} if at_batch else {
-            "4": in_core[name], "5": chunked[name], "6": robust[name], "8": refined[name]}
+        by_phase = {"7": batched[name], "9": sharded[name]} if at_batch else {
+            "4": in_core[name], "5": chunked[name], "6": robust[name], "8": refined[name], "9": split[name]}
         e["launches"] = sum(by_phase.values())
         e["launches_by_phase"] = by_phase
     print(smi, flush=True)

@@ -11,7 +11,7 @@ Replaces the reference's tkinter dialog flow (EKFGPSSLAM.py:669-674,
         [--ekf-scan auto|sequential|parallel]
         [--estimate-offset off|faithful|xcorr|xcorr_device] [--meas-noise SX SY SZ]
         [--no-gps-filter] [--robust [--robust-gate CHI2] [--robust-iters N]]
-        [--chunked [--chunk-size N]]
+        [--chunked [--chunk-size N]] [--plot PNG] [--show]
 
 and fuses many sequences as length-bucketed batched programs with
 
@@ -31,7 +31,8 @@ closures proposed by proximity) with
         [--checkpoint-dir DIR]
 
 These run on the card and fail without one; ``--device cpu`` runs them on
-the CPU. The JSON they print has the keys of the JAX package's commands.
+the CPU. ``--plot``/``--show`` need matplotlib (``viz``); with ``--chunked``
+the figure is a decimated overview. The JSON they print has the keys of the JAX package's commands.
 Two host-only converters take no device:
 
     python -m gps_optimize_slam_tpu_torch kitti2tum POSES TIMES OUT
@@ -170,6 +171,12 @@ def _cmd_fuse(args) -> int:
             )
         pipeline.export_result(result, args.output, wgs)
         print(f"saved: {args.output}" + (f" and {wgs}" if wgs else ""))
+    if args.plot or args.show:
+        from gps_optimize_slam_tpu_torch.viz import plot_fusion_result
+
+        plot_fusion_result(result, args.plot, interactive=args.show, show=args.show)
+        if args.plot:
+            print(f"plot saved: {args.plot}")
     return 0
 
 
@@ -177,7 +184,9 @@ def _cmd_fuse_chunked(args, config, frame, dtype) -> int:
     """The out-of-core path of ``fuse --chunked``: trajectories larger than
     device memory stream through the device in chunks
     (``pipeline.fuse_files_chunked``); the ground-truth comparison and the
-    χ² gate stream too."""
+    χ² gate stream too. The figure of ``--plot``/``--show`` draws
+    ``ChunkedPipelineResult.decimated_view`` (at most 5,000 poses; the
+    exported TUM keeps every pose)."""
     from gps_optimize_slam_tpu_torch import pipeline
     from gps_optimize_slam_tpu_torch.io import tum as tum_io
 
@@ -195,6 +204,12 @@ def _cmd_fuse_chunked(args, config, frame, dtype) -> int:
         robust_gate_chi2=args.robust_gate,
         robust_iterations=args.robust_iters,
     )
+    if args.plot or args.show:
+        from gps_optimize_slam_tpu_torch.viz import plot_fusion_result
+
+        plot_fusion_result(res.decimated_view(), args.plot, interactive=args.show, show=args.show)
+        if args.plot:
+            print(f"plot saved: {args.plot} (decimated overview)")
     if args.json:
         extra = (("chunked", True), ("chunk_size", args.chunk_size))
         print(json.dumps(_report(res, res.result.robust_accepted, res.result.gps_valid, extra), indent=2))
@@ -401,6 +416,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     f.add_argument("--seed", type=int, default=0)
     f.add_argument("--json", action="store_true", help="machine-readable output")
+    f.add_argument("--plot", help="save a matplotlib overview figure (png)")
+    f.add_argument(
+        "--show",
+        action="store_true",
+        help="open the interactive figure (show/hide-layer CheckButtons; needs a GUI matplotlib backend)",
+    )
     f.add_argument("-v", "--verbose", action="store_true", help="step logging")
     f.add_argument(
         "--config",

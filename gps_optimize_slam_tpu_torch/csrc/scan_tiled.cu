@@ -58,6 +58,9 @@
 
 namespace {
 
+// Device ordinals K2 keeps a persistent-block count for.
+constexpr int kMaxDevices = 64;
+
 constexpr size_t kAheadBufferBytes = 72 * 1024;  // each of two buffers
 constexpr size_t kHalfSmBytes = 112 * 1024;      // one buffer, two blocks an SM
 constexpr size_t kWholeSmBytes = 224 * 1024;     // one buffer, one block an SM
@@ -224,23 +227,30 @@ struct TiledScan {
     if (scratch_bytes < (long long)Layout::scratch_bytes(n)) return cudaErrorInvalidValue;
     const int tiles = Layout::tiles(n);
     const size_t smem = (tiled_single<T>(Op::L) ? 1 : 2) * Layout::smem_bytes();
-    static int slots = 0;  // blocks of this kernel the card runs at once
+    // Blocks of this kernel each card runs at once, by device ordinal: the
+    // launch goes to the current device (the wrapper makes it the tensors'
+    // own), and the shared-memory attribute is set per device too.
+    static int slots_of[kMaxDevices] = {0};
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return e;
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    int slots = slots_of[device];
     if (slots == 0) {
-      int device = 0, sms = 0, per_sm = 0;
-      cudaError_t e = allow_smem(tiled_scan_kernel<Op, T>, smem);
-      if (e == cudaSuccess) e = cudaGetDevice(&device);
+      int sms = 0, per_sm = 0;
+      e = allow_smem(tiled_scan_kernel<Op, T>, smem);
       if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
       if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tiled_scan_kernel<Op, T>,
                                                           kScanThreads, smem);
       if (e != cudaSuccess) return e;
       if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-      slots = sms * per_sm;
+      slots = slots_of[device] = sms * per_sm;
     }
     char* base = static_cast<char*>(scratch);
     T* agg = reinterpret_cast<T*>(base + Layout::values_offset(n));
     T* incl = agg + (size_t)tiles * Op::L;
-    cudaError_t e = cudaMemsetAsync(scratch, 0, Layout::flag_bytes(n), stream);
+    e = cudaMemsetAsync(scratch, 0, Layout::flag_bytes(n), stream);
     if (e != cudaSuccess) return e;
     tiled_scan_kernel<Op, T><<<tiles < slots ? tiles : slots, kScanThreads, smem, stream>>>(
         static_cast<const T*>(in), static_cast<T*>(out), n, reverse, tiles,

@@ -307,6 +307,7 @@ def fuse_core_chunked(
     robust_iterations: int = 2,
     sim3_draws: Optional[torch.Tensor] = None,
     device=None,
+    scan_fn=None,
 ):
     """Full fusion of one arbitrarily long sequence from raw GNSS.
 
@@ -331,6 +332,11 @@ def fuse_core_chunked(
     gate passes at the threshold ``robust_gate_chi2``, the 95th percentile
     of χ²₃ when None); the result's ``robust_accepted`` records the
     surviving measurements.
+
+    ``scan_fn`` (``parallel.seqpar.sequence_parallel_scan(mesh)``) splits
+    each chunk's filter scans over the devices of a mesh, the robust gate's
+    too: host chunks meet device blocks; pick ``chunk_size = k·D − 1``
+    (see ``kalman_chunked``).
     """
     device = resolve_device(device)
     aligned, valid = alignment_chunked.align_gps_to_slam_chunked(
@@ -356,7 +362,7 @@ def fuse_core_chunked(
         dtype=dtype, device=device,
     )
     ekf_args = dict(ekf_cfg=config.ekf, rts_cfg=config.rts_decision, rts_mode=config.rts_mode,
-                    chunk_size=chunk_size, dtype=dtype, device=device)
+                    chunk_size=chunk_size, dtype=dtype, device=device, scan_fn=scan_fn)
     robust_accepted = None
     if robust:
         out_pos, out_quat, robust_accepted, _ = robust_mod.fuse_robust_chunked(

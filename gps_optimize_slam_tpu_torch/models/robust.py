@@ -271,13 +271,13 @@ def fuse_robust(
 # ---------------------------------------------------------------------------
 
 
-def _gate_chunk(times, pos, quats, z, av_e, av_u, gate, q_carry, elem_carry, Q_pos_diag, R_diag):
+def _gate_chunk(times, pos, quats, z, av_e, av_u, gate, q_carry, elem_carry, Q_pos_diag, R_diag, scan_fn=None):
     """One chunk of a gate pass (L + 1 poses, L candidate steps): (accept
     (L,), nis (L,), new q_carry, new elem_carry). Row 0 of the forward
     chunk is the carried filtered state at the chunk's first pose, so rows
     0..L-1 are the one-step-back states of steps 0..L-1."""
     qf, m_f, P_f6, d, Qd_diag, elem_carry = kalman_chunked.forward_chunk(
-        times, pos, quats, z, av_u, q_carry, elem_carry, Q_pos_diag, R_diag
+        times, pos, quats, z, av_u, q_carry, elem_carry, Q_pos_diag, R_diag, scan_fn
     )
     accept, nis = _one_step_nis(
         m_f[:-1], P_f6[:-1][:, [0, 3, 5]], d, Qd_diag, R_diag, torch.nan_to_num(z, nan=0.0), av_e, gate
@@ -299,8 +299,10 @@ def gated_availability_chunked(
     chunk_size: int = 262144,
     dtype: torch.dtype = torch.float64,
     device=None,
+    scan_fn=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """One χ² gate pass over a host-resident trajectory of any length.
+    """One χ² gate pass over a host-resident trajectory of any length
+    (``scan_fn``: see ``kalman_chunked.fuse_ekf_rts_chunked``).
 
     NumPy (or memory-mapped) inputs, O(chunk_size) device residency on
     ``device`` (the card unless the caller names another); staged, padded
@@ -334,7 +336,7 @@ def gated_availability_chunked(
     def _launch(ab, staged):
         nonlocal q_carry, elem_carry
         acc, nis, q_carry, elem_carry = _gate_chunk(
-            *staged, gate_chi2, q_carry, elem_carry, Q_pos_diag, R_diag
+            *staged, gate_chi2, q_carry, elem_carry, Q_pos_diag, R_diag, scan_fn
         )
         return acc, nis
 
@@ -364,9 +366,11 @@ def fuse_robust_chunked(
     chunk_size: int = 262144,
     dtype: torch.dtype = torch.float64,
     device=None,
+    scan_fn=None,
 ):
     """χ²-gated EKF + RTS over a host-resident trajectory of any length:
-    ``fuse_robust(gate_mode="parallel")`` out of core.
+    ``fuse_robust(gate_mode="parallel")`` out of core, every chunk's scans
+    by ``scan_fn`` (None: ``ops.scan.associative_scan``).
 
     The gate iterates to a fixed point of the accept mask, at most
     ``n_iterations`` passes of ``gated_availability_chunked``, and logs a
@@ -384,6 +388,7 @@ def fuse_robust_chunked(
         accepted, nis = gated_availability_chunked(
             slam_times, slam_pos, slam_quat, sim3_pos0, sim3_quat0, aligned_gps, avail, accepted,
             ekf_cfg=ekf_cfg, gate_chi2=gate_chi2, chunk_size=chunk_size, dtype=dtype, device=device,
+            scan_fn=scan_fn,
         )
         converged = bool(np.array_equal(accepted, prev))
         if converged:
@@ -398,6 +403,6 @@ def fuse_robust_chunked(
     pos, quatn = kalman_chunked.fuse_ekf_rts_chunked(
         slam_times, slam_pos, slam_quat, sim3_pos0, sim3_quat0, gated_gps, accepted,
         ekf_cfg=ekf_cfg, rts_cfg=rts_cfg, rts_mode=rts_mode, chunk_size=chunk_size,
-        dtype=dtype, device=device,
+        dtype=dtype, device=device, scan_fn=scan_fn,
     )
     return pos, quatn, accepted, nis

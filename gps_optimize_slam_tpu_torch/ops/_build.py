@@ -11,7 +11,8 @@ a module is imported: the CPU tests import every module on a host with no
 
 Every C entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`check` raises on anything but ``cudaSuccess``. Kernels launch on
-PyTorch's current stream, allocate nothing and do not synchronise.
+PyTorch's current stream of their tensors' device, with that device made
+current around the call, allocate nothing and do not synchronise.
 """
 
 from __future__ import annotations
@@ -138,8 +139,12 @@ def dtype_code(t: torch.Tensor) -> int:
     raise TypeError(f"kernels take float32 or float64, got {t.dtype}")
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``, the device of
+    the tensors a wrapper launches on (which also makes it current around
+    the launch, ``torch.cuda.device``): the current device's stream would
+    put a block of a multi-device mesh in another device's context."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def require_cuda(*tensors: torch.Tensor, contiguous: bool = True) -> None:

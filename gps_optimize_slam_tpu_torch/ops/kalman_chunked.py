@@ -24,11 +24,16 @@ arrays: device residency is O(chunk), host residency O(N). Control signals (outa
 recomputed in NumPy (``controls_numpy``). Matches
 ``kalman_parallel.fuse_ekf_rts_parallel`` (same element algebra, same
 combine order); hard updates only (transition steps ≡ 0).
+
+A ``scan_fn`` (``parallel.seqpar.sequence_parallel_scan(mesh)``) splits
+each chunk's scans over the devices of a mesh: host chunks meet device
+blocks. Each scan runs over chunk_size + 1 elements (the carry first), so
+``chunk_size = k·D − 1`` lines the blocks up on a D-device mesh.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +43,7 @@ from gps_optimize_slam_tpu_torch.ops import quaternion as quat
 from gps_optimize_slam_tpu_torch.ops import se3
 from gps_optimize_slam_tpu_torch.ops.kalman import ekf_params
 from gps_optimize_slam_tpu_torch.ops.kalman_parallel import (
+    ScanFn,
     filter_step_elements,
     parallel_quat_chain,
     prior_element,
@@ -108,8 +114,10 @@ def controls_numpy(
     return avail, rts_member, rts_end
 
 
-def forward_chunk(times, pos, quats, z, avail, q_carry, elem_carry, Q_pos_diag, R_diag):
-    """One forward chunk over L steps (L + 1 poses, the overlap pose first).
+def forward_chunk(times, pos, quats, z, avail, q_carry, elem_carry, Q_pos_diag, R_diag,
+                  scan_fn: Optional[ScanFn] = None):
+    """One forward chunk over L steps (L + 1 poses, the overlap pose first),
+    its two scans by ``scan_fn`` (None: ``associative_scan``).
 
     Row 0 of every (L + 1)-row output is the carried state at the chunk's
     first pose, rows 1..L the chunk's own poses: the fusion keeps rows 1..L,
@@ -117,12 +125,12 @@ def forward_chunk(times, pos, quats, z, avail, q_carry, elem_carry, Q_pos_diag, 
     (q_f (L+1,4), m_f (L+1,3), P_f6 (L+1,6), d (L,3), Qd (L,3),
     new_elem_carry (27,)); the next quaternion carry is ``q_f[-1]``."""
     dp, dq = se3.relative_poses_along(pos, quats)
-    qf = parallel_quat_chain(q_carry, dq)  # (L+1, 4)
+    qf = parallel_quat_chain(q_carry, dq, scan_fn)  # (L+1, 4)
     d = quat.rotate(qf[:-1], dp)
     dt = torch.clamp(times[1:] - times[:-1], min=1e-6)
     Qd_diag = Q_pos_diag[None, :] * dt[:, None]
     steps = filter_step_elements(avail, d, Qd_diag, torch.nan_to_num(z, nan=0.0), R_diag)
-    out = associative_scan("filter", torch.cat([elem_carry[:, None], steps], dim=1))
+    out = (scan_fn or associative_scan)("filter", torch.cat([elem_carry[:, None], steps], dim=1))
     return qf, out[9:12].T, out[12:18].T, d, Qd_diag, out[:, -1].contiguous()
 
 
@@ -154,11 +162,11 @@ def stage_forward_chunk(ab, chunk_size, np_dt, device, slam_times, slam_pos, sla
     return tuple(torch.as_tensor(x, device=device) for x in (sl_t, sl_p, sl_q, z, *masks))
 
 
-def _backward_chunk(m_f, P_f6, d, Qd_diag, interior, carry_M, carry_c):
-    """One backward (RTS) chunk over L steps. ``m_f``/``P_f6`` are the
-    filtered stats at the LEFT pose of each step, ``interior`` marks
-    RTS-interior steps. Returns (m_s (L,3), new_carry_M (9,), new_carry_c
-    (3,))."""
+def _backward_chunk(m_f, P_f6, d, Qd_diag, interior, carry_M, carry_c, scan_fn: Optional[ScanFn] = None):
+    """One backward (RTS) chunk over L steps, its suffix scan by ``scan_fn``
+    (None: ``associative_scan``). ``m_f``/``P_f6`` are the filtered stats at
+    the LEFT pose of each step, ``interior`` marks RTS-interior steps.
+    Returns (m_s (L,3), new_carry_M (9,), new_carry_c (3,))."""
     zero = torch.zeros_like(Qd_diag[:, 0])
     Qd_m = [Qd_diag[:, 0], zero, zero, zero, Qd_diag[:, 1], zero, zero, zero, Qd_diag[:, 2]]
     Pf_m = sym_expand(P_f6.unbind(1))
@@ -169,7 +177,7 @@ def _backward_chunk(m_f, P_f6, d, Qd_diag, interior, carry_M, carry_c):
     c_full = [x - y for x, y in zip(mf, _mvec(E, m_p_next))]
     c = [torch.where(interior, cf, x) for cf, x in zip(c_full, mf)]
     tail = torch.cat([carry_M, carry_c])
-    out = associative_scan("rts", torch.cat([torch.stack(E + c), tail[:, None]], dim=1), reverse=True)
+    out = (scan_fn or associative_scan)("rts", torch.cat([torch.stack(E + c), tail[:, None]], dim=1), reverse=True)
     return out[9:12, :-1].T, out[:9, 0].contiguous(), out[9:12, 0].contiguous()
 
 
@@ -187,10 +195,13 @@ def fuse_ekf_rts_chunked(
     chunk_size: int = 262144,
     dtype: torch.dtype = torch.float64,
     device=None,
+    scan_fn: Optional[ScanFn] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """EKF + RTS over a host-resident (possibly memory-mapped) trajectory of
     any length, streaming fixed-size chunks through ``device`` (the card
     unless the caller names another; see ``utils.device.resolve_device``).
+    ``scan_fn`` (``parallel.seqpar.sequence_parallel_scan(mesh)``) runs each
+    chunk's three scans; pick ``chunk_size = k·D − 1`` for a D-device mesh.
 
     All inputs are NumPy arrays (or memmaps); device memory use is
     O(chunk_size). Chunk transfers are software-pipelined
@@ -239,7 +250,7 @@ def fuse_ekf_rts_chunked(
 
     def _fwd_launch(ab, staged):
         nonlocal q_carry, elem_carry
-        qf, m_f, P_f6, d, Qd, elem_carry = forward_chunk(*staged, q_carry, elem_carry, Q_pos_diag, R_diag)
+        qf, m_f, P_f6, d, Qd, elem_carry = forward_chunk(*staged, q_carry, elem_carry, Q_pos_diag, R_diag, scan_fn)
         q_carry = qf[-1]
         return qf[1:], m_f[1:], P_f6[1:], d, Qd
 
@@ -285,7 +296,7 @@ def fuse_ekf_rts_chunked(
 
     def _bwd_launch(ab, staged):
         nonlocal carry_M, carry_c
-        m_s, carry_M, carry_c = _backward_chunk(*staged, carry_M, carry_c)
+        m_s, carry_M, carry_c = _backward_chunk(*staged, carry_M, carry_c, scan_fn)
         return m_s
 
     def _bwd_drain(ab, m_s):

@@ -14,15 +14,17 @@ García-Fernández, IEEE TAC 2021), using the problem's structure:
   boundaries (the quaternion block is a no-op).
 
 All three scans go through K1 (``ops.scan.associative_scan``): the kernel on
-CUDA, the plain ladder on CPU. Leaves are structure-of-arrays: a 3×3 matrix
-is nine (N,) tensors, a symmetric one six. Under a leading batch axis (one
+CUDA, the plain ladder on CPU. A ``scan_fn`` of the same contract replaces
+it in all three: ``parallel.seqpar.sequence_parallel_scan`` splits the pose
+axis into blocks on the devices of a mesh. Leaves are structure-of-arrays: a
+3×3 matrix is nine (N,) tensors, a symmetric one six. Under a leading batch axis (one
 sequence a row) every leaf is (B, N) and each scan one launch over all
 rows, the leaves (27, B, N), (12, B, N) and (4, B, N).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -43,11 +45,20 @@ from gps_optimize_slam_tpu_torch.ops.scan import (
 )
 
 
-def parallel_quat_chain(init_quat: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
+# A scan of ``ops.scan.associative_scan``'s contract: (op, (L, n) or
+# (L, B, n) leaves, reverse=False) -> the inclusive scan, the accumulated
+# composite the first combine argument in both directions.
+ScanFn = Callable[..., torch.Tensor]
+
+
+def parallel_quat_chain(init_quat: torch.Tensor, dq: torch.Tensor,
+                        scan_fn: Optional[ScanFn] = None) -> torch.Tensor:
     """q_k = normalize(q₀ ⊗ δq₁ ⊗ … ⊗ δq_k) for all k, in log depth:
-    init_quat (..., 4), dq (..., N-1, 4) → (..., N, 4)."""
+    init_quat (..., 4), dq (..., N-1, 4) → (..., N, 4). ``scan_fn`` (None:
+    ``associative_scan``) runs the product scan."""
+    scan_fn = scan_fn or associative_scan
     qs = torch.cat([quat.normalize(init_quat)[..., None, :], dq], -2)
-    return torch.movedim(associative_scan("quat_chain", torch.movedim(qs, -1, 0).contiguous()), 0, -1).contiguous()
+    return torch.movedim(scan_fn("quat_chain", torch.movedim(qs, -1, 0).contiguous()), 0, -1).contiguous()
 
 
 def filter_step_elements(
@@ -103,10 +114,12 @@ def filter_elements(
     return torch.cat([prior[..., None], steps], dim=-1)
 
 
-def parallel_position_filter(m0, P0, d, Qd_diag, R_diag, z, avail):
+def parallel_position_filter(m0, P0, d, Qd_diag, R_diag, z, avail, scan_fn: Optional[ScanFn] = None):
     """Filtered means (N,3) and covariances of the affine KF, covariances
-    as the symmetric (6, N) leaves (xx, xy, xz, yy, yz, zz)."""
-    out = associative_scan("filter", filter_elements(m0, P0, d, Qd_diag, R_diag, z, avail))
+    as the symmetric (6, N) leaves (xx, xy, xz, yy, yz, zz). ``scan_fn``
+    (None: ``associative_scan``) runs the filter scan."""
+    scan_fn = scan_fn or associative_scan
+    out = scan_fn("filter", filter_elements(m0, P0, d, Qd_diag, R_diag, z, avail))
     return torch.movedim(out[9:12], 0, -1).contiguous(), out[12:18]
 
 
@@ -121,9 +134,15 @@ def fuse_ekf_rts_parallel(
     ekf_cfg: EKFConfig = EKFConfig(),
     rts_cfg: RTSDecisionConfig = RTSDecisionConfig(),
     rts_mode: str = "outage",
+    scan_fn: Optional[ScanFn] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Log-depth equivalent of ``kalman.fuse_ekf_rts`` for hard-update
-    configs (rts_cfg.default_ekf_transition_steps_on_sharp_turn == 0)."""
+    configs (rts_cfg.default_ekf_transition_steps_on_sharp_turn == 0).
+
+    ``scan_fn`` replaces ``associative_scan`` in all three scans (quaternion
+    chain, forward filter, RTS suffix): ``parallel.seqpar`` passes its
+    cross-device block scan. Everything else here is elementwise."""
+    scan_fn = scan_fn or associative_scan
     if rts_cfg.default_ekf_transition_steps_on_sharp_turn != 0:
         raise ValueError(
             "parallel scan requires hard updates (transition steps == 0); "
@@ -136,14 +155,14 @@ def fuse_ekf_rts_parallel(
     params = ekf_params(ekf_cfg, dtype=dtype, device=device)
 
     dp, dq = se3.relative_poses_along(slam_pos, slam_quat)
-    q_f = parallel_quat_chain(sim3_quat[..., 0, :], dq)
+    q_f = parallel_quat_chain(sim3_quat[..., 0, :], dq, scan_fn)
     d = quat.rotate(q_f[..., :-1, :], dp)
     dt = torch.clamp(slam_times[..., 1:] - slam_times[..., :-1], min=1e-6)
     Qd_diag = torch.diag(params.Q_per_sec)[:3] * dt[..., None]
     z = torch.nan_to_num(aligned_gps[..., 1:, :], nan=0.0)
     m_f, P_f6 = parallel_position_filter(
         sim3_pos[..., 0, :], params.P0[:3, :3], d, Qd_diag, torch.diag(params.R),
-        z, controls.avail[..., 1:],
+        z, controls.avail[..., 1:], scan_fn,
     )
 
     # RTS backward: m_p[k+1] = m_f[k] + d_k, P_p[k+1] = P_f[k] + Qd_k; the
@@ -163,5 +182,5 @@ def fuse_ekf_rts_parallel(
     m_last = torch.movedim(m_f[..., -1, :], -1, 0)
     tail = torch.cat([torch.zeros((9, *m_last.shape[1:]), dtype=dtype, device=device), m_last])
     elems = torch.cat([torch.stack(E + c), tail[..., None]], dim=-1)
-    m_s = torch.movedim(associative_scan("rts", elems, reverse=True)[9:12], 0, -1).contiguous()
+    m_s = torch.movedim(scan_fn("rts", elems, reverse=True)[9:12], 0, -1).contiguous()
     return torch.where(member[..., None], m_s, m_f), q_f

@@ -233,11 +233,12 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
                         dtype=torch.float64, device=traj.device)
     cand = candidates.contiguous()
     mask = cand_mask.contiguous()
-    rc = _build.library().gps_nn_keep(
-        _build.dtype_code(traj), batch, traj.data_ptr(), traj.shape[-2], cand.data_ptr(),
-        mask.data_ptr(), cand.shape[-2], boxes.data_ptr(), n_tiles, m_tiles, order.data_ptr(),
-        nkept.data_ptr(), cand4.data_ptr(), _build.stream(),
-    )
+    with torch.cuda.device(traj.device):
+        rc = _build.library().gps_nn_keep(
+            _build.dtype_code(traj), batch, traj.data_ptr(), traj.shape[-2], cand.data_ptr(),
+            mask.data_ptr(), cand.shape[-2], boxes.data_ptr(), n_tiles, m_tiles, order.data_ptr(),
+            nkept.data_ptr(), cand4.data_ptr(), _build.stream(traj.device),
+        )
     _build.check(rc, "nn keep lists")
     keep_lists.launches += 1
     return order, nkept, cand4
@@ -305,11 +306,12 @@ def nn_resident(
         return out
     order, nkept, cand4 = keep_lists(traj, candidates, cand_mask)
     lib = _build.library()
-    rc = lib.gps_nn_min_dist2(
-        _build.dtype_code(traj), batch, traj.data_ptr(), n, cand4.data_ptr(),
-        order.data_ptr(), nkept.data_ptr(), order.shape[-2], order.shape[-1],
-        out.data_ptr(), _build.stream(),
-    )
+    with torch.cuda.device(traj.device):
+        rc = lib.gps_nn_min_dist2(
+            _build.dtype_code(traj), batch, traj.data_ptr(), n, cand4.data_ptr(),
+            order.data_ptr(), nkept.data_ptr(), order.shape[-2], order.shape[-1],
+            out.data_ptr(), _build.stream(traj.device),
+        )
     _build.check(rc, "nn_min_dist2 (resident)")
     nn_resident.launches += 1
     return out
@@ -343,11 +345,12 @@ def grid_launch(traj: torch.Tensor, operands, n_items: int) -> torch.Tensor:
         raise RuntimeError("csrc/nn_grid.cu cuts the keep lists by another run length")
     if n_items == 0:
         return out
-    rc = lib.gps_nn_grid(
-        _build.dtype_code(traj), traj.data_ptr(), n, cand4.data_ptr(), order.data_ptr(),
-        nkept.data_ptr(), ends.data_ptr(), order.shape[0], order.shape[1], n_items,
-        out.data_ptr(), _build.stream(),
-    )
+    with torch.cuda.device(traj.device):
+        rc = lib.gps_nn_grid(
+            _build.dtype_code(traj), traj.data_ptr(), n, cand4.data_ptr(), order.data_ptr(),
+            nkept.data_ptr(), ends.data_ptr(), order.shape[0], order.shape[1], n_items,
+            out.data_ptr(), _build.stream(traj.device),
+        )
     _build.check(rc, "nn_min_dist2 (grid)")
     nn_grid.launches += 1
     return out
@@ -433,11 +436,12 @@ def ransac_counts(
     if batch > 65_535:
         raise ValueError("a batch holds at most 65,535 rows (the grid's z dimension)")
     lib = _build.library()
-    rc = lib.gps_ransac_counts(
-        _build.dtype_code(src), batch, src.data_ptr(), dst.data_ptr(), valid.data_ptr(), n,
-        R.data_ptr(), t.data_ptr(), s.data_ptr(), T, float(thr2), out.data_ptr(),
-        _build.stream(),
-    )
+    with torch.cuda.device(src.device):
+        rc = lib.gps_ransac_counts(
+            _build.dtype_code(src), batch, src.data_ptr(), dst.data_ptr(), valid.data_ptr(), n,
+            R.data_ptr(), t.data_ptr(), s.data_ptr(), T, float(thr2), out.data_ptr(),
+            _build.stream(src.device),
+        )
     _build.check(rc, "ransac_counts")
     ransac_counts.launches += 1
     return out

@@ -276,8 +276,9 @@ def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     code, dt = OPS[op][0], _build.dtype_code(x)
     scratch = torch.empty((lib.gps_scan_scratch_bytes(code, dt, n, batch),), dtype=torch.uint8,
                           device=x.device)
-    rc = lib.gps_scan(code, dt, x.data_ptr(), out.data_ptr(), n, batch, int(reverse),
-                      scratch.data_ptr(), _build.stream())
+    with torch.cuda.device(x.device):
+        rc = lib.gps_scan(code, dt, x.data_ptr(), out.data_ptr(), n, batch, int(reverse),
+                          scratch.data_ptr(), _build.stream(x.device))
     _build.check(rc, f"scan {op}")
     scan_block.launches[op] += 1
     return out
@@ -312,8 +313,9 @@ def scan_tiled(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     code, dt = OPS[op][0], _build.dtype_code(x)
     scratch = torch.empty((lib.gps_scan_tiled_scratch_bytes(code, dt, n),), dtype=torch.uint8,
                           device=x.device)
-    rc = lib.gps_scan_tiled(code, dt, x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                            scratch.numel(), n, int(reverse), _build.stream())
+    with torch.cuda.device(x.device):
+        rc = lib.gps_scan_tiled(code, dt, x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                                scratch.numel(), n, int(reverse), _build.stream(x.device))
     _build.check(rc, f"tiled scan {op}")
     scan_tiled.launches[op] += 1
     return out

@@ -1,16 +1,24 @@
-"""Batched multi-sequence fusion on one card (port of
-``gps_optimize_slam_tpu.parallel.mesh``).
+"""Batched multi-sequence fusion, on one card or over a mesh of devices
+(port of ``gps_optimize_slam_tpu.parallel.mesh``).
 
 A padded batch of sequences (``parallel.batch``) is fused as ONE batched
 program: ``fusion.fuse_core`` and ``fusion.evaluate`` take the leading batch
 axis, so every stage is issued once for all rows and each kernel (K1, the
-keep lists, K3, K5) launches once with a grid over the rows. The JAX package
-``vmap``s ``fuse_core`` and shards the batch axis over a device mesh; the
-port runs on one card, so the mesh, its shardings and the padding of the
-batch to a mesh multiple are left out. ``fuse_buckets`` pipelines the
-length buckets through the card with ``utils.streaming.stream_chunks``;
-``fuse_buckets_checkpointed`` saves each bucket as it drains and resumes a
-killed sweep from the buckets on disk.
+keep lists, K3, K5) launches once with a grid over the rows.
+``fuse_buckets`` pipelines the length buckets through the card with
+``utils.streaming.stream_chunks``; ``fuse_buckets_checkpointed`` saves each
+bucket as it drains and resumes a killed sweep from the buckets on disk.
+
+A ``Mesh`` (``make_mesh``) is a 1-D tuple of devices on the "seq" axis.
+Given ``mesh=``, the batch entry points pad the rows to a multiple of its
+size D with copies of row 0, and each device fuses a contiguous shard of
+rows as one batched program; the outputs are concatenated on
+``mesh.devices[0]`` and the padding sliced off (rows are independent, so a
+copy cannot perturb a real row). The JAX package shards the batch axis of
+one ``jit``-ed program over the mesh; the port issues one program a shard,
+in turn from the host, so a mesh of one card (``devices=["cuda:0"] * k``,
+how one card and the CPU tests run this code) runs its shards one after
+another. A device may repeat; nothing falls back to the CPU.
 
 RANSAC draws: the JAX package takes a PRNG key a row; the port takes an
 integer seed a row (``seed + i``, as the ``fuse-batch`` command numbers its
@@ -21,7 +29,7 @@ draws what ``fuse_core`` on that sequence alone draws with ``seed=s``.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,9 +38,74 @@ from gps_optimize_slam_tpu_torch.config import FusionConfig
 from gps_optimize_slam_tpu_torch.models import fusion
 from gps_optimize_slam_tpu_torch.ops import alignment
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
-from gps_optimize_slam_tpu_torch.parallel.batch import SequenceBatch
+from gps_optimize_slam_tpu_torch.parallel.batch import SequenceBatch, _round_up
 from gps_optimize_slam_tpu_torch.utils import streaming
 from gps_optimize_slam_tpu_torch.utils.device import resolve_device
+
+SEQ_AXIS = "seq"
+
+
+class Mesh(NamedTuple):
+    """A 1-D mesh: the devices of the "seq" axis, in order (a device may
+    repeat: blocks or shards sharing one device)."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...] = (SEQ_AXIS,)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_mesh(devices: Optional[Sequence] = None, n_devices: Optional[int] = None) -> Mesh:
+    """A 1-D mesh over ``devices`` (names or ``torch.device``s, in order; a
+    device may repeat, e.g. ``["cuda:0"] * 4`` or ``["cpu"] * 8``), or, with
+    ``devices=None``, over the first ``n_devices`` CUDA devices (all of them
+    when None). Raises without a card when no ``devices`` are named, and
+    when ``n_devices`` exceeds the cards present: the mesh never falls back
+    to the CPU."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: a mesh defaults to the cards; pass devices=['cpu'] * k to run on the CPU"
+            )
+        count = torch.cuda.device_count()
+        n = count if n_devices is None else int(n_devices)
+        if not 1 <= n <= count:
+            raise ValueError(
+                f"{n} devices asked for and {count} CUDA devices present; pass devices=[...] to name them "
+                f"(a device may repeat, e.g. devices=['cuda:0'] * {n})"
+            )
+        return Mesh(tuple(torch.device("cuda", i) for i in range(n)))
+    if n_devices is not None:
+        raise ValueError("pass devices or n_devices, not both")
+    devices = tuple(torch.device(d) for d in devices)
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    return Mesh(devices)
+
+
+def _placement(device, mesh: Optional[Mesh]):
+    """The device of an unsharded call, after the check that a caller named
+    at most one of ``device`` and ``mesh``."""
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("mesh= and device= exclude each other")
+        return None
+    return resolve_device(device)
+
+
+def _shard_rows(b: int, d: int):
+    """Each of ``d`` devices' contiguous shard of the row indices of a batch
+    of ``b`` rows padded to a multiple of ``d`` with copies of row 0."""
+    b_pad = _round_up(b, d)
+    reps = np.concatenate([np.arange(b), np.zeros(b_pad - b, np.intp)])
+    per = b_pad // d
+    return [reps[k * per : (k + 1) * per] for k in range(d)]
+
+
+def _take_rows(batch: SequenceBatch, rows: np.ndarray) -> SequenceBatch:
+    return SequenceBatch(*(np.asarray(x)[rows] for x in batch))
 
 
 def _dtype(batch: SequenceBatch, dtype) -> torch.dtype:
@@ -49,14 +122,22 @@ def estimate_offsets_batch(
     dtype=None,
     max_lag_seconds: float = 10.0,
     n_grid: int = 4096,
+    mesh: Optional[Mesh] = None,
 ) -> np.ndarray:
     """Per-sequence clock offsets, estimated on the device in one batched
     call (the FFT speed cross-correlation of
     ``ops.alignment.estimate_time_offset_xcorr_device``), honouring the
-    padding masks. Returns a host (B,) array for
-    ``fuse_batch(..., time_offsets=...)``."""
-    device = resolve_device(device)
+    padding masks; with ``mesh``, one call a device on its shard of rows.
+    Returns a host (B,) array for ``fuse_batch(..., time_offsets=...)``."""
+    device = _placement(device, mesh)
     dtype = _dtype(batch, dtype)
+    if mesh is not None:
+        b = np.asarray(batch.slam_times).shape[0]
+        return np.concatenate([
+            estimate_offsets_batch(_take_rows(batch, rows), device=dev, dtype=dtype,
+                                   max_lag_seconds=max_lag_seconds, n_grid=n_grid)
+            for dev, rows in zip(mesh.devices, _shard_rows(b, mesh.size))
+        ])[:b]
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dt)
@@ -83,6 +164,17 @@ class StagedBatch(NamedTuple):
     gps_sorted: bool = False
 
 
+class ShardedBatch(NamedTuple):
+    """A batch staged over a mesh, from ``stage_batch(..., mesh=...)``: one
+    ``StagedBatch`` a device, each a contiguous shard of the rows padded to
+    a mesh multiple with copies of row 0; each shard's row indices, and the
+    number of real rows."""
+
+    shards: Tuple[StagedBatch, ...]
+    rows: Tuple[np.ndarray, ...]
+    n_real: int
+
+
 def _gps_rows_sorted(gps_times, gps_valid) -> bool:
     """Whether every row's valid GPS timestamps are nondecreasing (the host
     check ``pipeline.fuse_arrays`` applies to one sequence)."""
@@ -97,10 +189,13 @@ def stage_batch(
     device=None,
     dtype=None,
     time_offsets=None,
-) -> StagedBatch:
+    mesh: Optional[Mesh] = None,
+):
     """Copy a batch onto the card once. ``seeds`` (B,) default to 0..B-1;
-    ``time_offsets`` (B,) to zeros."""
-    device = resolve_device(device)
+    ``time_offsets`` (B,) to zeros. With ``mesh``, a ``ShardedBatch``: each
+    device's shard of the rows padded to a mesh multiple (a padding row
+    copies row 0, seed and offset included)."""
+    device = _placement(device, mesh)
     dtype = _dtype(batch, dtype)
     b = np.asarray(batch.slam_times).shape[0]
     seeds = tuple(range(b)) if seeds is None else tuple(int(s) for s in seeds)
@@ -108,6 +203,17 @@ def stage_batch(
         raise ValueError(f"{len(seeds)} seeds for {b} sequences")
     if time_offsets is None:
         time_offsets = np.zeros(b)
+    if mesh is not None:
+        shard_rows = _shard_rows(b, mesh.size)
+        return ShardedBatch(
+            shards=tuple(
+                stage_batch(_take_rows(batch, rows), [seeds[i] for i in rows], device=dev, dtype=dtype,
+                            time_offsets=np.asarray(time_offsets)[rows])
+                for dev, rows in zip(mesh.devices, shard_rows)
+            ),
+            rows=tuple(shard_rows),
+            n_real=b,
+        )
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dt)
@@ -129,30 +235,52 @@ def fuse_batch(
     time_offsets=None,
     estimate_offsets: bool = False,
     sim3_draws: Optional[torch.Tensor] = None,
+    mesh: Optional[Mesh] = None,
 ) -> fusion.FusionOutputs:
     """Fuse a padded batch of sequences as one batched program on the card
-    (the CPU only with ``device="cpu"``).
+    (the CPU only with ``device="cpu"``), or one a device over ``mesh``.
 
     ``batch`` is a ``SequenceBatch`` (host arrays, staged on every call) or
-    a ``StagedBatch`` from ``stage_batch`` (its device, dtype, seeds and
-    offsets are the staged ones). ``estimate_offsets=True`` (with
-    ``time_offsets=None``) estimates the per-sequence clock offsets on the
-    device first (``estimate_offsets_batch``). ``sim3_draws`` (B, trials, k)
-    replaces the seeded RANSAC draws. Every output leaf has the leading B.
+    a ``StagedBatch`` / ``ShardedBatch`` from ``stage_batch`` (its devices,
+    dtype, seeds and offsets are the staged ones). ``estimate_offsets=True``
+    (with ``time_offsets=None``) estimates the per-sequence clock offsets on
+    the device first (``estimate_offsets_batch``). ``sim3_draws`` (B,
+    trials, k) replaces the seeded RANSAC draws. ``mesh`` and ``device``
+    exclude each other; with a mesh the outputs are concatenated on
+    ``mesh.devices[0]``. Every output leaf has the leading B.
     """
-    if isinstance(batch, StagedBatch):
+    if isinstance(batch, (StagedBatch, ShardedBatch)):
         staged = batch
     else:
-        device = resolve_device(device)
+        device = _placement(device, mesh)
         dtype = _dtype(batch, dtype)
         if time_offsets is None and estimate_offsets:
-            time_offsets = estimate_offsets_batch(batch, device=device, dtype=dtype)
-        staged = stage_batch(batch, seeds, device=device, dtype=dtype, time_offsets=time_offsets)
+            time_offsets = estimate_offsets_batch(batch, device=device, dtype=dtype, mesh=mesh)
+        staged = stage_batch(batch, seeds, device=device, dtype=dtype, time_offsets=time_offsets, mesh=mesh)
+    if isinstance(staged, ShardedBatch):
+        return _fuse_sharded(staged, config, sim3_draws)
     if staged.gps_sorted and not config.gps_sorted:
         config = config.replace(gps_sorted=True)
     st, sp, sq, gt, gp, gv, sm, toff = staged.args
     return fusion.fuse_core(st, sp, sq, gt, gp, gv, config, seed=staged.seeds, slam_mask=sm,
                             time_offset=toff, sim3_draws=sim3_draws)
+
+
+def _fuse_sharded(sharded: ShardedBatch, config: FusionConfig, sim3_draws) -> fusion.FusionOutputs:
+    """Each shard fused on its own device, the outputs concatenated on the
+    first shard's device with the padding rows sliced off."""
+    home = sharded.shards[0].args[0].device
+    outs = [fuse_batch(shard, config=config, sim3_draws=None if sim3_draws is None
+                       else sim3_draws[torch.as_tensor(rows)].to(shard.args[0].device))
+            for shard, rows in zip(sharded.shards, sharded.rows)]
+
+    def cat(leaves):
+        return torch.cat([x.to(home) for x in leaves])[: sharded.n_real]
+
+    return fusion.FusionOutputs(
+        **{k: cat([getattr(o, k) for o in outs]) for k in fusion.FusionOutputs._fields if k != "sim3"},
+        sim3=Sim3(*(cat([getattr(o.sim3, k) for o in outs]) for k in Sim3._fields)),
+    )
 
 
 def _to_host(out: fusion.FusionOutputs) -> fusion.FusionOutputs:
@@ -161,16 +289,17 @@ def _to_host(out: fusion.FusionOutputs) -> fusion.FusionOutputs:
     return fusion.FusionOutputs(**d, sim3=Sim3(*(v.cpu().numpy() for v in out.sim3)))
 
 
-def _sweep(pending, seeds, results, config, device, dtype, estimate_offsets, on_bucket=None) -> None:
+def _sweep(pending, seeds, results, config, device, dtype, estimate_offsets, mesh=None, on_bucket=None) -> None:
     """Fuse the ``(j, (idxs, batch))`` buckets of ``pending`` into
     ``results`` (in original order, each leaf sliced to its sequence's
-    length), pipelined with ``utils.streaming.stream_chunks``; then
-    ``on_bucket(j, idxs, rows)`` for each bucket as it drains."""
+    length), pipelined with ``utils.streaming.stream_chunks``, each bucket
+    on ``device`` or sharded over ``mesh``; then ``on_bucket(j, idxs,
+    rows)`` for each bucket as it drains."""
 
     def _stage(jb):
         idxs, b = jb[1]
-        toff = estimate_offsets_batch(b, device=device, dtype=dtype) if estimate_offsets else None
-        return stage_batch(b, seeds[idxs], device=device, dtype=dtype, time_offsets=toff)
+        toff = estimate_offsets_batch(b, device=device, dtype=dtype, mesh=mesh) if estimate_offsets else None
+        return stage_batch(b, seeds[idxs], device=device, dtype=dtype, time_offsets=toff, mesh=mesh)
 
     def _launch(jb, staged):
         return fuse_batch(staged, config=config)
@@ -205,10 +334,13 @@ def fuse_buckets(
     device=None,
     dtype=None,
     estimate_offsets: bool = False,
+    mesh: Optional[Mesh] = None,
 ):
     """Fuse length-bucketed sequences (``batch.bucket_by_length`` output).
 
-    Each bucket runs as its own batched program (bounded padding waste).
+    Each bucket runs as its own batched program (bounded padding waste), on
+    ``device`` or, with ``mesh``, a program a device on its shard of the
+    bucket's rows.
     ``seeds`` is (B_total,) in the ORIGINAL sequence order, 0..B_total-1 by
     default. Returns a list in original order of per-sequence
     ``FusionOutputs`` of host arrays, every SLAM-indexed leaf sliced to the
@@ -217,11 +349,11 @@ def fuse_buckets(
     Buckets are independent programs, so the sweep is software-pipelined
     (``utils.streaming``): bucket i+1's staging and bucket i-1's host
     read-back overlap bucket i's device time."""
-    device = resolve_device(device)
+    device = _placement(device, mesh)
     total = sum(len(idxs) for idxs, _ in buckets)
     seeds = np.arange(total) if seeds is None else np.asarray(seeds)
     results = [None] * total
-    _sweep(list(enumerate(buckets)), seeds, results, config, device, dtype, estimate_offsets)
+    _sweep(list(enumerate(buckets)), seeds, results, config, device, dtype, estimate_offsets, mesh)
     return results
 
 
@@ -246,6 +378,7 @@ def fuse_buckets_checkpointed(
     device=None,
     dtype=None,
     estimate_offsets: bool = False,
+    mesh: Optional[Mesh] = None,
 ):
     """``fuse_buckets`` with a checkpoint a bucket and resume
     (``utils.checkpoint``).
@@ -261,7 +394,7 @@ def fuse_buckets_checkpointed(
     differ from the bucket's now raises ValueError."""
     from gps_optimize_slam_tpu_torch.utils import checkpoint as ckpt_util
 
-    device = resolve_device(device)
+    device = _placement(device, mesh)
     total = sum(len(idxs) for idxs, _ in buckets)
     seeds = np.arange(total) if seeds is None else np.asarray(seeds)
     results = [None] * total
@@ -293,7 +426,7 @@ def fuse_buckets_checkpointed(
             metadata={"bucket": j, "indices": np.asarray(idxs).tolist()},
         )
 
-    _sweep(pending, seeds, results, config, device, dtype, estimate_offsets, on_bucket=_save)
+    _sweep(pending, seeds, results, config, device, dtype, estimate_offsets, mesh, on_bucket=_save)
     return results
 
 

@@ -19,6 +19,7 @@ card. The projection always runs in float64 on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -375,10 +376,39 @@ class ChunkedPipelineResult:
     gt: Optional[GPSData] = None
     gt_evaluation: Optional[fusion.Evaluation] = None
     gt_aligned: Optional[alignment.AlignedGPS] = None  # host arrays
+    device: Optional[torch.device] = None  # where the chunks ran
 
     @property
     def corrected_pos(self) -> np.ndarray:
         return np.asarray(self.result.corrected_pos)
+
+    def decimated_view(self, max_points: int = 5000):
+        """A view for ``viz.plot_fusion_result`` of at most ``max_points``
+        poses: every pose-length array strided, the Sim3 layer recomputed
+        on the strided poses (``fusion_chunked.transform_trajectory_chunked``
+        on the result's device, in its dtype), so a fusion larger than
+        device memory still gets the four-panel overview. The error panels
+        then take the strided candidate set: an approximation, fine for a
+        trend overview."""
+        n = len(self.slam["timestamps"])
+        s = max(1, -(-n // max_points))
+        slam_d = {k: np.asarray(v)[::s] for k, v in self.slam.items()}
+        r = self.result
+        corrected = np.asarray(r.corrected_pos)[::s]
+        dtype = torch.float32 if corrected.dtype == np.float32 else torch.float64
+        sim3_pos, _ = fusion_chunked.transform_trajectory_chunked(
+            slam_d["positions"], slam_d["quaternions"], r.sim3, dtype=dtype, device=self.device
+        )
+        outputs = types.SimpleNamespace(
+            sim3_pos=sim3_pos, aligned_gps=np.asarray(r.aligned_gps)[::s], gps_valid=np.asarray(r.gps_valid)[::s]
+        )
+        gt_aligned = None
+        if self.gt_aligned is not None:
+            gt_aligned = types.SimpleNamespace(
+                aligned=np.asarray(self.gt_aligned.aligned)[::s], valid=np.asarray(self.gt_aligned.valid)[::s]
+            )
+        return types.SimpleNamespace(slam=slam_d, gps=self.gps, outputs=outputs, corrected_pos=corrected,
+                                     gt=self.gt, gt_aligned=gt_aligned, device=self.device)
 
     @property
     def corrected_quat(self) -> np.ndarray:
@@ -471,7 +501,7 @@ def fuse_files_chunked(
         )
     return ChunkedPipelineResult(
         slam=slam, gps=gps, result=result, evaluation=ev, config=config, time_offset=float(offset),
-        gt=gt, gt_evaluation=gt_ev, gt_aligned=gt_al,
+        gt=gt, gt_evaluation=gt_ev, gt_aligned=gt_al, device=device,
     )
 
 

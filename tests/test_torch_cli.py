@@ -154,15 +154,17 @@ def test_config_file_and_flag_overrides(files, tmp_path, capsys):
 
 def test_parser_knows_the_ported_commands_and_leaves_plotting_out(files):
     """The parser knows ``fuse``, ``fuse-batch``, ``refine-graph``,
-    ``kitti2tum`` and ``oxts-extract``, and refuses the plotting flags and no
-    subcommand at all."""
+    ``kitti2tum`` and ``oxts-extract``; the plotting flags belong to ``fuse``
+    alone (as in the JAX command), and no subcommand at all is refused."""
     slam_path, gps_path, _ = files
     parser = cli.build_parser()
     assert parser.parse_args(["fuse-batch", f"{slam_path}:{gps_path}"]).fn is cli._cmd_fuse_batch
     assert parser.parse_args(["refine-graph", slam_path, gps_path]).fn is cli._cmd_refine_graph
     assert parser.parse_args(["kitti2tum", "p", "t", "o"]).fn is cli._cmd_kitti2tum
     assert parser.parse_args(["oxts-extract", "d"]).fn is cli._cmd_oxts
-    for argv in (["fuse", slam_path, gps_path, "--plot", "x.png"], ["fuse", slam_path, gps_path, "--show"],
+    fuse = parser.parse_args(["fuse", slam_path, gps_path, "--plot", "x.png", "--show"])
+    assert fuse.fn is cli._cmd_fuse and fuse.plot == "x.png" and fuse.show
+    for argv in (["fuse-batch", f"{slam_path}:{gps_path}", "--plot", "x.png"],
                  ["refine-graph", slam_path, gps_path, "--plot", "x.png"], ["kitti2tum", "p", "t", "o", "--device", "cpu"],
                  []):
         with pytest.raises(SystemExit):

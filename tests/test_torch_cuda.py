@@ -576,3 +576,77 @@ def test_pose_graph_pieces_on_the_card_match_the_cpu(cuda):
     assert float((grad - grad_c.cpu()).abs().max() / grad.abs().max()) <= 1e-12
     hv = hvp(v)
     assert float((hv - hvp_c(v.to(cuda)).cpu()).abs().max() / hv.abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("rts_mode", ["outage", "full"])
+@pytest.mark.parametrize("n", [1500, 1501])
+def test_seqpar_on_one_card_matches_one_device(cuda, n, rts_mode):
+    """``fuse_ekf_rts_seqparallel`` on four blocks of one card against
+    ``fuse_ekf_rts_parallel`` on the card (≤1e-8 m, quaternions ≤1e-10, the
+    JAX package's bounds) and on CPU tensors; each block's scan and the
+    totals' scan launch K1: 3 scans × (4 blocks + 1)."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch.ops import kalman_parallel
+    from gps_optimize_slam_tpu_torch.parallel import seqpar
+    from gps_optimize_slam_tpu_torch.parallel.mesh import make_mesh
+
+    slam, gt, gp = chip_smoke.replica_sequence(n, seed=5)
+    st = slam["timestamps"]
+    aligned = np.stack([np.interp(st, gt, gp[:, k]) for k in range(3)], -1)
+    valid = (st > st[0] + 20) & (np.abs(st - st[n // 2]) > 8)  # a start without GNSS and an outage
+    args = [torch.as_tensor(a, device=cuda) for a in (st, slam["positions"], slam["quaternions"],
+                                                      slam["positions"], slam["quaternions"], aligned, valid)]
+    chip_smoke.reset_launch_counts()
+    got = seqpar.fuse_ekf_rts_seqparallel(make_mesh(devices=["cuda:0"] * 4), *args, rts_mode=rts_mode)
+    torch.cuda.synchronize()
+    counts = chip_smoke.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {f"scan_block/{op}": 5 for op in ("quat_chain", "filter", "rts")}
+    one = kalman_parallel.fuse_ekf_rts_parallel(*args, rts_mode=rts_mode)
+    cpu = kalman_parallel.fuse_ekf_rts_parallel(*(a.cpu() for a in args), rts_mode=rts_mode)
+    for ref in (one, cpu):
+        assert float((got[0].cpu() - ref[0].cpu()).abs().max()) <= 1e-8
+        assert float((got[1].cpu() - ref[1].cpu()).abs().max()) <= 1e-10
+
+
+def test_fuse_batch_on_a_mesh_of_one_card_matches_the_unsharded_batch(cuda):
+    """Five replica sequences over three shards of one card (padded to six
+    rows) against the unsharded batch on the card, ≤1e-9 m; each shard
+    launches each kernel once."""
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+
+    seqs = [chip_smoke.replica_sequence(n, seed=s) for s, n in enumerate((601, 701, 801, 651, 751))]
+    b = pbatch.pad_batch([s for s, _, _ in seqs], [t for _, t, _ in seqs], [p for _, _, p in seqs])
+    cfg = FusionConfig()
+    want = mesh.fuse_batch(b, config=cfg, device=cuda)
+    chip_smoke.reset_launch_counts()
+    got = mesh.fuse_batch(b, config=cfg, mesh=mesh.make_mesh(devices=["cuda:0"] * 3))
+    torch.cuda.synchronize()
+    counts = chip_smoke.launch_counts()
+    assert counts["ransac_counts"] == 3 and counts["scan_block/filter"] == 3
+    assert got.corrected_pos.device == want.corrected_pos.device and got.corrected_pos.shape[0] == 5
+    assert float((got.corrected_pos - want.corrected_pos).abs().max()) <= 1e-9
+    assert torch.equal(got.sim3_inliers, want.sim3_inliers) and bool(got.ok.all())
+
+
+def test_kernels_launch_on_their_tensors_card_when_another_is_current(cuda):
+    """A scan and an NN call on cuda:1 while cuda:0 is current: each wrapper
+    launches on its tensors' card and stream (two cards needed)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    gen = torch.Generator().manual_seed(9)
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        for op, n in (("filter", 4661), ("filter", 262_145), ("add2", 262_145)):
+            x = chip_smoke.scan_inputs(op, n, gen, torch.float64, other)
+            got = scan.associative_scan(op, x)
+            torch.cuda.synchronize(other)
+            assert got.device == other
+            assert chip_smoke.rel_err(got, scan.scan_plain(op, x)) <= TOL[torch.float64]
+        traj = walk(gen, 4661, torch.float64, other)
+        mask = torch.rand(4661, generator=gen).to(other) > 0.1
+        got = kernels.nn_min_dist2(traj, traj, mask)
+        torch.cuda.synchronize(other)
+        assert torch.equal(got, kernels.nn_min_dist2_plain(traj, traj, mask))
