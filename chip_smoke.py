@@ -128,15 +128,23 @@ Phases:
      KITTI pose file written from the golden arrays, as subprocesses;
   9. the multi-device paths on one card, the mesh's blocks sharing it:
      (a) ``fuse_ekf_rts_seqparallel`` on 4 blocks of phase 5's 1,048,576
-     poses (float64, the EKF stage's inputs from one ``fuse_core``; K2 a
-     block, K1 for the totals) against ``fuse_ekf_rts_parallel`` on the
-     card, both ``rts_mode``s, ≤1e-8 m and quaternions ≤1e-10; (b) the same
+     poses (float64, the EKF stage's inputs from one ``fuse_core``; every
+     stage per block, K2 a block's scan, K1 the totals', for the filter's
+     three scans and the controls' two), every run with each host
+     synchronisation an error (``no_host_sync``), against
+     ``fuse_ekf_rts_parallel`` on the
+     card, both ``rts_mode``s, ≤1e-8 m and quaternions ≤1e-10, each
+     device's peak memory beside the single-device filter's; (b) the same
      at 4,661 poses in float32 (padded to 4,664; K1 a block), ≤1e-2 m;
      (c) ``fuse_core_chunked(scan_fn=...)`` at 1,048,576 poses in
      524,287-pose chunks against the same without ``scan_fn``, ≤1e-8 m, the
      same scale; (f) its ``decimated_view()``, ≤5,000 poses, equal to the
      strided arrays; (d) ``fuse_batch(mesh=...)`` of phase 7's eleven KITTI
-     rows as one batch on 3 shards against the unsharded batch, ≤1e-9 m;
+     rows as one batch on 3 shards against the unsharded batch, ≤1e-9 m,
+     timed beside the unsharded batch and the shards issued one after
+     another from one thread (``fuse_batch`` gives each distinct device a
+     host thread; on one card both run in one thread); with two cards or
+     more, (a) and (d) also run over the cards;
      (e) ``python3 -m gps_optimize_slam_tpu_torch.examples.distributed_launch``
      on the same rows, two gloo ranks sharing the card and then a one-rank
      NCCL group, the gathered rows ≤1e-9 m from (d). Each beside its
@@ -2046,7 +2054,10 @@ def phase7_kitti(device):
         if bk["launches"] != bk["single_row_launches"]:
             raise AssertionError(f"phase 7: a bucket launched otherwise than one row: {bk}")
     want = {f"scan_block/{op}": 1 for op in scan.OPS}
-    want.update({"scan_block/affine3": 2, "nn_keep": 3, "nn_resident": 3, "ransac_counts": 1})
+    # affine3: the alignment's two; max3, min3: the alignment's and the
+    # filter controls'.
+    want.update({"scan_block/affine3": 2, "scan_block/max3": 2, "scan_block/min3": 2, "nn_keep": 3,
+                 "nn_resident": 3, "ransac_counts": 1})
     got = {k: v for k, v in per_bucket[0]["launches"].items() if v}
     if got != want:
         raise AssertionError(f"phase 7: a bucket's launches {got}, expected {want}")
@@ -2328,7 +2339,7 @@ def phase8(device):
     return launches
 
 
-SEQPAR_BLOCKS = 4  # phase 9's sequence-parallel mesh: four blocks sharing the card
+SEQPAR_BLOCKS = 4  # phase 9's sequence-parallel mesh: four blocks sharing the card (or spread over the cards)
 SEQPAR_CHUNK = 524_287  # (c)'s chunks: 524,288 scan elements with the carry, blocks of 131,072 (K2)
 MESH_SHARDS = 3  # (d)'s mesh: the eleven KITTI rows padded to twelve
 # (e)'s runs of the distributed example: two gloo ranks sharing the card (NCCL
@@ -2347,6 +2358,47 @@ def card_mesh(k: int):
     from gps_optimize_slam_tpu_torch.parallel.mesh import make_mesh
 
     return make_mesh(devices=[card_name()] * k)
+
+
+def cards_mesh(k: int):
+    """A mesh of ``k`` blocks dealt over every card, block i on card i mod
+    the card count."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[f"cuda:{i % torch.cuda.device_count()}" for i in range(k)])
+
+
+def no_host_sync(fn):
+    """``fn()`` with every host synchronisation with a card an error
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def run_peak_bytes(fn, devices) -> dict:
+    """The most device memory ``fn()`` held on each of ``devices`` beyond
+    what was allocated before it (``max_memory_allocated``)."""
+    import torch
+
+    devices = sorted({torch.device(d) for d in devices}, key=str)
+    torch.cuda.synchronize()
+    before = {}
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+        before[d] = torch.cuda.memory_allocated(d)
+    out = fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) - before[d] for d in devices}
+    del out
+    return peaks
 
 
 def ekf_inputs(slam, gt, gp, dtype, device):
@@ -2369,36 +2421,42 @@ def ekf_inputs(slam, gt, gp, dtype, device):
     return st, sp, sq, out.sim3_pos, out.sim3_quat, out.aligned_gps, out.gps_valid
 
 
-def seqpar_case(label, args, pos_tol, quat_tol, modes, expect):
-    """``fuse_ekf_rts_seqparallel`` on ``SEQPAR_BLOCKS`` blocks of the card
-    against ``fuse_ekf_rts_parallel`` on the card, for each ``rts_mode``:
-    the gaps, the launches of the first mode's run (held to ``expect``),
-    warm walls of both (``utils.profiling.wallclock``), and the first mode's
-    profile beside the single-device one. Returns the launch counts."""
+def seqpar_case(label, args, pos_tol, quat_tol, modes, expect, mesh=None):
+    """``fuse_ekf_rts_seqparallel`` on ``SEQPAR_BLOCKS`` blocks of ``mesh``
+    (None: the card), every run with each host synchronisation an error
+    (``no_host_sync``), against ``fuse_ekf_rts_parallel`` on the card, for
+    each ``rts_mode``: the gaps, the launches of the first mode's run (held
+    to ``expect``), warm walls of both (``utils.profiling.wallclock``), the
+    first mode's profile and each device's peak memory beside the
+    single-device ones. Returns the launch counts."""
     from gps_optimize_slam_tpu_torch.ops import kalman_parallel
     from gps_optimize_slam_tpu_torch.parallel import seqpar
     from gps_optimize_slam_tpu_torch.utils import profiling
 
-    mesh = card_mesh(SEQPAR_BLOCKS)
-    gaps, launches, walls, prof = {}, None, {}, {}
+    mesh = mesh or card_mesh(SEQPAR_BLOCKS)
+    gaps, launches, walls, prof, peaks = {}, None, {}, {}, {}
     for mode in modes:
         def single():
             return kalman_parallel.fuse_ekf_rts_parallel(*args, rts_mode=mode)
 
         def split():
-            return seqpar.fuse_ekf_rts_seqparallel(mesh, *args, rts_mode=mode)
+            return no_host_sync(lambda: seqpar.fuse_ekf_rts_seqparallel(mesh, *args, rts_mode=mode))
 
         want = single()
         got, counts = counted(split)
         launches = launches or counts
         gaps[mode] = {"positions_m": abs_err(got[0], want[0]), "quaternions": abs_err(got[1], want[1])}
+        del got, want
         walls[mode] = {"single_device": profiling.wallclock(single, runs=3),
                        "seqpar": profiling.wallclock(split, runs=3)}
         if not prof:
             prof = {"seqpar": profile_device(split), "single_device": profile_device(single)}
+            peaks = {"seqpar": run_peak_bytes(split, mesh.devices),
+                     "single_device": run_peak_bytes(single, [args[1].device])}
     emit({"phase": 9, "part": label, "poses": int(args[0].shape[0]), "blocks": SEQPAR_BLOCKS,
-          "dtype": dtype_name(args[1].dtype), "seqpar_vs_single_device": gaps,
-          "launches": {k: v for k, v in launches.items() if v}, "walls": walls, "profile": prof})
+          "devices": [str(d) for d in mesh.devices], "dtype": dtype_name(args[1].dtype),
+          "seqpar_vs_single_device": gaps, "launches": {k: v for k, v in launches.items() if v}, "walls": walls,
+          "profile": prof, "peak_bytes": peaks})
     bad = {m: g for m, g in gaps.items() if not (g["positions_m"] <= pos_tol and g["quaternions"] <= quat_tol)}
     if bad:
         raise AssertionError(f"phase 9 {label}: seqpar off the single-device filter: {bad}")
@@ -2469,24 +2527,20 @@ def phase9_chunked(device):
     return launches
 
 
-def phase9_mesh(device):
-    """(d) The eleven KITTI rows as one batch (B = 11, each row padded to the
-    longest) on a 3-shard mesh of the card against the unsharded batch on the
-    card: rows ≤1e-9 m. (e) The same rows through the ``distributed_launch``
-    example: two gloo ranks on the card, then a one-rank NCCL group; the
-    gathered rows equal (d)'s ≤1e-9 m. Returns the sharded run's launches."""
+def mesh_shards(device, b, seeds, shards, label):
+    """``fuse_batch(mesh=shards)`` of the batch ``b`` against the unsharded
+    batch on ``device``: rows ≤1e-9 m, masks equal, each shard launching
+    what the unsharded batch launches (RANSAC counts), warm walls of the
+    unsharded batch, the shards (one host thread a distinct device) and the
+    shards one after another from one thread, and the profiles. Returns (the sharded run's launches, the unsharded
+    outputs)."""
     import torch
 
     from gps_optimize_slam_tpu_torch.config import FusionConfig
-    from gps_optimize_slam_tpu_torch.examples import distributed_launch
-    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
     from gps_optimize_slam_tpu_torch.parallel import mesh
     from gps_optimize_slam_tpu_torch.utils import profiling
 
-    seqs = kitti_sequences()
-    b = pbatch.pad_batch([s for s, _, _, _ in seqs], [t for _, t, _, _ in seqs], [p for _, _, p, _ in seqs])
-    seeds, cfg, f64 = list(range(len(seqs))), FusionConfig(), torch.float64
-    shards = card_mesh(MESH_SHARDS)
+    cfg, f64 = FusionConfig(), torch.float64
 
     def unsharded():
         return mesh.fuse_batch(b, seeds, config=cfg, device=device, dtype=f64)
@@ -2494,21 +2548,52 @@ def phase9_mesh(device):
     def sharded():
         return mesh.fuse_batch(b, seeds, config=cfg, mesh=shards, dtype=f64)
 
+    def in_turn():
+        staged = mesh.stage_batch(b, seeds, dtype=f64, mesh=shards)
+        outs = [mesh.fuse_batch(shard, config=cfg) for shard in staged.shards]
+        home = shards.devices[0]
+        return torch.cat([o.corrected_pos.to(home) for o in outs])[: staged.n_real]
+
     want, want_launches = counted(unsharded)
     got, launches = counted(sharded)
     err = abs_err(got.corrected_pos, want.corrected_pos)
+    turn_err = abs_err(in_turn(), want.corrected_pos)
     masks = bool(torch.equal(got.sim3_inliers, want.sim3_inliers) and torch.equal(got.gps_valid, want.gps_valid))
-    walls = {"unsharded": profiling.wallclock(unsharded, runs=3), "sharded": profiling.wallclock(sharded, runs=3)}
+    walls = {"unsharded": profiling.wallclock(unsharded, runs=3), "sharded": profiling.wallclock(sharded, runs=3),
+             "shards_in_turn": profiling.wallclock(in_turn, runs=3)}
     prof = {"sharded": profile_device(sharded), "unsharded": profile_device(unsharded)}
-    emit({"phase": 9, "part": "mesh shards", "rows": len(seqs), "shards": MESH_SHARDS,
-          "padded_poses": int(b.slam_times.shape[1]), "dtype": "float64", "ok": bool(got.ok.all()),
-          "rows_vs_unsharded_max_err_m": err, "masks_equal": masks,
+    emit({"phase": 9, "part": label, "rows": len(seeds), "shards": shards.size,
+          "devices": [str(d) for d in shards.devices], "padded_poses": int(b.slam_times.shape[1]),
+          "dtype": "float64", "ok": bool(got.ok.all()), "rows_vs_unsharded_max_err_m": err,
+          "in_turn_vs_unsharded_max_err_m": turn_err, "masks_equal": masks,
           "launches": {k: v for k, v in launches.items() if v},
           "unsharded_launches": {k: v for k, v in want_launches.items() if v}, "walls": walls, "profile": prof})
-    if not (bool(got.ok.all()) and err <= 1e-9 and masks):
-        raise AssertionError(f"phase 9 mesh: rows off the unsharded batch by {err:.3e} m, masks {masks}")
-    if launches["ransac_counts"] != MESH_SHARDS * want_launches["ransac_counts"]:
-        raise AssertionError(f"phase 9 mesh: {launches} against one batch's {want_launches}")
+    if not (bool(got.ok.all()) and err <= 1e-9 and turn_err <= 1e-9 and masks):
+        raise AssertionError(f"phase 9 {label}: rows off the unsharded batch by {err:.3e} m "
+                             f"(in turn {turn_err:.3e} m), masks {masks}")
+    if launches["ransac_counts"] != shards.size * want_launches["ransac_counts"]:
+        raise AssertionError(f"phase 9 {label}: {launches} against one batch's {want_launches}")
+    return launches, want
+
+
+def phase9_mesh(device):
+    """(d) The eleven KITTI rows as one batch (B = 11, each row padded to the
+    longest) on a 3-shard mesh of the card against the unsharded batch on the
+    card (``mesh_shards``), and over the cards when there are several. (e)
+    The same rows through the ``distributed_launch`` example: two gloo ranks
+    on the card, then a one-rank NCCL group; the gathered rows equal (d)'s
+    ≤1e-9 m. Returns the launches of the card's sharded run."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.examples import distributed_launch
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+
+    seqs = kitti_sequences()
+    b = pbatch.pad_batch([s for s, _, _, _ in seqs], [t for _, t, _, _ in seqs], [p for _, _, p, _ in seqs])
+    seeds = list(range(len(seqs)))
+    launches, want = mesh_shards(device, b, seeds, card_mesh(MESH_SHARDS), "mesh shards")
+    if torch.cuda.device_count() >= 2:
+        mesh_shards(device, b, seeds, cards_mesh(MESH_SHARDS), "mesh shards over the cards")
 
     want_pos = want.corrected_pos.cpu().numpy()
     runs = []
@@ -2544,24 +2629,31 @@ def phase9_mesh(device):
 def phase9(device):
     """Multi-device paths on one card: (a) seqpar float64 at 1,048,576 poses,
     (b) seqpar float32 at 4,661, (c) the chunked fusion with seqpar scans and
-    (f) its decimated view, (d) mesh shards and (e) the distributed example.
-    Returns (the launches of (a), (b) and (c), summed; those of (d))."""
+    (f) its decimated view, (d) mesh shards and (e) the distributed example;
+    (a) and (d) also over the cards when there are several (their launches
+    stay out of the counts). Returns (the launches of (a), (b) and (c),
+    summed; those of (d) on the card)."""
     import torch
 
     from gps_optimize_slam_tpu_torch.config import FusionConfig
 
     cfg = FusionConfig()
-    blocks = {f"scan_{route}/{op}": n for op in ("quat_chain", "filter", "rts")
-              for route, n in (("tiled", SEQPAR_BLOCKS), ("block", 1))}
+    # The filter's three scans and the controls' two (max3 forward, min3
+    # backward): a block's scan (K2 past 65,536 poses), the totals' (K1).
+    ops = ("quat_chain", "filter", "rts", "max3", "min3")
+    blocks = {f"scan_{route}/{op}": n for op in ops for route, n in (("tiled", SEQPAR_BLOCKS), ("block", 1))}
     slam, gt, gp = outage_sequence(CHUNKED_N)
     args = ekf_inputs(slam, gt, gp, torch.float64, device) + (cfg.ekf, cfg.rts_decision)
     runs = [seqpar_case("seqpar float64", args, 1e-8, 1e-10, ("outage", "full"), blocks)]
+    if torch.cuda.device_count() >= 2:
+        seqpar_case("seqpar float64 over the cards", args, 1e-8, 1e-10, ("outage",), blocks,
+                    mesh=cards_mesh(SEQPAR_BLOCKS))
     del args
     torch.cuda.empty_cache()
     slam, gt, gp = replica_sequence(SEQ02_LEN)
     args = ekf_inputs(slam, gt, gp, torch.float32, device) + (cfg.ekf, cfg.rts_decision)
     runs.append(seqpar_case("seqpar float32", args, 1e-2, TOL["float32"], ("outage",),
-                            {f"scan_block/{op}": SEQPAR_BLOCKS + 1 for op in ("quat_chain", "filter", "rts")}))
+                            {f"scan_block/{op}": SEQPAR_BLOCKS + 1 for op in ops}))
     runs.append(phase9_chunked(device))
     sharded = phase9_mesh(device)
     return {k: sum(r[k] for r in runs) for k in runs[0]}, sharded

@@ -55,14 +55,18 @@ def transform_trajectory_chunked(
     chunk_size: int = 262144,
     dtype: torch.dtype = torch.float64,
     device=None,
+    out_pos: Optional[np.ndarray] = None,
+    out_quat: Optional[np.ndarray] = None,
 ):
     """``se3.transform_trajectory`` streamed over host chunks
-    (software-pipelined); returns host (pos (N,3), quat (N,4))."""
+    (software-pipelined); returns host (pos (N,3), quat (N,4)): ``out_pos``
+    and ``out_quat`` when given (preallocated host buffers, a ``np.memmap``
+    too, that must not alias the inputs)."""
     device = resolve_device(device)
     np_dt = numpy_dtype(dtype)
     n = len(slam_pos)
-    out_pos = np.empty((n, 3), np_dt)
-    out_quat = np.empty((n, 4), np_dt)
+    out_pos = np.empty((n, 3), np_dt) if out_pos is None else out_pos
+    out_quat = np.empty((n, 4), np_dt) if out_quat is None else out_quat
     R, t, s = _sim3_on(sim3, dtype, device)
 
     def _stage(ab):
@@ -308,6 +312,9 @@ def fuse_core_chunked(
     sim3_draws: Optional[torch.Tensor] = None,
     device=None,
     scan_fn=None,
+    out_pos: Optional[np.ndarray] = None,
+    out_quat: Optional[np.ndarray] = None,
+    return_sim3_trajectory: bool = False,
 ):
     """Full fusion of one arbitrarily long sequence from raw GNSS.
 
@@ -326,7 +333,12 @@ def fuse_core_chunked(
        EKF's motion model is the raw SLAM relative pose, faithful to
        reference EKFGPSSLAM.py:866; Sim3 enters through the initial state).
 
-    Returns ``ChunkedFusionResult`` (host arrays). ``robust=True`` replaces
+    Returns ``ChunkedFusionResult`` (host arrays; the fused trajectory in
+    ``out_pos`` and ``out_quat`` when given: preallocated (N,3) and (N,4)
+    host buffers, a ``np.memmap`` too, that must not alias the inputs).
+    With ``return_sim3_trajectory=True``, (result, (sim3_pos, sim3_quat)):
+    the Sim3-transformed trajectory too (two more chunked passes).
+    ``robust=True`` replaces
     stage 4 with the χ²-NIS-gated filter
     (``models.robust.fuse_robust_chunked``: at most ``robust_iterations``
     gate passes at the threshold ``robust_gate_chi2``, the 95th percentile
@@ -362,7 +374,8 @@ def fuse_core_chunked(
         dtype=dtype, device=device,
     )
     ekf_args = dict(ekf_cfg=config.ekf, rts_cfg=config.rts_decision, rts_mode=config.rts_mode,
-                    chunk_size=chunk_size, dtype=dtype, device=device, scan_fn=scan_fn)
+                    chunk_size=chunk_size, dtype=dtype, device=device, scan_fn=scan_fn,
+                    out_pos=out_pos, out_quat=out_quat)
     robust_accepted = None
     if robust:
         out_pos, out_quat, robust_accepted, _ = robust_mod.fuse_robust_chunked(
@@ -374,7 +387,7 @@ def fuse_core_chunked(
         out_pos, out_quat = kalman_chunked.fuse_ekf_rts_chunked(
             slam_times, slam_pos, slam_quat, p0[0], q0[0], aligned, valid, **ekf_args
         )
-    return ChunkedFusionResult(
+    result = ChunkedFusionResult(
         corrected_pos=out_pos,
         corrected_quat=out_quat,
         sim3=sres.sim3,
@@ -384,3 +397,7 @@ def fuse_core_chunked(
         ok=bool(sres.sim3.ok),
         robust_accepted=robust_accepted,
     )
+    if return_sim3_trajectory:
+        return result, transform_trajectory_chunked(slam_pos, slam_quat, sres.sim3, chunk_size=chunk_size,
+                                                    dtype=dtype, device=device)
+    return result

@@ -367,6 +367,8 @@ def fuse_robust_chunked(
     dtype: torch.dtype = torch.float64,
     device=None,
     scan_fn=None,
+    out_pos=None,
+    out_quat=None,
 ):
     """χ²-gated EKF + RTS over a host-resident trajectory of any length:
     ``fuse_robust(gate_mode="parallel")`` out of core, every chunk's scans
@@ -376,7 +378,9 @@ def fuse_robust_chunked(
     ``n_iterations`` passes of ``gated_availability_chunked``, and logs a
     warning when the cap cuts it short; then one
     ``kalman_chunked.fuse_ekf_rts_chunked`` with the gated availability.
-    Returns host arrays (pos (N,3), quat (N,4), accepted (N,), nis (N,))."""
+    Returns host arrays (pos (N,3), quat (N,4), accepted (N,), nis (N,));
+    ``out_pos``/``out_quat`` may be preallocated buffers, memmaps too (see
+    ``kalman_chunked.fuse_ekf_rts_chunked`` for the aliasing rule)."""
     device = resolve_device(device)
     np_dt = numpy_dtype(dtype)
     avail = np.asarray(valid_mask, bool) & ~np.isnan(np.asarray(aligned_gps)).any(-1)
@@ -403,6 +407,6 @@ def fuse_robust_chunked(
     pos, quatn = kalman_chunked.fuse_ekf_rts_chunked(
         slam_times, slam_pos, slam_quat, sim3_pos0, sim3_quat0, gated_gps, accepted,
         ekf_cfg=ekf_cfg, rts_cfg=rts_cfg, rts_mode=rts_mode, chunk_size=chunk_size,
-        dtype=dtype, device=device, scan_fn=scan_fn,
+        dtype=dtype, device=device, scan_fn=scan_fn, out_pos=out_pos, out_quat=out_quat,
     )
     return pos, quatn, accepted, nis

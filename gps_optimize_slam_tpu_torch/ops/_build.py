@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -38,6 +39,12 @@ NVCC_FLAGS = (
 )
 
 _lib: Optional[ctypes.CDLL] = None
+# Held while the library is built and loaded: the mesh's host threads (one a
+# device) may reach their first kernel together.
+_LIB_LOCK = threading.Lock()
+# Held while a wrapper adds one to its launch count (a read-modify-write
+# that threads launching on several devices would otherwise interleave).
+COUNT_LOCK = threading.Lock()
 # Filled by library(): build seconds (0.0 when an up-to-date library was
 # found), the library path, and nvcc's output (-Xptxas -v: registers, shared
 # memory and spills of every kernel).
@@ -78,40 +85,35 @@ def _sources():
     return _cu_sources() + sorted(CSRC.glob("*.cuh"))
 
 
-def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    so = BUILD_DIR / f"libgps_kernels_{h.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _cu_sources()]
-        nvcc = _nvcc()
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(_cu_sources(), objs)
-        ]
-        outs = [(p.communicate()[0], p.returncode) for p in procs]
-        log = "".join(out for out, _ in outs)
-        if any(rc != 0 for _, rc in outs):
-            raise RuntimeError(f"nvcc failed:\n{log}")
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        log += link.stdout + link.stderr
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
-        for obj in objs:
-            obj.unlink()
-        os.replace(tmp, so)
+def _compile(so: Path) -> str:
+    """nvcc every source, one process each, all started together, and link
+    the objects into ``so`` (through a temporary name, so that a reader
+    never meets a half-written library). Returns nvcc's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _cu_sources()]
+    nvcc = _nvcc()
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(_cu_sources(), objs)
+    ]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    log = "".join(out for out, _ in outs)
+    if any(rc != 0 for _, rc in outs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    for obj in objs:
+        obj.unlink()
+    os.replace(tmp, so)
+    return log
+
+
+def _open(so: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -119,9 +121,29 @@ def library() -> ctypes.CDLL:
         fn.restype = restype
     lib.gps_error_string.argtypes = [ctypes.c_int]
     lib.gps_error_string.restype = ctypes.c_char_p
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(so), log=log)
-    _lib = lib
     return lib
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call (once, whichever
+    threads call it first)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _LIB_LOCK:
+        if _lib is not None:
+            return _lib
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in _sources():
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        so = BUILD_DIR / f"libgps_kernels_{h.hexdigest()[:16]}.so"
+        t0 = time.perf_counter()
+        log = "" if so.exists() else _compile(so)
+        lib = _open(so)
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(so), log=log)
+        _lib = lib
+    return _lib
 
 
 def check(rc: int, what: str) -> None:

@@ -7,8 +7,10 @@ rts_smoother_segment :777-803, sharp-turn detector :808-826, orchestrator
 
 1. ``precompute_controls``: every control decision (outages, recoveries,
    sharp turns, RTS membership) depends only on the GPS validity mask and
-   the raw SLAM stream, so it is computed up front with prefix sums and
-   running maxima;
+   the raw SLAM stream, so it is computed up front with two scans of pose
+   indices (running maxima forward, minima backward; ``ops.scan``, K1/K2
+   on a card), per block of the pose axis if need be
+   (``controls_over_blocks``);
 2. a forward pass (predict / masked update / transition blending);
 3. one backward pass applying every per-outage RTS segment (segments are
    disjoint, so one reverse pass with resets at segment ends equals the
@@ -26,13 +28,14 @@ the rows.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from gps_optimize_slam_tpu_torch.config import EKFConfig, RTSDecisionConfig
 from gps_optimize_slam_tpu_torch.ops import quaternion as quat
 from gps_optimize_slam_tpu_torch.ops import se3
+from gps_optimize_slam_tpu_torch.ops.scan import associative_scan
 
 
 class EKFParams(NamedTuple):
@@ -67,6 +70,138 @@ def _sym(M: torch.Tensor) -> torch.Tensor:
     return (M + M.transpose(-1, -2)) / 2.0
 
 
+class ControlsBlock(NamedTuple):
+    """One block of the pose axis for :func:`controls_over_blocks`: its
+    poses, the global index of its first, and, for every block but the
+    first, the raw inputs of the pose just before it (each with a pose axis
+    of length 1)."""
+
+    times: torch.Tensor  # (..., L)
+    quats: torch.Tensor  # (..., L, 4)
+    gps: torch.Tensor  # (..., L, 3) aligned GNSS, NaN where missing
+    valid: torch.Tensor  # (..., L) bool
+    start: int = 0
+    prev: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]] = None  # times, quats, gps, valid
+
+
+# (op, [per-block (L, ..., n_k) leaves, each on its block's device], reverse)
+# -> the inclusive scan of ``op`` across the blocks, a block each on its
+# device (``ops.scan.associative_scan``'s contract over a list of blocks;
+# ``parallel.seqpar`` splits it over a mesh).
+BlockScanFn = Callable[[str, List[torch.Tensor], bool], List[torch.Tensor]]
+
+
+def one_block_scan(op: str, blocks: List[torch.Tensor], reverse: bool = False) -> List[torch.Tensor]:
+    """The :data:`BlockScanFn` of a single block: ``associative_scan``."""
+    if len(blocks) != 1:
+        raise ValueError("several blocks need a scan across them (parallel.seqpar.block_scan)")
+    return [associative_scan(op, blocks[0], reverse)]
+
+
+def _available(valid: torch.Tensor, gps: torch.Tensor) -> torch.Tensor:
+    return valid & ~torch.any(torch.isnan(gps), dim=-1)
+
+
+class _Marks(NamedTuple):
+    gidx: torch.Tensor  # (L,) global pose indices, float64
+    avail: torch.Tensor
+    avail_prev: torch.Tensor
+    # (3, ..., L) float64: the index of each available pose, of each pose
+    # that ends a high-yaw-rate pair inside an outage, of each degenerate
+    # quaternion inside an outage; -1 elsewhere.
+    last: torch.Tensor
+
+
+def _marks(b: ControlsBlock, thresh: float) -> _Marks:
+    """What a block computes alone, from its poses and the pose before it."""
+    n = b.times.shape[-1]
+    gidx = (b.start + torch.arange(n, device=b.times.device)).to(torch.float64)
+    avail = _available(b.valid, b.gps)
+    if b.prev is None:
+        # The first block: avail_prev[0] = avail[0], and no pair ends at pose 0.
+        avail_prev = torch.cat([avail[..., :1], avail[..., :-1]], -1)
+        t_ext, q_ext, a_ext = b.times, b.quats, avail
+    else:
+        pt, pq, pg, pv = b.prev
+        a0 = _available(pv, pg)
+        avail_prev = torch.cat([a0, avail[..., :-1]], -1)
+        t_ext, q_ext, a_ext = torch.cat([pt, b.times], -1), torch.cat([pq, b.quats], -2), torch.cat([a0, avail], -1)
+    yaws = quat.yaw(q_ext)
+    dyaw = quat.wrap_angle(yaws[..., 1:] - yaws[..., :-1])
+    dts = t_ext[..., 1:] - t_ext[..., :-1]
+    rate = torch.where(
+        dts > 0, torch.abs(dyaw / torch.where(dts > 0, dts, torch.ones_like(dts))), 0.0
+    )
+    pair_in_run = (~a_ext[..., :-1]) & (~a_ext[..., 1:])
+    high = pair_in_run & (rate > thresh)  # the pair ending at each pose (from the second on)
+    if b.prev is None:
+        high = torch.cat([torch.zeros_like(avail[..., :1]), high], -1)
+    bad_quat = (quat.norm(b.quats) < 1e-15) & ~avail
+    last = torch.stack([torch.where(m, gidx, -1.0) for m in (avail, high, bad_quat)])
+    return _Marks(gidx, avail, avail_prev, last)
+
+
+def controls_over_blocks(
+    blocks: Sequence[ControlsBlock],
+    rts_cfg: RTSDecisionConfig = RTSDecisionConfig(),
+    block_scan: BlockScanFn = one_block_scan,
+) -> List[FusionControls]:
+    """:func:`precompute_controls` of a trajectory split into contiguous
+    blocks, each on its own device, every field equal to the whole
+    trajectory's on every pose. Outages cross block edges through a
+    one-pose halo (``ControlsBlock.prev``) and two scans over the blocks
+    (``block_scan``; K1/K2 on a card), of pose indices as float64 (exact
+    below 2^53):
+
+    * forward, ``max3`` of the indices of the available poses, of the poses
+      ending a high-yaw-rate pair in an outage and of the degenerate
+      quaternions in an outage: the outage [s, i−1] before a recovery i
+      starts after the last available pose, and is sharp iff the last of
+      the others before i lies inside it (the whole-trajectory form's
+      counts, as indices);
+    * backward, ``min3`` of the indices of the available poses and of the
+      recoveries that perform RTS: an outage pose is smoothed iff the first
+      of each after it is the same pose, its recovery."""
+    thresh = torch.deg2rad(  # a host tensor: no wait on a device
+        torch.tensor(rts_cfg.sharp_turn_yaw_rate_threshold_deg_per_sec, dtype=blocks[0].times.dtype)
+    ).item()
+    marks = [_marks(b, thresh) for b in blocks]
+    last = block_scan("max3", [m.last for m in marks], False)
+    steps = rts_cfg.default_ekf_transition_steps_on_sharp_turn
+    fwd = []
+    for k, m in enumerate(marks):
+        # The running maxima at the pose before each pose: the previous
+        # block's last (-1 before the first block).
+        first = torch.full_like(last[k][..., :1], -1.0) if k == 0 else last[k - 1][..., -1:].to(last[k].device)
+        before = torch.cat([first, last[k][..., :-1]], -1)
+        prev_run_start = before[0] + 1
+        is_recovery = m.avail & ~m.avail_prev & (m.gidx != 0)
+        analyse = is_recovery & (m.gidx - prev_run_start >= 2)
+        # The outage [s, i-1] before a recovery i holds a high-rate pair iff
+        # one ends in [s+1, i-1], a degenerate quaternion iff one lies in [s, i-1].
+        sharp = analyse & ((before[1] >= prev_run_start + 1) | (before[2] >= prev_run_start))
+        eff_steps = torch.where(sharp, steps, 0)
+        fwd.append((is_recovery, sharp, is_recovery & ~sharp, eff_steps))
+
+    inf = float("inf")
+    firsts = [(torch.where(m.avail, m.gidx, inf), torch.where(f[2], m.gidx, inf)) for m, f in zip(marks, fwd)]
+    nexts = block_scan("min3", [torch.stack([a, r, r]) for a, r in firsts], True)
+    out = []
+    for m, (is_recovery, sharp, perform_rts, eff_steps), nxt in zip(marks, fwd, nexts):
+        # RTS membership: the outage run [s..i−1] of a perform_rts recovery
+        # i, plus i itself; a trailing run (no recovery) stays unsmoothed.
+        member_invalid = (~m.avail) & (nxt[0] == nxt[1]) & (nxt[0] < inf)
+        out.append(FusionControls(
+            avail=m.avail,
+            is_recovery=is_recovery,
+            eff_transition_steps=eff_steps,
+            rts_member=member_invalid | perform_rts,
+            rts_end=perform_rts,
+            sharp_turn=sharp,
+        ))
+    return out
+
+
 def precompute_controls(
     slam_times: torch.Tensor,
     slam_quats: torch.Tensor,
@@ -78,66 +213,10 @@ def precompute_controls(
     EKFGPSSLAM.py:861-899): recovery at i ⟺ avail[i] ∧ ¬avail[i−1]; an
     outage [s, i−1] of length ≥2 is sharp when any within-run yaw rate
     exceeds the threshold or any quaternion is degenerate; sharp ⇒ no RTS
-    and the configured transition steps, else RTS + hard update."""
-    n = slam_times.shape[-1]
-    lead = slam_times.shape[:-1]
-    device = slam_times.device
-    avail = valid_mask & ~torch.any(torch.isnan(aligned_gps), dim=-1)
-    idx = torch.arange(n, device=device)
-    avail_prev = torch.cat([avail[..., :1], avail[..., :-1]], -1)
-    is_recovery = avail & ~avail_prev & (idx != 0)
-
-    last_avail = torch.cummax(torch.where(avail, idx, -1), -1).values
-    run_start = last_avail + 1
-    run_len_at = idx - last_avail
-
-    yaws = quat.yaw(slam_quats)
-    dyaw = quat.wrap_angle(yaws[..., 1:] - yaws[..., :-1])
-    dts = slam_times[..., 1:] - slam_times[..., :-1]
-    rate = torch.where(
-        dts > 0, torch.abs(dyaw / torch.where(dts > 0, dts, torch.ones_like(dts))), 0.0
-    )
-    thresh = torch.deg2rad(
-        torch.tensor(rts_cfg.sharp_turn_yaw_rate_threshold_deg_per_sec, dtype=slam_times.dtype)
-    ).item()
-    pair_in_run = (~avail[..., :-1]) & (~avail[..., 1:])
-    high = pair_in_run & (rate > thresh)
-    zero1 = torch.zeros((*lead, 1), dtype=torch.long, device=device)
-    cum_high = torch.cat([zero1, torch.cumsum(high.long(), -1)], -1)
-    bad_quat = (quat.norm(slam_quats) < 1e-15) & ~avail
-    cum_bad = torch.cat([zero1, torch.cumsum(bad_quat.long(), -1)], -1)
-
-    prev_run_start = torch.cat([zero1, run_start[..., :-1]], -1)
-    prev_run_len = torch.cat([zero1, run_len_at[..., :-1]], -1)
-    analyse = is_recovery & (prev_run_len >= 2)
-    s_clip = torch.clamp(prev_run_start, 0, n - 1)
-    any_high = (cum_high[..., torch.clamp(idx - 1, 0, n - 1)] - torch.gather(cum_high, -1, s_clip)) > 0
-    any_bad = (cum_bad[..., idx] - torch.gather(cum_bad, -1, s_clip)) > 0
-    sharp_at_recovery = analyse & (any_high | any_bad)
-
-    perform_rts = is_recovery & ~sharp_at_recovery
-    eff_steps = torch.where(
-        sharp_at_recovery,
-        torch.full_like(idx, rts_cfg.default_ekf_transition_steps_on_sharp_turn),
-        torch.zeros_like(idx),
-    )
-
-    # RTS membership: the outage run [s..i−1] of a perform_rts recovery i,
-    # plus i itself; a trailing run (no recovery) stays unsmoothed.
-    run_last = (~avail) & torch.cat([avail[..., 1:], torch.zeros((*lead, 1), dtype=torch.bool, device=device)], -1)
-    e_rev = torch.cummax(torch.flip(torch.where(run_last, (n - 1) - idx, -1), (-1,)), -1).values
-    e = torch.flip(e_rev, (-1,))
-    found = e >= 0
-    run_end = (n - 1) - torch.where(found, e, 0)
-    member_invalid = (~avail) & found & torch.gather(perform_rts, -1, torch.clamp(run_end + 1, 0, n - 1))
-    return FusionControls(
-        avail=avail,
-        is_recovery=is_recovery,
-        eff_transition_steps=eff_steps,
-        rts_member=member_invalid | perform_rts,
-        rts_end=perform_rts,
-        sharp_turn=sharp_at_recovery,
-    )
+    and the configured transition steps, else RTS + hard update. The
+    one-block case of :func:`controls_over_blocks`."""
+    (out,) = controls_over_blocks([ControlsBlock(slam_times, slam_quats, aligned_gps, valid_mask)], rts_cfg)
+    return out
 
 
 class EKFHistory(NamedTuple):
@@ -245,11 +324,15 @@ def rts_backward(history: EKFHistory, controls: FusionControls) -> torch.Tensor:
     return torch.stack(out[::-1])
 
 
-def full_smoother_controls(controls: FusionControls) -> FusionControls:
+def full_smoother_controls(controls: FusionControls, start: int = 0, n: Optional[int] = None) -> FusionControls:
     """Full fixed-interval smoothing: one RTS segment over the whole
-    trajectory, anchored at the last pose (extension, SURVEY §7 step 9)."""
-    n = controls.avail.shape[-1]
-    idx = torch.arange(n, device=controls.avail.device)
+    trajectory, anchored at the last pose (extension, SURVEY §7 step 9).
+    For a block of a longer trajectory: ``start``, the global index of its
+    first pose, and ``n``, the trajectory's length (None: the block's
+    end)."""
+    length = controls.avail.shape[-1]
+    n = start + length if n is None else n
+    idx = start + torch.arange(length, device=controls.avail.device)
     return controls._replace(rts_member=torch.ones_like(controls.avail),
                              rts_end=(idx == n - 1).expand_as(controls.avail))
 

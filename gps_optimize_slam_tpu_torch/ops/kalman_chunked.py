@@ -196,6 +196,8 @@ def fuse_ekf_rts_chunked(
     dtype: torch.dtype = torch.float64,
     device=None,
     scan_fn: Optional[ScanFn] = None,
+    out_pos: Optional[np.ndarray] = None,
+    out_quat: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """EKF + RTS over a host-resident (possibly memory-mapped) trajectory of
     any length, streaming fixed-size chunks through ``device`` (the card
@@ -208,7 +210,10 @@ def fuse_ekf_rts_chunked(
     (``utils.streaming``): chunk i+1's inputs are staged before chunk i's
     outputs are read back. Equivalent to
     ``kalman_parallel.fuse_ekf_rts_parallel``; returns host (pos (N,3),
-    quat (N,4)).
+    quat (N,4)): ``out_pos`` and ``out_quat`` when given, preallocated
+    (N,3) and (N,4) host buffers (a ``np.memmap`` too) that must not alias
+    the inputs (chunk i+1's inputs are read before chunk i's outputs are
+    written).
     """
     if rts_cfg.default_ekf_transition_steps_on_sharp_turn != 0:
         raise ValueError("chunked scan requires hard updates (transition steps == 0)")
@@ -217,8 +222,8 @@ def fuse_ekf_rts_chunked(
     n = len(slam_times)
     avail, member, end = controls_numpy(slam_times, slam_quat, aligned_gps, valid_mask, rts_cfg, rts_mode)
 
-    out_pos = np.empty((n, 3), np_dt)
-    out_quat = np.empty((n, 4), np_dt)
+    out_pos = np.empty((n, 3), np_dt) if out_pos is None else out_pos
+    out_quat = np.empty((n, 4), np_dt) if out_quat is None else out_quat
     m_f_all = np.empty((n, 3), np_dt)
     P_f6_all = np.empty((n, 6), np_dt)
     d_all = np.empty((max(n - 1, 0), 3), np_dt)

@@ -240,7 +240,8 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
             nkept.data_ptr(), cand4.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn keep lists")
-    keep_lists.launches += 1
+    with _build.COUNT_LOCK:
+        keep_lists.launches += 1
     return order, nkept, cand4
 
 
@@ -313,7 +314,8 @@ def nn_resident(
             out.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn_min_dist2 (resident)")
-    nn_resident.launches += 1
+    with _build.COUNT_LOCK:
+        nn_resident.launches += 1
     return out
 
 
@@ -352,7 +354,8 @@ def grid_launch(traj: torch.Tensor, operands, n_items: int) -> torch.Tensor:
             out.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn_min_dist2 (grid)")
-    nn_grid.launches += 1
+    with _build.COUNT_LOCK:
+        nn_grid.launches += 1
     return out
 
 
@@ -443,7 +446,8 @@ def ransac_counts(
             _build.stream(src.device),
         )
     _build.check(rc, "ransac_counts")
-    ransac_counts.launches += 1
+    with _build.COUNT_LOCK:
+        ransac_counts.launches += 1
     return out
 
 

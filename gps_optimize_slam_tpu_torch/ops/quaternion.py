@@ -14,10 +14,10 @@ _EPS_NORM = 1e-9
 
 
 def identity_like(q: torch.Tensor) -> torch.Tensor:
-    """Identity quaternion broadcast to q's shape."""
-    out = torch.zeros_like(q)
-    out[..., 3] = 1.0
-    return out
+    """Identity quaternion broadcast to q's shape (built on q's device: an
+    assignment of a Python number to one element would copy it from the
+    host and wait)."""
+    return torch.cat([torch.zeros_like(q[..., :3]), torch.ones_like(q[..., 3:])], -1)
 
 
 def norm(q: torch.Tensor) -> torch.Tensor:
@@ -48,8 +48,9 @@ def mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def conj(q: torch.Tensor) -> torch.Tensor:
-    """Conjugate (= inverse for unit quaternions)."""
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+    """Conjugate (= inverse for unit quaternions). Built on the device, with
+    no host-to-device copy that would wait on it."""
+    return torch.cat([-q[..., :3], q[..., 3:]], -1)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -280,7 +280,8 @@ def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         rc = lib.gps_scan(code, dt, x.data_ptr(), out.data_ptr(), n, batch, int(reverse),
                           scratch.data_ptr(), _build.stream(x.device))
     _build.check(rc, f"scan {op}")
-    scan_block.launches[op] += 1
+    with _build.COUNT_LOCK:
+        scan_block.launches[op] += 1
     return out
 
 
@@ -317,7 +318,8 @@ def scan_tiled(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         rc = lib.gps_scan_tiled(code, dt, x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                                 scratch.numel(), n, int(reverse), _build.stream(x.device))
     _build.check(rc, f"tiled scan {op}")
-    scan_tiled.launches[op] += 1
+    with _build.COUNT_LOCK:
+        scan_tiled.launches[op] += 1
     return out
 
 

@@ -15,10 +15,17 @@ size D with copies of row 0, and each device fuses a contiguous shard of
 rows as one batched program; the outputs are concatenated on
 ``mesh.devices[0]`` and the padding sliced off (rows are independent, so a
 copy cannot perturb a real row). The JAX package shards the batch axis of
-one ``jit``-ed program over the mesh; the port issues one program a shard,
-in turn from the host, so a mesh of one card (``devices=["cuda:0"] * k``,
-how one card and the CPU tests run this code) runs its shards one after
-another. A device may repeat; nothing falls back to the CPU.
+one ``jit``-ed program over the mesh, so all shards run at once; the port
+issues one program a shard, each distinct device's shards from a host thread
+of their own (``_on_devices``), so shards on distinct cards run at once
+although each program reads values back to the host (RANSAC, the
+alignment). Shards that share a device run one after another in its thread:
+a mesh of one card (``devices=["cuda:0"] * k``, how one card and the CPU
+tests run this code) runs its shards in turn. On four H100 cards, three
+shards' threads took about 3× as long as the same shards in turn from one
+thread, their eager dispatch contending for the interpreter lock
+(``tools/torch_phase9_cards.py``). A device may repeat; nothing falls back
+to the CPU.
 
 RANSAC draws: the JAX package takes a PRNG key a row; the port takes an
 integer seed a row (``seed + i``, as the ``fuse-batch`` command numbers its
@@ -28,8 +35,10 @@ draws what ``fuse_core`` on that sequence alone draws with ``seed=s``.
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import NamedTuple, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +94,40 @@ def make_mesh(devices: Optional[Sequence] = None, n_devices: Optional[int] = Non
     return Mesh(devices)
 
 
+def _device_groups(devices: Sequence[torch.device]) -> List[List[int]]:
+    """The mesh positions of each distinct device, in order of first
+    appearance: the shards one host thread runs."""
+    groups = {}
+    for k, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(k)
+    return list(groups.values())
+
+
+def _on_devices(devices: Sequence[torch.device], fn: Callable[[int], object]) -> list:
+    """``fn(k)`` for each mesh position k, on ``devices[k]``: one host thread
+    a distinct device (inside ``torch.cuda.device`` for a card, on its
+    current stream), the positions sharing a device in turn in its thread.
+    Returns the results in position order; an exception from any thread
+    reaches the caller after every thread has stopped."""
+    results = [None] * len(devices)
+
+    def run(group):
+        dev = devices[group[0]]
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            for k in group:
+                results[k] = fn(k)
+
+    groups = _device_groups(devices)
+    if len(groups) == 1:
+        run(groups[0])
+        return results
+    with ThreadPoolExecutor(max_workers=len(groups)) as pool:
+        futures = [pool.submit(run, g) for g in groups]
+        for f in futures:
+            f.result()
+    return results
+
+
 def _placement(device, mesh: Optional[Mesh]):
     """The device of an unsharded call, after the check that a caller named
     at most one of ``device`` and ``mesh``."""
@@ -127,17 +170,17 @@ def estimate_offsets_batch(
     """Per-sequence clock offsets, estimated on the device in one batched
     call (the FFT speed cross-correlation of
     ``ops.alignment.estimate_time_offset_xcorr_device``), honouring the
-    padding masks; with ``mesh``, one call a device on its shard of rows.
+    padding masks; with ``mesh``, one call a device on its shard of rows,
+    the devices' shards issued at once (``_on_devices``).
     Returns a host (B,) array for ``fuse_batch(..., time_offsets=...)``."""
     device = _placement(device, mesh)
     dtype = _dtype(batch, dtype)
     if mesh is not None:
         b = np.asarray(batch.slam_times).shape[0]
-        return np.concatenate([
-            estimate_offsets_batch(_take_rows(batch, rows), device=dev, dtype=dtype,
-                                   max_lag_seconds=max_lag_seconds, n_grid=n_grid)
-            for dev, rows in zip(mesh.devices, _shard_rows(b, mesh.size))
-        ])[:b]
+        rows = _shard_rows(b, mesh.size)
+        return np.concatenate(_on_devices(mesh.devices, lambda k: estimate_offsets_batch(
+            _take_rows(batch, rows[k]), device=mesh.devices[k], dtype=dtype, max_lag_seconds=max_lag_seconds,
+            n_grid=n_grid)))[:b]
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dt)
@@ -267,12 +310,18 @@ def fuse_batch(
 
 
 def _fuse_sharded(sharded: ShardedBatch, config: FusionConfig, sim3_draws) -> fusion.FusionOutputs:
-    """Each shard fused on its own device, the outputs concatenated on the
-    first shard's device with the padding rows sliced off."""
-    home = sharded.shards[0].args[0].device
-    outs = [fuse_batch(shard, config=config, sim3_draws=None if sim3_draws is None
-                       else sim3_draws[torch.as_tensor(rows)].to(shard.args[0].device))
-            for shard, rows in zip(sharded.shards, sharded.rows)]
+    """Each shard fused on its own device, the devices' shards issued at once
+    (``_on_devices``), the outputs concatenated in shard order on the first
+    shard's device with the padding rows sliced off."""
+    devices = [shard.args[0].device for shard in sharded.shards]
+    home = devices[0]
+
+    def fuse(k):
+        shard, rows = sharded.shards[k], sharded.rows[k]
+        return fuse_batch(shard, config=config, sim3_draws=None if sim3_draws is None
+                          else sim3_draws[torch.as_tensor(rows)].to(devices[k]))
+
+    outs = _on_devices(devices, fuse)
 
     def cat(leaves):
         return torch.cat([x.to(home) for x in leaves])[: sharded.n_real]

@@ -578,35 +578,105 @@ def test_pose_graph_pieces_on_the_card_match_the_cpu(cuda):
     assert float((hv - hvp_c(v.to(cuda)).cpu()).abs().max() / hv.abs().max()) <= 1e-12
 
 
+def seqpar_case(n, device, seed=5):
+    """A replica sequence with a start without GNSS and an outage, its GNSS
+    interpolated onto the poses: the seven seqpar inputs on ``device``."""
+    import numpy as np
+
+    slam, gt, gp = chip_smoke.replica_sequence(n, seed=seed)
+    st = slam["timestamps"]
+    aligned = np.stack([np.interp(st, gt, gp[:, k]) for k in range(3)], -1)
+    valid = (st > st[0] + 20) & (np.abs(st - st[n // 2]) > 8)
+    return [torch.as_tensor(a, device=device) for a in (st, slam["positions"], slam["quaternions"],
+                                                        slam["positions"], slam["quaternions"], aligned, valid)]
+
+
 @pytest.mark.parametrize("rts_mode", ["outage", "full"])
 @pytest.mark.parametrize("n", [1500, 1501])
 def test_seqpar_on_one_card_matches_one_device(cuda, n, rts_mode):
-    """``fuse_ekf_rts_seqparallel`` on four blocks of one card against
-    ``fuse_ekf_rts_parallel`` on the card (≤1e-8 m, quaternions ≤1e-10, the
-    JAX package's bounds) and on CPU tensors; each block's scan and the
-    totals' scan launch K1: 3 scans × (4 blocks + 1)."""
-    import numpy as np
-
+    """``fuse_ekf_rts_seqparallel`` on four blocks of one card, with every
+    host synchronisation an error (``set_sync_debug_mode("error")``),
+    against ``fuse_ekf_rts_parallel`` on the card (≤1e-8 m, quaternions
+    ≤1e-10, the JAX package's bounds) and on CPU tensors; each block's scan
+    and the totals' scan launch K1: the filter's 3 scans and the controls'
+    forward (max3) and backward (min3) scans × (4 blocks + 1)."""
     from gps_optimize_slam_tpu_torch.ops import kalman_parallel
     from gps_optimize_slam_tpu_torch.parallel import seqpar
     from gps_optimize_slam_tpu_torch.parallel.mesh import make_mesh
 
-    slam, gt, gp = chip_smoke.replica_sequence(n, seed=5)
-    st = slam["timestamps"]
-    aligned = np.stack([np.interp(st, gt, gp[:, k]) for k in range(3)], -1)
-    valid = (st > st[0] + 20) & (np.abs(st - st[n // 2]) > 8)  # a start without GNSS and an outage
-    args = [torch.as_tensor(a, device=cuda) for a in (st, slam["positions"], slam["quaternions"],
-                                                      slam["positions"], slam["quaternions"], aligned, valid)]
+    args = seqpar_case(n, cuda)
+    mesh = make_mesh(devices=["cuda:0"] * 4)
     chip_smoke.reset_launch_counts()
-    got = seqpar.fuse_ekf_rts_seqparallel(make_mesh(devices=["cuda:0"] * 4), *args, rts_mode=rts_mode)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = seqpar.fuse_ekf_rts_seqparallel(mesh, *args, rts_mode=rts_mode)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     counts = chip_smoke.launch_counts()
-    assert {k: v for k, v in counts.items() if v} == {f"scan_block/{op}": 5 for op in ("quat_chain", "filter", "rts")}
+    assert {k: v for k, v in counts.items() if v} == {
+        f"scan_block/{op}": 5 for op in ("quat_chain", "filter", "rts", "max3", "min3")}
     one = kalman_parallel.fuse_ekf_rts_parallel(*args, rts_mode=rts_mode)
     cpu = kalman_parallel.fuse_ekf_rts_parallel(*(a.cpu() for a in args), rts_mode=rts_mode)
     for ref in (one, cpu):
         assert float((got[0].cpu() - ref[0].cpu()).abs().max()) <= 1e-8
         assert float((got[1].cpu() - ref[1].cpu()).abs().max()) <= 1e-10
+
+
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("rts_mode", ["outage", "full"])
+def test_seqpar_over_two_cards_matches_one_card(cuda, rts_mode):
+    """Four blocks over cuda:0 and cuda:1 (blocks 1 and 3 on the second
+    card: every edge crosses cards), the halos, totals and prefixes copied
+    between the cards without a host synchronisation, against the same
+    four blocks on one card and the single-device filter, ≤1e-8 m; the
+    per-block outputs lie on their cards."""
+    from gps_optimize_slam_tpu_torch.ops import kalman_parallel
+    from gps_optimize_slam_tpu_torch.parallel import seqpar
+    from gps_optimize_slam_tpu_torch.parallel.mesh import make_mesh
+
+    first, second = two_cards()
+    args = seqpar_case(20_001, first)
+    one_card = seqpar.fuse_ekf_rts_seqparallel(make_mesh(devices=[first] * 4), *args, rts_mode=rts_mode)
+    mesh = make_mesh(devices=[first, second, first, second])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blocks = seqpar.fuse_ekf_rts_seqparallel(mesh, *args, rts_mode=rts_mode, gather=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [b.device for b in blocks[0]] == list(mesh.devices)
+    got = [torch.cat([b.to(first) for b in xs]) for xs in blocks]
+    one = kalman_parallel.fuse_ekf_rts_parallel(*args, rts_mode=rts_mode)
+    for ref in (one_card, one):
+        assert float((got[0] - ref[0]).abs().max()) <= 1e-8
+        assert float((got[1] - ref[1]).abs().max()) <= 1e-10
+
+
+def test_mesh_shards_over_two_cards_match_one_card(cuda):
+    """Five replica sequences on two shards, one a card, issued from a host
+    thread a card, against the same two shards on one card and the
+    unsharded batch, ≤1e-9 m."""
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+
+    first, second = two_cards()
+    seqs = [chip_smoke.replica_sequence(n, seed=s) for s, n in enumerate((601, 701, 801, 651, 751))]
+    b = pbatch.pad_batch([s for s, _, _ in seqs], [t for _, t, _ in seqs], [p for _, _, p in seqs])
+    cfg = FusionConfig()
+    want = mesh.fuse_batch(b, config=cfg, device=first)
+    one_card = mesh.fuse_batch(b, config=cfg, mesh=mesh.make_mesh(devices=[first] * 2))
+    got = mesh.fuse_batch(b, config=cfg, mesh=mesh.make_mesh(devices=[first, second]))
+    torch.cuda.synchronize()
+    assert got.corrected_pos.device == first and bool(got.ok.all())
+    for ref in (one_card, want):
+        assert float((got.corrected_pos - ref.corrected_pos).abs().max()) <= 1e-9
+        assert torch.equal(got.sim3_inliers, ref.sim3_inliers)
 
 
 def test_fuse_batch_on_a_mesh_of_one_card_matches_the_unsharded_batch(cuda):
@@ -633,7 +703,9 @@ def test_fuse_batch_on_a_mesh_of_one_card_matches_the_unsharded_batch(cuda):
 
 def test_kernels_launch_on_their_tensors_card_when_another_is_current(cuda):
     """A scan and an NN call on cuda:1 while cuda:0 is current: each wrapper
-    launches on its tensors' card and stream (two cards needed)."""
+    launches on its tensors' card and stream (two cards needed). The NN
+    call equals the same kernel's on cuda:0 bit for bit, and the plain
+    version within the file's float64 NN bound (K3 sums in another order)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     gen = torch.Generator().manual_seed(9)
@@ -649,4 +721,7 @@ def test_kernels_launch_on_their_tensors_card_when_another_is_current(cuda):
         mask = torch.rand(4661, generator=gen).to(other) > 0.1
         got = kernels.nn_min_dist2(traj, traj, mask)
         torch.cuda.synchronize(other)
-        assert torch.equal(got, kernels.nn_min_dist2_plain(traj, traj, mask))
+        assert got.device == other
+        home = torch.device("cuda", 0)
+        assert torch.equal(got.to(home), kernels.nn_min_dist2(traj.to(home), traj.to(home), mask.to(home)))
+        torch.testing.assert_close(got, kernels.nn_min_dist2_plain(traj, traj, mask, block=128), rtol=1e-12, atol=0.0)

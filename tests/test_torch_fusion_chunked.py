@@ -9,7 +9,10 @@ against JAX's every statistic ≤1e-9; chunked against the port's in-core
 fusion ≤1e-10 m on the same draws (the scans re-enter exactly; only the
 association order differs); ``fuse_files_chunked`` on seq-04 against the
 in-core ``fuse_files`` ≤1e-8 m, and its export reads back within the
-format's rounding.
+format's rounding. The fused trajectory written into given ``np.memmap``
+buffers and the Sim3 trajectory of ``return_sim3_trajectory`` against
+JAX's, with and without the robust gate: the same bounds, the Sim3
+trajectory ≤1e-8 m and quaternions ≤1e-10.
 """
 
 import dataclasses
@@ -63,6 +66,40 @@ def test_fuse_core_chunked_matches_jax(jax_chunked):
     assert abs(float(got.sim3.scale) - float(want.sim3.scale)) <= 1e-10
     v = got.gps_valid
     np.testing.assert_allclose(got.aligned_gps[v], want.aligned_gps[v], atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("robust", [False, True])
+def test_fuse_core_chunked_writes_given_buffers_and_returns_the_sim3_trajectory(jax_chunked, tmp_path, robust):
+    """``out_pos``/``out_quat`` (memory-mapped ``.npy`` files here) receive
+    the fused trajectory through ``fuse_ekf_rts_chunked`` or, with the
+    robust gate, ``fuse_robust_chunked``; ``return_sim3_trajectory=True``
+    adds the Sim3-transformed trajectory; both as JAX's."""
+    (st, sp, sq, gt, gp, gv), cfg, _, draws = jax_chunked
+    n = len(st)
+
+    def buffers(tag):
+        return tuple(np.lib.format.open_memmap(tmp_path / f"{tag}_{k}.npy", mode="w+", dtype=np.float64,
+                                               shape=(n, k)) for k in (3, 4))
+
+    jpos, jquat = buffers("jax")
+    want, (want_sp, want_sq) = jfc.fuse_core_chunked(
+        st, sp, sq, gt, gp, gv, key=jax.random.PRNGKey(0), config=JFusionConfig(), chunk_size=159, halo=24,
+        out_pos=jpos, out_quat=jquat, return_sim3_trajectory=True, robust=robust,
+    )
+    pos, quat = buffers("port")
+    got, (got_sp, got_sq) = fusion_chunked.fuse_core_chunked(
+        st, sp, sq, gt, gp, gv, config=cfg, chunk_size=159, halo=24, sim3_draws=torch.tensor(draws),
+        device="cpu", out_pos=pos, out_quat=quat, return_sim3_trajectory=True, robust=robust,
+    )
+    assert got.corrected_pos is pos and got.corrected_quat is quat
+    pos.flush()
+    np.testing.assert_array_equal(np.load(tmp_path / "port_3.npy"), got.corrected_pos)
+    np.testing.assert_allclose(got.corrected_pos, want.corrected_pos, atol=1e-8, rtol=0)
+    np.testing.assert_allclose(got.corrected_quat, want.corrected_quat, atol=1e-10, rtol=0)
+    np.testing.assert_allclose(got_sp, want_sp, atol=1e-8, rtol=0)
+    np.testing.assert_allclose(got_sq, want_sq, atol=1e-10, rtol=0)
+    if robust:
+        np.testing.assert_array_equal(got.robust_accepted, want.robust_accepted)
 
 
 def test_evaluate_chunked_matches_jax(jax_chunked):

@@ -1,11 +1,21 @@
 """The port's mesh (``parallel.mesh.Mesh``, ``make_mesh`` and ``mesh=`` on the
-batch entry points) on the CPU, float64, and the launch scoping of the kernel
-wrappers (every launch on its tensors' own device and stream).
+batch entry points) on the CPU, float64; shards on distinct devices in flight
+together (distinct devices faked by patching the grouping of shards into
+host threads), an error in one shard reaching the caller; the kernels'
+library built once from several threads and the launch counts kept under
+threads; and the launch scoping of the kernel wrappers (every launch on its
+tensors' own device and stream).
 
 Tolerances: a sharded row against the unsharded batch ≤1e-9 m (the JAX
 package holds a batch's row to its single call at that bound; here both
 sides run the same batched program on fewer rows), offsets ≤1e-9 s.
 """
+
+import contextlib
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -160,3 +170,129 @@ def test_every_wrapper_launches_on_its_tensors_device(monkeypatch):
         streams.clear()
         call()
         assert entered and entered == streams and set(entered) == {meta}
+
+
+def one_thread_a_shard(devices):
+    """Stands in for ``mesh._device_groups`` on a mesh of distinct devices."""
+    return [[k] for k in range(len(devices))]
+
+
+@pytest.mark.parametrize("entry", ["fuse_batch", "estimate_offsets_batch"])
+def test_shards_on_distinct_devices_are_in_flight_together(batch5, unsharded, monkeypatch, entry):
+    """Three shards, each its own "device": every shard's call waits at a
+    barrier of three, so the run ends only if all three are issued before
+    any finishes; the rows are still the unsharded batch's."""
+    d = 3
+    m = mesh.make_mesh(devices=["cpu"] * d)
+    monkeypatch.setattr(mesh, "_device_groups", one_thread_a_shard)
+    barrier = threading.Barrier(d, timeout=10)
+    threads = set()
+    original = getattr(mesh, entry)
+
+    def waiting(batch, *args, **kw):
+        if kw.get("mesh") is None:  # a shard's own call
+            threads.add(threading.get_ident())
+            barrier.wait()
+        return original(batch, *args, **kw)
+
+    monkeypatch.setattr(mesh, entry, waiting)
+    if entry == "fuse_batch":
+        got = original(batch5, config=GPU_LADDER, mesh=m)
+        assert float((got.corrected_pos - unsharded.corrected_pos).abs().max()) <= 1e-9
+        assert torch.equal(got.sim3_inliers, unsharded.sim3_inliers)
+    else:
+        got = original(batch5, mesh=m)
+        np.testing.assert_allclose(got, original(batch5, device="cpu"), atol=1e-9, rtol=0)
+    assert len(threads) == d and not barrier.broken
+
+
+def test_shards_sharing_a_device_run_in_one_thread_in_order(batch5, monkeypatch):
+    order = []
+    original = mesh.fuse_batch
+
+    def recording(batch, *args, **kw):
+        if isinstance(batch, mesh.StagedBatch):
+            order.append((threading.get_ident(), batch.seeds))
+        return original(batch, *args, **kw)
+
+    monkeypatch.setattr(mesh, "fuse_batch", recording)
+    original(batch5, seeds=[10, 11, 12, 13, 14], config=GPU_LADDER, mesh=mesh.make_mesh(devices=["cpu"] * 3))
+    assert [s for _, s in order] == [(10, 11), (12, 13), (14, 10)]
+    assert len({t for t, _ in order}) == 1
+    assert mesh._device_groups([torch.device("cpu"), torch.device("meta"), torch.device("cpu")]) == [[0, 2], [1]]
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+def test_an_error_in_one_shard_reaches_the_caller(batch5, monkeypatch, distinct):
+    if distinct:
+        monkeypatch.setattr(mesh, "_device_groups", one_thread_a_shard)
+    original = mesh.fuse_batch
+    finished = []
+
+    def failing(batch, *args, **kw):
+        if isinstance(batch, mesh.StagedBatch):
+            if 12 in batch.seeds:
+                raise RuntimeError("shard 1 failed")
+            finished.append(batch.seeds)
+        return original(batch, *args, **kw)
+
+    monkeypatch.setattr(mesh, "fuse_batch", failing)
+    with pytest.raises(RuntimeError, match="shard 1 failed"):
+        original(batch5, seeds=[10, 11, 12, 13, 14], config=GPU_LADDER, mesh=mesh.make_mesh(devices=["cpu"] * 3))
+    # In one thread the shards after the failing one are never issued; in
+    # one thread a shard, the others run to their end before the error is raised.
+    assert sorted(finished) == ([(10, 11), (14, 10)] if distinct else [(10, 11)])
+
+
+def test_the_library_is_built_once_from_eight_threads(monkeypatch, tmp_path):
+    """Eight threads reach their first kernel together: the build (nvcc,
+    patched here) runs once and every thread gets the same library."""
+    builds = []
+    library = object()
+
+    def slow_compile(so):
+        builds.append(so)
+        time.sleep(0.2)
+        so.write_bytes(b"")
+        return "nvcc log"
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    monkeypatch.setattr(_build, "_compile", slow_compile)
+    monkeypatch.setattr(_build, "_open", lambda so: library)
+    start = threading.Barrier(8, timeout=10)
+
+    def first_use(_):
+        start.wait()
+        return _build.library()
+
+    with ThreadPoolExecutor(8) as pool:
+        got = list(pool.map(first_use, range(8)))
+    assert len(builds) == 1 and all(lib is library for lib in got)
+    assert _build.BUILD_INFO["log"] == "nvcc log" and _build.BUILD_INFO["path"] == str(builds[0])
+
+
+def test_launch_counts_survive_many_threads(monkeypatch):
+    """Sixteen threads, more than this host's cores may be, each launching
+    K1 200 times (meta tensors take the wrappers' CUDA path; the library is
+    faked) with a short switch interval: no count is lost."""
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    monkeypatch.setattr(_build, "library", lambda: _FakeLib())
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setitem(scan.scan_block.launches, "add2", 0)
+    x = torch.empty(2, 64, dtype=torch.float64, device="meta")
+
+    def launch(_):
+        for _ in range(200):
+            scan.scan_block("add2", x)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(16) as pool:
+            list(pool.map(launch, range(16)))
+    finally:
+        sys.setswitchinterval(interval)
+    assert scan.scan_block.launches["add2"] == 16 * 200
