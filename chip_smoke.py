@@ -15,10 +15,12 @@ and the ``fuse`` command) at both sizes, batched multi-sequence fusion
 (``parallel.mesh``: the eleven KITTI odometry sequences in length buckets,
 a 64-row fleet bucket, and the ``fuse-batch`` command), and the pose-graph
 refinement (``pipeline.refine_pose_graph`` after ``fuse_arrays`` on a
-4,541-pose shuttle, and the ``refine-graph`` and ``kitti2tum`` commands), and
-the multi-device paths on blocks sharing the card (``parallel.seqpar``,
+4,541-pose shuttle, and the ``refine-graph`` and ``kitti2tum`` commands), the
+multi-device paths on blocks sharing the card (``parallel.seqpar``,
 ``mesh=`` shards, the ``distributed_launch`` example over gloo and NCCL,
-``decimated_view``).
+``decimated_view``), and a bucket of long logs (four rows of 300,000 to
+524,288 poses) through the batched entry points and the ``fuse-batch``
+command, on K2's and K4's batch grids.
 
 Usage (from the repository root, on a machine with a CUDA device):
 
@@ -49,22 +51,32 @@ Phases:
      (``torch.cdist`` and ``min``, where its matrix fits in half the card's
      free memory; past 2^31 - 1 pairs with the matrix-product expansion) as
      its library yardstick; K4, 16,384 x
-     300,000 and 524,288 x 524,288 (phase 5's NN blocks, K4 by the routing
-     rule; the plain version on every 64th query; the kernel alone and with
-     its wrapper), bit for bit against K3, and all-masked; K5, counts equal
+     300,000, 700 x 524,288 shuffled (few query tiles, long keep lists: K4
+     by the routing rule) and 524,288 x 524,288 (phase 5's NN blocks, K3 by
+     the rule; the plain version on every 64th query; the kernel alone and
+     with its wrapper), bit for bit against K3, and all-masked; K5, counts equal
      to the plain version's at 1000 trials x 4661 and 279 points and 333 x
      5003 (ragged point and trial chunks), with every point invalid, and
      twice on the same inputs; float32 and float64; and the routes: K1
      against K2 (and against the plain version) from 271 to 524,289 elements
-     and at the last length the JAX package's budget gave K1, K3 against K4
-     at 16,384 queries and 4661 to 1,048,576 candidates and, with shuffled
-     candidates (every tile kept, long keep lists), at 700 and 4661
-     queries, on the same inputs, the times that place the routing
+     and at the last length the JAX package's budget gave K1, K1's batch
+     grid against K2's at 2 to 64 rows of 16,385 to 524,289 elements, K3
+     against K4 at 16,384 queries and 4661 to 1,048,576 candidates and, with
+     shuffled candidates (every tile kept, long keep lists), at 700 to
+     16,384 queries, on the same inputs, the times that place the routing
      thresholds on this card; the batch grids (``@batch`` entries): K1,
      every combine, the keep lists with K3, and K5, each at the eleven KITTI
      lengths as one ragged batch and at 64 x 4661, against the batched plain
      version and row by row against the single-row kernel (K1 to TOL, the
-     others bit for bit), timed at 64 x 4661 in float32;
+     others bit for bit), timed at 64 x 4661 in float32; K2, every combine,
+     at four ragged float64 rows of 524,289 / 393,217 / 300,001 / 20,001
+     elements (identity-padded) and at 4 x 20,001, against the batched plain
+     version and row by row against K2 alone (bit for bit for add2, max3,
+     min3), timed beside K1's grid; K4 (one work list over all rows' query
+     tiles) at 4 x 700 x 524,288
+     shuffled candidates with a row all masked and at phase 10's evaluation
+     shape, bit for bit against K3's batch grid and against the plain
+     version on every 64th query, timed beside it;
   2. seq-04 golden arrays, float64 UTM, ``fuse_arrays`` on the card, held
      against tests/golden/seq04_golden.npz and seq04_meta.json;
   3. seq-04 from TUM + GNSS files rebuilt from the npz, ``fuse_files`` in
@@ -76,9 +88,10 @@ Phases:
   5. the chunked path at 1,048,576 poses (3,870 seq-04 replicas, GNSS
      outages straddling the 262,144-pose boundaries), float64 on the card:
      ``fuse_core_chunked`` (524,288-pose chunks) against the in-core
-     ``fusion.fuse_core``, ``evaluate_chunked`` on the K4 route (524,288-candidate
-     blocks) against the K3 route (262,144), launch counts, warm wall times, poses
-     per second and peak device memory; and ``fuse_files_chunked`` +
+     ``fusion.fuse_core``, ``evaluate_chunked`` (524,288-pose NN blocks, K3
+     by the route) once more with the blocks forced onto K4, and against
+     262,144-pose blocks, launch counts, warm wall times, poses per second
+     and peak device memory; and ``fuse_files_chunked`` +
      ``export_result`` on the seq-04 files against the in-core
      ``fuse_files``, with launch counts of its own;
   6. the robust and ground-truth path, float64 on the card. In core, the
@@ -95,7 +108,7 @@ Phases:
      ``fuse_core_chunked(robust=True)`` against
      ``fuse_robust(gate_mode="parallel")`` in core (masks equal, ≤1e-6 m,
      quaternions ≤1e-8, NIS ≤1e-6 relative; K2 and no K1) and
-     ``evaluate_vs_track_chunked`` (K4) against ``evaluate_vs_track``
+     ``evaluate_vs_track_chunked`` (K3) against ``evaluate_vs_track``
      (≤1e-6 relative, aligned track ≤1e-6 m). Then ``python3 -m
      gps_optimize_slam_tpu_torch fuse ... --robust --gt ... --json`` and the
      same with ``--chunked`` as subprocesses on the seq-04 files. The walls
@@ -149,7 +162,19 @@ Phases:
      on the same rows, two gloo ranks sharing the card and then a one-rank
      NCCL group, the gathered rows ≤1e-9 m from (d). Each beside its
      single-device baseline (``utils.profiling.wallclock``), with the
-     profiles of (a), (b) and (d) and the ranks' fusion and gather times.
+     profiles of (a), (b) and (d) and the ranks' fusion and gather times;
+ 10. a bucket of long logs, float64: four rows of 524,288 / 458,752 /
+     393,216 / 300,000 poses (``outage_sequence`` replicas, each with its
+     own GNSS noise, a day apart), one bucket under
+     ``bucket_by_length(max_waste=2.0)``: ``fuse_batch`` + ``evaluate_batch``
+     (the scans and the NN calls on the kernels the routes pick), the
+     evaluation again with K4 forced, bit for bit, and the fusion again
+     with K2's batch grid forced; each row within 1e-9 m (or 64 ulps of
+     its hundreds of kilometres) of its single-row ``fuse_core`` +
+     ``evaluate``, each fusion's launches those of one row alone;
+     ``fuse_buckets`` equal to the batch; warm walls of the bucket and of
+     the row loop, idle share, peak memory; then ``fuse-batch --json`` as a
+     subprocess on two logs of 70,000 poses.
 
 The launch counts of the ``{"kernels": [...]}`` line are those of the
 main-path runs (phase 4: ``fuse_arrays`` at 4,661 poses; phase 5:
@@ -162,14 +187,20 @@ shuttle; phase 9: the seqpar runs of (a) and (b) and the chunked fusion of
 (c)), each with the counts set to 0 just before it and read just after;
 ``launches`` is their sum and ``launches_by_phase`` the five terms. The
 ``@batch`` entries' launches are phase 7's (the KITTI buckets' fusion and
-evaluation, the fleet bucket's fusion) and phase 9's mesh shards (d), where
-every launch has a batch grid. The comparison launches of phase 1, phase
-5's K3-route evaluation and its seq-04 run, phase 6's and phase 7's
-reference runs and phase 9's single-device baselines do not count there.
+evaluation, the fleet bucket's fusion), phase 9's mesh shards (d) and phase
+10's bucket of long logs, where every launch has a batch grid. Phase 5's and
+phase 10's counted runs include their evaluation with the NN calls forced
+onto K4 (the route sends their shapes to K3), and phase 10's its fusion
+with the scans forced onto K2 (the route sends four rows of 524,288 to
+K1): K4's launches there and K2's batched ones are those.
+The comparison launches of phase 1, phase 5's 262,144-pose evaluation and
+its seq-04 run, phase 6's, phase 7's and phase 10's reference runs and
+phase 9's single-device baselines do not count there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -192,7 +223,7 @@ TOL = {"float32": 1e-4, "float64": 1e-10}
 
 TILED_N = 262_145  # one default chunk (262,144 steps) plus its carried composite
 CHUNKED_N = 1_048_576  # phase 5's poses
-CHUNK = 524_288  # phase 5's chunk: its NN blocks take K4 (kernels.GRID_MIN_CANDIDATES)
+CHUNK = 524_288  # phase 5's chunk: its NN blocks (4,096 query tiles) take K3 by kernels.nn_route
 # K2's lengths in phase 1: a default chunk plus its carry, a ragged one,
 # phase 5's chunk plus its carry, one with fewer tiles than the card has
 # persistent blocks (79 tiles of the float64 filter) and one with many more
@@ -200,6 +231,7 @@ CHUNK = 524_288  # phase 5's chunk: its NN blocks take K4 (kernels.GRID_MIN_CAND
 TILED_LENGTHS = (TILED_N, TILED_N + 777, CHUNK + 1, 20_001, 1_048_577)
 GRID_NN_SHAPE = (16_384, 300_000)  # K4's check and times below its route, a ragged last tile
 GRID_NN_MAIN = (CHUNK, CHUNK)  # phase 5's NN block: queries x candidates
+GRID_NN_WIN = (700, CHUNK)  # K4's winning shape (shuffled candidates: few query tiles, long keep lists)
 PLAIN_STRIDE = 64  # phase 1 holds K4 at GRID_NN_MAIN against plain on every 64th query
 
 # Published peaks of one H100 SXM (NVIDIA data sheet; float32 and float64
@@ -343,7 +375,7 @@ def nn_bound(traj, cand, mask):
     _, nkept, _ = kernels.keep_lists(traj, cand, mask)
     pairs = int(nkept.sum()) * kernels.TILE_N * kernels.TILE_M
     size = traj.element_size()
-    moved = (traj.numel() + cand.numel() + traj.shape[0]) * size + mask.numel()
+    moved = (traj.numel() + cand.numel() + traj[..., 0].numel()) * size + mask.numel()
     return bound(moved, NN_PAIR_FLOPS * pairs, dtype_name(traj.dtype))
 
 
@@ -687,17 +719,20 @@ def phase1_nn(device, gen):
     entries = [kernel_entry("nn_resident", "nn.cu", "pallas_kernels.py:283", "float32", aerr, ms,
                             plain_ms, nn_bound(traj, cand, mask), library_ms, dev)]
 
-    def check_grid(shape, stride):
+    def check_grid(shape, stride, shuffled=False):
         """K4 at ``shape`` in both dtypes: bit for bit against K3, within
         TOL of the plain version on every ``stride``-th query (the plain
         minimum of a query does not depend on the others), +inf when every
-        candidate is masked. Returns per dtype the operands, K4's output,
-        the plain one on the sampled queries and the relative error."""
+        candidate is masked; ``shuffled`` candidates keep every tile.
+        Returns per dtype the operands, K4's output, the plain one on the
+        sampled queries and the relative error."""
         n, m = shape
         out = {}
         for dtype in (torch.float32, torch.float64):
             name = dtype_name(dtype)
             traj, cand = walk(gen, n, dtype, device), walk(gen, m, dtype, device) + 0.3
+            if shuffled:
+                cand = cand[torch.randperm(m, generator=gen).to(device)].contiguous()
             mask = (torch.rand(m, generator=gen) > 0.1).to(device)
             got = kernels.nn_grid(traj, cand, mask)
             k3 = kernels.nn_resident(traj, cand, mask)
@@ -736,8 +771,21 @@ def phase1_nn(device, gen):
                                 t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"],
                                 t["device_ms"]))
 
-    if kernels.nn_route(GRID_NN_MAIN[1]) != "grid" or kernels.nn_route(SEQ02_LEN) != "resident":
-        raise AssertionError("the routing rule must send phase 5's NN blocks to K4 and phase 4's calls to K3")
+    if (kernels.nn_route(GRID_NN_MAIN[1], GRID_NN_MAIN[0]) != "resident"
+            or kernels.nn_route(SEQ02_LEN, SEQ02_LEN) != "resident"
+            or kernels.nn_route(GRID_NN_WIN[1], GRID_NN_WIN[0]) != "grid"):
+        raise AssertionError("the routing rule must send phase 5's NN blocks and phase 4's calls to K3, and a few "
+                             "query tiles against 524,288 candidates to K4")
+    win = {}
+    for name, (traj, cand, mask, got, want, err) in check_grid(GRID_NN_WIN, 1, shuffled=True).items():
+        win[name] = {"rel_err": err, "ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask)),
+                     "device_ms": device_ms(lambda: kernels.nn_grid(traj, cand, mask)),
+                     "k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask)),
+                     "k3_device_ms": device_ms(lambda: kernels.nn_resident(traj, cand, mask)),
+                     "kept_tile_pairs": int(kernels.keep_lists(traj, cand, mask)[1].sum()),
+                     "route": kernels.nn_route(cand.shape[0], traj.shape[0]), "bound": nn_bound(traj, cand, mask)}
+    emit({"phase": 1, "kernel": "nn_grid", "shape": list(GRID_NN_WIN), "shuffled": True, "equal_to_k3": True,
+          "checks": win})
     main = {}
     for name, (traj, cand, mask, got, want, err) in check_grid(GRID_NN_MAIN, PLAIN_STRIDE).items():
         operands = kernels.nn_grid_operands(traj, cand, mask)
@@ -837,7 +885,10 @@ ROUTE_LENGTHS = (271, 1024, 2048, SEQ02_LEN, 16_385, 65_537, 131_073, TILED_N, C
 # (queries, candidates) with the candidates shuffled, so that every tile is
 # kept and a few query tiles each hold a long keep list
 ROUTE_CANDIDATES = (SEQ02_LEN, 65_536, 262_144, CHUNK, 1_048_576)
-ROUTE_LONG_LISTS = ((700, 65_536), (700, CHUNK), (SEQ02_LEN, CHUNK))
+ROUTE_LONG_LISTS = ((700, 65_536), (700, CHUNK), (SEQ02_LEN, CHUNK), (8_192, CHUNK), (16_384, CHUNK))
+# K1's batch grid against K2's (float64, every combine): rows x elements a row.
+ROUTE_BATCHES = tuple((b, n) for b in (2, 4, 8, 16, 64) for n in (16_385, 65_537, 131_073, CHUNK + 1)
+                      if b * n <= 64 * 65_537)
 
 
 def phase1_routes(device, gen):
@@ -877,9 +928,26 @@ def phase1_routes(device, gen):
                     "route": scan.scan_route(L, n, size)}
     emit({"phase": 1, "routes": "scan", "times": scans})
 
+    batches = {}
+    for op in scan.OPS:
+        rev = REVERSE_OF.get(op, False)
+        for b, n in ROUTE_BATCHES:
+            x = torch.stack([scan_inputs(op, n, gen, torch.float64, device) for _ in range(b)], 1).contiguous()
+            k1, k2 = scan.scan_block(op, x, rev), scan.scan_tiled(op, x, rev)
+            err = rel_err(k1.flatten(1), k2.flatten(1))
+            if not err <= TOL["float64"]:
+                raise AssertionError(f"batched scan {op} {b}x{n}: K1 and K2 differ by {err:.3e}")
+            batches[f"{op}/float64/{b}x{n}"] = {
+                "k1_ms": cuda_ms(lambda: scan.scan_block(op, x, rev), reps=5),
+                "k2_ms": cuda_ms(lambda: scan.scan_tiled(op, x, rev), reps=5),
+                "route": scan.scan_route(x.shape[0], n, x.element_size(), b)}
+            del x, k1, k2
+        torch.cuda.empty_cache()
+    emit({"phase": 1, "routes": "scan@batch", "times": batches})
+
     edge = kernels.GRID_MIN_CANDIDATES
-    if [kernels.nn_route(m) for m in (1, SEQ02_LEN, edge - 1, edge, CHUNK, 2 * CHUNK)] != 3 * ["resident"] + 3 * ["grid"]:
-        raise AssertionError(f"K3 must take fewer than {edge} candidates and K4 the rest")
+    if [kernels.nn_route(m, 700) for m in (1, SEQ02_LEN, edge - 1, edge, CHUNK, 2 * CHUNK)] != 3 * ["resident"] + 3 * ["grid"]:
+        raise AssertionError(f"K3 must take fewer than {edge} candidates and K4 the rest at 700 queries")
     nns = {}
     cases = [(GRID_NN_SHAPE[0], m, False) for m in ROUTE_CANDIDATES] + [(n, m, True) for n, m in ROUTE_LONG_LISTS]
     for n, m, shuffled in cases:
@@ -899,7 +967,7 @@ def phase1_routes(device, gen):
                         "k4_device_ms": device_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=5),
                         "kept_tile_pairs": int(kernels.keep_lists(traj, cand, mask)[1].sum()),
                         "library_ms": cdist_library_ms(traj, cand, mask),
-                        "route": kernels.nn_route(m)}
+                        "route": kernels.nn_route(m, n)}
     emit({"phase": 1, "routes": "nn", "times": nns})
     torch.cuda.empty_cache()
 
@@ -1142,6 +1210,178 @@ def phase1_batched_nn(device, gen):
                          nn_bound(traj, cand, mask), library_ms, sum(by_kernel.values()))]
 
 
+# K2's batch grid in phase 1: four ragged float64 rows around phase 5's
+# chunk length (the last with fewer tiles than the card has persistent
+# blocks), and four rows of 20,001 (fewer tiles in all than blocks).
+TILED_BATCH = (CHUNK + 1, 393_217, 300_001, 20_001)
+TILED_BATCH_FEW = (20_001,) * 4
+EXACT_COMBINES = ("add2", "max3", "min3")  # add2 on 0/1 counts: every sum exact
+
+
+def identity_padded_rows(op: str, ns, gen, dtype, device):
+    """(L, B, max(ns)) leaves: row r is ``scan_inputs`` at ns[r], then the
+    combine's identity to the common length (a padded row's tail leaves its
+    scan as it is)."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import scan
+
+    n = max(ns)
+    ident = torch.tensor(scan.OPS[op][2], dtype=dtype, device=device)[:, None]
+    rows = [torch.cat([scan_inputs(op, k, gen, dtype, device), ident.expand(-1, n - k)], 1) for k in ns]
+    return torch.stack(rows, 1).contiguous()
+
+
+def phase1_batched_tiled_scan(device, gen):
+    """K2's batch grid, every combine in the directions the main path scans
+    it, float64: ``TILED_BATCH`` and ``TILED_BATCH_FEW``, one launch each,
+    against the batched plain ladder and, row by row, against K2 on that
+    row alone (and, forward, on its real elements alone), bit for bit where
+    the combine is exact and to TOL elsewhere. Times at ``TILED_BATCH``
+    beside K1's batch grid on the same leaves, with the bound over all rows
+    and the library call where there is one."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import scan
+
+    entries = []
+    for op in scan.OPS:
+        worst = 0.0
+        for ns in (TILED_BATCH, TILED_BATCH_FEW):
+            x = identity_padded_rows(op, ns, gen, torch.float64, device)
+            for rev in directions(op):
+                got = scan.scan_tiled(op, x, rev)
+                torch.cuda.synchronize()
+                want = scan.scan_plain(op, x, rev)
+                err = rel_err(got.flatten(1), want.flatten(1))
+                for r, k in enumerate(ns):
+                    pairs = [(got[:, r], scan.scan_tiled(op, x[:, r].contiguous(), rev))]
+                    if not rev:
+                        pairs.append((got[:, r, :k], scan.scan_tiled(op, x[:, r, :k].contiguous(), False)))
+                    for a, b in pairs:
+                        if op in EXACT_COMBINES and not torch.equal(a, b):
+                            raise AssertionError(f"batched tiled scan {op} rows {ns} rev={rev}: row {r} differs "
+                                                 "from K2 alone")
+                        err = max(err, rel_err(a, b))
+                if not err <= TOL["float64"]:
+                    raise AssertionError(f"batched tiled scan {op} rows {ns} rev={rev}: rel err {err:.3e}")
+                worst = max(worst, err)
+                if ns == TILED_BATCH and rev == REVERSE_OF.get(op, False):
+                    timed = (x, rev, abs_err(got, want))
+                del got, want
+        x, rev, aerr = timed
+        ms = cuda_ms(lambda: scan.scan_tiled(op, x, rev))
+        plain_ms = cuda_ms(lambda: scan.scan_plain(op, x, rev), reps=3)
+        lib_ms = scan_library_ms(op, x, rev)
+        dev = device_ms(lambda: scan.scan_tiled(op, x, rev))
+        emit({"phase": 1, "kernel": f"scan_tiled/{op}@batch", "rel_err": worst, "rows": list(TILED_BATCH),
+              "rows_few_tiles": list(TILED_BATCH_FEW), "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+              "device_ms": dev, "k1_batch_ms": cuda_ms(lambda: scan.scan_block(op, x, rev)),
+              "k1_batch_device_ms": device_ms(lambda: scan.scan_block(op, x, rev)),
+              "route": scan.scan_route(x.shape[0], x.shape[-1], x.element_size(), x.shape[1]),
+              "shape": list(x.shape), "dtype": "float64"})
+        entries.append(kernel_entry(f"scan_tiled/{op}@batch", "scan_tiled.cu", "pallas_scan.py:361", "float64",
+                                    aerr, ms, plain_ms, scan_bound(op, x), lib_ms, dev))
+        del x
+        torch.cuda.empty_cache()
+    return entries
+
+
+# K4's batch grid in phase 1: 4 rows x 700 queries x 524,288 shuffled
+# candidates (K4's winning shape, a row all masked), and phase 10's
+# evaluation shape (its rows' real lengths, padded as pad_batch pads).
+GRID_BATCH_WIN = (4, 700, CHUNK)
+LONG_LOG_LENGTHS = (CHUNK, 458_752, 393_216, 300_000)
+
+
+def phase1_batched_grid(device, gen):
+    """K4's batch grid, float64 and float32 (one work list over every row's
+    query tiles): bit for bit against K3's batch grid, the wrapper and the
+    launch alone, within TOL of the plain version on every 64th
+    query, +inf on the all-masked row; at ``GRID_BATCH_WIN`` (shuffled
+    candidates) and at phase 10's evaluation shape (random walks of
+    ``LONG_LOG_LENGTHS`` queries and candidates, ragged). Times of each in
+    float64 beside K3's batch grid, with the library yardstick (``cdist``
+    of the batch in the matrix-product form, masked, then ``min``) where
+    its matrices fit."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    B, n, m = GRID_BATCH_WIN
+    checks, entry = {}, None
+    for case in ("win", "long_logs"):
+        for dtype in (torch.float64, torch.float32):
+            name = dtype_name(dtype)
+            if case == "win":
+                traj = torch.stack([walk(gen, n, dtype, device) for _ in range(B)])
+                cand = torch.stack([(walk(gen, m, dtype, device) + 0.3)[torch.randperm(m, generator=gen).to(device)]
+                                    for _ in range(B)]).contiguous()
+                mask = (torch.rand(B, m, generator=gen) > 0.1).to(device)
+                mask[2] = False
+            else:
+                traj, cand, mask = ragged_walks(gen, LONG_LOG_LENGTHS, LONG_LOG_LENGTHS, dtype, device)
+            k3 = kernels.nn_resident(traj, cand, mask)
+            res = {"route": kernels.nn_route(cand.shape[1], traj.shape[1], traj.shape[0])}
+            ops = kernels.nn_grid_operands(traj, cand, mask)
+            items = int(ops[3][-1, -1])
+            got = kernels.grid_launch(traj, ops, items)
+            torch.cuda.synchronize()
+            if not torch.equal(got, k3):
+                raise AssertionError(f"batched nn grid {case} {name}: differs from K3 in "
+                                     f"{int((got != k3).sum())} queries")
+            if dtype == torch.float64:
+                res.update(blocks=items, kernel_ms=cuda_ms(lambda: kernels.grid_launch(traj, ops, items), reps=5))
+            del ops, got
+            idx = torch.arange(0, traj.shape[1], PLAIN_STRIDE, device=device)
+            want = kernels.nn_min_dist2_plain(traj[:, idx].contiguous(), cand, mask, block=8)
+            err = rel_err(k3[:, idx].flatten()[None], want.flatten()[None])
+            if not err <= TOL[name]:
+                raise AssertionError(f"batched nn grid {case} {name}: rel err {err:.3e}")
+            dead = 2 if case == "win" else -1
+            if not bool(torch.isinf(k3[dead]).all()):
+                raise AssertionError(f"batched nn grid {case} {name}: the all-masked row must give +inf")
+            res.update(rel_err=err, kept_tile_pairs=int(kernels.keep_lists(traj, cand, mask)[1].sum()))
+            if dtype == torch.float64:
+                res.update(ms=cuda_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=5),
+                           device_ms=device_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=5),
+                           k3_ms=cuda_ms(lambda: kernels.nn_resident(traj, cand, mask), reps=5),
+                           k3_device_ms=device_ms(lambda: kernels.nn_resident(traj, cand, mask), reps=5),
+                           plain_ms_every_64th=cuda_ms(lambda: kernels.nn_min_dist2_plain(
+                               traj[:, idx].contiguous(), cand, mask, block=8), reps=3),
+                           library_ms=cdist_batch_library_ms(traj, cand, mask),
+                           bound=nn_bound(traj, cand, mask))
+                if case == "win":
+                    entry = kernel_entry("nn_grid@batch", "nn_grid.cu", "pallas_kernels.py:302", "float64",
+                                         abs_err(k3[:, idx], want), res["ms"], res["plain_ms_every_64th"],
+                                         res["bound"], res["library_ms"], res["device_ms"])
+            checks[f"{case}/{name}"] = res
+            del traj, cand, mask, k3, want
+            torch.cuda.empty_cache()
+    emit({"phase": 1, "kernel": "nn_grid@batch", "equal_to_k3": True, "plain_queries_every": PLAIN_STRIDE,
+          "shapes": {"win": list(GRID_BATCH_WIN), "long_logs": [list(LONG_LOG_LENGTHS)] * 2}, "checks": checks})
+    return [entry]
+
+
+def cdist_batch_library_ms(traj, cand, mask, reps: int = 3):
+    """The library yardstick of a batched NN call: ``torch.cdist`` of the
+    batch in its matrix-product form, the masked candidates set to +inf,
+    then ``min`` (the B x n x m distances and their masked copy in device
+    memory); None where they do not fit (``fits_on_card``). Timed only."""
+    import torch
+
+    if not fits_on_card(2 * traj[..., 0].numel() * cand.shape[-2] * traj.element_size()):
+        return None
+
+    def call():
+        d = torch.cdist(traj, cand, compute_mode="use_mm_for_euclid_dist")
+        return torch.where(mask[:, None, :], d, float("inf")).amin(-1)
+
+    ms = cuda_ms(call, reps)
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase1_batched_counts(device, gen):
     """K5 with a batch grid, float32 and float64: the eleven KITTI lengths
     as one ragged batch (points past a row's length masked out, one row
@@ -1213,6 +1453,8 @@ def phase1(device):
     entries += phase1_batched_scan(device, gen)
     entries += phase1_batched_nn(device, gen)
     entries += phase1_batched_counts(device, gen)
+    entries += phase1_batched_tiled_scan(device, gen)
+    entries += phase1_batched_grid(device, gen)
     phase1_routes(device, gen)
     return entries
 
@@ -1461,11 +1703,24 @@ def profile_device(fn, host_ops: bool = True) -> dict:
             "top_kernels": [[name, ms, count] for name, (ms, count) in top]}
 
 
-def outage_sequence(n: int):
-    """``replica_sequence(n)`` with every GNSS fix dropped in a 10 s window
-    around each 262,144-pose boundary, so that outage runs and RTS segments
-    straddle the chunks (the gap threshold is 5 s)."""
-    slam, gt, gp = replica_sequence(n)
+@contextlib.contextmanager
+def forced_route(module, rule: str, route: str):
+    """Within it, ``module.rule`` (``scan.scan_route`` or
+    ``kernels.nn_route``) answers ``route`` whatever the shapes: how a run
+    holds the kernel a route does not pick on the same path and data."""
+    saved = getattr(module, rule)
+    setattr(module, rule, lambda *args, **kw: route)
+    try:
+        yield
+    finally:
+        setattr(module, rule, saved)
+
+
+def outage_sequence(n: int, seed: int = 0):
+    """``replica_sequence(n, seed)`` with every GNSS fix dropped in a 10 s
+    window around each 262,144-pose boundary, so that outage runs and RTS
+    segments straddle the chunks (the gap threshold is 5 s)."""
+    slam, gt, gp = replica_sequence(n, seed)
     st = slam["timestamps"]
     drop = np.zeros(len(gt), bool)
     for k in range(262_144, n, 262_144):
@@ -1519,8 +1774,9 @@ def phase5(device):
     window): ``corrected_pos`` ≤1e-6 m, ``corrected_quat`` ≤1e-8, scale
     ≤1e-9 relative, the JAX package's own bounds for chunked against
     in-core (tests/test_fusion_chunked.py:158-166). (b) ``evaluate_chunked``
-    at 524,288 (NN blocks on K4) against 262,144 (on K3): every statistic
-    ≤1e-12 relative (K4 equals K3 bit for bit). (c) every kernel of the
+    at 524,288 (NN blocks on the route: K3) against the same with the
+    blocks forced onto K4 and against 262,144: every statistic ≤1e-12
+    relative (K4 equals K3 bit for bit). (c) every kernel of the
     path launched in this run. Then ``fuse_files_chunked`` +
     ``export_result`` on the seq-04 files, against the in-core
     ``fuse_files`` ≤1e-6 m."""
@@ -1529,7 +1785,7 @@ def phase5(device):
     from gps_optimize_slam_tpu_torch import pipeline
     from gps_optimize_slam_tpu_torch.config import FusionConfig
     from gps_optimize_slam_tpu_torch.models import fusion, fusion_chunked
-    from gps_optimize_slam_tpu_torch.ops import scan
+    from gps_optimize_slam_tpu_torch.ops import kernels, scan
 
     f64 = torch.float64
     slam, gt, gp = outage_sequence(CHUNKED_N)
@@ -1557,15 +1813,20 @@ def phase5(device):
     def evaluate(res, chunk):
         return fusion_chunked.evaluate_chunked(st, sp, sq, res, chunk_size=chunk, dtype=f64, device=device)
 
-    # The main path: its counts are set to 0 just before it and read just after.
+    # The main path: its counts are set to 0 just before it and read just
+    # after. Its NN blocks take the kernel the route picks; the evaluation
+    # runs once more with them forced onto K4 (both count).
     reset_launch_counts()
     res = fuse()
     torch.cuda.synchronize()
     fuse_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ev_grid = evaluate(res, CHUNK)
+    ev_routed = evaluate(res, CHUNK)
     torch.cuda.synchronize()
     eval_peak = torch.cuda.max_memory_allocated()
+    with forced_route(kernels, "nn_route", "grid"):
+        ev_grid = evaluate(res, CHUNK)
+    torch.cuda.synchronize()
     launches = launch_counts()
 
     ev_resident = evaluate(res, 262_144)
@@ -1597,14 +1858,15 @@ def phase5(device):
     scale_rel = rel_diff(float(res.sim3.scale), ref_scale)
     parts = ("nn_slam", "nn_sim3", "nn_ekf", "ate_sim3", "ate_ekf")
     stats = ("mean", "median", "rmse", "max", "count")
-    eval_rel = max(rel_diff(float(getattr(getattr(ev_grid, p), f)), float(getattr(getattr(ev_resident, p), f)))
-                   for p in parts for f in stats)
+    eval_rel = max(rel_diff(float(getattr(getattr(ev_grid, p), f)), float(getattr(getattr(ev, p), f)))
+                   for p in parts for f in stats for ev in (ev_routed, ev_resident))
     err04 = float(np.abs(res04.corrected_pos - ref04.corrected_pos).max())
     emit({"phase": 5, "poses": CHUNKED_N, "gnss": int(len(gt)), "chunk": CHUNK, "dtype": "float64",
           "ok": [res.ok, ref_ok], "inliers": res.num_inliers,
           "chunked_vs_incore": {"corrected_pos_max_err_m": pos_err, "corrected_quat_max_err": quat_err,
                                 "scale_rel_err": scale_rel},
-          "eval_k4_vs_k3_max_rel_err": eval_rel, "rmse_ekf_m": float(ev_grid.nn_ekf.rmse),
+          "nn_block_route": kernels.nn_route(CHUNK, CHUNK),
+          "eval_k4_vs_k3_max_rel_err": eval_rel, "rmse_ekf_m": float(ev_routed.nn_ekf.rmse),
           "launches": launches,
           "chunked_fuse_warm_s": fuse_s, "poses_per_s": CHUNKED_N / fuse_s,
           "evaluate_warm_s": eval_s, "incore_fuse_first_s": incore_s,
@@ -1617,12 +1879,13 @@ def phase5(device):
     if not (pos_err <= 1e-6 and quat_err <= 1e-8 and scale_rel <= 1e-9):
         raise AssertionError(f"chunked off in-core: {pos_err:.3e} m, quat {quat_err:.3e}, scale {scale_rel:.3e}")
     if not eval_rel <= 1e-12:
-        raise AssertionError(f"evaluation on the K4 route off the K3 route: {eval_rel:.3e}")
+        raise AssertionError(f"evaluation with K4 forced off the routed one (K3): {eval_rel:.3e}")
     if not err04 <= 1e-6 or back.shape != (271, 8) or not np.isfinite(back).all():
         raise AssertionError(f"seq-04 chunked off in-core ({err04:.3e} m) or malformed export")
-    # At 524,288-pose chunks every scan is past K1's longest and every NN
-    # block at K4's first candidate count; seq-04's single short chunk takes K1 and K3.
-    required = [f"scan_tiled/{op}" for op in scan.OPS] + ["nn_keep", "nn_grid", "ransac_counts"]
+    # At 524,288-pose chunks every scan is past K1's longest; every NN block
+    # (4,096 query tiles) takes K3 by the route and K4 when forced; seq-04's
+    # single short chunk takes K1 and K3.
+    required = [f"scan_tiled/{op}" for op in scan.OPS] + ["nn_keep", "nn_resident", "nn_grid", "ransac_counts"]
     missing = [k for k in required if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the chunked path: {missing}")
@@ -1912,8 +2175,9 @@ def phase6_chunked(device):
                if n_fuse[k] <= 0]
     if k1 or missing or n_fuse["scan_tiled/filter"] < 2 * (passes + 1):
         raise AssertionError(f"robust chunked: K1 launched {k1}, K2 missing {missing}, {n_fuse}")
-    if n_gt["nn_grid"] <= 0 or n_gt["nn_keep"] <= 0 or n_gt["nn_resident"]:
-        raise AssertionError(f"chunked ground truth off the K4 route: {n_gt}")
+    # Its 524,288 x 524,288 NN blocks take K3 by the route (4,096 query tiles).
+    if n_gt["nn_resident"] <= 0 or n_gt["nn_keep"] <= 0 or n_gt["nn_grid"]:
+        raise AssertionError(f"chunked ground truth off the K3 route: {n_gt}")
     return [n_fuse, n_gt]
 
 
@@ -2659,6 +2923,227 @@ def phase9(device):
     return {k: sum(r[k] for r in runs) for k in runs[0]}, sharded
 
 
+LONG_LOG_SHIFT_S = 86_400.0  # each long log a day after the one before
+COMMAND_LOG_POSES = 70_000  # the fuse-batch subprocess's two logs: past K1's route
+
+
+def long_logs():
+    """Phase 10's bucket: ``LONG_LOG_LENGTHS`` poses, each row
+    ``outage_sequence`` (seq-04 replicas, 10 s GNSS outages at every
+    262,144-pose boundary) with its own 2 cm of GNSS noise (seed 400 + i),
+    shifted by i days. Returns [(slam, gps_times, gps_positions)]."""
+    rows = []
+    for i, n in enumerate(LONG_LOG_LENGTHS):
+        slam, gt, gp = outage_sequence(n, seed=400 + i)
+        shift = i * LONG_LOG_SHIFT_S
+        rows.append(({**slam, "timestamps": slam["timestamps"] + shift}, gt + shift, gp))
+    return rows
+
+
+def write_replica_files(tmp: str, name: str, n: int, seed: int):
+    """TUM and GNSS files of ``replica_sequence(n, seed)`` (the GNSS back in
+    UTM zone 32N, by the golden track's first fix, then latitude and
+    longitude by the inverse projection), as ``write_seq04_files`` writes
+    seq-04's. Returns the ``slam:gnss`` pair the fuse-batch command takes."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.io import tum
+    from gps_optimize_slam_tpu_torch.ops import geodesy
+
+    g, _ = golden_arrays()
+    slam, gt, gp = replica_sequence(n, seed)
+    slam_path, gps_path = os.path.join(tmp, f"{name}.tum"), os.path.join(tmp, f"{name}_gnss.txt")
+    tum.write_tum(slam_path, slam["timestamps"], slam["positions"], slam["quaternions"], position_fmt="%.9f")
+    utm = torch.from_numpy(gp + g["gps_utm"][0])
+    lon, lat = geodesy.utm_inverse(utm[:, 0], utm[:, 1], 32, False)
+    np.savetxt(gps_path, np.column_stack([gt, lat.numpy(), lon.numpy(), utm[:, 2].numpy()]),
+               fmt=["%.6f", "%.10f", "%.10f", "%.4f"])
+    return f"{slam_path}:{gps_path}"
+
+
+def phase10_command():
+    """``fuse-batch --json`` as a subprocess on two TUM/GNSS file pairs of
+    ``COMMAND_LOG_POSES`` poses (one bucket of two rows past K1's route and
+    within ``BATCH_TILED_MAX_ELEMENTS``: K2's batch grid by the route); a
+    non-zero exit, other keys or a malformed output fail."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = [write_replica_files(tmp, f"log{i}", COMMAND_LOG_POSES, seed=500 + i) for i in range(2)]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "gps_optimize_slam_tpu_torch", "fuse-batch", *pairs, "--json",
+                               "-o", os.path.join(tmp, "out")],
+                              cwd=REPO, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": REPO})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"fuse-batch on long logs: exit code {proc.returncode}\n{proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout)
+        keys = ["slam", "poses", "ok", "sim3_scale", "ate_rmse_m", "ate_mean_m", "eval_points", "output"]
+        rows = out["sequences"]
+        if (list(out) != ["sequences", "buckets"] or out["buckets"] != 1 or len(rows) != 2
+                or any(list(r) != keys or r["poses"] != COMMAND_LOG_POSES or not r["ok"] or not r["ate_rmse_m"] < 1.0
+                       or np.loadtxt(r["output"]).shape != (COMMAND_LOG_POSES, 8) for r in rows)):
+            raise AssertionError(f"fuse-batch on long logs: keys or values off: {proc.stdout[:800]}")
+    return {"wall_s": wall, "poses": [r["poses"] for r in rows], "sim3_scale": [r["sim3_scale"] for r in rows],
+            "ate_rmse_m": [r["ate_rmse_m"] for r in rows]}
+
+
+def phase10(device):
+    """A bucket of long logs, float64 on the card: four rows of
+    ``LONG_LOG_LENGTHS`` poses (``long_logs``), one bucket under
+    ``bucket_by_length(max_waste=2.0)``. The counted main path is
+    ``mesh.fuse_batch`` + ``evaluate_batch`` on the kernels the routes pick
+    (the scans K1's batch grid at this size, the NN calls K3's), then the
+    evaluation once more with its NN calls forced onto K4
+    (``forced_route``), held bit for bit to the routed one, and the
+    fusion once more with every scan forced onto K2's batch grid
+    (``forced_route``). Each row of both fusions within the bound of
+    ``tol_m`` (1e-9 m, or 64 ulps of the largest coordinate where that is
+    more: these rows span hundreds of kilometres) of ``fusion.fuse_core`` +
+    ``evaluate`` on that row alone (single-row K2, and K3 or K4 by the
+    route) and of each other, masks equal, the evaluation's statistics
+    within the same bound (counts equal); each fusion's launches those of
+    one row alone;
+    ``fuse_buckets`` equal to the batch;
+    warm walls of the bucket and of the row loop, the device's idle share
+    and peak memory; then ``fuse-batch`` as a subprocess on two logs of
+    ``COMMAND_LOG_POSES`` poses. Returns the counted launches."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+    from gps_optimize_slam_tpu_torch.ops import kernels, scan
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+
+    f64, cfg = torch.float64, FusionConfig()
+    rows = long_logs()
+    slams, gts, gps = [r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows]
+    buckets = pbatch.bucket_by_length(slams, gts, gps, max_waste=2.0)
+    if len(buckets) != 1:
+        raise AssertionError(f"phase 10: the long logs fell into {len(buckets)} buckets, not one")
+    idxs, b = buckets[0]
+    seeds = [int(i) for i in idxs]  # row r of the bucket fuses sequence idxs[r], seeded as that sequence
+    B, n_pad = b.slam_times.shape
+
+    def fuse():
+        return mesh.fuse_batch(b, seeds, config=cfg, device=device, dtype=f64)
+
+    def dev(a, dt=f64):
+        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+
+    def single(i):
+        s = slams[i]
+        out = fusion.fuse_core(dev(s["timestamps"]), dev(s["positions"]), dev(s["quaternions"]), dev(gts[i]),
+                               dev(gps[i]), dev(np.ones(len(gts[i]), bool), torch.bool),
+                               cfg.replace(gps_sorted=True), seed=i)
+        return out, fusion.evaluate(dev(s["timestamps"]), dev(s["positions"]), out)
+
+    routes = {"scan": scan.scan_route(27, n_pad, 8, B), "nn": kernels.nn_route(n_pad, n_pad, B)}
+    # The main path: its counts are set to 0 just before it and read just
+    # after. The fusion and evaluation on the kernels the routes pick, then
+    # the evaluation with the NN calls forced onto K4 and the fusion with
+    # every scan forced onto K2 (all counted).
+    reset_launch_counts()
+    out = fuse()
+    ev = mesh.evaluate_batch(b, out)
+    with forced_route(kernels, "nn_route", "grid"):
+        ev_grid = mesh.evaluate_batch(b, out)
+    with forced_route(scan, "scan_route", "tiled"):
+        out_k2 = fuse()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+
+    parts = ("nn_slam", "nn_sim3", "nn_ekf", "ate_sim3", "ate_ekf")
+    stats = ("mean", "median", "rmse", "max", "count")
+    grid_equal = all(torch.equal(getattr(getattr(ev, p), f), getattr(getattr(ev_grid, p), f))
+                     for p in parts for f in stats)
+    k2_err = float((out_k2.corrected_pos - out.corrected_pos).abs().max())
+    k2_masks = bool(torch.equal(out_k2.sim3_inliers, out.sim3_inliers) and torch.equal(out_k2.gps_valid, out.gps_valid))
+    res = mesh.fuse_buckets(buckets, list(range(len(rows))), config=cfg, device=device, dtype=f64)
+    pos_err, eval_err, buckets_err, masks_equal, ok = 0.0, 0.0, 0.0, True, True
+    single_launches = None
+    for r, i in enumerate(seeds):
+        n = len(slams[i]["timestamps"])
+        if single_launches is None:
+            (one, one_ev), single_launches = counted(lambda: single(i))
+        else:
+            one, one_ev = single(i)
+        pos_err = max(pos_err, float((out.corrected_pos[r, :n] - one.corrected_pos).abs().max()),
+                      float((out_k2.corrected_pos[r, :n] - one.corrected_pos).abs().max()))
+        buckets_err = max(buckets_err, float(np.abs(res[i].corrected_pos - out.corrected_pos[r, :n].cpu().numpy()).max()))
+        masks_equal &= bool(torch.equal(out.sim3_inliers[r, :n], one.sim3_inliers)
+                            and torch.equal(out.gps_valid[r, :n], one.gps_valid))
+        ok &= bool(out.ok[r]) and bool(one.ok)
+        for p in parts:
+            for f in stats:
+                got, want = float(getattr(getattr(ev, p), f)[r]), float(getattr(getattr(one_ev, p), f))
+                eval_err = max(eval_err, abs(got - want) if f != "count" else (0.0 if got == want else float("inf")))
+        del one, one_ev
+    del out_k2
+    torch.cuda.empty_cache()
+
+    def bucket_run():
+        o = fuse()
+        return mesh.evaluate_batch(b, o).nn_ekf.rmse.cpu()
+
+    def loop():
+        return [single(int(i))[1].nn_ekf.rmse.cpu() for i in range(len(rows))]
+
+    walls = {"bucket": [], "row_loop": []}
+    for _ in range(2):
+        walls["bucket"].append(1e3 * timed_s(bucket_run)[0])
+        walls["row_loop"].append(1e3 * timed_s(loop)[0])
+    torch.cuda.reset_peak_memory_stats()
+    timed_s(bucket_run)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_device(bucket_run)
+    command = phase10_command()
+    # Two association orders of the same float64 scans at these rows'
+    # hundreds of kilometres differ by a few ulps of the coordinates (2^-30 m
+    # is 8 of them from 2^19 m on): the rows are held to 1e-9 m or, where the
+    # coordinates are larger, 64 ulps of the largest (phase 7's 1e-9 m is
+    # ~1,000 ulps of its few-kilometre rows). The evaluation's statistics
+    # are lengths, and move no more than the poses do.
+    extent = float(out.corrected_pos.abs().max())
+    tol_m = max(1e-9, 64 * float(np.spacing(extent)))
+    emit({"phase": 10, "rows": B, "poses": [len(s["timestamps"]) for s in slams], "padded_poses": n_pad,
+          "dtype": "float64", "ok": ok, "routes": routes, "largest_coordinate_m": extent, "bound_m": tol_m,
+          "row_vs_single_max_err_m": pos_err,
+          "masks_equal": masks_equal, "evaluate_vs_single_max_err_m": eval_err,
+          "evaluate_k4_forced_equal": grid_equal, "fuse_k2_forced_vs_routed_max_err_m": k2_err,
+          "fuse_k2_forced_masks_equal": k2_masks, "fuse_buckets_vs_batch_max_err_m": buckets_err,
+          "launches": launches, "single_row_launches": single_launches,
+          "bucket_warm_ms": walls["bucket"], "row_loop_warm_ms": walls["row_loop"],
+          "max_memory_allocated_mb": peak / 2**20, "profile": prof, "command": command})
+    if not ok or not (pos_err <= tol_m and masks_equal and eval_err <= tol_m and buckets_err <= tol_m):
+        raise AssertionError(f"phase 10: ok {ok}, rows {pos_err:.3e} m, masks {masks_equal}, evaluation "
+                             f"{eval_err:.3e} m, fuse_buckets {buckets_err:.3e} m (bound {tol_m:.3e} m)")
+    if not grid_equal or not (k2_err <= tol_m and k2_masks):
+        raise AssertionError(f"phase 10: with K4 forced the evaluation {'equals' if grid_equal else 'differs from'} "
+                             f"the routed one; with K2 forced the fusion is {k2_err:.3e} m off, masks {k2_masks}")
+    # The routed fusion's scans on the kernel the route picks, the forced
+    # fusion's on K2, each as many as one row alone launches (K2, its rows
+    # being past K1's route); K5 once a fusion; the NN calls by the route,
+    # and K4 in the forced evaluation, each with its keep lists.
+    per_fusion = {op: 1 for op in scan.OPS}
+    per_fusion.update(affine3=2, max3=2, min3=2)
+    want = {f"scan_tiled/{op}": c for op, c in per_fusion.items()}
+    for op, c in per_fusion.items():
+        key = f"scan_{routes['scan']}/{op}"
+        want[key] = want.get(key, 0) + c
+    want.update({"nn_keep": 6, f"nn_{routes['nn']}": 3, "ransac_counts": 2})
+    want["nn_grid"] = want.get("nn_grid", 0) + 3
+    n0 = len(slams[seeds[0]]["timestamps"])
+    want_alone = {**{f"scan_tiled/{op}": c for op, c in per_fusion.items()}, "nn_keep": 3,
+                  f"nn_{kernels.nn_route(n0, n0)}": 3, "ransac_counts": 1}
+    got = {k: v for k, v in launches.items() if v}
+    alone = {k: v for k, v in single_launches.items() if v}
+    if got != want or alone != want_alone:
+        raise AssertionError(f"phase 10: the bucket launched {got}, expected {want}; one row alone {alone}, "
+                             f"expected {want_alone} (routes {routes})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2694,11 +3179,13 @@ def main() -> int:
     batched = phase7(device)
     refined = phase8(device)
     split, sharded = phase9(device)
+    long_logs_run = phase10(device)
     for e in entries:
-        # A batched entry is the same wrapper at the batch shapes of phase 7
-        # and of phase 9's mesh shards, where every launch has a batch grid.
+        # A batched entry is the same wrapper at the batch shapes of phase 7,
+        # of phase 9's mesh shards and of phase 10's long logs, where every
+        # launch has a batch grid.
         name, at_batch = e["name"].split("@")[0], "@" in e["name"]
-        by_phase = {"7": batched[name], "9": sharded[name]} if at_batch else {
+        by_phase = {"7": batched[name], "9": sharded[name], "10": long_logs_run[name]} if at_batch else {
             "4": in_core[name], "5": chunked[name], "6": robust[name], "8": refined[name], "9": split[name]}
         e["launches"] = sum(by_phase.values())
         e["launches_by_phase"] = by_phase

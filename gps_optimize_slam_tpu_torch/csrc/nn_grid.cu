@@ -30,6 +30,18 @@
 // the order of blocks or tiles, so K4 equals K3 bit for bit on the same
 // inputs (--fmad=false: no contraction).
 //
+// Batch grid: a batch of B sequences (the JAX package's vmap of its
+// pipelined kernel, which adds a row axis to its grid; each row its own
+// queries, packed candidates, keep lists and output) in one launch over one
+// work list: ends is the inclusive prefix sum of the runs over every row's
+// query tiles, row after row, (B * n_tiles,), and block b finds its (row,
+// query tile) by the one binary search, so no block is idle and B has no
+// limit of its own. (Grid y as the row, each row its own list and the
+// largest row's count of blocks a row, timed level with it on this card;
+// it is not kept.) A block offsets every pointer by its row and then does
+// the single-row block's work, so each row's minima equal those of a call
+// on that row alone, and K3's batch grid, bit for bit.
+//
 // What bounds it on this card: operations, 8 flops a kept (query,
 // candidate) pair for the 3-term function (the kernel spends 10 with the
 // validity term), 128 x 1024 pairs a kept tile pair; the keep lists are
@@ -54,19 +66,23 @@ template <typename T>
 __global__ void __launch_bounds__(kGridTileN)
 nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
                const int* __restrict__ order, const int* __restrict__ nkept,
-               const int* __restrict__ ends, int n_tiles, int m_tiles, T* __restrict__ out) {
+               const int* __restrict__ ends, int n_tiles, int m_tiles, int batch,
+               T* __restrict__ out) {
   constexpr int kTileElems = 4 * kNnTileM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* buf = reinterpret_cast<T*>(smem_raw);  // [2][4][kNnTileM]
   const int b = blockIdx.x;
-  int lo = 0, hi = n_tiles - 1;  // first query tile i with ends[i] > b
+  int lo = 0, hi = batch * n_tiles - 1;  // the first entry j with ends[j] > b
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (ends[mid] > b) hi = mid;
     else lo = mid + 1;
   }
-  const int i = lo;
-  const int k0 = (b - (i > 0 ? ends[i - 1] : 0)) * kRun;
+  const int k0 = (b - (lo > 0 ? ends[lo - 1] : 0)) * kRun;
+  const int row = lo / n_tiles, i = lo % n_tiles;  // the row, and the query tile within it
+  traj += (size_t)row * 3 * n, out += (size_t)row * n;
+  cand += (size_t)row * m_tiles * kTileElems;
+  order += (size_t)row * n_tiles * m_tiles, nkept += (size_t)row * n_tiles;
   const int k1 = min(nkept[i], k0 + kRun);
   const int* tiles = order + (size_t)i * m_tiles;
 
@@ -100,10 +116,10 @@ nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
 }
 
 template <typename T>
-cudaError_t launch(const void* traj, int n, const void* cand, const int* order, const int* nkept,
-                   const int* ends, int n_tiles, int m_tiles, int n_items, void* out,
-                   cudaStream_t s) {
-  if ((long long)n_tiles * kGridTileN < n || n_tiles < 1 || n_items < 0)
+cudaError_t launch(int batch, const void* traj, int n, const void* cand, const int* order, const int* nkept,
+                   const int* ends, int n_tiles, int m_tiles, int n_items, void* out, cudaStream_t s) {
+  if ((long long)n_tiles * kGridTileN < n || n_tiles < 1 || n_items < 0 || batch < 1 ||
+      (long long)batch * n_tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (n_items == 0) return cudaSuccess;
   const size_t smem = 2 * 4 * kNnTileM * sizeof(T);
@@ -114,7 +130,7 @@ cudaError_t launch(const void* traj, int n, const void* cand, const int* order, 
   }
   nn_grid_kernel<T><<<n_items, kGridTileN, smem, s>>>(
       static_cast<const T*>(traj), n, static_cast<const T*>(cand), order, nkept, ends, n_tiles,
-      m_tiles, static_cast<T*>(out));
+      m_tiles, batch, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
@@ -123,17 +139,19 @@ cudaError_t launch(const void* traj, int n, const void* cand, const int* order, 
 // Kept candidate tiles per block; the wrapper cuts the keep lists by it.
 GPS_EXPORT int gps_nn_grid_run() { return kRun; }
 
+// Per row of a batch of `batch` rows, rows contiguous one after another:
 // traj (n, 3); cand (m_tiles, 4, 1024) as K3 takes it; order (n_tiles,
-// m_tiles) kept tiles first, ascending; nkept (n_tiles,); ends (n_tiles,)
-// the inclusive prefix sum of ceil(nkept / kRun), n_items its last value;
-// out (n,) filled with +inf by the caller. Returns a cudaError_t.
-GPS_EXPORT int gps_nn_grid(int dtype, const void* traj, int n, const void* cand, const int* order,
+// m_tiles) kept tiles first, ascending; nkept (n_tiles,); out (n,) filled
+// with +inf by the caller. ends (batch * n_tiles,): the inclusive prefix
+// sum of ceil(nkept / kRun) over all rows' query tiles, n_items its last
+// value. Returns a cudaError_t.
+GPS_EXPORT int gps_nn_grid(int dtype, int batch, const void* traj, int n, const void* cand, const int* order,
                            const int* nkept, const int* ends, int n_tiles, int m_tiles, int n_items,
                            void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == GPS_F32)
-    return (int)launch<float>(traj, n, cand, order, nkept, ends, n_tiles, m_tiles, n_items, out, s);
+    return (int)launch<float>(batch, traj, n, cand, order, nkept, ends, n_tiles, m_tiles, n_items, out, s);
   if (dtype == GPS_F64)
-    return (int)launch<double>(traj, n, cand, order, nkept, ends, n_tiles, m_tiles, n_items, out, s);
+    return (int)launch<double>(batch, traj, n, cand, order, nkept, ends, n_tiles, m_tiles, n_items, out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -45,8 +45,9 @@
 // aggregate and L inclusive values. A flag goes 0 -> A -> P; the aggregate
 // slot is never rewritten once flagged, so a reader never sees it torn.
 //
-// Batch grid (K1 only): leaves (L, B, n) hold B independent rows, each
-// scanned along n (the JAX package's vmap of the scan). One launch covers
+// Batch grid (K1 here, K2's persistent blocks the same way in scan_tiled.cu):
+// leaves (L, B, n) hold B independent rows, each scanned along n (the JAX
+// package's vmap of the scan). One launch covers
 // every row's tiles, B * tiles(n) blocks, and the one ticket counter runs
 // over all of them in row-major order (ticket t is tile t % tiles of row
 // t / tiles), so every tile a block waits on still belongs to a block that

@@ -36,7 +36,23 @@
 //   - each input element is read from device memory once and each output
 //     written once.
 //
-// Forward progress with fewer blocks than tiles. A block publishes its
+// Batch grid: leaves (L, B, n) hold B independent rows, each scanned along n
+// (the JAX package's vmap of associative_scan_tiled, which gives the Pallas
+// kernel a row axis in its grid). The one ticket counter runs over every
+// row's tiles in row-major order, as K1's batch grid does
+// (scan_lookback.cuh): ticket t is tile t % tiles(n) of row t / tiles(n).
+// The flags and values are a slot per (row, tile), and the look-back gets
+// its row's slice of them, so its walk stops at its row's first tile. The
+// tile a block stages ahead is the next ticket's, which may be tile 0 of
+// the next row: tile_stage takes that ticket's row base, and its ragged
+// last tile and `reverse` indexing from that row's own end. Leaf l of row r
+// starts at in + l * B * n + r * n (size_t offsets throughout). A row meets
+// the tiles and in-tile combines of a call on it alone, so it agrees with
+// that call as two calls on one row agree: bit for bit where the combine
+// is exact, to the scan's tolerance where the look-back's walk rounds.
+//
+// Forward progress with fewer blocks than tiles (of all rows, in ticket
+// order; a row's first tile waits on nothing). A block publishes its
 // tile's aggregate before it waits on a predecessor (look_back), and a tile
 // it has only drawn and staged is not waited on by its own block. Take the
 // lowest tile whose flag is still empty: every tile before it has published,
@@ -116,16 +132,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Step 2 as K2 takes it: starts the copies of the tile's leaves into `s`
 // ([L][padded(TILE)]), consecutive threads on consecutive elements; past n
-// the combine's identity, stored at once.
+// the combine's identity, stored at once. Leaf l of the row starts at
+// in + l * ld.
 template <class Op, typename T, int ITEMS>
-__device__ __forceinline__ void tile_stage(const T* __restrict__ in, int n, int reverse, int k0, T* s) {
+__device__ __forceinline__ void tile_stage(const T* __restrict__ in, int n, size_t ld, int reverse, int k0,
+                                           T* s) {
   constexpr int L = Op::L;
   constexpr int STRIDE = padded(kScanThreads * ITEMS);
   T ident[L];
   Op::identity(ident);
 #pragma unroll
   for (int l = 0; l < L; ++l) {
-    const T* row = in + (size_t)l * n;
+    const T* row = in + l * ld;
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
       const int e = i * kScanThreads + (int)threadIdx.x;
@@ -156,7 +174,7 @@ __device__ unsigned long long g_clocks[8];
 
 template <class Op, typename T>
 __global__ void __launch_bounds__(kScanThreads)
-tiled_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int reverse, int n_tiles,
+tiled_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int batch, int reverse, int n_tiles,
                   int* ticket, T* agg, T* incl) {
   constexpr int L = Op::L;
   using Layout = TiledLayout<Op, T>;
@@ -170,19 +188,25 @@ tiled_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int reve
   __shared__ T s_carry[L];               // the tile's exclusive composite
   __shared__ int s_tile;
   int* flags = ticket + 1;
+  const size_t ld = (size_t)batch * n;  // leaf stride of the (L, batch, n) leaves
+  const int tickets = batch * n_tiles;  // every row's tiles, row-major
+  // The copies of ticket t's tile: its row's leaves, its tile's offset.
+  auto stage = [&](int t, T* buf) {
+    tile_stage<Op, T, ITEMS>(in + (size_t)(t / n_tiles) * n, n, ld, reverse, (t % n_tiles) * TILE, buf);
+  };
 
   if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
   __syncthreads();
-  int tile = s_tile;
+  int t = s_tile;
   if (AHEAD) {  // every round commits one group, and so does this
-    if (tile < n_tiles) tile_stage<Op, T, ITEMS>(in, n, reverse, tile * TILE, s);
+    if (t < tickets) stage(t, s);
     cp_async_commit();
   }
   int b = 0;
 #ifdef GPS_TILED_CLOCKS
   long long t0 = clock64();
 #endif
-  while (tile < n_tiles) {
+  while (t < tickets) {
     // The barrier below also ends the last round's reads of the buffer
     // that is staged next.
     if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
@@ -190,42 +214,47 @@ tiled_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int reve
     const int next = s_tile;
     T* cur = s + b * BUFFER;
     if (AHEAD) {
-      if (next < n_tiles) tile_stage<Op, T, ITEMS>(in, n, reverse, next * TILE, s + (b ^ 1) * BUFFER);
+      if (next < tickets) stage(next, s + (b ^ 1) * BUFFER);  // may be the next row's tile 0
       cp_async_commit();
       cp_async_wait<1>();  // the present tile has landed; the next may be in flight
       b ^= 1;
     } else {
-      tile_stage<Op, T, ITEMS>(in, n, reverse, tile * TILE, cur);
+      stage(t, cur);
       cp_async_commit();
       cp_async_wait<0>();
     }
     __syncthreads();
     GPS_CLOCK(0);
+    // The ticket names a (row, tile): the row's leaves and scratch slice.
+    const int row = t / n_tiles, tile = t % n_tiles;
+    const size_t slot = (size_t)row * n_tiles;
     tile_reduce<Op, T, ITEMS>(cur, s_warp);
     GPS_CLOCK(1);
     if (threadIdx.x < 32) {
-      look_back<Op, T>(tile, s_warp[kScanWarps - 1], flags, agg, incl, s_carry);
+      look_back<Op, T>(tile, s_warp[kScanWarps - 1], flags + slot, agg + slot * L, incl + slot * L, s_carry);
     }
     __syncthreads();
     GPS_CLOCK(2);
     tile_finish<Op, T, ITEMS>(tile, cur, s_warp, s_carry);
     GPS_CLOCK(3);
-    tile_store<Op, T, ITEMS>(cur, out, n, (size_t)n, reverse, tile * TILE);
+    tile_store<Op, T, ITEMS>(cur, out + (size_t)row * n, n, ld, reverse, tile * TILE);
     GPS_CLOCK(4);
-    tile = next;
+    t = next;
   }
 }
 
 // K2's launch: zero the ticket and flags, then one grid of persistent
-// blocks. `scratch` holds TiledLayout<Op, T>::scratch_bytes(n) bytes.
+// blocks over every row's tiles. `scratch` holds
+// TiledLayout<Op, T>::scratch_bytes(n, batch) bytes.
 template <class Op, typename T>
 struct TiledScan {
-  static cudaError_t run(const void* in, void* out, void* scratch, long long scratch_bytes, int n,
+  static cudaError_t run(const void* in, void* out, void* scratch, long long scratch_bytes, int n, int batch,
                          int reverse, cudaStream_t stream) {
     using Layout = TiledLayout<Op, T>;
-    if (n <= 0) return cudaSuccess;
-    if (scratch_bytes < (long long)Layout::scratch_bytes(n)) return cudaErrorInvalidValue;
+    if (n <= 0 || batch <= 0) return batch < 0 ? cudaErrorInvalidValue : cudaSuccess;
+    if (scratch_bytes < (long long)Layout::scratch_bytes(n, batch)) return cudaErrorInvalidValue;
     const int tiles = Layout::tiles(n);
+    const long long tickets = (long long)batch * tiles;
     const size_t smem = (tiled_single<T>(Op::L) ? 1 : 2) * Layout::smem_bytes();
     // Blocks of this kernel each card runs at once, by device ordinal: the
     // launch goes to the current device (the wrapper makes it the tensors'
@@ -247,13 +276,15 @@ struct TiledScan {
       if (per_sm < 1) return cudaErrorLaunchOutOfResources;
       slots = slots_of[device] = sms * per_sm;
     }
+    // Every block draws one ticket past the last: the counter must not wrap.
+    if (tickets + slots > 0x7fffffffLL) return cudaErrorInvalidValue;
     char* base = static_cast<char*>(scratch);
-    T* agg = reinterpret_cast<T*>(base + Layout::values_offset(n));
-    T* incl = agg + (size_t)tiles * Op::L;
-    e = cudaMemsetAsync(scratch, 0, Layout::flag_bytes(n), stream);
+    T* agg = reinterpret_cast<T*>(base + Layout::values_offset(n, batch));
+    T* incl = agg + (size_t)tickets * Op::L;
+    e = cudaMemsetAsync(scratch, 0, Layout::flag_bytes(n, batch), stream);
     if (e != cudaSuccess) return e;
-    tiled_scan_kernel<Op, T><<<tiles < slots ? tiles : slots, kScanThreads, smem, stream>>>(
-        static_cast<const T*>(in), static_cast<T*>(out), n, reverse, tiles,
+    tiled_scan_kernel<Op, T><<<tickets < slots ? (int)tickets : slots, kScanThreads, smem, stream>>>(
+        static_cast<const T*>(in), static_cast<T*>(out), n, batch, reverse, tiles,
         reinterpret_cast<int*>(base), agg, incl);
     return cudaGetLastError();
   }
@@ -261,8 +292,8 @@ struct TiledScan {
 
 template <class Op, typename T>
 struct TiledScratch {
-  static cudaError_t run(int n, long long* bytes) {
-    *bytes = (long long)TiledLayout<Op, T>::scratch_bytes(n);
+  static cudaError_t run(int n, int batch, long long* bytes) {
+    *bytes = (long long)TiledLayout<Op, T>::scratch_bytes(n, batch);
     return cudaSuccess;
   }
 };
@@ -277,24 +308,26 @@ struct TiledTile {
 
 }  // namespace
 
-// Op codes are the order of ops/scan.py:OPS. `scratch` holds
-// gps_scan_tiled_scratch_bytes(op, dtype, n) bytes. Returns a cudaError_t.
+// Op codes are the order of ops/scan.py:OPS. `in` and `out` are (L, batch,
+// n) leaves, each of the `batch` rows scanned on its own; `scratch` holds
+// gps_scan_tiled_scratch_bytes(op, dtype, n, batch) bytes. Returns a
+// cudaError_t.
 GPS_EXPORT int gps_scan_tiled(int op, int dtype, const void* in, void* out, void* scratch,
-                              long long scratch_bytes, int n, int reverse, void* stream) {
+                              long long scratch_bytes, int n, int batch, int reverse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == GPS_F32)
-    return (int)dispatch_op<TiledScan, float>(op, in, out, scratch, scratch_bytes, n, reverse, s);
+    return (int)dispatch_op<TiledScan, float>(op, in, out, scratch, scratch_bytes, n, batch, reverse, s);
   if (dtype == GPS_F64)
-    return (int)dispatch_op<TiledScan, double>(op, in, out, scratch, scratch_bytes, n, reverse, s);
+    return (int)dispatch_op<TiledScan, double>(op, in, out, scratch, scratch_bytes, n, batch, reverse, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Scratch bytes of gps_scan_tiled for n elements; -1 for an unknown op or
-// dtype.
-GPS_EXPORT long long gps_scan_tiled_scratch_bytes(int op, int dtype, int n) {
+// Scratch bytes of gps_scan_tiled for `batch` rows of n elements; -1 for an
+// unknown op or dtype.
+GPS_EXPORT long long gps_scan_tiled_scratch_bytes(int op, int dtype, int n, int batch) {
   long long bytes = -1;
-  if (dtype == GPS_F32) dispatch_op<TiledScratch, float>(op, n, &bytes);
-  if (dtype == GPS_F64) dispatch_op<TiledScratch, double>(op, n, &bytes);
+  if (dtype == GPS_F32) dispatch_op<TiledScratch, float>(op, n, batch, &bytes);
+  if (dtype == GPS_F64) dispatch_op<TiledScratch, double>(op, n, batch, &bytes);
   return bytes;
 }
 

@@ -64,6 +64,11 @@ def _get_lib() -> Optional[ctypes.CDLL]:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the native parser's shared library was found and loaded."""
+    return _get_lib() is not None
+
+
 def oxts_scan(data_dir: str, max_frames: int) -> Optional[np.ndarray]:
     """Native scan of a KITTI oxts ``data/`` folder: one C call for the whole
     directory instead of one np.loadtxt per frame file.

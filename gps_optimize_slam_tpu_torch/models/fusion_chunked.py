@@ -8,9 +8,11 @@ RANSAC/Umeyama, the trajectory transform, and the re-entrant associative
 EKF + RTS (``ops.kalman_chunked``), every stage O(chunk) device-resident;
 host inputs may be memory-mapped. ``evaluate_chunked`` streams the NN and
 paired-ATE evaluation the same way: on the card each NN block of
-``chunk_size`` candidates goes to K3 below 524,288 candidates and to K4,
-the grid over kept work, from there on (``kernels.nn_route``). Use this path when a trajectory exceeds device memory; for anything
-that fits, ``fuse_core`` is faster.
+``chunk_size`` queries and candidates goes to the kernel
+``kernels.nn_route`` picks (K3 at the default chunks: K4 pays only at a few
+query tiles against 524,288 candidates or more). Use this path when a
+trajectory exceeds device memory; for anything that fits, ``fuse_core`` is
+faster.
 """
 
 from __future__ import annotations

@@ -5,11 +5,13 @@ Ports the three Pallas kernels of ``gps_optimize_slam_tpu/ops/pallas_kernels.py`
 and the array code around them:
 
 * :func:`nn_min_dist2`: per query, the minimum squared distance to any
-  valid candidate, routed by the number of candidates (:func:`nn_route`, a
-  rule set from times measured on the H100, not the JAX package's VMEM
-  budget): :func:`nn_resident` (K3, ``csrc/nn.cu``; ports the resident
-  form) below ``GRID_MIN_CANDIDATES``, :func:`nn_grid` (K4,
-  ``csrc/nn_grid.cu``; ports the pipelined 2-D grid) from there on. Both
+  valid candidate, routed by the numbers of candidates, query tiles and
+  rows (:func:`nn_route`, a rule set from times measured on the H100, not
+  the JAX package's VMEM budget): :func:`nn_grid` (K4,
+  ``csrc/nn_grid.cu``; ports the pipelined 2-D grid) from
+  ``GRID_MIN_CANDIDATES`` candidates at ``GRID_MAX_QUERY_TILES`` query
+  tiles or fewer, :func:`nn_resident` (K3, ``csrc/nn.cu``; ports the
+  resident form) otherwise. Both
   take the per-query-tile lists of kept candidate tiles and the packed
   candidates from :func:`keep_lists` (``csrc/nn_keep.cu``: the per-32-point
   AABB bounds of :func:`tile_keep_mask`, their compaction and the packing,
@@ -31,10 +33,10 @@ and :func:`ransac_counts` (and their plain versions) also take a leading
 batch of B rows, queries (B, n, 3) and candidates (B, m, 3) with a mask
 (B, m), or points (B, N, 3) with trials (B, T, ...): the JAX package's
 ``vmap`` of its kernels, which gives each Pallas call a batch grid. Each
-kernel takes the row as one more grid dimension, in one launch for all
-rows, and each row's output equals the call on that row alone bit for
-bit. A batched NN call always takes K3 (a K4 batch grid is still to
-come).
+kernel takes the row as one more grid dimension (K4: one more level of
+its work list), in one launch for all rows, and each row's output equals
+the call on that row alone bit for bit; a batched NN call is routed as a
+single row is, counting every row's query tiles.
 
 Each wrapper takes its plain PyTorch version (``*_plain``, below) for CPU
 tensors only; a CUDA tensor launches the kernel or raises. Both NN kernels
@@ -53,17 +55,20 @@ TILE_M = 1024  # candidates per tile of both
 SUB = 32  # AABB segment length of the pruning bounds (divides both tiles)
 RUN_TILES = 4  # kept candidate tiles per K4 block (csrc/nn_grid.cu kRun)
 _BIG = 3.4e38  # non-finite coordinates are clamped here for the bounds only
-# K4 from this many candidates on, K3 below (:func:`nn_route`). On
-# spatially coherent tracks K3's call was the faster at every size measured
-# on the H100 (16,384 queries against 4,661 to 1,048,576 candidates, and
-# 524,288 x 524,288, float32 and float64), so the rule sits at the upper end
-# of the range the two main paths leave it: 4,661-candidate calls of the
-# in-core path take K3, the chunked evaluation's 524,288-candidate blocks
-# K4. What K4 is for starts there too: with 512 or more candidate tiles a
-# keep list can get long, and at a few query tiles with every tile kept K4's
-# split of the list over blocks was 1.1-2x faster than K3 (PERF.md, "Routing
-# thresholds").
+# K4 from this many candidates on at GRID_MAX_QUERY_TILES query tiles (of
+# all rows) or fewer, K3 otherwise (:func:`nn_route`). Measured on an NVIDIA
+# H100 80GB HBM3 at a 700.00 W power limit (chip_smoke.py, phase 1
+# "routes"): on spatially coherent tracks K3's call was the faster at every
+# size (16,384 queries against 4,661 to 1,048,576 candidates, 524,288 x
+# 524,288: 2.3 against 2.7-3.1 ms, float32 and float64), since its blocks of
+# 16 or 32 queries fill the card where K4's 128-query blocks walk short
+# lists; K4's split of a list over blocks pays where a few query tiles each
+# keep hundreds of tiles, which only 512 or more candidate tiles allow
+# (524,288 shuffled candidates, every tile kept: K4 1.5-2.0x ahead at 6
+# query tiles, 1.2-1.3x at 37, level at 64, K3's device time ahead at 128;
+# at 64 candidate tiles K3 ahead at any query count).
 GRID_MIN_CANDIDATES = 524_288
+GRID_MAX_QUERY_TILES = 64
 # Bound elements per row block of tile_keep_mask (about 50 MB for each of
 # its float64 (rows, m_sub, 3) intermediates).
 _KEEP_BLOCK_ELEMS = 1 << 21
@@ -73,14 +78,16 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def nn_route(m: int) -> str:
-    """"resident" (K3) or "grid" (K4) for ``m`` candidates: K4 from
-    ``GRID_MIN_CANDIDATES`` on. (The JAX package's rule, its resident
-    kernel's 8 MiB VMEM budget, put the change above 262,144.) The rule is
-    for single rows: a batched call (:func:`nn_min_dist2` with a leading
-    batch axis) always takes K3, which runs at any M, since K4 has no batch
-    grid yet."""
-    return "resident" if m < GRID_MIN_CANDIDATES else "grid"
+def nn_route(m: int, n: int, batch: int = 1) -> str:
+    """"resident" (K3) or "grid" (K4) for ``batch`` rows of ``n`` queries
+    against ``m`` candidates each: K4 from ``GRID_MIN_CANDIDATES``
+    candidates on where the rows hold ``GRID_MAX_QUERY_TILES`` query tiles
+    or fewer in all (where a long keep list can leave K3's few blocks
+    walking it alone), K3 otherwise. (The JAX package's rule, its resident
+    kernel's 8 MiB VMEM budget, put the change above 262,144 candidates
+    whatever the queries.)"""
+    query_tiles = batch * _tiles(n, m)[0]
+    return "grid" if m >= GRID_MIN_CANDIDATES and query_tiles <= GRID_MAX_QUERY_TILES else "resident"
 
 
 def tile_keep_mask(tp: torch.Tensor, cp: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
@@ -247,14 +254,15 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
 
 def nn_grid_operands(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
     """K4's operands besides ``traj``: ``order``, ``nkept`` and ``cand4`` of
-    :func:`keep_lists`, and ``ends`` (n_tiles,) int32, the inclusive prefix
-    sum of each query tile's runs of at most ``RUN_TILES`` kept tiles (K4's
-    work list: block b takes query tile i with ends[i-1] <= b < ends[i])."""
-    if traj.ndim != 2:
-        raise ValueError("K4 takes one row; a batch of rows takes K3")
+    :func:`keep_lists`, and ``ends`` int32, shaped as ``nkept``, the
+    inclusive prefix sum of each query tile's runs of at most ``RUN_TILES``
+    kept tiles (K4's work list: block b takes query tile i with ends[i-1]
+    <= b < ends[i]); with a leading batch axis the sum runs over every
+    row's query tiles, one row after another. Its last entry is the grid's
+    size, the one value the host reads."""
     order, nkept, cand4 = keep_lists(traj, candidates, cand_mask)
-    ends = torch.cumsum(torch.div(nkept + RUN_TILES - 1, RUN_TILES, rounding_mode="floor"), 0,
-                        dtype=torch.int32)
+    runs = torch.div(nkept + RUN_TILES - 1, RUN_TILES, rounding_mode="floor")
+    ends = torch.cumsum(runs.reshape(-1), 0, dtype=torch.int32).reshape(runs.shape)
     return order, nkept, cand4, ends
 
 
@@ -279,14 +287,15 @@ def nn_min_dist2(
     """Per-query minimum squared distance to any valid candidate.
 
     traj (N,3) contiguous, candidates (M,3), cand_mask (M,) bool → (N,) in
-    traj's dtype, routed to K3 or K4 by :func:`nn_route`; both take
-    :func:`nn_min_dist2_plain` for CPU tensors. A batch of rows, (B, N, 3),
-    (B, M, 3) and (B, M) → (B, N), takes K3 at any M. On CUDA the bounds see
+    traj's dtype, or a batch of rows, (B, N, 3), (B, M, 3) and (B, M) →
+    (B, N), routed to K3 or K4 by :func:`nn_route`; both take
+    :func:`nn_min_dist2_plain` for CPU tensors. On CUDA the bounds see
     sanitised coordinates and the kernel the raw ones; outputs for queries
     with non-finite coordinates are unspecified, and a NaN distance never
     wins the minimum.
     """
-    if traj.ndim == 3 or nn_route(candidates.shape[0]) == "resident":
+    batch = traj.shape[0] if traj.ndim == 3 else 1
+    if nn_route(candidates.shape[-2], traj.shape[-2], batch) == "resident":
         return nn_resident(traj, candidates, cand_mask)
     return nn_grid(traj, candidates, cand_mask)
 
@@ -323,25 +332,25 @@ def nn_grid(
     traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor
 ) -> torch.Tensor:
     """K4 (``csrc/nn_grid.cu``): one block per run of kept candidate tiles
-    of a query tile, minima folded with atomics, at any M, one row (no batch
-    grid yet). Equals K3 bit for bit on the same inputs. CPU tensors take
-    :func:`nn_min_dist2_plain`."""
+    of a query tile, minima folded with atomics, at any M; a batch of rows
+    (B, N, 3) in one launch over every row's runs. Equals K3 bit for bit on
+    the same inputs. CPU tensors take :func:`nn_min_dist2_plain`."""
     if traj.device.type == "cpu":
         return nn_min_dist2_plain(traj, candidates, cand_mask)
     _check_nn(traj, candidates, cand_mask)
-    if traj.shape[0] == 0:
-        return torch.empty((0,), dtype=traj.dtype, device=traj.device)
+    if traj.numel() == 0:
+        return torch.empty(traj.shape[:-1], dtype=traj.dtype, device=traj.device)
     operands = nn_grid_operands(traj, candidates, cand_mask)
-    return grid_launch(traj, operands, int(operands[3][-1]))
+    return grid_launch(traj, operands, int(operands[3].reshape(-1)[-1]))
 
 
 def grid_launch(traj: torch.Tensor, operands, n_items: int) -> torch.Tensor:
     """K4's launch alone on :func:`nn_grid_operands`' ``operands``, over
-    ``n_items`` blocks (``ends[-1]``, read by the caller: the grid's size is
-    the one value the host needs from the keep lists)."""
+    ``n_items`` blocks (the last entry of ``ends``, read by the caller: the
+    grid's size is the one value the host needs from the keep lists)."""
     order, nkept, cand4, ends = operands
-    n = traj.shape[0]
-    out = torch.full((n,), float("inf"), dtype=traj.dtype, device=traj.device)
+    n, batch = traj.shape[-2], (traj.shape[0] if traj.ndim == 3 else 1)
+    out = torch.full(traj.shape[:-1], float("inf"), dtype=traj.dtype, device=traj.device)
     lib = _build.library()
     if lib.gps_nn_grid_run() != RUN_TILES:
         raise RuntimeError("csrc/nn_grid.cu cuts the keep lists by another run length")
@@ -349,8 +358,8 @@ def grid_launch(traj: torch.Tensor, operands, n_items: int) -> torch.Tensor:
         return out
     with torch.cuda.device(traj.device):
         rc = lib.gps_nn_grid(
-            _build.dtype_code(traj), traj.data_ptr(), n, cand4.data_ptr(), order.data_ptr(),
-            nkept.data_ptr(), ends.data_ptr(), order.shape[0], order.shape[1], n_items,
+            _build.dtype_code(traj), batch, traj.data_ptr(), n, cand4.data_ptr(), order.data_ptr(),
+            nkept.data_ptr(), ends.data_ptr(), order.shape[-2], order.shape[-1], n_items,
             out.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn_min_dist2 (grid)")

@@ -4,7 +4,8 @@
 * ``nn_errors_auto``: distance from each trajectory point to its nearest
   valid interpolated-GPS candidate (the reference's metric, quirk Q6),
   through ``ops.kernels.nn_min_dist2`` on CUDA at every size (K3, or K4
-  from 524,288 candidates on: ``kernels.nn_route``), and ``nn_errors``, the
+  at a few query tiles against 524,288 candidates or more:
+  ``kernels.nn_route``), and ``nn_errors``, the
   same by brute force;
 * ``paired_errors``: timestamp-paired ATE;
 * ``error_stats``: masked mean / median / RMSE / max.

@@ -53,6 +53,11 @@ def conj(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([-q[..., :3], q[..., 3:]], -1)
 
 
+def inv(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of a (possibly non-unit) quaternion: conj(q) / |q|²."""
+    return conj(q) / torch.sum(q * q, dim=-1, keepdim=True)
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a0, a1, a2 = a.unbind(-1)
     b0, b1, b2 = b.unbind(-1)
@@ -69,6 +74,23 @@ def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     uv = cross(u, v)
     uuv = cross(u, uv)
     return v + 2.0 * (w * uv + uuv)
+
+
+def to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion → 3×3 rotation matrix (batched): (..., 4) → (..., 3, 3)."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(*q.shape[:-1], 3, 3)
 
 
 def from_matrix(m: torch.Tensor) -> torch.Tensor:

@@ -288,6 +288,60 @@ def _poly_design(t: torch.Tensor, degree: int) -> torch.Tensor:
     return torch.stack([t**d for d in range(degree + 1)], dim=-1)
 
 
+# Elements of a window block's draws and residuals in the GNSS gate (about
+# 1 GiB of float64 each): the gate's sliding windows are taken in blocks of
+# at most this many (window, axis, trial, point) entries.
+GATE_BLOCK_ELEMENTS = 1 << 27
+
+
+def _gate_windows(times, positions, in_window, window_ok, draws, gen, cfg: GPSFilterConfig, C: int,
+                  n_chunks: int) -> torch.Tensor:
+    """(W, m) per-window masks of :func:`gps_poly_ransac_mask` for a block of
+    W windows: each window's per-axis RANSAC (the best of its trials,
+    drawn from ``gen`` when ``draws`` is None), its axes AND-ed, windows
+    with too few members empty."""
+    W, m = in_window.shape
+    k, device, dtype = cfg.min_samples, times.device, positions.dtype
+    if draws is None:
+        u = torch.rand((W, 3, n_chunks * C, m), generator=gen, dtype=dtype, device=device)
+        scores = torch.where(in_window[:, None, None, :], u, -1.0)
+        draws = torch.topk(scores, k, dim=-1).indices
+    draws = draws.to(device)  # (W, 3, trials, k)
+    design = _poly_design(times, cfg.polynomial_degree)  # (m, D)
+    axis = torch.arange(3, device=device)[None, :, None, None]
+    n_members = in_window.sum(1)[:, None]  # (W, 1): each axis of a window sees its members
+
+    best_count = torch.full((W, 3), -1, dtype=torch.long, device=device)
+    inl_best = torch.zeros((W, 3, m), dtype=torch.bool, device=device)
+    active = torch.ones((W, 3), dtype=torch.bool, device=device)
+    for i in range(n_chunks):
+        if i > 0:
+            active = active & _more_trials_needed(
+                i * C, best_count, n_members, k, cfg.stop_probability, dtype)
+            if not bool(active.any()):
+                break
+        idx = draws[:, :, i * C : (i + 1) * C]  # (W, 3, C, k)
+        X = _poly_design(times[idx], cfg.polynomial_degree)  # (W, 3, C, k, D)
+        Y = positions.T[axis, idx]  # (W, 3, C, k)
+        coef = (torch.linalg.pinv(X) @ Y[..., None])[..., 0]  # (W, 3, C, D)
+        trial_ok = torch.isfinite(coef).all(-1)
+        pred = design[:, 0] * coef[..., 0, None]
+        for d in range(1, design.shape[1]):
+            pred = pred + design[:, d] * coef[..., d, None]
+        res = torch.abs(pred - positions.T[None, :, None, :])  # (W, 3, C, m)
+        inl = (res < cfg.residual_threshold_meters) & in_window[:, None, None, :]
+        counts = torch.where(trial_ok, inl.sum(-1), -1)
+        best = torch.argmax(counts, dim=-1, keepdim=True)  # first maximum
+        count_b = counts.gather(-1, best)[..., 0]  # (W, 3)
+        inl_b = inl.gather(2, best[..., None].expand(W, 3, 1, m))[:, :, 0]
+        better = active & (count_b > best_count)
+        best_count = torch.where(better, count_b, best_count)
+        inl_best = torch.where(better[..., None], inl_b, inl_best)
+    ok_axes = best_count >= 0
+    combined = (inl_best & ok_axes[..., None]).all(1) & ok_axes.all(1, keepdim=True)
+    return combined & window_ok[:, None]
+
+
 def gps_poly_ransac_mask(
     times: torch.Tensor,
     positions: torch.Tensor,
@@ -335,47 +389,18 @@ def gps_poly_ransac_mask(
     else:
         in_window = valid[None]
         window_ok = in_window.sum(1) >= cfg.min_samples
-    W, k = in_window.shape[0], cfg.min_samples
+    W = in_window.shape[0]
     C, n_chunks = _adaptive_schedule(cfg.max_trials, cfg.adaptive_chunk, cfg.stop_probability)
-
-    if draws is None:
-        u = torch.rand((W, 3, n_chunks * C, m), generator=_generator(device, seed), dtype=dtype, device=device)
-        scores = torch.where(in_window[:, None, None, :], u, -1.0)
-        draws = torch.topk(scores, k, dim=-1).indices
-    draws = draws.to(device)  # (W, 3, trials, k)
-    design = _poly_design(times, cfg.polynomial_degree)  # (m, D)
-    axis = torch.arange(3, device=device)[None, :, None, None]
-    n_members = in_window.sum(1)[:, None]  # (W, 1): each axis of a window sees its members
-
-    best_count = torch.full((W, 3), -1, dtype=torch.long, device=device)
-    inl_best = torch.zeros((W, 3, m), dtype=torch.bool, device=device)
-    active = torch.ones((W, 3), dtype=torch.bool, device=device)
-    for i in range(n_chunks):
-        if i > 0:
-            active = active & _more_trials_needed(
-                i * C, best_count, n_members, k, cfg.stop_probability, dtype)
-            if not bool(active.any()):
-                break
-        idx = draws[:, :, i * C : (i + 1) * C]  # (W, 3, C, k)
-        X = _poly_design(times[idx], cfg.polynomial_degree)  # (W, 3, C, k, D)
-        Y = positions.T[axis, idx]  # (W, 3, C, k)
-        coef = (torch.linalg.pinv(X) @ Y[..., None])[..., 0]  # (W, 3, C, D)
-        trial_ok = torch.isfinite(coef).all(-1)
-        pred = design[:, 0] * coef[..., 0, None]
-        for d in range(1, design.shape[1]):
-            pred = pred + design[:, d] * coef[..., d, None]
-        res = torch.abs(pred - positions.T[None, :, None, :])  # (W, 3, C, m)
-        inl = (res < cfg.residual_threshold_meters) & in_window[:, None, None, :]
-        counts = torch.where(trial_ok, inl.sum(-1), -1)
-        best = torch.argmax(counts, dim=-1, keepdim=True)  # first maximum
-        count_b = counts.gather(-1, best)[..., 0]  # (W, 3)
-        inl_b = inl.gather(2, best[..., None].expand(W, 3, 1, m))[:, :, 0]
-        better = active & (count_b > best_count)
-        best_count = torch.where(better, count_b, best_count)
-        inl_best = torch.where(better[..., None], inl_b, inl_best)
-    ok_axes = best_count >= 0
-    combined = (inl_best & ok_axes[..., None]).all(1) & ok_axes.all(1, keepdim=True)
-    per_window = combined & window_ok[:, None]
+    # Windows in blocks whose (windows, 3, trials, m) draws and residuals
+    # stay near GATE_BLOCK_ELEMENTS: one block up to there (every test and
+    # every KITTI-length log), so the seeded draws are those of one call;
+    # a long log's O(W·m) intermediates (W grows with m) would not fit.
+    per = max(1, GATE_BLOCK_ELEMENTS // (3 * n_chunks * C * max(m, 1)))
+    gen = _generator(device, seed) if draws is None else None
+    per_window = torch.cat([
+        _gate_windows(times, positions, in_window[w0 : w0 + per], window_ok[w0 : w0 + per],
+                      None if draws is None else draws[w0 : w0 + per], gen, cfg, C, n_chunks)
+        for w0 in range(0, W, per)])
 
     too_few = valid.sum() < cfg.min_samples
     if use_windows:

@@ -20,12 +20,13 @@ between them as ``make_scan_fn`` does, at this card's own crossover
   Hillis-Steele ladder of whole-tensor combines (the JAX package's CPU scan,
   ``pallas_scan.associative_scan_fori``).
 
-A batched scan always takes K1, in one launch over every row's tiles (a
-K2 batch grid is still to come), whatever n is; each row meets the tiles
-and the in-tile combines of the single-row K1 call on it, and agrees with
-that call as two single-row calls agree with each other (the look-back's
-walk, which folds whatever its predecessors have published, changes from
-run to run).
+A batched scan takes either kernel's batch grid, by the same route: one
+launch over every row's tiles (K1: a block a tile; K2: its persistent
+blocks drawing tickets over all rows' tiles). Each row meets the tiles and
+the in-tile combines of the single-row call on it, and agrees with that
+call as two single-row calls agree with each other (the look-back's walk,
+which folds whatever its predecessors have published, changes from run to
+run).
 
 Argument order follows ``jax.lax.associative_scan``: the accumulated
 composite is the FIRST combine argument in both directions (under
@@ -228,26 +229,45 @@ def scan_plain(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
 # is 1.2-1.7x faster on K1 up to 16,385 elements (K2's larger tiles leave
 # most SMs idle there), level at 65,537, and 1.1-1.3x faster on K2 from
 # 131,073.
+#
+# A batch of rows (the same card, chip_smoke.py phase 1 "routes", float64,
+# every combine, 2 to 64 rows of 16,385 to 524,289 elements, two runs)
+# follows rows x elements: up to about 2^20 elements in all the two batch
+# grids were level within the runs' spread (the median combine's ratio
+# 0.95-1.06), and from 2^21 (4 x 524,289, 8 x 524,289, 16 x 131,073, 64 x
+# 65,537) K1's grid was ahead (the median combine 1.08-1.18x, up to 1.5x).
+# K1's blocks (one a tile, up to three an SM) keep more warps in flight
+# than K2's one persistent block an SM once a batch fills the card, and
+# K2's larger tiles no longer pay for it. So a batch takes K2 for rows past
+# BLOCK_MAX_ELEMENTS while it holds at most BATCH_TILED_MAX_ELEMENTS
+# elements, K1's grid beyond; a single row keeps the single-row rule.
 BLOCK_MAX_ELEMENTS = 65_536
+BATCH_TILED_MAX_ELEMENTS = 1 << 20
 
 
-def scan_route(n_leaves: int, n: int, itemsize: int) -> str:
+def scan_route(n_leaves: int, n: int, itemsize: int, batch: int = 1) -> str:
     """"block" (K1) or "tiled" (K2) for a scan of ``n_leaves`` leaves of
-    ``n`` elements of ``itemsize`` bytes: K1 up to ``BLOCK_MAX_ELEMENTS``
-    elements, K2 beyond, the crossover measured on this card (it did not
-    depend on the leaf count or the dtype within the runs' spread). Phase
-    4's 4,661 poses stay on K1; the chunked path's 262,145-element chunks
-    take K2."""
-    return "block" if n <= BLOCK_MAX_ELEMENTS else "tiled"
+    ``n`` elements of ``itemsize`` bytes, in each of ``batch`` rows: K2 for
+    rows of more than ``BLOCK_MAX_ELEMENTS`` elements, one row or a batch
+    of at most ``BATCH_TILED_MAX_ELEMENTS`` elements in all, K1 otherwise,
+    the crossovers measured on this card (neither depended on the leaf
+    count or the dtype within the runs' spread). Phase 4's 4,661 poses and
+    phase 7's buckets stay on K1, and so does phase 10's bucket of four
+    long logs (2,097,152 elements a leaf); the chunked path's 262,145-element
+    chunks and the fuse-batch command's two 70,000-pose logs take K2."""
+    if n <= BLOCK_MAX_ELEMENTS:
+        return "block"
+    return "tiled" if batch == 1 or batch * n <= BATCH_TILED_MAX_ELEMENTS else "block"
 
 
 def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive scan of ``op`` over the (L, n) leaves ``x`` (suffix scan
-    when ``reverse``), routed to K1 or K2 by :func:`scan_route`; both take
-    :func:`scan_plain` for CPU tensors. (L, B, n) leaves scan each row on
-    its own, through K1 at any n."""
+    when ``reverse``), or over each row of (L, B, n) leaves on its own,
+    routed to K1 or K2 by :func:`scan_route`; both take :func:`scan_plain`
+    for CPU tensors."""
     _check(op, x)
-    if x.ndim == 3 or scan_route(x.shape[0], x.shape[1], x.element_size()) == "block":
+    batch = x.shape[1] if x.ndim == 3 else 1
+    if scan_route(x.shape[0], x.shape[-1], x.element_size(), batch) == "block":
         return scan_block(op, x, reverse)
     return scan_tiled(op, x, reverse)
 
@@ -294,29 +314,30 @@ def tiled_tile(op: str, dtype: torch.dtype) -> int:
 
 def scan_tiled(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """K2: the single-pass look-back scan for long leaves
-    (``csrc/scan_tiled.cu``), at any n: one launch of about one block per SM
-    slot, each drawing tiles in ticket order and copying the next tile into
-    a second shared-memory buffer (``cp.async``) while the present one is
-    folded, looked back and written. The 2-4-leaf combines are bound by
-    their bytes, the 27-leaf filter by the operations of the scan's own
-    structure. CPU tensors take :func:`scan_plain`."""
+    (``csrc/scan_tiled.cu``), at any n, on (L, n) leaves or, in the same one
+    launch with tickets over every row's tiles, on (L, B, n) leaves: about
+    one block per SM slot, each drawing tiles in ticket order and copying
+    the next tile (the next row's first, at a row's end) into a second
+    shared-memory buffer (``cp.async``) while the present one is folded,
+    looked back and written. The 2-4-leaf combines are bound by their bytes,
+    the 27-leaf filter by the operations of the scan's own structure. CPU
+    tensors take :func:`scan_plain`."""
     _check(op, x)
-    if x.ndim != 2:
-        raise ValueError("K2 scans (L, n) leaves; a batch of rows takes K1")
     if x.device.type == "cpu":
         return scan_plain(op, x, reverse)
     _build.require_cuda(x)
     out = torch.empty_like(x)
-    n = x.shape[1]
-    if n == 0:
+    n = x.shape[-1]
+    batch = x.shape[1] if x.ndim == 3 else 1
+    if n == 0 or batch == 0:
         return out
     lib = _build.library()
     code, dt = OPS[op][0], _build.dtype_code(x)
-    scratch = torch.empty((lib.gps_scan_tiled_scratch_bytes(code, dt, n),), dtype=torch.uint8,
+    scratch = torch.empty((lib.gps_scan_tiled_scratch_bytes(code, dt, n, batch),), dtype=torch.uint8,
                           device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.gps_scan_tiled(code, dt, x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                                scratch.numel(), n, int(reverse), _build.stream(x.device))
+                                scratch.numel(), n, batch, int(reverse), _build.stream(x.device))
     _build.check(rc, f"tiled scan {op}")
     with _build.COUNT_LOCK:
         scan_tiled.launches[op] += 1

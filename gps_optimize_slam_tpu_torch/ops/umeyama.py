@@ -106,3 +106,16 @@ def umeyama_sim3_from_moments(
     )
     R = torch.stack([torch.stack(row, dim=-1) for row in r], dim=-2)
     return Sim3(R=R, t=t, scale=scale, ok=n_eff >= 3)
+
+
+def sim3_residuals(src: torch.Tensor, dst: torch.Tensor, sim3: Sim3) -> torch.Tensor:
+    """Per-point ‖s·src·Rᵀ + t − dst‖ (reference: EKFGPSSLAM.py:409-410)."""
+    pred = sim3.scale * (src @ sim3.R.T) + sim3.t
+    return torch.linalg.norm(pred - dst, dim=-1)
+
+
+def umeyama_sim3_batched(src: torch.Tensor, dst: torch.Tensor, weights: Optional[torch.Tensor] = None) -> Sim3:
+    """The JAX package's ``vmap(umeyama_sim3, in_axes=(0, 0, None))``: src
+    and dst (B, n, 3), one ``weights`` (n,) (or None) shared by every row;
+    every field of the result has the leading B."""
+    return umeyama_sim3(src, dst, None if weights is None else weights.expand(src.shape[:-1]))

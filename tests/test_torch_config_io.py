@@ -12,6 +12,7 @@ import pytest
 
 from gps_optimize_slam_tpu import config as jcfg
 from gps_optimize_slam_tpu.io import gps as jgps
+from gps_optimize_slam_tpu.io import native as jnative
 from gps_optimize_slam_tpu.io import tum as jtum
 from gps_optimize_slam_tpu_torch import config as tcfg
 from gps_optimize_slam_tpu_torch.io import gps as tgps
@@ -120,3 +121,11 @@ def test_missing_files_raise_like_jax(tmp_path):
     for reader in (ttum.read_tum, tgps.read_gps_fixes):
         with pytest.raises(ValueError, match="not found"):
             reader(missing)
+
+
+def test_native_available_matches_jax(monkeypatch):
+    """Both packages find the same native parser, and the port's answer
+    follows its loader."""
+    assert tnative.native_available() == jnative.native_available()
+    monkeypatch.setattr(tnative, "_get_lib", lambda: None)
+    assert tnative.native_available() is False

@@ -185,8 +185,9 @@ def test_counts_kernel_matches_plain_and_keeps_the_winner(cuda, dtype):
 
 def test_nn_route_rule_edges(cuda):
     """One candidate below ``GRID_MIN_CANDIDATES`` launches K3, that many
-    K4, and the two agree bit for bit with each other and with the plain
-    version to its tolerance."""
+    K4 (2,000 queries: 16 query tiles), and the two agree bit for bit with
+    each other and with the plain version to its tolerance; one query tile
+    past ``GRID_MAX_QUERY_TILES`` launches K3 again."""
     gen = torch.Generator().manual_seed(6)
     edge = kernels.GRID_MIN_CANDIDATES
     traj, cands = walk(gen, 2000, torch.float64, cuda), walk(gen, edge, torch.float64, cuda, offset=0.3)
@@ -200,6 +201,13 @@ def test_nn_route_rule_edges(cuda):
     want = kernels.nn_min_dist2_plain(traj, cands, mask, block=128)
     torch.testing.assert_close(at, want, rtol=1e-12, atol=0.0)
     assert bool((below >= at).all())  # one candidate fewer: nothing nearer
+    few = kernels.GRID_MAX_QUERY_TILES * kernels.TILE_N
+    many = walk(gen, few + 1, torch.float64, cuda)
+    k3, k4 = kernels.nn_resident.launches, kernels.nn_grid.launches
+    at_edge = kernels.nn_min_dist2(many[:few].contiguous(), cands, mask)
+    past = kernels.nn_min_dist2(many, cands, mask)
+    assert (kernels.nn_resident.launches, kernels.nn_grid.launches) == (k3 + 1, k4 + 1)
+    assert torch.equal(past[:few], at_edge)
 
 
 def plain_keep_lists(traj, cands, mask):
@@ -725,3 +733,124 @@ def test_kernels_launch_on_their_tensors_card_when_another_is_current(cuda):
         home = torch.device("cuda", 0)
         assert torch.equal(got.to(home), kernels.nn_min_dist2(traj.to(home), traj.to(home), mask.to(home)))
         torch.testing.assert_close(got, kernels.nn_min_dist2_plain(traj, traj, mask, block=128), rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", list(scan.OPS))
+def test_batched_tiled_scan_kernel_matches_plain_and_each_row(cuda, op, dtype):
+    """K2's batch grid: one launch over B rows, ragged rows past K1's route
+    (a row of 2,001 elements among rows of 70,001), B = 1, and 3 rows of
+    5,000 (fewer tiles than persistent blocks), both directions; against
+    the batched plain version, and row by row against K2 on that row alone
+    (and, forward, on its real elements alone), bit for bit where the
+    combine is exact."""
+    gen = torch.Generator().manual_seed(12)
+    for ns in ((70_001, 50_001, 30_001, 2_001), (70_001,), (5_000,) * 3):
+        x = chip_smoke.identity_padded_rows(op, ns, gen, dtype, cuda)
+        for reverse in (False, True):
+            before = dict(scan.scan_tiled.launches)
+            got = scan.scan_tiled(op, x, reverse)
+            assert scan.scan_tiled.launches[op] == before[op] + 1
+            torch.cuda.synchronize()
+            assert chip_smoke.rel_err(got.flatten(1), scan.scan_plain(op, x, reverse).flatten(1)) <= TOL[dtype], ns
+            for r, k in enumerate(ns):
+                alone = scan.scan_tiled(op, x[:, r].contiguous(), reverse)
+                pairs = [(got[:, r], alone)]
+                if not reverse:
+                    pairs.append((got[:, r, :k], scan.scan_tiled(op, x[:, r, :k].contiguous(), False)))
+                for a, b in pairs:
+                    if op in chip_smoke.EXACT_COMBINES:
+                        assert torch.equal(a, b), (ns, r, reverse)
+                    assert chip_smoke.rel_err(a, b) <= TOL[dtype], (ns, r, reverse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_grid_nn_kernel_equals_resident_kernel(cuda, dtype):
+    """K4's batch grid bit for bit against K3's batch grid: ragged rows with
+    an all-masked one, B = 1, and 4 rows of 700 queries against 300,000
+    shuffled candidates (every tile kept, each list over many blocks);
+    against the plain version on every 64th query."""
+    gen = torch.Generator().manual_seed(13)
+    cases = [chip_smoke.ragged_walks(gen, ns, ms, dtype, cuda)
+             for ns, ms in (((300, 150, 1, 300), (1500, 700, 1025, 9)), ((5,), (1,)))]
+    m = 300_000
+    traj = torch.stack([walk(gen, 700, dtype, cuda) for _ in range(4)])
+    cands = torch.stack([walk(gen, m, dtype, cuda, offset=0.3)[torch.randperm(m, generator=gen).to(cuda)]
+                         for _ in range(4)]).contiguous()
+    mask = (torch.rand(4, m, generator=gen) > 0.1).to(cuda)
+    mask[1] = False
+    cases.append((traj, cands, mask))
+    for traj, cands, mask in cases:
+        k3 = kernels.nn_resident(traj, cands, mask)
+        before = kernels.nn_grid.launches
+        got = kernels.nn_grid(traj, cands, mask)
+        torch.cuda.synchronize()
+        assert kernels.nn_grid.launches == before + 1
+        assert torch.equal(got, k3)
+        idx = torch.arange(0, traj.shape[1], 64, device=cuda)
+        want = kernels.nn_min_dist2_plain(traj[:, idx].contiguous(), cands, mask, block=64)
+        torch.testing.assert_close(k3[:, idx], want, rtol=1e-5 if dtype == torch.float32 else 1e-12, atol=0.0)
+        if traj.shape[0] > 1:
+            assert torch.isinf(k3[1] if traj.shape[1] == 700 else k3[-1]).all()
+
+
+def test_batched_routes_pick_each_kernel(cuda):
+    """A batch of rows past K1's route of at most
+    ``BATCH_TILED_MAX_ELEMENTS`` elements launches K2's grid, a larger one
+    K1's; a few query tiles against ``GRID_MIN_CANDIDATES`` candidates
+    launch K4's grid, many K3's; each batched call once."""
+    gen = torch.Generator().manual_seed(14)
+    n = scan.BLOCK_MAX_ELEMENTS + 1
+    most = scan.BATCH_TILED_MAX_ELEMENTS // n
+    for B, kernel in ((most, scan.scan_tiled), (most + 1, scan.scan_block)):
+        x = torch.stack([chip_smoke.scan_inputs("add2", n, gen, torch.float64, cuda) for _ in range(B)], 1)
+        before = (dict(scan.scan_block.launches), dict(scan.scan_tiled.launches))
+        scan.associative_scan("add2", x.contiguous())
+        after = (scan.scan_block.launches, scan.scan_tiled.launches)
+        moved = {k.__name__: after[i]["add2"] - before[i]["add2"] for i, k in enumerate((scan.scan_block, scan.scan_tiled))}
+        assert moved == {"scan_block": int(kernel is scan.scan_block), "scan_tiled": int(kernel is scan.scan_tiled)}
+    m = kernels.GRID_MIN_CANDIDATES
+    cands = torch.stack([walk(gen, m, torch.float64, cuda, offset=0.3) for _ in range(2)]).contiguous()
+    mask = (torch.rand(2, m, generator=gen) > 0.1).to(cuda)
+    for n_q, grid in ((700, True), (kernels.GRID_MAX_QUERY_TILES * kernels.TILE_N, False)):
+        traj = torch.stack([walk(gen, n_q, torch.float64, cuda) for _ in range(2)])
+        before = (kernels.nn_resident.launches, kernels.nn_grid.launches)
+        got = kernels.nn_min_dist2(traj, cands, mask)
+        assert (kernels.nn_resident.launches - before[0], kernels.nn_grid.launches - before[1]) == (
+            (0, 1) if grid else (1, 0))
+        assert torch.equal(got, kernels.nn_resident(traj, cands, mask) if grid else kernels.nn_grid(traj, cands, mask))
+
+
+class _FailingLaunch:
+    """The kernels' library with one entry point that reports a failed
+    launch (cudaErrorLaunchFailure)."""
+
+    def __init__(self, lib, name):
+        self._lib, self._name = lib, name
+
+    def __getattr__(self, name):
+        if name == self._name:
+            return lambda *args: 719
+        return getattr(self._lib, name)
+
+
+def test_a_failed_batched_launch_raises_without_falling_back(cuda, monkeypatch):
+    """A batched K2 or K4 call whose launch fails raises, and launches
+    nothing else: no K1, K3 or plain version in its place."""
+    from gps_optimize_slam_tpu_torch.ops import _build
+
+    lib = _build.library()
+    gen = torch.Generator().manual_seed(15)
+    x = torch.stack([chip_smoke.scan_inputs("filter", 70_001, gen, torch.float64, cuda) for _ in range(2)], 1)
+    traj = torch.stack([walk(gen, 700, torch.float64, cuda) for _ in range(2)])
+    cands = torch.stack([walk(gen, kernels.GRID_MIN_CANDIDATES, torch.float64, cuda) for _ in range(2)])
+    mask = torch.ones(cands.shape[:2], dtype=torch.bool, device=cuda)
+    for entry, call in (("gps_scan_tiled", lambda: scan.associative_scan("filter", x.contiguous())),
+                        ("gps_nn_grid", lambda: kernels.nn_min_dist2(traj, cands.contiguous(), mask))):
+        monkeypatch.setattr(_build, "library", lambda e=entry: _FailingLaunch(lib, e))
+        before = (dict(scan.scan_block.launches), dict(scan.scan_tiled.launches), kernels.nn_resident.launches,
+                  kernels.nn_grid.launches)
+        with pytest.raises(RuntimeError, match="CUDA error 719"):
+            call()
+        assert (scan.scan_block.launches, scan.scan_tiled.launches, kernels.nn_resident.launches,
+                kernels.nn_grid.launches) == before

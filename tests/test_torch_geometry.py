@@ -9,6 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from scipy.spatial.transform import Rotation
 
 from gps_optimize_slam_tpu.ops import geodesy as jgeo
 from gps_optimize_slam_tpu.ops import linalg3 as jlin
@@ -55,6 +56,22 @@ def test_quaternion_ops_match_jax():
         close(tq.nlerp(t(q1), t(q2), w), jq.nlerp(jnp.asarray(q1), jnp.asarray(q2), w), atol=1e-15)
     m = np.asarray(jq.to_matrix(jnp.asarray(q2)))
     close(tq.from_matrix(t(m)), jq.from_matrix(jnp.asarray(m)), atol=1e-15)
+
+
+def test_quaternion_inverse_and_matrix_match_jax_and_scipy():
+    """``inv`` (non-unit quaternions too) and ``to_matrix`` against the JAX
+    package; ``to_matrix`` also against scipy's Rotation, as
+    ``tests/test_quaternion.py::test_to_matrix_matches_scipy`` holds JAX."""
+    rng = np.random.default_rng(11)
+    q = quats(rng, 64)
+    scaled = q * rng.uniform(0.1, 10.0, size=(64, 1))
+    close(tq.inv(t(scaled)), jq.inv(jnp.asarray(scaled)))
+    close(tq.mul(t(scaled), tq.inv(t(scaled))), np.tile([0.0, 0.0, 0.0, 1.0], (64, 1)), atol=1e-15)
+    got = tq.to_matrix(t(q))
+    assert got.shape == (64, 3, 3)
+    close(got, jq.to_matrix(jnp.asarray(q)), atol=1e-15)
+    close(got, Rotation.from_quat(q).as_matrix(), atol=1e-12)
+    close(tq.to_matrix(t(q.reshape(4, 16, 4))), jq.to_matrix(jnp.asarray(q.reshape(4, 16, 4))), atol=1e-15)
 
 
 def test_se3_ops_match_jax_including_zero_norm():
@@ -172,3 +189,30 @@ def test_umeyama_batched_trials_match_single_fits():
         close(batched.R[i], one.R, atol=1e-12)
         close(batched.t[i], one.t, atol=1e-11)
         close(batched.scale[i], one.scale)
+
+
+@pytest.mark.parametrize("weights", ["none", "mask"])
+def test_sim3_residuals_and_batched_umeyama_match_jax(weights):
+    """``umeyama_sim3_batched`` takes the JAX argument contract (rows of
+    src and dst, one weight vector shared by every row) and each row equals
+    JAX's ``vmap``; ``sim3_residuals`` of each row's fit equals JAX's."""
+    rng = np.random.default_rng(12)
+    B, n = 5, 90
+    src = rng.normal(size=(B, n, 3)) * 20
+    R = np.asarray(jq.to_matrix(jnp.asarray(quats(rng, B))))
+    dst = 0.97 * np.einsum("bij,bnj->bni", R, src) + rng.normal(size=(B, 1, 3)) * 30
+    dst += rng.normal(size=(B, n, 3)) * 0.2
+    w = None if weights == "none" else rng.uniform(size=n) > 0.3
+    got = tum.umeyama_sim3_batched(t(src), t(dst), None if w is None else torch.from_numpy(w))
+    want = jum.umeyama_sim3_batched(jnp.asarray(src), jnp.asarray(dst), None if w is None else jnp.asarray(w))
+    assert got.R.shape == (B, 3, 3) and got.ok.shape == (B,)
+    close(got.R, want.R, atol=1e-12)
+    close(got.t, want.t, atol=1e-9)
+    close(got.scale, want.scale)
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(want.ok))
+    for b in range(B):
+        one = tum.Sim3(*(x[b] for x in got))
+        jone = jum.Sim3(*(x[b] for x in want))
+        res = tum.sim3_residuals(t(src[b]), t(dst[b]), one)
+        assert res.shape == (n,)
+        close(res, jum.sim3_residuals(jnp.asarray(src[b]), jnp.asarray(dst[b]), jone), atol=1e-12)

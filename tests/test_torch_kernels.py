@@ -20,6 +20,7 @@ elementwise form, and within 2 of its float32 quadratic-form kernel (which
 the JAX package re-ranks for that reason).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -275,19 +276,32 @@ def test_emulated_count_kernel_equals_plain_and_jax_exact(n, T, none_valid):
 
 
 def test_nn_route_matches_jax():
-    """The port's own rule at its edges: K3 below ``GRID_MIN_CANDIDATES``,
-    K4 from there on, whatever the padding; the in-core path's sizes take
-    K3 and the chunked evaluation's 524,288-candidate blocks K4."""
-    edge = kernels.GRID_MIN_CANDIDATES
-    assert edge == 524_288
+    """The port's own rule at its edges: K4 from ``GRID_MIN_CANDIDATES`` on
+    where all rows hold ``GRID_MAX_QUERY_TILES`` query tiles or fewer, K3
+    otherwise, whatever the padding; the in-core path's sizes and the
+    chunked evaluation's 524,288 x 524,288 blocks take K3, a few query tiles
+    against many candidates K4, a batch counted by all its rows' tiles."""
+    edge, tiles = kernels.GRID_MIN_CANDIDATES, kernels.GRID_MAX_QUERY_TILES
+    assert edge == 524_288 and tiles == 64
+    few = tiles * kernels.TILE_N  # the most queries K4 takes in one row
     for m in (0, 1, 1024, 4661, 262_144, 262_145, 300_000, edge - 1):
-        assert kernels.nn_route(m) == "resident", m
+        assert kernels.nn_route(m, 700) == "resident", m
+        assert kernels.nn_route(m, few) == "resident", m
     for m in (edge, edge + 1, 1_048_576):
-        assert kernels.nn_route(m) == "grid", m
+        assert kernels.nn_route(m, 1) == "grid", m
+        assert kernels.nn_route(m, few) == "grid", m
+        assert kernels.nn_route(m, few + 1) == "resident", m  # a 65th query tile
+        assert kernels.nn_route(m, edge) == "resident", m  # the chunked evaluation's block
+    assert kernels.nn_route(edge, 4661) == "grid"  # 37 query tiles
+    assert kernels.nn_route(edge, 700, batch=4) == "grid"  # 4 x 6 query tiles
+    assert kernels.nn_route(edge, 700, batch=11) == "resident"  # 66
+    assert kernels.nn_route(edge, few // 4, batch=4) == "grid"
+    assert kernels.nn_route(edge, few // 4 + 1, batch=4) == "resident"
     # Where the JAX package's rule sat (its resident kernel's 8 MiB VMEM
-    # budget): the change above 262,144 candidates, half the port's edge.
+    # budget): the change above 262,144 candidates, half the port's edge,
+    # whatever the queries.
     jax_last = jpk._RESIDENT_BUDGET_BYTES // (jpk._PAD_DIM * 4)
-    assert jax_last == 262_144 and kernels.nn_route(jax_last + 1) == "resident"
+    assert jax_last == 262_144 and kernels.nn_route(jax_last + 1, 1) == "resident"
 
 
 @pytest.mark.parametrize("n,m", [(300, 2500), (40, 777)])
@@ -551,7 +565,7 @@ def test_batched_nn_and_keep_lists_equal_each_row_alone(ns, ms):
     """Ragged rows, B = 1 and an all-masked row: the batched plain keep
     lists, packed candidates and minima equal the single-row ones on each
     row bit for bit, and so does K3's batch grid read through its row
-    offsets; the batched wrapper routes to K3 whatever M is."""
+    offsets; K4's batched operands are each row's own."""
     rng = np.random.default_rng(sum(ns) + sum(ms))
     traj, cands, mask = batch_of(rng, ns, ms)
     order, nkept, cand4 = kernels.keep_lists(traj, cands, mask)
@@ -564,8 +578,130 @@ def test_batched_nn_and_keep_lists_equal_each_row_alone(ns, ms):
         assert torch.equal(order[r], o1) and torch.equal(nkept[r], k1) and torch.equal(cand4[r], c1)
         assert torch.equal(got[r], kernels.nn_min_dist2_plain(traj[r], cands[r], mask[r]))
     assert torch.isinf(got[-1]).all()  # every candidate of the last row masked
-    with pytest.raises(ValueError, match="a batch of rows takes K3"):
-        kernels.nn_grid_operands(traj, cands, mask)
+    # K4's operands of the batch: each row's own, and ends each row's runs
+    # after the rows before it (one work list over all rows).
+    o, k, c, ends = kernels.nn_grid_operands(traj, cands, mask)
+    assert torch.equal(o, order) and torch.equal(k, nkept) and torch.equal(c, cand4)
+    assert ends.shape == nkept.shape and ends.dtype == torch.int32
+    start = 0
+    for r in range(len(ns)):
+        e1 = kernels.nn_grid_operands(traj[r], cands[r], mask[r])[3]
+        assert torch.equal(ends[r], e1 + start)
+        start += int(e1[-1])
+
+
+def emulate_batched_grid_kernel(traj, cands, mask):
+    """K4's batch grid (csrc/nn_grid.cu) from flat device-memory images of
+    its batched operands: block b finds its entry of ``ends`` by the
+    kernel's binary search (the first entry above b, over every row's query
+    tiles), takes the row and query tile of that entry and its run of at
+    most RUN_TILES kept tiles, reads the row's slices at the kernel's
+    offsets, and folds each query's minimum into an output prefilled with
+    +inf by an atomicMin on the bit pattern (int64 views of non-negative
+    float64 order like the values)."""
+    B, n, _ = traj.shape
+    order, nkept, cand4, ends = kernels.nn_grid_operands(traj, cands, mask)
+    n_tiles, m_tiles = order.shape[1:]
+    flat = {k: v.reshape(-1).numpy() for k, v in
+            dict(traj=traj, cand=cand4, order=order, nkept=nkept, ends=ends).items()}
+    e = flat["ends"]
+    out = np.full(B * n, np.inf)
+    bits = out.view(np.int64)
+    tile_elems = 4 * kernels.TILE_M
+    for b in range(int(e[-1])):
+        lo, hi = 0, len(e) - 1
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if e[mid] > b else (mid + 1, hi)
+        k0 = (b - (e[lo - 1] if lo else 0)) * kernels.RUN_TILES
+        row, i = divmod(lo, n_tiles)
+        t = flat["traj"][3 * n * row:][: 3 * n].reshape(n, 3)
+        c4 = flat["cand"][tile_elems * m_tiles * row:][: tile_elems * m_tiles].reshape(m_tiles, 4, -1)
+        o = flat["order"][n_tiles * m_tiles * row:][: n_tiles * m_tiles].reshape(n_tiles, m_tiles)
+        kept = flat["nkept"][n_tiles * row + i]
+        assert k0 < kept  # no block without work
+        q = t[i * kernels.TILE_N : (i + 1) * kernels.TILE_N]
+        best = np.full(len(q), np.inf)
+        for k in range(k0, min(kept, k0 + kernels.RUN_TILES)):
+            blk = c4[o[i, k]]
+            d = ((q[:, 0, None] - blk[0]) ** 2 + (q[:, 1, None] - blk[1]) ** 2
+                 + (q[:, 2, None] - blk[2]) ** 2 + blk[3])
+            best = np.fmin(best, d.min(1))
+        at = n * row + i * kernels.TILE_N + np.arange(len(q))
+        win = best < np.inf
+        bits[at[win]] = np.minimum(bits[at[win]], best[win].view(np.int64))
+    return out.reshape(B, n), nkept.numpy(), ends.numpy()
+
+
+@pytest.mark.parametrize("ns,ms,shuffle", [((300, 150, 1, 300), (1500, 700, 1025, 9), False),
+                                           ((130,) * 3, (2100, 3000, 40), False),
+                                           ((700, 129, 260), (9000, 5000, 2048), True), ((5,), (1,), False)])
+def test_batched_grid_work_list_gives_each_rows_minimum(ns, ms, shuffle):
+    """K4's batch grid on ragged rows with an all-masked last row (and
+    B = 1): equal to the plain minimum of each row alone bit for bit, and
+    to K3's batch grid; with shuffled candidates every query tile's list
+    spans several blocks, and the work list's runs are each row's own runs
+    after the rows before it."""
+    rng = np.random.default_rng(sum(ns) + sum(ms) + shuffle)
+    traj, cands, mask = batch_of(rng, ns, ms)
+    if shuffle:
+        perm = torch.stack([torch.tensor(rng.permutation(cands.shape[1])) for _ in ns])
+        cands = torch.gather(cands, 1, perm[..., None].expand(-1, -1, 3))
+        mask = torch.gather(mask, 1, perm)
+    got, nkept, ends = emulate_batched_grid_kernel(traj, cands, mask)
+    np.testing.assert_array_equal(got, emulate_batched_nn_kernel(traj, cands, mask))  # K3's batch grid
+    for r in range(len(ns)):
+        np.testing.assert_array_equal(got[r], kernels.nn_min_dist2_plain(traj[r], cands[r], mask[r]).numpy())
+    assert np.isinf(got[-1]).all()
+    runs = -(-nkept // kernels.RUN_TILES)
+    np.testing.assert_array_equal(ends, np.cumsum(runs).reshape(runs.shape))
+    if shuffle:
+        assert (runs[:-1].max(1) > 1).all()  # long lists spread over several blocks
+
+
+def jax_vmap_pipelined_nn(traj, cands, mask, monkeypatch):
+    """``jax.vmap`` of the JAX package's ``nn_min_dist2`` forced onto its
+    pipelined ``_nn_kernel`` (the resident budget patched to 1024 bytes;
+    the unjitted function, so no other test's trace is reused), in
+    interpret mode."""
+    monkeypatch.setattr(jpk, "_RESIDENT_BUDGET_BYTES", 1024)
+    fn = jax.vmap(lambda a, b, c: jpk.nn_min_dist2.__wrapped__(a, b, c, interpret=True))
+    return np.asarray(fn(jnp.asarray(traj), jnp.asarray(cands), jnp.asarray(mask))).astype(np.float64)
+
+
+def test_batched_plain_nn_matches_jax_vmap_of_the_pipelined_kernel(monkeypatch):
+    """The plain version, and the batched wrappers on CPU tensors, against
+    the JAX package's vmapped pipelined kernel on 2 rows of 300 queries x
+    3,000 candidates (3 candidate tiles), the second row ragged in its
+    validity: ≤1e-6 relative (the JAX kernel computes in float32)."""
+    rng = np.random.default_rng(33)
+    traj = np.stack([walk(rng, 300), walk(rng, 300, offset=3.0)])
+    cands = np.stack([walk(rng, 3000, offset=0.5), walk(rng, 3000, offset=2.5)])
+    mask = rng.uniform(size=(2, 3000)) > 0.2
+    mask[1, 2000:] = False
+    want = jax_vmap_pipelined_nn(traj, cands, mask, monkeypatch)
+    assert want.shape == (2, 300)
+    t = [torch.tensor(a) for a in (traj, cands, mask)]
+    for fn in (kernels.nn_min_dist2_plain, kernels.nn_min_dist2, kernels.nn_grid, kernels.nn_resident):
+        np.testing.assert_allclose(fn(*t).numpy(), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("grid_min,want", [(None, "nn_resident"), (1, "nn_grid")])
+def test_batched_nn_calls_the_routed_wrapper(monkeypatch, grid_min, want):
+    """``nn_min_dist2`` on a batch calls the wrapper ``nn_route`` names for
+    all its rows' query tiles (here 3 x 1 tiles against 1,500 candidates:
+    K3 by the card's thresholds, K4 with the candidate edge lowered)."""
+    if grid_min is not None:
+        monkeypatch.setattr(kernels, "GRID_MIN_CANDIDATES", grid_min)
+    calls = []
+    for name in ("nn_grid", "nn_resident"):
+        real = getattr(kernels, name)
+        monkeypatch.setattr(kernels, name, lambda *a, _n=name, _f=real: calls.append(_n) or _f(*a))
+    rng = np.random.default_rng(4)
+    traj, cands, mask = batch_of(rng, (100, 60, 128), (1500, 900, 300))
+    assert kernels.nn_route(cands.shape[1], traj.shape[1], traj.shape[0]) == want[len("nn_"):]
+    out = kernels.nn_min_dist2(traj, cands, mask)
+    assert calls == [want] and out.shape == (3, 128)
 
 
 def emulate_batched_keep_boxes(traj, cands, mask):

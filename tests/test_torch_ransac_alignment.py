@@ -257,6 +257,37 @@ def test_gps_gate_adaptive_stops_where_jax_stops(sliding, p, jax_loop_counts, mo
     assert 0 < (valid & ~got).sum() <= 20
 
 
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_gps_gate_in_window_blocks_matches_jax(adaptive, monkeypatch):
+    """A log whose gate outgrows ``GATE_BLOCK_ELEMENTS`` takes its sliding
+    windows in blocks (here one or two windows a block): with JAX's draws
+    replayed the mask is JAX's, under ``stop_probability`` too (each window
+    stops on its own bound, whatever block it is in)."""
+    t, pos, valid = gnss_track(13, n=600)
+    kw = dict(stop_probability=0.99, adaptive_chunk=8) if adaptive else {}
+    cfg, jcfg = GPSFilterConfig(**kw), JGPSFilterConfig(**kw)
+    starts = jr.reference_window_starts(t[valid], jcfg)
+    key = jax.random.PRNGKey(7)
+    gate = jax.jit(functools.partial(jr.gps_poly_ransac_mask, cfg=jcfg))
+    want = np.asarray(gate(key, jnp.asarray(t), jnp.asarray(pos), valid=jnp.asarray(valid),
+                           window_starts=jnp.asarray(starts)))
+    draws = torch.tensor(jax_gate_draws(key, jnp.asarray(t), jnp.asarray(valid), starts, jcfg))
+    args = (torch.tensor(t), torch.tensor(pos))
+    kwargs = dict(valid=torch.tensor(valid), window_starts=torch.tensor(starts), cfg=cfg)
+    one_block = ransac.gps_poly_ransac_mask(*args, draws=draws, **kwargs)
+    seeded = ransac.gps_poly_ransac_mask(*args, seed=4, **kwargs)
+    calls = []
+    real = ransac._gate_windows
+    monkeypatch.setattr(ransac, "_gate_windows", lambda *a: calls.append(a[2].shape[0]) or real(*a))
+    monkeypatch.setattr(ransac, "GATE_BLOCK_ELEMENTS", 2 * 3 * draws.shape[2] * len(t) - 1)
+    got = ransac.gps_poly_ransac_mask(*args, draws=draws, **kwargs)
+    assert len(starts) > 4 and calls == [1] * len(starts)  # a window a block
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(one_block.numpy(), want)
+    blocked = ransac.gps_poly_ransac_mask(*args, seed=4, **kwargs)
+    assert 0 < (valid & ~blocked.numpy()).sum() <= 30 and 0 < (valid & ~seeded.numpy()).sum() <= 30
+
+
 @pytest.mark.parametrize("step_factor,duration,n_valid", [(0.5, 15.0, None), (0.5, 15.0, 140), (0.3, 7.0, None),
                                                             (0.0, 15.0, None), (0.5, 500.0, None)])
 def test_window_starts_device_equals_the_host_form(step_factor, duration, n_valid):

@@ -325,6 +325,58 @@ def _lane_scan(op, v, width):
     return v
 
 
+def _tile_reduce(op, v, warp, warps, items):
+    """Step 3 on one staged tile v (L, T, items): each thread's running
+    prefixes made inclusive within its warp (one (L, T) tensor an item),
+    the inclusive warp prefixes (L, warps) and the tile aggregate (L,)."""
+    L, T = v.shape[0], warp * warps
+    loc = [v[:, :, 0]]
+    for i in range(1, items):
+        loc.append(_comb(op, loc[-1], v[:, :, i]))
+    acc = _lane_scan(op, loc[-1].reshape(L, warps, warp), warp)
+    lane = torch.arange(warp)[None, :].expand(warps, warp)
+    if items == 1:
+        wl = [acc.reshape(L, T)]
+    else:
+        lane_excl = _shift(acc, 1, _ident(op, warps, warp)).reshape(L, T)
+        wl = [torch.where(lane.reshape(T) > 0, _comb(op, lane_excl, p), p) for p in loc]
+    wscan = _lane_scan(op, acc[:, :, -1], warps)
+    return wl, wscan, wscan[:, -1]
+
+
+def _window_fold(op, vals, last, window):
+    """Lane 0's fold of a look-back window vals (L, window), lane 0 the
+    nearest predecessor, over lanes [0, last] (shuffle-down tree, the
+    farther half first)."""
+    d = 1
+    while d <= last:
+        moved = torch.cat([vals[:, d:], _ident(op, d)], 1)  # lane k reads lane k + d
+        new = _comb(op, moved, vals)
+        vals = torch.where(torch.arange(window) + d < window, new, vals)
+        d *= 2
+    return vals[:, 0]
+
+
+def _tile_finish(op, t, carry, wl, wscan, warp, warps, items):
+    """Step 5: the warp's exclusive composite (tile carry, warp prefix) in
+    front of every element, the very first element of a row meeting the
+    identity; (L, T, items)."""
+    L, T = wscan.shape[0], warp * warps
+    wid = torch.arange(warps)[:, None].expand(warps, warp).reshape(T)
+    warp_pre = torch.cat([_ident(op, 1), wscan[:, :-1]], 1)[:, :, None].expand(L, warps, warp).reshape(L, T)
+    if t > 0:
+        pre = carry[:, None].expand(L, T)
+        pre = torch.where(wid > 0, _comb(op, pre, warp_pre), pre)
+    else:
+        pre = warp_pre
+    res = torch.empty(L, T, items, dtype=torch.float64)
+    for i in range(items):
+        res[:, :, i] = torch.where((wid > 0) | (t > 0), _comb(op, pre, wl[i]), wl[i])
+    if t == 0:
+        res[:, 0, 0] = _comb(op, _ident(op, 1), wl[0][:, :1])[:, 0]
+    return res
+
+
 def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, seed=0, blocks=3):
     """(L, n) leaves, or (L, B, n) for K1's batch grid: one ticket counter
     over every row's tiles in row-major order (ticket g is tile g % n_tiles
@@ -349,18 +401,8 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
             return row * n_tiles + p
 
         v = padded[:, row, t * tile : (t + 1) * tile].reshape(L, T, items)
-        loc = [v[:, :, 0]]  # running prefixes of each thread's items
-        for i in range(1, items):
-            loc.append(_comb(op, loc[-1], v[:, :, i]))
-        acc = _lane_scan(op, loc[-1].reshape(L, warps, warp), warp)  # (L, warps, warp)
-        lane = torch.arange(warp)[None, :].expand(warps, warp)
-        if items == 1:
-            wl = [acc.reshape(L, T)]
-        else:
-            lane_excl = _shift(acc, 1, _ident(op, warps, warp)).reshape(L, T)
-            wl = [torch.where(lane.reshape(T) > 0, _comb(op, lane_excl, p), p) for p in loc]
-        wscan = _lane_scan(op, acc[:, :, -1], warps)  # inclusive warp prefixes
-        tot = wscan[:, -1]
+        wl, wscan, tot = _tile_reduce(op, v, warp, warps, items)
+        carry = None
         if t == 0:
             incl[slot(0)] = tot
         else:
@@ -375,34 +417,131 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
                 vals = torch.stack([
                     (incl[slot(p)] if prefix[k] else agg[slot(p)]) if (k <= last and p >= 0) else _ident(op)
                     for k, p in enumerate(preds)], 1)  # (L, window), lane 0 the nearest
-                d = 1
-                while d <= last:
-                    moved = torch.cat([vals[:, d:], _ident(op, d)], 1)  # lane k reads lane k + d
-                    new = _comb(op, moved, vals)
-                    vals = torch.where(torch.arange(window) + d < window, new, vals)
-                    d *= 2
-                run = vals[:, 0] if run is None else _comb(op, vals[:, 0], run)
+                folded = _window_fold(op, vals, last, window)
+                run = folded if run is None else _comb(op, folded, run)
                 if any(prefix):
                     break
                 base -= window
             carry = run
             incl[slot(t)] = _comb(op, run, tot)
-        wid = torch.arange(warps)[:, None].expand(warps, warp).reshape(T)
-        warp_pre = torch.cat([_ident(op, 1), wscan[:, :-1]], 1)[:, :, None].expand(L, warps, warp).reshape(L, T)
-        if t > 0:
-            pre = carry[:, None].expand(L, T)
-            pre = torch.where(wid > 0, _comb(op, pre, warp_pre), pre)
-        else:
-            pre = warp_pre
-        res = torch.empty(L, T, items, dtype=torch.float64)
-        for i in range(items):
-            res[:, :, i] = torch.where((wid > 0) | (t > 0), _comb(op, pre, wl[i]), wl[i])
-        if t == 0:
-            res[:, 0, 0] = _comb(op, _ident(op, 1), wl[0][:, :1])[:, 0]
-        out[:, row, t * tile : (t + 1) * tile] = res.reshape(L, tile)
+        out[:, row, t * tile : (t + 1) * tile] = _tile_finish(op, t, carry, wl, wscan, warp, warps, items).reshape(L, tile)
     out = out[..., :n]
     out = out.flip(-1) if reverse else out
     return out if batched else out[:, 0]
+
+
+def emulate_tiled_scan(op, x, reverse, warp, warps, items, window, blocks, seed=0, ahead=None):
+    """K2 (csrc/scan_tiled.cu) on (L, n) or (L, B, n) leaves, as its
+    persistent blocks run it: ``blocks`` blocks each draw a ticket from one
+    counter over every row's tiles (ticket t is tile t % n_tiles of row
+    t // n_tiles), stage the NEXT ticket's tile into their other buffer
+    before they scan the present one (``ahead``, the 2-4-leaf combines;
+    the costly ones stage the present tile at the top of each round), and
+    publish, look back and store through flags and values a slot per (row,
+    tile). The staging and the store compute each element's address in the
+    (L, B, n) image as the kernel does: the ticket's row base r * n, leaf
+    stride B * n, scan order k at position n - 1 - k under ``reverse``, the
+    identity past n. The blocks interleave at random (``seed``) at every
+    point where the kernel may wait or be overtaken, and a look-back whose
+    window holds an empty flag spins; a schedule that stops making progress
+    fails the emulation (forward progress)."""
+    rng = np.random.default_rng(seed)
+    batched = x.ndim == 3
+    xs = x if batched else x[:, None]
+    L, B, n = xs.shape
+    T = warp * warps
+    tile = T * items
+    n_tiles = -(-n // tile)
+    tickets = B * n_tiles
+    ahead = L < 12 if ahead is None else ahead
+    image = xs.reshape(L, B * n).clone()  # leaf l of row r at l * B * n + r * n
+    out = torch.full_like(image, float("nan"))
+    e = torch.arange(tile)
+
+    def address(t):
+        row, k0 = divmod(t, n_tiles)
+        k = k0 * tile + e
+        return k < n, row * n + ((n - 1 - k) if reverse else k).clamp(0, n - 1)
+
+    def stage(t):
+        ok, at = address(t)
+        return (t, torch.where(ok, image[:, at], _ident(op, tile)))
+
+    counter = [0]
+    flags = np.zeros(tickets, int)  # 0 empty, 1 aggregate, 2 prefix; slot row * n_tiles + tile
+    agg, incl = {}, {}
+
+    def draw():
+        counter[0] += 1
+        return counter[0] - 1
+
+    def block():
+        t = draw()
+        yield
+        buf = [stage(t) if ahead and t < tickets else None, None]
+        b = 0
+        while t < tickets:
+            nxt = draw()
+            yield
+            if ahead:
+                if nxt < tickets:
+                    buf[b ^ 1] = stage(nxt)  # may be the next row's tile 0
+                cur = buf[b]
+                b ^= 1
+            else:
+                cur = stage(t)
+            assert cur[0] == t, "a block scans a tile it did not stage"
+            row, tt = divmod(t, n_tiles)
+            base = row * n_tiles
+            wl, wscan, tot = _tile_reduce(op, cur[1].reshape(L, T, items), warp, warps, items)
+            carry = None
+            if tt == 0:
+                incl[base] = tot
+                flags[base] = 2
+            else:
+                agg[base + tt] = tot
+                flags[base + tt] = 1
+                yield
+                run, pos = None, tt - 1
+                while True:
+                    preds = [pos - k for k in range(window)]
+                    while any(p >= 0 and flags[base + p] == 0 for p in preds):
+                        yield "spin"
+                    prefix = [p >= 0 and flags[base + p] == 2 for p in preds]
+                    last = prefix.index(True) if any(prefix) else window - 1
+                    vals = torch.stack([
+                        (incl[base + p] if prefix[k] else agg[base + p]) if (k <= last and p >= 0) else _ident(op)
+                        for k, p in enumerate(preds)], 1)
+                    folded = _window_fold(op, vals, last, window)
+                    run = folded if run is None else _comb(op, folded, run)
+                    if any(prefix):
+                        break
+                    pos -= window
+                    yield
+                carry = run
+                incl[base + tt] = _comb(op, run, tot)
+                flags[base + tt] = 2
+            yield
+            res = _tile_finish(op, tt, carry, wl, wscan, warp, warps, items).reshape(L, tile)
+            ok, at = address(t)
+            out[:, at[ok]] = res[:, ok]
+            t = nxt
+
+    live = [block() for _ in range(blocks)]
+    spins = 0
+    while live:
+        k = int(rng.integers(len(live)))
+        try:
+            step = next(live[k])
+        except StopIteration:
+            live.pop(k)
+            continue
+        spins = spins + 1 if step == "spin" else 0
+        assert spins < 1000 * blocks, "the blocks stopped making progress"
+    assert counter[0] == tickets + blocks  # every block drew one ticket past the last
+    assert not torch.isnan(out).any()
+    got = out.reshape(L, B, n)
+    return got if batched else got[:, 0]
 
 
 # (warp, warps, items, window) per combine: small tiles, so that 7 tiles
@@ -493,17 +632,17 @@ def test_batched_lookback_stops_at_its_rows_first_tile(op, reverse, schedule):
 @pytest.mark.parametrize("op", list(scan.OPS))
 def test_batched_plain_scan_equals_each_row_alone(op):
     """(L, B, n) leaves: each row of the batched ladder equals the scan of
-    that row alone bit for bit, in both directions, and the wrappers take
-    the batched ladder on CPU tensors without launching."""
+    that row alone bit for bit, in both directions, and the wrappers (K1's
+    and K2's batch grids) take the batched ladder on CPU tensors without
+    launching."""
     L = len(scan.OPS[op][2])
     x = torch.stack([torch.tensor(scan_input(op, 300, seed=r)) for r in range(4)], 1)
     assert x.shape == (L, 4, 300)
-    before = dict(scan.scan_block.launches)
+    before = (dict(scan.scan_block.launches), dict(scan.scan_tiled.launches))
     for reverse in (False, True):
         got = scan.associative_scan(op, x, reverse)
         assert torch.equal(got, scan.scan_block(op, x, reverse))
         for r in range(4):
             assert torch.equal(got[:, r], scan.scan_plain(op, x[:, r].contiguous(), reverse))
-    assert scan.scan_block.launches == before
-    with pytest.raises(ValueError, match="a batch of rows takes K1"):
-        scan.scan_tiled(op, x)
+        assert torch.equal(got, scan.scan_tiled(op, x, reverse))  # K2's batch grid, its plain version
+    assert (scan.scan_block.launches, scan.scan_tiled.launches) == before
