@@ -84,7 +84,13 @@ Phases:
      own CPU float64 run of the same files;
   4. a 4,661-pose sequence (KITTI seq-02's length) made of time-shifted
      replicas of seq-04, float32 and float64 on the card against the port's
-     CPU float64 run, with the kernels' launch counts and the warm wall time;
+     CPU float64 run, replaying the captured programs of ``fuse_core`` and
+     ``evaluate`` (``utils.graphs``), each against the same under
+     ``graphs.eager()`` (float64 ≤1e-9 m, float32 ≤1e-2 m, masks and ``ok``
+     equal), with a replay's launch counts, the walls of the first call
+     for a key (eager), of the second (capture and replay) and of an eager
+     call, and the warm walls of both (medians of 5 and 3) with their idle
+     shares;
   5. the chunked path at 1,048,576 poses (3,870 seq-04 replicas, GNSS
      outages straddling the 262,144-pose boundaries), float64 on the card:
      ``fuse_core_chunked`` (524,288-pose chunks) against the in-core
@@ -122,9 +128,10 @@ Phases:
      single-row fusion + evaluation's launches; every row within 1e-9 m of
      its single-row ``fuse_core`` on the card (same seed, so the same
      draws), masks equal, the evaluation within 1e-9 relative, seq-04
-     within 1e-6 m of golden; warm walls of ``fuse_buckets`` and of the
-     loop over the rows. The fleet bucket, 64 x 4661 float32: warm wall,
-     sequences per second, idle share, peak memory, the row loop's wall.
+     within 1e-6 m of golden; warm walls of ``fuse_buckets`` replayed and
+     eager (≤1e-9 m apart) and of the loop over the rows. The fleet bucket,
+     64 x 4661 float32: warm walls replayed and eager, sequences per
+     second, idle shares, peak memory, the row loop's wall.
      Then ``fuse-batch --json`` on two pairs as a subprocess;
   8. the pose-graph refinement, float64. A shuttle at KITTI seq-00's length
      (4,541 poses: seq-04's legs alternately forward and backward over one
@@ -147,7 +154,9 @@ Phases:
      synchronisation an error (``no_host_sync``), against
      ``fuse_ekf_rts_parallel`` on the
      card, both ``rts_mode``s, ≤1e-8 m and quaternions ≤1e-10, each
-     device's peak memory beside the single-device filter's; (b) the same
+     device's peak memory beside the single-device filter's, the blocks'
+     stage programs replayed against eager dispatch (walls, idle shares,
+     ≤1e-9 m apart); (b) the same
      at 4,661 poses in float32 (padded to 4,664; K1 a block), ≤1e-2 m;
      (c) ``fuse_core_chunked(scan_fn=...)`` at 1,048,576 poses in
      524,287-pose chunks against the same without ``scan_fn``, ≤1e-8 m, the
@@ -156,8 +165,8 @@ Phases:
      rows as one batch on 3 shards against the unsharded batch, ≤1e-9 m,
      timed beside the unsharded batch and the shards issued one after
      another from one thread (``fuse_batch`` gives each distinct device a
-     host thread; on one card both run in one thread); with two cards or
-     more, (a) and (d) also run over the cards;
+     host thread; on one card both run in one thread), each replayed and
+     eager; with two cards or more, (a) and (d) also run over the cards;
      (e) ``python3 -m gps_optimize_slam_tpu_torch.examples.distributed_launch``
      on the same rows, two gloo ranks sharing the card and then a one-rank
      NCCL group, the gathered rows ≤1e-9 m from (d). Each beside its
@@ -172,9 +181,19 @@ Phases:
      with K2's batch grid forced; each row within 1e-9 m (or 64 ulps of
      its hundreds of kilometres) of its single-row ``fuse_core`` +
      ``evaluate``, each fusion's launches those of one row alone;
-     ``fuse_buckets`` equal to the batch; warm walls of the bucket and of
-     the row loop, idle share, peak memory; then ``fuse-batch --json`` as a
-     subprocess on two logs of 70,000 poses.
+     ``fuse_buckets`` equal to the batch; warm walls of the bucket replayed
+     and eager (within the same bound) and of the row loop, idle shares,
+     peak memory; then ``fuse-batch --json`` as a subprocess on two logs of
+     70,000 poses.
+
+After each of phases 2-10 a line ``{"phase": k, "wall_s": ..., "graphs":
+{...}}`` gives its wall and the first calls, captures and replays of its
+captured programs, and the programs held after it with the device memory
+of their shared pool and of their static inputs and outputs. The programs
+are kept from phase to phase, as a process that fuses many logs keeps
+them: the pool's growth over the run is the figure to read. A run with a
+route forced (``forced_route``) dispatches eagerly: a captured program
+keeps the route it was captured with.
 
 The launch counts of the ``{"kernels": [...]}`` line are those of the
 main-path runs (phase 4: ``fuse_arrays`` at 4,661 poses; phase 5:
@@ -783,7 +802,8 @@ def phase1_nn(device, gen):
                      "k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask)),
                      "k3_device_ms": device_ms(lambda: kernels.nn_resident(traj, cand, mask)),
                      "kept_tile_pairs": int(kernels.keep_lists(traj, cand, mask)[1].sum()),
-                     "route": kernels.nn_route(cand.shape[0], traj.shape[0]), "bound": nn_bound(traj, cand, mask)}
+                     "route": kernels.nn_route(cand.shape[0], traj.shape[0]), "bound": nn_bound(traj, cand, mask),
+                     "library_ms": cdist_library_ms(traj, cand, mask)}
     emit({"phase": 1, "kernel": "nn_grid", "shape": list(GRID_NN_WIN), "shuffled": True, "equal_to_k3": True,
           "checks": win})
     main = {}
@@ -1618,6 +1638,7 @@ def phase4(device):
 
     from gps_optimize_slam_tpu_torch import pipeline
     from gps_optimize_slam_tpu_torch.ops import scan
+    from gps_optimize_slam_tpu_torch.utils import graphs
 
     slam, gt, gp = replica_sequence(SEQ02_LEN)
     gps = pipeline.GPSData(timestamps=gt, positions=gp, valid=np.ones(len(gt), bool),
@@ -1629,28 +1650,42 @@ def phase4(device):
     t0 = time.perf_counter()
     ref = run("cpu", torch.float64)
     cpu_s = time.perf_counter() - t0
-    res64 = run(device, torch.float64)
+    gaps, cold = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        # The first call for fuse_core's and evaluate's keys runs eagerly,
+        # the second captures and replays them; the runs below replay.
+        first_s, _ = timed_s(lambda: run(device, dtype))
+        second_s, res = timed_s(lambda: run(device, dtype))
+        with graphs.eager():
+            eager_s, eager_res = timed_s(lambda: run(device, dtype))
+        gaps[dtype_name(dtype)] = fusion_dist(res.outputs, eager_res.outputs)
+        cold[dtype_name(dtype)] = {"first_call_ms": 1e3 * first_s, "capture_call_ms": 1e3 * second_s,
+                                   "eager_call_ms": 1e3 * eager_s}
+        if dtype == torch.float64:
+            res64 = res
 
+    # The main path, replayed: its counts are set to 0 just before it and
+    # read just after (each replay adds the launches of its capture).
     reset_launch_counts()
     res = run(device, torch.float32)
     torch.cuda.synchronize()
     launches = launch_counts()
 
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(device, torch.float32)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    compare = graph_vs_eager(lambda: run(device, torch.float32), lambda a, b: fusion_dist(a.outputs, b.outputs))
+    # Calls of one key after which the graphs have saved what the capture cost.
+    cold["float32"]["break_even_calls"] = 2 + (cold["float32"]["capture_call_ms"] - compare["eager_ms"]) / (
+        compare["eager_ms"] - compare["graph_ms"])
     err32 = float(np.abs(res.corrected_pos - ref.corrected_pos).max())
     err64 = float(np.abs(res64.corrected_pos - ref.corrected_pos).max())
     emit({"phase": 4, "poses": SEQ02_LEN, "gnss": int(len(gt)),
           "corrected_pos_max_err_m": {"float32": err32, "float64": err64},
-          "rmse_ekf_m": float(res.evaluation.nn_ekf.rmse), "launches": launches,
-          "gpu_wall_ms_median5": 1e3 * float(np.median(walls)), "cpu_plain_wall_ms": 1e3 * cpu_s})
+          "graph_vs_eager": gaps, "cold_calls": cold, "rmse_ekf_m": float(res.evaluation.nn_ekf.rmse), "launches": launches,
+          "gpu_wall_ms_median5": compare["graph_ms"], "eager_wall_ms_median3": compare["eager_ms"],
+          "graphs_against_eager": compare, "cpu_plain_wall_ms": 1e3 * cpu_s})
     if not err64 <= 1e-6 or not err32 <= 1e-2:
         raise AssertionError(f"card runs off the CPU float64 run: {err32:.3e} m (f32), {err64:.3e} m (f64)")
+    check_graph_gap("phase 4 float64", gaps["float64"], 1e-9)
+    check_graph_gap("phase 4 float32", gaps["float32"], 1e-2)
     required = [f"scan_block/{op}" for op in scan.OPS] + ["nn_keep", "nn_resident", "ransac_counts"]
     missing = [k for k in required if launches[k] <= 0]
     if missing:
@@ -1703,15 +1738,87 @@ def profile_device(fn, host_ops: bool = True) -> dict:
             "top_kernels": [[name, ms, count] for name, (ms, count) in top]}
 
 
+def graph_stats() -> dict:
+    """The captured programs (``utils.graphs``): first calls (eager),
+    captures and replays since the counts were last set to 0, and the
+    programs held with the device memory of their shared pools and of their
+    static inputs and outputs."""
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    st = graphs.stats()
+    return {"first_calls": st["first_calls"], "captures": st["captures"], "replays": st["replays"],
+            "programs": st["programs"], "pool_mb": st["pool_bytes"] / 2**20,
+            "input_mb": st["input_bytes"] / 2**20, "output_mb": st["output_bytes"] / 2**20}
+
+
+def graph_vs_eager(fn, dist, runs: int = 5, eager_runs: int = 3) -> dict:
+    """``fn()`` replaying its captured programs (``utils.graphs``; two calls
+    before the clock, the first eager and the second capturing, make sure
+    of them) against ``fn()`` under
+    ``graphs.eager()``, in this run: warm walls (medians of ``runs`` and
+    ``eager_runs`` synchronised calls), the replays' profile and the eager
+    run's idle share and kernel count (``profile_device``; the eager run's
+    device alone: tracing its host ops takes long to read),
+    ``dist(replayed result, eager result)``, and the programs' captures,
+    replays and pools so far."""
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    fn()
+    out = fn()
+    walls = [1e3 * timed_s(fn)[0] for _ in range(runs)]
+    prof = profile_device(fn)
+    with graphs.eager():
+        ref = fn()
+        eager_walls = [1e3 * timed_s(fn)[0] for _ in range(eager_runs)]
+        eager_prof = profile_device(fn, host_ops=False)
+    return {"graph_warm_ms": walls, "eager_warm_ms": eager_walls, "graph_ms": float(np.median(walls)),
+            "eager_ms": float(np.median(eager_walls)), "graph_profile": prof,
+            "eager_idle_share": eager_prof["idle_share"], "eager_kernels": eager_prof["kernels"],
+            "graph_vs_eager": dist(out, ref), "graphs": graph_stats()}
+
+
+def fusion_dist(a, b) -> dict:
+    """Two fusions' largest position gap (m) and whether their RANSAC
+    masks, GNSS masks and ``ok`` flags are equal (``FusionOutputs`` of
+    tensors or host arrays, or lists of them)."""
+    import torch
+
+    if isinstance(a, list):
+        gaps = [fusion_dist(x, y) for x, y in zip(a, b, strict=True)]
+        return {"corrected_pos_m": max(g["corrected_pos_m"] for g in gaps),
+                "masks_equal": all(g["masks_equal"] for g in gaps), "ok_equal": all(g["ok_equal"] for g in gaps)}
+
+    def t(x):
+        return torch.as_tensor(x).cpu()
+
+    return {"corrected_pos_m": abs_err(t(a.corrected_pos), t(b.corrected_pos)),
+            "masks_equal": bool(torch.equal(t(a.sim3_inliers), t(b.sim3_inliers))
+                                and torch.equal(t(a.gps_valid), t(b.gps_valid))),
+            "ok_equal": bool(torch.equal(t(a.ok), t(b.ok)))}
+
+
+def check_graph_gap(label: str, gap: dict, bound_m: float) -> None:
+    """Fail unless a replayed fusion is within ``bound_m`` of the eager one
+    with equal masks and ``ok`` flags."""
+    if not (gap["corrected_pos_m"] <= bound_m and gap["masks_equal"] and gap["ok_equal"]):
+        raise AssertionError(f"{label}: the replayed programs are off eager dispatch: {gap} (bound {bound_m} m)")
+
+
 @contextlib.contextmanager
 def forced_route(module, rule: str, route: str):
     """Within it, ``module.rule`` (``scan.scan_route`` or
     ``kernels.nn_route``) answers ``route`` whatever the shapes: how a run
-    holds the kernel a route does not pick on the same path and data."""
+    holds the kernel a route does not pick on the same path and data. The
+    block dispatches eagerly (``graphs.eager()``): a captured program keeps
+    the route it was captured with, and K4's launch reads its grid's size
+    on the host, which no capture can."""
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
     saved = getattr(module, rule)
     setattr(module, rule, lambda *args, **kw: route)
     try:
-        yield
+        with graphs.eager():
+            yield
     finally:
         setattr(module, rule, saved)
 
@@ -2181,19 +2288,28 @@ def phase6_chunked(device):
     return [n_fuse, n_gt]
 
 
+# The command line under ``graphs.eager()``: ``python3 -c EAGER_COMMAND fuse ...``.
+EAGER_COMMAND = ("import runpy, sys; from gps_optimize_slam_tpu_torch.utils import graphs\n"
+                 "with graphs.eager(): runpy.run_module('gps_optimize_slam_tpu_torch', run_name='__main__')")
+
+
 def phase6_command():
     """``python3 -m gps_optimize_slam_tpu_torch fuse ... --robust --gt ...
-    --json``, in core and with ``--chunked``, as subprocesses on the seq-04
-    files; a non-zero exit or output that is no JSON object fails."""
+    --json``, in core (as it runs and under ``graphs.eager()``, in the
+    order as-is, eager, eager, as-is: the subprocess walls of each, side
+    by side) and with ``--chunked``, as subprocesses on the seq-04 files;
+    a non-zero exit or output that is no JSON object fails."""
     rows = {}
+    module, eager = ["-m", "gps_optimize_slam_tpu_torch"], ["-c", EAGER_COMMAND]
     with tempfile.TemporaryDirectory() as tmp:
         slam_path, gps_path = write_seq04_files(tmp)
         gt_path = write_seq04_gt_file(tmp)
-        for name, extra in (("fuse", []), ("fuse --chunked", ["--chunked", "--chunk-size", "128"])):
+        for name, prog, extra in (("fuse", module, []), ("fuse, eager dispatch", eager, []),
+                                  ("fuse, eager dispatch, again", eager, []), ("fuse, again", module, []),
+                                  ("fuse --chunked", module, ["--chunked", "--chunk-size", "128"])):
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [sys.executable, "-m", "gps_optimize_slam_tpu_torch", "fuse", slam_path, gps_path, "--gt", gt_path,
-                 "--robust", "--json"] + extra,
+                [sys.executable, *prog, "fuse", slam_path, gps_path, "--gt", gt_path, "--robust", "--json"] + extra,
                 cwd=REPO, capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": REPO})
             if proc.returncode != 0:
                 raise AssertionError(f"{name}: exit code {proc.returncode}\n{proc.stderr[-2000:]}")
@@ -2298,17 +2414,15 @@ def phase7_kitti(device):
     def loop():
         return [single(i)[0] for i in range(len(seqs))]
 
-    walls = {"fuse_buckets": [], "row_loop": []}
-    for _ in range(3):
-        for name, fn in (("fuse_buckets", lambda: mesh.fuse_buckets(buckets, seeds, config=cfg, device=device,
-                                                                     dtype=f64)),
-                         ("row_loop", lambda: [o.corrected_pos.cpu() for o in loop()])):
-            walls[name].append(1e3 * timed_s(fn)[0])
+    compare = graph_vs_eager(lambda: mesh.fuse_buckets(buckets, seeds, config=cfg, device=device, dtype=f64),
+                             fusion_dist, runs=3)
+    row_loop = [1e3 * timed_s(lambda: [o.corrected_pos.cpu() for o in loop()])[0] for _ in range(3)]
     emit({"phase": 7, "part": "kitti", "sequences": len(seqs), "poses": list(KITTI_LENGTHS), "dtype": "float64",
           "buckets": per_bucket, "row_vs_single_max_err_m": pos_err, "masks_equal": masks_equal,
           "evaluate_vs_single_max_rel_err": eval_err, "seq04_vs_golden_m": golden_err,
-          "fuse_buckets_warm_ms": walls["fuse_buckets"], "row_loop_warm_ms": walls["row_loop"],
-          "launches": total})
+          "fuse_buckets_warm_ms": compare["graph_warm_ms"], "fuse_buckets_eager_warm_ms": compare["eager_warm_ms"],
+          "row_loop_warm_ms": row_loop, "graphs_against_eager": compare, "launches": total})
+    check_graph_gap("phase 7 kitti", compare["graph_vs_eager"], 1e-9)
     if len(buckets) != 3 or not ok:
         raise AssertionError(f"phase 7: {len(buckets)} buckets (3 expected) or a failed alignment")
     if not (golden_err <= 1e-6 and pos_err <= 1e-9 and masks_equal and eval_err <= 1e-9):
@@ -2359,24 +2473,26 @@ def phase7_fleet(device):
     def loop():
         return [fusion.fuse_core(*r, cfg, seed=i).corrected_pos for i, r in enumerate(rows)]
 
+    fuse()  # the first call, eager: the counted run captures the bucket's program and replays it
     out, launches = counted(fuse)
     torch.cuda.reset_peak_memory_stats()
-    walls = {"batch": [], "row_loop": []}
-    for _ in range(3):
-        walls["batch"].append(1e3 * timed_s(fuse)[0])
-        walls["row_loop"].append(1e3 * timed_s(loop)[0])
+    fuse()
     peak = torch.cuda.max_memory_allocated()
-    prof = profile_device(fuse)
+    compare = graph_vs_eager(fuse, fusion_dist)
+    row_loop = [1e3 * timed_s(loop)[0] for _ in range(3)]
+    prof = compare.pop("graph_profile")
     errs = [float((out.corrected_pos[i, :n] - fusion.fuse_core(*rows[i], cfg, seed=i).corrected_pos).abs().max())
             for i in (0, B - 1)]
-    wall = float(np.median(walls["batch"]))
+    wall = compare["graph_ms"]
     emit({"phase": 7, "part": "fleet", "rows": B, "poses": n, "dtype": "float32", "ok": bool(out.ok.all()),
-          "batch_warm_ms": walls["batch"], "row_loop_warm_ms": walls["row_loop"],
-          "sequences_per_s": B / (wall / 1e3), "loop_over_batch": float(np.median(walls["row_loop"])) / wall,
-          "max_memory_allocated_mb": peak / 2**20, "profile": prof, "rows_vs_single_m": errs,
-          "launches": launches})
+          "batch_warm_ms": compare["graph_warm_ms"], "batch_eager_warm_ms": compare["eager_warm_ms"],
+          "row_loop_warm_ms": row_loop, "sequences_per_s": B / (wall / 1e3),
+          "eager_sequences_per_s": B / (compare["eager_ms"] / 1e3), "loop_over_batch": float(np.median(row_loop)) / wall,
+          "max_memory_allocated_mb": peak / 2**20, "profile": prof, "graphs_against_eager": compare,
+          "rows_vs_single_m": errs, "launches": launches})
     if not bool(out.ok.all()) or not bool(torch.isfinite(out.corrected_pos).all()) or not max(errs) <= 1e-2:
         raise AssertionError(f"phase 7 fleet: ok {bool(out.ok.all())}, rows off their single fusion by {errs} m")
+    check_graph_gap("phase 7 fleet", compare["graph_vs_eager"], 1e-2)
     return launches
 
 
@@ -2693,12 +2809,14 @@ def seqpar_case(label, args, pos_tol, quat_tol, modes, expect, mesh=None):
     to ``expect``), warm walls of both (``utils.profiling.wallclock``), the
     first mode's profile and each device's peak memory beside the
     single-device ones. Returns the launch counts."""
+    import torch
+
     from gps_optimize_slam_tpu_torch.ops import kalman_parallel
     from gps_optimize_slam_tpu_torch.parallel import seqpar
     from gps_optimize_slam_tpu_torch.utils import profiling
 
     mesh = mesh or card_mesh(SEQPAR_BLOCKS)
-    gaps, launches, walls, prof, peaks = {}, None, {}, {}, {}
+    gaps, launches, walls, prof, peaks, compare = {}, None, {}, {}, {}, None
     for mode in modes:
         def single():
             return kalman_parallel.fuse_ekf_rts_parallel(*args, rts_mode=mode)
@@ -2711,19 +2829,27 @@ def seqpar_case(label, args, pos_tol, quat_tol, modes, expect, mesh=None):
         launches = launches or counts
         gaps[mode] = {"positions_m": abs_err(got[0], want[0]), "quaternions": abs_err(got[1], want[1])}
         del got, want
-        walls[mode] = {"single_device": profiling.wallclock(single, runs=3),
-                       "seqpar": profiling.wallclock(split, runs=3)}
+        walls[mode] = {"single_device": profiling.wallclock(single, runs=3)}
         if not prof:
-            prof = {"seqpar": profile_device(split), "single_device": profile_device(single)}
+            compare = graph_vs_eager(split, lambda a, b: {"positions_m": abs_err(a[0], b[0]),
+                                                          "quaternions": abs_err(a[1], b[1])}, runs=3)
+            walls[mode].update(seqpar=compare["graph_warm_ms"], seqpar_eager=compare["eager_warm_ms"])
+            prof = {"seqpar": compare.pop("graph_profile"), "single_device": profile_device(single)}
             peaks = {"seqpar": run_peak_bytes(split, mesh.devices),
                      "single_device": run_peak_bytes(single, [args[1].device])}
+        else:
+            walls[mode]["seqpar"] = profiling.wallclock(split, runs=3)
     emit({"phase": 9, "part": label, "poses": int(args[0].shape[0]), "blocks": SEQPAR_BLOCKS,
           "devices": [str(d) for d in mesh.devices], "dtype": dtype_name(args[1].dtype),
           "seqpar_vs_single_device": gaps, "launches": {k: v for k, v in launches.items() if v}, "walls": walls,
-          "profile": prof, "peak_bytes": peaks})
+          "profile": prof, "peak_bytes": peaks, "graphs_against_eager": compare})
     bad = {m: g for m, g in gaps.items() if not (g["positions_m"] <= pos_tol and g["quaternions"] <= quat_tol)}
     if bad:
         raise AssertionError(f"phase 9 {label}: seqpar off the single-device filter: {bad}")
+    gap = compare["graph_vs_eager"]
+    graph_tol = 1e-9 if args[1].dtype == torch.float64 else pos_tol
+    if not (gap["positions_m"] <= graph_tol and gap["quaternions"] <= quat_tol):
+        raise AssertionError(f"phase 9 {label}: the replayed stages are off eager dispatch: {gap}")
     got = {k: v for k, v in launches.items() if v}
     if got != expect:
         raise AssertionError(f"phase 9 {label}: launches {got}, expected {expect}")
@@ -2823,18 +2949,25 @@ def mesh_shards(device, b, seeds, shards, label):
     err = abs_err(got.corrected_pos, want.corrected_pos)
     turn_err = abs_err(in_turn(), want.corrected_pos)
     masks = bool(torch.equal(got.sim3_inliers, want.sim3_inliers) and torch.equal(got.gps_valid, want.gps_valid))
-    walls = {"unsharded": profiling.wallclock(unsharded, runs=3), "sharded": profiling.wallclock(sharded, runs=3),
+    compare = {"sharded": graph_vs_eager(sharded, fusion_dist, runs=3),
+               "unsharded": graph_vs_eager(unsharded, fusion_dist, runs=3)}
+    walls = {"unsharded": compare["unsharded"]["graph_warm_ms"], "sharded": compare["sharded"]["graph_warm_ms"],
+             "unsharded_eager": compare["unsharded"]["eager_warm_ms"],
+             "sharded_eager": compare["sharded"]["eager_warm_ms"],
              "shards_in_turn": profiling.wallclock(in_turn, runs=3)}
-    prof = {"sharded": profile_device(sharded), "unsharded": profile_device(unsharded)}
+    prof = {name: c.pop("graph_profile") for name, c in compare.items()}
     emit({"phase": 9, "part": label, "rows": len(seeds), "shards": shards.size,
           "devices": [str(d) for d in shards.devices], "padded_poses": int(b.slam_times.shape[1]),
           "dtype": "float64", "ok": bool(got.ok.all()), "rows_vs_unsharded_max_err_m": err,
           "in_turn_vs_unsharded_max_err_m": turn_err, "masks_equal": masks,
           "launches": {k: v for k, v in launches.items() if v},
-          "unsharded_launches": {k: v for k, v in want_launches.items() if v}, "walls": walls, "profile": prof})
+          "unsharded_launches": {k: v for k, v in want_launches.items() if v}, "walls": walls, "profile": prof,
+          "graphs_against_eager": compare})
     if not (bool(got.ok.all()) and err <= 1e-9 and turn_err <= 1e-9 and masks):
         raise AssertionError(f"phase 9 {label}: rows off the unsharded batch by {err:.3e} m "
                              f"(in turn {turn_err:.3e} m), masks {masks}")
+    for name, c in compare.items():
+        check_graph_gap(f"phase 9 {label} ({name})", c["graph_vs_eager"], 1e-9)
     if launches["ransac_counts"] != shards.size * want_launches["ransac_counts"]:
         raise AssertionError(f"phase 9 {label}: {launches} against one batch's {want_launches}")
     return launches, want
@@ -3084,19 +3217,18 @@ def phase10(device):
 
     def bucket_run():
         o = fuse()
-        return mesh.evaluate_batch(b, o).nn_ekf.rmse.cpu()
+        mesh.evaluate_batch(b, o).nn_ekf.rmse.cpu()
+        return o
 
     def loop():
         return [single(int(i))[1].nn_ekf.rmse.cpu() for i in range(len(rows))]
 
-    walls = {"bucket": [], "row_loop": []}
-    for _ in range(2):
-        walls["bucket"].append(1e3 * timed_s(bucket_run)[0])
-        walls["row_loop"].append(1e3 * timed_s(loop)[0])
+    compare = graph_vs_eager(bucket_run, fusion_dist, runs=3)
+    prof = compare.pop("graph_profile")
+    row_loop = [1e3 * timed_s(loop)[0] for _ in range(2)]
     torch.cuda.reset_peak_memory_stats()
     timed_s(bucket_run)
     peak = torch.cuda.max_memory_allocated()
-    prof = profile_device(bucket_run)
     command = phase10_command()
     # Two association orders of the same float64 scans at these rows'
     # hundreds of kilometres differ by a few ulps of the coordinates (2^-30 m
@@ -3113,11 +3245,13 @@ def phase10(device):
           "evaluate_k4_forced_equal": grid_equal, "fuse_k2_forced_vs_routed_max_err_m": k2_err,
           "fuse_k2_forced_masks_equal": k2_masks, "fuse_buckets_vs_batch_max_err_m": buckets_err,
           "launches": launches, "single_row_launches": single_launches,
-          "bucket_warm_ms": walls["bucket"], "row_loop_warm_ms": walls["row_loop"],
-          "max_memory_allocated_mb": peak / 2**20, "profile": prof, "command": command})
+          "bucket_warm_ms": compare["graph_warm_ms"], "bucket_eager_warm_ms": compare["eager_warm_ms"],
+          "row_loop_warm_ms": row_loop, "max_memory_allocated_mb": peak / 2**20, "profile": prof,
+          "graphs_against_eager": compare, "command": command})
     if not ok or not (pos_err <= tol_m and masks_equal and eval_err <= tol_m and buckets_err <= tol_m):
         raise AssertionError(f"phase 10: ok {ok}, rows {pos_err:.3e} m, masks {masks_equal}, evaluation "
                              f"{eval_err:.3e} m, fuse_buckets {buckets_err:.3e} m (bound {tol_m:.3e} m)")
+    check_graph_gap("phase 10", compare["graph_vs_eager"], tol_m)
     if not grid_equal or not (k2_err <= tol_m and k2_masks):
         raise AssertionError(f"phase 10: with K4 forced the evaluation {'equals' if grid_equal else 'differs from'} "
                              f"the routed one; with K2 forced the fusion is {k2_err:.3e} m off, masks {k2_masks}")
@@ -3158,6 +3292,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from gps_optimize_slam_tpu_torch.ops import _build
+    from gps_optimize_slam_tpu_torch.utils import graphs
 
     device = torch.device("cuda")
     smi = subprocess.run(
@@ -3170,16 +3305,32 @@ def main() -> int:
     emit({"phase": 0, "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": build_s, "library": os.path.basename(_build.BUILD_INFO["path"]),
           "registers_and_spills": build_registers(_build.BUILD_INFO["log"])})
+    t0 = time.perf_counter()
     entries = phase1(device)
-    phase2(device)
-    phase3(device)
-    in_core = phase4(device)
-    chunked = phase5(device)
-    robust = phase6(device)
-    batched = phase7(device)
-    refined = phase8(device)
-    split, sharded = phase9(device)
-    long_logs_run = phase10(device)
+    emit({"phase": 1, "wall_s": time.perf_counter() - t0})
+
+    def programs_of(k, phase):
+        """Phase ``k`` with the captured programs' counts set to 0 before it,
+        and a line of its wall and of their first calls, captures and
+        replays after it, with the programs held and their pools: the
+        programs stay for the phases after it."""
+        graphs.reset_stats()
+        t0 = time.perf_counter()
+        out = phase(device)
+        torch.cuda.synchronize()
+        emit({"phase": k, "wall_s": time.perf_counter() - t0, "graphs": graph_stats(),
+              "memory_reserved_mb": torch.cuda.memory_reserved() / 2**20})
+        return out
+
+    programs_of(2, phase2)
+    programs_of(3, phase3)
+    in_core = programs_of(4, phase4)
+    chunked = programs_of(5, phase5)
+    robust = programs_of(6, phase6)
+    batched = programs_of(7, phase7)
+    refined = programs_of(8, phase8)
+    split, sharded = programs_of(9, phase9)
+    long_logs_run = programs_of(10, phase10)
     for e in entries:
         # A batched entry is the same wrapper at the batch shapes of phase 7,
         # of phase 9's mesh shards and of phase 10's long logs, where every

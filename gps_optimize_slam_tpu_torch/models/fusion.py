@@ -30,6 +30,7 @@ from gps_optimize_slam_tpu_torch.ops import (
     se3,
 )
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
+from gps_optimize_slam_tpu_torch.utils import graphs
 
 
 class FusionOutputs(NamedTuple):
@@ -91,8 +92,30 @@ def fuse_core(
     (B, M), (B, M, 3), (B, M); ``slam_mask`` (B, N)) is fused as one
     program: ``time_offset`` is then a float or a (B,) tensor, ``seed`` an
     int or B ints (one a row) and ``sim3_draws`` (B, trials, k).
+
+    On a card the fusion is one captured program (``utils.graphs``) a
+    config and shape, as the JAX package jits ``_fuse_core``: the seeded
+    generators draw their uniforms before it, and the offset enters as a
+    device tensor.
     """
     config = resolve_platform(config, slam_pos.device)
+    device = slam_pos.device
+    if not torch.is_tensor(time_offset):
+        time_offset = torch.full((), float(time_offset), dtype=torch.float64, device=device)
+    uniforms = None
+    if sim3_draws is None:
+        uniforms = ransac.seeded_uniforms(seed, tuple(slam_pos.shape[:-2]), ransac.sim3_trials(config.sim3_ransac),
+                                          config.sim3_ransac.min_samples, device)
+    else:
+        sim3_draws = sim3_draws.to(device)
+    return graphs.run(_fuse_core, slam_times, slam_pos, slam_quat, gps_times, gps_positions, gps_valid,
+                      slam_mask, time_offset.to(device), sim3_draws, uniforms, config)
+
+
+def _fuse_core(slam_times, slam_pos, slam_quat, gps_times, gps_positions, gps_valid, slam_mask, time_offset,
+               sim3_draws, uniforms, config: FusionConfig) -> FusionOutputs:
+    """The program of :func:`fuse_core`: RANSAC takes ``sim3_draws``, or
+    the draws scaled from ``uniforms``."""
     aligned = alignment.align_gps_to_slam(
         slam_times,
         gps_times,
@@ -119,8 +142,8 @@ def fuse_core(
         torch.nan_to_num(aligned.aligned, nan=0.0),
         valid=window,
         cfg=config.sim3_ransac,
-        seed=seed,
         draws=sim3_draws,
+        uniforms=uniforms,
     )
     sim3 = sim3_res.sim3
     sim3_pos, sim3_quat = se3.transform_trajectory(slam_pos, slam_quat, sim3.R, sim3.t, sim3.scale)
@@ -158,7 +181,7 @@ class Evaluation(NamedTuple):
     ate_ekf: metrics.ErrorStats
 
 
-def _evaluate_against(slam_times, slam_pos, outputs, aligned, valid, skip_seconds) -> Evaluation:
+def _evaluate_against(slam_times, slam_pos, sim3_pos, corrected_pos, aligned, valid, skip_seconds) -> Evaluation:
     """NN and paired-ATE stats of the raw SLAM / Sim3-aligned / EKF-fused
     trajectories against the track ``(aligned, valid)`` on the SLAM
     timestamps, with the post-skip gate. The three NN evaluations go through
@@ -175,10 +198,10 @@ def _evaluate_against(slam_times, slam_pos, outputs, aligned, valid, skip_second
 
     return Evaluation(
         nn_slam=nn(slam_pos),
-        nn_sim3=nn(outputs.sim3_pos),
-        nn_ekf=nn(outputs.corrected_pos),
-        ate_sim3=ate(outputs.sim3_pos),
-        ate_ekf=ate(outputs.corrected_pos),
+        nn_sim3=nn(sim3_pos),
+        nn_ekf=nn(corrected_pos),
+        ate_sim3=ate(sim3_pos),
+        ate_ekf=ate(corrected_pos),
     )
 
 
@@ -189,10 +212,17 @@ def evaluate(
     skip_seconds: float = 5.0,
 ) -> Evaluation:
     """Reference-metric (NN, post-5 s — quirk Q6) and paired-ATE stats for
-    raw SLAM / Sim3-aligned / EKF-fused trajectories against the aligned GPS."""
-    return _evaluate_against(
-        slam_times, slam_pos, outputs, outputs.aligned_gps, outputs.gps_valid, skip_seconds
-    )
+    raw SLAM / Sim3-aligned / EKF-fused trajectories against the aligned GPS.
+    One captured program a shape on a card (``utils.graphs``)."""
+    return graphs.run(_evaluate_against, slam_times, slam_pos, outputs.sim3_pos, outputs.corrected_pos,
+                      outputs.aligned_gps, outputs.gps_valid, skip_seconds)
+
+
+def _evaluate_vs_track(slam_times, slam_pos, sim3_pos, corrected_pos, track_times, track_positions, track_valid,
+                       time_alignment, skip_seconds):
+    al = alignment.align_gps_to_slam(slam_times, track_times, track_positions, gps_valid=track_valid,
+                                     cfg=time_alignment)
+    return _evaluate_against(slam_times, slam_pos, sim3_pos, corrected_pos, al.aligned, al.valid, skip_seconds), al
 
 
 def evaluate_vs_track(
@@ -210,8 +240,7 @@ def evaluate_vs_track(
     aligned onto the SLAM timestamps (its spline scans go through K1) and
     the same NN/ATE statistics are computed for raw SLAM / Sim3 / EKF.
     Returns ``(Evaluation, AlignedGPS)``; the aligned track is what a plot
-    overlays (EKFGPSSLAM.py:1069-1082)."""
-    al = alignment.align_gps_to_slam(
-        slam_times, track_times, track_positions, gps_valid=track_valid, cfg=cfg.time_alignment
-    )
-    return _evaluate_against(slam_times, slam_pos, outputs, al.aligned, al.valid, skip_seconds), al
+    overlays (EKFGPSSLAM.py:1069-1082). One captured program a shape on a
+    card (``utils.graphs``)."""
+    return graphs.run(_evaluate_vs_track, slam_times, slam_pos, outputs.sim3_pos, outputs.corrected_pos,
+                      track_times, track_positions, track_valid, cfg.time_alignment, skip_seconds)

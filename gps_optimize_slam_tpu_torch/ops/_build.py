@@ -17,6 +17,7 @@ current around the call, allocate nothing and do not synchronise.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,6 +46,8 @@ _LIB_LOCK = threading.Lock()
 # Held while a wrapper adds one to its launch count (a read-modify-write
 # that threads launching on several devices would otherwise interleave).
 COUNT_LOCK = threading.Lock()
+# This thread's tally while it captures a CUDA graph (utils/graphs).
+_TALLY = threading.local()
 # Filled by library(): build seconds (0.0 when an up-to-date library was
 # found), the library path, and nvcc's output (-Xptxas -v: registers, shared
 # memory and spills of every kernel).
@@ -178,3 +181,37 @@ def require_cuda(*tensors: torch.Tensor, contiguous: bool = True) -> None:
             raise ValueError(f"expected tensors on one CUDA device, got {t.device}")
         if contiguous and not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
+
+
+def count_launch(wrapper, op: Optional[str] = None) -> None:
+    """Add one to ``wrapper.launches`` (``wrapper.launches[op]``): a wrapper
+    calls it where it launches its kernel. While this thread captures a
+    graph, nothing launches: the launch goes to the capture's tally
+    (``tally_launches``), and each replay adds the tally
+    (``add_launches``)."""
+    tally = getattr(_TALLY, "launches", None)
+    if tally is not None:
+        tally[(wrapper, op)] = tally.get((wrapper, op), 0) + 1
+        return
+    add_launches({(wrapper, op): 1})
+
+
+def add_launches(tally: dict) -> None:
+    """Add a tally of ``{(wrapper, op): launches}`` to the wrappers' counts."""
+    with COUNT_LOCK:
+        for (wrapper, op), n in tally.items():
+            if op is None:
+                wrapper.launches += n
+            else:
+                wrapper.launches[op] += n
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within it, this thread's launches (a capture's) are recorded in the
+    yielded dict instead of the wrappers' counts."""
+    _TALLY.launches = {}
+    try:
+        yield _TALLY.launches
+    finally:
+        _TALLY.launches = None

@@ -434,7 +434,10 @@ def _notaknot_moments(t, y, seg_id, is_real, seg_start_idx, seg_end_idx, seg_len
     for o, c in ((o0, c0), (o1, c1), (o2, c2)):
         A.index_put_((*rows, idx.expand(*lead, m), torch.clamp(idx + o, 0, m - 1)), c, accumulate=True)
     rhs = torch.where(interior[..., None], _slopes(t, y), 0.0)
-    return torch.linalg.solve(A, rhs)
+    # solve_ex: A is never singular (identity rows outside the cubic
+    # segments), and ``linalg.solve``'s check of the factorisation reads
+    # its status on the host, which a captured program cannot.
+    return torch.linalg.solve_ex(A, rhs).result
 
 
 def _notaknot_moments_tridiag(t, y, seg_id, is_real, seg_start_idx, seg_end_idx, seg_len, seg_ok):

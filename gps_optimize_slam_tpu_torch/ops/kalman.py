@@ -28,7 +28,7 @@ the rows.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,9 +44,16 @@ class EKFParams(NamedTuple):
     R: torch.Tensor  # (3,3) measurement noise
 
 
+def device_vector(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A config tuple as a vector made on ``device`` by fills, with no copy
+    from the host: inside a captured graph a host copy would replay the
+    bytes of a host buffer long freed, or wait on the device and fail."""
+    return torch.stack([torch.full((), float(v), dtype=dtype, device=device) for v in values])
+
+
 def ekf_params(cfg: EKFConfig, *, device, dtype=torch.float64) -> EKFParams:
     def diag(v):
-        return torch.diag(torch.tensor(v, dtype=dtype, device=device))
+        return torch.diag(device_vector(v, dtype, device))
 
     return EKFParams(
         P0=diag(cfg.initial_cov_diag),
@@ -89,6 +96,17 @@ class ControlsBlock(NamedTuple):
 # device (``ops.scan.associative_scan``'s contract over a list of blocks;
 # ``parallel.seqpar`` splits it over a mesh).
 BlockScanFn = Callable[[str, List[torch.Tensor], bool], List[torch.Tensor]]
+
+
+# run(fn, *args) -> fn(*args): how a stage of a blocked filter runs on one
+# block (the default calls it; ``parallel.seqpar`` runs it as a captured
+# program on the block's device, ``utils.graphs.run``).
+StageFn = Callable[..., Any]
+
+
+def call_stage(fn: Callable, *args):
+    """The default :data:`StageFn`: the call itself."""
+    return fn(*args)
 
 
 def one_block_scan(op: str, blocks: List[torch.Tensor], reverse: bool = False) -> List[torch.Tensor]:
@@ -145,6 +163,7 @@ def controls_over_blocks(
     blocks: Sequence[ControlsBlock],
     rts_cfg: RTSDecisionConfig = RTSDecisionConfig(),
     block_scan: BlockScanFn = one_block_scan,
+    run: StageFn = call_stage,
 ) -> List[FusionControls]:
     """:func:`precompute_controls` of a trajectory split into contiguous
     blocks, each on its own device, every field equal to the whole
@@ -161,45 +180,66 @@ def controls_over_blocks(
       counts, as indices);
     * backward, ``min3`` of the indices of the available poses and of the
       recoveries that perform RTS: an outage pose is smoothed iff the first
-      of each after it is the same pose, its recovery."""
+      of each after it is the same pose, its recovery.
+
+    The work of a block between the scans runs in three stages, each
+    through ``run``; the running maxima at the pose before a block (the
+    previous block's last) cross to its device between them."""
     thresh = torch.deg2rad(  # a host tensor: no wait on a device
         torch.tensor(rts_cfg.sharp_turn_yaw_rate_threshold_deg_per_sec, dtype=blocks[0].times.dtype)
     ).item()
-    marks = [_marks(b, thresh) for b in blocks]
+    marks = [run(_marks, b, thresh) for b in blocks]
     last = block_scan("max3", [m.last for m in marks], False)
     steps = rts_cfg.default_ekf_transition_steps_on_sharp_turn
-    fwd = []
-    for k, m in enumerate(marks):
-        # The running maxima at the pose before each pose: the previous
-        # block's last (-1 before the first block).
-        first = torch.full_like(last[k][..., :1], -1.0) if k == 0 else last[k - 1][..., -1:].to(last[k].device)
-        before = torch.cat([first, last[k][..., :-1]], -1)
-        prev_run_start = before[0] + 1
-        is_recovery = m.avail & ~m.avail_prev & (m.gidx != 0)
-        analyse = is_recovery & (m.gidx - prev_run_start >= 2)
-        # The outage [s, i-1] before a recovery i holds a high-rate pair iff
-        # one ends in [s+1, i-1], a degenerate quaternion iff one lies in [s, i-1].
-        sharp = analyse & ((before[1] >= prev_run_start + 1) | (before[2] >= prev_run_start))
-        eff_steps = torch.where(sharp, steps, 0)
-        fwd.append((is_recovery, sharp, is_recovery & ~sharp, eff_steps))
+    fwd = [run(_forward, m, last[k], None if k == 0 else last[k - 1][..., -1:].to(last[k].device), steps)
+           for k, m in enumerate(marks)]
+    nexts = block_scan("min3", [f.firsts for f in fwd], True)
+    return [run(_block_controls, m, f, nxt) for m, f, nxt in zip(marks, fwd, nexts)]
 
+
+class _Forward(NamedTuple):
+    is_recovery: torch.Tensor
+    sharp: torch.Tensor
+    perform_rts: torch.Tensor
+    eff_steps: torch.Tensor
+    # (3, ..., L) float64: the index of each available pose and, twice, of
+    # each recovery that performs RTS; +inf elsewhere (the min3 scan's leaves).
+    firsts: torch.Tensor
+
+
+def _forward(m: _Marks, last: torch.Tensor, first: Optional[torch.Tensor], steps: int) -> _Forward:
+    """A block's recoveries and sharp outages, from the running maxima
+    ``last`` and those at the pose before the block, ``first`` (None: the
+    first block, -1)."""
+    if first is None:
+        first = torch.full_like(last[..., :1], -1.0)
+    before = torch.cat([first, last[..., :-1]], -1)
+    prev_run_start = before[0] + 1
+    is_recovery = m.avail & ~m.avail_prev & (m.gidx != 0)
+    analyse = is_recovery & (m.gidx - prev_run_start >= 2)
+    # The outage [s, i-1] before a recovery i holds a high-rate pair iff
+    # one ends in [s+1, i-1], a degenerate quaternion iff one lies in [s, i-1].
+    sharp = analyse & ((before[1] >= prev_run_start + 1) | (before[2] >= prev_run_start))
+    perform_rts = is_recovery & ~sharp
     inf = float("inf")
-    firsts = [(torch.where(m.avail, m.gidx, inf), torch.where(f[2], m.gidx, inf)) for m, f in zip(marks, fwd)]
-    nexts = block_scan("min3", [torch.stack([a, r, r]) for a, r in firsts], True)
-    out = []
-    for m, (is_recovery, sharp, perform_rts, eff_steps), nxt in zip(marks, fwd, nexts):
-        # RTS membership: the outage run [s..i−1] of a perform_rts recovery
-        # i, plus i itself; a trailing run (no recovery) stays unsmoothed.
-        member_invalid = (~m.avail) & (nxt[0] == nxt[1]) & (nxt[0] < inf)
-        out.append(FusionControls(
-            avail=m.avail,
-            is_recovery=is_recovery,
-            eff_transition_steps=eff_steps,
-            rts_member=member_invalid | perform_rts,
-            rts_end=perform_rts,
-            sharp_turn=sharp,
-        ))
-    return out
+    avail_at, rts_at = torch.where(m.avail, m.gidx, inf), torch.where(perform_rts, m.gidx, inf)
+    return _Forward(is_recovery, sharp, perform_rts, torch.where(sharp, steps, 0),
+                    torch.stack([avail_at, rts_at, rts_at]))
+
+
+def _block_controls(m: _Marks, f: _Forward, nxt: torch.Tensor) -> FusionControls:
+    """A block's controls from the running minima ``nxt``."""
+    # RTS membership: the outage run [s..i−1] of a perform_rts recovery
+    # i, plus i itself; a trailing run (no recovery) stays unsmoothed.
+    member_invalid = (~m.avail) & (nxt[0] == nxt[1]) & (nxt[0] < float("inf"))
+    return FusionControls(
+        avail=m.avail,
+        is_recovery=f.is_recovery,
+        eff_transition_steps=f.eff_steps,
+        rts_member=member_invalid | f.perform_rts,
+        rts_end=f.perform_rts,
+        sharp_turn=f.sharp,
+    )
 
 
 def precompute_controls(

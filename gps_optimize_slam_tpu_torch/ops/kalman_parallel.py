@@ -36,7 +36,11 @@ from gps_optimize_slam_tpu_torch.ops import se3
 from gps_optimize_slam_tpu_torch.ops.kalman import (
     BlockScanFn,
     ControlsBlock,
+    FusionControls,
+    StageFn,
+    call_stage,
     controls_over_blocks,
+    device_vector,
     full_smoother_controls,
     one_block_scan,
 )
@@ -144,9 +148,9 @@ class PoseBlock(NamedTuple):
 
 
 def _diag3(values, dtype: torch.dtype, device) -> torch.Tensor:
-    """The first three entries of a config diagonal on ``device``; the
-    host-to-device copy does not wait for the device."""
-    return torch.tensor(values[:3], dtype=dtype).to(device, non_blocking=True)
+    """The first three entries of a config diagonal, made on ``device``
+    (``kalman.device_vector``)."""
+    return device_vector(values[:3], dtype, device)
 
 
 def _rts_elements(m_f, P_f6, d, Qd_diag, interior) -> torch.Tensor:
@@ -175,13 +179,15 @@ def fuse_ekf_rts_blocks(
     rts_cfg: RTSDecisionConfig = RTSDecisionConfig(),
     rts_mode: str = "outage",
     block_scan: BlockScanFn = one_block_scan,
+    run: StageFn = call_stage,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """:func:`fuse_ekf_rts_parallel` of a trajectory of ``n`` poses split
     into contiguous blocks, every stage run per block on the block's device:
     the controls (``kalman.controls_over_blocks``), the relative poses, the
     filter and RTS elements; the three scans and the controls' two go
     through ``block_scan`` (``kalman.BlockScanFn``; the default takes one
-    block, ``associative_scan``).
+    block, ``associative_scan``), and the work of a block between two scans
+    is one stage through ``run`` (``kalman.StageFn``).
 
     m₀ and q₀ (the Sim(3) first pose, (..., 3) and (..., 4), on the first
     block's device) make block 0's prior and start its quaternion chain;
@@ -196,67 +202,99 @@ def fuse_ekf_rts_blocks(
             "parallel scan requires hard updates (transition steps == 0); "
             "use kalman.fuse_ekf_rts for blending configs"
         )
-    first, last = 0, len(blocks) - 1
-    dtype = blocks[0].pos.dtype
     controls = controls_over_blocks(
         [ControlsBlock(b.times, b.quat, b.gps, b.valid, b.start,
                        None if b.prev is None else (b.prev[0], b.prev[2], b.prev[3], b.prev[4])) for b in blocks],
-        rts_cfg, block_scan,
+        rts_cfg, block_scan, run,
     )
-    if rts_mode == "full":
-        controls = [full_smoother_controls(c, b.start, n) for c, b in zip(controls, blocks)]
-    devices = [b.pos.device for b in blocks]
-    q_diag = [_diag3(ekf_cfg.process_noise_diag, dtype, dev) for dev in devices]
-    r_diag = [_diag3(ekf_cfg.meas_noise_diag, dtype, dev) for dev in devices]
+    chains = [run(_chain_stage, b, c, q0 if k == 0 else None, rts_mode == "full", n)
+              for k, (b, c) in enumerate(zip(blocks, controls))]
+    q_scan = block_scan("quat_chain", [qs for _, _, qs in chains], False)
+    # q_f at the pose before each block: the previous block's last.
+    halos = [None] + [torch.movedim(q[..., -1:], 0, -1).to(b.pos.device) for q, b in zip(q_scan, blocks[1:])]
+    filters = [run(_filter_stage, b, c, dp, q, halo, m0 if k == 0 else None, ekf_cfg)
+               for k, (b, (c, dp, _), q, halo) in enumerate(zip(blocks, chains, q_scan, halos))]
+    filt = block_scan("filter", [f.elements for f in filters], False)
+    rts = [run(_rts_stage, b, c, f, e, ekf_cfg) for b, (c, _, _), f, e in zip(blocks, chains, filt, filters)]
+    smoothed = block_scan("rts", [e for _, e in rts], True)
+    pos = [run(_smoothed_stage, c, s, m_f) for (c, _, _), s, (m_f, _) in zip(chains, smoothed, rts)]
+    return pos, [f.q_f for f in filters]
 
-    # Steps into each pose of a block: from the pose before it (block 0 has
-    # none into its first pose).
-    ext = [(b.times, b.pos, b.quat) if b.prev is None else
-           (torch.cat([b.prev[0], b.times], -1), torch.cat([b.prev[1], b.pos], -2),
-            torch.cat([b.prev[2], b.quat], -2)) for b in blocks]
-    rel = [se3.relative_poses_along(p, q) for _, p, q in ext]
-    qs = [dq if k != first else torch.cat([quat.normalize(q0)[..., None, :], dq], -2)
-          for k, (_, dq) in enumerate(rel)]
-    q_f = [torch.movedim(x, 0, -1).contiguous() for x in
-           block_scan("quat_chain", [torch.movedim(x, -1, 0).contiguous() for x in qs], False)]
-    q_from = [q[..., :-1, :] if k == first else torch.cat([q_f[k - 1][..., -1:, :].to(q.device), q[..., :-1, :]], -2)
-              for k, q in enumerate(q_f)]
-    d = [quat.rotate(qb, dp) for qb, (dp, _) in zip(q_from, rel)]
-    Qd = [qd * torch.clamp(t[..., 1:] - t[..., :-1], min=1e-6)[..., None] for qd, (t, _, _) in zip(q_diag, ext)]
-    elems = []
-    for k, (b, c) in enumerate(zip(blocks, controls)):
-        skip = 1 if k == first else 0  # block 0's first pose takes the prior
-        z = torch.nan_to_num(b.gps[..., skip:, :], nan=0.0)
-        e = filter_step_elements(c.avail[..., skip:], d[k], Qd[k], z, r_diag[k])
-        if k == first:
-            P0 = _diag3(ekf_cfg.initial_cov_diag, dtype, devices[k])
-            e = torch.cat([prior_element(m0.to(dtype), P0)[..., None], e], dim=-1)
-        elems.append(e)
-    filt = block_scan("filter", elems, False)
-    m_f = [torch.movedim(f[9:12], 0, -1).contiguous() for f in filt]
-    P_f6 = [f[12:18] for f in filt]
 
-    # RTS backward over the steps out of each pose: within the block, and
-    # from its last pose into the next block's first (the last block ends
-    # with the anchor element at n−1: M = 0, c = m_f[n−1]).
-    rts = []
-    for k, (b, c) in enumerate(zip(blocks, controls)):
-        inner = b.times.shape[-1] - 1
-        interior = c.rts_member & ~c.rts_end
-        d_out, Qd_out = d[k][..., d[k].shape[-2] - inner:, :], Qd[k][..., Qd[k].shape[-2] - inner:, :]
-        if k == last:
-            m_last = torch.movedim(m_f[k][..., -1, :], -1, 0)
-            tail = torch.cat([torch.zeros((9, *m_last.shape[1:]), dtype=dtype, device=devices[k]), m_last])
-            e = _rts_elements(m_f[k][..., :-1, :], P_f6[k][..., :-1], d_out, Qd_out, interior[..., :-1])
-            rts.append(torch.cat([e, tail[..., None]], dim=-1))
-            continue
-        nt, npos, nq = b.next
-        dp_next, _ = se3.relative_pose(b.pos[..., -1:, :], b.quat[..., -1:, :], npos, nq)
-        d_out = torch.cat([d_out, quat.rotate(q_f[k][..., -1:, :], dp_next)], -2)
-        Qd_out = torch.cat([Qd_out, q_diag[k] * torch.clamp(nt - b.times[..., -1:], min=1e-6)[..., None]], -2)
-        rts.append(_rts_elements(m_f[k], P_f6[k], d_out, Qd_out, interior))
-    m_s = [torch.movedim(x[9:12], 0, -1).contiguous() for x in block_scan("rts", rts, True)]
-    return [torch.where(c.rts_member[..., None], s, f) for c, s, f in zip(controls, m_s, m_f)], q_f
+def _ext(b: PoseBlock):
+    """The block's times, positions and quaternions, after the pose before
+    it (block 0 has none)."""
+    if b.prev is None:
+        return b.times, b.pos, b.quat
+    return (torch.cat([b.prev[0], b.times], -1), torch.cat([b.prev[1], b.pos], -2),
+            torch.cat([b.prev[2], b.quat], -2))
+
+
+def _chain_stage(b: PoseBlock, c: FusionControls, q0: Optional[torch.Tensor], full: bool, n: int):
+    """The block's controls (one RTS segment over all under ``full``), the
+    steps into its poses (relative positions) and the quaternion chain's
+    (4, ..., L) leaves: the steps' rotations, after q₀ on block 0."""
+    if full:
+        c = full_smoother_controls(c, b.start, n)
+    _, p, q = _ext(b)
+    dp, dq = se3.relative_poses_along(p, q)
+    qs = dq if q0 is None else torch.cat([quat.normalize(q0)[..., None, :], dq], -2)
+    return c, dp, torch.movedim(qs, -1, 0).contiguous()
+
+
+class _FilterStage(NamedTuple):
+    q_f: torch.Tensor  # (..., L, 4) fused quaternions
+    d: torch.Tensor  # (..., L', 3) world-frame motion of the steps into the poses
+    Qd: torch.Tensor  # (..., L', 3) their process noise
+    elements: torch.Tensor  # (27, ..., L) filter elements (block 0: the prior first)
+
+
+def _filter_stage(b: PoseBlock, c: FusionControls, dp, q_scan, halo, m0, ekf_cfg: EKFConfig) -> _FilterStage:
+    """The block's fused quaternions from its scanned chain, the world-frame
+    steps into its poses (rotated by q_f at the pose each leaves: ``halo``,
+    the previous block's last, for the first) and its filter elements."""
+    dtype, device = b.pos.dtype, b.pos.device
+    q_f = torch.movedim(q_scan, 0, -1).contiguous()
+    q_from = q_f[..., :-1, :] if halo is None else torch.cat([halo, q_f[..., :-1, :]], -2)
+    d = quat.rotate(q_from, dp)
+    t = _ext(b)[0]
+    Qd = _diag3(ekf_cfg.process_noise_diag, dtype, device) * torch.clamp(t[..., 1:] - t[..., :-1], min=1e-6)[..., None]
+    skip = 1 if m0 is not None else 0  # block 0's first pose takes the prior
+    z = torch.nan_to_num(b.gps[..., skip:, :], nan=0.0)
+    e = filter_step_elements(c.avail[..., skip:], d, Qd, z, _diag3(ekf_cfg.meas_noise_diag, dtype, device))
+    if m0 is not None:
+        P0 = _diag3(ekf_cfg.initial_cov_diag, dtype, device)
+        e = torch.cat([prior_element(m0.to(dtype), P0)[..., None], e], dim=-1)
+    return _FilterStage(q_f, d, Qd, e)
+
+
+def _rts_stage(b: PoseBlock, c: FusionControls, filt, f: _FilterStage, ekf_cfg: EKFConfig):
+    """The block's filtered means and its RTS elements over the steps out of
+    each pose: within the block, and from its last pose into the next
+    block's first (the last block ends with the anchor element at n−1:
+    M = 0, c = m_f[n−1])."""
+    dtype, device = b.pos.dtype, b.pos.device
+    m_f = torch.movedim(filt[9:12], 0, -1).contiguous()
+    P_f6 = filt[12:18]
+    inner = b.times.shape[-1] - 1
+    interior = c.rts_member & ~c.rts_end
+    d_out, Qd_out = f.d[..., f.d.shape[-2] - inner:, :], f.Qd[..., f.Qd.shape[-2] - inner:, :]
+    if b.next is None:
+        m_last = torch.movedim(m_f[..., -1, :], -1, 0)
+        tail = torch.cat([torch.zeros((9, *m_last.shape[1:]), dtype=dtype, device=device), m_last])
+        e = _rts_elements(m_f[..., :-1, :], P_f6[..., :-1], d_out, Qd_out, interior[..., :-1])
+        return m_f, torch.cat([e, tail[..., None]], dim=-1)
+    nt, npos, nq = b.next
+    dp_next, _ = se3.relative_pose(b.pos[..., -1:, :], b.quat[..., -1:, :], npos, nq)
+    d_out = torch.cat([d_out, quat.rotate(f.q_f[..., -1:, :], dp_next)], -2)
+    q_diag = _diag3(ekf_cfg.process_noise_diag, dtype, device)
+    Qd_out = torch.cat([Qd_out, q_diag * torch.clamp(nt - b.times[..., -1:], min=1e-6)[..., None]], -2)
+    return m_f, _rts_elements(m_f, P_f6, d_out, Qd_out, interior)
+
+
+def _smoothed_stage(c: FusionControls, smoothed, m_f):
+    """The fused positions: smoothed where RTS runs, filtered elsewhere."""
+    return torch.where(c.rts_member[..., None], torch.movedim(smoothed[9:12], 0, -1).contiguous(), m_f)
 
 
 def fuse_ekf_rts_parallel(

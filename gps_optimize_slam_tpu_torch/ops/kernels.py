@@ -125,7 +125,7 @@ def tile_keep_mask(tp: torch.Tensor, cp: torch.Tensor, vm: torch.Tensor) -> torc
     t_lo, t_hi = tb.amin(2), tb.amax(2)
     cb = cp.reshape(B, m_sub, SUB, 3)
     vmr = vm.reshape(B, m_sub, SUB, 1)
-    inf = torch.tensor(float("inf"), dtype=cp.dtype, device=cp.device)
+    inf = torch.full((), float("inf"), dtype=cp.dtype, device=cp.device)
     c_lo = torch.where(vmr, cb, inf).amin(2)[:, None]
     c_hi = torch.where(vmr, cb, -inf).amax(2)[:, None]
 
@@ -163,7 +163,7 @@ def nn_min_dist2_plain(
     pairs a block."""
     n = traj.shape[-2]
     out = torch.empty(traj.shape[:-1], dtype=traj.dtype, device=traj.device)
-    inf = torch.tensor(float("inf"), dtype=traj.dtype, device=traj.device)
+    inf = torch.full((), float("inf"), dtype=traj.dtype, device=traj.device)
     step = max(1, block // (traj.shape[0] if traj.ndim == 3 else 1))
     for s in range(0, n, step):
         d2 = torch.sum((traj[..., s : s + step, None, :] - candidates[..., None, :, :]) ** 2, dim=-1)
@@ -247,8 +247,7 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
             nkept.data_ptr(), cand4.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn keep lists")
-    with _build.COUNT_LOCK:
-        keep_lists.launches += 1
+    _build.count_launch(keep_lists)
     return order, nkept, cand4
 
 
@@ -323,8 +322,7 @@ def nn_resident(
             out.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn_min_dist2 (resident)")
-    with _build.COUNT_LOCK:
-        nn_resident.launches += 1
+    _build.count_launch(nn_resident)
     return out
 
 
@@ -363,8 +361,7 @@ def grid_launch(traj: torch.Tensor, operands, n_items: int) -> torch.Tensor:
             out.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn_min_dist2 (grid)")
-    with _build.COUNT_LOCK:
-        nn_grid.launches += 1
+    _build.count_launch(nn_grid)
     return out
 
 
@@ -455,8 +452,7 @@ def ransac_counts(
             _build.stream(src.device),
         )
     _build.check(rc, "ransac_counts")
-    with _build.COUNT_LOCK:
-        ransac_counts.launches += 1
+    _build.count_launch(ransac_counts)
     return out
 
 

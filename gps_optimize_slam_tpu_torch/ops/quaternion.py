@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 _EPS_NORM = 1e-9
+IDENTITY = (0.0, 0.0, 0.0, 1.0)
 
 
 def identity_like(q: torch.Tensor) -> torch.Tensor:

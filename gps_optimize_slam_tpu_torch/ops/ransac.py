@@ -19,7 +19,9 @@ the draws (SURVEY §7 hard-part d).
 Both estimators stop early under ``cfg.stop_probability`` (sklearn-style):
 trials run in chunks of ``cfg.adaptive_chunk`` until the bound
 ln(1−p)/ln(1−w^k) on the number of trials is met, w the best inlier ratio so
-far. One host read a chunk decides whether another chunk runs.
+far. One host read a chunk decides whether another chunk runs (inside a
+captured graph ``sim3_ransac`` runs every chunk, masked, with the same
+result; the GNSS gate is never captured).
 
 ``sim3_ransac`` also takes a leading batch axis, one sequence a row (the
 JAX package's ``vmap`` of it): every chunk is one batched fit, one K5
@@ -36,6 +38,7 @@ import torch
 from gps_optimize_slam_tpu_torch.config import GPSFilterConfig, Sim3RansacConfig
 from gps_optimize_slam_tpu_torch.ops.kernels import ransac_counts, sim3_residual2
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3, umeyama_sim3
+from gps_optimize_slam_tpu_torch.utils import graphs
 
 # The top-RERANK_K trials by kernel count are re-counted exactly before the
 # winner is picked (ransac.py:147-173 of the JAX package, whose MXU counts
@@ -63,16 +66,28 @@ def _gather_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, flat[..., None].expand(*flat.shape, 3)).reshape(*idx.shape, 3)
 
 
-def sim3_draws(
-    n_valid: torch.Tensor, trials: int, k: int, generator: torch.Generator
-) -> torch.Tensor:
-    """(trials, k) uniform integer draws in [0, max(n_valid, 1)), on the
-    device, without a host sync (the counterpart of the JAX package's
-    per-trial ``jax.random.randint``)."""
-    hi = torch.clamp(n_valid, min=1).to(torch.float64)
-    u = torch.rand(
-        (trials, k), generator=generator, dtype=torch.float64, device=generator.device
-    )
+def seeded_uniforms(seed, lead: tuple, trials: int, k: int, device) -> torch.Tensor:
+    """The uniforms of ``sim3_ransac``'s seeded draws, (*lead, trials, k):
+    one generator seeded with ``seed`` (an int), or, with a batch axis
+    (``lead`` = (B,)), a generator a row seeded with its entry of ``seed``
+    (an int for every row, or B ints), so a row draws what it would
+    alone. Made before a captured program, which takes them as an input
+    (a generator made inside it would not be part of the graph)."""
+
+    def draw(sd):
+        return torch.rand((trials, k), generator=_generator(device, sd), dtype=torch.float64, device=device)
+
+    if not lead:
+        return draw(seed)
+    return torch.stack([draw(int(x)) for x in torch.as_tensor(seed).expand(lead[0]).tolist()])
+
+
+def scale_uniforms(u: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Uniforms (..., trials, k) in [0, 1) as integer draws in
+    [0, max(n_valid, 1)), n_valid (...), on the device without a host sync
+    (the counterpart of the JAX package's per-trial
+    ``jax.random.randint``)."""
+    hi = torch.clamp(n_valid, min=1).to(torch.float64)[..., None, None]
     return torch.minimum(torch.floor(u * hi), hi - 1).long()
 
 
@@ -152,6 +167,13 @@ def select_winner(
     return torch.amin(torch.where(exact == best, topi, counts.shape[-1]), -1)
 
 
+def sim3_trials(cfg: Sim3RansacConfig) -> int:
+    """The draws ``sim3_ransac`` takes a row: ``max_trials``, or the whole
+    adaptive schedule's ceil(max_trials / chunk) · chunk."""
+    C, n_chunks = _adaptive_schedule(cfg.max_trials, cfg.adaptive_chunk, cfg.stop_probability)
+    return C * n_chunks
+
+
 def sim3_ransac(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -159,6 +181,7 @@ def sim3_ransac(
     cfg: Sim3RansacConfig = Sim3RansacConfig(),
     seed: int = 0,
     draws: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
 ) -> Sim3RansacResult:
     """RANSAC-robust Sim(3) fit of dst onto src over the valid mask.
 
@@ -173,14 +196,18 @@ def sim3_ransac(
     ``draws`` (trials, min_samples): the per-trial integer draws in
     [0, max(n_valid, 1)), taken BEFORE the compaction of the valid indices
     (``ransac.py:110-115`` of the JAX package); None draws them from a
-    generator seeded with ``seed`` on the tensors' device. ``trials`` is
-    ``max_trials``, or, under ``cfg.stop_probability``, the whole schedule's
-    ceil(max_trials / chunk) · chunk. Sampling is with replacement, as in the
-    JAX package. Counting runs through K5, one launch a chunk; a chunk's
-    winner is the first maximum of the exact counts over its top 16 trials,
+    generator seeded with ``seed`` on the tensors' device, or scales the
+    given ``uniforms`` (``seeded_uniforms``: the same generator's numbers,
+    made outside a captured program). ``trials`` is ``sim3_trials(cfg)``.
+    Sampling is with replacement, as in the JAX package. Counting runs
+    through K5, one launch a chunk; a chunk's winner is the first maximum
+    of the exact counts over its top 16 trials,
     picked with a stable descending sort, and a later chunk's winner
     replaces the running best only with a strictly larger count, so the
-    earlier chunk wins ties.
+    earlier chunk wins ties. While a graph is captured (``utils.graphs``)
+    every chunk runs, masked by ``active`` as the rows that stop early
+    are: the host cannot read ``active`` inside a graph, and a chunk adds
+    nothing once it is false, so the result is the early stop's.
     """
     n = src.shape[-2]
     lead = src.shape[:-2]
@@ -200,12 +227,9 @@ def sim3_ransac(
 
     C, n_chunks = _adaptive_schedule(cfg.max_trials, cfg.adaptive_chunk, cfg.stop_probability)
     if draws is None:
-        if not lead:
-            draws = sim3_draws(n_valid, n_chunks * C, cfg.min_samples, _generator(device, seed))
-        else:
-            seeds = [int(x) for x in torch.as_tensor(seed).expand(lead[0]).tolist()]
-            draws = torch.stack([sim3_draws(n_valid[r], n_chunks * C, cfg.min_samples, _generator(device, sd))
-                                 for r, sd in enumerate(seeds)])
+        if uniforms is None:
+            uniforms = seeded_uniforms(seed, lead, n_chunks * C, cfg.min_samples, device)
+        draws = scale_uniforms(uniforms, n_valid)
     draws = draws.to(device)
     src_c, dst_c, valid_c = src.contiguous(), dst.contiguous(), valid.contiguous()
     best_count = torch.full(lead, -1, dtype=torch.long, device=device)
@@ -215,7 +239,7 @@ def sim3_ransac(
         if i > 0:
             active = active & _more_trials_needed(
                 i * C, best_count, n_valid, cfg.min_samples, cfg.stop_probability, src.dtype)
-            if not bool(active.any()):
+            if not graphs.capturing() and not bool(active.any()):
                 break
         chunk = draws[..., i * C : (i + 1) * C, :]  # (..., C, k)
         idx = torch.gather(order, -1, chunk.reshape(*lead, -1)).reshape(chunk.shape)

@@ -300,8 +300,7 @@ def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         rc = lib.gps_scan(code, dt, x.data_ptr(), out.data_ptr(), n, batch, int(reverse),
                           scratch.data_ptr(), _build.stream(x.device))
     _build.check(rc, f"scan {op}")
-    with _build.COUNT_LOCK:
-        scan_block.launches[op] += 1
+    _build.count_launch(scan_block, op)
     return out
 
 
@@ -339,8 +338,7 @@ def scan_tiled(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         rc = lib.gps_scan_tiled(code, dt, x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                                 scratch.numel(), n, batch, int(reverse), _build.stream(x.device))
     _build.check(rc, f"tiled scan {op}")
-    with _build.COUNT_LOCK:
-        scan_tiled.launches[op] += 1
+    _build.count_launch(scan_tiled, op)
     return out
 
 

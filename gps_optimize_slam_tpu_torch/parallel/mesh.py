@@ -15,17 +15,20 @@ size D with copies of row 0, and each device fuses a contiguous shard of
 rows as one batched program; the outputs are concatenated on
 ``mesh.devices[0]`` and the padding sliced off (rows are independent, so a
 copy cannot perturb a real row). The JAX package shards the batch axis of
-one ``jit``-ed program over the mesh, so all shards run at once; the port
-issues one program a shard, each distinct device's shards from a host thread
-of their own (``_on_devices``), so shards on distinct cards run at once
-although each program reads values back to the host (RANSAC, the
-alignment). Shards that share a device run one after another in its thread:
-a mesh of one card (``devices=["cuda:0"] * k``, how one card and the CPU
-tests run this code) runs its shards in turn. On four H100 cards, three
-shards' threads took about 3× as long as the same shards in turn from one
-thread, their eager dispatch contending for the interpreter lock
-(``tools/torch_phase9_cards.py``). A device may repeat; nothing falls back
-to the CPU.
+one ``jit``-ed program over the mesh, so all shards run at once. The port
+issues one program a shard, each distinct device's shards from a host
+thread of their own (``_on_devices``), and on a card each shard's fusion,
+evaluation and offset estimate is one captured program
+(``utils.graphs``, captured on the second call for its shape): a thread
+copies its shard's inputs in, replays the graph and clones its outputs,
+a few host calls where eager dispatch made ~7,700. Eager, three shards' threads on four H100 cards took about 3× the
+same shards issued in turn from one thread, their dispatch contending for
+the interpreter lock; replayed, they take as long as the shards in turn
+(``tools/torch_phase9_cards.py`` times both). Shards that share a device
+run one after another in its thread: a mesh of one card
+(``devices=["cuda:0"] * k``, how one card and the CPU tests run this
+code) runs its shards in turn. A device may repeat; nothing falls back to
+the CPU.
 
 RANSAC draws: the JAX package takes a PRNG key a row; the port takes an
 integer seed a row (``seed + i``, as the ``fuse-batch`` command numbers its
@@ -48,7 +51,7 @@ from gps_optimize_slam_tpu_torch.models import fusion
 from gps_optimize_slam_tpu_torch.ops import alignment
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
 from gps_optimize_slam_tpu_torch.parallel.batch import SequenceBatch, _round_up
-from gps_optimize_slam_tpu_torch.utils import streaming
+from gps_optimize_slam_tpu_torch.utils import graphs, streaming
 from gps_optimize_slam_tpu_torch.utils.device import resolve_device
 
 SEQ_AXIS = "seq"
@@ -170,8 +173,9 @@ def estimate_offsets_batch(
     """Per-sequence clock offsets, estimated on the device in one batched
     call (the FFT speed cross-correlation of
     ``ops.alignment.estimate_time_offset_xcorr_device``), honouring the
-    padding masks; with ``mesh``, one call a device on its shard of rows,
-    the devices' shards issued at once (``_on_devices``).
+    padding masks, one captured program a shape on a card; with ``mesh``,
+    one call a device on its shard of rows, the devices' shards issued at
+    once (``_on_devices``).
     Returns a host (B,) array for ``fuse_batch(..., time_offsets=...)``."""
     device = _placement(device, mesh)
     dtype = _dtype(batch, dtype)
@@ -185,7 +189,8 @@ def estimate_offsets_batch(
     def dev(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dt)
 
-    out = alignment.estimate_time_offset_xcorr_device(
+    out = graphs.run(
+        alignment.estimate_time_offset_xcorr_device,
         dev(batch.slam_times), dev(batch.slam_pos), dev(batch.gps_times), dev(batch.gps_pos),
         slam_mask=dev(batch.slam_mask, torch.bool), gps_valid=dev(batch.gps_valid, torch.bool),
         max_lag_seconds=max_lag_seconds, n_grid=n_grid,
@@ -315,11 +320,13 @@ def _fuse_sharded(sharded: ShardedBatch, config: FusionConfig, sim3_draws) -> fu
     shard's device with the padding rows sliced off."""
     devices = [shard.args[0].device for shard in sharded.shards]
     home = devices[0]
+    # Each shard's draws are on its device before the threads start: a
+    # thread touches its own device only.
+    draws = [None if sim3_draws is None else sim3_draws[torch.as_tensor(rows, device=sim3_draws.device)].to(dev)
+             for rows, dev in zip(sharded.rows, devices)]
 
     def fuse(k):
-        shard, rows = sharded.shards[k], sharded.rows[k]
-        return fuse_batch(shard, config=config, sim3_draws=None if sim3_draws is None
-                          else sim3_draws[torch.as_tensor(rows)].to(devices[k]))
+        return fuse_batch(sharded.shards[k], config=config, sim3_draws=draws[k])
 
     outs = _on_devices(devices, fuse)
 
@@ -480,8 +487,9 @@ def fuse_buckets_checkpointed(
 
 
 def evaluate_batch(batch: SequenceBatch, outputs: fusion.FusionOutputs, skip_seconds: float = 5.0):
-    """Batched evaluation (``fusion.evaluate`` with the batch axis), masked to
-    real poses, on the outputs' device and in their dtype."""
+    """Batched evaluation (``fusion.evaluate`` with the batch axis, one
+    captured program a shape on a card), masked to real poses, on the
+    outputs' device and in their dtype."""
     dt, device = outputs.corrected_pos.dtype, outputs.corrected_pos.device
     return fusion.evaluate(
         torch.as_tensor(np.asarray(batch.slam_times), device=device).to(dt),

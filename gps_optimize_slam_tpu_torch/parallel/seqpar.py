@@ -27,7 +27,13 @@ the relative poses, the filter and RTS elements
 pose after it are its halos). Only halos, block totals and exclusive
 prefixes cross devices, by device-to-device copies that PyTorch orders on
 the streams; no step waits on the host, so on several cards the blocks
-run at once. On a mesh of one card (``["cuda:0"] * D``) the blocks run one
+run at once. On a card the work of a block between two scans (seven
+stages: three of the controls, four of the filter) and each fold is a
+program captured on the second call for a block shape and replayed from
+then on (``utils.graphs``), as the JAX
+package compiles its ``shard_map`` bodies: the host issues a block's stage
+as one replay, and the copies and the totals' scan run between the
+replays. On a mesh of one card (``["cuda:0"] * D``) the blocks run one
 after another on it.
 
 ``sequence_parallel_scan(mesh)`` is the block scan with the contract of
@@ -47,17 +53,28 @@ import torch
 from gps_optimize_slam_tpu_torch.config import EKFConfig, RTSDecisionConfig
 from gps_optimize_slam_tpu_torch.ops import kalman, kalman_parallel, scan
 from gps_optimize_slam_tpu_torch.parallel.mesh import Mesh
+from gps_optimize_slam_tpu_torch.utils import graphs
+
+
+def _fold(op: str, ext: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
+    """``ext`` (L, ...) combined into every composite of the locally scanned
+    block ``blk`` (L, ..., n_k): ext is the accumulated composite, the
+    first combine argument in both directions (``ops.scan``'s convention;
+    under reverse, the later composite), broadcast over the block."""
+    fixed = scan.OPS[op][1](list(ext[..., None].unbind(0)), list(blk.unbind(0)))
+    return torch.stack([f.expand_as(blk[0]) for f in fixed])
 
 
 def _block_scan(mesh: Mesh, op: str, blocks: Sequence[torch.Tensor], reverse: bool) -> List[torch.Tensor]:
     """The cross-device scan of ``op`` over per-block (L, n_k) or (L, B, n_k)
     leaves, block k on ``mesh.devices[k]``: local scans, the scan of the
     block totals on the first device, the fold of each block's exclusive
-    prefix (suffix under ``reverse``) on the block's device."""
+    prefix (suffix under ``reverse``) on the block's device, a captured
+    program on a card (``utils.graphs``; a local scan is one launch, which
+    a graph would only wrap in two copies of the block)."""
     d = mesh.size
     if len(blocks) != d:
         raise ValueError(f"{len(blocks)} blocks for a mesh of {d} devices")
-    combine = scan.OPS[op][1]
     local = [scan.associative_scan(op, blk.contiguous(), reverse) for blk in blocks]
     # A block's total: its last composite (its first, for a suffix scan).
     home = mesh.devices[0]
@@ -69,12 +86,9 @@ def _block_scan(mesh: Mesh, op: str, blocks: Sequence[torch.Tensor], reverse: bo
             out.append(blk)
             continue
         # The exclusive prefix is the inclusive prefix of the block before
-        # (suffix: of the block after). It is the accumulated composite, the
-        # first combine argument in both directions (ops.scan's convention;
-        # under reverse, the later composite), broadcast over the block.
+        # (suffix: of the block after).
         ext = block_scan[..., k + 1 if reverse else k - 1].to(dev)
-        fixed = combine(list(ext[..., None].unbind(0)), list(blk.unbind(0)))
-        out.append(torch.stack([f.expand_as(blk[0]) for f in fixed]))
+        out.append(graphs.run(_fold, op, ext, blk))
     return out
 
 
@@ -207,7 +221,7 @@ def fuse_ekf_rts_seqparallel(
         nxt = None if k == d - 1 else tuple(x[k + 1][:1].to(dev) for x in (t, pos, quat))
         blocks.append(kalman_parallel.PoseBlock(t[k], pos[k], quat[k], gz[k], gv[k], int(starts[k]), prev, nxt))
     out_pos, out_quat = kalman_parallel.fuse_ekf_rts_blocks(
-        blocks, s3p[0][0], s3q[0][0], int(starts[-1]), ekf_cfg, rts_cfg, rts_mode, block_scan(mesh),
+        blocks, s3p[0][0], s3q[0][0], int(starts[-1]), ekf_cfg, rts_cfg, rts_mode, block_scan(mesh), graphs.run,
     )
     if gather:
         home = mesh.devices[0]

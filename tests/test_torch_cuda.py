@@ -854,3 +854,229 @@ def test_a_failed_batched_launch_raises_without_falling_back(cuda, monkeypatch):
             call()
         assert (scan.scan_block.launches, scan.scan_tiled.launches, kernels.nn_resident.launches,
                 kernels.nn_grid.launches) == before
+
+
+# The captured programs (``utils.graphs``): graph against eager dispatch on
+# the same card, float64, ≤1e-9 m (the bound of the batched rows) with
+# masks and ``ok`` flags equal; statistics ≤1e-9 relative; offsets equal.
+
+
+def graph_inputs(n, device, seed=3):
+    """One replica sequence of ``n`` poses on ``device`` (float64): slam
+    times, positions, quaternions, GNSS times, positions and validity."""
+    import numpy as np
+
+    slam, gt, gp = chip_smoke.replica_sequence(n, seed=seed)
+    return [torch.as_tensor(a, device=device) for a in (slam["timestamps"], slam["positions"],
+                                                        slam["quaternions"], gt, gp, np.ones(len(gt), bool))]
+
+
+def graph_batch(ns=(601, 701, 801)):
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+
+    seqs = [chip_smoke.replica_sequence(n, seed=s) for s, n in enumerate(ns)]
+    return pbatch.pad_batch([s for s, _, _ in seqs], [t for _, t, _ in seqs], [p for _, _, p in seqs])
+
+
+def entry_point(name, device):
+    """A callable for each entry point that ``utils.graphs`` captures on a
+    card, and how its result reads as (positions, masks) to compare."""
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+    from gps_optimize_slam_tpu_torch.parallel import mesh, seqpar
+
+    cfg = FusionConfig(gps_sorted=True)
+    if name in ("fuse_core", "fuse_core_short_gnss", "evaluate", "evaluate_vs_track"):
+        t = graph_inputs(200 if name == "fuse_core_short_gnss" else 1101, device)  # 200 poses: a dense spline
+        if name.startswith("fuse_core"):
+            return lambda: fusion.fuse_core(*t, cfg, seed=2)
+        out = fusion.fuse_core(*t, cfg, seed=2)
+        if name == "evaluate":
+            return lambda: fusion.evaluate(t[0], t[1], out)
+        track = graph_inputs(1101, device, seed=9)
+        return lambda: fusion.evaluate_vs_track(t[0], t[1], out, track[3], track[4], track[5], cfg)[0]
+    b = graph_batch()
+    if name == "fuse_batch":
+        return lambda: mesh.fuse_batch(b, device=device)
+    if name == "mesh_shards":
+        return lambda: mesh.fuse_batch(b, mesh=mesh.make_mesh(devices=[device] * 3))
+    if name == "evaluate_batch":
+        out = mesh.fuse_batch(b, device=device)
+        return lambda: mesh.evaluate_batch(b, out)
+    if name == "estimate_offsets_batch":
+        return lambda: torch.as_tensor(mesh.estimate_offsets_batch(b, device=device))
+    args = seqpar_case(4001, device)
+    return lambda: seqpar.fuse_ekf_rts_seqparallel(mesh.make_mesh(devices=[device] * 4), *args)
+
+
+def same_result(got, want, bound):
+    """Every tensor leaf of two results within ``bound`` (relative to the
+    leaf's magnitude + 1), booleans and integers equal."""
+    import torch.utils._pytree as pytree
+
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want), strict=True):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        if a.dtype in (torch.bool, torch.int32, torch.int64):
+            assert torch.equal(a, b)
+        else:
+            assert chip_smoke.rel_err(a.double().reshape(1, -1), b.double().reshape(1, -1)) <= bound
+
+
+ENTRY_POINTS = ["fuse_core", "fuse_core_short_gnss", "evaluate", "evaluate_vs_track", "fuse_batch", "mesh_shards",
+                "evaluate_batch", "estimate_offsets_batch", "seqpar"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_replayed_programs_equal_eager_dispatch(cuda, name):
+    """Each entry point's first call runs eagerly, its second captures and
+    replays, its third replays; all equal the same call under
+    ``graphs.eager()``: every float leaf within 1e-12 of its magnitude
+    (positions of a few kilometres: ≤1e-9 m, the batched rows' bound),
+    masks, counts and ``ok`` flags equal."""
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    call = entry_point(name, cuda)
+    with graphs.eager():
+        want = call()
+    graphs.clear()  # an earlier test may hold a program of the same key
+    graphs.reset_stats()
+    first = call()
+    assert graphs.stats()["first_calls"] >= 1
+    if name not in ("mesh_shards", "seqpar"):  # their shards (blocks) repeat a key within one call
+        assert graphs.stats()["captures"] == 0
+    second = call()
+    got = call()
+    torch.cuda.synchronize()
+    st = graphs.stats()
+    assert st["captures"] >= 1 and st["replays"] >= 2 and st["pool_bytes"] > 0
+    for res in (first, second, got):
+        same_result(res, want, 1e-12)
+
+
+def test_programs_of_many_long_shapes_share_one_pool(cuda):
+    """Twelve logs of distinct lengths (30,000-41,000 poses), each fused
+    twice (the second call captures), with nothing cleared between: the
+    programs share the device's pool, which grows by their held outputs and
+    not by a working set a program. It stays within three times the pool
+    of the longest log's program alone plus the held outputs (a pool a
+    program took about ten times that pool), and the last replay equals
+    eager dispatch."""
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    cfg = FusionConfig(gps_sorted=True)
+    lengths = [30_000 + 1_000 * k for k in range(12)]
+    graphs.clear()
+    torch.cuda.empty_cache()
+    graphs.reset_stats()
+    for n in lengths:
+        t = graph_inputs(n, cuda, seed=n)
+        fusion.fuse_core(*t, cfg, seed=2)
+        got = fusion.fuse_core(*t, cfg, seed=2)
+    torch.cuda.synchronize()
+    shared = graphs.stats()
+    assert shared["captures"] == 12 and shared["programs"] == 12
+    with graphs.eager():
+        same_result(got, fusion.fuse_core(*t, cfg, seed=2), 1e-12)
+    graphs.clear()
+    torch.cuda.empty_cache()
+    fusion.fuse_core(*t, cfg, seed=2)
+    fusion.fuse_core(*t, cfg, seed=2)
+    alone = graphs.stats()["pool_bytes"]
+    assert 0 < shared["pool_bytes"] <= 3 * alone + shared["output_bytes"], (shared, alone)
+
+
+def test_a_replay_leaves_earlier_results_unchanged(cuda):
+    """Two replays of one program on other inputs: the first result keeps
+    its values (each replay hands out clones of the graph's outputs)."""
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+
+    t = graph_inputs(1101, cuda)
+    cfg = FusionConfig(gps_sorted=True)
+    fusion.fuse_core(*t, cfg, seed=2)
+    a = fusion.fuse_core(*t, cfg, seed=2)  # captured and replayed
+    kept = a.corrected_pos.clone()
+    b = fusion.fuse_core(t[0], t[1] + 3.0, *t[2:], cfg, seed=2)
+    torch.cuda.synchronize()
+    assert torch.equal(a.corrected_pos, kept) and not torch.equal(b.corrected_pos, kept)
+    assert b.corrected_pos.data_ptr() != a.corrected_pos.data_ptr()
+
+
+def test_replays_count_the_launches_of_eager_dispatch(cuda):
+    """N replays add N times the launches of one eager call, kernel by
+    kernel: the counts read the same for graph and eager runs."""
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    t = graph_inputs(1101, cuda)
+    cfg = FusionConfig(gps_sorted=True)
+
+    def run():
+        out = fusion.fuse_core(*t, cfg, seed=2)
+        return fusion.evaluate(t[0], t[1], out)
+
+    run()
+    chip_smoke.reset_launch_counts()
+    with graphs.eager():
+        run()
+    torch.cuda.synchronize()
+    eager = chip_smoke.launch_counts()
+    chip_smoke.reset_launch_counts()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    assert chip_smoke.launch_counts() == {k: 3 * v for k, v in eager.items()}
+    assert eager["ransac_counts"] == 1 and eager["nn_resident"] == 3 and eager["nn_keep"] == 3
+
+
+def test_a_replay_passes_with_every_host_synchronisation_an_error(cuda):
+    """``fuse_core`` (its seeded uniforms drawn before the program) and
+    ``evaluate`` replayed under ``set_sync_debug_mode("error")``: nothing
+    is read back."""
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+
+    t = graph_inputs(1101, cuda)
+    cfg = FusionConfig(gps_sorted=True)
+    for _ in range(2):  # the first call runs eagerly, the second captures
+        fusion.evaluate(t[0], t[1], fusion.fuse_core(*t, cfg, seed=2))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fusion.fuse_core(*t, cfg, seed=2)
+        ev = fusion.evaluate(t[0], t[1], out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(out.corrected_pos).all()) and ev.nn_ekf.rmse.shape == ()
+
+
+def test_shards_on_two_cards_replay_in_flight_together(cuda, monkeypatch):
+    """Two shards, one a card, each replaying its program from a host
+    thread of its card: both shards' calls wait at a barrier of two, so the
+    run ends only if both are issued before either finishes; the rows equal
+    the unsharded batch's ≤1e-9 m."""
+    import threading
+
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+
+    first, second = two_cards()
+    b = graph_batch((601, 701, 801, 651))
+    m = mesh.make_mesh(devices=[first, second])
+    want = mesh.fuse_batch(b, device=first)
+    for _ in range(2):  # eager, then each shard's program captured on its card
+        mesh.fuse_batch(b, mesh=m)
+    barrier = threading.Barrier(2, timeout=60)
+    original = mesh.fuse_batch
+
+    def waiting(batch, *args, **kw):
+        if kw.get("mesh") is None:  # a shard's own call
+            barrier.wait()
+        return original(batch, *args, **kw)
+
+    monkeypatch.setattr(mesh, "fuse_batch", waiting)
+    got = original(b, mesh=m)
+    torch.cuda.synchronize()
+    assert float((got.corrected_pos - want.corrected_pos).abs().max()) <= 1e-9
+    assert torch.equal(got.sim3_inliers, want.sim3_inliers) and bool(got.ok.all())

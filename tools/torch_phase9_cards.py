@@ -9,11 +9,16 @@ Prints the cards' names and power limits, then one JSON line a run
   (phase 5's outage sequence, the EKF inputs from one ``fuse_core``), both
   ``rts_mode``s, on one card, then block k on card k mod the card count,
   then on one card again: the gaps to the single-device filter (≤1e-8 m),
-  the launches, warm walls, profiles and each card's peak memory;
+  the launches, warm walls of the blocks' stage programs replayed and of
+  the same under ``graphs.eager()`` (≤1e-9 m apart), profiles and each
+  card's peak memory;
 * ``fuse_batch(mesh=...)`` of the eleven KITTI rows on 3 shards, on one
   card, then shard k on card k mod the card count, then on one card again:
   the rows against the unsharded batch (≤1e-9 m) and the walls of the
-  unsharded batch, the threaded shards and the shards in turn.
+  unsharded batch, the threaded shards (each shard's program replayed on
+  its card, and eager) and the shards in turn;
+* the captures, replays and pools of the captured programs
+  (``utils.graphs``).
 
 It fails if a check fails, and exits 1 on a machine with fewer than two
 cards. Run from the repository root:
@@ -60,6 +65,7 @@ def main() -> int:
                         ("mesh shards over the cards", cs.cards_mesh(cs.MESH_SHARDS)),
                         ("mesh shards, one card again", cs.card_mesh(cs.MESH_SHARDS))):
         cs.mesh_shards(device, b, seeds, mesh, label)
+    cs.emit({"graphs": cs.graph_stats()})
     print(f"seconds {time.perf_counter() - t0:.1f}", flush=True)
     return 0
 
