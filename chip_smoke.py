@@ -37,8 +37,10 @@ Phases:
   0. set-up: card, versions, kernel build time;
   1. each kernel against its plain version on the card, with CUDA-event
      times, each kernel's bound (bytes over 3.35 TB/s or operations over the
-     published peak, whichever is larger) and, where one PyTorch call
-     computes the same function, that call's time: K1, 8 combines at N = 271
+     rate the card issues operations that are not fused multiply-adds, half
+     the published peak, whichever is larger, and both terms) and, where one
+     PyTorch call computes the same function, that call's time (and for
+     the scans its device time): K1, 8 combines at N = 271
      and 4661; K2, 8 combines at N = 262,145 (a default chunk plus its
      carry), 262,145 + 777, 524,289 (phase 5's chunk plus its carry), 20,001
      (fewer tiles than persistent blocks) and 1,048,577 (many more), also
@@ -54,7 +56,10 @@ Phases:
      300,000, 700 x 524,288 shuffled (few query tiles, long keep lists: K4
      by the routing rule) and 524,288 x 524,288 (phase 5's NN blocks, K3 by
      the rule; the plain version on every 64th query; the kernel alone and
-     with its wrapper), bit for bit against K3, and all-masked; K5, counts equal
+     with its wrapper), bit for bit against K3, and all-masked, its launch
+     alone (the grid sized from the card, the work list's length read on
+     the device) timed against one block an item with the length read on
+     the host, at both shapes and at the batch grid's; K5, counts equal
      to the plain version's at 1000 trials x 4661 and 279 points and 333 x
      5003 (ragged point and trial chunks), with every point invalid, and
      twice on the same inputs; float32 and float64; and the routes: K1
@@ -95,9 +100,12 @@ Phases:
      outages straddling the 262,144-pose boundaries), float64 on the card:
      ``fuse_core_chunked`` (524,288-pose chunks) against the in-core
      ``fusion.fuse_core``, ``evaluate_chunked`` (524,288-pose NN blocks, K3
-     by the route) once more with the blocks forced onto K4, and against
-     262,144-pose blocks, launch counts, warm wall times, poses per second
-     and peak device memory; and ``fuse_files_chunked`` +
+     by the route) once more with the blocks forced onto K4 (its chunk
+     bodies captured and replayed against eager dispatch, ≤1e-9 m), and against
+     262,144-pose blocks, launch counts, warm wall times of the replayed
+     chunk bodies against the same under ``graphs.eager()`` (≤1e-9 m apart,
+     idle shares), poses per second and peak device memory; and
+     ``fuse_files_chunked`` +
      ``export_result`` on the seq-04 files against the in-core
      ``fuse_files``, with launch counts of its own;
   6. the robust and ground-truth path, float64 on the card. In core, the
@@ -115,7 +123,12 @@ Phases:
      ``fuse_robust(gate_mode="parallel")`` in core (masks equal, ≤1e-6 m,
      quaternions ≤1e-8, NIS ≤1e-6 relative; K2 and no K1) and
      ``evaluate_vs_track_chunked`` (K3) against ``evaluate_vs_track``
-     (≤1e-6 relative, aligned track ≤1e-6 m). Then ``python3 -m
+     (≤1e-6 relative, aligned track ≤1e-6 m). The robust fusion replayed
+     against the same under ``graphs.eager()``, ≤1e-9 m with masks equal:
+     in core ``fuse_robust`` under each gate (the parallel one a program of
+     every pass, masked, and the final fusion; its passes to the fixed point
+     counted as the fewest ``n_iterations`` that converge), and the robust
+     chunked fusion. Then ``python3 -m
      gps_optimize_slam_tpu_torch fuse ... --robust --gt ... --json`` and the
      same with ``--chunked`` as subprocesses on the seq-04 files. The walls
      of a gate pass (both gates) and of the robust chunked fusion are
@@ -141,9 +154,14 @@ Phases:
      checkpoint directory) on the card, held against the port's CPU run of
      the same arrays (positions ≤1e-6 m, quaternions ≤1e-8, cost history
      ≤1e-9 relative, the valid closures equal); a refinement stopped after 5
-     steps and resumed equal to the uninterrupted one bit for bit; warm
-     walls (median of 3), the refine's profile (kernels, launches, idle
-     share), its peak memory and the proposal's share of its wall. Then
+     steps and resumed equal to the uninterrupted one bit for bit; a
+     Gauss-Newton step's program called first (eager), then captured, then
+     replayed, with the pool's growth; the refine without closures replayed
+     against eager dispatch (≤1e-9 m); warm walls of the replayed refine
+     (median of 3) and of one eager refine as its yardstick (held to the
+     replays as the card to the CPU), profiles of two steps of each
+     (kernels, launches, idle share), its peak memory and the proposal's
+     share of its wall. Then
      ``refine-graph --json`` on the seq-04 files and ``kitti2tum`` on a
      KITTI pose file written from the golden arrays, as subprocesses;
   9. the multi-device paths on one card, the mesh's blocks sharing it:
@@ -192,8 +210,12 @@ captured programs, and the programs held after it with the device memory
 of their shared pool and of their static inputs and outputs. The programs
 are kept from phase to phase, as a process that fuses many logs keeps
 them: the pool's growth over the run is the figure to read. A run with a
-route forced (``forced_route``) dispatches eagerly: a captured program
-keeps the route it was captured with.
+route forced (``forced_route``) drops every program on its way in and out:
+a captured program keeps the route it was captured with. Captured on the card: the in-core
+fusion and evaluation, the batched offsets, mesh shards and seqpar blocks,
+each Gauss-Newton step and the closure proposal of the pose graph, the
+robust parallel fusion and the sequential gate's final fusion, and every
+chunk body of the chunked paths.
 
 The launch counts of the ``{"kernels": [...]}`` line are those of the
 main-path runs (phase 4: ``fuse_arrays`` at 4,661 poses; phase 5:
@@ -253,11 +275,20 @@ GRID_NN_MAIN = (CHUNK, CHUNK)  # phase 5's NN block: queries x candidates
 GRID_NN_WIN = (700, CHUNK)  # K4's winning shape (shuffled candidates: few query tiles, long keep lists)
 PLAIN_STRIDE = 64  # phase 1 holds K4 at GRID_NN_MAIN against plain on every 64th query
 
-# Published peaks of one H100 SXM (NVIDIA data sheet; float32 and float64
-# outside the tensor cores), for the bounds. The card's power limit is
-# printed beside them.
+# Peaks of one H100 SXM for the bounds (NVIDIA data sheet), the card's
+# power limit printed beside them: the memory rate, and the float32 and
+# float64 rates outside the tensor cores, which count a fused multiply-add
+# as two operations in one instruction. The operation counts below count
+# each multiply and each add as one operation, so at these peaks they give
+# the least time the function needs however its multiply-adds contract.
+# Every kernel here is built with --fmad=false (ops/_build.py): each
+# counted operation then takes an instruction of its own, and the card
+# issues those at half the peaks (ISSUE_RATE). That time is printed as a
+# term of its own beside the bound, the cost of the build's choice, and is
+# not the bound.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+ISSUE_RATE = {k: v / 2 for k, v in PEAK_FLOPS.items()}
 # Floating-point operations of one combine, counted from csrc/scan_ops.cuh
 # (a 3x3 product is 45, a matrix-vector product 15, the adjugate inverse 42).
 COMBINE_FLOPS = {"quat_chain": 41, "filter": 489, "rts": 63, "mobius": 25, "affine3": 7,
@@ -344,11 +375,14 @@ def host_ms(fn, reps: int = 200) -> float:
 
 
 def bound(bytes_moved: float, flops: float, dtype: str):
-    """(bound_ms, bound_by): the larger of the bytes' time at the card's
-    memory rate and the operations' time at its peak for ``dtype``."""
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """(bound_ms, bound_by, bytes_ms, operations_ms, unfused_ms): the larger
+    of the bytes' time at the card's memory rate and the operations' time
+    at its peak for ``dtype``, which of the two it is, both, and the
+    operations' time with each its own instruction (``--fmad=false``)."""
+    t_bytes = 1e3 * bytes_moved / PEAK_BYTES_PER_S
+    t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops,
+            1e3 * flops / ISSUE_RATE[dtype])
 
 
 def dtype_name(dtype) -> str:
@@ -373,6 +407,13 @@ def scan_library_ms(op: str, x, reverse: bool):
 
     fn = library_call(op, x, reverse)
     return None if fn is None else cuda_ms(fn)
+
+
+def library_device_ms(op: str, x, reverse: bool):
+    """The device time of the call ``scan_library_ms`` times (the
+    profiler's, without the call's host time), or None."""
+    fn = library_call(op, x, reverse)
+    return None if fn is None else device_ms(fn)
 
 
 def library_call(op: str, x, reverse: bool):
@@ -570,13 +611,19 @@ def scan_inputs(op: str, n: int, gen, dtype, device):
 
 
 def kernel_entry(name, source, replaces, dtype, err, ms, plain_ms, bound_ms_by, library_ms=None,
-                 dev_ms=None):
+                 dev_ms=None, library_dev_ms=None):
     """One entry of the ``{"kernels": [...]}`` line; ``device_ms`` is the
-    call's device time alone (``device_ms``), where it was taken."""
+    call's device time alone (``device_ms``), where it was taken, and
+    ``library_device_ms`` the library call's; ``bound_bytes_ms`` and
+    ``bound_operations_ms`` the two terms of ``bound_ms``, and
+    ``unfused_operations_ms`` the operations with no multiply-add
+    contracted, as the kernels are built."""
     return {"name": name, "route": "cuda", "source": f"gps_optimize_slam_tpu_torch/csrc/{source}",
             "replaces": f"gps_optimize_slam_tpu/ops/{replaces}", "dtype": dtype,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
-            "bound_by": bound_ms_by[1], "library_ms": library_ms, "device_ms": dev_ms}
+            "bound_by": bound_ms_by[1], "library_ms": library_ms, "device_ms": dev_ms,
+            "library_device_ms": library_dev_ms, "bound_bytes_ms": bound_ms_by[2],
+            "bound_operations_ms": bound_ms_by[3], "unfused_operations_ms": bound_ms_by[4]}
 
 
 # The directions the main paths scan each combine in.
@@ -616,14 +663,15 @@ def phase1_block_scan(device, gen):
         lib_ms = scan_library_ms(op, x, rev)
         dev = device_ms(lambda: scan.scan_block(op, x, rev))
         lib = library_call(op, x, rev)
+        lib_dev = library_device_ms(op, x, rev)
         emit({"phase": 1, "kernel": f"scan_block/{op}", "rel_err": worst, "ms": ms,
               "plain_ms": plain_ms, "library_ms": lib_ms, "device_ms": dev,
               "host_ms": host_ms(lambda: scan.scan_block(op, x, rev)),
-              "library_device_ms": None if lib is None else device_ms(lib),
+              "library_device_ms": lib_dev,
               "library_host_ms": None if lib is None else host_ms(lib),
               "shape": list(x.shape), "dtype": "float32"})
         entries.append(kernel_entry(f"scan_block/{op}", "scan.cu", "pallas_scan.py:227", "float32",
-                                    aerr, ms, plain_ms, scan_bound(op, x), lib_ms, dev))
+                                    aerr, ms, plain_ms, scan_bound(op, x), lib_ms, dev, lib_dev))
     return entries
 
 
@@ -665,6 +713,7 @@ def phase1_tiled_scan(device, gen):
                 "plain_ms": cuda_ms(lambda: scan.scan_plain(op, x, rev), reps=3),
                 "k1_ms": cuda_ms(lambda: scan.scan_block(op, x, rev), reps=3),
                 "library_ms": scan_library_ms(op, x, rev),
+                "library_device_ms": library_device_ms(op, x, rev),
                 "bound": scan_bound(op, x), "max_abs_err": aerr,
             }
         emit({"phase": 1, "kernel": f"scan_tiled/{op}", "rel_err": worst, "n": TILED_N,
@@ -674,7 +723,7 @@ def phase1_tiled_scan(device, gen):
         t = times["float64"]  # the chunked path runs in float64 (phase 5)
         entries.append(kernel_entry(f"scan_tiled/{op}", "scan_tiled.cu", "pallas_scan.py:361", "float64",
                                     t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"],
-                                    t["device_ms"]))
+                                    t["device_ms"], t["library_device_ms"]))
     return entries
 
 
@@ -797,7 +846,8 @@ def phase1_nn(device, gen):
                              "query tiles against 524,288 candidates to K4")
     win = {}
     for name, (traj, cand, mask, got, want, err) in check_grid(GRID_NN_WIN, 1, shuffled=True).items():
-        win[name] = {"rel_err": err, "ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask)),
+        win[name] = {"rel_err": err, **launch_times(traj, cand, mask, got),
+                     "ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask)),
                      "device_ms": device_ms(lambda: kernels.nn_grid(traj, cand, mask)),
                      "k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask)),
                      "k3_device_ms": device_ms(lambda: kernels.nn_resident(traj, cand, mask)),
@@ -808,19 +858,34 @@ def phase1_nn(device, gen):
           "checks": win})
     main = {}
     for name, (traj, cand, mask, got, want, err) in check_grid(GRID_NN_MAIN, PLAIN_STRIDE).items():
-        operands = kernels.nn_grid_operands(traj, cand, mask)
-        n_items = int(operands[3][-1])
-        main[name] = {"rel_err": err, "ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=5),
+        main[name] = {"rel_err": err, **launch_times(traj, cand, mask, got),
+                      "ms": cuda_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=5),
                       "device_ms": device_ms(lambda: kernels.nn_grid(traj, cand, mask), reps=5),
-                      "kernel_ms": cuda_ms(lambda: kernels.grid_launch(traj, operands, n_items), reps=5),
                       "k3_ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask), reps=5),
-                      "blocks": n_items, "kept_tile_pairs": int(operands[1].sum()),
                       "bound": nn_bound(traj, cand, mask)}
-        del operands
     emit({"phase": 1, "kernel": "nn_grid", "shape": list(GRID_NN_MAIN), "plain_queries_every": PLAIN_STRIDE,
           "equal_to_k3": True, "checks": main})
     torch.cuda.empty_cache()
     return entries
+
+
+def launch_times(traj, cand, mask, got) -> dict:
+    """K4's launch alone on one set of operands, as ``nn_grid`` makes it
+    (the grid sized from the card, the blocks drawing the items of the work
+    list whose length they read on the device), held to ``got`` (K3's
+    minima) bit for bit: its CUDA-event ms, the list's items and kept tile
+    pairs."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    operands = kernels.nn_grid_operands(traj, cand, mask)
+    out = kernels.grid_launch(traj, operands)
+    torch.cuda.synchronize()
+    if not torch.equal(out, got):
+        raise AssertionError("K4's launch with the device-read count differs from K3")
+    return {"items": int(operands[3].reshape(-1)[-1]), "kept_tile_pairs": int(operands[1].sum()),
+            "kernel_ms": cuda_ms(lambda: kernels.grid_launch(traj, operands), reps=5)}
 
 
 def plain_keep_lists(traj, cand, mask):
@@ -1143,11 +1208,13 @@ def phase1_batched_scan(device, gen):
         plain_ms = cuda_ms(lambda: scan.scan_plain(op, x, rev), reps=3)
         lib_ms = scan_library_ms(op, x, rev)
         dev = device_ms(lambda: scan.scan_block(op, x, rev))
+        lib_dev = library_device_ms(op, x, rev)
         emit({"phase": 1, "kernel": f"scan_block/{op}@batch", "rel_err": worst, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": lib_ms, "device_ms": dev, "rows_within_tol_of_k1_alone": True,
+              "library_ms": lib_ms, "device_ms": dev, "library_device_ms": lib_dev,
+              "rows_within_tol_of_k1_alone": True,
               "shape": list(x.shape), "dtype": "float32", "ragged_rows": list(KITTI_LENGTHS)})
         entries.append(kernel_entry(f"scan_block/{op}@batch", "scan.cu", "pallas_scan.py:227", "float32", aerr,
-                                    ms, plain_ms, scan_bound(op, x), lib_ms, dev))
+                                    ms, plain_ms, scan_bound(op, x), lib_ms, dev, lib_dev))
     return entries
 
 
@@ -1294,14 +1361,16 @@ def phase1_batched_tiled_scan(device, gen):
         plain_ms = cuda_ms(lambda: scan.scan_plain(op, x, rev), reps=3)
         lib_ms = scan_library_ms(op, x, rev)
         dev = device_ms(lambda: scan.scan_tiled(op, x, rev))
+        lib_dev = library_device_ms(op, x, rev)
         emit({"phase": 1, "kernel": f"scan_tiled/{op}@batch", "rel_err": worst, "rows": list(TILED_BATCH),
               "rows_few_tiles": list(TILED_BATCH_FEW), "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+              "library_device_ms": lib_dev,
               "device_ms": dev, "k1_batch_ms": cuda_ms(lambda: scan.scan_block(op, x, rev)),
               "k1_batch_device_ms": device_ms(lambda: scan.scan_block(op, x, rev)),
               "route": scan.scan_route(x.shape[0], x.shape[-1], x.element_size(), x.shape[1]),
               "shape": list(x.shape), "dtype": "float64"})
         entries.append(kernel_entry(f"scan_tiled/{op}@batch", "scan_tiled.cu", "pallas_scan.py:361", "float64",
-                                    aerr, ms, plain_ms, scan_bound(op, x), lib_ms, dev))
+                                    aerr, ms, plain_ms, scan_bound(op, x), lib_ms, dev, lib_dev))
         del x
         torch.cuda.empty_cache()
     return entries
@@ -1343,16 +1412,14 @@ def phase1_batched_grid(device, gen):
                 traj, cand, mask = ragged_walks(gen, LONG_LOG_LENGTHS, LONG_LOG_LENGTHS, dtype, device)
             k3 = kernels.nn_resident(traj, cand, mask)
             res = {"route": kernels.nn_route(cand.shape[1], traj.shape[1], traj.shape[0])}
-            ops = kernels.nn_grid_operands(traj, cand, mask)
-            items = int(ops[3][-1, -1])
-            got = kernels.grid_launch(traj, ops, items)
+            got = kernels.nn_grid(traj, cand, mask)
             torch.cuda.synchronize()
             if not torch.equal(got, k3):
                 raise AssertionError(f"batched nn grid {case} {name}: differs from K3 in "
                                      f"{int((got != k3).sum())} queries")
             if dtype == torch.float64:
-                res.update(blocks=items, kernel_ms=cuda_ms(lambda: kernels.grid_launch(traj, ops, items), reps=5))
-            del ops, got
+                res.update(launch_times(traj, cand, mask, got))
+            del got
             idx = torch.arange(0, traj.shape[1], PLAIN_STRIDE, device=device)
             want = kernels.nn_min_dist2_plain(traj[:, idx].contiguous(), cand, mask, block=8)
             err = rel_err(k3[:, idx].flatten()[None], want.flatten()[None])
@@ -1808,19 +1875,22 @@ def check_graph_gap(label: str, gap: dict, bound_m: float) -> None:
 def forced_route(module, rule: str, route: str):
     """Within it, ``module.rule`` (``scan.scan_route`` or
     ``kernels.nn_route``) answers ``route`` whatever the shapes: how a run
-    holds the kernel a route does not pick on the same path and data. The
-    block dispatches eagerly (``graphs.eager()``): a captured program keeps
-    the route it was captured with, and K4's launch reads its grid's size
-    on the host, which no capture can."""
+    holds the kernel a route does not pick on the same path and data. A
+    captured program keeps the route it was captured with, and the route is
+    not in its key, so every program is dropped (``graphs.clear()``) on the
+    way in and on the way out: within the block a key's first call runs
+    eagerly on the forced route, its second captures that route and later
+    calls replay it."""
     from gps_optimize_slam_tpu_torch.utils import graphs
 
     saved = getattr(module, rule)
     setattr(module, rule, lambda *args, **kw: route)
+    graphs.clear()
     try:
-        with graphs.eager():
-            yield
+        yield
     finally:
         setattr(module, rule, saved)
+        graphs.clear()
 
 
 def outage_sequence(n: int, seed: int = 0):
@@ -1872,6 +1942,22 @@ def rel_diff(a: float, b: float) -> float:
     return 0.0 if a == b else abs(a - b) / max(abs(b), 1e-300)
 
 
+def chunked_dist(a, b) -> dict:
+    """Two chunked fusions' largest position gap (m), and whether their
+    GNSS masks and ``ok`` flags are equal."""
+    return {"corrected_pos_m": float(np.abs(a.corrected_pos - b.corrected_pos).max()),
+            "masks_equal": bool(np.array_equal(a.gps_valid, b.gps_valid)), "ok_equal": a.ok == b.ok}
+
+
+def eval_dist(a, b) -> dict:
+    """Two evaluations' largest gap over every statistic (m), counts equal."""
+    parts = ("nn_slam", "nn_sim3", "nn_ekf", "ate_sim3", "ate_ekf")
+    gap = max(abs(float(getattr(getattr(a, p), f)) - float(getattr(getattr(b, p), f)))
+              for p in parts for f in ("mean", "median", "rmse", "max"))
+    same = all(int(getattr(a, p).count) == int(getattr(b, p).count) for p in parts)
+    return {"corrected_pos_m": gap, "masks_equal": same, "ok_equal": True}
+
+
 def phase5(device):
     """The chunked path at 1,048,576 poses, float64 on the card.
 
@@ -1883,8 +1969,9 @@ def phase5(device):
     in-core (tests/test_fusion_chunked.py:158-166). (b) ``evaluate_chunked``
     at 524,288 (NN blocks on the route: K3) against the same with the
     blocks forced onto K4 and against 262,144: every statistic ≤1e-12
-    relative (K4 equals K3 bit for bit). (c) every kernel of the
-    path launched in this run. Then ``fuse_files_chunked`` +
+    relative (K4 equals K3 bit for bit), and the forced evaluation's chunk
+    bodies captured and replayed, launching K4, ≤1e-9 m from eager dispatch
+    on the same route. (c) every kernel of the path launched in this run. Then ``fuse_files_chunked`` +
     ``export_result`` on the seq-04 files, against the in-core
     ``fuse_files`` ≤1e-6 m."""
     import torch
@@ -1893,6 +1980,7 @@ def phase5(device):
     from gps_optimize_slam_tpu_torch.config import FusionConfig
     from gps_optimize_slam_tpu_torch.models import fusion, fusion_chunked
     from gps_optimize_slam_tpu_torch.ops import kernels, scan
+    from gps_optimize_slam_tpu_torch.utils import graphs
 
     f64 = torch.float64
     slam, gt, gp = outage_sequence(CHUNKED_N)
@@ -1937,6 +2025,18 @@ def phase5(device):
     launches = launch_counts()
 
     ev_resident = evaluate(res, 262_144)
+    # The evaluation's chunk bodies captured with their NN blocks on K4 and
+    # replayed: the replay launches K4 (its launches are the capture's),
+    # then the replays against eager dispatch on the same route.
+    with forced_route(kernels, "nn_route", "grid"):
+        evaluate(res, CHUNK)
+        evaluate(res, CHUNK)  # captures
+        reset_launch_counts()
+        graphs.reset_stats()
+        evaluate(res, CHUNK)
+        torch.cuda.synchronize()
+        k4_replay = {"nn_grid_launches": launch_counts()["nn_grid"], **graph_stats()}
+        grid_cmp = graph_vs_eager(lambda: evaluate(res, CHUNK), eval_dist, runs=3, eager_runs=2)
     with tempfile.TemporaryDirectory() as tmp:
         slam_path, gps_path = write_seq04_files(tmp)
         reset_launch_counts()
@@ -1948,17 +2048,11 @@ def phase5(device):
         launches04 = launch_counts()
         ref04 = pipeline.fuse_files(slam_path, gps_path, dtype=f64, device=device)
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fuse()
-    torch.cuda.synchronize()
-    fuse_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    evaluate(res, CHUNK)
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
+    # The chunk bodies replayed against eager dispatch.
+    fuse_cmp = graph_vs_eager(fuse, chunked_dist, runs=3, eager_runs=2)
+    eval_cmp = graph_vs_eager(lambda: evaluate(res, CHUNK), eval_dist, runs=3, eager_runs=2)
+    fuse_s, eval_s = fuse_cmp["graph_ms"] / 1e3, eval_cmp["graph_ms"] / 1e3
     stages = chunked_stage_split(st, sp, sq, gt, gp, gv, cfg, device)
-    prof = {"fuse": profile_device(fuse), "evaluate": profile_device(lambda: evaluate(res, CHUNK))}
 
     pos_err = float(np.abs(res.corrected_pos - ref_pos).max())
     quat_err = float(np.abs(res.corrected_quat - ref_quat).max())
@@ -1977,7 +2071,9 @@ def phase5(device):
           "launches": launches,
           "chunked_fuse_warm_s": fuse_s, "poses_per_s": CHUNKED_N / fuse_s,
           "evaluate_warm_s": eval_s, "incore_fuse_first_s": incore_s,
-          "fuse_stage_ms": stages, "profile": prof,
+          "fuse_stage_ms": stages, "fuse_graphs_against_eager": fuse_cmp,
+          "evaluate_graphs_against_eager": eval_cmp,
+          "evaluate_k4_forced_replay": k4_replay, "evaluate_k4_forced_graphs_against_eager": grid_cmp,
           "max_memory_allocated_mb": {"chunked_fuse": fuse_peak / 2**20, "evaluate": eval_peak / 2**20},
           "seq04_files": {"corrected_pos_max_err_m": err04, "exported_rows": int(back.shape[0]),
                           "launches": launches04}})
@@ -1987,6 +2083,11 @@ def phase5(device):
         raise AssertionError(f"chunked off in-core: {pos_err:.3e} m, quat {quat_err:.3e}, scale {scale_rel:.3e}")
     if not eval_rel <= 1e-12:
         raise AssertionError(f"evaluation with K4 forced off the routed one (K3): {eval_rel:.3e}")
+    check_graph_gap("phase 5 chunked fusion", fuse_cmp["graph_vs_eager"], 1e-9)
+    check_graph_gap("phase 5 chunked evaluation", eval_cmp["graph_vs_eager"], 1e-9)
+    check_graph_gap("phase 5 chunked evaluation, K4 forced", grid_cmp["graph_vs_eager"], 1e-9)
+    if not (k4_replay["nn_grid_launches"] > 0 and k4_replay["captures"] == 0 and k4_replay["replays"] > 0):
+        raise AssertionError(f"phase 5: the forced evaluation's replays did not launch K4: {k4_replay}")
     if not err04 <= 1e-6 or back.shape != (271, 8) or not np.isfinite(back).all():
         raise AssertionError(f"seq-04 chunked off in-core ({err04:.3e} m) or malformed export")
     # At 524,288-pose chunks every scan is past K1's longest; every NN block
@@ -2063,6 +2164,39 @@ ROBUST_PASSES = 16  # cap of the gate iteration in phase 6; neighbouring outlier
 OFFSET_SHIFT_S = 1.7  # phase 6 moves the GNSS clock by this much
 
 
+def gate_passes(args, mode: str) -> int:
+    """The passes ``robust.fuse_robust(*args)`` takes to its fixed point
+    under ``mode``: the fewest ``n_iterations`` at which it reports
+    ``gate_converged`` (the JAX package's ``while_loop`` count). The
+    parallel program runs all its passes, masked, so its launches do not
+    count them. The warnings of the capped runs are held back."""
+    import logging
+
+    from gps_optimize_slam_tpu_torch.models import robust
+    from gps_optimize_slam_tpu_torch.utils.logging import get_logger
+
+    logger = get_logger()
+    level = logger.level
+    logger.setLevel(logging.ERROR)
+    try:
+        for k in range(1, ROBUST_PASSES + 1):
+            if robust.fuse_robust(*args, n_iterations=k, gate_mode=mode).gate_converged:
+                return k
+    finally:
+        logger.setLevel(level)
+    return ROBUST_PASSES
+
+
+def robust_dist(a, b) -> dict:
+    """Two ``fuse_robust`` results' largest position gap (m), and whether
+    their accept masks and ``gate_converged`` flags are equal."""
+    import torch
+
+    return {"corrected_pos_m": abs_err(a.positions, b.positions),
+            "masks_equal": bool(torch.equal(a.accepted, b.accepted)) and a.gate_converged == b.gate_converged,
+            "ok_equal": True}
+
+
 def phase6_in_core(device):
     """Robust fusion, ground truth, offsets and adaptive stopping at 4,661
     poses, float64 on the card. Returns the launch counts of its main-path
@@ -2101,11 +2235,19 @@ def phase6_in_core(device):
     seq, n_seq = counted(lambda: run(device, dirty, robust=True, robust_gate_mode="sequential"))
     cpu = run("cpu", dirty, robust=True, robust_gate_mode="parallel")
 
-    # fuse_core's own fusion and the robust one's final fusion take a
-    # quaternion chain each; every other one is a gate pass. A gate that
-    # stops short of its cap stopped because a pass changed nothing: the
-    # fixed point (``gate_converged``).
-    passes = {"parallel": n_par["scan_block/quat_chain"] - 2, "sequential": n_seq["scan_block/quat_chain"] - 2}
+    # A gate that stops short of its cap stopped because a pass changed
+    # nothing: the fixed point (``gate_converged``).
+    o = par.outputs
+    dev_t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64, device=device)  # noqa: E731
+    robust_args = (dev_t(st), dev_t(sp), dev_t(slam["quaternions"]), o.sim3_pos, o.sim3_quat, o.aligned_gps,
+                   o.gps_valid, par.config.ekf, par.config.rts_decision)
+    passes = {mode: gate_passes(robust_args, mode) for mode in ("parallel", "sequential")}
+    # The robust fusion alone, replayed against eager dispatch: the parallel
+    # form one program (every pass, masked, and the final fusion), the
+    # sequential form its host gate and its final fusion's program.
+    robust_cmp = {mode: graph_vs_eager(lambda: robust.fuse_robust(*robust_args, n_iterations=ROBUST_PASSES,
+                                                                  gate_mode=mode), robust_dist)
+                  for mode in ("parallel", "sequential")}
     at_outliers = poses_at_fixes(st, gt, outlier)
     err = {name: float(np.abs(r.corrected_pos - clean.corrected_pos).max())
            for name, r in (("gated", par), ("ungated", ungated))}
@@ -2113,8 +2255,6 @@ def phase6_in_core(device):
     card_cpu = float(np.abs(par.corrected_pos - cpu.corrected_pos).max())
 
     # One gate pass of each form at the fixed point, warm.
-    o = par.outputs
-    dev_t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64, device=device)  # noqa: E731
     acc = torch.as_tensor(par.robust_accepted, device=device)
     avail = o.gps_valid & ~torch.isnan(o.aligned_gps).any(-1)
     gate_args = (dev_t(st), dev_t(sp), dev_t(slam["quaternions"]), o.sim3_pos[0], o.sim3_quat[0],
@@ -2164,7 +2304,7 @@ def phase6_in_core(device):
 
     emit({"phase": 6, "part": "in core", "poses": SEQ02_LEN, "gnss": int(len(gt)), "dtype": "float64",
           "outliers": int(outlier.sum()), "outage_fixes": int((~valid).sum()),
-          "gate_passes": passes, "gate_passes_cap": ROBUST_PASSES,
+          "gate_passes": passes, "gate_passes_cap": ROBUST_PASSES, "robust_graphs_against_eager": robust_cmp,
           "accepted": int(par.robust_accepted.sum()), "rejected": int((~par.robust_accepted & avail.cpu().numpy()).sum()),
           "max_err_to_clean_fusion_m": err, "sequential_vs_parallel_m": seq_par, "card_vs_cpu_m": card_cpu,
           "gate_pass_ms": pass_ms, "gt_chunked_vs_in_core": {"max_rel_err": gt_rel, "aligned_max_err_m": gt_al_err},
@@ -2172,6 +2312,8 @@ def phase6_in_core(device):
           "launches": {"robust_parallel_gt": n_par, "robust_sequential": n_seq, "adaptive_ransac": n_ada}})
     if max(passes.values()) >= ROBUST_PASSES:
         raise AssertionError(f"a gate used all {ROBUST_PASSES} passes: no fixed point shown ({passes})")
+    for mode, cmp in robust_cmp.items():
+        check_graph_gap(f"phase 6 robust {mode}", cmp["graph_vs_eager"], 1e-9)
     if not np.array_equal(seq.robust_accepted, par.robust_accepted) or not seq_par <= 1e-9:
         raise AssertionError(f"sequential and parallel gates differ at the fixed point: {seq_par:.3e} m")
     if par.robust_accepted[at_outliers].any():
@@ -2224,7 +2366,8 @@ def phase6_chunked(device):
             robust_iterations=ROBUST_PASSES, device=device)
 
     res, n_fuse = counted(fuse)
-    fuse_s, _ = timed_s(fuse)
+    fuse_cmp = graph_vs_eager(fuse, chunked_dist, runs=2, eager_runs=1)
+    fuse_s = fuse_cmp["graph_ms"] / 1e3
     # Two chunks: each gate pass and the final fusion take two quaternion chains.
     passes = n_fuse["scan_tiled/quat_chain"] // 2 - 1
     say(f"fuse_core_chunked(robust=True) at {CHUNKED_N} poses, {CHUNK}-pose chunks, float64, warm wall: "
@@ -2262,6 +2405,7 @@ def phase6_chunked(device):
           "gate_converged_in_core": bool(rres.gate_converged),
           "accepted": int(res.robust_accepted.sum()), "rejected": int((~res.robust_accepted & avail).sum()),
           "outliers_survived": survived, "robust_chunked_fuse_warm_s": fuse_s,
+          "robust_chunked_graphs_against_eager": fuse_cmp,
           "chunked_gate_pass_warm_s": pass_s,
           "chunked_vs_incore": {"same_mask": same_mask, "corrected_pos_max_err_m": pos_err,
                                 "corrected_quat_max_err": quat_err, "nis_max_rel_err": nis_rel},
@@ -2275,6 +2419,7 @@ def phase6_chunked(device):
                              f"{quat_err:.3e}, NIS {nis_rel:.3e}")
     if survived:
         raise AssertionError(f"{survived} injected outliers survived the chunked gate")
+    check_graph_gap("phase 6 robust chunked", fuse_cmp["graph_vs_eager"], 1e-9)
     if not (al_same and gt_rel <= 1e-6 and gt_al_err <= 1e-6):
         raise AssertionError(f"ground truth, chunked off in-core: {gt_rel:.3e}, {gt_al_err:.3e} m")
     k1 = {k: v for k, v in n_fuse.items() if k.startswith("scan_block/") and v}
@@ -2586,6 +2731,9 @@ def refine_gaps(gn, info, ref, ref_info) -> dict:
             "loop_ij_equal": info["loop_ij"] == ref_info["loop_ij"]}
 
 
+PROFILED_STEPS = 2  # Gauss-Newton steps of phase 8's traced refines
+
+
 def phase8_refine(device):
     """The pose-graph path at KITTI seq-00's length: ``fuse_arrays`` then
     ``refine_pose_graph`` (10 Gauss-Newton steps of 50 CG iterations,
@@ -2594,12 +2742,20 @@ def phase8_refine(device):
     of the same arrays (positions ≤1e-6 m, quaternions ≤1e-8, cost history
     ≤1e-9 relative, the valid closures equal); a run stopped after 5 of the
     10 steps and resumed from its checkpoint equal to the uninterrupted card
-    run bit for bit; warm walls, the refine's profile, peak memory and the
-    proposal's share of the refine's wall."""
+    run bit for bit. A Gauss-Newton step is one captured program: a step's
+    key (no closures) called first (eager), second (capture, instantiation
+    and a replay) and third (a replay), one step a call, with the pool's
+    growth; the refine without closures replayed against the same under
+    ``graphs.eager()`` (3 steps, ≤1e-9 m); warm walls of the replayed
+    refine with closures (median of 3) and one eager refine with closures
+    as its yardstick (held to the replays as the card is held to the CPU);
+    the idle shares of both from traces of ``PROFILED_STEPS`` steps; peak
+    memory and the proposal's share of the refine's wall."""
     import torch
 
     from gps_optimize_slam_tpu_torch import pipeline
     from gps_optimize_slam_tpu_torch.models import pose_graph
+    from gps_optimize_slam_tpu_torch.utils import graphs
 
     slam, gt, gp = shuttle_sequence()
     gps = shuttle_gps(gt, gp)
@@ -2620,6 +2776,26 @@ def phase8_refine(device):
     gaps = refine_gaps(gn, info, gn_cpu, info_cpu)
     fuse_gap = float((res.outputs.corrected_pos.cpu() - res_cpu.outputs.corrected_pos).abs().max())
 
+    # A step's program: without closures the loop arrays have another
+    # shape, so its key is new here. One step a call: eager, capture, replay.
+    no_loops = {**REFINE, "propose_loops": False}
+    before = graph_stats()
+    step = {}
+    for call in ("eager_first", "capture", "replay"):
+        step[f"{call}_call_ms"] = 1e3 * timed_s(lambda: pipeline.refine_pose_graph(res, **{**no_loops,
+                                                                                           "iterations": 1}))[0]
+    after = graph_stats()
+    step["capture_and_instantiation_ms"] = step["capture_call_ms"] - step["replay_call_ms"]
+    step["pool_growth_mb"] = after["pool_mb"] - before["pool_mb"]
+    step["graphs"] = after
+    short = {**no_loops, "iterations": 3}
+    replayed, _ = pipeline.refine_pose_graph(res, **short)
+    with graphs.eager():
+        eager_short, _ = pipeline.refine_pose_graph(res, **short)
+    no_loops_gap = {"positions_m": abs_err(replayed.state.positions, eager_short.state.positions),
+                    "quaternions": abs_err(replayed.state.quaternions, eager_short.state.quaternions),
+                    "cost_history_rel": rel_err(replayed.cost_history[None], eager_short.cost_history[None])}
+
     walls = {"fuse": [], "refine": []}
     for _ in range(3):
         s, r = timed_s(lambda: pipeline.fuse_arrays(slam, gps, dtype=torch.float64, device=device))
@@ -2632,8 +2808,18 @@ def phase8_refine(device):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    prof = profile_device(lambda: pipeline.refine_pose_graph(res, **REFINE), host_ops=False)
+    pipeline.refine_pose_graph(res, **REFINE)
+    torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
+    with graphs.eager():
+        eager_s, (gn_eager, info_eager) = timed_s(lambda: pipeline.refine_pose_graph(res, **REFINE))
+    eager_gaps = refine_gaps(gn, info, gn_eager, info_eager)
+    # The idle shares from two steps of each (reading the trace of a whole
+    # refine, ~7·10⁵ kernels, takes minutes).
+    profiled = {**REFINE, "iterations": PROFILED_STEPS}
+    prof = profile_device(lambda: pipeline.refine_pose_graph(res, **profiled), host_ops=False)
+    with graphs.eager():
+        eager_prof = profile_device(lambda: pipeline.refine_pose_graph(res, **profiled), host_ops=False)
     refine_ms = float(np.median(walls["refine"]))
     emit({"phase": 8, "part": "refine", "poses": SHUTTLE_N, "gnss": int(len(gt)), "dtype": "float64",
           "loops_proposed": info["n_loops"], "loop_pairs": info["loop_ij"][:8], "cost_history":
@@ -2641,15 +2827,20 @@ def phase8_refine(device):
           "resumed_equal_bit_for_bit": resumed_equal, "launches": launches, "fuse_warm_ms": walls["fuse"],
           "refine_warm_ms": walls["refine"], "fuse_refine_warm_ms_median3": float(np.median(
               [a + b for a, b in zip(walls["fuse"], walls["refine"])])), "refine_warm_ms_median3": refine_ms,
+          "refine_eager_ms": 1e3 * eager_s, "refine_graph_vs_eager": eager_gaps, "profiled_steps": PROFILED_STEPS,
+          "refine_no_loops_graph_vs_eager": no_loops_gap, "gn_step_program": step,
           "cpu_fuse_refine_wall_ms": 1e3 * cpu_s, "propose_ms": propose_ms,
           "propose_share_of_refine": float(np.median(propose_ms)) / refine_ms, "refine_profile": prof,
-          "refine_peak_memory_mb": peak / 2**20})
+          "refine_eager_profile": eager_prof, "refine_peak_memory_mb": peak / 2**20})
     say(f"phase 8: {info['n_loops']} loop closures proposed on the {SHUTTLE_N}-pose shuttle")
     if info["n_loops"] < 1:
         raise AssertionError("phase 8: no loop closure proposed on the shuttle")
-    if not (gaps["positions_m"] <= 1e-6 and gaps["quaternions"] <= 1e-8 and gaps["cost_history_rel"] <= 1e-9
-            and gaps["loop_ij_equal"]):
-        raise AssertionError(f"phase 8: the card's refinement off the CPU's: {gaps}")
+    for label, g in (("the CPU's", gaps), ("eager dispatch's", eager_gaps)):
+        if not (g["positions_m"] <= 1e-6 and g["quaternions"] <= 1e-8 and g["cost_history_rel"] <= 1e-9
+                and g["loop_ij_equal"]):
+            raise AssertionError(f"phase 8: the card's refinement off {label}: {g}")
+    if not no_loops_gap["positions_m"] <= 1e-9:
+        raise AssertionError(f"phase 8: the replayed refine without closures off eager dispatch: {no_loops_gap}")
     if not resumed_equal:
         raise AssertionError("phase 8: the resumed refinement differs from the uninterrupted one")
     if not float(gn.final_cost) < float(gn.cost_history[0]) or not bool(torch.isfinite(gn.state.positions).all()):

@@ -1,5 +1,5 @@
 // K4: per query, the minimum over valid candidates of the squared distance
-// sum_k (a_k - b_k)^2, on a 1-D grid over the kept work only: one block per
+// sum_k (a_k - b_k)^2, over a work list of the kept work only: one item per
 // (query tile, run of at most kRun kept candidate tiles).
 //
 // Replaces the Pallas kernel gps_optimize_slam_tpu/ops/pallas_kernels.py:
@@ -11,11 +11,23 @@
 // (nn_keep.cu) as K3 takes them, order[i, :nkept[i]] ascending, and the
 // wrapper (ops/kernels.py:nn_grid) cuts each query tile's list into runs of
 // kRun tiles: ends[i] is the inclusive prefix sum of ceil(nkept / kRun), so
-// block b finds its query tile by a binary search over ends. No block
-// exists for a dropped pair, and a query tile with many kept tiles is
-// spread over several blocks.
+// item b finds its query tile by a binary search over ends. No item exists
+// for a dropped pair, and a query tile with many kept tiles is spread over
+// several items.
 //
-// Each block (128 queries, one per thread) double-buffers its candidate
+// The list's length, ends[last], is read on the device: each block draws
+// items from a ticket counter (zeroed before the launch) until a ticket
+// passes it, so the blocks share the items as they finish them whatever
+// each item's tile count. The grid is sized without the length, as many
+// blocks as the card holds at once (the SM count times the blocks an SM
+// fits, at most the items a list could have), so the host reads nothing
+// from the keep lists and a CUDA graph can hold the launch. Tickets, not
+// blocks striding the list by the grid's size: the items' tile counts
+// differ, and a stride leaves the blocks unevenly loaded. Against one block
+// an item with the length read on the host, the tickets time 0.98-1.10x
+// (tools/k4_launch_compare.py, H100 80GB HBM3 at 700 W).
+//
+// Each item (128 queries, one per thread) double-buffers its candidate
 // tiles in shared memory with cp.async: K3's operand layout, (m_tiles, 4,
 // 1024) rows x, y, z and a validity row (0 valid, +inf invalid or padded),
 // so validity is folded into the staged tile. While tile k is scanned,
@@ -34,7 +46,7 @@
 // pipelined kernel, which adds a row axis to its grid; each row its own
 // queries, packed candidates, keep lists and output) in one launch over one
 // work list: ends is the inclusive prefix sum of the runs over every row's
-// query tiles, row after row, (B * n_tiles,), and block b finds its (row,
+// query tiles, row after row, (B * n_tiles,), and item b finds its (row,
 // query tile) by the one binary search, so no block is idle and B has no
 // limit of its own. (Grid y as the row, each row its own list and the
 // largest row's count of blocks a row, timed level with it on this card;
@@ -46,12 +58,14 @@
 // candidate) pair for the 3-term function (the kernel spends 10 with the
 // validity term), 128 x 1024 pairs a kept tile pair; the keep lists are
 // nn_keep.cu's cost.
+#include <atomic>
+
 #include "nn_tile.cuh"
 
 namespace {
 
 constexpr int kGridTileN = kNnTileN;  // queries per block, one per thread
-constexpr int kRun = 4;               // kept candidate tiles per block at most
+constexpr int kRun = 4;               // kept candidate tiles per item at most
 
 __device__ __forceinline__ void atomic_min_nonneg(float* addr, float v) {
   atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
@@ -67,91 +81,139 @@ __global__ void __launch_bounds__(kGridTileN)
 nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
                const int* __restrict__ order, const int* __restrict__ nkept,
                const int* __restrict__ ends, int n_tiles, int m_tiles, int batch,
-               T* __restrict__ out) {
+               int* __restrict__ ticket, T* __restrict__ out) {
   constexpr int kTileElems = 4 * kNnTileM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_item;
   T* buf = reinterpret_cast<T*>(smem_raw);  // [2][4][kNnTileM]
-  const int b = blockIdx.x;
-  int lo = 0, hi = batch * n_tiles - 1;  // the first entry j with ends[j] > b
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (ends[mid] > b) hi = mid;
-    else lo = mid + 1;
-  }
-  const int k0 = (b - (lo > 0 ? ends[lo - 1] : 0)) * kRun;
-  const int row = lo / n_tiles, i = lo % n_tiles;  // the row, and the query tile within it
-  traj += (size_t)row * 3 * n, out += (size_t)row * n;
-  cand += (size_t)row * m_tiles * kTileElems;
-  order += (size_t)row * n_tiles * m_tiles, nkept += (size_t)row * n_tiles;
-  const int k1 = min(nkept[i], k0 + kRun);
-  const int* tiles = order + (size_t)i * m_tiles;
-
-  auto stage = [&](int k, int slot) {
-    stage_tile<T, kGridTileN>(buf + slot * kTileElems, cand + (size_t)tiles[k] * kTileElems);
-  };
-
-  const int q = i * kGridTileN + threadIdx.x;
-  T ax[1] = {0}, ay[1] = {0}, az[1] = {0};
-  if (q < n) {
-    ax[0] = traj[3 * (size_t)q];
-    ay[0] = traj[3 * (size_t)q + 1];
-    az[0] = traj[3 * (size_t)q + 2];
-  }
+  const int entries = batch * n_tiles;
+  const int n_items = ends[entries - 1];  // the work list's length, the same for every thread
   const T inf = Limits<T>::inf();
-  T best[1] = {inf};
-  stage(k0, 0);
-  for (int k = k0; k < k1; ++k) {
-    const int slot = (k - k0) & 1;
-    if (k + 1 < k1) {
-      stage(k + 1, slot ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  // The next item: a ticket drawn from the counter. Every item holds at
+  // least one tile, so the tile loop's barriers keep thread 0 from drawing
+  // again before all threads have read s_item.
+  auto draw = [&]() {
+    if (threadIdx.x == 0) s_item = atomicAdd(ticket, 1);
     __syncthreads();
-    tile_min<T, 1>(buf + slot * kTileElems, 0, 1, ax, ay, az, best);
-    __syncthreads();  // the slot is restaged two tiles on
+    return s_item;
+  };
+  for (int b = draw(); b < n_items; b = draw()) {
+    int lo = 0, hi = entries - 1;  // the first entry j with ends[j] > b
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (ends[mid] > b) hi = mid;
+      else lo = mid + 1;
+    }
+    const int k0 = (b - (lo > 0 ? ends[lo - 1] : 0)) * kRun;
+    const int row = lo / n_tiles, i = lo % n_tiles;  // the row, and the query tile within it
+    const T* row_traj = traj + (size_t)row * 3 * n;
+    const T* row_cand = cand + (size_t)row * m_tiles * kTileElems;
+    const int k1 = min(nkept[(size_t)row * n_tiles + i], k0 + kRun);
+    const int* tiles = order + ((size_t)row * n_tiles + i) * m_tiles;
+
+    auto stage = [&](int k, int slot) {
+      stage_tile<T, kGridTileN>(buf + slot * kTileElems, row_cand + (size_t)tiles[k] * kTileElems);
+    };
+
+    const int q = i * kGridTileN + threadIdx.x;
+    T ax[1] = {0}, ay[1] = {0}, az[1] = {0};
+    if (q < n) {
+      ax[0] = row_traj[3 * (size_t)q];
+      ay[0] = row_traj[3 * (size_t)q + 1];
+      az[0] = row_traj[3 * (size_t)q + 2];
+    }
+    T best[1] = {inf};
+    stage(k0, 0);
+    for (int k = k0; k < k1; ++k) {
+      const int slot = (k - k0) & 1;
+      if (k + 1 < k1) {
+        stage(k + 1, slot ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      tile_min<T, 1>(buf + slot * kTileElems, 0, 1, ax, ay, az, best);
+      __syncthreads();  // the slot is restaged two tiles on, or by the next item
+    }
+    if (q < n && best[0] < inf) atomic_min_nonneg(out + (size_t)row * n + q, best[0]);
   }
-  if (q < n && best[0] < inf) atomic_min_nonneg(out + q, best[0]);
+}
+
+constexpr int kMaxDevices = 64;
+
+// Blocks of K4 a card runs at once, by device ordinal (the launch goes to
+// the current device, which the wrapper makes the tensors' own), found once
+// a device and dtype: the first call of a key runs outside any capture.
+// The mesh launches from one host thread a device, so the cache is atomic;
+// threads that find it empty at once compute and store the same count.
+template <typename T>
+cudaError_t resident_blocks(size_t smem, int* blocks) {
+  static std::atomic<int> blocks_of[kMaxDevices];
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int count = blocks_of[device].load(std::memory_order_relaxed);
+  if (count == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nn_grid_kernel<T>, kGridTileN, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    count = sms * per_sm;
+    blocks_of[device].store(count, std::memory_order_relaxed);
+  }
+  *blocks = count;
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch(int batch, const void* traj, int n, const void* cand, const int* order, const int* nkept,
-                   const int* ends, int n_tiles, int m_tiles, int n_items, void* out, cudaStream_t s) {
-  if ((long long)n_tiles * kGridTileN < n || n_tiles < 1 || n_items < 0 || batch < 1 ||
-      (long long)batch * n_tiles > 0x7fffffffLL)
+                   const int* ends, int n_tiles, int m_tiles, int max_items, int* ticket, void* out,
+                   cudaStream_t s) {
+  if ((long long)n_tiles * kGridTileN < n || n_tiles < 1 || max_items < 0 || batch < 1 ||
+      ticket == nullptr || (long long)batch * n_tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  if (n_items == 0) return cudaSuccess;
+  if (max_items == 0) return cudaSuccess;
   const size_t smem = 2 * 4 * kNnTileM * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(nn_grid_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  nn_grid_kernel<T><<<n_items, kGridTileN, smem, s>>>(
+  int blocks = 0;
+  cudaError_t e = resident_blocks<T>(smem, &blocks);
+  if (e == cudaSuccess) e = cudaMemsetAsync(ticket, 0, sizeof(int), s);
+  if (e != cudaSuccess) return e;
+  nn_grid_kernel<T><<<min(max_items, blocks), kGridTileN, smem, s>>>(
       static_cast<const T*>(traj), n, static_cast<const T*>(cand), order, nkept, ends, n_tiles,
-      m_tiles, batch, static_cast<T*>(out));
+      m_tiles, batch, ticket, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Kept candidate tiles per block; the wrapper cuts the keep lists by it.
+// Kept candidate tiles per item; the wrapper cuts the keep lists by it.
 GPS_EXPORT int gps_nn_grid_run() { return kRun; }
 
 // Per row of a batch of `batch` rows, rows contiguous one after another:
 // traj (n, 3); cand (m_tiles, 4, 1024) as K3 takes it; order (n_tiles,
 // m_tiles) kept tiles first, ascending; nkept (n_tiles,); out (n,) filled
 // with +inf by the caller. ends (batch * n_tiles,): the inclusive prefix
-// sum of ceil(nkept / kRun) over all rows' query tiles, n_items its last
-// value. Returns a cudaError_t.
+// sum of ceil(nkept / kRun) over all rows' query tiles, whose last value
+// the kernel reads; max_items is at least that value (the wrapper passes
+// the most the lists could hold), and the grid is the card's resident
+// blocks, at most max_items. ticket: one int of scratch, the items'
+// counter. Returns a cudaError_t.
 GPS_EXPORT int gps_nn_grid(int dtype, int batch, const void* traj, int n, const void* cand, const int* order,
-                           const int* nkept, const int* ends, int n_tiles, int m_tiles, int n_items,
+                           const int* nkept, const int* ends, int n_tiles, int m_tiles, int max_items, int* ticket,
                            void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == GPS_F32)
-    return (int)launch<float>(batch, traj, n, cand, order, nkept, ends, n_tiles, m_tiles, n_items, out, s);
+    return (int)launch<float>(batch, traj, n, cand, order, nkept, ends, n_tiles, m_tiles, max_items, ticket, out, s);
   if (dtype == GPS_F64)
-    return (int)launch<double>(batch, traj, n, cand, order, nkept, ends, n_tiles, m_tiles, n_items, out, s);
+    return (int)launch<double>(batch, traj, n, cand, order, nkept, ends, n_tiles, m_tiles, max_items, ticket, out, s);
   return (int)cudaErrorInvalidValue;
 }

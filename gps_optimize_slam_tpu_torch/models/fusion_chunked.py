@@ -13,6 +13,13 @@ paired-ATE evaluation the same way: on the card each NN block of
 query tiles against 524,288 candidates or more). Use this path when a
 trajectory exceeds device memory; for anything that fits, ``fuse_core`` is
 faster.
+
+On a card each chunk body is a captured program (``utils.graphs``), as the
+JAX package jits its transform, NN-block and ATE-block kernels: the
+transform of a chunk (``se3.transform_trajectory``), the fold of a
+candidate block into the running NN minimum (:func:`_nn_block`) and the
+paired errors of a chunk (``metrics.paired_errors``). Blocks padded to one
+shape replay; a ragged last chunk is a key of its own and runs eagerly.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from gps_optimize_slam_tpu_torch.models.fusion import Evaluation
 from gps_optimize_slam_tpu_torch.ops import alignment_chunked, kalman_chunked, metrics, se3
 from gps_optimize_slam_tpu_torch.ops.alignment import AlignedGPS
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
-from gps_optimize_slam_tpu_torch.utils import streaming
+from gps_optimize_slam_tpu_torch.utils import graphs, streaming
 from gps_optimize_slam_tpu_torch.utils.device import numpy_dtype, resolve_device
 
 
@@ -83,7 +90,7 @@ def transform_trajectory_chunked(
     streaming.stream_chunks(
         ((a, min(a + chunk_size, n)) for a in range(0, n, chunk_size)),
         _stage,
-        lambda ab, staged: se3.transform_trajectory(*staged, R, t, s),
+        lambda ab, staged: graphs.run(se3.transform_trajectory, *staged, R, t, s),
         _drain,
     )
     return out_pos, out_quat
@@ -98,6 +105,12 @@ def _pad_rows(arr: np.ndarray, size: int) -> np.ndarray:
 
 def _round_up8(x: int) -> int:
     return max(8, ((x + 7) // 8) * 8)
+
+
+def _nn_block(running, traj, candidates, traj_mask, cand_mask):
+    """``running`` folded with one candidate block's NN distances
+    (``metrics.nn_errors_auto``: K3 or K4 on a card)."""
+    return torch.minimum(running, metrics.nn_errors_auto(traj, candidates, traj_mask, cand_mask))
 
 
 def nn_errors_streamed(
@@ -149,8 +162,7 @@ def nn_errors_streamed(
         def _claunch(cd, staged):
             nonlocal running
             if staged is not None:
-                e = metrics.nn_errors_auto(tdev, staged[0], tmdev, staged[1])
-                running = torch.minimum(running, e)
+                running = graphs.run(_nn_block, running, tdev, staged[0], tmdev, staged[1])
 
         # Candidate block c+1's host pad + transfer overlaps block c's kernel.
         streaming.stream_chunks(
@@ -255,7 +267,7 @@ def _evaluate_streamed(
         return slam_pos[a:b]
 
     def sim3_chunk(a, b):
-        p, _ = se3.transform_trajectory(dev(slam_pos[a:b]), dev(slam_quat[a:b]), R, t, s)
+        p, _ = graphs.run(se3.transform_trajectory, dev(slam_pos[a:b]), dev(slam_quat[a:b]), R, t, s)
         return p.cpu().numpy()
 
     def ekf_chunk(a, b):
@@ -280,7 +292,7 @@ def _evaluate_streamed(
         streaming.stream_chunks(
             ((a, min(a + chunk_size, n)) for a in range(0, n, chunk_size)),
             _stage,
-            lambda ab, staged: metrics.paired_errors(*staged),
+            lambda ab, staged: graphs.run(metrics.paired_errors, *staged),
             _drain,
         )
         return _stats_host(e, gate)

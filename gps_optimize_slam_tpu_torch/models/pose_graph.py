@@ -23,7 +23,12 @@ orientation residuals go through the log map.
 Everything has a fixed shape (loop closures are a padded (max_loops, 2)
 index array with a validity mask), and the solve makes no host sync: the
 cost safeguard and the conjugate-gradient stopping rule are selections on
-the device.
+the device. On a card one Gauss-Newton step (the linearisation, both
+pullbacks, the CG iterations, the retraction and the safeguard) is one
+captured program (``utils.graphs``) a shape and static setting, as the JAX
+package jits its whole solve: a step is a pure function of its tensors, so
+every step of a solve and of each checkpoint round replays it. The
+proposal of loop closures is a program of its own.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from torch.func import vjp
 from gps_optimize_slam_tpu_torch.ops import quaternion as quat
 from gps_optimize_slam_tpu_torch.ops import se3
 from gps_optimize_slam_tpu_torch.utils import checkpoint as ckpt
+from gps_optimize_slam_tpu_torch.utils import graphs
 from gps_optimize_slam_tpu_torch.utils.device import resolve_device
 
 
@@ -201,7 +207,12 @@ def _normal_equations(state: PoseGraphState, data: PoseGraphData, damping: float
 
 def _gn_step(state: PoseGraphState, data: PoseGraphData, cg_iters: int, damping: float, c_old: torch.Tensor):
     """One Gauss-Newton step: solve (JᵀJ + λI)δ = −Jᵀr by CG, retract, and
-    keep the step only if the cost falls. Returns (state, its cost)."""
+    keep the step only if the cost falls. Returns (state, its cost).
+
+    The program :func:`solve_pose_graph` replays on a card. It is the
+    smallest one: the pullbacks hold tensors the step's own linearisation
+    saved, so a graph of one CG iteration would read a finished step's
+    addresses."""
     grad, hvp = _normal_equations(state, data, damping)
     delta = _cg(hvp, -grad, maxiter=cg_iters, tol=1e-10)
     new_state = _retract(state, delta)
@@ -223,12 +234,13 @@ def solve_pose_graph(
 
     Each iteration linearises the residual around the current state in the
     tangent space (δ ∈ R^{N×6}), solves (JᵀJ + λI)δ = −Jᵀr by conjugate
-    gradients on Hessian-vector products, and retracts."""
+    gradients on Hessian-vector products, and retracts: one
+    :func:`_gn_step`, a captured program on a card (``utils.graphs``)."""
     state = init
     cost = _cost(init, data)
     costs = [cost]
     for _ in range(iterations):
-        state, cost = _gn_step(state, data, cg_iters, damping, cost)
+        state, cost = graphs.run(_gn_step, state, data, cg_iters, damping, cost)
         costs.append(cost)
     history = torch.stack(costs)
     return GNResult(
@@ -307,12 +319,18 @@ def propose_loop_closures(
     ``jax.lax.top_k`` does and ``torch.topk`` does not, so the top k come
     from a stable descending sort. The (N, N) distance matrix and its
     (N, N, 3) differences are held in device memory (495 MB at 4,541 poses
-    in float64)."""
+    in float64). One captured program on a card (``utils.graphs``)."""
     n = positions.shape[0]
     if max_loops > n:
         raise ValueError(f"max_loops ({max_loops}) exceeds the number of poses ({n})")
-    dtype = positions.dtype
-    inf = torch.tensor(float("inf"), dtype=dtype, device=positions.device)
+    return graphs.run(_propose_loop_closures, positions, times, quaternions, radius, min_time_gap, max_loops,
+                      suppression_radius)
+
+
+def _propose_loop_closures(positions, times, quaternions, radius, min_time_gap, max_loops, suppression_radius):
+    """The program of :func:`propose_loop_closures`."""
+    n = positions.shape[0]
+    inf = torch.full((), float("inf"), dtype=positions.dtype, device=positions.device)
     d2 = torch.sum((positions[:, None, :] - positions[None, :, :]) ** 2, dim=-1)
     earlier = (times[None, :] - times[:, None]) > min_time_gap  # [i, j]
     d2m = torch.where(earlier, d2, inf)

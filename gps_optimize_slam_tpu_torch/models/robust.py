@@ -24,6 +24,11 @@ that fixed point:
 
 ``fuse_robust_chunked`` streams the parallel form over host-resident
 trajectories of any length with O(chunk) device residency.
+
+On a card, as the JAX package jits ``_fuse_robust`` and its chunk gate, the
+parallel form's passes and final fusion are one captured program
+(``utils.graphs``), the sequential form's final fusion is one, and the
+chunked gate's chunk is one.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from gps_optimize_slam_tpu_torch.ops.kalman_parallel import (
     parallel_quat_chain,
     prior_element,
 )
-from gps_optimize_slam_tpu_torch.utils import streaming
+from gps_optimize_slam_tpu_torch.utils import graphs, streaming
 from gps_optimize_slam_tpu_torch.utils.device import numpy_dtype, resolve_device
 from gps_optimize_slam_tpu_torch.utils.logging import get_logger
 
@@ -214,32 +219,31 @@ def fuse_robust(
     measurements whose acceptance flips within one pass.
 
     The gate iterates until a pass leaves the accept mask unchanged, at most
-    ``n_iterations`` passes, with one host read of "any change" a pass. When
-    the cap cuts the iteration short the result carries
-    ``gate_converged=False`` and a warning is logged: heavily contaminated
-    data, where consecutive outlier clusters mask each other, can need more
-    than the default two passes. ``n_iterations=0`` gates nothing and counts
-    as not converged.
+    ``n_iterations`` passes. The parallel gate and the final fusion are one
+    captured program on a card (``_fuse_robust_parallel``), the JAX
+    package's ``while_loop`` with no host read: a capture runs all
+    ``n_iterations`` passes, a pass after the mask stopped changing keeping
+    the mask and NIS it found (a selection on the device's "changed" flag).
+    Run eagerly (on the CPU, a key's first call, ``graphs.eager()``) it
+    stops at the first pass that changes nothing, with one host read a
+    pass; both give the same result. The sequential gate is a host
+    recurrence and stops there too; its final fusion is a program of its
+    own. When the cap cuts the iteration short the result carries
+    ``gate_converged=False`` and a warning is logged (one host read of the
+    flag after the fusion): heavily contaminated data, where consecutive
+    outlier clusters mask each other, can need more than the default two
+    passes. ``n_iterations=0`` gates nothing and counts as not converged.
     """
     if gate_mode not in ("sequential", "parallel"):
         raise ValueError(f"unknown gate_mode {gate_mode!r} (sequential|parallel)")
-    dtype, device = slam_pos.dtype, slam_pos.device
-    params = ekf_params(ekf_cfg, dtype=dtype, device=device)
-    avail = valid_mask & ~torch.any(torch.isnan(aligned_gps), dim=-1)
-    gate_fn = _gated_availability if gate_mode == "sequential" else _parallel_nis
-
-    accepted = avail
-    nis = torch.zeros(avail.shape, dtype=dtype, device=device)
-    changed = True
-    for _ in range(n_iterations):
-        new_accepted, nis = gate_fn(
-            slam_times, slam_pos, slam_quat, sim3_pos[0], sim3_quat[0],
-            aligned_gps, avail, accepted, params, gate_chi2,
-        )
-        changed = bool(torch.any(new_accepted != accepted))
-        accepted = new_accepted
-        if not changed:
-            break
+    args = (slam_times, slam_pos, slam_quat, sim3_pos, sim3_quat, aligned_gps)
+    if gate_mode == "parallel":
+        pos, q, accepted, nis, changed = graphs.run(
+            _fuse_robust_parallel, *args, valid_mask, ekf_cfg, rts_cfg, gate_chi2, n_iterations, scan)
+        changed = bool(changed)
+    else:
+        accepted, nis, changed = _sequential_gate(*args, valid_mask, ekf_cfg, gate_chi2, n_iterations)
+        pos, q = graphs.run(_final_fusion, *args, accepted, ekf_cfg, rts_cfg, scan)
     if changed:
         get_logger().warning(
             "robust gate accept mask did not reach a fixed point within "
@@ -247,15 +251,75 @@ def fuse_robust(
             "carries gate_converged=False).",
             n_iterations,
         )
+    return RobustFusionResult(
+        positions=pos, quaternions=q, accepted=accepted, nis=nis, gate_converged=not changed
+    )
 
-    config = resolve_platform(FusionConfig(ekf_scan=scan, rts_decision=rts_cfg), device)
-    pos, q = ekf_fuse_fn(config)(
+
+def _sequential_gate(slam_times, slam_pos, slam_quat, sim3_pos, sim3_quat, aligned_gps, valid_mask,
+                     ekf_cfg: EKFConfig, gate_chi2: float, n_iterations: int):
+    """The sequential gate's fixed-point iteration: (accepted, nis, whether
+    the last pass changed the mask), one host read a pass."""
+    dtype, device = slam_pos.dtype, slam_pos.device
+    params = ekf_params(ekf_cfg, dtype=dtype, device=device)
+    avail = valid_mask & ~torch.any(torch.isnan(aligned_gps), dim=-1)
+    accepted = avail
+    nis = torch.zeros(avail.shape, dtype=dtype, device=device)
+    changed = True
+    for _ in range(n_iterations):
+        new_accepted, nis = _gated_availability(
+            slam_times, slam_pos, slam_quat, sim3_pos[0], sim3_quat[0],
+            aligned_gps, avail, accepted, params, gate_chi2,
+        )
+        changed = bool(torch.any(new_accepted != accepted))
+        accepted = new_accepted
+        if not changed:
+            break
+    return accepted, nis, changed
+
+
+def _fuse_robust_parallel(slam_times, slam_pos, slam_quat, sim3_pos, sim3_quat, aligned_gps, valid_mask,
+                          ekf_cfg: EKFConfig, rts_cfg: RTSDecisionConfig, gate_chi2: float, n_iterations: int,
+                          scan: str):
+    """The program of ``fuse_robust(gate_mode="parallel")``: the JAX
+    package's ``_fuse_robust`` with its ``while_loop`` run as
+    ``n_iterations`` passes masked by the device's "changed" flag (a pass
+    once the mask stopped changing keeps the mask and NIS it found: the
+    loop's exit), then the final fusion. Outside a capture the loop also
+    stops at that exit (``graphs.capturing()``, as RANSAC's adaptive stop
+    does), reading the flag on the host. Returns (positions, quaternions,
+    accepted, nis, changed), ``changed`` a device bool."""
+    dtype, device = slam_pos.dtype, slam_pos.device
+    params = ekf_params(ekf_cfg, dtype=dtype, device=device)
+    avail = valid_mask & ~torch.any(torch.isnan(aligned_gps), dim=-1)
+    accepted = avail
+    nis = torch.zeros(avail.shape, dtype=dtype, device=device)
+    changed = torch.ones((), dtype=torch.bool, device=device)
+    for _ in range(n_iterations):
+        new_accepted, new_nis = _parallel_nis(
+            slam_times, slam_pos, slam_quat, sim3_pos[0], sim3_quat[0],
+            aligned_gps, avail, accepted, params, gate_chi2,
+        )
+        moved = torch.any(new_accepted != accepted)
+        accepted = torch.where(changed, new_accepted, accepted)
+        nis = torch.where(changed, new_nis, nis)
+        changed = changed & moved
+        if not graphs.capturing() and not bool(changed):
+            break
+    pos, q = _final_fusion(slam_times, slam_pos, slam_quat, sim3_pos, sim3_quat, aligned_gps, accepted,
+                           ekf_cfg, rts_cfg, scan)
+    return pos, q, accepted, nis, changed
+
+
+def _final_fusion(slam_times, slam_pos, slam_quat, sim3_pos, sim3_quat, aligned_gps, accepted,
+                  ekf_cfg: EKFConfig, rts_cfg: RTSDecisionConfig, scan: str):
+    """The EKF + RTS fusion with the gated measurements (the function of
+    ``models.fusion.ekf_fuse_fn`` for ``scan`` on the tensors' device)."""
+    config = resolve_platform(FusionConfig(ekf_scan=scan, rts_decision=rts_cfg), slam_pos.device)
+    return ekf_fuse_fn(config)(
         slam_times, slam_pos, slam_quat, sim3_pos, sim3_quat,
         torch.where(accepted[:, None], aligned_gps, float("nan")),
         accepted, ekf_cfg, rts_cfg,
-    )
-    return RobustFusionResult(
-        positions=pos, quaternions=q, accepted=accepted, nis=nis, gate_converged=not changed
     )
 
 
@@ -275,12 +339,14 @@ def _gate_chunk(times, pos, quats, z, av_e, av_u, gate, q_carry, elem_carry, Q_p
     """One chunk of a gate pass (L + 1 poses, L candidate steps): (accept
     (L,), nis (L,), new q_carry, new elem_carry). Row 0 of the forward
     chunk is the carried filtered state at the chunk's first pose, so rows
-    0..L-1 are the one-step-back states of steps 0..L-1."""
+    0..L-1 are the one-step-back states of steps 0..L-1. The chunked
+    gate's program (``kalman_chunked.run_chunk``)."""
     qf, m_f, P_f6, d, Qd_diag, elem_carry = kalman_chunked.forward_chunk(
         times, pos, quats, z, av_u, q_carry, elem_carry, Q_pos_diag, R_diag, scan_fn
     )
     accept, nis = _one_step_nis(
-        m_f[:-1], P_f6[:-1][:, [0, 3, 5]], d, Qd_diag, R_diag, torch.nan_to_num(z, nan=0.0), av_e, gate
+        m_f[:-1], torch.stack([P_f6[:-1, 0], P_f6[:-1, 3], P_f6[:-1, 5]], dim=-1), d, Qd_diag, R_diag,
+        torch.nan_to_num(z, nan=0.0), av_e, gate
     )
     return accept, nis, qf[-1], elem_carry
 
@@ -335,8 +401,8 @@ def gated_availability_chunked(
 
     def _launch(ab, staged):
         nonlocal q_carry, elem_carry
-        acc, nis, q_carry, elem_carry = _gate_chunk(
-            *staged, gate_chi2, q_carry, elem_carry, Q_pos_diag, R_diag, scan_fn
+        acc, nis, q_carry, elem_carry = kalman_chunked.run_chunk(
+            _gate_chunk, *staged, gate_chi2, q_carry, elem_carry, Q_pos_diag, R_diag, scan_fn=scan_fn
         )
         return acc, nis
 

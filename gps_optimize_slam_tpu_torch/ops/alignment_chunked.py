@@ -23,6 +23,13 @@ EKFGPSSLAM.py:977-998) is found by a host scan of the aligned validity;
 RANSAC trials run in-core (``ransac.sim3_ransac``, K5) on at most a uniform
 subsample, and the final refit streams Umeyama sufficient statistics over
 ALL inliers (``umeyama.umeyama_sim3_from_moments``).
+
+On a card each chunk body is a captured program (``utils.graphs``), as the
+JAX package jits one program a chunk body: the alignment of a chunk
+(:func:`_align_chunk`; every chunk is padded to one chunk and window shape),
+the refit's two moment passes (:func:`_moments_pass1`,
+:func:`_moments_pass2`) and its finish (:func:`_refit`). Each takes every
+tensor it reads as an argument and returns its accumulators.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch
 from gps_optimize_slam_tpu_torch.config import Sim3RansacConfig, TimeAlignConfig
 from gps_optimize_slam_tpu_torch.ops import alignment, ransac
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3, umeyama_sim3_from_moments
-from gps_optimize_slam_tpu_torch.utils import streaming
+from gps_optimize_slam_tpu_torch.utils import graphs, streaming
 from gps_optimize_slam_tpu_torch.utils.device import numpy_dtype, resolve_device
 
 
@@ -129,6 +136,15 @@ def _round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
 
 
+def _align_chunk(slam_times, window_times, window_positions, window_ok, cfg: TimeAlignConfig):
+    """A chunk of SLAM timestamps aligned against its GNSS window:
+    ``alignment.align_gps_to_slam`` with the tridiagonal spline on sorted
+    knots. Returns (aligned, valid)."""
+    out = alignment.align_gps_to_slam(slam_times, window_times, window_positions, gps_valid=window_ok, cfg=cfg,
+                                      spline_solver="tridiagonal", assume_sorted=True)
+    return out.aligned, out.valid
+
+
 def align_gps_to_slam_chunked(
     slam_times,
     gps_times,
@@ -197,11 +213,7 @@ def align_gps_to_slam_chunked(
         return tuple(torch.as_tensor(x, device=device) for x in (st, wt, wp, wo))
 
     def _launch(item, staged):
-        st, wt, wp, wo = staged
-        out = alignment.align_gps_to_slam(
-            st, wt, wp, gps_valid=wo, cfg=cfg, spline_solver="tridiagonal", assume_sorted=True
-        )
-        return out.aligned, out.valid
+        return graphs.run(_align_chunk, *staged, cfg)
 
     def _drain(item, out):
         a, b = item[0], item[1]
@@ -244,6 +256,36 @@ def sim3_window_mask_host(
     if int(timed.sum()) < min_samples:
         return in_first_run
     return timed
+
+
+def _moments_pass1(src, dst, R, t, s, thr2: float, acc_w, acc_s, acc_d):
+    """The first moment pass over a chunk: the winning model's inliers
+    ``w`` in the working dtype, and the float64 running count and sums of
+    their source and target points. Returns (w, acc_w, acc_s, acc_d)."""
+    w = torch.sum((s * (src @ R.T) + t - dst) ** 2, dim=-1) < thr2
+    wf = w.to(torch.float64)
+    return w, acc_w + torch.sum(wf), acc_s + wf @ src.to(torch.float64), acc_d + wf @ dst.to(torch.float64)
+
+
+def _centroids(wsum, ssum, dsum):
+    return ssum / torch.clamp(wsum, min=1.0), dsum / torch.clamp(wsum, min=1.0)
+
+
+def _moments_pass2(src, dst, w, wsum, ssum, dsum, acc_H, acc_v):
+    """The second moment pass over a chunk (float64): the running centred
+    cross-covariance and variance of the inliers ``w``, centred at the
+    first pass's centroids. Returns (acc_H, acc_v)."""
+    mu_s, mu_d = _centroids(wsum, ssum, dsum)
+    sc = src - mu_s
+    dc = dst - mu_d
+    return acc_H + (w[:, None] * sc).T @ dc, acc_v + torch.sum(w * torch.sum(sc**2, dim=-1))
+
+
+def _refit(wsum, ssum, dsum, H, var) -> Sim3:
+    """The Sim(3) from the streamed moments (``umeyama_sim3_from_moments``)."""
+    mu_s, mu_d = _centroids(wsum, ssum, dsum)
+    H_cols = tuple(tuple(H[i, j] for i in range(3)) for j in range(3))
+    return umeyama_sim3_from_moments(wsum, mu_s, mu_d, H_cols, var)
 
 
 class StreamingSim3Result(NamedTuple):
@@ -306,53 +348,39 @@ def sim3_ransac_streaming(
     thr2 = float(cfg.residual_threshold) ** 2
     f64 = torch.float64
     chunks = []
-    acc = {"w": torch.zeros((), dtype=f64, device=device),
-           "s": torch.zeros(3, dtype=f64, device=device),
-           "d": torch.zeros(3, dtype=f64, device=device)}
+    acc = [torch.zeros((), dtype=f64, device=device), torch.zeros(3, dtype=f64, device=device),
+           torch.zeros(3, dtype=f64, device=device)]
 
     def _stage(ci):
         return dev(src_np[ci]), dev(dst_np[ci])
 
     def _pass1(ci, staged):
-        sc, dc = staged
-        w = torch.sum((s * (sc @ R.T) + t - dc) ** 2, dim=-1) < thr2
-        wf = w.to(f64)
-        acc["w"] = acc["w"] + torch.sum(wf)
-        acc["s"] = acc["s"] + wf @ sc.to(f64)
-        acc["d"] = acc["d"] + wf @ dc.to(f64)
+        w, *sums = graphs.run(_moments_pass1, *staged, R, t, s, thr2, *acc)
+        acc[:] = sums
         return w
 
     streaming.stream_chunks(
         (idx[a : a + chunk_size] for a in range(0, n_win, chunk_size)),
         _stage, _pass1, lambda ci, w: chunks.append((ci, w.cpu().numpy())),
     )
-    wsum = acc["w"]
-    mu_s = acc["s"] / torch.clamp(wsum, min=1.0)
-    mu_d = acc["d"] / torch.clamp(wsum, min=1.0)
+    wsum = acc[0]
     n_inl = int(wsum)
     if n_inl < cfg.min_inliers_needed:
         return StreamingSim3Result(
             sim3=Sim3(R=R, t=t, scale=s, ok=torch.tensor(False, device=device)),
             num_inliers=n_inl, num_window=n_win, subsampled=True,
         )
-    acc2 = {"H": torch.zeros((3, 3), dtype=f64, device=device),
-            "v": torch.zeros((), dtype=f64, device=device)}
+    acc2 = [torch.zeros((3, 3), dtype=f64, device=device), torch.zeros((), dtype=f64, device=device)]
 
     def _stage2(cw):
         ci, w = cw
         return dev(src_np[ci], f64), dev(dst_np[ci], f64), dev(w, f64)
 
     def _pass2(cw, staged):
-        sc, dc, wf = staged
-        sc = sc - mu_s
-        dc = dc - mu_d
-        acc2["H"] = acc2["H"] + (wf[:, None] * sc).T @ dc
-        acc2["v"] = acc2["v"] + torch.sum(wf * torch.sum(sc**2, dim=-1))
+        acc2[:] = graphs.run(_moments_pass2, *staged, *acc, *acc2)
 
     streaming.stream_chunks(chunks, _stage2, _pass2, None)
-    H = acc2["H"]
-    H_cols = tuple(tuple(H[i, j] for i in range(3)) for j in range(3))
-    refit = umeyama_sim3_from_moments(wsum, mu_s, mu_d, H_cols, acc2["v"])
+    refit = graphs.run(_refit, *acc, *acc2)
     ok = bool(refit.ok) and n_inl >= cfg.min_inliers_needed
     return StreamingSim3Result(
         sim3=Sim3(R=refit.R.to(dtype), t=refit.t.to(dtype), scale=refit.scale.to(dtype),

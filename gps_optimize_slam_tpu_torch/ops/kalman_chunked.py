@@ -29,6 +29,12 @@ A ``scan_fn`` (``parallel.seqpar.sequence_parallel_scan(mesh)``) splits
 each chunk's scans over the devices of a mesh: host chunks meet device
 blocks. Each scan runs over chunk_size + 1 elements (the carry first), so
 ``chunk_size = k·D − 1`` lines the blocks up on a D-device mesh.
+
+On a card each chunk body (``forward_chunk``, ``_backward_chunk``) is a
+captured program (``utils.graphs``, :func:`run_chunk`), as the JAX package
+jits one program a chunk body: every chunk is padded to the chunk shape, so
+the second chunk of a run captures and the others replay. The carries go
+in and come out as tensors; the host staging and the read-back stay.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ from gps_optimize_slam_tpu_torch.ops.kalman_parallel import (
     prior_element,
 )
 from gps_optimize_slam_tpu_torch.ops.scan import _minv, _mmul, _mvec, associative_scan, sym_expand
-from gps_optimize_slam_tpu_torch.utils import streaming
+from gps_optimize_slam_tpu_torch.utils import graphs, streaming
 from gps_optimize_slam_tpu_torch.utils.device import numpy_dtype, resolve_device
 
 
@@ -112,6 +118,16 @@ def controls_numpy(
         rts_end = np.zeros(n, bool)
         rts_end[n - 1] = True
     return avail, rts_member, rts_end
+
+
+def run_chunk(fn, *args, scan_fn: Optional[ScanFn] = None):
+    """``fn(*args, scan_fn)``, a chunk body: a captured program on a card
+    (``utils.graphs.run``) when its scans are the device's own (``scan_fn``
+    None). A ``scan_fn`` that splits the scans over a mesh runs its blocks'
+    own programs, and the body around them runs as it is called."""
+    if scan_fn is None:
+        return graphs.run(fn, *args, None)
+    return fn(*args, scan_fn)
 
 
 def forward_chunk(times, pos, quats, z, avail, q_carry, elem_carry, Q_pos_diag, R_diag,
@@ -255,7 +271,8 @@ def fuse_ekf_rts_chunked(
 
     def _fwd_launch(ab, staged):
         nonlocal q_carry, elem_carry
-        qf, m_f, P_f6, d, Qd, elem_carry = forward_chunk(*staged, q_carry, elem_carry, Q_pos_diag, R_diag, scan_fn)
+        qf, m_f, P_f6, d, Qd, elem_carry = run_chunk(forward_chunk, *staged, q_carry, elem_carry, Q_pos_diag,
+                                                     R_diag, scan_fn=scan_fn)
         q_carry = qf[-1]
         return qf[1:], m_f[1:], P_f6[1:], d, Qd
 
@@ -301,7 +318,7 @@ def fuse_ekf_rts_chunked(
 
     def _bwd_launch(ab, staged):
         nonlocal carry_M, carry_c
-        m_s, carry_M, carry_c = _backward_chunk(*staged, carry_M, carry_c, scan_fn)
+        m_s, carry_M, carry_c = run_chunk(_backward_chunk, *staged, carry_M, carry_c, scan_fn=scan_fn)
         return m_s
 
     def _bwd_drain(ab, m_s):

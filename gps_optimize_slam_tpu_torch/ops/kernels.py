@@ -20,9 +20,10 @@ and the array code around them:
   block of several query tiles shares the candidate boxes it reads), and
   both scan a staged tile with one function (``csrc/nn_tile.cuh``), so they
   agree bit for bit. In K3 the blocks of a query tile (16 or 32 queries
-  each) share its list and each walks all of it; K4 launches one block per
-  run of ``RUN_TILES`` kept tiles, so a long list is spread over many
-  blocks and no block exists for a dropped pair.
+  each) share its list and each walks all of it; K4's blocks draw items
+  of a work list of runs of ``RUN_TILES`` kept tiles, so a long list is
+  spread over many blocks and no work exists for a dropped pair. Neither
+  reads a device value on the host, so a CUDA graph holds either launch.
 * :func:`ransac_counts`: per Sim(3) trial, the number of valid points within
   the residual threshold (``ransac_counts``), launched from
   ``csrc/ransac_counts.cu`` in the exact elementwise form: blocks of 256
@@ -45,6 +46,8 @@ coordinates (~5.4e6 m), where a float32 distance would be off by ~0.5 m.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -255,10 +258,10 @@ def nn_grid_operands(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: to
     """K4's operands besides ``traj``: ``order``, ``nkept`` and ``cand4`` of
     :func:`keep_lists`, and ``ends`` int32, shaped as ``nkept``, the
     inclusive prefix sum of each query tile's runs of at most ``RUN_TILES``
-    kept tiles (K4's work list: block b takes query tile i with ends[i-1]
+    kept tiles (K4's work list: item b takes query tile i with ends[i-1]
     <= b < ends[i]); with a leading batch axis the sum runs over every
-    row's query tiles, one row after another. Its last entry is the grid's
-    size, the one value the host reads."""
+    row's query tiles, one row after another. Its last entry, the list's
+    length, is read by the kernel on the device."""
     order, nkept, cand4 = keep_lists(traj, candidates, cand_mask)
     runs = torch.div(nkept + RUN_TILES - 1, RUN_TILES, rounding_mode="floor")
     ends = torch.cumsum(runs.reshape(-1), 0, dtype=torch.int32).reshape(runs.shape)
@@ -329,36 +332,45 @@ def nn_resident(
 def nn_grid(
     traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor
 ) -> torch.Tensor:
-    """K4 (``csrc/nn_grid.cu``): one block per run of kept candidate tiles
-    of a query tile, minima folded with atomics, at any M; a batch of rows
-    (B, N, 3) in one launch over every row's runs. Equals K3 bit for bit on
-    the same inputs. CPU tensors take :func:`nn_min_dist2_plain`."""
+    """K4 (``csrc/nn_grid.cu``): blocks drawing the items of a work list
+    of runs of kept candidate tiles of each query tile, minima folded with
+    atomics, at any M; a batch of rows (B, N, 3) in one launch over every
+    row's runs.
+    The kernel reads the list's length on the device, so the call reads
+    nothing back and a CUDA graph can hold it. Equals K3 bit for bit on the
+    same inputs. CPU tensors take :func:`nn_min_dist2_plain`."""
     if traj.device.type == "cpu":
         return nn_min_dist2_plain(traj, candidates, cand_mask)
     _check_nn(traj, candidates, cand_mask)
     if traj.numel() == 0:
         return torch.empty(traj.shape[:-1], dtype=traj.dtype, device=traj.device)
-    operands = nn_grid_operands(traj, candidates, cand_mask)
-    return grid_launch(traj, operands, int(operands[3].reshape(-1)[-1]))
+    return grid_launch(traj, nn_grid_operands(traj, candidates, cand_mask))
 
 
-def grid_launch(traj: torch.Tensor, operands, n_items: int) -> torch.Tensor:
-    """K4's launch alone on :func:`nn_grid_operands`' ``operands``, over
-    ``n_items`` blocks (the last entry of ``ends``, read by the caller: the
-    grid's size is the one value the host needs from the keep lists)."""
+def grid_launch(traj: torch.Tensor, operands, max_items: Optional[int] = None) -> torch.Tensor:
+    """K4's launch alone on :func:`nn_grid_operands`' ``operands``. The
+    kernel reads the work list's length (the last entry of ``ends``) on the
+    device, and its blocks draw the items from a ticket counter, so nothing
+    is read on the host. The grid is the blocks the card holds at once, at
+    most ``max_items``: by default the most items the lists could hold
+    (every query tile's runs of all candidate tiles). Any positive cap
+    gives the same minima, with fewer blocks drawing more items each."""
     order, nkept, cand4, ends = operands
     n, batch = traj.shape[-2], (traj.shape[0] if traj.ndim == 3 else 1)
     out = torch.full(traj.shape[:-1], float("inf"), dtype=traj.dtype, device=traj.device)
     lib = _build.library()
     if lib.gps_nn_grid_run() != RUN_TILES:
         raise RuntimeError("csrc/nn_grid.cu cuts the keep lists by another run length")
-    if n_items == 0:
+    if max_items is None:
+        max_items = min(ends.numel() * -(-order.shape[-1] // RUN_TILES), 2**31 - 1)
+    if max_items == 0:
         return out
+    ticket = torch.empty((1,), dtype=torch.int32, device=traj.device)
     with torch.cuda.device(traj.device):
         rc = lib.gps_nn_grid(
             _build.dtype_code(traj), batch, traj.data_ptr(), n, cand4.data_ptr(), order.data_ptr(),
-            nkept.data_ptr(), ends.data_ptr(), order.shape[-2], order.shape[-1], n_items,
-            out.data_ptr(), _build.stream(traj.device),
+            nkept.data_ptr(), ends.data_ptr(), order.shape[-2], order.shape[-1], max_items,
+            ticket.data_ptr(), out.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn_min_dist2 (grid)")
     _build.count_launch(nn_grid)

@@ -1080,3 +1080,214 @@ def test_shards_on_two_cards_replay_in_flight_together(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert float((got.corrected_pos - want.corrected_pos).abs().max()) <= 1e-9
     assert torch.equal(got.sim3_inliers, want.sim3_inliers) and bool(got.ok.all())
+
+
+# The programs of the pose graph, the robust gate and the chunked streams
+# (``utils.graphs``): replays against eager dispatch on the same card,
+# float64: ≤1e-9 m (the refine with closures ≤1e-6 m, as the card is held
+# to the CPU: a refinement with closures can move far under a tiny change
+# of its start), masks, counts and flags equal.
+
+
+def refine_case(device, n=900):
+    from gps_optimize_slam_tpu_torch import pipeline
+
+    slam, gt, gp = chip_smoke.shuttle_sequence(n)
+    return pipeline.fuse_arrays(slam, chip_smoke.shuttle_gps(gt, gp), dtype=torch.float64, device=device)
+
+
+def program_entry_point(name, device):
+    """A callable for each path whose programs this slice captures, and how
+    far its result may be from eager dispatch."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch import pipeline
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion, fusion_chunked, robust
+
+    if name.startswith("refine"):
+        res = refine_case(device)
+        kw = dict(iterations=3, cg_iters=50, propose_loops=name == "refine_loops", loop_radius=5.0,
+                  loop_min_time_gap=30.0, max_loops=32)
+        return (lambda: pipeline.refine_pose_graph(res, **kw)[0]), (1e-6 if name == "refine_loops" else 1e-9)
+    if name.startswith("robust"):
+        slam, gt, gps, _, _ = robust_case(1101)
+        t = [torch.as_tensor(a, dtype=torch.float64, device=device)
+             for a in (slam["timestamps"], slam["positions"], slam["quaternions"], gt, gps.positions)]
+        cfg = FusionConfig(gps_sorted=True)
+        out = fusion.fuse_core(*t, torch.as_tensor(gps.valid, device=device), cfg, seed=2)
+        gate = name.split("_")[1]
+        return (lambda: robust.fuse_robust(t[0], t[1], t[2], out.sim3_pos, out.sim3_quat, out.aligned_gps,
+                                           out.gps_valid, n_iterations=12, gate_mode=gate)), 1e-9
+    slam, gt, gp = chip_smoke.outage_sequence(70_000)
+    st, sp, sq = slam["timestamps"], slam["positions"], slam["quaternions"]
+    cfg = FusionConfig(gps_sorted=True)
+
+    def fuse(**kw):
+        return fusion_chunked.fuse_core_chunked(st, sp, sq, gt, gp, np.ones(len(gt), bool), config=cfg,
+                                                chunk_size=16_384, dtype=torch.float64, device=device, **kw)
+
+    if name == "chunked_fuse":
+        return fuse, 1e-9
+    if name == "chunked_robust":
+        return (lambda: fuse(robust=True, robust_iterations=6)), 1e-9
+    res = fuse()
+    return (lambda: fusion_chunked.evaluate_chunked(st, sp, sq, res, chunk_size=16_384, dtype=torch.float64,
+                                                    device=device)), 1e-9
+
+
+def leaves_within(got, want, bound):
+    """Every float leaf (tensors, arrays, floats) within ``bound`` in absolute
+    terms, booleans and integers equal."""
+    import numpy as np
+    import torch.utils._pytree as pytree
+
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want), strict=True):
+        if a is None or b is None:
+            assert a is None and b is None
+            continue
+        a, b = np.asarray(torch.as_tensor(a).cpu()), np.asarray(torch.as_tensor(b).cpu())
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b)
+        else:
+            same = (a == b) | (np.isnan(a) & np.isnan(b))
+            assert np.where(same, 0.0, np.abs(a - b)).max(initial=0.0) <= bound
+
+
+@pytest.mark.parametrize("name", ["refine", "refine_loops", "robust_parallel", "robust_sequential", "chunked_fuse",
+                                  "chunked_robust", "chunked_evaluate"])
+def test_new_programs_replay_equal_eager_dispatch(cuda, name):
+    """Each path's first call runs its programs' keys eagerly (a refine
+    step's key and a full chunk's recur within one call, so they capture
+    there), later calls replay; all equal the same call under
+    ``graphs.eager()``."""
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    call, bound = program_entry_point(name, cuda)
+    with graphs.eager():
+        want = call()
+    graphs.clear()
+    graphs.reset_stats()
+    first, second, got = call(), call(), call()
+    torch.cuda.synchronize()
+    st = graphs.stats()
+    assert st["captures"] >= 1 and st["replays"] >= 2, st
+    for res in (first, second, got):
+        leaves_within(res, want, bound)
+
+
+def test_grid_nn_kernel_reads_its_count_on_the_device(cuda):
+    """K4 with the grid sized from the card and the work list's length read
+    on the device equals K3 bit for bit, also with its grid capped at three
+    blocks (each drawing many items): a random walk, shuffled candidates
+    (long lists, every block walking several items), a batch of rows with
+    an all-masked one; and a CUDA graph holds the launch."""
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    gen = torch.Generator().manual_seed(21)
+    for dtype in (torch.float32, torch.float64):
+        cases = []
+        t, c = walk(gen, 16_384, dtype, cuda), walk(gen, 300_000, dtype, cuda, offset=0.3)
+        cases.append((t, c, (torch.rand(300_000, generator=gen) > 0.1).to(cuda)))
+        t, c = walk(gen, 700, dtype, cuda), walk(gen, 524_288, dtype, cuda, offset=0.3)
+        c = c[torch.randperm(524_288, generator=gen).to(cuda)].contiguous()
+        cases.append((t, c, (torch.rand(524_288, generator=gen) > 0.1).to(cuda)))
+        t = torch.stack([walk(gen, 700, dtype, cuda) for _ in range(3)])
+        c = torch.stack([walk(gen, 100_000, dtype, cuda, offset=0.3)[torch.randperm(100_000, generator=gen).to(cuda)]
+                         for _ in range(3)]).contiguous()
+        mask = (torch.rand(3, 100_000, generator=gen) > 0.1).to(cuda)
+        mask[1] = False
+        cases.append((t, c, mask))
+        for traj, cands, mask in cases:
+            operands = kernels.nn_grid_operands(traj, cands, mask)
+            device_count = kernels.grid_launch(traj, operands)
+            capped = kernels.grid_launch(traj, operands, 3)
+            k3 = kernels.nn_resident(traj, cands, mask)
+            graphs.run(kernels.nn_grid, traj, cands, mask)
+            graphs.run(kernels.nn_grid, traj, cands, mask)  # captured and replayed
+            replayed = graphs.run(kernels.nn_grid, traj, cands, mask)
+            torch.cuda.synchronize()
+            assert torch.equal(device_count, k3) and torch.equal(capped, k3) and torch.equal(replayed, k3)
+
+
+def recorded_program_calls(device, monkeypatch):
+    """(name, fn, args) of the first call of each program that the refine
+    (with closures), both robust gates, the chunked robust fusion and
+    evaluation and a subsampled streamed Sim(3) hand to ``graphs.run`` on
+    the card, run eagerly to record them."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch import pipeline
+    from gps_optimize_slam_tpu_torch.config import Sim3RansacConfig
+    from gps_optimize_slam_tpu_torch.ops import alignment_chunked
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    seen = {}
+
+    def record(fn, *args, **kwargs):
+        assert not kwargs
+        seen.setdefault(fn.__name__, (fn, args))
+        return fn(*args)
+
+    monkeypatch.setattr(graphs, "run", record)
+    res = refine_case(device, 600)
+    pipeline.refine_pose_graph(res, iterations=1, loop_radius=5.0, loop_min_time_gap=30.0)
+    for name in ("robust_parallel", "robust_sequential", "chunked_robust", "chunked_evaluate"):
+        program_entry_point(name, device)[0]()
+    rng = np.random.default_rng(5)
+    src = rng.normal(size=(2000, 3)) * 30
+    alignment_chunked.sim3_ransac_streaming(src, 1.3 * src + 5.0, np.ones(2000, bool), cfg=Sim3RansacConfig(),
+                                            max_ransac_points=256, chunk_size=300, device=device)
+    monkeypatch.undo()
+    return seen
+
+
+def test_new_program_replays_pass_with_every_host_synchronisation_an_error(cuda, monkeypatch):
+    """Each program of this slice, on the inputs its path gave it: eager,
+    captured, and then replayed under ``set_sync_debug_mode("error")``:
+    nothing is read back inside a replay."""
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    seen = recorded_program_calls(cuda, monkeypatch)
+    assert {"_gn_step", "_propose_loop_closures", "_fuse_robust_parallel", "_final_fusion", "forward_chunk",
+            "_backward_chunk", "_gate_chunk", "_align_chunk", "_nn_block", "transform_trajectory",
+            "paired_errors", "_moments_pass1", "_moments_pass2", "_refit"} <= set(seen)
+    for name, (fn, args) in seen.items():
+        graphs.run(fn, *args)
+        graphs.run(fn, *args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graphs.run(fn, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_a_failed_capture_of_a_new_program_raises(cuda, monkeypatch):
+    """A gate pass that reads a device value on the host inside the robust
+    parallel program: its first call runs eagerly, the capture of its
+    second raises (a synchronisation inside a capture), nothing falls back,
+    and no program is kept for the key; the same inputs then run eagerly."""
+    from gps_optimize_slam_tpu_torch.models import robust
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    call, _ = program_entry_point("robust_parallel", cuda)
+    real = robust._parallel_nis
+
+    def reading(*args):
+        accepted, nis = real(*args)
+        float(nis.sum())  # the host read
+        return accepted, nis
+
+    monkeypatch.setattr(robust, "_parallel_nis", reading)
+    graphs.clear()
+    graphs.reset_stats()
+    call()
+    with pytest.raises(RuntimeError):
+        call()
+    torch.cuda.synchronize()
+    assert graphs.stats()["programs"] == 0 and graphs.stats()["captures"] == 0
+    monkeypatch.undo()
+    with graphs.eager():
+        assert call().gate_converged
