@@ -81,7 +81,12 @@ Phases:
      tiles) at 4 x 700 x 524,288
      shuffled candidates with a row all masked and at phase 10's evaluation
      shape, bit for bit against K3's batch grid and against the plain
-     version on every 64th query, timed beside it;
+     version on every 64th query, timed beside it; K3's launch alone at
+     each of its block sizes (16, 32 and 64 queries), bit for bit equal,
+     at single rows of 37 to 4,096 query tiles and at the fleet bucket,
+     float32 and float64, with the device time of each (the times that set
+     ``kernels.resident_block``); and the SASS of K3's and K4's tile loops,
+     their instructions a (query, candidate) pair (``sass_tile_loops``);
   2. seq-04 golden arrays, float64 UTM, ``fuse_arrays`` on the card, held
      against tests/golden/seq04_golden.npz and seq04_meta.json;
   3. seq-04 from TUM + GNSS files rebuilt from the npz, ``fuse_files`` in
@@ -202,7 +207,10 @@ Phases:
      ``fuse_buckets`` equal to the batch; warm walls of the bucket replayed
      and eager (within the same bound) and of the row loop, idle shares,
      peak memory; then ``fuse-batch --json`` as a subprocess on two logs of
-     70,000 poses.
+     70,000 poses; and, uncounted, K3's batch grid and the keep lists on the
+     operands of the bucket's own evaluation and K1's batch grid on the
+     leaves of its routed fusion (recorded from an eager run), timed with
+     their bounds.
 
 After each of phases 2-10 a line ``{"phase": k, "wall_s": ..., "graphs":
 {...}}`` gives its wall and the first calls, captures and replays of its
@@ -285,7 +293,10 @@ PLAIN_STRIDE = 64  # phase 1 holds K4 at GRID_NN_MAIN against plain on every 64t
 # counted operation then takes an instruction of its own, and the card
 # issues those at half the peaks (ISSUE_RATE). That time is printed as a
 # term of its own beside the bound, the cost of the build's choice, and is
-# not the bound.
+# not the bound. K3 and K4 contract two of a pair's eight operations by
+# hand (csrc/nn_tile.cuh), so they issue 6 instructions for them and their
+# unfused term overstates their cost by a third; the SASS counts of phase 1
+# (``sass_tile_loops``) give what they issue.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 ISSUE_RATE = {k: v / 2 for k, v in PEAK_FLOPS.items()}
@@ -350,6 +361,30 @@ def device_profile(fn, reps: int = 20) -> dict:
         if times:
             break
     return times
+
+
+def launch_device_ms(fn, name: str, reps: int = 10):
+    """(ms, launches): the device time of one launch of the kernels whose
+    name holds ``name``, from a torch.profiler trace of ``reps`` calls of
+    ``fn``, as the traced time over the traced launches, and how many
+    launches the trace holds. A trace now and then holds fewer launches
+    than were made (one run's traces of phase 10's calls held about a tenth
+    of them), which a time per call taken as the total over ``reps`` reads
+    as a faster kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if name in e.key and e.device_time_total > 0:
+            total, count = total + e.device_time_total, count + e.count
+    return (total / count / 1e3 if count else None), count
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -472,10 +507,10 @@ def cdist_library_ms(traj, cand, mask, reps: int = 5):
     return ms
 
 
-def keep_bound(traj, cand, mask, nkept, cand4):
+def keep_bound(traj, cand, mask, nkept, cand3):
     """The coordinates and the mask read once; the packed candidates, the
     kept entries of the lists and their counts written once."""
-    moved = (traj.numel() + cand.numel() + cand4.numel()) * traj.element_size() + mask.numel() + 4 * (
+    moved = (traj.numel() + cand.numel() + cand3.numel()) * traj.element_size() + mask.numel() + 4 * (
         int(nkept.sum()) + nkept.numel())
     return bound(moved, 0.0, "float64")
 
@@ -511,6 +546,82 @@ def build_registers(log: str) -> dict:
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out.setdefault(name, [None, 0])[0] = int(m.group(1))
     return out
+
+
+SASS_OPS = {"float64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"), "float32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX")}
+SASS_INT_OPS = ("ISETP", "SEL", "FSEL", "IMNMX", "LDS")
+
+
+def sass_tile_loops(library: str) -> dict:
+    """What the card runs for a (query, candidate) pair, read from the
+    library's SASS (``cuobjdump -sass``): for each instantiation of K3
+    (``nn_kernel<T, queries a block, Q>``) and K4 (``nn_grid_kernel<T>``),
+    the innermost loop with the most floating-point adds (the unrolled
+    tile scan of csrc/nn_tile.cuh: three differences a pair), its pairs
+    (its minima, one a pair: DSETP in float64, FMNMX in float32; where a
+    float64 minimum takes no DSETP, its 16-byte shared loads, three a
+    vector of 2 candidates, times the Q queries a thread holds) and each
+    floating-point, compare, select and shared-load opcode per pair, with
+    all its instructions per pair. Empty where the toolkit has no
+    cuobjdump; an entry with "error" where the loop is not found."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300).stdout
+    name_re = re.compile(r"Function : \S*?(nn_kernelI([fd])Li(\d+)ELi(\d+)E|nn_grid_kernelI([fd])E)")
+    ins_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = name_re.search(line)
+            cur = None
+            if m:
+                dtype = "float64" if (m.group(2) or m.group(5)) == "d" else "float32"
+                q = int(m.group(4)) if m.group(4) else 1
+                cur = out.setdefault(m.group(1), {"dtype": dtype, "Q": q, "ins": [], "labels": {}})
+        elif cur is not None:
+            lab = re.match(r"\s*(\.L_\w+):", line)
+            if lab:
+                cur["labels"][lab.group(1)] = None  # the address of the next instruction
+                cur["pending"] = lab.group(1)
+                continue
+            m = ins_re.search(line)
+            if m:
+                addr = int(m.group(1), 16)
+                if cur.get("pending"):
+                    cur["labels"][cur.pop("pending")] = addr
+                cur["ins"].append((addr, m.group(2), m.group(3)))
+    result = {}
+    for name, f in out.items():
+        loops = []
+        for addr, op, args in f["ins"]:
+            if not op.startswith("BRA"):
+                continue
+            t = re.search(r"0x([0-9a-f]+)", args)
+            lab = re.search(r"\((\.L_\w+)\)", args)
+            target = int(t.group(1), 16) if t else f["labels"].get(lab.group(1)) if lab else None
+            if target is not None and target <= addr:
+                loops.append((target, addr))
+        inner = [lp for lp in loops if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        add = "DADD" if f["dtype"] == "float64" else "FADD"
+
+        def count(lp, ops):
+            body = [op.split(".")[0] for addr, op, _ in f["ins"] if lp[0] <= addr <= lp[1]]
+            return {o: body.count(o) for o in ops}, len(body)
+
+        best = max(inner, key=lambda lp: count(lp, (add,))[0][add], default=None)
+        if best is None or count(best, (add,))[0][add] == 0:
+            result[name] = {"error": "no loop with floating-point adds found"}
+            continue
+        ops, total = count(best, SASS_OPS[f["dtype"]] + SASS_INT_OPS)
+        minimum = ops["DSETP" if f["dtype"] == "float64" else "FMNMX"]
+        pairs = minimum or ops["LDS"] / 3 * 2 * f["Q"]
+        result[name] = {"pairs_in_loop": pairs, "instructions_per_pair": total / pairs if pairs else None,
+                        "per_pair": {o: c / pairs for o, c in ops.items() if c} if pairs else ops}
+    return result
 
 
 def launch_counts() -> dict:
@@ -869,6 +980,55 @@ def phase1_nn(device, gen):
     return entries
 
 
+# K3's block sizes in phase 1: single rows of n = m random-walk poses, from
+# the main path's 37 query tiles to phase 5's 4,096, and the fleet bucket
+# (2,368 query tiles of 64 rows).
+TIER_LENGTHS = (SEQ02_LEN, 32_768, 65_536, 131_072, 262_144, CHUNK)
+
+
+def phase1_tiers(device, gen):
+    """K3's launch alone (``kernels.resident_launch`` on operands made
+    beforehand) at every block size it has, on the same inputs, float32 and
+    float64: at ``TIER_LENGTHS`` and the fleet bucket, each block size's
+    minima bit for bit those of the others, of the wrapper and of K4; the
+    device time of each (the profiler's, the kernel alone) and the block
+    size ``kernels.resident_block`` picks: the times that set its tiers
+    (``launch_device_ms``: a launch's time from the launches traced)."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    times = {}
+    cases = [((n,), (n,)) for n in TIER_LENGTHS] + [((FLEET[1],) * FLEET[0],) * 2]
+    for dtype in (torch.float32, torch.float64):
+        for ns, ms in cases:
+            traj, cand, mask = ragged_walks(gen, ns, ms, dtype, device)
+            if len(ns) == 1:
+                traj, cand, mask = traj[0], cand[0], mask[0]
+            operands = kernels.keep_lists(traj, cand, mask)
+            got = kernels.nn_resident(traj, cand, mask)
+            k4 = kernels.nn_grid(traj, cand, mask)
+            torch.cuda.synchronize()
+            if not torch.equal(got, k4):
+                raise AssertionError(f"tiers {len(ns)}x{ns[0]} {dtype}: K3 differs from K4")
+            res = {}
+            for block in kernels.RESIDENT_BLOCKS:
+                out = kernels.resident_launch(traj, operands, block)
+                torch.cuda.synchronize()
+                if not torch.equal(out, got):
+                    raise AssertionError(f"tiers {len(ns)}x{ns[0]} {dtype}: {block} queries a block differ from "
+                                         f"the wrapper's launch in {int((out != got).sum())} queries")
+                res[str(block)] = launch_device_ms(lambda: kernels.resident_launch(traj, operands, block),
+                                                   "nn_kernel")[0]
+            tiles = len(ns) * operands[0].shape[-2]
+            times[f"{len(ns)}x{ns[0]}/{dtype_name(dtype)}"] = {
+                "query_tiles": tiles, "kept_tile_pairs": int(operands[1].sum()),
+                "picked": kernels.resident_block(tiles), "device_ms": res}
+            del traj, cand, mask, operands, got, k4
+            torch.cuda.empty_cache()
+    emit({"phase": 1, "tiers": "nn_resident", "times": times})
+
+
 def launch_times(traj, cand, mask, got) -> dict:
     """K4's launch alone on one set of operands, as ``nn_grid`` makes it
     (the grid sized from the card, the blocks drawing the items of the work
@@ -889,7 +1049,7 @@ def launch_times(traj, cand, mask, got) -> dict:
 
 
 def plain_keep_lists(traj, cand, mask):
-    """(order, nkept, cand4) of the keep-list kernel's plain version, with
+    """(order, nkept, cand3) of the keep-list kernel's plain version, with
     the inputs' batch axis if they have one."""
     from gps_optimize_slam_tpu_torch.ops import kernels
 
@@ -913,17 +1073,17 @@ def phase1_keep(device, gen):
     from gps_optimize_slam_tpu_torch.ops import kernels
 
     def check(traj, cand, mask, what):
-        order, nkept, cand4 = kernels.keep_lists(traj, cand, mask)
-        want_order, want_nkept, want_cand4 = plain_keep_lists(traj, cand, mask)
+        order, nkept, cand3 = kernels.keep_lists(traj, cand, mask)
+        want_order, want_nkept, want_cand3 = plain_keep_lists(traj, cand, mask)
         if not torch.equal(nkept, want_nkept):
             raise AssertionError(f"keep lists {what}: counts differ in "
                                  f"{int((nkept != want_nkept).sum())} query tiles")
         cols = torch.arange(order.shape[1], device=device)[None] < nkept[:, None]
         if not torch.equal(torch.where(cols, order, -1), torch.where(cols, want_order, -1)):
             raise AssertionError(f"keep lists {what}: the lists differ")
-        if not torch.equal(cand4, want_cand4):
+        if not torch.equal(cand3, want_cand3):
             raise AssertionError(f"keep lists {what}: the packed candidates differ")
-        return nkept, want_nkept, order.numel(), cand4
+        return nkept, want_nkept, order.numel(), cand3
 
     # (queries, candidates, coordinate offset, part-masked)
     cases = ((SEQ02_LEN, SEQ02_LEN, 0.0, False), (SEQ02_LEN, 777, 0.0, False),
@@ -942,7 +1102,7 @@ def phase1_keep(device, gen):
                 mask[8192:] = False
                 mask[8500] = True
             what = f"{n}x{m}/{dtype_name(dtype)}" + ("/utm" if offset else "") + ("/part-masked" if part else "")
-            nkept, want_nkept, pairs, cand4 = check(traj, cand, mask, what)
+            nkept, want_nkept, pairs, cand3 = check(traj, cand, mask, what)
             # Every candidate masked: no finite upper bound, every tile kept
             # (as in the JAX mask); K3 and K4 then give +inf.
             check(traj, cand, torch.zeros_like(mask), what + "/all-masked")
@@ -952,14 +1112,14 @@ def phase1_keep(device, gen):
     by_kernel = device_profile(lambda: kernels.keep_lists(traj, cand, mask), reps=5)
     dev = sum(by_kernel.values())
     aerr = float((nkept - want_nkept).abs().max())
-    bound_ms_by = keep_bound(traj, cand, mask, nkept, cand4)
+    bound_ms_by = keep_bound(traj, cand, mask, nkept, cand3)
     emit({"phase": 1, "kernel": "nn_keep", "equal_to_plain": True, "checks": checks, "ms": ms,
           "plain_ms": plain_ms, "device_ms": dev, "device_ms_by_kernel": by_kernel,
           "bound_ms": bound_ms_by[0], "all_segment_pairs_bound_ms": keep_all_pairs_ms(traj, cand),
           "shape": list(GRID_NN_MAIN), "dtype": "float64"})
     entry = kernel_entry("nn_keep", "nn_keep.cu", "pallas_kernels.py:174", "float64", aerr, ms, plain_ms,
                          bound_ms_by, None, dev)
-    del cand4
+    del cand3
     torch.cuda.empty_cache()
     return [entry]
 
@@ -977,20 +1137,15 @@ ROUTE_BATCHES = tuple((b, n) for b in (2, 4, 8, 16, 64) for n in (16_385, 65_537
 
 
 def phase1_routes(device, gen):
-    """The times that place the routing thresholds on this card, each pair
-    on the same inputs: K1 against K2 (both held against the plain version)
-    for every combine in both dtypes at ``ROUTE_LENGTHS`` and at the last
-    length within the JAX package's 4 MiB budget, with the library call
-    where there is one (``scan.scan_route`` is set from these times); K3
-    against K4, bit for bit equal, at 16,384 queries and
-    ``ROUTE_CANDIDATES`` candidates on random walks and at
-    ``ROUTE_LONG_LISTS`` with shuffled candidates, each call with its
-    device time and, where its matrix fits, the library yardstick
-    (``kernels.nn_route`` is set from these times and phase 5's block in
-    ``phase1_nn``)."""
+    """The times that place the scans' routing thresholds on this card,
+    each pair on the same inputs: K1 against K2 (both held against the
+    plain version) for every combine in both dtypes at ``ROUTE_LENGTHS``
+    and at the last length within the JAX package's 4 MiB budget, with the
+    library call where there is one, and K1's batch grid against K2's at
+    ``ROUTE_BATCHES`` (``scan.scan_route`` is set from these times)."""
     import torch
 
-    from gps_optimize_slam_tpu_torch.ops import kernels, scan
+    from gps_optimize_slam_tpu_torch.ops import scan
 
     scans = {}
     for op in scan.OPS:
@@ -1029,6 +1184,18 @@ def phase1_routes(device, gen):
             del x, k1, k2
         torch.cuda.empty_cache()
     emit({"phase": 1, "routes": "scan@batch", "times": batches})
+
+
+def phase1_nn_routes(device, gen):
+    """K3 against K4, bit for bit equal, at 16,384 queries and
+    ``ROUTE_CANDIDATES`` candidates on random walks and at
+    ``ROUTE_LONG_LISTS`` with shuffled candidates: each call's CUDA-event
+    and device time, the kept tile pairs and, where its matrix fits, the
+    library yardstick (``kernels.nn_route`` is set from these times and
+    phase 5's block in ``phase1_nn``)."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels
 
     edge = kernels.GRID_MIN_CANDIDATES
     if [kernels.nn_route(m, 700) for m in (1, SEQ02_LEN, edge - 1, edge, CHUNK, 2 * CHUNK)] != 3 * ["resident"] + 3 * ["grid"]:
@@ -1222,7 +1389,7 @@ def phase1_batched_nn(device, gen):
     """The keep lists and K3 with a batch grid, float32 and float64: the
     eleven KITTI lengths as one ragged batch (its last row all-masked), the
     fleet bucket (64 x 4,661: 2,368 query tiles, so the batch takes K3's
-    32-query blocks where each row alone takes 16), one row, and in float64
+    64-query blocks where each row alone takes 16), one row, and in float64
     the KITTI batch at UTM magnitudes. The lists and packed candidates equal
     the batched plain ones bit for bit, the minima the plain ones to TOL,
     and each row equals the single-row kernels on it bit for bit. Times of
@@ -1243,13 +1410,13 @@ def phase1_batched_nn(device, gen):
                 continue  # float32 cannot hold UTM coordinates to better than 0.5 m
             traj, cand, mask = ragged_walks(gen, ns, ms, dtype, device, offset)
             what = f"B{len(ns)}/{name}" + ("/utm" if offset else "")
-            order, nkept, cand4 = kernels.keep_lists(traj, cand, mask)
+            order, nkept, cand3 = kernels.keep_lists(traj, cand, mask)
             got = kernels.nn_resident(traj, cand, mask)
             torch.cuda.synchronize()
-            w_order, w_nkept, w_cand4 = plain_keep_lists(traj, cand, mask)
+            w_order, w_nkept, w_cand3 = plain_keep_lists(traj, cand, mask)
             cols = torch.arange(order.shape[-1], device=device) < nkept[..., None]
             if not (torch.equal(nkept, w_nkept) and torch.equal(torch.where(cols, order, -1), torch.where(cols, w_order, -1))
-                    and torch.equal(same_bits(cand4), same_bits(w_cand4))):
+                    and torch.equal(same_bits(cand3), same_bits(w_cand3))):
                 raise AssertionError(f"batched keep lists {what}: differ from the plain ones")
             want = kernels.nn_min_dist2_plain(traj, cand, mask, block=128)
             err = rel_err(got, want)
@@ -1259,7 +1426,7 @@ def phase1_batched_nn(device, gen):
                 o1, k1, c1 = kernels.keep_lists(traj[r], cand[r], mask[r])
                 c = torch.arange(o1.shape[-1], device=device) < k1[:, None]
                 if not (torch.equal(k1, nkept[r]) and torch.equal(torch.where(c, o1, -1), torch.where(c, order[r], -1))
-                        and torch.equal(same_bits(c1), same_bits(cand4[r]))):
+                        and torch.equal(same_bits(c1), same_bits(cand3[r]))):
                     raise AssertionError(f"batched keep lists {what}: row {r} differs from the call alone")
                 if not torch.equal(kernels.nn_resident(traj[r], cand[r], mask[r]), got[r]):
                     raise AssertionError(f"batched nn {what}: row {r} differs from K3 alone")
@@ -1268,9 +1435,9 @@ def phase1_batched_nn(device, gen):
             nn_err[name] = max(nn_err.get(name, 0.0), err)
             checks[what] = {"kept_tile_pairs": int(nkept.sum()), "tile_pairs": order.numel()}
             if len(ns) == FLEET[0] and dtype == torch.float32:
-                timed = (traj, cand, mask, abs_err(got, want), float((nkept - w_nkept).abs().max()), nkept, cand4)
-            del want, w_order, w_cand4
-    traj, cand, mask, aerr, keep_err, nkept, cand4 = timed
+                timed = (traj, cand, mask, abs_err(got, want), float((nkept - w_nkept).abs().max()), nkept, cand3)
+            del want, w_order, w_cand3
+    traj, cand, mask, aerr, keep_err, nkept, cand3 = timed
 
     def cdist_min():
         d = torch.cdist(traj, cand, compute_mode="donot_use_mm_for_euclid_dist")
@@ -1286,13 +1453,17 @@ def phase1_batched_nn(device, gen):
     keep_ms = cuda_ms(lambda: kernels.keep_lists(traj, cand, mask))
     keep_plain_ms = cuda_ms(lambda: plain_keep_lists(traj, cand, mask), reps=3)
     keep_dev = device_ms(lambda: kernels.keep_lists(traj, cand, mask))
+    from gps_optimize_slam_tpu_torch.ops import _build
+
     emit({"phase": 1, "kernel": "nn_resident@batch", "rel_err": nn_err, "ms": ms, "plain_ms": plain_ms,
           "library_ms": library_ms, "device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel,
           "keep_ms": keep_ms, "keep_plain_ms": keep_plain_ms, "keep_device_ms": keep_dev,
+          "queries_a_block": kernels.resident_block(traj.shape[0] * kernels._tiles(traj.shape[1], 1)[0]),
+          "kept_tile_pairs": int(nkept.sum()), "sass_tile_loops": sass_tile_loops(_build.BUILD_INFO["path"]),
           "rows_equal_to_the_calls_alone": True, "checks": checks, "shape": list(traj.shape), "dtype": "float32"})
     torch.cuda.empty_cache()
     return [kernel_entry("nn_keep@batch", "nn_keep.cu", "pallas_kernels.py:174", "float32", keep_err, keep_ms,
-                         keep_plain_ms, keep_bound(traj, cand, mask, nkept, cand4), None, keep_dev),
+                         keep_plain_ms, keep_bound(traj, cand, mask, nkept, cand3), None, keep_dev),
             kernel_entry("nn_resident@batch", "nn.cu", "pallas_kernels.py:283", "float32", aerr, ms, plain_ms,
                          nn_bound(traj, cand, mask), library_ms, sum(by_kernel.values()))]
 
@@ -1411,7 +1582,8 @@ def phase1_batched_grid(device, gen):
             else:
                 traj, cand, mask = ragged_walks(gen, LONG_LOG_LENGTHS, LONG_LOG_LENGTHS, dtype, device)
             k3 = kernels.nn_resident(traj, cand, mask)
-            res = {"route": kernels.nn_route(cand.shape[1], traj.shape[1], traj.shape[0])}
+            res = {"route": kernels.nn_route(cand.shape[1], traj.shape[1], traj.shape[0]),
+                   "k3_queries_a_block": kernels.resident_block(traj.shape[0] * kernels._tiles(traj.shape[1], 1)[0])}
             got = kernels.nn_grid(traj, cand, mask)
             torch.cuda.synchronize()
             if not torch.equal(got, k3):
@@ -1517,10 +1689,14 @@ def phase1_batched_counts(device, gen):
     args = timed
     ms = cuda_ms(lambda: kernels.ransac_counts(*args))
     plain_ms = cuda_ms(lambda: kernels.ransac_counts_plain(*args), reps=3)
-    dev = device_ms(lambda: kernels.ransac_counts(*args))
+    # Three profiles: an earlier run's two readings (0.219 and 0.485 ms)
+    # disagreed; the median is kept.
+    reads = [device_ms(lambda: kernels.ransac_counts(*args)) for _ in range(3)]
+    dev = float(np.median(reads))
     src, B, T = args[0], args[0].shape[0], args[3].shape[1]
     emit({"phase": 1, "kernel": "ransac_counts@batch", "equal_to_plain": True, "rows_equal_to_the_kernel_alone": True,
-          "ms": ms, "plain_ms": plain_ms, "device_ms": dev, "shape": [B, T, src.shape[1]], "dtype": "float32",
+          "ms": ms, "plain_ms": plain_ms, "device_ms": dev, "device_ms_reads": reads,
+          "shape": [B, T, src.shape[1]], "dtype": "float32",
           "ragged_rows": list(KITTI_LENGTHS)})
     moved = (2 * src.numel() + B * T * 13) * src.element_size() + src.shape[0] * src.shape[1] + 4 * B * T
     return [kernel_entry("ransac_counts@batch", "ransac_counts.cu", "pallas_kernels.py:450", "float32", 0.0, ms,
@@ -1542,7 +1718,9 @@ def phase1(device):
     entries += phase1_batched_counts(device, gen)
     entries += phase1_batched_tiled_scan(device, gen)
     entries += phase1_batched_grid(device, gen)
+    phase1_tiers(device, gen)
     phase1_routes(device, gen)
+    phase1_nn_routes(device, gen)
     return entries
 
 
@@ -3311,6 +3489,85 @@ def phase10_command():
             "ate_rmse_m": [r["ate_rmse_m"] for r in rows]}
 
 
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """Within it, the kernel wrapper ``module.name`` also appends the
+    arguments of each call to ``calls`` (its launches go on being counted,
+    on the recorder's own count)."""
+    real = getattr(module, name)
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    record.launches = real.launches
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def phase10_kernels(nn_args, scan_calls) -> dict:
+    """The kernels at the long-log bucket's own shapes (not counted, not
+    captured): K3's batch grid and the keep lists on the operands of the
+    evaluation's first NN call (the coherent ``outage_sequence`` replicas),
+    with their kept tile pairs, K3's block size, bounds and the plain
+    version's time and error on every 64th query; and K1's batch grid on
+    the first leaves of each combine the routed fusion scanned, with the
+    library call where there is one. Times: CUDA events around a call (and
+    around K3's launch alone), and each kernel's launch from the launches
+    a trace holds (``launch_device_ms``)."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels, scan
+
+    traj, cand, mask = nn_args
+    operands = kernels.keep_lists(traj, cand, mask)
+    order, nkept, cand3 = operands
+    got = kernels.nn_resident(traj, cand, mask)
+    idx = torch.arange(0, traj.shape[1], PLAIN_STRIDE, device=traj.device)
+    sub = traj[:, idx].contiguous()
+    want = kernels.nn_min_dist2_plain(sub, cand, mask, block=8)
+    torch.cuda.synchronize()
+    out = {"nn_resident@batch": {
+        "shape": list(traj.shape[:2]) + [cand.shape[1]], "dtype": dtype_name(traj.dtype),
+        "queries_a_block": kernels.resident_block(order.shape[0] * order.shape[1]),
+        "kept_tile_pairs": int(nkept.sum()), "tile_pairs": order.numel(),
+        "rel_err_every_64th": rel_err(got[:, idx].flatten()[None], want.flatten()[None]),
+        "ms": cuda_ms(lambda: kernels.nn_resident(traj, cand, mask)),
+        "launch_ms": cuda_ms(lambda: kernels.resident_launch(traj, operands)),
+        "launch_device_ms": launch_device_ms(lambda: kernels.resident_launch(traj, operands), "nn_kernel"),
+        "plain_ms_every_64th": cuda_ms(lambda: kernels.nn_min_dist2_plain(sub, cand, mask, block=8), reps=2),
+        "library_ms": cdist_batch_library_ms(traj, cand, mask), "bound": nn_bound(traj, cand, mask)}}
+
+    def keep():
+        return kernels.keep_lists(traj, cand, mask)
+
+    out["nn_keep@batch"] = {
+        "ms": cuda_ms(keep),
+        "launch_device_ms": {k: launch_device_ms(keep, k) for k in ("segment_boxes_kernel", "keep_lists_kernel")},
+        "plain_ms": cuda_ms(lambda: plain_keep_lists(traj, cand, mask), reps=2),
+        "bound": keep_bound(traj, cand, mask, nkept, cand3)}
+    del operands, order, nkept, cand3, got, want
+    firsts = {}
+    for op, x, reverse in scan_calls:
+        firsts.setdefault(op, (x, reverse))
+    for op, (x, reverse) in firsts.items():
+        want = scan.scan_plain(op, x, reverse)
+        out[f"scan_block/{op}@batch"] = {
+            "shape": list(x.shape), "reverse": reverse,
+            "rel_err": rel_err(scan.scan_block(op, x, reverse).reshape(-1, x.shape[-1]),
+                               want.reshape(-1, x.shape[-1])),
+            "ms": cuda_ms(lambda: scan.scan_block(op, x, reverse)),
+            "launch_device_ms": launch_device_ms(lambda: scan.scan_block(op, x, reverse), "scan_kernel"),
+            "plain_ms": cuda_ms(lambda: scan.scan_plain(op, x, reverse), reps=2),
+            "library_ms": scan_library_ms(op, x, reverse), "bound": scan_bound(op, x)}
+        del want
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase10(device):
     """A bucket of long logs, float64 on the card: four rows of
     ``LONG_LOG_LENGTHS`` poses (``long_logs``), one bucket under
@@ -3338,6 +3595,7 @@ def phase10(device):
     from gps_optimize_slam_tpu_torch.ops import kernels, scan
     from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
     from gps_optimize_slam_tpu_torch.parallel import mesh
+    from gps_optimize_slam_tpu_torch.utils import graphs
 
     f64, cfg = torch.float64, FusionConfig()
     rows = long_logs()
@@ -3466,6 +3724,12 @@ def phase10(device):
     if got != want or alone != want_alone:
         raise AssertionError(f"phase 10: the bucket launched {got}, expected {want}; one row alone {alone}, "
                              f"expected {want_alone} (routes {routes})")
+    # The kernels at this bucket's own shapes, on the inputs an eager run of
+    # the routed fusion and evaluation hands them (after the counted runs).
+    nn_calls, scan_calls = [], []
+    with recording(kernels, "nn_resident", nn_calls), recording(scan, "scan_block", scan_calls), graphs.eager():
+        mesh.evaluate_batch(b, fuse())
+    emit({"phase": 10, "part": "kernels at the bucket's shapes", **phase10_kernels(nn_calls[0], scan_calls)})
     return launches
 
 

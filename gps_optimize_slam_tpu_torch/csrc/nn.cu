@@ -11,31 +11,35 @@
 // magnitudes (0.18 m against 7e-8 m error in float32,
 // pallas_kernels.py:11-20), so there is no tensor-core form.
 //
-// What bounds it on this card: operations. A (query, candidate) pair costs
-// 10 uncontracted float operations (3 differences, 3 squares, 3 sums, a
-// minimum), and at the main path's size, 4,661 x 4,661, pruning at
-// 1024-candidate tiles removes little: on chip_smoke.py's random walks the
-// keep lists hold 159 of the 37 x 5 = 185 tile pairs (it prints the count as
-// kept_tile_pairs). So the work is ~2e7 pairs: 7 microseconds of the whole
-// card's float32 rate, or a tenth of a millisecond when 37 blocks of four
-// warps each walk their lists alone, one dependent chain and four scalar
-// shared-memory loads a candidate (this kernel's first design: 0.097 ms on
-// an H100 at 700 W, where this one takes 0.015 ms).
+// What bounds it on this card: the instructions a (query, candidate) pair
+// costs, not bytes. nn_tile.cuh's tile_min spends 7 arithmetic ones on a
+// pair (3 differences, 1 multiply, 2 fused multiply-adds, a minimum, which
+// in float64 is a compare on the FP64 pipe and two selects), where the
+// first designs spent 10 (a validity row added as a fourth term, nothing
+// contracted). The candidate tiles of long or batched launches are staged
+// once for many queries, so the bytes (each packed tile read from L2 once
+// a block) stay far below the instructions' time.
 //
 // Design:
-//   - Fill the card. A block owns kSub queries of one 128-query tile, not the
-//     whole tile: the 128 / kSub blocks of a tile share its keep list
-//     (order[i], nkept[i]). The launcher takes 16 queries a block at the
-//     main path's sizes (4,661 queries: 292 blocks on 132 SMs, where the
-//     first design had 37) and 32 where the grid is large anyway.
+//   - Fill the card. A block owns kSub queries of one 128-query tile, and
+//     the 128 / kSub blocks of a tile share its keep list (order[i],
+//     nkept[i]). The wrapper picks kSub from the launch's query tiles
+//     (ops/kernels.py:resident_block, where the times that set the tiers
+//     are): 16 queries a block (two a thread) at the main path's sizes
+//     (4,661 queries: 292 blocks on 132 SMs), 32 (four a thread) where the
+//     grid is large anyway, and 64 (eight a thread) at grids of thousands
+//     of query tiles (long rows, batches), where each staged tile and each
+//     16-byte shared-memory load then feed twice the pairs of a 32-query
+//     block.
 //   - Split the tile, not the list. The 256 threads of a block are kSub / Q
 //     query lanes x slices: a thread holds Q queries in registers and scans
 //     every slices-th 16-byte vector of each staged candidate tile. The
-//     slices' minima meet in shared memory once, at the end. One block owns
-//     a query, so there are no atomics and the output needs no pre-fill.
-//   - One load, several pairs: nn_tile.cuh's tile_min reads a vector of 4
-//     (float32) or 2 (float64) candidates a row, a broadcast within the warp.
-//   - Stage ahead: two shared-memory buffers (16 KB a tile in float32, 32 KB
+//     slices' minima meet in shared memory once, at the end, in the staging
+//     buffers (free by then). One block owns a query, so there are no
+//     atomics and the output needs no pre-fill.
+//   - One load, several pairs: tile_min reads a vector of 4 (float32) or 2
+//     (float64) candidates a row, a broadcast within the warp.
+//   - Stage ahead: two shared-memory buffers (12 KB a tile in float32, 24 KB
 //     in float64) filled by cp.async, tile k + 1 in flight while tile k is
 //     scanned.
 // Padding queries (past n) are computed on zeros and never written; a block
@@ -45,10 +49,8 @@
 // each row its own queries, packed candidates and keep lists) is the
 // grid's y dimension. A block offsets every pointer by its row and then
 // walks only its own row's lists, so each row's minima equal those of a
-// call on that row alone, bit for bit. The 16-or-32-query rule below is
-// decided from the B * n_tiles query tiles the launch really has; at
-// B = 64 rows of 4,661 poses that is 2,368 tiles, so a batch takes the
-// 32-query blocks that the single-row rule kept for large grids.
+// call on that row alone, bit for bit: a query's minimum is the same
+// doubles whatever the block size, so every tier gives the same bits.
 #include "nn_tile.cuh"
 
 namespace {
@@ -63,16 +65,15 @@ nn_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
   constexpr int kLanes = kSub / Q;              // threads across the block's queries
   constexpr int kSlices = kNnThreads / kLanes;  // threads across a tile's vectors
   constexpr int kSubs = kNnTileN / kSub;        // blocks a query tile
-  constexpr int kTileElems = 4 * kNnTileM;
   static_assert(kLanes >= 1 && kLanes * Q == kSub && kLanes * kSlices == kNnThreads &&
                     kSubs * kSub == kNnTileN, "kSub and Q must cut the block evenly");
+  static_assert(kSlices * kSub <= 2 * kNnTileElems, "the fold must fit in the staging buffers");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* buf = reinterpret_cast<T*>(smem_raw);  // [2][4][kNnTileM]
-  __shared__ T fold[kSlices][kSub];
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [2][3][kNnTileM]; at the end the fold, [kSlices][kSub]
 
   const size_t row = blockIdx.y;
   traj += row * 3 * n, out += row * n;
-  cand += row * (size_t)m_tiles * kTileElems;
+  cand += row * (size_t)m_tiles * kNnTileElems;
   order += row * (size_t)n_tiles * m_tiles, nkept += row * n_tiles;
   const int i = blockIdx.x / kSubs;
   const int q0 = i * kNnTileN + (blockIdx.x % kSubs) * kSub;
@@ -93,27 +94,28 @@ nn_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
 
   const int kn = nkept[i];
   const int* tiles = order + (size_t)i * m_tiles;
-  if (kn > 0) stage_tile<T, kNnThreads>(buf, cand + (size_t)tiles[0] * kTileElems);
+  if (kn > 0) stage_tile<T, kNnThreads>(buf, cand + (size_t)tiles[0] * kNnTileElems);
   for (int k = 0; k < kn; ++k) {
     const int slot = k & 1;
     if (k + 1 < kn) {
-      stage_tile<T, kNnThreads>(buf + (slot ^ 1) * kTileElems, cand + (size_t)tiles[k + 1] * kTileElems);
+      stage_tile<T, kNnThreads>(buf + (slot ^ 1) * kNnTileElems, cand + (size_t)tiles[k + 1] * kNnTileElems);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    tile_min<T, Q>(buf + slot * kTileElems, slice, kSlices, ax, ay, az, best);
-    __syncthreads();  // the slot is restaged two tiles on
+    tile_min<T, Q>(buf + slot * kNnTileElems, slice, kSlices, ax, ay, az, best);
+    __syncthreads();  // the slot is restaged two tiles on, or holds the fold
   }
 
+  T* fold = buf;
 #pragma unroll
-  for (int j = 0; j < Q; ++j) fold[slice][lane + j * kLanes] = best[j];
+  for (int j = 0; j < Q; ++j) fold[slice * kSub + lane + j * kLanes] = best[j];
   __syncthreads();
   const int mine = threadIdx.x;  // one thread a query folds its slices
   if (mine < kSub && q0 + mine < n) {
-    T b = fold[0][mine];
-    for (int s = 1; s < kSlices; ++s) b = min_keep(b, fold[s][mine]);
+    T b = fold[mine];
+    for (int s = 1; s < kSlices; ++s) b = min_keep(b, fold[s * kSub + mine]);
     out[q0 + mine] = b;
   }
 }
@@ -121,32 +123,27 @@ nn_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
 template <typename T, int kSub, int Q>
 cudaError_t launch_as(int batch, const T* traj, int n, const T* cand, const int* order,
                       const int* nkept, int n_tiles, int m_tiles, T* out, cudaStream_t s) {
-  const size_t smem = 2 * 4 * kNnTileM * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(nn_kernel<T, kSub, Q>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  constexpr size_t smem = 2 * kNnTileElems * sizeof(T);
+  static_assert(smem <= 48 * 1024, "the staging buffers fit the default dynamic shared memory");
   const dim3 grid((unsigned)(n_tiles * (kNnTileN / kSub)), (unsigned)batch);
   nn_kernel<T, kSub, Q><<<grid, kNnThreads, smem, s>>>(traj, n, cand, order, nkept, n_tiles,
                                                        m_tiles, out);
   return cudaGetLastError();
 }
 
-// Blocks of 16 queries (two a thread) while that keeps the grid at 2048
-// blocks or fewer, about 15 an SM; blocks of 32 queries (four a thread)
-// beyond, where the card is full either way and more pairs a shared-memory
-// load win: the crossover measured on this card lies between 256 and 512
-// query tiles in float32 and float64 (PERF.md).
-constexpr int kSmallGridTiles = 256;
-
 template <typename T>
 cudaError_t launch(int batch, const void* traj, int n, const void* cand, const int* order,
-                   const int* nkept, int n_tiles, int m_tiles, void* out, cudaStream_t s) {
+                   const int* nkept, int n_tiles, int m_tiles, int queries_per_block, void* out,
+                   cudaStream_t s) {
   if ((long long)n_tiles * kNnTileN < n || n_tiles < 1 || batch < 1 || batch > 65535)
     return cudaErrorInvalidValue;
-  const long long tiles = (long long)batch * n_tiles;  // the launch's query tiles
-  const auto run = tiles <= kSmallGridTiles ? launch_as<T, 16, 2> : launch_as<T, 32, 4>;
+  decltype(&launch_as<T, 16, 2>) run = nullptr;
+  switch (queries_per_block) {
+    case 16: run = launch_as<T, 16, 2>; break;
+    case 32: run = launch_as<T, 32, 4>; break;
+    case 64: run = launch_as<T, 64, 8>; break;
+    default: return cudaErrorInvalidValue;
+  }
   return run(batch, static_cast<const T*>(traj), n, static_cast<const T*>(cand), order, nkept,
              n_tiles, m_tiles, static_cast<T*>(out), s);
 }
@@ -154,15 +151,16 @@ cudaError_t launch(int batch, const void* traj, int n, const void* cand, const i
 }  // namespace
 
 // Per row of a batch of `batch` rows, rows contiguous one after another:
-// traj (n, 3); cand (m_tiles, 4, 1024); order (n_tiles, m_tiles) kept tiles
-// first; nkept (n_tiles,); out (n,). Returns a cudaError_t.
+// traj (n, 3); cand (m_tiles, 3, 1024); order (n_tiles, m_tiles) kept tiles
+// first; nkept (n_tiles,); out (n,). queries_per_block: 16, 32 or 64 (the
+// wrapper's rule, ops/kernels.py:resident_block). Returns a cudaError_t.
 GPS_EXPORT int gps_nn_min_dist2(int dtype, int batch, const void* traj, int n, const void* cand,
                                 const int* order, const int* nkept, int n_tiles, int m_tiles,
-                                void* out, void* stream) {
+                                int queries_per_block, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == GPS_F32)
-    return (int)launch<float>(batch, traj, n, cand, order, nkept, n_tiles, m_tiles, out, s);
+    return (int)launch<float>(batch, traj, n, cand, order, nkept, n_tiles, m_tiles, queries_per_block, out, s);
   if (dtype == GPS_F64)
-    return (int)launch<double>(batch, traj, n, cand, order, nkept, n_tiles, m_tiles, out, s);
+    return (int)launch<double>(batch, traj, n, cand, order, nkept, n_tiles, m_tiles, queries_per_block, out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -28,19 +28,19 @@
 // (tools/k4_launch_compare.py, H100 80GB HBM3 at 700 W).
 //
 // Each item (128 queries, one per thread) double-buffers its candidate
-// tiles in shared memory with cp.async: K3's operand layout, (m_tiles, 4,
-// 1024) rows x, y, z and a validity row (0 valid, +inf invalid or padded),
-// so validity is folded into the staged tile. While tile k is scanned,
-// tile k + 1 loads. Every thread scans the staged tile with the function K3
-// scans it with (nn_tile.cuh: tile_min, 16-byte shared-memory loads, the
-// validity row added as the distance's last term), and the block folds its
-// per-query minimum into the output with an
+// tiles in shared memory with cp.async: K3's operand layout, (m_tiles, 3,
+// 1024) rows x, y, z with +inf coordinates for a masked or padded
+// candidate, so validity is folded into the staged tile. While tile k is
+// scanned, tile k + 1 loads. Every thread scans the staged tile with the
+// function K3 scans it with (nn_tile.cuh: tile_min, 16-byte shared-memory
+// loads, the distance contracted by hand into two fused multiply-adds),
+// and the block folds its per-query minimum into the output with an
 // atomicMin on the bit pattern: non-negative IEEE values order like their
 // bits as integers (int for float32, unsigned long long for float64). The
 // wrapper fills the output with +inf first; a NaN distance never wins a
 // minimum, so it never reaches the atomic. The minimum does not depend on
 // the order of blocks or tiles, so K4 equals K3 bit for bit on the same
-// inputs (--fmad=false: no contraction).
+// inputs.
 //
 // Batch grid: a batch of B sequences (the JAX package's vmap of its
 // pipelined kernel, which adds a row axis to its grid; each row its own
@@ -55,9 +55,8 @@
 // on that row alone, and K3's batch grid, bit for bit.
 //
 // What bounds it on this card: operations, 8 flops a kept (query,
-// candidate) pair for the 3-term function (the kernel spends 10 with the
-// validity term), 128 x 1024 pairs a kept tile pair; the keep lists are
-// nn_keep.cu's cost.
+// candidate) pair (the kernel issues 7 instructions for them, nn_tile.cuh),
+// 128 x 1024 pairs a kept tile pair; the keep lists are nn_keep.cu's cost.
 #include <atomic>
 
 #include "nn_tile.cuh"
@@ -82,10 +81,9 @@ nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
                const int* __restrict__ order, const int* __restrict__ nkept,
                const int* __restrict__ ends, int n_tiles, int m_tiles, int batch,
                int* __restrict__ ticket, T* __restrict__ out) {
-  constexpr int kTileElems = 4 * kNnTileM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_item;
-  T* buf = reinterpret_cast<T*>(smem_raw);  // [2][4][kNnTileM]
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [2][3][kNnTileM]
   const int entries = batch * n_tiles;
   const int n_items = ends[entries - 1];  // the work list's length, the same for every thread
   const T inf = Limits<T>::inf();
@@ -107,12 +105,12 @@ nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
     const int k0 = (b - (lo > 0 ? ends[lo - 1] : 0)) * kRun;
     const int row = lo / n_tiles, i = lo % n_tiles;  // the row, and the query tile within it
     const T* row_traj = traj + (size_t)row * 3 * n;
-    const T* row_cand = cand + (size_t)row * m_tiles * kTileElems;
+    const T* row_cand = cand + (size_t)row * m_tiles * kNnTileElems;
     const int k1 = min(nkept[(size_t)row * n_tiles + i], k0 + kRun);
     const int* tiles = order + ((size_t)row * n_tiles + i) * m_tiles;
 
     auto stage = [&](int k, int slot) {
-      stage_tile<T, kGridTileN>(buf + slot * kTileElems, row_cand + (size_t)tiles[k] * kTileElems);
+      stage_tile<T, kGridTileN>(buf + slot * kNnTileElems, row_cand + (size_t)tiles[k] * kNnTileElems);
     };
 
     const int q = i * kGridTileN + threadIdx.x;
@@ -133,7 +131,7 @@ nn_grid_kernel(const T* __restrict__ traj, int n, const T* __restrict__ cand,
         cp_async_wait<0>();
       }
       __syncthreads();
-      tile_min<T, 1>(buf + slot * kTileElems, 0, 1, ax, ay, az, best);
+      tile_min<T, 1>(buf + slot * kNnTileElems, 0, 1, ax, ay, az, best);
       __syncthreads();  // the slot is restaged two tiles on, or by the next item
     }
     if (q < n && best[0] < inf) atomic_min_nonneg(out + (size_t)row * n + q, best[0]);
@@ -177,14 +175,12 @@ cudaError_t launch(int batch, const void* traj, int n, const void* cand, const i
       ticket == nullptr || (long long)batch * n_tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (max_items == 0) return cudaSuccess;
-  const size_t smem = 2 * 4 * kNnTileM * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(nn_grid_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  // Two staged tiles (48 KB in float64) and the static ticket slot pass
+  // the 48 KB a block may hold without opting in.
+  const size_t smem = 2 * kNnTileElems * sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(nn_grid_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int blocks = 0;
-  cudaError_t e = resident_blocks<T>(smem, &blocks);
+  if (e == cudaSuccess) e = resident_blocks<T>(smem, &blocks);
   if (e == cudaSuccess) e = cudaMemsetAsync(ticket, 0, sizeof(int), s);
   if (e != cudaSuccess) return e;
   nn_grid_kernel<T><<<min(max_items, blocks), kGridTileN, smem, s>>>(
@@ -199,7 +195,7 @@ cudaError_t launch(int batch, const void* traj, int n, const void* cand, const i
 GPS_EXPORT int gps_nn_grid_run() { return kRun; }
 
 // Per row of a batch of `batch` rows, rows contiguous one after another:
-// traj (n, 3); cand (m_tiles, 4, 1024) as K3 takes it; order (n_tiles,
+// traj (n, 3); cand (m_tiles, 3, 1024) as K3 takes it; order (n_tiles,
 // m_tiles) kept tiles first, ascending; nkept (n_tiles,); out (n,) filled
 // with +inf by the caller. ends (batch * n_tiles,): the inclusive prefix
 // sum of ceil(nkept / kRun) over all rows' query tiles, whose last value

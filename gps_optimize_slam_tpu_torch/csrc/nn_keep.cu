@@ -18,9 +18,10 @@
 //      pad rows replicate the last query; candidates past m or masked out
 //      are left out of their box (an empty box is lo = +inf, hi = -inf).
 //      Boxes are (6, segments) float64, lo then hi per axis. A candidate
-//      block also writes its packed tile (m_tiles, 4, 1024): the raw x, y, z
-//      rows (0 past m) and a validity row (0 valid, +inf masked out or past
-//      m); and the tile's own box, the min/max over its 32 segment boxes
+//      block also writes its packed tile (m_tiles, 3, 1024): rows x, y, z,
+//      a valid candidate's raw coordinates and +inf in all three for one
+//      masked out or past m (validity folded into the coordinates, the
+//      contract of nn_tile.cuh); and the tile's own box, the min/max over its 32 segment boxes
 //      (empty segments drop out of a min/max by themselves; a tile with no
 //      valid candidate keeps the empty box).
 //   2. keep_lists_kernel<Q>: one block of 256 threads per Q consecutive
@@ -122,12 +123,12 @@ __global__ void __launch_bounds__(kBoxThreads)
 segment_boxes_kernel(const T* __restrict__ traj, int n, int n_sub, int q_blocks,
                      const T* __restrict__ cand, const unsigned char* __restrict__ mask, int m,
                      int m_sub, int m_tiles, double* __restrict__ tbox, double* __restrict__ cbox,
-                     double* __restrict__ tilebox, T* __restrict__ cand4) {
+                     double* __restrict__ tilebox, T* __restrict__ cand3) {
   __shared__ double s_box[6][kSegsPerTile];
   const size_t batch_row = blockIdx.y, box_stride = 6 * ((size_t)n_sub + m_sub + m_tiles);
   traj += batch_row * 3 * n, cand += batch_row * 3 * m, mask += batch_row * m;
   tbox += batch_row * box_stride, cbox += batch_row * box_stride, tilebox += batch_row * box_stride;
-  cand4 += batch_row * (size_t)m_tiles * 4 * kTileM;
+  cand3 += batch_row * (size_t)m_tiles * 3 * kTileM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool query = (int)blockIdx.x < q_blocks;  // uniform across the block
   const int tile = (int)blockIdx.x - q_blocks;    // of a candidate block
@@ -142,16 +143,15 @@ segment_boxes_kernel(const T* __restrict__ traj, int n, int n_sub, int q_blocks,
     for (int d = 0; d < 3; ++d) lo[d] = hi[d] = sanitise((double)traj[3 * q + d]);
   } else {
     const bool valid = p < m && mask[p] != 0;
-    T* packed = cand4 + (size_t)tile * 4 * kTileM + p % kTileM;
+    T* packed = cand3 + (size_t)tile * 3 * kTileM + p % kTileM;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      const T raw = p < m ? cand[3 * p + d] : T(0);
+      const T raw = valid ? cand[3 * p + d] : Limits<T>::inf();
       packed[(size_t)d * kTileM] = raw;
       const double v = valid ? sanitise((double)raw) : 0.0;
       lo[d] = valid ? v : inf;
       hi[d] = valid ? v : -inf;
     }
-    packed[3 * (size_t)kTileM] = valid ? T(0) : Limits<T>::inf();
   }
   warp_box(lo, hi);
   if (lane == 0) {
@@ -453,7 +453,7 @@ cudaError_t launch_keep(int batch, const double* tbox, int n_sub, int n_tiles, c
 template <typename T>
 cudaError_t launch(int batch, const void* traj, int n, const void* cand, const unsigned char* mask,
                    int m, double* boxes, int n_tiles, int m_tiles, int* order, int* nkept,
-                   void* cand4, cudaStream_t s) {
+                   void* cand3, cudaStream_t s) {
   if (n < 1 || m < 0 || (long long)n_tiles * 128 < n || (long long)m_tiles * kTileM < m ||
       batch < 1 || batch > 65535)
     return cudaErrorInvalidValue;
@@ -464,7 +464,7 @@ cudaError_t launch(int batch, const void* traj, int n, const void* cand, const u
   const int q_blocks = (n_sub + kSegsPerTile - 1) / kSegsPerTile;
   segment_boxes_kernel<T><<<dim3((unsigned)(q_blocks + m_tiles), (unsigned)batch), kBoxThreads, 0, s>>>(
       static_cast<const T*>(traj), n, n_sub, q_blocks, static_cast<const T*>(cand), mask, m, m_sub,
-      m_tiles, tbox, cbox, tilebox, static_cast<T*>(cand4));
+      m_tiles, tbox, cbox, tilebox, static_cast<T*>(cand3));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // As many query tiles a block as still leave kFillBlocks blocks, counted
@@ -483,15 +483,16 @@ cudaError_t launch(int batch, const void* traj, int n, const void* cand, const u
 // traj (n, 3), cand (m, 3) in the working dtype, mask (m,) bytes; boxes
 // 6 * (4 * n_tiles + 33 * m_tiles) float64 of scratch (the query segments',
 // the candidate segments' and the candidate tiles' boxes); out: order (n_tiles,
-// m_tiles) and nkept (n_tiles,) int32, cand4 (m_tiles, 4, 1024) in the
-// working dtype. Returns a cudaError_t.
+// m_tiles) and nkept (n_tiles,) int32, cand3 (m_tiles, 3, 1024) in the
+// working dtype, +inf coordinates for a masked or padded candidate.
+// Returns a cudaError_t.
 GPS_EXPORT int gps_nn_keep(int dtype, int batch, const void* traj, int n, const void* cand,
                            const unsigned char* mask, int m, double* boxes, int n_tiles,
-                           int m_tiles, int* order, int* nkept, void* cand4, void* stream) {
+                           int m_tiles, int* order, int* nkept, void* cand3, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == GPS_F32)
-    return (int)launch<float>(batch, traj, n, cand, mask, m, boxes, n_tiles, m_tiles, order, nkept, cand4, s);
+    return (int)launch<float>(batch, traj, n, cand, mask, m, boxes, n_tiles, m_tiles, order, nkept, cand3, s);
   if (dtype == GPS_F64)
-    return (int)launch<double>(batch, traj, n, cand, mask, m, boxes, n_tiles, m_tiles, order, nkept, cand4, s);
+    return (int)launch<double>(batch, traj, n, cand, mask, m, boxes, n_tiles, m_tiles, order, nkept, cand3, s);
   return (int)cudaErrorInvalidValue;
 }

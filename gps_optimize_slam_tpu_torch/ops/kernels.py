@@ -19,8 +19,9 @@ and the array code around them:
   rules most tiles out before any of their 32 segment boxes is read, and a
   block of several query tiles shares the candidate boxes it reads), and
   both scan a staged tile with one function (``csrc/nn_tile.cuh``), so they
-  agree bit for bit. In K3 the blocks of a query tile (16 or 32 queries
-  each) share its list and each walks all of it; K4's blocks draw items
+  agree bit for bit. In K3 the blocks of a query tile (16, 32 or 64
+  queries each, by :func:`resident_block`) share its list and each walks
+  all of it; K4's blocks draw items
   of a work list of runs of ``RUN_TILES`` kept tiles, so a long list is
   spread over many blocks and no work exists for a dropped pair. Neither
   reads a device value on the host, so a CUDA graph holds either launch.
@@ -53,7 +54,7 @@ import torch
 
 from gps_optimize_slam_tpu_torch.ops import _build
 
-TILE_N = 128  # queries per keep list: a block of csrc/nn_grid.cu, 4-8 blocks of csrc/nn.cu
+TILE_N = 128  # queries per keep list: a block of csrc/nn_grid.cu, 1-8 blocks of csrc/nn.cu
 TILE_M = 1024  # candidates per tile of both
 SUB = 32  # AABB segment length of the pruning bounds (divides both tiles)
 RUN_TILES = 4  # kept candidate tiles per K4 block (csrc/nn_grid.cu kRun)
@@ -69,9 +70,32 @@ _BIG = 3.4e38  # non-finite coordinates are clamped here for the bounds only
 # keep hundreds of tiles, which only 512 or more candidate tiles allow
 # (524,288 shuffled candidates, every tile kept: K4 1.5-2.0x ahead at 6
 # query tiles, 1.2-1.3x at 37, level at 64, K3's device time ahead at 128;
-# at 64 candidate tiles K3 ahead at any query count).
+# at 64 candidate tiles K3 ahead at any query count). Re-measured after
+# both kernels' tile loop was redesigned (same card and script, calls,
+# float32 / float64): shuffled, K4 1.52 / 1.95x ahead at 6 query tiles,
+# 1.30 / 1.19x at 37, level at 64 (1.01 / 0.98x) and at 128 (1.04 /
+# 1.02x, K3's device time ahead); on the random walks K3 2.2 / 2.3x ahead
+# at 128 query tiles against 524,288 candidates. The crossover did not
+# move.
 GRID_MIN_CANDIDATES = 524_288
 GRID_MAX_QUERY_TILES = 64
+# K3's queries a block (csrc/nn.cu) by the launch's query tiles, all rows
+# counted (:func:`resident_block`): 16 up to SMALL_GRID_TILES, 32 up to
+# LARGE_GRID_TILES, 64 beyond. Measured on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit (chip_smoke.py phase 1 "tiers": a launch's device
+# ms, random walks, 16 / 32 / 64 queries a block, float32; float64): at 37
+# query tiles 0.0099 / 0.0105 / 0.0148; 0.0161 / 0.0210 / 0.0254, at 256
+# 0.0558 / 0.0599 / 0.0614; 0.115 / 0.118 / 0.122, at 1,024 0.150 / 0.131
+# / 0.142; 0.624 / 0.604 / 0.615, at 2,048 0.484 / 0.437 / 0.424; 0.859 /
+# 0.813 / 0.794, at 4,096 0.975 / 0.846 / 0.827; 1.411 / 1.404 / 1.339,
+# at the fleet bucket's 2,368 0.263 / 0.229 / 0.212; 0.425 / 0.408 /
+# 0.399, and at phase 1's long rows (16,384, float64;
+# tools/nn_launch_compare.py) 156.1 / 148.0 / 143.2 ms. At 512 the order
+# changes from run to run within a tenth. Eight queries a thread in
+# blocks of 128 timed level with 64 or behind and spilled in float64.
+SMALL_GRID_TILES = 256
+LARGE_GRID_TILES = 1024
+RESIDENT_BLOCKS = (16, 32, 64)  # the block sizes csrc/nn.cu launches
 # Bound elements per row block of tile_keep_mask (about 50 MB for each of
 # its float64 (rows, m_sub, 3) intermediates).
 _KEEP_BLOCK_ELEMS = 1 << 21
@@ -198,25 +222,27 @@ def bounds_operands(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: tor
 
 
 def pack_candidates_plain(candidates: torch.Tensor, cand_mask: torch.Tensor, m_tiles: int) -> torch.Tensor:
-    """``cand4`` (m_tiles, 4, TILE_M) in the candidates' dtype: the raw
-    coordinates as rows x, y, z (zeros in the pad) and a validity row (0
-    valid, +inf masked out or padding), the operand both NN kernels walk;
-    (B, m_tiles, 4, TILE_M) for a batch of rows."""
+    """``cand3`` (m_tiles, 3, TILE_M) in the candidates' dtype, the operand
+    both NN kernels walk: rows x, y, z, a valid candidate's raw coordinates
+    and +inf in all three for a masked or padded one (validity folded into
+    the coordinates: a finite query's distance to it is +inf, and its raw
+    coordinates, NaN or not, are never read); (B, m_tiles, 3, TILE_M) for a
+    batch of rows."""
     m = candidates.shape[-2]
     lead = candidates.shape[:-2]
-    m_pad = m_tiles * TILE_M
-    cand4 = torch.zeros((*lead, 4, m_pad), dtype=candidates.dtype, device=candidates.device)
-    cand4[..., :3, :m] = candidates.transpose(-1, -2)
-    cand4[..., 3, :] = float("inf")
-    cand4[..., 3, :m] = torch.where(cand_mask, 0.0, float("inf")).to(candidates.dtype)
-    return cand4.reshape(*lead, 4, m_tiles, TILE_M).transpose(-3, -2).contiguous()
+    cand3 = torch.full((*lead, 3, m_tiles * TILE_M), float("inf"), dtype=candidates.dtype,
+                       device=candidates.device)
+    cand3[..., :m] = torch.where(cand_mask[..., None, :], candidates.transpose(-1, -2), float("inf"))
+    return cand3.reshape(*lead, 3, m_tiles, TILE_M).transpose(-3, -2).contiguous()
 
 
 def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
     """The operands of both NN kernels besides ``traj``: ``order``
     (n_tiles, m_tiles) and ``nkept`` (n_tiles,) int32, each query tile's
-    kept candidate tiles in ascending order and their count, and ``cand4``
-    (m_tiles, 4, TILE_M), the packed candidates; each with a leading B for
+    kept candidate tiles in ascending order and their count, and ``cand3``
+    (m_tiles, 3, TILE_M), the packed candidates (rows x, y, z; +inf in all
+    three for a masked or padded candidate, as
+    :func:`pack_candidates_plain` packs them); each with a leading B for
     a batch of rows (traj (B, n, 3)), built in the same one call. On CUDA the keep-list
     kernel (``csrc/nn_keep.cu``) builds all three from the raw coordinates
     in one call of two launches (entries of ``order`` past ``nkept``
@@ -235,9 +261,9 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
     lead, batch = traj.shape[:-2], (traj.shape[0] if traj.ndim == 3 else 1)
     order = torch.empty((*lead, n_tiles, m_tiles), dtype=torch.int32, device=traj.device)
     nkept = torch.empty((*lead, n_tiles), dtype=torch.int32, device=traj.device)
-    cand4 = torch.empty((*lead, m_tiles, 4, TILE_M), dtype=traj.dtype, device=traj.device)
+    cand3 = torch.empty((*lead, m_tiles, 3, TILE_M), dtype=traj.dtype, device=traj.device)
     if batch == 0:
-        return order, nkept, cand4
+        return order, nkept, cand3
     # lo and hi per axis of every segment and of every candidate tile, a row's after another
     boxes = torch.empty((batch * 6 * ((n_tiles * TILE_N + m_tiles * TILE_M) // SUB + m_tiles),),
                         dtype=torch.float64, device=traj.device)
@@ -247,25 +273,25 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
         rc = _build.library().gps_nn_keep(
             _build.dtype_code(traj), batch, traj.data_ptr(), traj.shape[-2], cand.data_ptr(),
             mask.data_ptr(), cand.shape[-2], boxes.data_ptr(), n_tiles, m_tiles, order.data_ptr(),
-            nkept.data_ptr(), cand4.data_ptr(), _build.stream(traj.device),
+            nkept.data_ptr(), cand3.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn keep lists")
     _build.count_launch(keep_lists)
-    return order, nkept, cand4
+    return order, nkept, cand3
 
 
 def nn_grid_operands(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
-    """K4's operands besides ``traj``: ``order``, ``nkept`` and ``cand4`` of
+    """K4's operands besides ``traj``: ``order``, ``nkept`` and ``cand3`` of
     :func:`keep_lists`, and ``ends`` int32, shaped as ``nkept``, the
     inclusive prefix sum of each query tile's runs of at most ``RUN_TILES``
     kept tiles (K4's work list: item b takes query tile i with ends[i-1]
     <= b < ends[i]); with a leading batch axis the sum runs over every
     row's query tiles, one row after another. Its last entry, the list's
     length, is read by the kernel on the device."""
-    order, nkept, cand4 = keep_lists(traj, candidates, cand_mask)
+    order, nkept, cand3 = keep_lists(traj, candidates, cand_mask)
     runs = torch.div(nkept + RUN_TILES - 1, RUN_TILES, rounding_mode="floor")
     ends = torch.cumsum(runs.reshape(-1), 0, dtype=torch.int32).reshape(runs.shape)
-    return order, nkept, cand4, ends
+    return order, nkept, cand3, ends
 
 
 def _check_nn(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor) -> None:
@@ -302,27 +328,47 @@ def nn_min_dist2(
     return nn_grid(traj, candidates, cand_mask)
 
 
+def resident_block(query_tiles: int) -> int:
+    """K3's queries a block for a launch of ``query_tiles`` query tiles (all
+    rows): 16 (two a thread) while that leaves about 15 blocks an SM or
+    fewer, 32 (four a thread) up to ``LARGE_GRID_TILES``, and 64 (eight a
+    thread, each staged tile and shared-memory load feeding twice the
+    pairs) at the grids of long rows and batches."""
+    if query_tiles <= SMALL_GRID_TILES:
+        return 16
+    return 32 if query_tiles <= LARGE_GRID_TILES else 64
+
+
 def nn_resident(
     traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor
 ) -> torch.Tensor:
-    """K3 (``csrc/nn.cu``): blocks of 16 or 32 queries walk the kept
-    candidate tiles of their 128-query tile, at any M; a batch of rows
-    (B, N, 3) in one launch, a grid row a sequence. CPU tensors take
-    :func:`nn_min_dist2_plain`."""
+    """K3 (``csrc/nn.cu``): blocks of 16, 32 or 64 queries
+    (:func:`resident_block`) walk the kept candidate tiles of their
+    128-query tile, at any M; a batch of rows (B, N, 3) in one launch, a
+    grid row a sequence. CPU tensors take :func:`nn_min_dist2_plain`."""
     if traj.device.type == "cpu":
         return nn_min_dist2_plain(traj, candidates, cand_mask)
     _check_nn(traj, candidates, cand_mask)
+    if traj.numel() == 0:
+        return torch.empty(traj.shape[:-1], dtype=traj.dtype, device=traj.device)
+    return resident_launch(traj, keep_lists(traj, candidates, cand_mask))
+
+
+def resident_launch(traj: torch.Tensor, operands, queries_per_block: Optional[int] = None) -> torch.Tensor:
+    """K3's launch alone on :func:`keep_lists`' ``operands``, with
+    ``queries_per_block`` queries a block (one of ``RESIDENT_BLOCKS``; by
+    default :func:`resident_block`'s choice). Every block size gives the
+    same minima bit for bit: a query's minimum is over the same distances."""
+    order, nkept, cand3 = operands
     n, batch = traj.shape[-2], (traj.shape[0] if traj.ndim == 3 else 1)
+    if queries_per_block is None:
+        queries_per_block = resident_block(batch * order.shape[-2])
     out = torch.empty(traj.shape[:-1], dtype=traj.dtype, device=traj.device)
-    if n == 0 or batch == 0:
-        return out
-    order, nkept, cand4 = keep_lists(traj, candidates, cand_mask)
-    lib = _build.library()
     with torch.cuda.device(traj.device):
-        rc = lib.gps_nn_min_dist2(
-            _build.dtype_code(traj), batch, traj.data_ptr(), n, cand4.data_ptr(),
+        rc = _build.library().gps_nn_min_dist2(
+            _build.dtype_code(traj), batch, traj.data_ptr(), n, cand3.data_ptr(),
             order.data_ptr(), nkept.data_ptr(), order.shape[-2], order.shape[-1],
-            out.data_ptr(), _build.stream(traj.device),
+            queries_per_block, out.data_ptr(), _build.stream(traj.device),
         )
     _build.check(rc, "nn_min_dist2 (resident)")
     _build.count_launch(nn_resident)
@@ -355,7 +401,7 @@ def grid_launch(traj: torch.Tensor, operands, max_items: Optional[int] = None) -
     most ``max_items``: by default the most items the lists could hold
     (every query tile's runs of all candidate tiles). Any positive cap
     gives the same minima, with fewer blocks drawing more items each."""
-    order, nkept, cand4, ends = operands
+    order, nkept, cand3, ends = operands
     n, batch = traj.shape[-2], (traj.shape[0] if traj.ndim == 3 else 1)
     out = torch.full(traj.shape[:-1], float("inf"), dtype=traj.dtype, device=traj.device)
     lib = _build.library()
@@ -368,7 +414,7 @@ def grid_launch(traj: torch.Tensor, operands, max_items: Optional[int] = None) -
     ticket = torch.empty((1,), dtype=torch.int32, device=traj.device)
     with torch.cuda.device(traj.device):
         rc = lib.gps_nn_grid(
-            _build.dtype_code(traj), batch, traj.data_ptr(), n, cand4.data_ptr(), order.data_ptr(),
+            _build.dtype_code(traj), batch, traj.data_ptr(), n, cand3.data_ptr(), order.data_ptr(),
             nkept.data_ptr(), ends.data_ptr(), order.shape[-2], order.shape[-1], max_items,
             ticket.data_ptr(), out.data_ptr(), _build.stream(traj.device),
         )

@@ -132,7 +132,7 @@ def walk(gen, n, dtype, device, offset=0.0):
 def test_nn_kernel_matches_plain(cuda, dtype):
     """K3 against the plain version and bit for bit against K4: seq-02's
     length, one candidate tile, fewer queries than a block takes, a ragged
-    last block, more than 256 query tiles (the larger block size),
+    last block, more than 256 query tiles (32 queries a block),
     16,384 x 262,144 and, in float64, UTM magnitudes."""
     gen = torch.Generator().manual_seed(1)
     cases = [(4661, 4661, 0.0), (300, 777, 0.0), (5, 1, 0.0), (1131, 3000, 0.0), (33_000, 40_000, 0.0),
@@ -210,6 +210,112 @@ def test_nn_route_rule_edges(cuda):
     assert torch.equal(past[:few], at_edge)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nn_kernel_block_sizes_equal_each_other_k4_and_plain(cuda, dtype):
+    """K3's launch alone at every block size it has (``RESIDENT_BLOCKS``)
+    gives the minima of the wrapper's launch and of K4 bit for bit, at the
+    main path's 37 query tiles, past each tier's edge of
+    ``resident_block``, at a ragged last block and at a batch of ragged
+    rows with an all-masked one; the wrapper takes the block size the rule
+    names; against the plain version on every 64th query."""
+    gen = torch.Generator().manual_seed(15)
+    edges = (kernels.SMALL_GRID_TILES, kernels.LARGE_GRID_TILES)
+    cases = [((4661,), (4661,)), ((edges[0] * 128 + 1,), (9000,)), ((edges[1] * 128 + 77,), (20_000,)),
+             ((1131,), (3000,)), ((300, 4661, 129, 2000), (1500, 4661, 1025, 700))]
+    for ns, ms in cases:
+        traj, cands, mask = chip_smoke.ragged_walks(gen, ns, ms, dtype, cuda)
+        if len(ns) == 1:
+            traj, cands, mask = traj[0], cands[0], mask[0]
+        operands = kernels.keep_lists(traj, cands, mask)
+        tiles = len(ns) * operands[0].shape[-2]
+        assert kernels.resident_block(tiles) == (16 if tiles <= edges[0] else 32 if tiles <= edges[1] else 64)
+        got = kernels.nn_resident(traj, cands, mask)
+        for block in kernels.RESIDENT_BLOCKS:
+            before = kernels.nn_resident.launches
+            out = kernels.resident_launch(traj, operands, block)
+            assert kernels.nn_resident.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(out, got), (ns, block)
+        assert torch.equal(kernels.nn_grid(traj, cands, mask), got), ns
+        idx = torch.arange(0, traj.shape[-2], 64, device=cuda)
+        want = kernels.nn_min_dist2_plain(traj[..., idx, :].contiguous(), cands, mask, block=64)
+        torch.testing.assert_close(got[..., idx], want, rtol=1e-5 if dtype == torch.float32 else 1e-12, atol=0.0)
+    with pytest.raises(RuntimeError):
+        kernels.resident_launch(traj, operands, 48)  # no such block size
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["long_logs", "win"])
+def test_nn_kernels_agree_bit_for_bit_at_the_long_row_and_win_shapes(cuda, dtype, case):
+    """K3's batch grid (its block size for thousands of query tiles at the
+    long rows) and K4's at phase 1's two batched shapes: four ragged rows
+    of 524,288 to 300,000 random-walk poses with the last all masked, and
+    4 x 700 queries against 524,288 shuffled candidates; against the plain
+    version on every 512th query."""
+    gen = torch.Generator().manual_seed(16)
+    if case == "long_logs":
+        traj, cands, mask = chip_smoke.ragged_walks(gen, chip_smoke.LONG_LOG_LENGTHS, chip_smoke.LONG_LOG_LENGTHS,
+                                                    dtype, cuda)
+    else:
+        B, n, m = chip_smoke.GRID_BATCH_WIN
+        traj = torch.stack([walk(gen, n, dtype, cuda) for _ in range(B)])
+        cands = torch.stack([walk(gen, m, dtype, cuda, offset=0.3)[torch.randperm(m, generator=gen).to(cuda)]
+                             for _ in range(B)]).contiguous()
+        mask = (torch.rand(B, m, generator=gen) > 0.1).to(cuda)
+    k3 = kernels.nn_resident(traj, cands, mask)
+    k4 = kernels.nn_grid(traj, cands, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(k3, k4)
+    idx = torch.arange(0, traj.shape[1], 512, device=cuda)
+    want = kernels.nn_min_dist2_plain(traj[:, idx].contiguous(), cands, mask, block=16)
+    torch.testing.assert_close(k3[:, idx], want, rtol=1e-5 if dtype == torch.float32 else 1e-12, atol=0.0)
+    if case == "long_logs":
+        assert torch.isposinf(k3[-1]).all()
+
+
+def nan_of(dtype, negative: bool):
+    """A quiet NaN with a payload, its sign bit set if ``negative``."""
+    bits = {torch.float32: (0x7FC00001, torch.int32), torch.float64: (0x7FF8000000000001, torch.int64)}
+    value, itype = bits[dtype]
+    width = 32 if dtype == torch.float32 else 64
+    if negative:
+        value |= 1 << (width - 1)
+        value -= 1 << width  # as a signed integer
+    return torch.tensor([value], dtype=itype).view(dtype)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nan_candidates_never_win(cuda, dtype):
+    """Valid candidates with a NaN coordinate, its sign bit set or not,
+    change no minimum (a NaN distance never wins): K3 at every block
+    size and K4 give bit for bit what they give with those candidates
+    masked out (each sits in a segment of valid finite candidates, so the
+    keep lists still hold every query's nearest tile), and +inf, not NaN,
+    where the NaN candidates are the only valid ones."""
+    gen = torch.Generator().manual_seed(17)
+    traj, cands = walk(gen, 4661, dtype, cuda), walk(gen, 9000, dtype, cuda, offset=0.3)
+    mask = torch.ones(9000, dtype=torch.bool, device=cuda)
+    nans = torch.arange(5, 9000, 97, device=cuda)
+    for k, i in enumerate(nans.tolist()):
+        cands[i, k % 3] = nan_of(dtype, negative=k % 2 == 0)
+    bits = chip_smoke.same_bits(cands)[torch.isnan(cands)]
+    assert len(bits) == len(nans) and bool((bits < 0).any()) and bool((bits > 0).any())  # both signs
+    clean = mask.clone()
+    clean[nans] = False
+    want = kernels.nn_resident(traj, cands, clean)
+    operands = kernels.keep_lists(traj, cands, mask)
+    for block in kernels.RESIDENT_BLOCKS:
+        got = kernels.resident_launch(traj, operands, block)
+        torch.cuda.synchronize()
+        assert torch.equal(chip_smoke.same_bits(got), chip_smoke.same_bits(want)), block
+    assert torch.equal(chip_smoke.same_bits(kernels.nn_grid(traj, cands, mask)), chip_smoke.same_bits(want))
+    assert torch.isfinite(want).all()
+    only = torch.zeros_like(mask)
+    only[nans] = True
+    for got in (kernels.nn_resident(traj, cands, only), kernels.nn_grid(traj, cands, only)):
+        assert torch.isposinf(got).all()
+
+
 def plain_keep_lists(traj, cands, mask):
     return kernels.keep_lists_plain(kernels.tile_keep_mask(*kernels.bounds_operands(traj, cands, mask)))
 
@@ -248,13 +354,13 @@ def test_keep_list_kernel_equals_plain_lists(cuda, dtype):
             cands[2999, 0] = float("nan")
         for mk in (mask, torch.zeros_like(mask)):
             before = kernels.keep_lists.launches
-            order, nkept, cand4 = kernels.keep_lists(traj, cands, mk)
+            order, nkept, cand3 = kernels.keep_lists(traj, cands, mk)
             assert kernels.keep_lists.launches == before + 1
             want_order, want_nkept = plain_keep_lists(traj, cands, mk)
             assert torch.equal(nkept, want_nkept), (n, m)
             cols = torch.arange(order.shape[1], device=cuda)[None] < nkept[:, None]
             assert torch.equal(torch.where(cols, order, -1), torch.where(cols, want_order, -1)), (n, m)
-            assert torch.equal(chip_smoke.same_bits(cand4), chip_smoke.same_bits(kernels.pack_candidates_plain(cands, mk, order.shape[1])))
+            assert torch.equal(chip_smoke.same_bits(cand3), chip_smoke.same_bits(kernels.pack_candidates_plain(cands, mk, order.shape[1])))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -433,15 +539,17 @@ def test_batched_keep_lists_and_nn_kernel_match_plain_and_each_row(cuda, dtype):
     """The keep lists and K3 with a batch grid: ragged rows with an
     all-masked one; B = 1; 8 rows of seq-02's length (296 query tiles, so
     the batch takes K3's 32-query blocks while each row alone takes the
-    16-query ones) and, in float64, UTM magnitudes."""
+    16-query ones), 32 such rows (1,184 query tiles: the 64-query blocks)
+    and, in float64, UTM magnitudes."""
     gen = torch.Generator().manual_seed(8)
-    cases = [((300, 150, 1, 300), (1500, 700, 1025, 9), 0.0), ((5,), (1,), 0.0), ((4661,) * 8, (4661,) * 8, 0.0)]
+    cases = [((300, 150, 1, 300), (1500, 700, 1025, 9), 0.0), ((5,), (1,), 0.0), ((4661,) * 8, (4661,) * 8, 0.0),
+             ((4661,) * 32, (4661,) * 32, 0.0)]
     if dtype == torch.float64:
         cases.append(((4661, 2000, 3000), (4661, 4661, 900), 5.4e6))
     for ns, ms, offset in cases:
         traj, cands, mask = chip_smoke.ragged_walks(gen, ns, ms, dtype, cuda, offset)
         before = (kernels.keep_lists.launches, kernels.nn_resident.launches)
-        order, nkept, cand4 = kernels.keep_lists(traj, cands, mask)
+        order, nkept, cand3 = kernels.keep_lists(traj, cands, mask)
         got = kernels.nn_min_dist2(traj, cands, mask)
         assert (kernels.keep_lists.launches, kernels.nn_resident.launches) == (before[0] + 2, before[1] + 1)
         torch.cuda.synchronize()
@@ -451,12 +559,12 @@ def test_batched_keep_lists_and_nn_kernel_match_plain_and_each_row(cuda, dtype):
         assert torch.equal(nkept, want_nkept)
         cols = torch.arange(order.shape[-1], device=cuda) < nkept[..., None]
         assert torch.equal(torch.where(cols, order, -1), torch.where(cols, want_order, -1))
-        assert torch.equal(chip_smoke.same_bits(cand4), chip_smoke.same_bits(kernels.pack_candidates_plain(cands, mask, order.shape[-1])))
+        assert torch.equal(chip_smoke.same_bits(cand3), chip_smoke.same_bits(kernels.pack_candidates_plain(cands, mask, order.shape[-1])))
         for r in range(len(ns)):
             o1, k1, c1 = kernels.keep_lists(traj[r], cands[r], mask[r])
             c = torch.arange(o1.shape[-1], device=cuda) < k1[:, None]
             assert torch.equal(k1, nkept[r]) and torch.equal(torch.where(c, o1, -1), torch.where(c, order[r], -1))
-            assert torch.equal(chip_smoke.same_bits(c1), chip_smoke.same_bits(cand4[r]))
+            assert torch.equal(chip_smoke.same_bits(c1), chip_smoke.same_bits(cand3[r]))
             assert torch.equal(kernels.nn_resident(traj[r], cands[r], mask[r]), got[r]), (ns, r)
         if len(ns) > 1:
             assert torch.isinf(got[-1]).all()

@@ -10,12 +10,17 @@ exactly the operands each kernel receives, in each kernel's order of work
 (K3's blocks of a query tile sharing one keep list, their slices of a
 staged tile and the fold; K4's runs; K5's point chunks by trial chunks and
 their partial counts), must give the brute-force minimum and the plain
-counts, and the K3/K4 routing rule is held at its edges.
+counts, and the K3/K4 routing rule is held at its edges. The NN
+emulations compute a pair's distance as the kernels do (csrc/nn_tile.cuh:
+d0*d0, then two fused multiply-adds, each rounded once; ``fma`` emulates
+the contraction exactly in NumPy) on the packed candidates (+inf
+coordinates for a masked or padded one).
 
 Tolerances: NN ≤1e-6 relative against the JAX kernel, which computes in
 float32 (inputs are rounded to float32 first, so only the kernel's own
-rounding remains); the emulated kernel walk equals the brute force to
-1e-14 relative; counts, and the emulated kernel's, exactly equal to JAX's
+rounding remains); the emulated kernel walks equal the brute force with
+the kernels' arithmetic (``kernel_min_dist2``) exactly, and the plain
+version's, which rounds each square and sum, to 1e-14 relative; counts, and the emulated kernel's, exactly equal to JAX's
 elementwise form, and within 2 of its float32 quadratic-form kernel (which
 the JAX package re-ranks for that reason).
 """
@@ -66,8 +71,93 @@ def test_plain_nn_all_masked_and_nan_rows():
     np.testing.assert_allclose(got[ok], want[ok], rtol=1e-6)
 
 
+def _split(a):
+    """Veltkamp's split of float64 ``a`` into hi + lo, 26 significant bits each."""
+    c = 134217729.0 * a  # 2^27 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_prod(a, b):
+    """(p, e): p = a*b rounded, p + e = a*b exactly (Dekker)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _two_sum(a, b):
+    """(s, e): s = a + b rounded, s + e = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def fma(a, b, c):
+    """a*b + c rounded once, in float64 (the card's ``__fma_rn``), by Boldo
+    and Melquiond's emulation: the exact product (uh, ul), the exact sum
+    (th, tl) of c and uh, tl + ul rounded to odd, then th + that rounded to
+    nearest. Non-finite operands or results take a*b + c, which gives the
+    same infinities and NaNs; a product in the subnormal range would break
+    the exact transformations and raises."""
+    a, b, c = np.broadcast_arrays(*(np.asarray(x, np.float64) for x in (a, b, c)))
+    with np.errstate(invalid="ignore", over="ignore"):
+        uh, ul = _two_prod(a, b)
+        th, tl = _two_sum(c, uh)
+        v, e = _two_sum(tl, ul)
+        odd = (v.view(np.int64) & 1) == 1
+        v = np.where((e != 0) & ~odd, np.nextafter(v, np.where(e > 0, np.inf, -np.inf)), v)
+        z = th + v
+        plain = a * b + c
+    special = ~(np.isfinite(a) & np.isfinite(b) & np.isfinite(c) & np.isfinite(plain))
+    tiny = (uh != 0) & (np.abs(uh) < 2.0**-960)
+    assert not (tiny & ~special).any(), "a product in the subnormal range"
+    return np.where(special, plain, z)
+
+
+def kernel_d2(q, blk):
+    """(len(q), blk.shape[1]) squared distances from the queries q (k, 3)
+    to the packed candidates blk (3, w), as csrc/nn_tile.cuh's tile_min
+    computes them: fma(d2, d2, fma(d1, d1, d0 * d0)), d = a - b."""
+    d0, d1, d2 = (q[:, k, None] - blk[k][None] for k in range(3))
+    return fma(d2, d2, fma(d1, d1, d0 * d0))
+
+
+def kernel_min_dist2(traj, cands, mask):
+    """The brute-force minimum with the kernels' arithmetic: each candidate
+    packed as the kernels receive it (+inf coordinates where masked), each
+    distance by ``kernel_d2``, a NaN never winning (+inf with no valid
+    candidate); with a leading batch axis, each row against its own."""
+    a, c, v = (np.asarray(x) for x in (traj, cands, mask))
+    if a.ndim == 3:
+        return np.stack([kernel_min_dist2(*row) for row in zip(a, c, v)])
+    packed = np.where(v[:, None], c, np.inf).T
+    return np.fmin.reduce(kernel_d2(a, packed), axis=1, initial=np.inf)
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0**40, 2.0**-30])
+def test_emulated_fma_rounds_once(scale):
+    """``fma`` equals a*b + c rounded once from the exact rational value
+    (Python's int division rounds correctly), on operands whose two
+    roundings differ now and then, at several magnitudes; and keeps the
+    infinities and NaNs of a*b + c."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(int(np.log2(scale)) + 64)
+    a = rng.normal(size=4000) * scale
+    b = a * (1 + rng.normal(size=4000) * 2.0**-20)
+    c = np.abs(rng.normal(size=4000)) * scale * scale
+    got = fma(a, b, c)
+    want = np.array([float(Fraction(x) * Fraction(y) + Fraction(z)) for x, y, z in zip(a, b, c)])
+    np.testing.assert_array_equal(got, want)
+    assert (got != a * b + c).sum() > 10  # the emulation does round once where the plain form rounds twice
+    inf, nan = np.inf, np.nan
+    np.testing.assert_array_equal(fma([-inf, 2.0, nan, inf], [-inf, 3.0, 1.0, 0.0], [1.0, inf, 0.0, 1.0]),
+                                  [inf, inf, nan, nan])
+
+
 NN_THREADS = 256  # csrc/nn.cu kNnThreads
-SMALL_GRID_TILES = 256  # csrc/nn.cu kSmallGridTiles: 16 queries a block up to here, 32 beyond
+PER_THREAD = {16: 2, 32: 4, 64: 8}  # csrc/nn.cu: queries a thread for each block size
 
 
 def emulate_kernel(traj, cands, mask, sub=None, per_thread=None, per_vector=2):
@@ -78,13 +168,16 @@ def emulate_kernel(traj, cands, mask, sub=None, per_thread=None, per_vector=2):
     ``per_thread`` queries and scanning every slices-th vector of
     ``per_vector`` candidates (16 bytes: 4 in float32, 2 in float64) of each
     kept tile; the slices' minima are folded at the end. A pair's distance
-    is the kernel's, the validity row added as the last term
-    (csrc/nn_tile.cuh). Blocks whose queries are all padding do nothing and
-    padding queries are never written: the output starts as NaN and must
-    come back without one. Returns (out, nkept, m_tiles)."""
-    order, nkept, cand4 = (x.numpy() for x in kernels.keep_lists(traj, cands, mask))
+    is the kernel's (``kernel_d2``) on the packed tile's three rows, a
+    NaN never winning. The block size is the wrapper's
+    (``kernels.resident_block``) unless given. Blocks whose queries are all
+    padding do nothing and padding queries are never written: the output
+    starts as NaN and must come back without one. Returns (out, nkept,
+    m_tiles)."""
+    order, nkept, cand3 = (x.numpy() for x in kernels.keep_lists(traj, cands, mask))
     if sub is None:
-        sub, per_thread = (16, 2) if order.shape[0] <= SMALL_GRID_TILES else (32, 4)
+        sub = kernels.resident_block(order.shape[0])
+        per_thread = PER_THREAD[sub]
     lanes = sub // per_thread
     slices = NN_THREADS // lanes
     vectors = kernels.TILE_M // per_vector
@@ -105,40 +198,110 @@ def emulate_kernel(traj, cands, mask, sub=None, per_thread=None, per_vector=2):
         q[: max(0, min(sub, n - q0))] = a[q0 : q0 + sub]
         best = np.full((slices, sub), np.inf)
         for k in range(nkept[i]):
-            blk = cand4[order[i, k]]  # (4, TILE_M): x, y, z, validity (+0 or +inf)
+            blk = cand3[order[i, k]]  # (3, TILE_M): x, y, z, +inf where masked
             for sl in range(slices):
-                c = cols[sl]
-                d = ((q[:, 0, None] - blk[0, c]) ** 2 + (q[:, 1, None] - blk[1, c]) ** 2
-                     + (q[:, 2, None] - blk[2, c]) ** 2 + blk[3, c])
-                best[sl] = np.fmin(best[sl], d.min(1))
+                best[sl] = np.fmin(best[sl], np.fmin.reduce(kernel_d2(q, blk[:, cols[sl]]), axis=1))
         rows = min(sub, n - q0)
         out[q0 : q0 + rows] = best.min(0)[:rows]
     assert not np.isnan(out).any()
     return out, nkept, order.shape[1]
 
 
-NN_BLOCKS = [(16, 2, 2), (16, 2, 4), (32, 4, 2), (32, 4, 4)]  # (queries a block, a thread, candidates a vector)
+# (queries a block, a thread, candidates a vector): every block size of
+# csrc/nn.cu in both dtypes' vector widths
+NN_BLOCKS = [(sub, PER_THREAD[sub], per_vector) for sub in kernels.RESIDENT_BLOCKS for per_vector in (2, 4)]
 
 
 @pytest.mark.parametrize("sub,per_thread,per_vector", NN_BLOCKS)
 @pytest.mark.parametrize("n,m,scale", [(2000, 3000, 1.0), (700, 2500, 5.0), (130, 1025, 0.3),
                                        (1131, 3000, 1.0), (5, 1, 1.0)])
 def test_kernel_operands_give_the_exact_minimum(n, m, scale, sub, per_thread, per_vector):
-    """Both block sizes of K3 and both vector widths, at a ragged last block
-    (2000 = 15 tiles + 80; 1131 = 8 tiles + 107, its last block 11 queries
-    of 16 or 32; 130 = one tile + 2) and at fewer queries than one block
-    takes (5)."""
+    """Every block size of K3 and both vector widths, at a ragged last
+    block (2000 = 15 tiles + 80; 1131 = 8 tiles + 107, its last block 11
+    queries of 16 or more; 130 = one tile + 2) and at fewer queries than
+    one block takes (5): the brute force with the kernels' arithmetic
+    exactly, the plain version to its rounding."""
     rng = np.random.default_rng(m)
     traj = torch.tensor(walk(rng, n, scale))
     cands = torch.tensor(walk(rng, m, scale, offset=2.0))
     mask = torch.tensor(rng.uniform(size=m) > 0.1)
     got, nkept, m_tiles = emulate_kernel(traj, cands, mask, sub, per_thread, per_vector)
+    np.testing.assert_array_equal(got, kernel_min_dist2(traj, cands, mask))
     want = kernels.nn_min_dist2_plain(traj, cands, mask).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-14)
     if n in (2000, 700):
         assert nkept.sum() < nkept.size * m_tiles  # the pruning did skip tiles
     none, _, _ = emulate_kernel(traj, cands, torch.zeros_like(mask), sub, per_thread, per_vector)
     assert np.isinf(none).all()  # every candidate masked: +inf, not NaN
+
+
+@pytest.mark.parametrize("raw", [np.nan, np.inf, -np.inf])
+def test_masked_non_finite_candidates_never_reach_the_minimum(raw):
+    """Masked candidates with a NaN or infinite raw coordinate are packed
+    as +inf, so K3's and K4's walks give what they gave when a validity row
+    was added as a fourth term: each query's minimum over the valid
+    candidates alone (never NaN), and +inf for a row with every candidate
+    masked."""
+    rng = np.random.default_rng(19)
+    traj, c = torch.tensor(walk(rng, 300)), walk(rng, 2500, offset=1.0)
+    mask = rng.uniform(size=2500) > 0.2
+    dirty = np.flatnonzero(~mask)[::3]
+    c[dirty, rng.integers(0, 3, size=len(dirty))] = raw
+    cands, vm = torch.tensor(c), torch.tensor(mask)
+    want = kernel_min_dist2(traj, c[mask], np.ones(mask.sum(), bool))
+    assert np.isfinite(want).all()
+    for got in (emulate_kernel(traj, cands, vm)[0], emulate_grid_kernel(traj, cands, vm)[0]):
+        np.testing.assert_array_equal(got, want)
+    _, _, cand3 = kernels.keep_lists(traj, cands, vm)
+    assert not torch.isnan(cand3).any()
+    for got in (emulate_kernel(traj, cands, torch.zeros_like(vm))[0],
+                emulate_grid_kernel(traj, cands, torch.zeros_like(vm))[0]):
+        assert np.isposinf(got).all()
+
+
+def emulate_keep_packing(cands, mask, m_tiles):
+    """The packed tiles as csrc/nn_keep.cu's segment_boxes_kernel writes
+    them, from flat images of a row's candidates and mask: the block of
+    candidate tile t, lane p of it, writes cand3[t * 3 * 1024 + d * 1024 +
+    p % 1024] = cand[3 p + d] where the candidate is valid (p < m and
+    mask[p] set) and +inf otherwise, for d = x, y, z."""
+    flat, valid_of = np.asarray(cands).reshape(-1), np.asarray(mask)
+    m = len(valid_of)
+    out = np.full(m_tiles * 3 * kernels.TILE_M, np.nan)
+    for p in range(m_tiles * kernels.TILE_M):
+        valid = p < m and valid_of[p]
+        for d in range(3):
+            out[(p // kernels.TILE_M) * 3 * kernels.TILE_M + d * kernels.TILE_M + p % kernels.TILE_M] = (
+                flat[3 * p + d] if valid else np.inf)
+    return out.reshape(m_tiles, 3, kernels.TILE_M)
+
+
+@pytest.mark.parametrize("m", [1, 1500, 2048])
+def test_plain_packing_is_the_keep_kernels_contract(m):
+    """``pack_candidates_plain`` (what ``keep_lists`` returns on the CPU)
+    equals the keep-list kernel's packing, emulated by its address
+    arithmetic, bit for bit: a valid candidate's raw coordinates, NaN ones
+    included, and +inf in x, y and z for a masked or padded one; each row of
+    a batch as that row alone."""
+    rng = np.random.default_rng(m)
+    c = walk(rng, m)
+    mask = rng.uniform(size=m) > 0.3
+    c[0, 1], c[-1, 0] = np.nan, -np.inf  # non-finite, valid or masked as drawn
+    mask[0] = True
+    m_tiles = -(-m // kernels.TILE_M)
+    cands, vm = torch.tensor(c), torch.tensor(mask)
+    got = kernels.pack_candidates_plain(cands, vm, m_tiles)
+    assert got.shape == (m_tiles, 3, kernels.TILE_M) and got.dtype == torch.float64
+    want = emulate_keep_packing(c, mask, m_tiles)
+    np.testing.assert_array_equal(got.numpy().view(np.int64), want.view(np.int64))
+    bits = got.view(torch.int64)
+    assert torch.equal(kernels.keep_lists(torch.tensor(walk(rng, 5)), cands, vm)[2].view(torch.int64), bits)
+    batch = kernels.pack_candidates_plain(torch.stack([cands, cands.flip(0)]), torch.stack([vm, vm.flip(0)]), m_tiles)
+    assert torch.equal(batch[0].view(torch.int64), bits)
+    np.testing.assert_array_equal(batch[1].numpy().view(np.int64),
+                                  emulate_keep_packing(c[::-1], mask[::-1], m_tiles).view(np.int64))
+    f32 = kernels.pack_candidates_plain(cands.float(), vm, m_tiles)
+    np.testing.assert_array_equal(f32.numpy(), want.astype(np.float32))
 
 
 @pytest.mark.parametrize("offset", [0.0, 5.4e6])  # local frame and UTM magnitudes
@@ -326,7 +489,7 @@ def emulate_grid_kernel(traj, cands, mask):
     """What csrc/nn_grid.cu computes from the wrapper's operands, in NumPy:
     block b of the work list takes query tile i (ends[i-1] <= b < ends[i])
     and its run of at most RUN_TILES kept tiles, and folds its minima."""
-    order, nkept, cand4, ends = (x.numpy() for x in kernels.nn_grid_operands(traj, cands, mask))
+    order, nkept, cand3, ends = (x.numpy() for x in kernels.nn_grid_operands(traj, cands, mask))
     a = traj.numpy()
     out = np.full(len(a), np.inf)
     for b in range(int(ends[-1])):
@@ -335,10 +498,8 @@ def emulate_grid_kernel(traj, cands, mask):
         rows = slice(i * kernels.TILE_N, min(len(a), (i + 1) * kernels.TILE_N))
         q = a[rows]
         for k in range(k0, min(nkept[i], k0 + kernels.RUN_TILES)):
-            blk = cand4[order[i, k]]  # (4, TILE_M), validity folded in row 3
-            d = ((q[:, 0, None] - blk[0]) ** 2 + (q[:, 1, None] - blk[1]) ** 2
-                 + (q[:, 2, None] - blk[2]) ** 2 + (0.0 - blk[3]) ** 2)
-            out[rows] = np.minimum(out[rows], d.min(1))
+            blk = cand3[order[i, k]]  # (3, TILE_M), +inf where masked
+            out[rows] = np.fmin(out[rows], np.fmin.reduce(kernel_d2(q, blk), axis=1))
     return out, nkept, ends
 
 
@@ -353,8 +514,8 @@ def test_grid_kernel_operands_give_the_exact_minimum(n, m, scale, shuffle):
     cands = torch.tensor(cands[rng.permutation(m)] if shuffle else cands)
     mask = torch.tensor(rng.uniform(size=m) > 0.1)
     got, nkept, ends = emulate_grid_kernel(traj, cands, mask)
-    want = kernels.nn_min_dist2_plain(traj, cands, mask).numpy()
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, kernel_min_dist2(traj, cands, mask))
+    np.testing.assert_allclose(got, kernels.nn_min_dist2_plain(traj, cands, mask).numpy(), rtol=1e-14)
     np.testing.assert_array_equal(got, emulate_kernel(traj, cands, mask)[0])  # K3's walk
     runs = -(-nkept // kernels.RUN_TILES)
     np.testing.assert_array_equal(ends, np.cumsum(runs))
@@ -533,27 +694,25 @@ def batch_of(rng, ns, ms, offset=0.0):
 def emulate_batched_nn_kernel(traj, cands, mask):
     """K3's batch grid from flat device-memory images of the batched
     operands: block (x, y) takes row y's slices at the kernel's offsets
-    (traj + 3 n y, cand + 4096 m_tiles y, order + n_tiles m_tiles y,
+    (traj + 3 n y, cand + 3072 m_tiles y, order + n_tiles m_tiles y,
     nkept + n_tiles y, out + n y) and does the single-row tile's work."""
     B, n, _ = traj.shape
-    order, nkept, cand4 = kernels.keep_lists(traj, cands, mask)
+    order, nkept, cand3 = kernels.keep_lists(traj, cands, mask)
     n_tiles, m_tiles = order.shape[1:]
     flat = {k: v.reshape(-1).numpy() for k, v in
-            dict(traj=traj, cand=cand4, order=order, nkept=nkept).items()}
+            dict(traj=traj, cand=cand3, order=order, nkept=nkept).items()}
     out = np.full(B * n, np.nan)
     for y in range(B):
         t = flat["traj"][3 * n * y : 3 * n * (y + 1)].reshape(n, 3)
-        c4 = flat["cand"][4 * kernels.TILE_M * m_tiles * y:][: 4 * kernels.TILE_M * m_tiles]
+        c3 = flat["cand"][3 * kernels.TILE_M * m_tiles * y:][: 3 * kernels.TILE_M * m_tiles]
         o = flat["order"][n_tiles * m_tiles * y:][: n_tiles * m_tiles].reshape(n_tiles, m_tiles)
         k = flat["nkept"][n_tiles * y:][:n_tiles]
         for i in range(n_tiles):
             q = t[i * kernels.TILE_N : (i + 1) * kernels.TILE_N]
             best = np.full(len(q), np.inf)
             for kk in range(k[i]):
-                blk = c4.reshape(m_tiles, 4, kernels.TILE_M)[o[i, kk]]
-                d = ((q[:, 0, None] - blk[0]) ** 2 + (q[:, 1, None] - blk[1]) ** 2
-                     + (q[:, 2, None] - blk[2]) ** 2 + blk[3])
-                best = np.fmin(best, d.min(1))
+                blk = c3.reshape(m_tiles, 3, kernels.TILE_M)[o[i, kk]]
+                best = np.fmin(best, np.fmin.reduce(kernel_d2(q, blk), axis=1))
             out[n * y + i * kernels.TILE_N :][: len(q)] = best
     assert not np.isnan(out).any()
     return out.reshape(B, n)
@@ -568,20 +727,21 @@ def test_batched_nn_and_keep_lists_equal_each_row_alone(ns, ms):
     offsets; K4's batched operands are each row's own."""
     rng = np.random.default_rng(sum(ns) + sum(ms))
     traj, cands, mask = batch_of(rng, ns, ms)
-    order, nkept, cand4 = kernels.keep_lists(traj, cands, mask)
+    order, nkept, cand3 = kernels.keep_lists(traj, cands, mask)
     got = kernels.nn_min_dist2(traj, cands, mask)
     assert torch.equal(got, kernels.nn_resident(traj, cands, mask))
     emulated = emulate_batched_nn_kernel(traj, cands, mask)
-    np.testing.assert_array_equal(emulated, got.numpy())
+    np.testing.assert_array_equal(emulated, kernel_min_dist2(traj, cands, mask))
+    np.testing.assert_allclose(emulated, got.numpy(), rtol=1e-14)
     for r in range(len(ns)):
         o1, k1, c1 = kernels.keep_lists(traj[r], cands[r], mask[r])
-        assert torch.equal(order[r], o1) and torch.equal(nkept[r], k1) and torch.equal(cand4[r], c1)
+        assert torch.equal(order[r], o1) and torch.equal(nkept[r], k1) and torch.equal(cand3[r], c1)
         assert torch.equal(got[r], kernels.nn_min_dist2_plain(traj[r], cands[r], mask[r]))
     assert torch.isinf(got[-1]).all()  # every candidate of the last row masked
     # K4's operands of the batch: each row's own, and ends each row's runs
     # after the rows before it (one work list over all rows).
     o, k, c, ends = kernels.nn_grid_operands(traj, cands, mask)
-    assert torch.equal(o, order) and torch.equal(k, nkept) and torch.equal(c, cand4)
+    assert torch.equal(o, order) and torch.equal(k, nkept) and torch.equal(c, cand3)
     assert ends.shape == nkept.shape and ends.dtype == torch.int32
     start = 0
     for r in range(len(ns)):
@@ -600,14 +760,14 @@ def emulate_batched_grid_kernel(traj, cands, mask):
     +inf by an atomicMin on the bit pattern (int64 views of non-negative
     float64 order like the values)."""
     B, n, _ = traj.shape
-    order, nkept, cand4, ends = kernels.nn_grid_operands(traj, cands, mask)
+    order, nkept, cand3, ends = kernels.nn_grid_operands(traj, cands, mask)
     n_tiles, m_tiles = order.shape[1:]
     flat = {k: v.reshape(-1).numpy() for k, v in
-            dict(traj=traj, cand=cand4, order=order, nkept=nkept, ends=ends).items()}
+            dict(traj=traj, cand=cand3, order=order, nkept=nkept, ends=ends).items()}
     e = flat["ends"]
     out = np.full(B * n, np.inf)
     bits = out.view(np.int64)
-    tile_elems = 4 * kernels.TILE_M
+    tile_elems = 3 * kernels.TILE_M
     for b in range(int(e[-1])):
         lo, hi = 0, len(e) - 1
         while lo < hi:
@@ -616,17 +776,14 @@ def emulate_batched_grid_kernel(traj, cands, mask):
         k0 = (b - (e[lo - 1] if lo else 0)) * kernels.RUN_TILES
         row, i = divmod(lo, n_tiles)
         t = flat["traj"][3 * n * row:][: 3 * n].reshape(n, 3)
-        c4 = flat["cand"][tile_elems * m_tiles * row:][: tile_elems * m_tiles].reshape(m_tiles, 4, -1)
+        c3 = flat["cand"][tile_elems * m_tiles * row:][: tile_elems * m_tiles].reshape(m_tiles, 3, -1)
         o = flat["order"][n_tiles * m_tiles * row:][: n_tiles * m_tiles].reshape(n_tiles, m_tiles)
         kept = flat["nkept"][n_tiles * row + i]
         assert k0 < kept  # no block without work
         q = t[i * kernels.TILE_N : (i + 1) * kernels.TILE_N]
         best = np.full(len(q), np.inf)
         for k in range(k0, min(kept, k0 + kernels.RUN_TILES)):
-            blk = c4[o[i, k]]
-            d = ((q[:, 0, None] - blk[0]) ** 2 + (q[:, 1, None] - blk[1]) ** 2
-                 + (q[:, 2, None] - blk[2]) ** 2 + blk[3])
-            best = np.fmin(best, d.min(1))
+            best = np.fmin(best, np.fmin.reduce(kernel_d2(q, c3[o[i, k]]), axis=1))
         at = n * row + i * kernels.TILE_N + np.arange(len(q))
         win = best < np.inf
         bits[at[win]] = np.minimum(bits[at[win]], best[win].view(np.int64))
@@ -651,7 +808,9 @@ def test_batched_grid_work_list_gives_each_rows_minimum(ns, ms, shuffle):
     got, nkept, ends = emulate_batched_grid_kernel(traj, cands, mask)
     np.testing.assert_array_equal(got, emulate_batched_nn_kernel(traj, cands, mask))  # K3's batch grid
     for r in range(len(ns)):
-        np.testing.assert_array_equal(got[r], kernels.nn_min_dist2_plain(traj[r], cands[r], mask[r]).numpy())
+        np.testing.assert_array_equal(got[r], kernel_min_dist2(traj[r], cands[r], mask[r]))
+        np.testing.assert_allclose(got[r], kernels.nn_min_dist2_plain(traj[r], cands[r], mask[r]).numpy(),
+                                   rtol=1e-14)
     assert np.isinf(got[-1]).all()
     runs = -(-nkept // kernels.RUN_TILES)
     np.testing.assert_array_equal(ends, np.cumsum(runs).reshape(runs.shape))

@@ -39,7 +39,7 @@ from gps_optimize_slam_tpu_torch.ops.umeyama import umeyama_sim3_from_moments
 from gps_optimize_slam_tpu_torch.utils import graphs
 from tests.test_fusion_chunked import _scenario as fusion_scenario
 from tests.test_torch_graphs import under_fake_mode
-from tests.test_torch_kernels import emulate_grid_kernel, walk
+from tests.test_torch_kernels import emulate_grid_kernel, kernel_d2, kernel_min_dist2, walk
 from tests.test_torch_robust import PASSES, jarr, scenario, tens
 
 
@@ -296,7 +296,7 @@ def emulate_ticket_grid_kernel(traj, cands, mask, blocks, rng):
     ticket passes the length. Resident blocks draw in an order the card
     decides (here at random), each folding its items' minima into an
     output prefilled with +inf."""
-    order, nkept, cand4, ends = (x.numpy() for x in kernels.nn_grid_operands(traj, cands, mask))
+    order, nkept, cand3, ends = (x.numpy() for x in kernels.nn_grid_operands(traj, cands, mask))
     bound = ends.size * -(-order.shape[-1] // kernels.RUN_TILES)  # grid_launch's most items
     grid = min(bound, blocks)
     length = int(ends[-1])  # read by every block on the device
@@ -316,10 +316,8 @@ def emulate_ticket_grid_kernel(traj, cands, mask, blocks, rng):
         rows = slice(i * kernels.TILE_N, min(len(a), (i + 1) * kernels.TILE_N))
         q = a[rows]
         for k in range(k0, min(nkept[i], k0 + kernels.RUN_TILES)):
-            tile = cand4[order[i, k]]
-            d = ((q[:, 0, None] - tile[0]) ** 2 + (q[:, 1, None] - tile[1]) ** 2
-                 + (q[:, 2, None] - tile[2]) ** 2 + (0.0 - tile[3]) ** 2)
-            out[rows] = np.minimum(out[rows], d.min(1))
+            d = kernel_d2(q, cand3[order[i, k]])  # (3, TILE_M) tile, +inf where masked
+            out[rows] = np.fmin(out[rows], np.fmin.reduce(d, axis=1))
     assert sorted(done) == list(range(length))  # every item once
     return out
 
@@ -329,7 +327,8 @@ def emulate_ticket_grid_kernel(traj, cands, mask, blocks, rng):
 def test_ticket_grid_walk_gives_the_exact_minimum(n, m, shuffle, blocks):
     """Fewer blocks than items (each block draws several), one block, the
     card's 132 SMs x 3 float64 blocks, and more blocks than items: the
-    minimum equals the one-block-an-item walk and the plain version."""
+    minimum equals the one-block-an-item walk and the brute force with the
+    kernels' arithmetic exactly, the plain version to its rounding."""
     rng = np.random.default_rng(n + m + blocks)
     traj = torch.tensor(walk(rng, n, 1.0))
     c = walk(rng, m, 1.0, offset=2.0)
@@ -337,7 +336,8 @@ def test_ticket_grid_walk_gives_the_exact_minimum(n, m, shuffle, blocks):
     mask = torch.tensor(rng.uniform(size=m) > 0.1)
     got = emulate_ticket_grid_kernel(traj, cands, mask, blocks, rng)
     np.testing.assert_array_equal(got, emulate_grid_kernel(traj, cands, mask)[0])
-    np.testing.assert_array_equal(got, kernels.nn_min_dist2_plain(traj, cands, mask).numpy())
+    np.testing.assert_array_equal(got, kernel_min_dist2(traj, cands, mask))
+    np.testing.assert_allclose(got, kernels.nn_min_dist2_plain(traj, cands, mask).numpy(), rtol=1e-14)
 
 
 def test_forward_chunks_of_the_chunked_filter_share_one_key(monkeypatch):
