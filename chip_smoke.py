@@ -62,7 +62,8 @@ Phases:
      the host, at both shapes and at the batch grid's; K5, counts equal
      to the plain version's at 1000 trials x 4661 and 279 points and 333 x
      5003 (ragged point and trial chunks), with every point invalid, and
-     twice on the same inputs; float32 and float64; and the routes: K1
+     twice on the same inputs, with the share of pairs its band left to the
+     plain recount; float32 and float64; and the routes: K1
      against K2 (and against the plain version) from 271 to 524,289 elements
      and at the last length the JAX package's budget gave K1, K1's batch
      grid against K2's at 2 to 64 rows of 16,385 to 524,289 elements, K3
@@ -77,7 +78,12 @@ Phases:
      at four ragged float64 rows of 524,289 / 393,217 / 300,001 / 20,001
      elements (identity-padded) and at 4 x 20,001, against the batched plain
      version and row by row against K2 alone (bit for bit for add2, max3,
-     min3), timed beside K1's grid; K4 (one work list over all rows' query
+     min3), timed beside K1's grid; K5 also at the fleet's own operands
+     (its fusion's Sim(3) window mask a row, recorded from an eager
+     ``fuse_batch``) and on an adversarial batch whose pairs sit within
+     a few ulps of the threshold, equal to the plain counts, with the
+     pairs recounted; K1's filter entry with its registers and spills; K4
+     (one work list over all rows' query
      tiles) at 4 x 700 x 524,288
      shuffled candidates with a row all masked and at phase 10's evaluation
      shape, bit for bit against K3's batch grid and against the plain
@@ -86,7 +92,9 @@ Phases:
      at single rows of 37 to 4,096 query tiles and at the fleet bucket,
      float32 and float64, with the device time of each (the times that set
      ``kernels.resident_block``); and the SASS of K3's and K4's tile loops,
-     their instructions a (query, candidate) pair (``sass_tile_loops``);
+     their instructions a (query, candidate) pair (``sass_tile_loops``)
+     and of K5's trial walk, its instructions a (trial, point) pair
+     (``sass_count_loops``);
   2. seq-04 golden arrays, float64 UTM, ``fuse_arrays`` on the card, held
      against tests/golden/seq04_golden.npz and seq04_meta.json;
   3. seq-04 from TUM + GNSS files rebuilt from the npz, ``fuse_files`` in
@@ -313,7 +321,7 @@ NN_PAIR_FLOPS = 8  # 3 differences, 3 squares, 2 sums per (query, candidate)
 # Printed beside the kernel's bound; the kernel's exact tile-level test
 # makes the pairs it takes a property of its design, so its bound is bytes.
 KEEP_PAIR_FLOPS = 33
-COUNT_FLOPS = 30  # s*R*p + t - d, squared and summed, compared, per (trial, point)
+COUNT_FLOPS = 30  # s*R*p + t - d, squared and summed, compared, per (trial, valid point)
 
 
 def emit(obj) -> None:
@@ -528,14 +536,15 @@ def keep_all_pairs_ms(traj, cand) -> float:
 def build_registers(log: str) -> dict:
     """{kernel: [registers, bytes of spill stores]} from nvcc's ``-Xptxas -v``
     output, for the keep-list kernels, the 12- and 27-leaf scans (the
-    kernels whose registers decide how many blocks share an SM) and K3, K4
-    and K5; empty when an up-to-date library was found and nothing was
-    compiled."""
+    kernels whose registers decide how many blocks share an SM; K1's, a key
+    a tile) and K3, K4 and K5 (each points-a-thread
+    instantiation, and its chunk list); empty when an up-to-date library was
+    found and nothing was compiled."""
     import re
 
     wanted = re.compile(r"(keep_lists_kernelILi\d+|segment_boxes_kernelI[fd]"
-                        r"|(?:tiled|lookback)_scan_kernelINS_\d+(?:Filter|RtsSuffix)I[fd]"
-                        r"|nn_kernelI[fd]Li\d+ELi\d+|nn_grid_kernelI[fd]|count_kernelI[fd])")
+                        r"|(?:tiled|lookback)_scan_kernelINS_\d+(?:Filter|RtsSuffix)I[fd](?:EE[fd]Li\d+ELb[01])?"
+                        r"|nn_kernelI[fd]Li\d+ELi\d+|nn_grid_kernelI[fd]|count_kernelI[fd]Li\d+|chunk_list_kernel)")
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -552,6 +561,96 @@ SASS_OPS = {"float64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"), "float32": ("
 SASS_INT_OPS = ("ISETP", "SEL", "FSEL", "IMNMX", "LDS")
 
 
+def sass_functions(library: str, name_re) -> dict:
+    """{name: {"ins": [(address, opcode, operands)], "loops": [(first,
+    last)]}} for each function of the library's SASS (``cuobjdump -sass``)
+    whose name ``name_re`` matches (group 1 names it), with its innermost
+    loops (a backward branch to a label or address at or before it); None
+    where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300).stdout
+    ins_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = name_re.search(line)
+            cur = out.setdefault(m.group(1), {"ins": [], "labels": {}, "match": m}) if m else None
+        elif cur is not None:
+            lab = re.match(r"\s*(\.L_\w+):", line)
+            if lab:
+                cur["labels"][lab.group(1)] = None  # the address of the next instruction
+                cur["pending"] = lab.group(1)
+                continue
+            m = ins_re.search(line)
+            if m:
+                addr = int(m.group(1), 16)
+                if cur.get("pending"):
+                    cur["labels"][cur.pop("pending")] = addr
+                cur["ins"].append((addr, m.group(2), m.group(3)))
+    for f in out.values():
+        loops = []
+        for addr, op, args in f["ins"]:
+            if not op.startswith("BRA"):
+                continue
+            t = re.search(r"0x([0-9a-f]+)", args)
+            lab = re.search(r"\((\.L_\w+)\)", args)
+            target = int(t.group(1), 16) if t else f["labels"].get(lab.group(1)) if lab else None
+            if target is not None and target <= addr:
+                loops.append((target, addr))
+        f["loops"] = [lp for lp in loops if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    return out
+
+
+def sass_loop_ops(f: dict, loop, ops) -> tuple:
+    """({opcode: count} for ``ops``, all instructions) of one loop of a
+    ``sass_functions`` entry, opcodes without their modifiers."""
+    body = [op.split(".")[0] for addr, op, _ in f["ins"] if loop[0] <= addr <= loop[1]]
+    return {o: body.count(o) for o in ops}, len(body)
+
+
+def sass_count_loops(library: str) -> dict:
+    """What the card runs for a (trial, point) pair of K5, read from the
+    library's SASS: for each instantiation ``count_kernel<T, P, ...>`` (P
+    points a thread), the innermost loop with the most fused multiply-adds
+    (the trial walk of csrc/ransac_counts.cu, which holds no branch: the
+    plain recount of the pairs the band leaves open runs after it), the
+    trials it walks an iteration (one ``REDUX``, the warp's sum, a trial),
+    and its instructions a (warp, trial) and a pair (over P), with each
+    floating-point, compare, select, warp-sum and shared-load opcode a
+    pair. Empty where the toolkit has no cuobjdump."""
+    import re
+
+    funcs = sass_functions(library, re.compile(r"Function : \S*?(count_kernelI([fd])Li(\d+)E)"))
+    if funcs is None:
+        return {}
+    ops_of = SASS_INT_OPS + ("REDUX", "VOTE", "IADD3", "PLOP3", "LEA", "BRA")
+    result = {}
+    for name, f in funcs.items():
+        dtype = "float64" if f["match"].group(2) == "d" else "float32"
+        P = int(f["match"].group(3))
+        fma_op = "DFMA" if dtype == "float64" else "FFMA"
+        best = max(f["loops"], key=lambda lp: sass_loop_ops(f, lp, (fma_op,))[0][fma_op], default=None)
+        if best is None:
+            result[name] = {"error": "no loop found"}
+            continue
+        body = [op.split(".")[0] for a, op, _ in f["ins"] if best[0] <= a <= best[1]]
+        trials = body.count("REDUX")
+        if not trials:
+            result[name] = {"error": "the loop holds no warp sum"}
+            continue
+        counted = {o: body.count(o) for o in SASS_OPS[dtype] + ops_of if body.count(o)}
+        result[name] = {"dtype": dtype, "points_a_thread": P, "trials_in_loop": trials,
+                        "instructions_per_warp_trial": len(body) / trials,
+                        "instructions_per_pair": len(body) / trials / P,
+                        "per_pair": {o: c / trials / P for o, c in counted.items()}}
+    return result
+
+
 def sass_tile_loops(library: str) -> dict:
     """What the card runs for a (query, candidate) pair, read from the
     library's SASS (``cuobjdump -sass``): for each instantiation of K3
@@ -565,60 +664,23 @@ def sass_tile_loops(library: str) -> dict:
     all its instructions per pair. Empty where the toolkit has no
     cuobjdump; an entry with "error" where the loop is not found."""
     import re
-    import shutil
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    funcs = sass_functions(library, re.compile(r"Function : \S*?(nn_kernelI([fd])Li(\d+)ELi(\d+)E|nn_grid_kernelI([fd])E)"))
+    if funcs is None:
         return {}
-    text = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300).stdout
-    name_re = re.compile(r"Function : \S*?(nn_kernelI([fd])Li(\d+)ELi(\d+)E|nn_grid_kernelI([fd])E)")
-    ins_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
-    out, cur = {}, None
-    for line in text.splitlines():
-        if "Function :" in line:
-            m = name_re.search(line)
-            cur = None
-            if m:
-                dtype = "float64" if (m.group(2) or m.group(5)) == "d" else "float32"
-                q = int(m.group(4)) if m.group(4) else 1
-                cur = out.setdefault(m.group(1), {"dtype": dtype, "Q": q, "ins": [], "labels": {}})
-        elif cur is not None:
-            lab = re.match(r"\s*(\.L_\w+):", line)
-            if lab:
-                cur["labels"][lab.group(1)] = None  # the address of the next instruction
-                cur["pending"] = lab.group(1)
-                continue
-            m = ins_re.search(line)
-            if m:
-                addr = int(m.group(1), 16)
-                if cur.get("pending"):
-                    cur["labels"][cur.pop("pending")] = addr
-                cur["ins"].append((addr, m.group(2), m.group(3)))
     result = {}
-    for name, f in out.items():
-        loops = []
-        for addr, op, args in f["ins"]:
-            if not op.startswith("BRA"):
-                continue
-            t = re.search(r"0x([0-9a-f]+)", args)
-            lab = re.search(r"\((\.L_\w+)\)", args)
-            target = int(t.group(1), 16) if t else f["labels"].get(lab.group(1)) if lab else None
-            if target is not None and target <= addr:
-                loops.append((target, addr))
-        inner = [lp for lp in loops if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
-        add = "DADD" if f["dtype"] == "float64" else "FADD"
-
-        def count(lp, ops):
-            body = [op.split(".")[0] for addr, op, _ in f["ins"] if lp[0] <= addr <= lp[1]]
-            return {o: body.count(o) for o in ops}, len(body)
-
-        best = max(inner, key=lambda lp: count(lp, (add,))[0][add], default=None)
-        if best is None or count(best, (add,))[0][add] == 0:
+    for name, f in funcs.items():
+        m = f["match"]
+        dtype = "float64" if (m.group(2) or m.group(5)) == "d" else "float32"
+        q = int(m.group(4)) if m.group(4) else 1
+        add = "DADD" if dtype == "float64" else "FADD"
+        best = max(f["loops"], key=lambda lp: sass_loop_ops(f, lp, (add,))[0][add], default=None)
+        if best is None or sass_loop_ops(f, best, (add,))[0][add] == 0:
             result[name] = {"error": "no loop with floating-point adds found"}
             continue
-        ops, total = count(best, SASS_OPS[f["dtype"]] + SASS_INT_OPS)
-        minimum = ops["DSETP" if f["dtype"] == "float64" else "FMNMX"]
-        pairs = minimum or ops["LDS"] / 3 * 2 * f["Q"]
+        ops, total = sass_loop_ops(f, best, SASS_OPS[dtype] + SASS_INT_OPS)
+        minimum = ops["DSETP" if dtype == "float64" else "FMNMX"]
+        pairs = minimum or ops["LDS"] / 3 * 2 * q
         result[name] = {"pairs_in_loop": pairs, "instructions_per_pair": total / pairs if pairs else None,
                         "per_pair": {o: c / pairs for o, c in ops.items() if c} if pairs else ops}
     return result
@@ -783,7 +845,24 @@ def phase1_block_scan(device, gen):
               "shape": list(x.shape), "dtype": "float32"})
         entries.append(kernel_entry(f"scan_block/{op}", "scan.cu", "pallas_scan.py:227", "float32",
                                     aerr, ms, plain_ms, scan_bound(op, x), lib_ms, dev, lib_dev))
+        if op == "filter":  # registers and spill bytes, a dtype and tile each
+            entries[-1]["registers_and_spills"] = filter_registers()
     return entries
+
+
+def filter_registers() -> dict:
+    """{dtype: {tile: [registers, spill bytes]}} of K1's filter, its ladder
+    tile (a single row of the main path) and its runs tile, from the
+    build's ``-Xptxas -v``; empty where nothing was compiled."""
+    from gps_optimize_slam_tpu_torch.ops import _build
+
+    regs = build_registers(_build.BUILD_INFO.get("log", ""))
+    out = {}
+    for dtype, c in (("float32", "f"), ("float64", "d")):
+        for name, v in regs.items():
+            if name.startswith(f"lookback_scan_kernelINS_6FilterI{c}EE"):
+                out.setdefault(dtype, {})["runs" if name.endswith("Lb1") else "ladder"] = v
+    return out
 
 
 def phase1_tiled_scan(device, gen):
@@ -1236,7 +1315,7 @@ def phase1_counts(device, gen):
     with them."""
     import torch
 
-    from gps_optimize_slam_tpu_torch.ops import kernels
+    from gps_optimize_slam_tpu_torch.ops import _build, kernels
     from gps_optimize_slam_tpu_torch.ops.ransac import select_winner
     from gps_optimize_slam_tpu_torch.ops.umeyama import umeyama_sim3
 
@@ -1276,13 +1355,95 @@ def phase1_counts(device, gen):
     dev = sum(by_kernel.values())
     emit({"phase": 1, "kernel": "ransac_counts", "max_count_diff": worst, "identical_runs": True, "ms": ms,
           "plain_ms": plain_ms, "device_ms": dev, "device_ms_by_kernel": by_kernel,
-          "host_ms": host_ms(lambda: kernels.ransac_counts(*args)),
+          "count_kernel_ms": launch_device_ms(lambda: kernels.ransac_counts(*args), "count_kernel")[0],
+          "host_ms": host_ms(lambda: kernels.ransac_counts(*args)), "recounted_share": recounted_share(args),
+          "sass_count_loops": sass_count_loops(_build.BUILD_INFO["path"]),
           "cases": [list(c) for c in COUNT_CASES], "shape": [1000, SEQ02_LEN], "dtype": "float32"})
-    src, T = args[0], args[3].shape[0]
-    moved = (2 * src.numel() + T * 13) * src.element_size() + src.shape[0] + 4 * T
     return [kernel_entry("ransac_counts", "ransac_counts.cu", "pallas_kernels.py:450", "float32",
-                         float(diff32), ms, plain_ms,
-                         bound(moved, COUNT_FLOPS * T * src.shape[0], "float32"), None, dev)]
+                         float(diff32), ms, plain_ms, count_bound(args), None, dev)]
+
+
+def count_bound(args):
+    """K5's least time on ``args``: the valid points (p and d) and every
+    trial read once, the mask read once, the counts written once; 30
+    operations for each (trial, valid point) pair, the only pairs the counts
+    need (a masked point's pairs are no work of the function's)."""
+    src, valid, R = args[0], args[2], args[3]
+    T, rows = R.shape[-3], valid.numel() // valid.shape[-1]
+    nv = int(valid.sum())
+    moved = (6 * nv + 13 * rows * T) * src.element_size() + valid.numel() + 4 * rows * T
+    return bound(moved, COUNT_FLOPS * T * nv, dtype_name(src.dtype))
+
+
+def recounted_share(args) -> float:
+    """The share of (trial, valid point) pairs that K5's band left open and
+    the kernel recounted in the plain order, on ``args``."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    rc = torch.zeros(1, dtype=torch.int64, device=args[0].device)
+    kernels.counts_launch(*args, recounted=rc)
+    pairs = int(args[2].sum()) * args[3].shape[-3]
+    return int(rc) / max(pairs, 1)
+
+
+def near_threshold_counts(gen, B: int, n: int, trials: int, dtype, device):
+    """An adversarial batch for K5: random-walk points, trial 0 of each row
+    a Umeyama fit and every dst its prediction s R p + t plus 4 m (the
+    threshold's root) along a random direction, nudged by up to 4 ulps a
+    coordinate; the other trials trial 0 with its translation moved by 1e-4
+    m. Most pairs' plain residual lies within a few parts in 1e4 of thr2,
+    many within a few ulps."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops.umeyama import umeyama_sim3
+
+    f64 = torch.float64
+    src = torch.stack([walk(gen, n, f64, device, scale=2.0) for _ in range(B)])
+    noisy = 0.987 * src + 2.0 * torch.randn(B, n, 3, generator=gen, dtype=f64).to(device)
+    draws = torch.randint(0, n, (B, 1, 4), generator=gen).to(device)
+    pick = torch.arange(B, device=device)[:, None, None]
+    src = src.to(dtype)
+    fit = umeyama_sim3(src[pick, draws], noisy.to(dtype)[pick, draws])
+    R = fit.R.expand(B, trials, 3, 3).contiguous()
+    s = fit.scale.expand(B, trials).contiguous()
+    t = fit.t.expand(B, trials, 3) + 1e-4 * torch.randn(B, trials, 3, generator=gen, dtype=f64).to(device)
+    t[:, 0] = fit.t[:, 0]
+    t = t.to(dtype).contiguous()
+    v = torch.randn(B, n, 3, generator=gen, dtype=f64).to(device)
+    v = v / v.norm(dim=-1, keepdim=True)
+    pred = s[:, 0, None, None].double() * torch.einsum("bjk,bnk->bnj", R[:, 0].double(), src.double())
+    dst = (pred + t[:, 0, None].double() + 4.0 * v).to(dtype)
+    for _ in range(4):
+        k = torch.randint(-1, 2, dst.shape, generator=gen).to(device)
+        dst = torch.where(k > 0, torch.nextafter(dst, torch.full_like(dst, float("inf"))),
+                          torch.where(k < 0, torch.nextafter(dst, torch.full_like(dst, -float("inf"))), dst))
+    valid = (torch.rand(B, n, generator=gen) > 0.05).to(device)
+    return (src, dst.contiguous(), valid, R, t, s, 16.0)
+
+
+def fleet_count_operands(device):
+    """K5's operands as the fleet bucket's fusion hands them (phase 7's 64
+    ``replica_sequence`` rows, float32): the Sim(3) window mask a row
+    (``alignment.sim3_window_mask``) and the row's 1000 trials, recorded
+    from one eager ``fuse_batch``."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.ops import ransac
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    B, n = FLEET
+    seqs = [replica_sequence(n, seed=200 + i) for i in range(B)]
+    b = pbatch.pad_batch([s for s, _, _ in seqs], [t for _, t, _ in seqs], [p for _, _, p in seqs])
+    staged = mesh.stage_batch(b, device=device, dtype=torch.float32)
+    calls = []
+    with recording(ransac, "ransac_counts", calls), graphs.eager():
+        mesh.fuse_batch(staged, config=FusionConfig(gps_sorted=True))
+    return calls[0]
 
 
 # The batch grids' checks and times: the eleven KITTI odometry sequences
@@ -1646,7 +1807,12 @@ def phase1_batched_counts(device, gen):
     as one ragged batch (points past a row's length masked out, one row
     with no valid point) and the fleet bucket, 1000 trials a row: counts
     equal the batched plain ones and, row by row, the single-row kernel's;
-    the re-ranked winners equal. Times of the fleet bucket in float32."""
+    the re-ranked winners equal; an adversarial batch (``near_threshold_counts``,
+    16 x 4,661, 256 trials, float32 and float64) equal to the plain counts,
+    with the share of pairs recounted. Times of the fleet bucket in float32,
+    and of the fleet at its fusion's own operands (``fleet_count_operands``:
+    the Sim(3) window mask a row), also held to the plain counts and, at
+    its first and last rows, to the kernel alone."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import kernels
@@ -1686,21 +1852,56 @@ def phase1_batched_counts(device, gen):
                 raise AssertionError(f"{what}: a row with no valid point counted hits")
             if B == FLEET[0] and dtype == torch.float32:
                 timed = args
-    args = timed
+    shares = {}
+    for dtype in (torch.float32, torch.float64):
+        adv = near_threshold_counts(gen, 16, SEQ02_LEN, 256, dtype, device)
+        got = kernels.ransac_counts(*adv)
+        torch.cuda.synchronize()
+        if not torch.equal(got, kernels.ransac_counts_plain(*adv)):
+            raise AssertionError(f"ransac_counts {dtype} at the threshold: counts differ from the plain ones")
+        r2 = kernels.sim3_residual2(adv[0][:, None], adv[1][:, None], adv[3], adv[4], adv[5])
+        near = adv[2][:, None] & ((r2 - 16.0).abs() <= 4 * torch.finfo(dtype).eps * 16.0)
+        shares[dtype_name(dtype)] = {"recounted_share": recounted_share(adv), "pairs_within_4_ulps": int(near.sum())}
+        del adv, r2, near
+    emit({"phase": 1, "kernel": "ransac_counts@batch (at the threshold)", "equal_to_plain": True,
+          "shape": [16, 256, SEQ02_LEN], **shares})
+    entries = [count_entry("ransac_counts@batch", timed, {"ragged_rows": list(KITTI_LENGTHS)})]
+    window = fleet_count_operands(device)
+    want = kernels.ransac_counts_plain(*window)
+    got = kernels.ransac_counts(*window)
+    torch.cuda.synchronize()
+    alone = [torch.equal(got[r], kernels.ransac_counts(*(a[r].contiguous() for a in window[:6]), window[6]))
+             for r in (0, FLEET[0] - 1)]
+    if not torch.equal(got, want) or not all(alone):
+        raise AssertionError("ransac_counts at the fleet's window masks: counts differ from the plain ones "
+                             "or a row from the kernel alone")
+    share = window[2].double().mean(1)
+    entries.append(count_entry("ransac_counts@batch/fleet-window", window, {
+        "valid_share_min_max": [float(share.min()), float(share.max())], "equal_to_plain": True}))
+    return entries
+
+
+def count_entry(name: str, args, extra: dict):
+    """K5's times on ``args`` (float32) and their kernel entry: the call's
+    CUDA-event and device ms (three profiles, the median kept: an earlier
+    run's two readings of one shape disagreed), the count kernel's and the
+    chunk list's launches alone, the plain version's ms, the share of pairs
+    recounted, and the bound of the valid pairs."""
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
     ms = cuda_ms(lambda: kernels.ransac_counts(*args))
     plain_ms = cuda_ms(lambda: kernels.ransac_counts_plain(*args), reps=3)
-    # Three profiles: an earlier run's two readings (0.219 and 0.485 ms)
-    # disagreed; the median is kept.
     reads = [device_ms(lambda: kernels.ransac_counts(*args)) for _ in range(3)]
     dev = float(np.median(reads))
     src, B, T = args[0], args[0].shape[0], args[3].shape[1]
-    emit({"phase": 1, "kernel": "ransac_counts@batch", "equal_to_plain": True, "rows_equal_to_the_kernel_alone": True,
+    emit({"phase": 1, "kernel": name, "rows_equal_to_the_kernel_alone": True,
           "ms": ms, "plain_ms": plain_ms, "device_ms": dev, "device_ms_reads": reads,
-          "shape": [B, T, src.shape[1]], "dtype": "float32",
-          "ragged_rows": list(KITTI_LENGTHS)})
-    moved = (2 * src.numel() + B * T * 13) * src.element_size() + src.shape[0] * src.shape[1] + 4 * B * T
-    return [kernel_entry("ransac_counts@batch", "ransac_counts.cu", "pallas_kernels.py:450", "float32", 0.0, ms,
-                         plain_ms, bound(moved, COUNT_FLOPS * B * T * src.shape[1], "float32"), None, dev)]
+          "count_kernel_ms": launch_device_ms(lambda: kernels.ransac_counts(*args), "count_kernel")[0],
+          "list_kernel_ms": launch_device_ms(lambda: kernels.ransac_counts(*args), "chunk_list_kernel")[0],
+          "recounted_share": recounted_share(args), "valid_pairs": int(args[2].sum()) * T,
+          "shape": [B, T, src.shape[1]], "dtype": dtype_name(src.dtype), **extra})
+    return kernel_entry(name, "ransac_counts.cu", "pallas_kernels.py:450", dtype_name(src.dtype), 0.0, ms,
+                        plain_ms, count_bound(args), None, dev)
 
 
 def phase1(device):
@@ -3508,19 +3709,40 @@ def recording(module, name: str, calls: list):
         setattr(module, name, real)
 
 
-def phase10_kernels(nn_args, scan_calls) -> dict:
+def phase10_kernels(nn_args, scan_calls, count_args) -> dict:
     """The kernels at the long-log bucket's own shapes (not counted, not
     captured): K3's batch grid and the keep lists on the operands of the
     evaluation's first NN call (the coherent ``outage_sequence`` replicas),
     with their kept tile pairs, K3's block size, bounds and the plain
-    version's time and error on every 64th query; and K1's batch grid on
+    version's time and error on every 64th query; K1's batch grid on
     the first leaves of each combine the routed fusion scanned, with the
-    library call where there is one. Times: CUDA events around a call (and
-    around K3's launch alone), and each kernel's launch from the launches
-    a trace holds (``launch_device_ms``)."""
+    library call where there is one; and K5's batch grid on the fusion's
+    own operands (each row's Sim(3) window mask, 1000 trials a row), its
+    counts equal to the plain ones, each row's valid share, the pairs
+    recounted and the bound of the valid pairs. Times: CUDA events around a
+    call (and around K3's launch alone), and each kernel's launch from the
+    launches a trace holds (``launch_device_ms``)."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import kernels, scan
+
+    def counts():
+        return kernels.ransac_counts(*count_args)
+
+    got, want = counts(), kernels.ransac_counts_plain(*count_args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"phase 10: K5's counts differ from the plain ones by {int((got - want).abs().max())}")
+    valid = count_args[2]
+    count_out = {"ransac_counts@batch": {
+        "shape": [valid.shape[0], count_args[3].shape[1], valid.shape[1]], "dtype": dtype_name(count_args[0].dtype),
+        "valid_share": [float(v) for v in valid.double().mean(1)], "equal_to_plain": True,
+        "recounted_share": recounted_share(count_args),
+        "ms": cuda_ms(counts), "launch_device_ms": launch_device_ms(counts, "count_kernel"),
+        "list_launch_device_ms": launch_device_ms(counts, "chunk_list_kernel"),
+        "plain_ms": cuda_ms(lambda: kernels.ransac_counts_plain(*count_args), reps=2),
+        "bound": count_bound(count_args)}}
+    del got, want
 
     traj, cand, mask = nn_args
     operands = kernels.keep_lists(traj, cand, mask)
@@ -3565,7 +3787,7 @@ def phase10_kernels(nn_args, scan_calls) -> dict:
             "library_ms": scan_library_ms(op, x, reverse), "bound": scan_bound(op, x)}
         del want
     torch.cuda.empty_cache()
-    return out
+    return {**count_out, **out}
 
 
 def phase10(device):
@@ -3592,7 +3814,7 @@ def phase10(device):
 
     from gps_optimize_slam_tpu_torch.config import FusionConfig
     from gps_optimize_slam_tpu_torch.models import fusion
-    from gps_optimize_slam_tpu_torch.ops import kernels, scan
+    from gps_optimize_slam_tpu_torch.ops import kernels, ransac, scan
     from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
     from gps_optimize_slam_tpu_torch.parallel import mesh
     from gps_optimize_slam_tpu_torch.utils import graphs
@@ -3726,10 +3948,12 @@ def phase10(device):
                              f"expected {want_alone} (routes {routes})")
     # The kernels at this bucket's own shapes, on the inputs an eager run of
     # the routed fusion and evaluation hands them (after the counted runs).
-    nn_calls, scan_calls = [], []
-    with recording(kernels, "nn_resident", nn_calls), recording(scan, "scan_block", scan_calls), graphs.eager():
+    nn_calls, scan_calls, count_calls = [], [], []
+    with recording(kernels, "nn_resident", nn_calls), recording(scan, "scan_block", scan_calls), \
+            recording(ransac, "ransac_counts", count_calls), graphs.eager():
         mesh.evaluate_batch(b, fuse())
-    emit({"phase": 10, "part": "kernels at the bucket's shapes", **phase10_kernels(nn_calls[0], scan_calls)})
+    emit({"phase": 10, "part": "kernels at the bucket's shapes",
+          **phase10_kernels(nn_calls[0], scan_calls, count_calls[0])})
     return launches
 
 

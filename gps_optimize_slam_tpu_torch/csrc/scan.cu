@@ -14,7 +14,8 @@
 // What bounds it on this card: at the main path's sizes (n = 271 .. 4661,
 // 1-19 tiles) launch latency and the chain of dependent combines of one
 // tile (ITEMS + 5 + 3 + the look-back + ITEMS); at long n the bytes for
-// 2-4 leaves and the 27-leaf filter's operations (see scan_lookback.cuh).
+// 2-4 leaves and the 27-leaf filter's operations, which its work-efficient
+// runs tile keeps near two combines an element (see scan_lookback.cuh).
 #include "scan_lookback.cuh"
 
 // Op codes are the order of ops/scan.py:OPS. `in` and `out` are (L, batch,
@@ -39,10 +40,13 @@ GPS_EXPORT long long gps_scan_scratch_bytes(int op, int dtype, int n, int batch)
   return bytes;
 }
 
-// Elements per tile of gps_scan for this combine; -1 for an unknown op.
-GPS_EXPORT int gps_scan_tile(int op) {
+// Elements per tile of gps_scan for this combine and dtype at `batch` rows
+// of n elements (the filter's tile depends on them); -1 for an unknown op
+// or dtype.
+GPS_EXPORT int gps_scan_tile(int op, int dtype, int n, int batch) {
   int tile = -1;
-  dispatch_op<LookbackTile, float>(op, &tile);
+  if (dtype == GPS_F32) dispatch_op<LookbackTile, float>(op, n, batch, &tile);
+  if (dtype == GPS_F64) dispatch_op<LookbackTile, double>(op, n, batch, &tile);
   return tile;
 }
 

@@ -70,8 +70,32 @@
 // (489 flops a combine, about two combines an element), and below a few
 // thousand elements launch latency. Intermediates live in shared memory,
 // not in registers, so ITEMS does not raise register pressure; ITEMS is
-// picked per leaf count to keep the tile's staging within the opt-in
-// shared memory (57 KB for the float64 filter at ITEMS = 1).
+// picked per leaf count and type to keep the tile's staging within the
+// opt-in shared memory.
+//
+// The 27-leaf filter takes a tile of its own, work-efficient ("runs",
+// tile_reduce_runs / tile_finish_runs): its combine (a 3x3 inverse, a dozen
+// 3x3 products) is dear, and steps 3 and 5 above cost it about seven
+// combines an element at ITEMS = 1 (a five-step ladder over every element,
+// then the carry and the warp prefix composed by every thread, then the
+// element). Here each thread folds a run of ITEMS consecutive elements in
+// registers without writing them back (ITEMS - 1 combines), the ladder runs
+// over the thread totals (5), the lane's exclusive prefix is folded into
+// the run's first element in shared memory (1), the tile carry and the warp
+// prefix are composed once a warp (1, the same for all its lanes), and a
+// second pass folds each element from its exclusive prefix and stores it
+// (ITEMS): 2 ITEMS + 6 combines a run, 3.5 an element at ITEMS = 4.
+// Staging every leaf of the tile is what bounds ITEMS. The tile is 128
+// threads x 4 items (27 x padded(512) values: 114 KB in float64, 57 KB in
+// float32), so two float64 blocks share an SM (the combine's ~244
+// registers a thread allow two blocks of 128 threads, one of 256) and one
+// block's loads and stores overlap the other's combines: 256 threads x 4
+// items, one block an SM, took 1.22 ms where this takes 0.86 at phase 10's
+// rows (PERF.md). The runs' longer chain of dependent combines (about 18 a
+// tile against 10) loses while a launch holds few tiles, so launches of
+// fewer than kRunsMinF32 / kRunsMinF64 elements keep the ladder tile.
+// Nothing a thread holds lives across the look-back: the runs' first
+// elements carry the lane prefixes, the warp totals are in shared memory.
 #pragma once
 
 #include "scan_ops.cuh"
@@ -82,8 +106,29 @@ constexpr int kScanWarps = kScanThreads / 32;
 
 enum : int { kTileEmpty = 0, kTileAggregate = 1, kTilePrefix = 2 };
 
-// Elements per thread for a combine of L leaves.
+// Elements per thread of the ladder tile for a combine of L leaves.
 __host__ __device__ constexpr int scan_items(int L) { return L >= 27 ? 1 : L >= 12 ? 2 : 8; }
+
+// The filter's runs tile: its items a thread, its threads a block, and the
+// fewest elements of a launch (rows times n) that take it, by type; below
+// them the filter keeps the ladder tile at one item a thread, whose
+// shorter chain of dependent combines wins while the launch holds few
+// tiles (the crossovers measured on an H100, PERF.md: float32 between a
+// row of 32,768 and one of 65,536; float64 between a row of 32,768 and
+// eight rows of 4,661). Staging takes 27 x padded(threads x items) values.
+constexpr int kRunsItems = 4;
+constexpr int kRunsThreads = 128;
+constexpr long long kRunsMinF32 = 65536;
+constexpr long long kRunsMinF64 = 32769;
+
+// Whether a combine of L leaves has the work-efficient runs tile, and
+// whether a launch of `batch` rows of n elements of T takes it.
+__host__ __device__ constexpr bool runs_tile(int L) { return L >= 27; }
+template <typename T>
+__host__ __device__ constexpr bool takes_runs(int L, int n, int batch) {
+  return runs_tile(L) &&
+         (long long)n * batch >= (sizeof(T) == 4 ? kRunsMinF32 : kRunsMinF64);
+}
 
 // Shared-memory index of tile element e: one pad element per 32.
 __host__ __device__ constexpr int padded(int e) { return e + (e >> 5); }
@@ -122,12 +167,12 @@ __device__ __forceinline__ void fold_after(T* run, const T* x, bool have) {
   }
 }
 
-// Scratch layout of one scan of n elements over tiles of kScanThreads x
-// ITEMS (K1's items by default; K2 picks its own).
-template <class Op, typename T, int ITEMS = scan_items(Op::L)>
+// Scratch layout of one scan of n elements over tiles of THREADS x ITEMS
+// (K1's items and block by default; K2 and the runs tile pick their own).
+template <class Op, typename T, int ITEMS = scan_items(Op::L), int THREADS = kScanThreads>
 struct LookbackLayout {
   static constexpr int kItems = ITEMS;
-  static constexpr int kTile = kScanThreads * kItems;
+  static constexpr int kTile = THREADS * kItems;
   static constexpr int kStride = padded(kTile);  // shared elements per leaf row
   __host__ __device__ static int tiles(int n) { return (n + kTile - 1) / kTile; }
   // For `batch` rows of n elements: one ticket, a flag per (row, tile).
@@ -211,11 +256,11 @@ __device__ __forceinline__ void look_back(int tile, const T* tot, int* flags, T*
 // Step 2 as K1 takes it: the tile's leaves into `s` ([L][padded(TILE)]) with
 // plain loads, consecutive threads on consecutive elements. Leaf l of the
 // row starts at in + l * ld.
-template <class Op, typename T, int ITEMS>
+template <class Op, typename T, int ITEMS, int THREADS = kScanThreads>
 __device__ __forceinline__ void tile_load(const T* __restrict__ in, int n, size_t ld, int reverse,
                                           int k0, T* s) {
   constexpr int L = Op::L;
-  constexpr int STRIDE = padded(kScanThreads * ITEMS);
+  constexpr int STRIDE = padded(THREADS * ITEMS);
   T ident[L];
   Op::identity(ident);
 #pragma unroll
@@ -223,7 +268,7 @@ __device__ __forceinline__ void tile_load(const T* __restrict__ in, int n, size_
     const T* row = in + l * ld;
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
-      const int e = i * kScanThreads + (int)threadIdx.x;
+      const int e = i * THREADS + (int)threadIdx.x;
       const int k = k0 + e;
       s[l * STRIDE + padded(e)] = k < n ? row[reverse ? n - 1 - k : k] : ident[l];
     }
@@ -333,35 +378,135 @@ __device__ __forceinline__ void tile_finish(int tile, T* s, T (*s_warp)[Op::L], 
   __syncthreads();
 }
 
+// Step 3 of the runs tile: each thread folds its ITEMS consecutive elements
+// into a total, the warp's ladder scans the totals, the lane's exclusive
+// prefix within the warp is folded into its run's first element in place,
+// and the inclusive warp prefixes go to `s_warp` (the last is the tile
+// aggregate). Barriers inside; one ends the call.
+template <class Op, typename T, int ITEMS, int THREADS>
+__device__ __forceinline__ void tile_reduce_runs(T* s, T (*s_warp)[Op::L]) {
+  constexpr int L = Op::L;
+  constexpr int STRIDE = padded(THREADS * ITEMS);
+  constexpr int WARPS = THREADS / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int at0 = padded(tid * ITEMS);
+  T acc[L], x[L], y[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) acc[l] = s[l * STRIDE + at0];
+  for (int i = 1; i < ITEMS; ++i) {
+    const int at = padded(tid * ITEMS + i);
+#pragma unroll
+    for (int l = 0; l < L; ++l) x[l] = s[l * STRIDE + at];
+    Op::apply(acc, x, y);
+    copy_leaves<L>(y, acc);
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    shfl_up_leaves<L>(acc, d, x);
+    if (lane >= d) {
+      Op::apply(x, acc, y);
+      copy_leaves<L>(y, acc);
+    }
+  }
+  if (lane == 31) copy_leaves<L>(acc, s_warp[warp]);
+  shfl_up_leaves<L>(acc, 1, x);  // the lane's exclusive prefix within the warp
+  if (lane > 0) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) acc[l] = s[l * STRIDE + at0];
+    Op::apply(x, acc, y);
+#pragma unroll
+    for (int l = 0; l < L; ++l) s[l * STRIDE + at0] = y[l];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    T w[L];
+    if (lane < WARPS) copy_leaves<L>(s_warp[lane], w);
+    else Op::identity(w);
+#pragma unroll
+    for (int d = 1; d < WARPS; d <<= 1) {
+      shfl_up_leaves<L>(w, d, x);
+      if (lane >= d) {
+        Op::apply(x, w, y);
+        copy_leaves<L>(y, w);
+      }
+    }
+    if (lane < WARPS) copy_leaves<L>(w, s_warp[lane]);
+  }
+  __syncthreads();
+}
+
+// Step 5 of the runs tile: the warp's exclusive composite (tile carry, then
+// the earlier warps' prefix), composed once a warp, starts each thread's
+// second pass over its run, which stores every element's inclusive prefix;
+// without one (tile 0, warp 0) the first thread starts from the identity,
+// as the plain ladder's very first element meets it, and the others from
+// their first element, which holds their lane prefix already. A barrier
+// ends the call.
+template <class Op, typename T, int ITEMS, int THREADS>
+__device__ __forceinline__ void tile_finish_runs(int tile, T* s, T (*s_warp)[Op::L], const T* s_carry) {
+  constexpr int L = Op::L;
+  constexpr int STRIDE = padded(THREADS * ITEMS);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  T acc[L], x[L], y[L];
+  bool have = false;
+  if (tile > 0) {
+    copy_leaves<L>(s_carry, acc);
+    have = true;
+  }
+  if (warp > 0) {
+    fold_after<Op, T>(acc, s_warp[warp - 1], have);
+    have = true;
+  }
+  if (!have && tid == 0) {
+    have = true;
+    Op::identity(acc);
+  }
+  for (int i = 0; i < ITEMS; ++i) {
+    const int at = padded(tid * ITEMS + i);
+#pragma unroll
+    for (int l = 0; l < L; ++l) x[l] = s[l * STRIDE + at];
+    if (have) {
+      Op::apply(acc, x, y);
+      copy_leaves<L>(y, acc);
+    } else {
+      copy_leaves<L>(x, acc);
+      have = true;
+    }
+#pragma unroll
+    for (int l = 0; l < L; ++l) s[l * STRIDE + at] = acc[l];
+  }
+  __syncthreads();
+}
+
 // The finished tile from `s` to the output leaves, coalesced; leaf l of the
 // row starts at out + l * ld.
-template <class Op, typename T, int ITEMS>
+template <class Op, typename T, int ITEMS, int THREADS = kScanThreads>
 __device__ __forceinline__ void tile_store(const T* s, T* __restrict__ out, int n, size_t ld,
                                            int reverse, int k0) {
   constexpr int L = Op::L;
-  constexpr int STRIDE = padded(kScanThreads * ITEMS);
+  constexpr int STRIDE = padded(THREADS * ITEMS);
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     T* row = out + l * ld;
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
-      const int e = i * kScanThreads + (int)threadIdx.x;
+      const int e = i * THREADS + (int)threadIdx.x;
       const int k = k0 + e;
       if (k < n) row[reverse ? n - 1 - k : k] = s[l * STRIDE + padded(e)];
     }
   }
 }
 
-template <class Op, typename T>
-__global__ void __launch_bounds__(kScanThreads)
+template <class Op, typename T, int ITEMS, bool RUNS, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int batch, int reverse,
                      int* ticket, T* agg, T* incl) {
   constexpr int L = Op::L;
-  using Layout = LookbackLayout<Op, T>;
-  constexpr int ITEMS = Layout::kItems;
+  constexpr int WARPS = THREADS / 32;
+  using Layout = LookbackLayout<Op, T, ITEMS, THREADS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);  // [L][padded(TILE)]
-  __shared__ T s_warp[kScanWarps][L];    // warp totals, then inclusive warp prefixes
+  __shared__ T s_warp[WARPS][L];         // warp totals, then inclusive warp prefixes
   __shared__ T s_carry[L];               // the tile's exclusive composite
   __shared__ int s_tile;
   int* flags = ticket + 1;
@@ -376,55 +521,77 @@ lookback_scan_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int b
   flags += (size_t)row * tiles, agg += (size_t)row * tiles * L, incl += (size_t)row * tiles * L;
   const int k0 = tile * Layout::kTile;
 
-  tile_load<Op, T, ITEMS>(in, n, ld, reverse, k0, s);
+  static_assert(RUNS || THREADS == kScanThreads, "the ladder tile's steps are kScanThreads wide");
+  tile_load<Op, T, ITEMS, THREADS>(in, n, ld, reverse, k0, s);
   __syncthreads();
-  tile_reduce<Op, T, ITEMS>(s, s_warp);
+  if constexpr (RUNS) tile_reduce_runs<Op, T, ITEMS, THREADS>(s, s_warp);
+  else tile_reduce<Op, T, ITEMS>(s, s_warp);
   if (threadIdx.x < 32) {
-    look_back<Op, T>(tile, s_warp[kScanWarps - 1], flags, agg, incl, s_carry);
+    look_back<Op, T>(tile, s_warp[WARPS - 1], flags, agg, incl, s_carry);
   }
   __syncthreads();
-  tile_finish<Op, T, ITEMS>(tile, s, s_warp, s_carry);
-  tile_store<Op, T, ITEMS>(s, out, n, ld, reverse, k0);
+  if constexpr (RUNS) tile_finish_runs<Op, T, ITEMS, THREADS>(tile, s, s_warp, s_carry);
+  else tile_finish<Op, T, ITEMS>(tile, s, s_warp, s_carry);
+  tile_store<Op, T, ITEMS, THREADS>(s, out, n, ld, reverse, k0);
 }
 
 // K1's launch: zero the ticket and flags, then one grid over every row's
-// tiles. `scratch` holds LookbackLayout<Op, T>::scratch_bytes(n, batch) bytes.
+// tiles, the ladder tile or (the filter, from kRunsMinF32 / kRunsMinF64 elements)
+// the runs tile. `scratch` holds LookbackScratch's bytes.
 template <class Op, typename T>
 struct LookbackScan {
-  static cudaError_t run(const void* in, void* out, int n, int batch, int reverse, void* scratch,
-                         cudaStream_t stream) {
-    using Layout = LookbackLayout<Op, T>;
-    if (n <= 0 || batch <= 0) return batch < 0 ? cudaErrorInvalidValue : cudaSuccess;
+  template <int ITEMS, bool RUNS, int THREADS>
+  static cudaError_t launch(const void* in, void* out, int n, int batch, int reverse, void* scratch,
+                            cudaStream_t stream) {
+    using Layout = LookbackLayout<Op, T, ITEMS, THREADS>;
     const long long blocks = (long long)batch * Layout::tiles(n);
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
     char* base = static_cast<char*>(scratch);
     T* agg = reinterpret_cast<T*>(base + Layout::values_offset(n, batch));
     T* incl = agg + (size_t)blocks * Op::L;
     const size_t smem = Layout::smem_bytes();
-    cudaError_t e = allow_smem(lookback_scan_kernel<Op, T>, smem);
+    cudaError_t e = allow_smem(lookback_scan_kernel<Op, T, ITEMS, RUNS, THREADS>, smem);
     if (e == cudaSuccess) e = cudaMemsetAsync(scratch, 0, Layout::flag_bytes(n, batch), stream);
     if (e != cudaSuccess) return e;
-    lookback_scan_kernel<Op, T><<<(unsigned)blocks, kScanThreads, smem, stream>>>(
+    lookback_scan_kernel<Op, T, ITEMS, RUNS, THREADS><<<(unsigned)blocks, THREADS, smem, stream>>>(
         static_cast<const T*>(in), static_cast<T*>(out), n, batch, reverse,
         reinterpret_cast<int*>(base), agg, incl);
     return cudaGetLastError();
   }
+  static cudaError_t run(const void* in, void* out, int n, int batch, int reverse, void* scratch,
+                         cudaStream_t stream) {
+    if (n <= 0 || batch <= 0) return batch < 0 ? cudaErrorInvalidValue : cudaSuccess;
+    if constexpr (runs_tile(Op::L)) {
+      if (takes_runs<T>(Op::L, n, batch))
+        return launch<kRunsItems, true, kRunsThreads>(in, out, n, batch, reverse, scratch, stream);
+    }
+    return launch<scan_items(Op::L), false, kScanThreads>(in, out, n, batch, reverse, scratch, stream);
+  }
 };
 
-// Scratch bytes of LookbackScan for `batch` rows, written to *bytes.
+// Scratch bytes of LookbackScan for `batch` rows of n elements, written to
+// *bytes.
 template <class Op, typename T>
 struct LookbackScratch {
   static cudaError_t run(int n, int batch, long long* bytes) {
+    if constexpr (runs_tile(Op::L)) {
+      if (takes_runs<T>(Op::L, n, batch)) {
+        *bytes = (long long)LookbackLayout<Op, T, kRunsItems, kRunsThreads>::scratch_bytes(n, batch);
+        return cudaSuccess;
+      }
+    }
     *bytes = (long long)LookbackLayout<Op, T>::scratch_bytes(n, batch);
     return cudaSuccess;
   }
 };
 
-// Elements per tile, written to *tile.
+// Elements per tile of a launch of `batch` rows of n elements, written to
+// *tile.
 template <class Op, typename T>
 struct LookbackTile {
-  static cudaError_t run(int* tile) {
-    *tile = LookbackLayout<Op, T>::kTile;
+  static cudaError_t run(int n, int batch, int* tile) {
+    *tile = takes_runs<T>(Op::L, n, batch) ? LookbackLayout<Op, T, kRunsItems, kRunsThreads>::kTile
+                                        : LookbackLayout<Op, T>::kTile;
     return cudaSuccess;
   }
 };

@@ -58,7 +58,7 @@ _VP, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_do
 _SIGNATURES = {
     "gps_scan": ([_I, _I, _VP, _VP, _I, _I, _I, _VP, _VP], _I),
     "gps_scan_scratch_bytes": ([_I, _I, _I, _I], _LL),
-    "gps_scan_tile": ([_I], _I),
+    "gps_scan_tile": ([_I, _I, _I, _I], _I),
     "gps_scan_tiled": ([_I, _I, _VP, _VP, _VP, _LL, _I, _I, _I, _VP], _I),
     "gps_scan_tiled_scratch_bytes": ([_I, _I, _I, _I], _LL),
     "gps_scan_tiled_tile": ([_I, _I], _I),
@@ -66,7 +66,8 @@ _SIGNATURES = {
     "gps_nn_keep": ([_I, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _I, _VP, _VP, _VP, _VP], _I),
     "gps_nn_grid": ([_I, _I, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP], _I),
     "gps_nn_grid_run": ([], _I),
-    "gps_ransac_counts": ([_I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _D, _VP, _VP], _I),
+    "gps_ransac_counts": ([_I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _D, _VP, _VP, _I, _VP, _VP], _I),
+    "gps_ransac_counts_scratch": ([_I, _I, _I], _LL),
 }
 
 

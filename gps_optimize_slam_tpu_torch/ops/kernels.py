@@ -27,8 +27,12 @@ and the array code around them:
   reads a device value on the host, so a CUDA graph holds either launch.
 * :func:`ransac_counts`: per Sim(3) trial, the number of valid points within
   the residual threshold (``ransac_counts``), launched from
-  ``csrc/ransac_counts.cu`` in the exact elementwise form: blocks of 256
-  points by 32 trials, integer partial counts added into a zeroed output.
+  ``csrc/ransac_counts.cu``: a list of the point chunks that hold a valid
+  point (built on the card), blocks drawing (chunk, trial group) items of
+  it, a contracted residual whose hits and misses a certified error band
+  decides and the pairs inside the band recounted in the plain elementwise
+  order, integer partial counts added into a zeroed output: the plain
+  version's counts exactly.
 
 Batch axis: :func:`keep_lists`, :func:`nn_resident`, :func:`nn_min_dist2`
 and :func:`ransac_counts` (and their plain versions) also take a leading
@@ -496,18 +500,62 @@ def ransac_counts(
         raise ValueError("R, t, s must be (T, 3, 3), (T, 3), (T,), with src's batch axis")
     if len({x.dtype for x in (src, dst, R, t, s)}) != 1 or valid.dtype != torch.bool:
         raise TypeError("src, dst, R, t, s must share one float dtype; valid must be bool")
+    return counts_launch(src, dst, valid, R, t, s, thr2)
+
+
+# K5's two shapes (csrc/ransac_counts.cu), from the card's times (PERF.md):
+# a launch of at most COUNT_FEW_POINTS points in all takes 2 points a thread
+# on the grid of every chunk (one launch, no scratch); a longer one 4 points
+# a thread on the listed walk (a list of the chunks holding a valid point,
+# built on the card, then resident blocks that draw them).
+COUNT_PER_THREADS = (2, 4)
+COUNT_FEW_POINTS = 65_536
+
+
+def count_per_thread(points: int) -> int:
+    """K5's points a thread, and so its shape, for a launch of ``points``
+    points in all (rows times n)."""
+    return 2 if points <= COUNT_FEW_POINTS else 4
+
+
+def counts_launch(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    valid: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    s: torch.Tensor,
+    thr2: float,
+    per_thread: Optional[int] = None,
+    recounted: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K5's launch on operands :func:`ransac_counts` has checked, with
+    ``per_thread`` points a thread (2, the grid of every chunk, or 4, the
+    listed walk; by default :func:`count_per_thread`'s choice); both give
+    the same counts. ``recounted``: a CUDA int64 tensor of one element to
+    which the launch adds the pairs it recounted in the plain order."""
+    lead = src.shape[:-2]
+    n, T = src.shape[-2], R.shape[-3]
     batch = lead[0] if lead else 1
     out = torch.zeros((*lead, T), dtype=torch.int32, device=src.device)
     if T == 0 or n == 0 or batch == 0:
         return out
-    if batch > 65_535:
-        raise ValueError("a batch holds at most 65,535 rows (the grid's z dimension)")
+    if per_thread is None:
+        per_thread = count_per_thread(batch * n)
+    if recounted is not None and (recounted.dtype != torch.int64 or recounted.device != src.device
+                                  or recounted.numel() < 1):
+        raise ValueError("recounted must be an int64 tensor of at least one element on src's device")
     lib = _build.library()
+    nbytes = lib.gps_ransac_counts_scratch(n, batch, per_thread)
+    if nbytes < 0:
+        raise ValueError(f"K5 takes {COUNT_PER_THREADS} points a thread, not {per_thread}")
+    scratch = torch.empty((-(-nbytes // 4),), dtype=torch.int32, device=src.device) if nbytes else None
     with torch.cuda.device(src.device):
         rc = lib.gps_ransac_counts(
             _build.dtype_code(src), batch, src.data_ptr(), dst.data_ptr(), valid.data_ptr(), n,
             R.data_ptr(), t.data_ptr(), s.data_ptr(), T, float(thr2), out.data_ptr(),
-            _build.stream(src.device),
+            0 if scratch is None else scratch.data_ptr(), per_thread,
+            0 if recounted is None else recounted.data_ptr(), _build.stream(src.device),
         )
     _build.check(rc, "ransac_counts")
     _build.count_launch(ransac_counts)

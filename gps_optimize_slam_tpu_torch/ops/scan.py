@@ -226,9 +226,14 @@ def scan_plain(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
 # power limit (chip_smoke.py, phase 1 "routes", 271 to 524,289 elements, two
 # runs): the 2-4-leaf combines and the 12-leaf RTS scan take the same time on
 # both kernels at every length, within the runs' spread; the 27-leaf filter
-# is 1.2-1.7x faster on K1 up to 16,385 elements (K2's larger tiles leave
+# was 1.2-1.7x faster on K1 up to 16,385 elements (K2's larger tiles leave
 # most SMs idle there), level at 65,537, and 1.1-1.3x faster on K2 from
-# 131,073.
+# 131,073 on K1's ladder tile. K1's work-efficient runs tile for long
+# filter launches (scan_lookback.cuh) now makes K1 1.2-1.6x faster than K2
+# for the filter from 65,537 to 524,289 elements, and in batches of 2-4
+# such rows (the same script, float32 and float64). The thresholds below
+# are kept for the other seven combines: a rule for the filter alone would
+# leave K2's filter on no routed path.
 #
 # A batch of rows (the same card, chip_smoke.py phase 1 "routes", float64,
 # every combine, 2 to 64 rows of 16,385 to 524,289 elements, two runs)
@@ -250,8 +255,9 @@ def scan_route(n_leaves: int, n: int, itemsize: int, batch: int = 1) -> str:
     ``n`` elements of ``itemsize`` bytes, in each of ``batch`` rows: K2 for
     rows of more than ``BLOCK_MAX_ELEMENTS`` elements, one row or a batch
     of at most ``BATCH_TILED_MAX_ELEMENTS`` elements in all, K1 otherwise,
-    the crossovers measured on this card (neither depended on the leaf
-    count or the dtype within the runs' spread). Phase 4's 4,661 poses and
+    the crossovers measured on this card for the 2- to 12-leaf combines
+    (the filter's K1 is now ahead of K2 at every length measured: see the
+    note above). Phase 4's 4,661 poses and
     phase 7's buckets stay on K1, and so does phase 10's bucket of four
     long logs (2,097,152 elements a leaf); the chunked path's 262,145-element
     chunks and the fuse-batch command's two 70,000-pose logs take K2."""
@@ -272,11 +278,14 @@ def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.T
     return scan_tiled(op, x, reverse)
 
 
-def block_tile(op: str) -> int:
-    """Elements per tile (one thread block) of K1 for ``op``: kScanThreads
-    times the combine's items per thread (``csrc/scan_lookback.cuh``).
-    Builds the kernels on first use."""
-    return _build.library().gps_scan_tile(OPS[op][0])
+def block_tile(op: str, dtype: torch.dtype = torch.float32, n: int = 1, batch: int = 1) -> int:
+    """Elements per tile (one thread block) of K1 for ``op`` in ``dtype`` at
+    ``batch`` rows of ``n`` elements: kScanThreads times the combine's items
+    per thread (``csrc/scan_lookback.cuh``; the filter takes its runs tile, 128
+    threads of 4 items, from 65,536 float32 or 32,769 float64 elements a
+    launch, the ladder tile's one item below). Builds the kernels on first use."""
+    code = _build.dtype_code(torch.empty(0, dtype=dtype))
+    return _build.library().gps_scan_tile(OPS[op][0], code, n, batch)
 
 
 def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:

@@ -78,7 +78,7 @@ def test_lookback_scan_matches_plain_across_tiles(cuda, op, dtype):
     case is repeated, since which predecessors have published their prefix
     changes from run to run."""
     gen = torch.Generator().manual_seed(4)
-    tile = scan.block_tile(op)
+    tile = scan.block_tile(op, dtype)
     last = last_block_length(op, dtype)
     for n in (tile, tile + 1, 2 * tile, 7 * tile + 3, last):
         x = chip_smoke.scan_inputs(op, n, gen, dtype, cuda)
@@ -181,6 +181,81 @@ def test_counts_kernel_matches_plain_and_keeps_the_winner(cuda, dtype):
         assert int(select_winner(src, dst, valid, fits, got, 16.0)) == int(
             select_winner(src, dst, valid, fits, want, 16.0)
         )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_counts_kernel_on_windows_at_the_threshold_and_all_masked(cuda, dtype):
+    """K5's new order of work against the plain counts: a 180 s-style Sim(3)
+    window (1,800 contiguous valid points) inside rows of 200,000 and a
+    window of one point at a row's end (only the chunks holding a valid
+    point are listed; the batch's rows equal each row alone), an adversarial
+    batch whose pairs sit within a few ulps to 1e-4 of thr2
+    (``chip_smoke.near_threshold_counts``: many recounted in the plain
+    order), and a batch with no valid point (an empty list: zeros), on both
+    of K5's shapes (the grid of every chunk, the listed walk), twice over."""
+    gen = torch.Generator().manual_seed(9)
+    B, n, trials = 3, 200_000, 333
+    src = torch.stack([walk(gen, n, torch.float64, cuda) * 2.0 for _ in range(B)])
+    dst = 0.987 * src + 2.0 * torch.randn(B, n, 3, generator=gen, dtype=torch.float64).to(cuda)
+    src, dst = src.to(dtype), dst.to(dtype)
+    valid = torch.zeros(B, n, dtype=torch.bool, device=cuda)
+    valid[0, 70_001:71_801] = True
+    valid[1, n - 1] = True
+    valid[2, :1_800] = True
+    draws = torch.randint(0, 1_800, (B, trials, 4), generator=gen).to(cuda) + torch.tensor(
+        [70_001, n - 1_800, 0], device=cuda)[:, None, None]
+    pick = torch.arange(B, device=cuda)[:, None, None]
+    fits = umeyama_sim3(src[pick, draws], dst[pick, draws])
+    window = (src, dst, valid, fits.R.contiguous(), fits.t.contiguous(), fits.scale.contiguous(), 16.0)
+    adversarial = chip_smoke.near_threshold_counts(gen, 4, 4661, 128, dtype, cuda)
+    none = (*window[:2], torch.zeros_like(valid), *window[3:])
+    for args in (window, adversarial, none):
+        want = kernels.ransac_counts_plain(*args)
+        for per_thread in kernels.COUNT_PER_THREADS:  # the grid of every chunk and the listed walk
+            got = kernels.counts_launch(*args, per_thread=per_thread)
+            again = kernels.counts_launch(*args, per_thread=per_thread)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(got, again), per_thread
+    got = kernels.ransac_counts(*window)
+    for r in range(B):
+        assert torch.equal(got[r], kernels.ransac_counts(*(a[r].contiguous() for a in window[:6]), 16.0))
+    assert int(kernels.ransac_counts(*none).abs().max()) == 0
+    recounted = torch.zeros(1, dtype=torch.int64, device=cuda)
+    kernels.counts_launch(*adversarial, recounted=recounted)
+    if dtype == torch.float32:  # float64's band is a few ulps of float64 wide
+        assert int(recounted) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_filter_runs_tile_matches_plain(cuda, dtype):
+    """K1's work-efficient filter tile (items a thread, the ladder over the
+    thread totals, the carry once a warp), which launches of 65,536
+    float32 or 32,769 float64 elements or more take (fewer keep the ladder
+    tile): a single row at K1's longest, both directions, and a
+    batch grid of ragged rows past the threshold (each row within TOL of
+    the plain ladder and of the row scanned alone, which takes the ladder
+    tile), to TOL."""
+    gen = torch.Generator().manual_seed(10)
+    least = {torch.float32: 65_536, torch.float64: 32_769}[dtype]
+    runs = scan.block_tile("filter", dtype, 1 << 20)
+    assert runs != 256 and scan.block_tile("filter", dtype, 4661) == 256
+    assert scan.block_tile("filter", dtype, least - 1) == 256 and scan.block_tile("filter", dtype, least) == runs
+    assert scan.block_tile("filter", dtype, scan.BLOCK_MAX_ELEMENTS) == runs  # K1's longest row
+    x = chip_smoke.scan_inputs("filter", scan.BLOCK_MAX_ELEMENTS, gen, dtype, cuda)
+    for reverse in (False, True):
+        err = chip_smoke.rel_err(scan.scan_block("filter", x, reverse), scan.scan_plain("filter", x, reverse))
+        assert err <= TOL[dtype], (reverse, err)
+    shapes = (5 * runs + 7, runs, 2 * runs - 1, 1, 3 * runs, 17, 4 * runs + 1)
+    ns = [shapes[r % len(shapes)] for r in range(-(-least // shapes[0]))]
+    assert scan.block_tile("filter", dtype, max(ns), len(ns)) == runs
+    x = chip_smoke.batched_scan_inputs("filter", ns, gen, dtype, cuda)
+    for reverse in (False, True):
+        got = scan.scan_block("filter", x, reverse)
+        want = scan.scan_plain("filter", x, reverse)
+        assert chip_smoke.rel_err(got.reshape(-1, x.shape[-1]), want.reshape(-1, x.shape[-1])) <= TOL[dtype]
+        for r in range(len(shapes)):
+            alone = scan.scan_block("filter", x[:, r].contiguous(), reverse)
+            assert chip_smoke.rel_err(got[:, r], alone) <= TOL[dtype], (r, reverse)
 
 
 def test_nn_route_rule_edges(cuda):

@@ -387,55 +387,372 @@ def test_plain_counts_match_jax_exact_and_kernel():
     assert 0 < got.min() and got.max() < valid.sum()  # the threshold cuts
 
 
-COUNT_THREADS, COUNT_TRIALS = 256, 32  # csrc/ransac_counts.cu: points and trials a block
+COUNT_THREADS = {4: 256, 2: 128}  # csrc/ransac_counts.cu: a block's threads (the listed walk's at 4 points
+#                                   a thread, kCountThreads; the grid's at 2, kGridThreads), 32 P points a warp
+COUNT_MAX_GROUPS = 4  # csrc/ransac_counts.cu kMaxGroups: groups of 32 trials a block at most
+BAND_SAFE = {np.float32: 2.0**60, np.float64: 2.0**500}  # csrc/ransac_counts.cu Band<T>::kSafe
+BAND_UNIT = {np.float32: 2.0**-24, np.float64: 2.0**-53}
+BAND_ETA = {np.float32: 2.0**-149, np.float64: 2.0**-1074}
 
 
-def emulate_count_kernel(src, dst, valid, R, t, s, thr2):
-    """What csrc/ransac_counts.cu computes, in NumPy, in its order of work:
-    a grid of (chunks of 256 points) x (chunks of 32 trials); a block's
-    threads hold one point each and walk the block's trials, each warp of 32
-    points adds its hits of a trial into the block's counter, and the block
-    adds its counters into the zeroed output. The residual is the kernel's
-    elementwise expression."""
+def fma32(a, b, c):
+    """a*b + c rounded once to float32 (the card's ``__fmaf_rn``): the
+    product is exact in float64, the sum exact as a float64 pair (th, tl),
+    rounded to odd in float64 and then to float32, which rounds correctly
+    (53 >= 24 + 2 bits). Non-finite operands or results take a*b + c."""
+    a, b, c = np.broadcast_arrays(*(np.asarray(x, np.float32) for x in (a, b, c)))
+    a64, b64, c64 = (x.astype(np.float64) for x in (a, b, c))
+    with np.errstate(invalid="ignore", over="ignore"):
+        prod = a64 * b64
+        th, tl = _two_sum(c64, prod)
+        odd = (th.view(np.int64) & 1) == 1
+        v = np.where((tl != 0) & ~odd, np.nextafter(th, np.where(tl > 0, np.inf, -np.inf)), th)
+        z = v.astype(np.float32)
+        plain = a * b + c
+    special = ~(np.isfinite(a) & np.isfinite(b) & np.isfinite(c) & np.isfinite(plain))
+    return np.where(special, plain, z)
+
+
+def kernel_fma(a, b, c, dt):
+    return fma32(a, b, c) if dt == np.float32 else fma(a, b, c)
+
+
+def fast_res2(a, tt, p, d, dt):
+    """K5's contracted residual (csrc/ransac_counts.cu): a = s R (9 values, one
+    rounding), e_j = fma(a_j0, p0, fma(a_j1, p1, fma(a_j2, p2, t_j - d_j))),
+    res2 = fma(e0, e0, fma(e1, e1, e2 * e2)); a (..., 9), tt (..., 3) broadcast
+    against p, d (..., 3) in dtype ``dt``."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        e = [kernel_fma(a[..., 3 * j], p[..., 0], kernel_fma(a[..., 3 * j + 1], p[..., 1], kernel_fma(
+            a[..., 3 * j + 2], p[..., 2], (tt[..., j] - d[..., j]).astype(dt), dt), dt), dt) for j in range(3)]
+        return kernel_fma(e[0], e[0], kernel_fma(e[1], e[1], (e[2] * e[2]).astype(dt), dt), dt)
+
+
+def plain_res2(R, s, tt, p, d, dt):
+    """The plain order (``kernels.sim3_residual2``), each operation rounded in
+    ``dt``: R (..., 9), s (...), tt (..., 3) broadcast against p, d (..., 3)."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        e = [(s * ((p[..., 0] * R[..., 3 * j] + p[..., 1] * R[..., 3 * j + 1]) + p[..., 2] * R[..., 3 * j + 2])
+              + tt[..., j]) - d[..., j] for j in range(3)]
+        return ((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]).astype(dt)
+
+
+def count_band(R, s, tt, pmax, dmax, thr2, dt):
+    """(lo, hi, unsafe) of csrc/ransac_counts.cu's band_roots and
+    stage_trial for trials R (T, 9), s (T,), tt (T, 3) and a block's largest
+    |p_k| and |d_j|: a pair with res2' < lo is a hit, one with res2' >= hi a
+    miss; delta the 1-norm. Computed in float64 rounded to nearest and
+    stepped one ulp outward after every operation, so at least as wide as
+    the kernel's directed roundings; an unsafe trial and block (every pair
+    recounted) gets (-inf, +inf)."""
+    up = lambda x: np.nextafter(x, np.inf)  # noqa: E731
+    dn = lambda x: np.nextafter(x, -np.inf)  # noqa: E731
+    u, eta, safe_at = BAND_UNIT[dt], BAND_ETA[dt], BAND_SAFE[dt]
+    g10, g3 = 10 * u * (1 + 2.0**-19), 3 * u * (1 + 2.0**-19)
+    thr2 = float(dt(thr2))
+    R, s, tt = (np.asarray(x, np.float64) for x in (R, s, tt))
+    s_abs = np.abs(s)
+    safe = np.full(len(s), 0 < thr2 < safe_at)
+    delta = np.zeros(len(s))
+    with np.errstate(invalid="ignore", over="ignore"):
+        for j in range(3):
+            q = np.zeros(len(s))
+            for k in range(3):
+                q = up(q + up(np.abs(R[:, 3 * j + k]) * float(pmax[k])))
+            r_max = np.max(np.abs(R[:, 3 * j: 3 * j + 3]), 1)
+            r_max = np.where(np.isnan(R[:, 3 * j: 3 * j + 3]).any(1), np.nan, r_max)
+            m = up(up(up(s_abs * q) + np.abs(tt[:, j])) + float(dmax[j]))
+            safe &= (m < safe_at) & (q < safe_at) & (up(s_abs * r_max) < safe_at)
+            delta = up(delta + up(up(g10 * m) + 16 * eta))
+        one_up, one_dn = up(1 + g3), dn(1 - g3)
+        r_lo = dn(dn(np.sqrt(dn(dn(thr2 - 4 * eta) / one_up))) - delta)
+        r_hi = up(up(np.sqrt(up(up(thr2 + 4 * eta) / one_dn))) + delta)
+        lo = np.where(r_lo > 0, dn(dn(one_dn * dn(r_lo * r_lo)) - 4 * eta), -np.inf)
+        hi = up(up(one_up * up(r_hi * r_hi)) + 4 * eta)
+    lo, hi = np.where(safe, lo, -np.inf), np.where(safe, hi, np.inf)
+    if dt == np.float32:  # rounded to float32 down and up
+        lo32, hi32 = lo.astype(np.float32), hi.astype(np.float32)
+        lo32 = np.where(lo32.astype(np.float64) > lo, np.nextafter(lo32, np.float32(-np.inf)), lo32)
+        hi32 = np.where(hi32.astype(np.float64) < hi, np.nextafter(hi32, np.float32(np.inf)), hi32)
+        return lo32, hi32, ~safe
+    return lo, hi, ~safe
+
+
+def emulate_count_kernel(src, dst, valid, R, t, s, thr2, per_thread=4, blocks=528, seed=0, stats=None):
+    """What csrc/ransac_counts.cu computes, in NumPy, in its order of work,
+    in the inputs' dtype (float32 or float64). At ``per_thread`` = 4, the
+    listed walk: the list kernel's entries, one a chunk of 256 ``per_thread``
+    points (256 threads) holding a valid point, in the order the atomics happen to give
+    them (shuffled by ``seed``), and trial groups a block, the most (at most
+    4) that leave an item for each of the launch's blocks (``blocks``
+    resident, fewer when the items at one group are fewer). At 2, the grid
+    of every chunk of 128 ``per_thread`` points (128 threads): an item a block, the groups chosen on the host from
+    every chunk and ``blocks``, and a chunk with no valid point adding
+    nothing. Items (entry, group of trials) run in any order; in each, the
+    warps' runs of 32 ``per_thread`` points (a warp with
+    no valid point skipping the walk, a masked point held as p = 0,
+    d = -inf), the block's largest valid magnitudes, each trial's record
+    (a = s R rounded once, t) and band (``count_band``), the contracted
+    residual (``fast_res2``), its certified hits, and the plain order
+    (``plain_res2``) for every pair the band leaves open; the block's partial
+    counts added into a zeroed output. ``stats`` (a dict) receives the
+    pairs computed and recounted."""
+    dt = np.asarray(src).dtype.type
+    src, dst, R, t, s = (np.asarray(x, dt) for x in (src, dst, R, t, s))
+    valid = np.asarray(valid, bool)
     n, T = len(src), len(R)
-    out = np.zeros(T, np.int32)
-    for p0 in range(0, n, COUNT_THREADS):
-        i = np.arange(p0, p0 + COUNT_THREADS)
+    thr2_t = dt(thr2)
+    chunk = COUNT_THREADS[per_thread] * per_thread
+    chunks = -(-n // chunk)
+    listed = {4: True, 2: False}[per_thread]
+    entries = [c for c in range(chunks) if not listed or valid[c * chunk:(c + 1) * chunk].any()]
+    rng = np.random.default_rng(seed)
+    rng.shuffle(entries)
+    groups_all = -(-T // 32)
+    if listed:  # on the card, from the list's length and the launch's grid
+        g = max(1, min(COUNT_MAX_GROUPS, len(entries) * groups_all // min(blocks, chunks * groups_all)))
+    else:  # on the host, from every chunk and the resident blocks
+        g = max(1, min(COUNT_MAX_GROUPS, chunks * groups_all // blocks))
+    per_item = 32 * g
+    tchunks = -(-T // per_item)
+    items = [(e, k) for e in entries for k in range(tchunks)]
+    rng.shuffle(items)
+    out = np.zeros(T, np.int64)
+    Rf = R.reshape(T, 9)
+    computed = recounted = 0
+    for c, k in items:
+        t0 = k * per_item
+        tc = min(per_item, T - t0)
+        i = c * chunk + np.arange(chunk)
         ok = (i < n) & valid[np.minimum(i, n - 1)]
-        p = np.where(ok[:, None], src[np.minimum(i, n - 1)], 0.0)
-        d = np.where(ok[:, None], dst[np.minimum(i, n - 1)], 0.0)
-        for t0 in range(0, T, COUNT_TRIALS):
-            tc = min(COUNT_TRIALS, T - t0)
-            block = np.zeros(COUNT_TRIALS, np.int32)
-            for u in range(tc):
-                r, tt, sc = R[t0 + u], t[t0 + u], s[t0 + u]
-                e = [sc * (p[:, 0] * r[j, 0] + p[:, 1] * r[j, 1] + p[:, 2] * r[j, 2]) + tt[j] - d[:, j]
-                     for j in range(3)]
-                hit = ok & (e[0] * e[0] + e[1] * e[1] + e[2] * e[2] < thr2)
-                for warp in hit.reshape(-1, 32):  # one sum a warp, kept by lane u
-                    block[u] += warp.sum()
-            out[t0 : t0 + tc] += block[:tc]
-    return out
+        if not ok.any():  # the grid's empty chunk: its block stops after its loads
+            continue
+        p = np.where(ok[:, None], src[np.minimum(i, n - 1)], dt(0))
+        d = np.where(ok[:, None], dst[np.minimum(i, n - 1)], dt(-np.inf))
+        warp_active = ok.reshape(-1, 32 * per_thread).any(1).repeat(32 * per_thread)
+        pmax = np.abs(src[i[ok]]).max(0) if ok.any() else np.zeros(3, dt)
+        dmax = np.abs(dst[i[ok]]).max(0) if ok.any() else np.zeros(3, dt)
+        tr = slice(t0, t0 + tc)
+        a = (s[tr, None] * Rf[tr]).astype(dt)
+        lo, hi, unsafe = count_band(Rf[tr], s[tr], t[tr], pmax, dmax, thr2_t, dt)
+        pa, da = p[None, warp_active], d[None, warp_active]
+        q = fast_res2(a[:, None], t[tr, None], pa, da, dt)
+        hit = q < lo[:, None]
+        open_ = unsafe[:, None] | (~hit & (q < hi[:, None]))
+        u_open, j_open = np.nonzero(open_)
+        redo = plain_res2(Rf[tr][u_open], s[tr][u_open], t[tr][u_open], pa[0, j_open], da[0, j_open], dt)
+        hit[u_open, j_open] = redo < thr2_t
+        out[tr] += hit.sum(1)
+        computed += q.size
+        recounted += len(u_open)
+    if stats is not None:
+        stats.update(computed=computed, recounted=recounted)
+    return out.astype(np.int32)
+
+
+def window_mask(n, start, length):
+    """A 180 s-style Sim(3) window: one contiguous run of valid points in a
+    row that is masked elsewhere."""
+    valid = np.zeros(n, bool)
+    valid[start:start + length] = True
+    return valid
+
+
+def near_threshold(rng, n, T, dt, thr2=16.0):
+    """Adversarial pairs: each dst is trial 0's prediction s R p + t plus
+    sqrt(thr2) along a random direction, nudged by up to 4 ulps a
+    coordinate, in ``dt``; the other trials are trial 0 with a translation
+    moved by 1e-4, so most pairs' plain residual lies within a few ulps to a
+    few parts in 1e4 of thr2."""
+    src, _, valid, R, t, s = sim3_trials(rng, n, T)
+    src = src.astype(dt)
+    R, t, s = (np.repeat(x[:1], T, 0).astype(dt) for x in (R, t, s))
+    t = np.concatenate([t[:1], (t[1:] + rng.normal(size=(T - 1, 3)) * 1e-4).astype(dt)])
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pred = s[0].astype(np.float64) * (src.astype(np.float64) @ R[0].astype(np.float64).T) + t[0]
+    dst = (pred + np.sqrt(thr2) * v).astype(dt)
+    for _ in range(4):
+        k = rng.integers(-1, 2, size=(n, 3))
+        dst = np.where(k > 0, np.nextafter(dst, dt(np.inf)), np.where(k < 0, np.nextafter(dst, dt(-np.inf)), dst))
+    return src, dst, valid, R, t, s
+
+
+def plain_counts(*args, thr2=16.0):
+    return kernels.ransac_counts_plain(*[torch.tensor(a) for a in args], thr2).numpy()
 
 
 @pytest.mark.parametrize("n,T,none_valid", [(1500, 300, False), (279, 1000, False), (5003, 333, False),
                                             (1, 1, False), (1500, 300, True)])
 def test_emulated_count_kernel_equals_plain_and_jax_exact(n, T, none_valid):
-    """Ragged point chunks (1500 = 5 x 256 + 220, 279, 5003) and trial chunks
+    """Ragged point chunks (1500 = 1024 + 476, 279, 5003) and trial groups
     (300 = 9 x 32 + 12, 1000, 333), one point and one trial, and no valid
-    point: the per-chunk partial counts sum to the plain counts exactly."""
+    point (an empty list: every count 0): on the listed walk and on the
+    grid of every chunk, at 1 to 4 trial groups a block (the fill rule at
+    528, 3 and 1 resident blocks), the partial counts sum to the plain
+    counts exactly, and to JAX's exact form."""
     rng = np.random.default_rng(n + T)
     src, dst, valid, R, t, s = sim3_trials(rng, n, T)
     if none_valid:
         valid = np.zeros(n, bool)
-    got = emulate_count_kernel(src, dst, valid, R, t, s, 16.0)
-    plain = kernels.ransac_counts_plain(*[torch.tensor(a) for a in (src, dst, valid, R, t, s)], 16.0).numpy()
-    np.testing.assert_array_equal(got, plain)
-    np.testing.assert_array_equal(got, jax_exact_counts(src, dst, valid, R, t, s, 16.0))
+    plain = plain_counts(src, dst, valid, R, t, s)
+    np.testing.assert_array_equal(plain, jax_exact_counts(src, dst, valid, R, t, s, 16.0))
+    if (n, T, none_valid) == (1500, 300, False):  # JAX's float32 quadratic-form kernel, re-ranked for it
+        approx = np.asarray(jpk.ransac_counts(*(jnp.asarray(a) for a in (src, dst, valid, R, t, s)),
+                                              thr2=16.0, interpret=True))
+        assert np.abs(plain - approx).max() <= 2
+    for per_thread, blocks in ((4, 528), (4, 3), (2, 528), (2, 1)):
+        got = emulate_count_kernel(src, dst, valid, R, t, s, 16.0, per_thread, blocks, seed=T)
+        np.testing.assert_array_equal(got, plain)
     if none_valid:
         assert (got == 0).all()
     elif n >= 279:
         assert 0 < got.max() < n  # the threshold cuts
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+def test_emulated_count_kernel_on_a_window_inside_a_long_masked_row(dt):
+    """A 180 s-style window (1,800 contiguous valid points at 10 Hz, across
+    chunk edges) inside a 20,000-point masked row, on both of K5's shapes:
+    only the chunks that hold a valid point are listed (the grid's other
+    blocks stop after their loads), the warps of their masked points skip,
+    the pairs computed are within a warp's points at each edge of the valid
+    ones, and the counts
+    equal the plain ones (and, in float64, JAX's exact form), also with a
+    window of one point at the row's very end."""
+    rng = np.random.default_rng(11)
+    n, T = 20_000, 70
+    src, dst, _, R, t, s = (x.astype(dt) if x.dtype != bool else x for x in sim3_trials(rng, n, T))
+    for start, length in ((7_777, 1_800), (n - 1, 1)):
+        valid = window_mask(n, start, length)
+        plain = plain_counts(src, dst, valid, R, t, s)
+        for per_thread in (4, 2):  # the listed walk and the grid of every chunk
+            stats = {}
+            got = emulate_count_kernel(src, dst, valid, R, t, s, 16.0, per_thread, stats=stats)
+            np.testing.assert_array_equal(got, plain)
+            warp_points = 32 * per_thread  # a warp's points: a partial one at each edge
+            assert length * T <= stats["computed"] <= (length + 2 * warp_points) * T
+        if dt == np.float64:
+            np.testing.assert_array_equal(got, jax_exact_counts(src, dst, valid, R, t, s, 16.0))
+    for per_thread in (4, 2):
+        assert (emulate_count_kernel(src, dst, np.zeros(n, bool), R, t, s, 16.0, per_thread) == 0).all()
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+def test_emulated_count_kernel_recounts_pairs_at_the_threshold(dt):
+    """Adversarial pairs (``near_threshold``): many plain residuals within a
+    few ulps of thr2, where the contracted residual rounds to the other
+    side now and then; the band leaves them open, the plain order recounts
+    them, and the counts equal the plain ones exactly."""
+    rng = np.random.default_rng(12 if dt == np.float32 else 13)
+    src, dst, valid, R, t, s = near_threshold(rng, 1500, 64, dt)
+    stats = {}
+    got = emulate_count_kernel(src, dst, valid, R, t, s, 16.0, stats=stats)
+    plain = plain_counts(src, dst, valid, R, t, s)
+    np.testing.assert_array_equal(got, plain)
+    r2 = plain_res2(R.reshape(-1, 9)[:, None], s[:, None], t[:, None], src[None], dst[None], dt)
+    fast = fast_res2((s[:, None] * R.reshape(-1, 9)).astype(dt)[:, None], t[:, None], src[None], dst[None], dt)
+    ulp = np.spacing(dt(16.0))
+    near = valid[None] & (np.abs(r2 - dt(16.0)) <= 4 * ulp)
+    assert near.sum() > 50  # pairs within 4 ulps of thr2
+    assert ((fast < 16.0) != (r2 < 16.0)).any()  # the contracted residual alone would miscount
+    assert stats["recounted"] >= near.sum()
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+def test_emulated_count_kernel_recounts_unsafe_blocks(dt):
+    """Where the band's bound does not hold (a valid point with a NaN or an
+    infinite coordinate in its block, a trial with an infinite translation
+    or a scale past 2^60 in float32, 2^500 in float64),
+    the trial and block are flagged unsafe and every pair is recounted in
+    the plain order: the counts equal the plain ones, NaNs and infinities
+    never counting as hits."""
+    rng = np.random.default_rng(14)
+    n, T = 1500, 40
+    src, dst, valid, R, t, s = (x.astype(dt) if x.dtype != bool else x for x in sim3_trials(rng, n, T))
+    src[3, 1], dst[700, 2], src[1400, 0] = np.nan, np.inf, -np.inf  # in three chunks of 128 x 2 points
+    valid[[3, 700, 1400]] = True
+    t[5, 0], s[6], s[7] = np.inf, dt(2.0**61 if dt == np.float32 else 2.0**501), dt(np.nan)
+    stats = {}
+    got = emulate_count_kernel(src, dst, valid, R, t, s, 16.0, per_thread=2, stats=stats)
+    np.testing.assert_array_equal(got, plain_counts(src, dst, valid, R, t, s))
+    assert stats["recounted"] >= 3 * 256 * T  # the poisoned blocks, every trial
+    _, _, unsafe = count_band(R.reshape(T, 9), s, t, np.abs(src[256:512]).max(0), np.abs(dst[256:512]).max(0),
+                              16.0, dt)
+    assert unsafe[[5, 6, 7]].all() and not unsafe[:5].any()
+
+
+def _exact(x):
+    from fractions import Fraction
+
+    return np.vectorize(Fraction, otypes=[object])(np.asarray(x, np.float64))
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_count_band_covers_fast_against_plain(dt, kind):
+    """The band's derivation (csrc/ransac_counts.cu), in exact rationals on
+    random and adversarial pairs: |e'_j - e_j| <= gamma_10 M_j + 16 eta for
+    each coordinate (M_j from the pair's own magnitudes, which the block's
+    bound), each rounded sum of squares within (1 +- gamma_3) S +- 4 eta of
+    its exact S, and every pair the band decides decided as the plain order
+    decides it: res2' < lo gives plain < thr2, res2' >= hi gives plain >= thr2."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(21 if kind == "random" else 22)
+    n, T = 60, 12
+    if kind == "random":
+        src, dst, valid, R, t, s = (x.astype(dt) if x.dtype != bool else x for x in sim3_trials(rng, n, T))
+    else:
+        src, dst, valid, R, t, s = near_threshold(rng, n, T, dt)
+    Rf = R.reshape(T, 9)
+    u, eta = Fraction(BAND_UNIT[dt]), Fraction(BAND_ETA[dt])
+    g10, g3 = 10 * u / (1 - 10 * u), 3 * u / (1 - 3 * u)
+    a = (s[:, None] * Rf).astype(dt)
+    lo, hi, unsafe = count_band(Rf, s, t, np.abs(src).max(0), np.abs(dst).max(0), 16.0, dt)
+    assert not unsafe.any()
+    fast = fast_res2(a[:, None], t[:, None], src[None], dst[None], dt)
+    plain = plain_res2(Rf[:, None], s[:, None], t[:, None], src[None], dst[None], dt)
+    thr = Fraction(float(dt(16.0)))
+    decided = 0
+    for k in range(T):
+        Rk, sk, tk, ak = (_exact(x) for x in (Rf[k], s[k], t[k], a[k]))
+        for i in range(n):
+            p, d = _exact(src[i]), _exact(dst[i])
+            # The roundings of each order, step by step, as the emulations take them.
+            pe = [(sk * ((p[0] * Rk[3 * j] + p[1] * Rk[3 * j + 1]) + p[2] * Rk[3 * j + 2]) + tk[j]) - d[j]
+                  for j in range(3)]
+            e_plain = [Fraction(float(v)) for v in plain_e(Rf[k], s[k], t[k], src[i], dst[i], dt)]
+            e_fast = [Fraction(float(v)) for v in fast_e(a[k], t[k], src[i], dst[i], dt)]
+            for j in range(3):
+                m = abs(sk) * sum(abs(Rk[3 * j + c]) * abs(p[c]) for c in range(3)) + abs(tk[j]) + abs(d[j])
+                assert abs(e_fast[j] - e_plain[j]) <= g10 * m + 16 * eta
+                assert abs(e_plain[j] - pe[j]) <= 6 * u / (1 - 6 * u) * m + 8 * eta
+            for e, r2 in ((e_plain, plain[k, i]), (e_fast, fast[k, i])):
+                S = sum(x * x for x in e)
+                assert (1 - g3) * S - 4 * eta <= Fraction(float(r2)) <= (1 + g3) * S + 4 * eta
+            if fast[k, i] < lo[k]:
+                assert Fraction(float(plain[k, i])) < thr
+                decided += 1
+            elif fast[k, i] >= hi[k]:
+                assert Fraction(float(plain[k, i])) >= thr
+                decided += 1
+    if kind == "random":
+        assert decided >= 0.9 * n * T  # the band decides almost every pair
+    else:
+        assert decided < n * T  # and leaves the adversarial ones near thr2 open
+
+
+def plain_e(R, s, tt, p, d, dt):
+    """The plain order's three residual coordinates of one pair, in ``dt``."""
+    return [dt(dt(dt(s * dt(dt(dt(p[0] * R[3 * j]) + dt(p[1] * R[3 * j + 1])) + dt(p[2] * R[3 * j + 2])))
+                     + tt[j]) - d[j]) for j in range(3)]
+
+
+def fast_e(a, tt, p, d, dt):
+    """The contracted residual's three coordinates of one pair, in ``dt``."""
+    return [kernel_fma(a[3 * j], p[0], kernel_fma(a[3 * j + 1], p[1], kernel_fma(
+        a[3 * j + 2], p[2], dt(tt[j] - d[j]), dt), dt), dt)[()] for j in range(3)]
 
 
 def test_nn_route_matches_jax():

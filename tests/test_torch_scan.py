@@ -344,6 +344,58 @@ def _tile_reduce(op, v, warp, warps, items):
     return wl, wscan, wscan[:, -1]
 
 
+def _tile_reduce_runs(op, v, warp, warps, items):
+    """Step 3 of the filter's runs tile (csrc/scan_lookback.cuh
+    tile_reduce_runs) on one staged tile v (L, T, items): each thread's run
+    folded into a total, not written back; the ladder over the totals; the
+    lane's exclusive prefix within its warp folded into the run's first
+    element. Returns the runs so changed, the inclusive warp prefixes (L,
+    warps) and the tile aggregate (L,)."""
+    L, T = v.shape[0], warp * warps
+    tot = v[:, :, 0]
+    for i in range(1, items):
+        tot = _comb(op, tot, v[:, :, i])
+    acc = _lane_scan(op, tot.reshape(L, warps, warp), warp)
+    lane = torch.arange(warp)[None, :].expand(warps, warp).reshape(T)
+    lane_excl = _shift(acc, 1, _ident(op, warps, warp)).reshape(L, T)
+    runs = v.clone()
+    runs[:, :, 0] = torch.where(lane > 0, _comb(op, lane_excl, v[:, :, 0]), v[:, :, 0])
+    wscan = _lane_scan(op, acc[:, :, -1], warps)
+    return runs, wscan, wscan[:, -1]
+
+
+def _tile_finish_runs(op, t, carry, runs, wscan, warp, warps, items):
+    """Step 5 of the runs tile (tile_finish_runs): the warp's exclusive
+    composite (tile carry, then the earlier warps' prefix), once a warp,
+    starts each thread's second pass over its run; without one (tile 0,
+    warp 0) thread 0 starts from the identity and the other threads from
+    their run's first element, which holds their lane prefix; (L, T, items)."""
+    L, T = wscan.shape[0], warp * warps
+    wid = torch.arange(warps)[:, None].expand(warps, warp).reshape(T)
+    warp_pre = torch.cat([_ident(op, 1), wscan[:, :-1]], 1)[:, :, None].expand(L, warps, warp).reshape(L, T)
+    if t > 0:
+        pre = carry[:, None].expand(L, T)
+        pre = torch.where(wid > 0, _comb(op, pre, warp_pre), pre)
+        have = torch.ones(T, dtype=torch.bool)
+    else:
+        pre = warp_pre  # the identity for warp 0
+        have = (wid > 0) | (torch.arange(T) == 0)
+    res = torch.empty(L, T, items, dtype=torch.float64)
+    acc = torch.where(have, _comb(op, pre, runs[:, :, 0]), runs[:, :, 0])
+    res[:, :, 0] = acc
+    for i in range(1, items):
+        acc = _comb(op, acc, runs[:, :, i])
+        res[:, :, i] = acc
+    return res
+
+
+# (warp, warps, items, window) of the runs tile's emulation: two items a
+# thread, so that each run folds in registers; the filter's input is its
+# ladder cases' 31 elements (3 tiles of 8 and a ragged tail), whose JAX
+# reference those cases compile already.
+EMULATED_RUNS = {"mobius": (4, 2, 2, 4), "rts": (4, 2, 2, 4), "filter": (2, 2, 2, 2)}
+
+
 def _window_fold(op, vals, last, window):
     """Lane 0's fold of a look-back window vals (L, window), lane 0 the
     nearest predecessor, over lanes [0, last] (shuffle-down tree, the
@@ -377,12 +429,15 @@ def _tile_finish(op, t, carry, wl, wscan, warp, warps, items):
     return res
 
 
-def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, seed=0, blocks=3):
+def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, seed=0, blocks=3, tile="ladder"):
     """(L, n) leaves, or (L, B, n) for K1's batch grid: one ticket counter
     over every row's tiles in row-major order (ticket g is tile g % n_tiles
     of row g // n_tiles), the flags and values a slot per (row, tile), and a
     look-back that walks its row's slots only and stops at the row's first
-    tile."""
+    tile. ``tile``: the tile's steps 3 and 5, "ladder" (every combine's
+    tile, and the filter's below kRunsMinF32 / kRunsMinF64 elements a
+    launch) or "runs" (the filter's work-efficient tile above them)."""
+    tile_kind = tile
     rng = np.random.default_rng(seed)
     batched = x.ndim == 3
     xs = x if batched else x[:, None]
@@ -401,7 +456,8 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
             return row * n_tiles + p
 
         v = padded[:, row, t * tile : (t + 1) * tile].reshape(L, T, items)
-        wl, wscan, tot = _tile_reduce(op, v, warp, warps, items)
+        reduce = _tile_reduce_runs if tile_kind == "runs" else _tile_reduce
+        wl, wscan, tot = reduce(op, v, warp, warps, items)
         carry = None
         if t == 0:
             incl[slot(0)] = tot
@@ -424,7 +480,8 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
                 base -= window
             carry = run
             incl[slot(t)] = _comb(op, run, tot)
-        out[:, row, t * tile : (t + 1) * tile] = _tile_finish(op, t, carry, wl, wscan, warp, warps, items).reshape(L, tile)
+        finish = _tile_finish_runs if tile_kind == "runs" else _tile_finish
+        out[:, row, t * tile : (t + 1) * tile] = finish(op, t, carry, wl, wscan, warp, warps, items).reshape(L, tile)
     out = out[..., :n]
     out = out.flip(-1) if reverse else out
     return out if batched else out[:, 0]
@@ -585,6 +642,38 @@ def test_lookback_structure_matches_plain_and_jax(op, reverse, schedule):
         got = emulate_lookback_scan(op, xt, reverse, schedule, warp, warps, items, window).numpy()
         _assert_close(op, got, scan.scan_plain(op, xt, reverse).numpy(), rtol=1e-12)
         _assert_close(op, got, want[:, sl], rtol=1e-12)
+
+
+@pytest.mark.parametrize("schedule", ["random", "aggregates"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", ["mobius", "rts", "filter"])
+def test_runs_tile_schedule_matches_plain_and_jax(op, reverse, schedule):
+    """The filter's runs tile at two items a thread and two warps
+    (``EMULATED_RUNS``), on the filter itself (its ladder cases' input: 1,
+    2 and 3 tiles plus a ragged tail) and on the cheap non-commutative
+    combines (1, 2 and 7 tiles plus a ragged tail): the runs folded in
+    registers, the ladder over the thread totals, the lane prefix in the
+    run's first element, the warp's composite once a warp, against the
+    plain and JAX scans, and two rows in one batch grid against each row
+    alone."""
+    warp, warps, items, window = EMULATED_RUNS[op]
+    tile = warp * warps * items
+    x, want = lookback_reference(op, reverse)
+    n_max = x.shape[1]
+    for n in (tile, 2 * tile, n_max):
+        sl = slice(n_max - n, n_max) if reverse else slice(0, n)
+        xt = torch.tensor(x[:, sl])
+        got = emulate_lookback_scan(op, xt, reverse, schedule, warp, warps, items, window, tile="runs").numpy()
+        _assert_close(op, got, scan.scan_plain(op, xt, reverse).numpy(), rtol=1e-12)
+        _assert_close(op, got, want[:, sl], rtol=1e-12)
+    rows = torch.stack([torch.tensor(x[:, :2 * tile + 3]), torch.tensor(x[:, 5:2 * tile + 8])], 1)
+    got = emulate_lookback_scan(op, rows, reverse, schedule, warp, warps, items, window, tile="runs")
+    for r in range(2):
+        alone = emulate_lookback_scan(op, rows[:, r].contiguous(), reverse, "aggregates", warp, warps, items,
+                                      window, tile="runs")
+        _assert_close(op, got[:, r].numpy(), alone.numpy(), rtol=1e-12)
+        if schedule == "aggregates":
+            assert torch.equal(got[:, r], alone)
 
 
 @pytest.mark.parametrize("schedule", ["persistent", "random"])
