@@ -533,6 +533,35 @@ def keep_all_pairs_ms(traj, cand) -> float:
     return 1e3 * KEEP_PAIR_FLOPS * n_sub * m_sub / PEAK_FLOPS["float64"]
 
 
+KEEP_KERNELS = ("segment_boxes_kernel", "group_boxes_kernel", "keep_lists_kernel")  # a keep-lists call's launches
+
+
+def keep_plan(traj, cand) -> dict:
+    """The keep-list kernel's regime at these operands: query tiles of the
+    launch, candidate tiles and groups of 32 of them a row (the group level
+    and its launch only at two groups or more), and the warps a query tile
+    (``kernels.keep_split``)."""
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    batch = traj.shape[0] if traj.ndim == 3 else 1
+    n_tiles, m_tiles = kernels._tiles(traj.shape[-2], cand.shape[-2])
+    return {"query_tiles": batch * n_tiles, "m_tiles": m_tiles, "groups": -(-m_tiles // kernels.GROUP_TILES),
+            "warps_a_query_tile": kernels.keep_split(batch, n_tiles, m_tiles)}
+
+
+def keep_launch_ms(traj, cand, mask, reps: int = 10) -> dict:
+    """{kernel: [device ms of a launch, launches traced]} of a keep-lists
+    call's launches (``launch_device_ms``; the group step only where a row
+    has two groups or more)."""
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    def call():
+        return kernels.keep_lists(traj, cand, mask)
+
+    names = KEEP_KERNELS if keep_plan(traj, cand)["groups"] > 1 else KEEP_KERNELS[::2]
+    return {k: list(launch_device_ms(call, k, reps)) for k in names}
+
+
 def build_registers(log: str) -> dict:
     """{kernel: [registers, bytes of spill stores]} from nvcc's ``-Xptxas -v``
     output, for the keep-list kernels, the 12- and 27-leaf scans (the
@@ -542,7 +571,7 @@ def build_registers(log: str) -> dict:
     found and nothing was compiled."""
     import re
 
-    wanted = re.compile(r"(keep_lists_kernelILi\d+|segment_boxes_kernelI[fd]"
+    wanted = re.compile(r"(keep_lists_kernelILi\d+|segment_boxes_kernelI[fd]|group_boxes_kernel"
                         r"|(?:tiled|lookback)_scan_kernelINS_\d+(?:Filter|RtsSuffix)I[fd](?:EE[fd]Li\d+ELb[01])?"
                         r"|nn_kernelI[fd]Li\d+ELi\d+|nn_grid_kernelI[fd]|count_kernelI[fd]Li\d+|chunk_list_kernel)")
     out, name = {}, None
@@ -1043,7 +1072,8 @@ def phase1_nn(device, gen):
                      "k3_device_ms": device_ms(lambda: kernels.nn_resident(traj, cand, mask)),
                      "kept_tile_pairs": int(kernels.keep_lists(traj, cand, mask)[1].sum()),
                      "route": kernels.nn_route(cand.shape[0], traj.shape[0]), "bound": nn_bound(traj, cand, mask),
-                     "library_ms": cdist_library_ms(traj, cand, mask)}
+                     "library_ms": cdist_library_ms(traj, cand, mask),
+                     "sort_candidates": sort_candidates_times(traj, cand, mask, got)}
     emit({"phase": 1, "kernel": "nn_grid", "shape": list(GRID_NN_WIN), "shuffled": True, "equal_to_k3": True,
           "checks": win})
     main = {}
@@ -1127,6 +1157,27 @@ def launch_times(traj, cand, mask, got) -> dict:
             "kernel_ms": cuda_ms(lambda: kernels.grid_launch(traj, operands), reps=5)}
 
 
+def sort_candidates_times(traj, cand, mask, got) -> dict:
+    """``kernels.nn_min_dist2`` with ``sort_candidates`` off and on: call
+    ms and the kept tile pairs of the candidates it hands the keep lists
+    (the Morton sort's are those of ``morton_sort_candidates``); the sorted
+    call's minima equal ``got`` (the unsorted K4 call's) bit for bit, a
+    minimum not depending on the order."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    out = {}
+    for on in (False, True):
+        c, m = kernels.morton_sort_candidates(cand, mask) if on else (cand, mask)
+        if not torch.equal(kernels.nn_min_dist2(traj, cand, mask, sort_candidates=on), got):
+            raise AssertionError(f"nn_min_dist2(sort_candidates={on}) differs from K4 unsorted")
+        out["on" if on else "off"] = {
+            "ms": cuda_ms(lambda: kernels.nn_min_dist2(traj, cand, mask, sort_candidates=on)),
+            "kept_tile_pairs": int(kernels.keep_lists(traj, c, m)[1].sum())}
+    return out
+
+
 def plain_keep_lists(traj, cand, mask):
     """(order, nkept, cand3) of the keep-list kernel's plain version, with
     the inputs' batch axis if they have one."""
@@ -1138,15 +1189,18 @@ def plain_keep_lists(traj, cand, mask):
 
 def phase1_keep(device, gen):
     """The keep-list kernel: its lists equal the plain mask's compaction
-    (the same float64 bounds in the same order; the kernel's tile-level
-    test is exact) and its packed candidates the plain packing, float32 and
-    float64 coordinates: at seq-02's length (37 query tiles, one a block),
-    with one candidate tile, at UTM magnitudes, with whole tiles and runs of
-    segments masked out, and at phase 5's NN block (4,096 query tiles, four
-    a block); each also with every candidate masked (every tile kept, as in
-    the JAX mask). Times at 524,288 x 524,288 in float64 (phase 5's shape):
-    the call, its device time by kernel, and the bytes bound beside the
-    operations bound of taking every segment pair."""
+    (the same float64 bounds in the same order; the kernel's group- and
+    tile-level tests are exact) and its packed candidates the plain
+    packing, float32 and float64 coordinates: at seq-02's length (37 query
+    tiles, a warp each, one group), with one candidate tile, at UTM
+    magnitudes, with whole tiles and runs of segments masked out, at K4's
+    shuffled 700 x 524,288 (6 query tiles of 8 warps each over 16 groups,
+    every tile kept) and at phase 5's NN block (4,096 query tiles, a warp
+    each, 16 groups); each also with every candidate masked (every tile
+    kept, as in the JAX mask). Times at 524,288 x 524,288 in float64
+    (phase 5's shape): the call, its device time by kernel, each launch's,
+    the regime, and the bytes bound beside the operations bound of taking
+    every segment pair."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import kernels
@@ -1164,28 +1218,33 @@ def phase1_keep(device, gen):
             raise AssertionError(f"keep lists {what}: the packed candidates differ")
         return nkept, want_nkept, order.numel(), cand3
 
-    # (queries, candidates, coordinate offset, part-masked)
-    cases = ((SEQ02_LEN, SEQ02_LEN, 0.0, False), (SEQ02_LEN, 777, 0.0, False),
-             (SEQ02_LEN, SEQ02_LEN, 5.4e6, False), (SEQ02_LEN, 9000, 0.0, True),
-             GRID_NN_MAIN + (0.0, False))
+    # (queries, candidates, coordinate offset, "part-masked", "shuffled" or "")
+    cases = ((SEQ02_LEN, SEQ02_LEN, 0.0, ""), (SEQ02_LEN, 777, 0.0, ""),
+             (SEQ02_LEN, SEQ02_LEN, 5.4e6, ""), (SEQ02_LEN, 9000, 0.0, "part-masked"),
+             GRID_NN_WIN + (0.0, "shuffled"), GRID_NN_MAIN + (0.0, ""))
     checks = {}
-    for n, m, offset, part in cases:
+    for n, m, offset, kind in cases:
         for dtype in (torch.float32, torch.float64):
             traj = walk(gen, n, torch.float64, device) + offset
             cand = walk(gen, m, torch.float64, device) + (offset + 0.3)
+            if kind == "shuffled":
+                cand = cand[torch.randperm(m, generator=gen).to(device)].contiguous()
             traj, cand = traj.to(dtype), cand.to(dtype)
             mask = (torch.rand(m, generator=gen) > 0.1).to(device)
-            if part:  # a whole tile, a run of segments, and a tile with one fix left
+            if kind == "part-masked":  # a whole tile, a run of segments, and a tile with one fix left
                 mask[:1024] = False
                 mask[3000:3100] = False
                 mask[8192:] = False
                 mask[8500] = True
-            what = f"{n}x{m}/{dtype_name(dtype)}" + ("/utm" if offset else "") + ("/part-masked" if part else "")
+            what = f"{n}x{m}/{dtype_name(dtype)}" + ("/utm" if offset else "") + (f"/{kind}" if kind else "")
             nkept, want_nkept, pairs, cand3 = check(traj, cand, mask, what)
             # Every candidate masked: no finite upper bound, every tile kept
             # (as in the JAX mask); K3 and K4 then give +inf.
             check(traj, cand, torch.zeros_like(mask), what + "/all-masked")
-            checks[what] = {"kept_tile_pairs": int(nkept.sum()), "tile_pairs": pairs}
+            checks[what] = {"kept_tile_pairs": int(nkept.sum()), "tile_pairs": pairs, **keep_plan(traj, cand)}
+    splits = sorted({c["warps_a_query_tile"] for c in checks.values()})
+    if splits != [1, 8]:  # seq-02's rows take one warp a query tile, K4's shuffled shape eight
+        raise AssertionError(f"keep lists: the checks took {splits} warps a query tile, not 1 and 8")
     ms = cuda_ms(lambda: kernels.keep_lists(traj, cand, mask))
     plain_ms = cuda_ms(lambda: plain_keep_lists(traj, cand, mask), reps=3)
     by_kernel = device_profile(lambda: kernels.keep_lists(traj, cand, mask), reps=5)
@@ -1194,6 +1253,7 @@ def phase1_keep(device, gen):
     bound_ms_by = keep_bound(traj, cand, mask, nkept, cand3)
     emit({"phase": 1, "kernel": "nn_keep", "equal_to_plain": True, "checks": checks, "ms": ms,
           "plain_ms": plain_ms, "device_ms": dev, "device_ms_by_kernel": by_kernel,
+          "launch_device_ms": keep_launch_ms(traj, cand, mask), **keep_plan(traj, cand),
           "bound_ms": bound_ms_by[0], "all_segment_pairs_bound_ms": keep_all_pairs_ms(traj, cand),
           "shape": list(GRID_NN_MAIN), "dtype": "float64"})
     entry = kernel_entry("nn_keep", "nn_keep.cu", "pallas_kernels.py:174", "float64", aerr, ms, plain_ms,
@@ -1619,6 +1679,7 @@ def phase1_batched_nn(device, gen):
     emit({"phase": 1, "kernel": "nn_resident@batch", "rel_err": nn_err, "ms": ms, "plain_ms": plain_ms,
           "library_ms": library_ms, "device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel,
           "keep_ms": keep_ms, "keep_plain_ms": keep_plain_ms, "keep_device_ms": keep_dev,
+          "keep_launch_device_ms": keep_launch_ms(traj, cand, mask), "keep_plan": keep_plan(traj, cand),
           "queries_a_block": kernels.resident_block(traj.shape[0] * kernels._tiles(traj.shape[1], 1)[0]),
           "kept_tile_pairs": int(nkept.sum()), "sass_tile_loops": sass_tile_loops(_build.BUILD_INFO["path"]),
           "rows_equal_to_the_calls_alone": True, "checks": checks, "shape": list(traj.shape), "dtype": "float32"})
@@ -3768,7 +3829,7 @@ def phase10_kernels(nn_args, scan_calls, count_args) -> dict:
 
     out["nn_keep@batch"] = {
         "ms": cuda_ms(keep),
-        "launch_device_ms": {k: launch_device_ms(keep, k) for k in ("segment_boxes_kernel", "keep_lists_kernel")},
+        "launch_device_ms": keep_launch_ms(traj, cand, mask), **keep_plan(traj, cand),
         "plain_ms": cuda_ms(lambda: plain_keep_lists(traj, cand, mask), reps=2),
         "bound": keep_bound(traj, cand, mask, nkept, cand3)}
     del operands, order, nkept, cand3, got, want

@@ -11,77 +11,104 @@
 // bit: the same float64 operations in the same order, with no contraction
 // (--fmad=false).
 //
-// Design, two launches:
-//   1. segment_boxes_kernel: blocks of 32 warps, one warp per 32-point
-//      segment (queries, then one block per candidate tile), a lane per
-//      point, coalesced loads; NaN -> 0 and +-inf -> +-3.4e38 in float64;
+// Design, three levels of candidate boxes and a warp per query tile:
+//   1. segment_boxes_kernel: blocks of 256 threads for 32 segments of 32
+//      points (queries, then one block per candidate tile), 8 lanes a
+//      segment and a thread four of its points, 8 apart (a load's lanes
+//      read runs of 8 consecutive points): a segment's box takes 3
+//      rounds of shuffles, where a warp a segment took 5, and a tile's box
+//      5 more for its whole block; NaN -> 0 and +-inf -> +-3.4e38 in float64;
 //      pad rows replicate the last query; candidates past m or masked out
 //      are left out of their box (an empty box is lo = +inf, hi = -inf).
 //      Boxes are (6, segments) float64, lo then hi per axis. A candidate
 //      block also writes its packed tile (m_tiles, 3, 1024): rows x, y, z,
 //      a valid candidate's raw coordinates and +inf in all three for one
 //      masked out or past m (validity folded into the coordinates, the
-//      contract of nn_tile.cuh); and the tile's own box, the min/max over its 32 segment boxes
-//      (empty segments drop out of a min/max by themselves; a tile with no
-//      valid candidate keeps the empty box).
-//   2. keep_lists_kernel<Q>: one block of 256 threads per Q consecutive
-//      query tiles (4 Q query segments, their boxes in shared memory; Q is
-//      4, 2 or 1, the largest that still leaves two blocks for each of the
-//      card's 132 SMs). The candidate tile boxes (48 B a tile) sit in shared
-//      memory for the whole block when they fit (896 tiles), so a block
-//      reads them from L2 once; only the tiles that survive a tile-level
-//      test have their 32 segment boxes read, once a pass, by a warp (a
-//      lane a segment) that tests them against all 4 Q query segments.
+//      contract of nn_tile.cuh); and the tile's own box, the min/max over
+//      its 32 segment boxes (empty segments drop out of a min/max by
+//      themselves; a tile with no valid candidate keeps the empty box).
+//   2. group_boxes_kernel, only where a row has more than 32 candidate
+//      tiles: a warp per group of 32 tiles (32,768 candidates), a lane a
+//      tile, writes the group's box, the min/max over its tile boxes.
+//   3. keep_lists_kernel<S>: S warps for each query tile, 8 warps a block,
+//      no block-wide staging; S = 1 unless the launch has too few query
+//      tiles to fill the card and a row has several groups, then 2, 4 or 8
+//      (keep_split: the most that keeps the launch within 16 warps an SM
+//      and gives each warp a group of its own). The lanes of a warp hold 32
+//      boxes of one level at a time: groups, then the tiles of one group,
+//      then the segments of one tile; each level's bounds against the query
+//      tile's 4 segments rule out the next level's boxes before they are
+//      read, and the folds are shuffles and ballots (no __syncthreads at
+//      S = 1).
 //        Pass A, thr[q] = min over candidate segments of ub(q, segment):
-//      a first sweep over the tile boxes (a thread a tile) seeds every
-//      thr[q] with min over tiles of ub(block box, tile), the box around
-//      all the block's query segments, which no segment of a tile with a
-//      valid candidate exceeds for any q; then, 256 tiles at a time, the
-//      tiles with lb(q, tile) <= thr[q] for some q are compacted into a
-//      list and the warps fold their segments' ub into thr (lane-private
-//      minima, folded into shared memory after each 256 tiles, so the test
-//      sharpens as it goes). The test for "some q" starts with one bound
-//      from the block box against the largest thr, which rules out most
-//      tiles at a sixteenth of the cost and decides nothing else.
+//      thr starts as the minimum over groups of ub(q, group) (at one group,
+//      +inf); the warp visits its groups nearest first while one has
+//      lb(q, group) < thr[q] for some q; a visit reads the group's 32 tile
+//      boxes, folds their ub into thr, and then reads the segment boxes of
+//      up to 2 of the tiles with lb(q, tile) < thr[q] for some q at once
+//      (the lowest first), folds the segments' ub, and tests the tiles
+//      again, until none is left. With S > 1 warps a query tile, warp j
+//      takes the groups g = j mod S, and the warps fold their thr into the
+//      shared one after each group (an integer atomicMin: the bounds are
+//      non-negative doubles or +inf, which order as their bit patterns),
+//      each taking what the others found so far; one barrier ends pass A.
 //        Pass B, keep = lb(q, segment) <= thr[q] + 1e-5 (thr[q] + 1): the
-//      same tile-level test against the slackened bound, the survivors'
-//      segments tested per query tile (one ballot each), and warp t of the
-//      block writes query tile t's kept tiles in ascending order by a
-//      prefix over the survivors' bits (no sort) to order[i, :nkept[i]].
-//      Entries past nkept[i] are not written; neither NN kernel reads them.
+//      groups in ascending order with lb(q, group) <= that bound, their
+//      tiles likewise, and the segments of up to 2 such tiles at once; a
+//      tile is kept when a ballot over its 32 segments finds one that
+//      passes for some q. The kept tiles of a group form one 32-bit word,
+//      written at S = 1 straight to order[i, :nkept[i]] in ascending order
+//      (a prefix over the word's bits, no sort); at S > 1 the words of 32
+//      groups at a time go to shared memory, and after a barrier warp 0 of
+//      the query tile writes them in order. When some thr[q] is +inf (every
+//      candidate of the row masked), every segment passes for that q, and
+//      every tile is written without a box being read. Entries past
+//      nkept[i] are not written; neither NN kernel reads them.
+//      The tile bounds of the last group visited in pass A stay in shared
+//      memory (a lane's own column), so pass B does not read that group's
+//      tile boxes again.
 //
-// Why the tile-level test is exact. A tile box contains each of its
-// non-empty segments' boxes, so per axis its gap to a query box is no larger
-// and its span no smaller; subtraction, max, the squares of non-negative
-// numbers and the sums are monotone under round-to-nearest, and both levels
-// use the same expressions in the same order, so in floating point
-//     lb(block, tile) <= lb(q, tile) <= lb(q, segment)
-//                     <= ub(q, segment) <= ub(q, tile) <= ub(block, tile).
-// A tile skipped in pass A has lb(q, tile) > thr[q] for the thr of that
-// moment, which only falls: none of its segments can lower any thr, and a
-// minimum does not depend on the order or on what was skipped above it, so
-// thr is the same double as the plain version's. A tile skipped in pass B
-// has no segment that passes. An empty box gives lb = ub = +inf (never NaN:
-// the differences are +-inf, never inf - inf), so with every candidate
-// masked thr = +inf and every tile is kept, as in the JAX mask.
+// Why it is exact. A group box contains its tiles' boxes and a tile box its
+// non-empty segments' boxes, so per axis the gap to a query box is no larger
+// and the span no smaller; subtraction, max, the squares of non-negative
+// numbers and the sums are monotone under round-to-nearest, and every level
+// uses the same expressions in the same order, so in floating point
+//     lb(q, group) <= lb(q, tile) <= lb(q, segment)
+//                  <= ub(q, segment) <= ub(q, tile) <= ub(q, group).
+// Every value folded into thr is therefore at least the true minimum T (a
+// group's or tile's ub bounds a segment's), and the segment that attains T
+// is always read: its tile and group have lb <= T <= thr, and a box is left
+// out of pass A only when lb >= thr, where none of its segments can lower thr
+// below its value of that moment. A minimum does not depend on the order, so
+// thr ends as the plain version's double. A box left out of pass B has
+// lb > bound, and so does every segment in it. An empty box gives
+// lb = ub = +inf (never NaN: the differences are +-inf, never inf - inf).
 //
-// What bounds it on this card: with the tile-level tests the work is three
-// sweeps over (block, candidate tile) pairs (1.6e6 at 524,288 x 524,288,
-// ~17 float64 operations each) plus the few tiles near a block, so the
-// floor is the bytes: the coordinates read once, the packed
-// candidates and the lists written once. A block reads 24 KB of tile boxes
-// and 1.5 KB a surviving tile and pass from L2, where the first version
-// read 1.6 MB a query tile.
+// What bounds it on this card: its floor is the bytes (the coordinates
+// read once, the packed candidates and the lists written once); what holds
+// it above that at the main path's shapes is latency. The boxes a query
+// tile reads are few (the groups, one group's tiles, the segments of the
+// few tiles near it), from L2, so a warp's time is a short chain of
+// dependent L2 round trips and the bounds between them; the level of
+// groups keeps the chain short at any number of candidate tiles, where a
+// block of query tiles once swept every candidate tile three times.
+// Where a launch has few query tiles and a row many groups, one warp a
+// query tile leaves most of the card idle, and a row whose every tile is
+// kept (shuffled candidates) is a long serial walk for it: S warps split it.
+// (PERF.md §6, on an H100 at 700 W: both launches 0.022 ms at the fleet
+// against a 0.0034 ms bytes bound, 0.114 at phase 10's operands against
+// 0.046; the list kernel at 700 x 524,288 shuffled 0.062 ms at S = 8, 0.43
+// at S = 1, tools/keep_launch_compare.py.)
 //
 // Batch grid: a batch of B sequences (the JAX package's vmap: each row its
-// own queries, candidates and mask) is the y dimension of both launches. A
+// own queries, candidates and mask) is the y dimension of every launch. A
 // block offsets every pointer by its row (coordinates, mask, its row's
 // slice of the box scratch, lists and packed tiles) and does the work of
 // the single-row kernel on them, so a query tile lists and tests only its
 // own row's candidate tiles, and each row's lists and packed candidates
 // equal those of a call on that row alone, bit for bit (the lists do not
-// depend on Q). Q is chosen from the B * n_tiles query tiles of the
-// launch; a block's Q query tiles never span two rows.
+// depend on S). S is chosen from the B * n_tiles query tiles of the
+// launch; a block's query tiles never span two rows.
 #include "common.cuh"
 
 namespace {
@@ -90,13 +117,17 @@ constexpr int kSub = 32;                      // points per segment
 constexpr int kTileM = 1024;                  // candidates per candidate tile
 constexpr int kSegsPerTile = kTileM / kSub;
 constexpr int kQuerySegs = 128 / kSub;        // query segments per query tile
-constexpr int kBoxThreads = 32 * kSegsPerTile;  // a candidate tile a block
+constexpr int kBoxThreads = 256;              // a block of the box step: 32 segments, a candidate tile
+constexpr int kBoxPoints = kTileM / kBoxThreads;  // points a thread, one segment's
+constexpr int kSegLanes = kSub / kBoxPoints;      // lanes a segment
+constexpr int kGroupTiles = 32;               // candidate tiles a group: a lane each
 constexpr int kKeepThreads = 256;
 constexpr int kKeepWarps = kKeepThreads / 32;
-constexpr int kMaxQ = 4;            // query tiles a block, at most
-constexpr int kFillBlocks = 2 * 132;  // blocks that fill an H100: two an SM
-constexpr int kCachedTiles = 896;   // tile boxes held in shared memory (42 KB)
+constexpr int kMaxSplit = 8;                  // warps a query tile, at most
+constexpr long long kFillWarps = 16 * 132;    // 16 of the 64 warps an SM holds, on the H100's 132 SMs
+constexpr int kBatch = 2;                     // tiles whose segment boxes a warp reads at once
 constexpr double kBig = 3.4e38;               // where +-inf is clamped for the bounds
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ double sanitise(double v) {
   if (isnan(v)) return 0.0;
@@ -104,17 +135,41 @@ __device__ __forceinline__ double sanitise(double v) {
   return v;
 }
 
-// The warp's box from its lanes' boxes, left in every lane.
-__device__ __forceinline__ void warp_box(double* lo, double* hi) {
+__device__ __forceinline__ double dmin(double a, double b) { return a < b ? a : b; }
+__device__ __forceinline__ double dmax(double a, double b) { return a > b ? a : b; }
+
+// A row's slice of the box scratch: the query segments', the candidate
+// segments', the candidate tiles' and the groups' boxes, (6, count) each.
+__host__ __device__ __forceinline__ size_t box_stride(int n_sub, int m_sub, int m_tiles, int groups) {
+  return 6 * ((size_t)n_sub + m_sub + m_tiles + groups);
+}
+
+// The box over each aligned run of 2 * kLast lanes (offsets kFirst to
+// kLast), folded into the lanes' boxes that cover kFirst lanes each; left
+// in every lane of the run.
+template <int kFirst, int kLast>
+__device__ __forceinline__ void lanes_box(double* lo, double* hi) {
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
+  for (int s = kFirst; s <= kLast; s <<= 1) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      const double a = __shfl_xor_sync(0xffffffffu, lo[d], s);
-      const double b = __shfl_xor_sync(0xffffffffu, hi[d], s);
+      const double a = __shfl_xor_sync(kFull, lo[d], s);
+      const double b = __shfl_xor_sync(kFull, hi[d], s);
       lo[d] = a < lo[d] ? a : lo[d];
       hi[d] = b > hi[d] ? b : hi[d];
     }
+  }
+}
+
+// Box k of a (6, count) array; the empty box for k outside [0, count).
+__device__ __forceinline__ void load_box(const double* __restrict__ box, int count, int k,
+                                         double* lo, double* hi) {
+  const double inf = Limits<double>::inf();
+  const bool in = (unsigned)k < (unsigned)count;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    lo[d] = in ? box[(size_t)d * count + k] : inf;
+    hi[d] = in ? box[(size_t)(3 + d) * count + k] : -inf;
   }
 }
 
@@ -122,60 +177,76 @@ template <typename T>
 __global__ void __launch_bounds__(kBoxThreads)
 segment_boxes_kernel(const T* __restrict__ traj, int n, int n_sub, int q_blocks,
                      const T* __restrict__ cand, const unsigned char* __restrict__ mask, int m,
-                     int m_sub, int m_tiles, double* __restrict__ tbox, double* __restrict__ cbox,
-                     double* __restrict__ tilebox, T* __restrict__ cand3) {
-  __shared__ double s_box[6][kSegsPerTile];
-  const size_t batch_row = blockIdx.y, box_stride = 6 * ((size_t)n_sub + m_sub + m_tiles);
+                     int m_sub, int m_tiles, int groups, double* __restrict__ tbox,
+                     double* __restrict__ cbox, double* __restrict__ tilebox, T* __restrict__ cand3) {
+  __shared__ double s_box[6][kBoxThreads / 32];
+  const size_t batch_row = blockIdx.y, stride = box_stride(n_sub, m_sub, m_tiles, groups);
   traj += batch_row * 3 * n, cand += batch_row * 3 * m, mask += batch_row * m;
-  tbox += batch_row * box_stride, cbox += batch_row * box_stride, tilebox += batch_row * box_stride;
+  tbox += batch_row * stride, cbox += batch_row * stride, tilebox += batch_row * stride;
   cand3 += batch_row * (size_t)m_tiles * 3 * kTileM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool query = (int)blockIdx.x < q_blocks;  // uniform across the block
   const int tile = (int)blockIdx.x - q_blocks;    // of a candidate block
-  const int seg = (query ? (int)blockIdx.x : tile) * kSegsPerTile + warp;
-  if (query && seg >= n_sub) return;  // query blocks meet no barrier
-  const long long p = (long long)seg * kSub + lane;
+  const int seg = (query ? (int)blockIdx.x : tile) * kSegsPerTile + (int)threadIdx.x / kSegLanes;
+  // Point j of the thread: p0 + kSegLanes j, so that the lanes of one load
+  // read runs of 8 consecutive points.
+  const long long p0 = (long long)seg * kSub + threadIdx.x % kSegLanes;
   const double inf = Limits<double>::inf();
-  double lo[3], hi[3];
+  double lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf};
   if (query) {
-    const long long q = p < n ? p : n - 1;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) lo[d] = hi[d] = sanitise((double)traj[3 * q + d]);
+    for (int j = 0; j < kBoxPoints; ++j) {
+      const long long q = p0 + kSegLanes * j < n ? p0 + kSegLanes * j : n - 1;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const double v = sanitise((double)traj[3 * q + d]);
+        lo[d] = v < lo[d] ? v : lo[d];
+        hi[d] = v > hi[d] ? v : hi[d];
+      }
+    }
   } else {
-    const bool valid = p < m && mask[p] != 0;
-    T* packed = cand3 + (size_t)tile * 3 * kTileM + p % kTileM;
+    T* packed = cand3 + (size_t)tile * 3 * kTileM + p0 % kTileM;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const T raw = valid ? cand[3 * p + d] : Limits<T>::inf();
-      packed[(size_t)d * kTileM] = raw;
-      const double v = valid ? sanitise((double)raw) : 0.0;
-      lo[d] = valid ? v : inf;
-      hi[d] = valid ? v : -inf;
+    for (int j = 0; j < kBoxPoints; ++j) {
+      const long long p = p0 + kSegLanes * j;
+      const bool valid = p < m && mask[p] != 0;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const T raw = valid ? cand[3 * p + d] : Limits<T>::inf();
+        packed[(size_t)d * kTileM + kSegLanes * j] = raw;
+        const double v = sanitise((double)raw);
+        lo[d] = valid && v < lo[d] ? v : lo[d];
+        hi[d] = valid && v > hi[d] ? v : hi[d];
+      }
     }
   }
-  warp_box(lo, hi);
-  if (lane == 0) {
+  lanes_box<1, kSegLanes / 2>(lo, hi);  // the segment's box, in its 8 lanes
+  if (threadIdx.x % kSegLanes == 0 && (!query || seg < n_sub)) {
     double* box = query ? tbox : cbox;
     const int count = query ? n_sub : m_sub;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       box[(size_t)d * count + seg] = lo[d];
       box[(size_t)(3 + d) * count + seg] = hi[d];
-      if (!query) {
-        s_box[d][warp] = lo[d];
-        s_box[3 + d][warp] = hi[d];
-      }
     }
   }
-  if (query) return;
-  __syncthreads();
-  if (warp == 0) {  // the tile's box: a lane a segment
+  if (query) return;  // query blocks meet no barrier
+  lanes_box<kSegLanes, 16>(lo, hi);  // the warp's 4 segments
+  if (lane == 0) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      lo[d] = s_box[d][lane];
-      hi[d] = s_box[3 + d][lane];
+      s_box[d][warp] = lo[d];
+      s_box[3 + d][warp] = hi[d];
     }
-    warp_box(lo, hi);
+  }
+  __syncthreads();
+  if (warp == 0) {  // the tile's box: a lane a warp's box
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = lane < kBoxThreads / 32 ? s_box[d][lane] : inf;
+      hi[d] = lane < kBoxThreads / 32 ? s_box[3 + d][lane] : -inf;
+    }
+    lanes_box<1, kBoxThreads / 64>(lo, hi);
     if (lane == 0) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
@@ -186,7 +257,26 @@ segment_boxes_kernel(const T* __restrict__ traj, int n, int n_sub, int q_blocks,
   }
 }
 
-__device__ __forceinline__ double dmax(double a, double b) { return a > b ? a : b; }
+// A group's box from its tiles' boxes: a warp a group, a lane a tile.
+__global__ void __launch_bounds__(kKeepThreads)
+group_boxes_kernel(int n_sub, int m_sub, int m_tiles, int groups, double* __restrict__ boxes) {
+  const size_t stride = box_stride(n_sub, m_sub, m_tiles, groups);
+  const double* __restrict__ tilebox = boxes + blockIdx.y * stride + 6 * ((size_t)n_sub + m_sub);
+  double* __restrict__ groupbox = boxes + blockIdx.y * stride + 6 * ((size_t)n_sub + m_sub + m_tiles);
+  const int lane = threadIdx.x & 31;
+  const int g = (int)blockIdx.x * kKeepWarps + (int)(threadIdx.x >> 5);
+  if (g >= groups) return;
+  double lo[3], hi[3];
+  load_box(tilebox, m_tiles, g * kGroupTiles + lane, lo, hi);
+  lanes_box<1, 16>(lo, hi);
+  if (lane == 0) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      groupbox[(size_t)d * groups + g] = lo[d];
+      groupbox[(size_t)(3 + d) * groups + g] = hi[d];
+    }
+  }
+}
 
 // Squared box-to-box distance bounds, in the order of the plain version:
 // lb = (g0*g0 + g1*g1) + g2*g2 with g = max(max(qlo - chi, clo - qhi), 0),
@@ -207,285 +297,369 @@ __device__ __forceinline__ double upper_bound(const double* qlo, const double* q
   return s[0] * s[0] + s[1] * s[1] + s[2] * s[2];
 }
 
-__device__ __forceinline__ void load_box(const double* __restrict__ box, int count, int seg,
-                                         double* lo, double* hi) {
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    lo[d] = box[(size_t)d * count + seg];
-    hi[d] = box[(size_t)(3 + d) * count + seg];
-  }
-}
-
-// The block's query boxes in shared memory, (6, QS): lo then hi per axis;
-// and the box around all of them.
-template <int QS>
-struct QueryBoxes {
-  double v[6][QS];
-  double all[6];
-  __device__ __forceinline__ double lb_all(const double* clo, const double* chi) const {
-    return lower_bound(all, all + 3, clo, chi);
-  }
-  __device__ __forceinline__ double ub_all(const double* clo, const double* chi) const {
-    return upper_bound(all, all + 3, clo, chi);
-  }
-  __device__ __forceinline__ double lb(int q, const double* clo, const double* chi) const {
-    const double qlo[3] = {v[0][q], v[1][q], v[2][q]}, qhi[3] = {v[3][q], v[4][q], v[5][q]};
-    return lower_bound(qlo, qhi, clo, chi);
-  }
-  __device__ __forceinline__ double ub(int q, const double* clo, const double* chi) const {
-    const double qlo[3] = {v[0][q], v[1][q], v[2][q]}, qhi[3] = {v[3][q], v[4][q], v[5][q]};
-    return upper_bound(qlo, qhi, clo, chi);
-  }
-};
-
 // The minimum over the warp's lanes, in every lane.
 __device__ __forceinline__ double warp_min(double v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const double w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w < v ? w : v;
-  }
+  for (int o = 16; o > 0; o >>= 1) v = dmin(__shfl_xor_sync(kFull, v, o), v);
   return v;
 }
 
-// *slot = min(*slot, v) in shared memory. The bounds are non-negative
-// doubles or +inf, which order as their bit patterns do, so the minimum
-// across warps is an integer atomicMin.
-__device__ __forceinline__ void shared_min(double* slot, double v) {
-  atomicMin(reinterpret_cast<unsigned long long*>(slot), (unsigned long long)__double_as_longlong(v));
-}
-
-// Folds the lanes' private minima for one query tile's segments into the
-// block's thr.
-__device__ __forceinline__ void fold_thr(const double* mine, double* s_thr) {
+// The warp's query tile: its 4 segment boxes, (6, 4) in shared memory.
+struct QueryTile {
+  const double (*v)[kQuerySegs];
+  __device__ __forceinline__ void get(int s, double* lo, double* hi) const {
 #pragma unroll
-  for (int s = 0; s < kQuerySegs; ++s) {
-    const double v = warp_min(mine[s]);
-    if ((threadIdx.x & 31) == 0) shared_min(&s_thr[s], v);
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = v[d][s];
+      hi[d] = v[3 + d][s];
+    }
+  }
+  __device__ __forceinline__ double lb(int s, const double* clo, const double* chi) const {
+    double lo[3], hi[3];
+    get(s, lo, hi);
+    return lower_bound(lo, hi, clo, chi);
+  }
+};
+
+// The lowest (at most kBatch) set bits of *bits, taken out of it: tk[k] a
+// bit's index or -1.
+__device__ __forceinline__ void take_batch(unsigned* bits, int* tk) {
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) {
+    tk[k] = *bits ? __ffs(*bits) - 1 : -1;
+    *bits &= *bits - 1u;
   }
 }
 
-// Whether the candidate tile box (clo, chi) can matter to the block:
-// lb(q, tile) <= limit[q] for some of its Q * 4 query segments. The block
-// box's bound goes first: above the largest limit it rules the tile out for
-// every q, as the loop would, at a sixteenth of the cost.
-template <int Q>
-__device__ __forceinline__ bool tile_near(const QueryBoxes<Q * kQuerySegs>& boxes, const double* limit,
-                                          const double* clo, const double* chi) {
-  double most = 0.0;
-  for (int q = 0; q < Q * kQuerySegs; ++q) most = dmax(most, limit[q]);
-  if (!(boxes.lb_all(clo, chi) <= most)) return false;
-  bool near = false;
-#pragma unroll 1
-  for (int i = 0; i < Q && !near; ++i) {
+// The segment boxes (lane = segment) of the tiles g * 32 + tk[k]; the
+// empty box (lb = ub = +inf) for tk[k] = -1.
+__device__ __forceinline__ void load_segments(const double* __restrict__ cbox, int m_sub, int g,
+                                              const int* tk, double (*lo)[3], double (*hi)[3]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k)
+    load_box(cbox, tk[k] >= 0 ? m_sub : 0, (g * kGroupTiles + tk[k]) * kSegsPerTile + lane, lo[k], hi[k]);
+}
+
+// A lane's bounds of the query segments against its box, (4, 32) per warp
+// in shared memory (each lane reads only its own column).
+using LaneBounds = double (*)[32];
+
+// lbg[q][lane] = lb(q, group g) for a group of this warp (part of S); +inf
+// for one that is not (or past the last); 0 for the only group of a row,
+// which has no box.
+template <int S>
+__device__ __forceinline__ void group_lb(const QueryTile& qt, const double* __restrict__ groupbox,
+                                         int groups, int g, int part, LaneBounds lbg) {
+  const int lane = threadIdx.x & 31;
+  const bool mine = g < groups && g % S == part;
+  double lo[3], hi[3];
+  load_box(groupbox, mine && groups > 1 ? groups : 0, g, lo, hi);
+#pragma unroll
+  for (int s = 0; s < kQuerySegs; ++s)
+    lbg[s][lane] = !mine ? Limits<double>::inf() : groups == 1 ? 0.0 : qt.lb(s, lo, hi);
+}
+
+// Pass A's visit of group g: its tiles' ub folded into thr, their lb left
+// in lbt (a lane a tile), then the segments of the tiles that may still
+// lower thr, kBatch tiles at a time, the lowest first.
+__device__ __forceinline__ void fold_group(const QueryTile& qt, const double* __restrict__ tilebox,
+                                           int m_tiles, const double* __restrict__ cbox, int m_sub, int g,
+                                           double* thr, LaneBounds lbt) {
+  const int lane = threadIdx.x & 31;
+  {
+    double clo[3], chi[3];
+    load_box(tilebox, m_tiles, g * kGroupTiles + lane, clo, chi);
 #pragma unroll
     for (int s = 0; s < kQuerySegs; ++s) {
-      const int q = i * kQuerySegs + s;
-      near |= boxes.lb(q, clo, chi) <= limit[q];
+      double lo[3], hi[3];
+      qt.get(s, lo, hi);
+      lbt[s][lane] = lower_bound(lo, hi, clo, chi);
+      thr[s] = dmin(thr[s], warp_min(upper_bound(lo, hi, clo, chi)));
     }
   }
-  return near;
-}
-
-// The tiles t (one a thread, ascending with the thread index) with `keep`
-// set, compacted in ascending order into s_list; returns their count.
-// Two barriers; the second ends the call.
-__device__ __forceinline__ int compact_tiles(bool keep, int t, int* s_wcount, int* s_list) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned bits = __ballot_sync(0xffffffffu, keep);
-  if (lane == 0) s_wcount[warp] = __popc(bits);
-  __syncthreads();
-  int before = 0, total = 0;
+  unsigned seen = 0;
+  for (;;) {
+    bool want = false;
 #pragma unroll
-  for (int w = 0; w < kKeepWarps; ++w) {
-    before += w < warp ? s_wcount[w] : 0;
-    total += s_wcount[w];
+    for (int s = 0; s < kQuerySegs; ++s) want |= lbt[s][lane] < thr[s];
+    unsigned near = __ballot_sync(kFull, want) & ~seen;
+    if (!near) break;
+    seen |= near;
+    int tk[kBatch];
+    take_batch(&near, tk);
+    seen &= ~near;  // the tiles beyond this batch stay to be tested again
+    double clo[kBatch][3], chi[kBatch][3];
+    load_segments(cbox, m_sub, g, tk, clo, chi);
+#pragma unroll
+    for (int s = 0; s < kQuerySegs; ++s) {
+      double lo[3], hi[3];
+      qt.get(s, lo, hi);
+      double best = Limits<double>::inf();
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) best = dmin(best, upper_bound(lo, hi, clo[k], chi[k]));
+      thr[s] = dmin(thr[s], warp_min(best));
+    }
   }
-  if (keep) s_list[before + __popc(bits & ((1u << lane) - 1u))] = t;
-  __syncthreads();
-  return total;
 }
 
-template <int Q>
+// Pass B's visit of group g: the word of its kept tiles (bit t for tile
+// g * 32 + t). The tiles' lb are read again unless g was pass A's last
+// group (`cached`).
+__device__ __forceinline__ unsigned kept_tiles(const QueryTile& qt, const double* __restrict__ tilebox,
+                                               int m_tiles, const double* __restrict__ cbox, int m_sub,
+                                               int g, const double* bound, int* cached, LaneBounds lbt) {
+  const int lane = threadIdx.x & 31;
+  if (g != *cached) {
+    double clo[3], chi[3];
+    load_box(tilebox, m_tiles, g * kGroupTiles + lane, clo, chi);
+#pragma unroll
+    for (int s = 0; s < kQuerySegs; ++s) lbt[s][lane] = qt.lb(s, clo, chi);
+    *cached = g;
+  }
+  bool want = false;
+#pragma unroll
+  for (int s = 0; s < kQuerySegs; ++s) want |= lbt[s][lane] <= bound[s];
+  unsigned near = __ballot_sync(kFull, want), word = 0;
+  while (near) {
+    int tk[kBatch];
+    take_batch(&near, tk);
+    double clo[kBatch][3], chi[kBatch][3];
+    load_segments(cbox, m_sub, g, tk, clo, chi);
+    bool hit[kBatch] = {};
+#pragma unroll
+    for (int s = 0; s < kQuerySegs; ++s) {
+      double lo[3], hi[3];
+      qt.get(s, lo, hi);
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) hit[k] |= lower_bound(lo, hi, clo[k], chi[k]) <= bound[s];
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (tk[k] >= 0 && __ballot_sync(kFull, hit[k])) word |= 1u << tk[k];
+    }
+  }
+  return word;
+}
+
+// Writes the kept tiles of `word` (group g) at out[kept...], ascending.
+__device__ __forceinline__ void emit(int* __restrict__ out, unsigned word, int g, int* kept) {
+  const int lane = threadIdx.x & 31;
+  if ((word >> lane) & 1u) out[*kept + __popc(word & ((1u << lane) - 1u))] = g * kGroupTiles + lane;
+  *kept += __popc(word);
+}
+
+// Folds this warp's thr into its query tile's shared thr (S > 1) and takes
+// what the other warps have found.
+__device__ __forceinline__ void share_thr(double* thr, unsigned long long* s_thr) {
+#pragma unroll
+  for (int s = 0; s < kQuerySegs; ++s) {
+    unsigned long long old = 0;
+    if ((threadIdx.x & 31) == 0) old = atomicMin(&s_thr[s], (unsigned long long)__double_as_longlong(thr[s]));
+    thr[s] = dmin(thr[s], __longlong_as_double((long long)__shfl_sync(kFull, old, 0)));
+  }
+}
+
+// The warps a query tile for a launch of `query_tiles` query tiles (every
+// row's) against rows of `groups` groups.
+int keep_split(long long query_tiles, int groups) {
+  int split = 1;
+  for (int s = 2; s <= kMaxSplit; s <<= 1)
+    if (s <= groups && query_tiles * s <= kFillWarps) split = s;
+  return split;
+}
+
+template <int S>
 __global__ void __launch_bounds__(kKeepThreads, 2)
-keep_lists_kernel(const double* __restrict__ tbox, int n_sub, int n_tiles,
-                  const double* __restrict__ cbox, int m_sub, const double* __restrict__ tilebox,
-                  int m_tiles, int cached, int* __restrict__ order, int* __restrict__ nkept) {
-  constexpr int QS = Q * kQuerySegs;
-  extern __shared__ double s_tilebox[];  // (6, m_tiles) when `cached`
-  __shared__ QueryBoxes<QS> s_q;
-  __shared__ double s_lim[QS];  // the running thr in pass A, the slackened bound in pass B
-  __shared__ int s_list[kKeepThreads];
-  __shared__ unsigned char s_flag[kKeepThreads];
-  __shared__ int s_wcount[kKeepWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int first_tile = blockIdx.x * Q;
-  const size_t batch_row = blockIdx.y, box_stride = 6 * ((size_t)n_sub + m_sub + m_tiles);
-  tbox += batch_row * box_stride, cbox += batch_row * box_stride, tilebox += batch_row * box_stride;
-  order += batch_row * (size_t)n_tiles * m_tiles, nkept += batch_row * n_tiles;
+keep_lists_kernel(const double* __restrict__ boxes, int n_sub, int n_tiles, int m_sub, int m_tiles,
+                  int groups, int* __restrict__ order, int* __restrict__ nkept) {
+  constexpr int QT = kKeepWarps / S;  // query tiles a block
+  __shared__ double s_q[kKeepWarps][6][kQuerySegs];
+  __shared__ double s_lbg[kKeepWarps][kQuerySegs][32];  // a lane's group bounds
+  __shared__ double s_lbt[kKeepWarps][kQuerySegs][32];  // a lane's tile bounds in group `cached`
+  __shared__ unsigned long long s_thr[QT][kQuerySegs];  // S > 1: the query tile's thr, as bits
+  __shared__ unsigned s_words[QT][32];                  // S > 1: 32 groups' words of kept tiles
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = warp / S, part = warp % S;
+  const int qtile = (int)blockIdx.x * QT + slot;
+  const bool writes = qtile < n_tiles;
+  if (S == 1 && !writes) return;  // no barrier at S = 1
+  // Past the last query tile (S > 1 only) a warp repeats the last one, so
+  // that it meets every barrier, and writes nothing.
+  const int qi = writes ? qtile : n_tiles - 1;
+  const size_t stride = box_stride(n_sub, m_sub, m_tiles, groups);
+  const double* __restrict__ tbox = boxes + blockIdx.y * stride;
+  const double* __restrict__ cbox = tbox + 6 * (size_t)n_sub;
+  const double* __restrict__ tilebox = cbox + 6 * (size_t)m_sub;
+  const double* __restrict__ groupbox = tilebox + 6 * (size_t)m_tiles;
+  int* __restrict__ out = order + (blockIdx.y * (size_t)n_tiles + qi) * m_tiles;
   const double inf = Limits<double>::inf();
 
-  // The last block may hold fewer than Q query tiles: the missing ones
-  // replicate the last segment, which changes no bound, and write nothing.
-  if (tid < 6 * QS) {
-    const int q = tid % QS, seg = first_tile * kQuerySegs + q;
-    s_q.v[tid / QS][q] = tbox[(size_t)(tid / QS) * n_sub + (seg < n_sub ? seg : n_sub - 1)];
+  if (lane < 6 * kQuerySegs)
+    s_q[warp][lane / kQuerySegs][lane % kQuerySegs] =
+        tbox[(size_t)(lane / kQuerySegs) * n_sub + qi * kQuerySegs + lane % kQuerySegs];
+  if (S > 1) {
+    if ((int)threadIdx.x < QT * kQuerySegs)
+      s_thr[threadIdx.x / kQuerySegs][threadIdx.x % kQuerySegs] = (unsigned long long)__double_as_longlong(inf);
+    __syncthreads();
+  } else {
+    __syncwarp();
   }
-  if (tid < QS) s_lim[tid] = inf;
-  if (cached) {
-    for (int k = tid; k < 6 * m_tiles; k += kKeepThreads) s_tilebox[k] = tilebox[k];
-  }
-  const double* __restrict__ tb = cached ? s_tilebox : tilebox;
-  __syncthreads();
-  if (tid < 6) {
-    double v = s_q.v[tid][0];
-    for (int q = 1; q < QS; ++q) v = (tid < 3 ? s_q.v[tid][q] < v : s_q.v[tid][q] > v) ? s_q.v[tid][q] : v;
-    s_q.all[tid] = v;
-  }
-  __syncthreads();
+  const QueryTile qt{s_q[warp]};
+  const LaneBounds lbg = s_lbg[warp], lbt = s_lbt[warp];
 
-  // The loops over the block's query tiles are not unrolled (one query
-  // tile's 4 segments at a time), so the registers do not grow with Q and
-  // two blocks share an SM.
-  double mine[kQuerySegs], clo[3], chi[3];
-
-  // Pass A, seed: thr[q] = min over tiles of ub(block box, tile box), an
-  // upper bound of every thr[q] (the block box contains q's box).
-  {
-    double seed = inf;
-    for (int t = tid; t < m_tiles; t += kKeepThreads) {
-      load_box(tb, m_tiles, t, clo, chi);
-      const double ub = s_q.ub_all(clo, chi);
-      seed = ub < seed ? ub : seed;
-    }
-    seed = warp_min(seed);
-    if (lane == 0) {
-      for (int q = 0; q < QS; ++q) shared_min(&s_lim[q], seed);
-    }
-  }
-  __syncthreads();
-
-  // Pass A: the segments of the tiles the running thr cannot rule out.
-  for (int base = 0; base < m_tiles; base += kKeepThreads) {
-    const int t = base + tid;
-    bool near = false;
-    if (t < m_tiles) {
-      load_box(tb, m_tiles, t, clo, chi);
-      near = tile_near<Q>(s_q, s_lim, clo, chi);
-    }
-    const int count = compact_tiles(near, t, s_wcount, s_list);
-    if (warp < count) {
-#pragma unroll 1
-      for (int i = 0; i < Q; ++i) {
+  // Pass A. The seed: min over groups of ub(q, group), every group (each
+  // warp of a query tile takes the same seed).
+  double thr[kQuerySegs];
 #pragma unroll
-        for (int s = 0; s < kQuerySegs; ++s) mine[s] = inf;
-        for (int k = warp; k < count; k += kKeepWarps) {
-          load_box(cbox, m_sub, s_list[k] * kSegsPerTile + lane, clo, chi);
+  for (int s = 0; s < kQuerySegs; ++s) thr[s] = inf;
+  if (groups > 1) {
+    for (int g = lane; g < groups; g += 32) {
+      double clo[3], chi[3];
+      load_box(groupbox, groups, g, clo, chi);
 #pragma unroll
-          for (int s = 0; s < kQuerySegs; ++s) {
-            const double ub = s_q.ub(i * kQuerySegs + s, clo, chi);
-            mine[s] = ub < mine[s] ? ub : mine[s];
-          }
-        }
-        fold_thr(mine, s_lim + i * kQuerySegs);
+      for (int s = 0; s < kQuerySegs; ++s) {
+        double lo[3], hi[3];
+        qt.get(s, lo, hi);
+        thr[s] = dmin(thr[s], upper_bound(lo, hi, clo, chi));
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kQuerySegs; ++s) thr[s] = warp_min(thr[s]);
   }
-  if (tid < QS) s_lim[tid] = s_lim[tid] + 1e-5 * (s_lim[tid] + 1.0);
-  __syncthreads();
+  int cached = -1;  // the group whose tile bounds lbt holds
+  for (int g0 = 0; g0 < groups; g0 += 32) {
+    group_lb<S>(qt, groupbox, groups, g0 + lane, part, lbg);
+    unsigned done = 0;
+    for (;;) {  // this warp's groups that may lower thr, nearest first
+      bool want = false;
+      double key = inf;
+#pragma unroll
+      for (int s = 0; s < kQuerySegs; ++s) {
+        want |= lbg[s][lane] < thr[s];
+        key = dmin(key, lbg[s][lane]);
+      }
+      const unsigned cand = __ballot_sync(kFull, want) & ~done;
+      if (!cand) break;
+      const double mine = (cand >> lane) & 1u ? key : inf;
+      const double nearest = warp_min(mine);
+      const int pick = __ffs(__ballot_sync(kFull, ((cand >> lane) & 1u) && mine == nearest)) - 1;
+      done |= 1u << pick;
+      cached = g0 + pick;
+      fold_group(qt, tilebox, m_tiles, cbox, m_sub, cached, thr, lbt);
+      if (S > 1) share_thr(thr, s_thr[slot]);
+    }
+  }
+  if (S > 1) {
+    share_thr(thr, s_thr[slot]);
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kQuerySegs; ++s) thr[s] = __longlong_as_double((long long)s_thr[slot][s]);
+  }
 
-  // Pass B: a candidate tile is kept for a query tile when any of its 32
-  // segments (one warp's lanes) passes for any of the query tile's 4
-  // segments. Warp i < Q counts and writes query tile i's kept tiles.
+  // Pass B.
+  double bound[kQuerySegs];
+  bool every = false;  // some thr[q] = +inf: every segment passes for that q
+#pragma unroll
+  for (int s = 0; s < kQuerySegs; ++s) {
+    bound[s] = thr[s] + 1e-5 * (thr[s] + 1.0);
+    every |= isinf(bound[s]);
+  }
   int kept = 0;
-  for (int base = 0; base < m_tiles; base += kKeepThreads) {
-    const int t = base + tid;
-    bool near = false;
-    if (t < m_tiles) {
-      load_box(tb, m_tiles, t, clo, chi);
-      near = tile_near<Q>(s_q, s_lim, clo, chi);
-    }
-    const int count = compact_tiles(near, t, s_wcount, s_list);
-    for (int k = warp; k < count; k += kKeepWarps) {
-      load_box(cbox, m_sub, s_list[k] * kSegsPerTile + lane, clo, chi);
-      unsigned flags = 0;
-#pragma unroll 1
-      for (int i = 0; i < Q; ++i) {
-        bool keep = false;
+  // At S > 1 every warp of the block meets each chunk's two barriers (the
+  // query tiles of a block may differ in `every`).
+  for (int g0 = 0; g0 < groups && (S > 1 || !every); g0 += 32) {
+    unsigned lane_word = 0;  // S > 1: the word of group g0 + lane
+    if (!every) {
+      group_lb<S>(qt, groupbox, groups, g0 + lane, part, lbg);
+      bool want = false;
 #pragma unroll
-        for (int s = 0; s < kQuerySegs; ++s) {
-          const int q = i * kQuerySegs + s;
-          keep |= s_q.lb(q, clo, chi) <= s_lim[q];
+      for (int s = 0; s < kQuerySegs; ++s) want |= lbg[s][lane] <= bound[s];
+      for (unsigned near = __ballot_sync(kFull, want); near; near &= near - 1u) {
+        const int g = g0 + __ffs(near) - 1;
+        const unsigned word = kept_tiles(qt, tilebox, m_tiles, cbox, m_sub, g, bound, &cached, lbt);
+        if (S == 1) emit(out, word, g, &kept);
+        else if (lane == g - g0) lane_word = word;
+      }
+    }
+    if (S > 1) {
+      if (g0 + lane < groups && (g0 + lane) % S == part) s_words[slot][lane] = lane_word;
+      __syncthreads();
+      if (part == 0 && !every) {  // a lane a word: an exclusive prefix of their counts
+        const unsigned word = g0 + lane < groups ? s_words[slot][lane] : 0u;
+        const int count = __popc(word);
+        int upto = count;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(kFull, upto, o);
+          if (lane >= o) upto += v;
         }
-        if (__ballot_sync(0xffffffffu, keep) != 0) flags |= 1u << i;
+        int at = kept + upto - count;
+        if (writes)
+          for (unsigned w = word; w; w &= w - 1u) out[at++] = (g0 + lane) * kGroupTiles + __ffs(w) - 1;
+        kept += __shfl_sync(kFull, upto, 31);
       }
-      if (lane == 0) s_flag[k] = (unsigned char)flags;
+      __syncthreads();
     }
-    __syncthreads();
-    if (warp < Q && first_tile + warp < n_tiles) {
-      int* row = order + (size_t)(first_tile + warp) * m_tiles;
-      for (int k0 = 0; k0 < count; k0 += 32) {
-        const int k = k0 + lane;
-        const bool keep = k < count && ((s_flag[k] >> warp) & 1u) != 0;
-        const unsigned bits = __ballot_sync(0xffffffffu, keep);
-        if (keep) row[kept + __popc(bits & ((1u << lane) - 1u))] = s_list[k];
-        kept += __popc(bits);
-      }
-    }
-    __syncthreads();
   }
-  if (warp < Q && lane == 0 && first_tile + warp < n_tiles) nkept[first_tile + warp] = kept;
+  if (part != 0 || !writes) return;
+  if (every) {
+    for (int t = lane; t < m_tiles; t += 32) out[t] = t;
+    kept = m_tiles;
+  }
+  if (lane == 0) nkept[blockIdx.y * (size_t)n_tiles + qi] = kept;
 }
 
-template <int Q>
-cudaError_t launch_keep(int batch, const double* tbox, int n_sub, int n_tiles, const double* cbox,
-                        int m_sub, const double* tilebox, int m_tiles, int* order, int* nkept,
-                        cudaStream_t s) {
-  const int cached = m_tiles <= kCachedTiles;
-  const size_t smem = cached ? 6 * (size_t)m_tiles * sizeof(double) : 0;
-  const dim3 grid((unsigned)((n_tiles + Q - 1) / Q), (unsigned)batch);
-  keep_lists_kernel<Q><<<grid, kKeepThreads, smem, s>>>(
-      tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, cached, order, nkept);
+template <int S>
+cudaError_t launch_keep(int batch, const double* boxes, int n_sub, int n_tiles, int m_sub, int m_tiles,
+                        int groups, int* order, int* nkept, cudaStream_t s) {
+  const dim3 grid((unsigned)((n_tiles + kKeepWarps / S - 1) / (kKeepWarps / S)), (unsigned)batch);
+  keep_lists_kernel<S><<<grid, kKeepThreads, 0, s>>>(boxes, n_sub, n_tiles, m_sub, m_tiles, groups, order,
+                                                      nkept);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(int batch, const void* traj, int n, const void* cand, const unsigned char* mask,
-                   int m, double* boxes, int n_tiles, int m_tiles, int* order, int* nkept,
-                   void* cand3, cudaStream_t s) {
+                   int m, double* boxes, int n_tiles, int m_tiles, int* order, int* nkept, void* cand3,
+                   cudaStream_t s) {
   if (n < 1 || m < 0 || (long long)n_tiles * 128 < n || (long long)m_tiles * kTileM < m ||
       batch < 1 || batch > 65535)
     return cudaErrorInvalidValue;
   const int n_sub = n_tiles * kQuerySegs, m_sub = m_tiles * kSegsPerTile;
+  const int groups = (m_tiles + kGroupTiles - 1) / kGroupTiles;
   double* tbox = boxes;
   double* cbox = tbox + 6 * (size_t)n_sub;
   double* tilebox = cbox + 6 * (size_t)m_sub;
   const int q_blocks = (n_sub + kSegsPerTile - 1) / kSegsPerTile;
   segment_boxes_kernel<T><<<dim3((unsigned)(q_blocks + m_tiles), (unsigned)batch), kBoxThreads, 0, s>>>(
       static_cast<const T*>(traj), n, n_sub, q_blocks, static_cast<const T*>(cand), mask, m, m_sub,
-      m_tiles, tbox, cbox, tilebox, static_cast<T*>(cand3));
+      m_tiles, groups, tbox, cbox, tilebox, static_cast<T*>(cand3));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  // As many query tiles a block as still leave kFillBlocks blocks, counted
-  // over the launch's B * n_tiles query tiles.
-  const long long tiles = (long long)batch * n_tiles;
-  if (tiles >= kMaxQ * kFillBlocks)
-    return launch_keep<kMaxQ>(batch, tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, order, nkept, s);
-  if (tiles >= 2 * kFillBlocks)
-    return launch_keep<2>(batch, tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, order, nkept, s);
-  return launch_keep<1>(batch, tbox, n_sub, n_tiles, cbox, m_sub, tilebox, m_tiles, order, nkept, s);
+  if (groups > 1) {
+    group_boxes_kernel<<<dim3((unsigned)((groups + kKeepWarps - 1) / kKeepWarps), (unsigned)batch),
+                         kKeepThreads, 0, s>>>(n_sub, m_sub, m_tiles, groups, boxes);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  switch (keep_split((long long)batch * n_tiles, groups)) {
+    case 1: return launch_keep<1>(batch, boxes, n_sub, n_tiles, m_sub, m_tiles, groups, order, nkept, s);
+    case 2: return launch_keep<2>(batch, boxes, n_sub, n_tiles, m_sub, m_tiles, groups, order, nkept, s);
+    case 4: return launch_keep<4>(batch, boxes, n_sub, n_tiles, m_sub, m_tiles, groups, order, nkept, s);
+    default: return launch_keep<8>(batch, boxes, n_sub, n_tiles, m_sub, m_tiles, groups, order, nkept, s);
+  }
 }
 
 }  // namespace
 
 // Per row of a batch of `batch` rows, rows contiguous one after another:
 // traj (n, 3), cand (m, 3) in the working dtype, mask (m,) bytes; boxes
-// 6 * (4 * n_tiles + 33 * m_tiles) float64 of scratch (the query segments',
-// the candidate segments' and the candidate tiles' boxes); out: order (n_tiles,
-// m_tiles) and nkept (n_tiles,) int32, cand3 (m_tiles, 3, 1024) in the
-// working dtype, +inf coordinates for a masked or padded candidate.
-// Returns a cudaError_t.
+// 6 * (4 * n_tiles + 33 * m_tiles + ceil(m_tiles / 32)) float64 of scratch
+// (the query segments', the candidate segments', the candidate tiles' and
+// the groups' boxes); out: order (n_tiles, m_tiles) and nkept (n_tiles,)
+// int32, cand3 (m_tiles, 3, 1024) in the working dtype, +inf coordinates
+// for a masked or padded candidate. Returns a cudaError_t.
 GPS_EXPORT int gps_nn_keep(int dtype, int batch, const void* traj, int n, const void* cand,
                            const unsigned char* mask, int m, double* boxes, int n_tiles,
                            int m_tiles, int* order, int* nkept, void* cand3, void* stream) {
@@ -495,4 +669,10 @@ GPS_EXPORT int gps_nn_keep(int dtype, int batch, const void* traj, int n, const 
   if (dtype == GPS_F64)
     return (int)launch<double>(batch, traj, n, cand, mask, m, boxes, n_tiles, m_tiles, order, nkept, cand3, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The warps a query tile that gps_nn_keep's list kernel takes for a batch
+// of `batch` rows of n_tiles query tiles and m_tiles candidate tiles.
+GPS_EXPORT int gps_nn_keep_split(int batch, int n_tiles, int m_tiles) {
+  return keep_split((long long)batch * n_tiles, (m_tiles + kGroupTiles - 1) / kGroupTiles);
 }

@@ -15,9 +15,10 @@ and the array code around them:
   take the per-query-tile lists of kept candidate tiles and the packed
   candidates from :func:`keep_lists` (``csrc/nn_keep.cu``: the per-32-point
   AABB bounds of :func:`tile_keep_mask`, their compaction and the packing,
-  on the card, pruned exactly at two levels: a box per 1024-candidate tile
-  rules most tiles out before any of their 32 segment boxes is read, and a
-  block of several query tiles shares the candidate boxes it reads), and
+  on the card, pruned exactly at three levels: a warp takes a query tile
+  from the boxes of groups of 32 candidate tiles to the tile boxes of the
+  groups near it and the 32 segment boxes of the tiles near it; optionally
+  after a Morton sort of the candidates, :func:`morton_sort_candidates`), and
   both scan a staged tile with one function (``csrc/nn_tile.cuh``), so they
   agree bit for bit. In K3 the blocks of a query tile (16, 32 or 64
   queries each, by :func:`resident_block`) share its list and each walks
@@ -103,6 +104,9 @@ RESIDENT_BLOCKS = (16, 32, 64)  # the block sizes csrc/nn.cu launches
 # Bound elements per row block of tile_keep_mask (about 50 MB for each of
 # its float64 (rows, m_sub, 3) intermediates).
 _KEEP_BLOCK_ELEMS = 1 << 21
+# The keep-list kernel's level above the tile (csrc/nn_keep.cu): a group
+# is 32 candidate tiles, a lane's box each.
+GROUP_TILES = 32
 
 
 def _round_up(x: int, m: int) -> int:
@@ -240,6 +244,16 @@ def pack_candidates_plain(candidates: torch.Tensor, cand_mask: torch.Tensor, m_t
     return cand3.reshape(*lead, 3, m_tiles, TILE_M).transpose(-3, -2).contiguous()
 
 
+def keep_split(batch: int, n_tiles: int, m_tiles: int) -> int:
+    """The warps a query tile that the keep-list kernel takes for a launch
+    of ``batch`` rows of ``n_tiles`` query tiles and ``m_tiles`` candidate
+    tiles (``csrc/nn_keep.cu``: 1, or 2, 4 or 8 where the launch's query
+    tiles are too few to fill the card and a row has that many groups);
+    asked of the built kernels, so CUDA only. Every choice gives the same
+    lists."""
+    return int(_build.library().gps_nn_keep_split(batch, n_tiles, m_tiles))
+
+
 def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):
     """The operands of both NN kernels besides ``traj``: ``order``
     (n_tiles, m_tiles) and ``nkept`` (n_tiles,) int32, each query tile's
@@ -249,12 +263,13 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
     :func:`pack_candidates_plain` packs them); each with a leading B for
     a batch of rows (traj (B, n, 3)), built in the same one call. On CUDA the keep-list
     kernel (``csrc/nn_keep.cu``) builds all three from the raw coordinates
-    in one call of two launches (entries of ``order`` past ``nkept``
-    unspecified). Its lists equal the plain ones bit for bit: a tile is only
-    skipped when its own box, which contains its segments' boxes, already
-    fails the test that each segment would fail. Its floor on the card is
-    the bytes (coordinates read once, packed candidates and lists written
-    once), since the tile-level test leaves few segment pairs. CPU
+    in one call of two launches, three where a row has two groups or more
+    (entries of ``order`` past ``nkept`` unspecified). Its lists equal the plain ones bit for bit: a group of
+    32 candidate tiles or a tile is only skipped when its own box, which
+    contains its tiles' or segments' boxes, already fails the test that
+    each segment would fail. A warp (or several, :func:`keep_split`) takes
+    a query tile down the levels, so its floor on the card is the bytes
+    (coordinates read once, packed candidates and lists written once). CPU
     tensors take :func:`keep_lists_plain` of :func:`tile_keep_mask` and
     :func:`pack_candidates_plain`."""
     n_tiles, m_tiles = _tiles(traj.shape[-2], candidates.shape[-2])
@@ -268,8 +283,9 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
     cand3 = torch.empty((*lead, m_tiles, 3, TILE_M), dtype=traj.dtype, device=traj.device)
     if batch == 0:
         return order, nkept, cand3
-    # lo and hi per axis of every segment and of every candidate tile, a row's after another
-    boxes = torch.empty((batch * 6 * ((n_tiles * TILE_N + m_tiles * TILE_M) // SUB + m_tiles),),
+    # lo and hi per axis of every segment, candidate tile and group, a row's after another
+    groups = -(-m_tiles // GROUP_TILES)
+    boxes = torch.empty((batch * 6 * ((n_tiles * TILE_N + m_tiles * TILE_M) // SUB + m_tiles + groups),),
                         dtype=torch.float64, device=traj.device)
     cand = candidates.contiguous()
     mask = cand_mask.contiguous()
@@ -313,8 +329,49 @@ def _check_nn(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Ten
         raise ValueError("a batch holds at most 65,535 rows (the grid's y dimension)")
 
 
+def _spread_bits(x: torch.Tensor) -> torch.Tensor:
+    """The low 10 bits of int32 ``x`` spread two zero bits apart (Morton)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def morton_sort_candidates(candidates: torch.Tensor, cand_mask: torch.Tensor):
+    """(candidates, cand_mask) reordered along a Morton (Z-order) curve of
+    the valid candidates' box, invalid ones last (port of
+    ``pallas_kernels._morton_sort_candidates``): float32 coordinates with
+    NaN -> 0 and ±inf -> ±3.4e38, 10 bits an axis over 1023 / max(extent,
+    1e-6), the key x | y << 1 | z << 2 and 0x7FFFFFFF for an invalid one,
+    then one sort by key carrying the coordinates (in their own dtype) and
+    the mask; with a leading batch axis, each row by its own box, in one
+    sort. It makes every 32-candidate segment and 1024-candidate tile
+    spatially compact whatever the input order, which is what the keep
+    lists' box bounds feed on; a minimum does not depend on the order, so
+    the NN minima are unchanged."""
+    if candidates.shape[-2] == 0:
+        return candidates, cand_mask
+    idx = torch.sort(morton_keys(candidates, cand_mask), dim=-1, stable=True).indices
+    return (torch.gather(candidates, -2, idx[..., None].expand(candidates.shape)),
+            torch.gather(cand_mask, -1, idx))
+
+
+def morton_keys(candidates: torch.Tensor, cand_mask: torch.Tensor) -> torch.Tensor:
+    """The int32 sort keys of :func:`morton_sort_candidates` (a row's
+    shape without the coordinate axis)."""
+    f = torch.nan_to_num(candidates.float(), nan=0.0, posinf=3.4e38, neginf=-3.4e38)
+    valid = cand_mask[..., None]
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=f.device)
+    lo = torch.where(valid, f, inf).amin(-2, keepdim=True)
+    hi = torch.where(valid, f, -inf).amax(-2, keepdim=True)
+    scale = 1023.0 / torch.clamp(hi - lo, min=1e-6)
+    q = torch.clamp((f - lo) * scale, 0.0, 1023.0).to(torch.int32)
+    key = _spread_bits(q[..., 0]) | (_spread_bits(q[..., 1]) << 1) | (_spread_bits(q[..., 2]) << 2)
+    return torch.where(cand_mask, key, 0x7FFFFFFF)
+
+
 def nn_min_dist2(
-    traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor
+    traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor, sort_candidates: bool = False
 ) -> torch.Tensor:
     """Per-query minimum squared distance to any valid candidate.
 
@@ -324,8 +381,14 @@ def nn_min_dist2(
     :func:`nn_min_dist2_plain` for CPU tensors. On CUDA the bounds see
     sanitised coordinates and the kernel the raw ones; outputs for queries
     with non-finite coordinates are unspecified, and a NaN distance never
-    wins the minimum.
+    wins the minimum. ``sort_candidates`` Morton-orders the candidates
+    first (:func:`morton_sort_candidates`, a row at a time in a batch), as
+    the JAX package's option does: the same minima, and far fewer kept
+    tiles where the candidates come spatially shuffled. Off by default, as
+    there: time-ordered candidates are compact already.
     """
+    if sort_candidates:
+        candidates, cand_mask = morton_sort_candidates(candidates, cand_mask)
     batch = traj.shape[0] if traj.ndim == 3 else 1
     if nn_route(candidates.shape[-2], traj.shape[-2], batch) == "resident":
         return nn_resident(traj, candidates, cand_mask)

@@ -398,25 +398,36 @@ def plain_keep_lists(traj, cands, mask):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_keep_list_kernel_equals_plain_lists(cuda, dtype):
     """The keep-list kernel's lists equal the plain mask's compaction
-    exactly (the same float64 bounds in the same order; its tile-level test
-    is exact), and its packed candidates equal the plain packing bit for
-    bit. Cases: seq-02's length, ragged shapes, one candidate tile, UTM
-    magnitudes, shuffled candidates (every tile kept), two and four query
-    tiles a block with a ragged last block (529 and 1,058 query tiles),
-    more candidate tiles than the kernel holds boxes of in shared memory
-    (977), non-finite coordinates, whole tiles and runs of segments masked
-    out, and each with every candidate masked (no finite upper bound, so
-    every tile is kept, as in the JAX mask)."""
+    exactly (the same float64 bounds in the same order; its group- and
+    tile-level tests are exact), and its packed candidates equal the plain
+    packing bit for bit, at every number of warps a query tile, each taken
+    by the shapes that choose it (the last entry of a case): one group a
+    row or many query tiles take one warp (a ragged last block of query
+    tiles at 529 and 1,058 of them), 700 x 70,000 shuffled takes two (6
+    query tiles, three groups, the last partial, every tile kept; a ragged
+    last block), 4,661 x 100,000 four (37 query tiles, 4 groups; a ragged
+    last block) and 2,000 x 1,000,000 eight (16 query tiles, 31 groups);
+    1,100,000 candidates (34 groups, two chunks of 32 groups' lanes) at
+    eight warps (700 queries) and at one (140,000 queries).
+    Cases: seq-02's length, ragged shapes, one candidate tile, UTM
+    magnitudes, shuffled candidates, non-finite coordinates, whole tiles
+    and runs of segments masked out, a whole group of 32 tiles masked out,
+    and each with every candidate masked (no finite upper bound, so every
+    tile is kept, as in the JAX mask)."""
     gen = torch.Generator().manual_seed(5)
-    cases = [(4661, 4661, 0.0, False), (300, 777, 0.0, False), (5, 1, 0.0, False),
-             (2000, 9000, 5.4e6, False), (700, 9000, 0.0, True), (67_700, 3000, 0.0, False),
-             (135_300, 5000, 0.0, False), (2000, 1_000_000, 0.0, False), (2000, 9000, 0.0, False),
-             (1000, 3000, 0.0, False)]
-    for k, (n, m, offset, shuffle) in enumerate(cases):
+    cases = [(4661, 4661, 0.0, False, 1), (300, 777, 0.0, False, 1), (5, 1, 0.0, False, 1),
+             (2000, 9000, 5.4e6, False, 1), (700, 9000, 0.0, True, 1), (67_700, 3000, 0.0, False, 1),
+             (135_300, 5000, 0.0, False, 1), (2000, 1_000_000, 0.0, False, 8), (700, 70_000, 0.0, True, 2),
+             (4661, 100_000, 0.0, False, 4), (700, 1_100_000, 0.0, False, 8), (140_000, 1_100_000, 0.0, False, 1),
+             (2000, 9000, 0.0, False, 1), (1000, 3000, 0.0, False, 1)]
+    for k, (n, m, offset, shuffle, split) in enumerate(cases):
+        assert kernels.keep_split(1, *kernels._tiles(n, m)) == split, (n, m)
         traj, cands = walk(gen, n, dtype, cuda, offset), walk(gen, m, dtype, cuda, offset + 0.3)
         if shuffle:
             cands = cands[torch.randperm(m, generator=gen).to(cuda)].contiguous()
         mask = (torch.rand(m, generator=gen) > 0.1).to(cuda)
+        if m == 100_000:  # the first group, 32 tiles, masked out
+            mask[: kernels.GROUP_TILES * kernels.TILE_M] = False
         if k == len(cases) - 2:  # part-masked tiles
             mask[:1024] = False
             mask[3000:3100] = False
@@ -428,14 +439,16 @@ def test_keep_list_kernel_equals_plain_lists(cuda, dtype):
             cands[11, 2] = float("-inf")
             cands[2999, 0] = float("nan")
         for mk in (mask, torch.zeros_like(mask)):
+            want_order, want_nkept = plain_keep_lists(traj, cands, mk)
             before = kernels.keep_lists.launches
             order, nkept, cand3 = kernels.keep_lists(traj, cands, mk)
             assert kernels.keep_lists.launches == before + 1
-            want_order, want_nkept = plain_keep_lists(traj, cands, mk)
             assert torch.equal(nkept, want_nkept), (n, m)
             cols = torch.arange(order.shape[1], device=cuda)[None] < nkept[:, None]
             assert torch.equal(torch.where(cols, order, -1), torch.where(cols, want_order, -1)), (n, m)
-            assert torch.equal(chip_smoke.same_bits(cand3), chip_smoke.same_bits(kernels.pack_candidates_plain(cands, mk, order.shape[1])))
+            assert torch.equal(chip_smoke.same_bits(cand3),
+                               chip_smoke.same_bits(kernels.pack_candidates_plain(cands, mk, order.shape[1])))
+    assert {c[-1] for c in cases} == {1, 2, 4, 8}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -614,25 +627,36 @@ def test_batched_keep_lists_and_nn_kernel_match_plain_and_each_row(cuda, dtype):
     """The keep lists and K3 with a batch grid: ragged rows with an
     all-masked one; B = 1; 8 rows of seq-02's length (296 query tiles, so
     the batch takes K3's 32-query blocks while each row alone takes the
-    16-query ones), 32 such rows (1,184 query tiles: the 64-query blocks)
-    and, in float64, UTM magnitudes."""
+    16-query ones), 32 such rows (1,184 query tiles: the 64-query blocks),
+    the fleet bucket (64 such rows: one group a row, a warp a query tile),
+    2 x 131,072 coherent rows in float64 (four groups a row, its last row
+    ragged; 2,048 query tiles, a warp each; the plain minima on every 64th
+    query), 2,000 and 1,500 queries against 100,000 and 70,000 candidates
+    in float64 (32 query tiles of four warps each; the second row, every
+    candidate masked, lists every tile) and, in float64, UTM magnitudes.
+    The last entry of a case is the warps a query tile it takes."""
     gen = torch.Generator().manual_seed(8)
-    cases = [((300, 150, 1, 300), (1500, 700, 1025, 9), 0.0), ((5,), (1,), 0.0), ((4661,) * 8, (4661,) * 8, 0.0),
-             ((4661,) * 32, (4661,) * 32, 0.0)]
+    cases = [((300, 150, 1, 300), (1500, 700, 1025, 9), 0.0, 1), ((5,), (1,), 0.0, 1),
+             ((4661,) * 8, (4661,) * 8, 0.0, 1), ((4661,) * 32, (4661,) * 32, 0.0, 1),
+             ((4661,) * 64, (4661,) * 64, 0.0, 1)]
     if dtype == torch.float64:
-        cases.append(((4661, 2000, 3000), (4661, 4661, 900), 5.4e6))
-    for ns, ms, offset in cases:
+        cases += [((4661, 2000, 3000), (4661, 4661, 900), 5.4e6, 1), ((131_072, 120_000), (131_072, 120_000), 0.0, 1),
+                  ((2000, 1500), (100_000, 70_000), 0.0, 4)]
+    for ns, ms, offset, split in cases:
         traj, cands, mask = chip_smoke.ragged_walks(gen, ns, ms, dtype, cuda, offset)
+        assert kernels.keep_split(len(ns), *kernels._tiles(max(ns), max(ms))) == split, (ns, ms)
         before = (kernels.keep_lists.launches, kernels.nn_resident.launches)
         order, nkept, cand3 = kernels.keep_lists(traj, cands, mask)
         got = kernels.nn_min_dist2(traj, cands, mask)
         assert (kernels.keep_lists.launches, kernels.nn_resident.launches) == (before[0] + 2, before[1] + 1)
         torch.cuda.synchronize()
-        want = kernels.nn_min_dist2_plain(traj, cands, mask, block=256)
-        torch.testing.assert_close(got, want, rtol=1e-5 if dtype == torch.float32 else 1e-12, atol=0.0)
+        every = 64 if max(ns) > 100_000 else 1
+        idx = torch.arange(0, traj.shape[1], every, device=cuda)
+        want = kernels.nn_min_dist2_plain(traj[:, idx].contiguous(), cands, mask, block=256)
+        torch.testing.assert_close(got[:, idx], want, rtol=1e-5 if dtype == torch.float32 else 1e-12, atol=0.0)
         want_order, want_nkept = plain_keep_lists(traj, cands, mask)
-        assert torch.equal(nkept, want_nkept)
         cols = torch.arange(order.shape[-1], device=cuda) < nkept[..., None]
+        assert torch.equal(nkept, want_nkept)
         assert torch.equal(torch.where(cols, order, -1), torch.where(cols, want_order, -1))
         assert torch.equal(chip_smoke.same_bits(cand3), chip_smoke.same_bits(kernels.pack_candidates_plain(cands, mask, order.shape[-1])))
         for r in range(len(ns)):

@@ -71,6 +71,59 @@ def test_plain_nn_all_masked_and_nan_rows():
     np.testing.assert_allclose(got[ok], want[ok], rtol=1e-6)
 
 
+@pytest.mark.parametrize("n,m,shuffle", [(300, 1500, True), (130, 3000, False), (700, 9000, True), (5, 7, True)])
+def test_sort_candidates_gives_the_jax_minima(n, m, shuffle):
+    """``nn_min_dist2(sort_candidates=True)`` against the JAX package's
+    option (its Morton sort, then its kernel in interpret mode): minima
+    ≤1e-6 relative (the JAX kernel computes in float32), and equal to the
+    unsorted port bit for bit. The sort itself: the port's keys of JAX's
+    sorted candidates ascend (the same key function), the port's own sorted
+    keys ascend, the sorted set is the input's, and shuffled candidates keep
+    fewer tiles once sorted."""
+    rng = np.random.default_rng(n + m)
+    traj, cands = walk(rng, n), walk(rng, m, offset=0.5)
+    if shuffle:
+        cands = cands[rng.permutation(m)]
+    mask = rng.uniform(size=m) > 0.2
+    want = np.asarray(jpk.nn_min_dist2(jnp.asarray(traj), jnp.asarray(cands), jnp.asarray(mask), interpret=True,
+                                       sort_candidates=True)).astype(np.float64)
+    t, c, mk = (torch.tensor(a) for a in (traj, cands, mask))
+    got = kernels.nn_min_dist2(t, c, mk, sort_candidates=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    assert torch.equal(got, kernels.nn_min_dist2(t, c, mk))
+    jc, jv = jpk._morton_sort_candidates(jnp.asarray(cands), jnp.asarray(mask))
+    jc, jv = torch.tensor(np.asarray(jc)), torch.tensor(np.asarray(jv))
+    assert (torch.diff(kernels.morton_keys(jc, jv).long()) >= 0).all()
+    sc, sm = kernels.morton_sort_candidates(c, mk)
+    assert (torch.diff(kernels.morton_keys(sc, sm).long()) >= 0).all()
+    assert torch.equal(sm, jv) and int(sm.sum()) == int(mask.sum())
+    rows = lambda a: np.unique(a.numpy(), axis=0)  # noqa: E731
+    np.testing.assert_array_equal(rows(sc[sm]), rows(c[mk]))
+    if shuffle and m > 4 * kernels.TILE_M:
+        assert kernels.keep_lists(t, sc, sm)[1].sum() < kernels.keep_lists(t, c, mk)[1].sum()
+
+
+def test_batched_sort_candidates_sorts_each_row_by_its_own_box():
+    """With a batch axis the sort takes each row's own box (one sort over
+    the rows): each row equals the row sorted alone, and the batched minima
+    equal JAX's option row by row (≤1e-6 relative) and the unsorted batch
+    bit for bit."""
+    rng = np.random.default_rng(17)
+    traj, cands, mask = batch_of(rng, (300, 150, 64), (1500, 2100, 40), offset=0.0)
+    cands = torch.stack([row[torch.tensor(rng.permutation(cands.shape[1]))] for row in cands])
+    mask[2] = torch.tensor(rng.uniform(size=cands.shape[1]) > 0.5)
+    sc, sm = kernels.morton_sort_candidates(cands, mask)
+    for r in range(3):
+        c1, m1 = kernels.morton_sort_candidates(cands[r], mask[r])
+        assert torch.equal(sc[r], c1) and torch.equal(sm[r], m1)
+    got = kernels.nn_min_dist2(traj, cands, mask, sort_candidates=True)
+    assert torch.equal(got, kernels.nn_min_dist2(traj, cands, mask))
+    for r in range(3):
+        want = jpk.nn_min_dist2(jnp.asarray(traj[r].numpy()), jnp.asarray(cands[r].numpy()),
+                                jnp.asarray(mask[r].numpy()), interpret=True, sort_candidates=True)
+        np.testing.assert_allclose(got[r].numpy(), np.asarray(want).astype(np.float64), rtol=1e-6)
+
+
 def _split(a):
     """Veltkamp's split of float64 ``a`` into hi + lo, 26 significant bits each."""
     c = 134217729.0 * a  # 2^27 + 1
@@ -865,18 +918,23 @@ def test_blocked_keep_mask_equals_the_unblocked_one(monkeypatch):
 
 # --- The keep-list kernel's order of work (csrc/nn_keep.cu), emulated ------
 #
-# The kernel cannot run here, so its two-level pruning is emulated in NumPy
-# with the plain version's float64 expressions: a box per candidate tile (the
-# min/max over its 32 segment boxes), thr seeded from the upper bounds
-# between the tile boxes and the box around the block's query segments, the
-# tile-level test before any segment is looked at in both passes (against
-# the running thr, which is folded in after each chunk of tiles, and
-# against the slackened bound; the block box's bound against the largest
-# thr goes first and alone rules a tile out), and blocks of Q query tiles
-# that share one test and one thr sweep (the last block replicating its
-# last segment).
-# The mask must equal ``kernels.tile_keep_mask`` bit for bit: that is what
-# proves the tile-level test exact where no card is.
+# The kernel cannot run here, so its three-level pruning is emulated in
+# NumPy with the plain version's float64 expressions, on the boxes its first
+# two steps write (segments, tiles of 32 segments, groups of 32 tiles), one
+# query tile at a time as a warp (or ``split`` warps) takes it: thr seeded
+# with the groups' upper bounds (none at one group); pass A visiting the
+# warp's groups nearest first while one may lower thr (lb < thr, strictly),
+# folding a visited group's tile upper bounds, then the segments of up to
+# ``batch`` of its tiles that may still lower thr at once (the lowest
+# first) and testing the tiles again; with several warps a query tile, each
+# taking the groups g = j mod split and folding its thr into the shared one
+# after each group in an order drawn at random (the warps race); pass B
+# against the slackened bound (lb <= bound), groups and tiles ascending,
+# a word of kept tiles a group written out by the prefix of its bits, the
+# tile bounds of pass A's last group reused, and every tile listed without
+# a box read once a bound is +inf. The lists must equal those of
+# ``kernels.tile_keep_mask`` bit for bit: that is what proves the pruning
+# exact where no card is.
 
 
 def _sq3(v):
@@ -891,53 +949,134 @@ def _ub(qlo, qhi, clo, chi):
     return _sq3(np.maximum(qhi - clo, chi - qlo))
 
 
-def emulate_keep_kernel(traj, cands, mask, Q, chunk):
-    """(keep mask, segment boxes read) of the kernel's order of work with
-    ``Q`` query tiles a block and ``chunk`` candidate tiles a sweep step."""
+def _outer_box(lo, hi, per):
+    """The boxes of consecutive runs of ``per`` boxes (the last run padded
+    with empty boxes): (lo, hi), each (count / per, 3)."""
+    pad = -len(lo) % per
+    lo = np.concatenate([lo, np.full((pad, 3), np.inf)]).reshape(-1, per, 3).min(1)
+    hi = np.concatenate([hi, np.full((pad, 3), -np.inf)]).reshape(-1, per, 3).max(1)
+    return lo, hi
+
+
+def keep_boxes(traj, cands, mask):
+    """The boxes the kernel's first two steps write for one row: query and
+    candidate segments, candidate tiles and groups, each (lo, hi) of
+    (count, 3) float64 (an empty box is +inf / -inf)."""
     tp, cp, vm = (x.numpy() for x in kernels.bounds_operands(traj, cands, mask))
-    per_q, per_c = kernels.TILE_N // kernels.SUB, kernels.TILE_M // kernels.SUB
     tb = tp.reshape(-1, kernels.SUB, 3)
-    t_lo, t_hi = tb.min(1), tb.max(1)
     cb, v = cp.reshape(-1, kernels.SUB, 3), vm.reshape(-1, kernels.SUB, 1)
-    c_lo, c_hi = np.where(v, cb, np.inf).min(1), np.where(v, cb, -np.inf).max(1)
-    n_sub, m_tiles = len(t_lo), len(c_lo) // per_c
-    n_tiles = n_sub // per_q
-    tile_lo = c_lo.reshape(m_tiles, per_c, 3).min(1)
-    tile_hi = c_hi.reshape(m_tiles, per_c, 3).max(1)
+    seg = (np.where(v, cb, np.inf).min(1), np.where(v, cb, -np.inf).max(1))
+    tile = _outer_box(*seg, kernels.TILE_M // kernels.SUB)
+    return {"query": (tb.min(1), tb.max(1)), "seg": seg, "tile": tile,
+            "group": _outer_box(*tile, kernels.GROUP_TILES)}
+
+
+def emulate_keep_walk(boxes, split=1, batch=2, seed=0):
+    """(keep mask, segment boxes read) of the kernel's order of work on one
+    row's ``boxes`` (``keep_boxes``), with ``split`` warps a query tile and
+    ``batch`` tiles' segments read at once."""
+    per_q, per_c, per_g = kernels.TILE_N // kernels.SUB, kernels.TILE_M // kernels.SUB, kernels.GROUP_TILES
+    t_lo, t_hi = boxes["query"]
+    c_lo, c_hi = boxes["seg"]
+    tile_lo, tile_hi = boxes["tile"]
+    g_lo, g_hi = boxes["group"]
+    n_tiles, m_tiles, groups = len(t_lo) // per_q, len(tile_lo), len(g_lo)
+    rng = np.random.default_rng(seed)
     keep = np.zeros((n_tiles, m_tiles), bool)
     read = 0
-    for first in range(0, n_tiles, Q):
-        segs = np.minimum(first * per_q + np.arange(Q * per_q), n_sub - 1)
-        qlo, qhi = t_lo[segs][:, None], t_hi[segs][:, None]  # (QS, 1, 3)
-        blo, bhi = qlo.min(0), qhi.max(0)  # (1, 3): the block box
-        thr = np.full(len(segs), _ub(blo, bhi, tile_lo, tile_hi).min())  # the seed
-        for base in range(0, m_tiles, chunk):
-            t = np.arange(base, min(base + chunk, m_tiles))
-            coarse = _lb(blo, bhi, tile_lo[t], tile_hi[t]) <= thr.max()
-            near = (_lb(qlo, qhi, tile_lo[t][None], tile_hi[t][None]) <= thr[:, None]).any(0)
-            assert not (near & ~coarse).any()  # the block box's bound alone decides nothing else
-            near &= coarse
-            for tile in t[near]:
-                s = slice(tile * per_c, (tile + 1) * per_c)
-                read += per_c
-                new = _ub(qlo, qhi, c_lo[s][None], c_hi[s][None]).min(1)
-                near_thr = new if tile == t[near][0] else np.minimum(near_thr, new)
-            if near.any():
-                thr = np.minimum(thr, near_thr)  # folded in after the chunk
+
+    def tile_bounds(q, g, bound_fn):
+        t = np.arange(g * per_g, (g + 1) * per_g)
+        lo = np.where(t[:, None] < m_tiles, tile_lo[np.minimum(t, m_tiles - 1)], np.inf)
+        hi = np.where(t[:, None] < m_tiles, tile_hi[np.minimum(t, m_tiles - 1)], -np.inf)
+        return bound_fn(q[0], q[1], lo[None], hi[None])  # (per_q, 32): a lane a tile
+
+    def segment_bounds(q, g, lane, bound_fn):
+        nonlocal read
+        read += per_c
+        s = slice((g * per_g + lane) * per_c, (g * per_g + lane + 1) * per_c)
+        return bound_fn(q[0], q[1], c_lo[s][None], c_hi[s][None])  # (per_q, 32): a lane a segment
+
+    def group_lb(q, g):
+        return np.zeros(per_q) if groups == 1 else _lb(q[0][:, 0], q[1][:, 0], g_lo[g], g_hi[g])
+
+    def pass_a(q, part, seed_thr, shared, state):
+        thr = seed_thr.copy()
+        for g0 in range(0, groups, 32):
+            mine = [g for g in range(g0, min(g0 + 32, groups)) if g % split == part]
+            lbg = {g: group_lb(q, g) for g in mine}
+            done = set()
+            while True:
+                cand = [g for g in mine if g not in done and (lbg[g] < thr).any()]
+                if not cand:
+                    break
+                pick = min(cand, key=lambda g: (lbg[g].min(), g))  # nearest; the lowest lane of a tie
+                done.add(pick)
+                lbt = tile_bounds(q, pick, _lb)
+                thr = np.minimum(thr, tile_bounds(q, pick, _ub).min(1))
+                state.update(cached=pick, lbt=lbt)
+                seen = set()
+                while True:
+                    near = [t for t in range(per_g) if t not in seen and (lbt[:, t] < thr).any()]
+                    if not near:
+                        break
+                    seen.update(near[:batch])
+                    best = np.stack([segment_bounds(q, pick, t, _ub).min(1) for t in near[:batch]]).min(0)
+                    thr = np.minimum(thr, best)
+                if split > 1:  # atomicMin on the shared thr, which returns what it held
+                    old = shared.copy()
+                    shared[:] = np.minimum(shared, thr)
+                    thr = np.minimum(thr, old)
+                yield
+        shared[:] = np.minimum(shared, thr)
+
+    for i in range(n_tiles):
+        q = (t_lo[i * per_q : (i + 1) * per_q][:, None], t_hi[i * per_q : (i + 1) * per_q][:, None])
+        seed_thr = np.full(per_q, np.inf)
+        if groups > 1:
+            seed_thr = _ub(q[0], q[1], g_lo[None], g_hi[None]).min(1)
+        shared = seed_thr.copy() if split > 1 else np.full(per_q, np.inf)
+        states = [{"cached": -1} for _ in range(split)]
+        running = [pass_a(q, j, seed_thr, shared, states[j]) for j in range(split)]
+        while running:  # the warps' group visits, interleaved at random
+            k = int(rng.integers(len(running)))
+            try:
+                next(running[k])
+            except StopIteration:
+                running.pop(k)
+        thr = shared
         bound = thr + 1e-5 * (thr + 1.0)
-        for base in range(0, m_tiles, chunk):
-            t = np.arange(base, min(base + chunk, m_tiles))
-            coarse = _lb(blo, bhi, tile_lo[t], tile_hi[t]) <= bound.max()
-            near = (_lb(qlo, qhi, tile_lo[t][None], tile_hi[t][None]) <= bound[:, None]).any(0)
-            assert not (near & ~coarse).any()
-            near &= coarse
-            for tile in t[near]:
-                s = slice(tile * per_c, (tile + 1) * per_c)
-                read += per_c
-                passes = (_lb(qlo, qhi, c_lo[s][None], c_hi[s][None]) <= bound[:, None]).any(1)
-                for i in range(min(Q, n_tiles - first)):
-                    keep[first + i, tile] = passes[i * per_q : (i + 1) * per_q].any()
+        if np.isinf(bound).any():  # every segment passes for that query segment
+            keep[i] = True
+            continue
+        words = {}
+        for part, state in enumerate(states):
+            for g in range(part, groups, split):
+                if not (group_lb(q, g) <= bound).any():
+                    words[g] = 0
+                    continue
+                lbt = state["lbt"] if g == state["cached"] else tile_bounds(q, g, _lb)
+                near = [t for t in range(per_g) if (lbt[:, t] <= bound).any()]
+                word = 0
+                for b in range(0, len(near), batch):
+                    for t in near[b : b + batch]:
+                        if (segment_bounds(q, g, t, _lb) <= bound[:, None]).any():
+                            word |= 1 << t
+                words[g] = word
+        out, kept = np.full(m_tiles, -1), 0
+        for g in range(groups):  # a lane a word: its bits at the prefix of the counts before it
+            for t in range(per_g):
+                if words[g] >> t & 1:
+                    out[kept + bin(words[g] & ((1 << t) - 1)).count("1")] = g * per_g + t
+            kept += bin(words[g]).count("1")
+        assert (np.diff(out[:kept]) > 0).all()  # ascending
+        keep[i, out[:kept]] = True
     return keep, read
+
+
+def emulate_keep_kernel(traj, cands, mask, split=1, batch=2, seed=0):
+    """(keep mask, segment boxes read) of the kernel on one row's operands."""
+    return emulate_keep_walk(keep_boxes(traj, cands, mask), split, batch, seed)
 
 
 def track(rng, n, offset, kind):
@@ -949,36 +1088,44 @@ def track(rng, n, offset, kind):
     return rng.uniform(-40.0, 40.0, size=(n, 3)) + offset
 
 
-KEEP_MASKS = ("random", "all-masked", "part-masked")
+KEEP_MASKS = ("random", "all-masked", "part-masked", "group-masked")
+GROUP_M = kernels.GROUP_TILES * kernels.TILE_M  # candidates a group
 
 
-@pytest.mark.parametrize("Q,chunk", [(1, 256), (2, 2), (4, 3)])
+@pytest.mark.parametrize("split,batch", [(1, 2), (2, 3), (8, 2)])
 @pytest.mark.parametrize("masking", KEEP_MASKS)
 @pytest.mark.parametrize("offset", [0.0, 5.4e6])
 @pytest.mark.parametrize("kind,n,m", [("walk", 1500, 5000), ("walk", 700, 1025), ("walk", 130, 7),
-                                      ("scatter", 900, 5000)])
-def test_emulated_keep_kernel_equals_plain_mask(kind, n, m, offset, masking, Q, chunk):
-    rng = np.random.default_rng(n + m + Q)
+                                      ("scatter", 900, 5000), ("walk", 700, 70_000), ("scatter", 300, 40_000),
+                                      ("walk", 200, 1_100_000)])
+def test_emulated_keep_kernel_equals_plain_mask(kind, n, m, offset, masking, split, batch):
+    """Both regimes: rows of one group (m_tiles <= 32: a warp a query tile,
+    a lane a tile), of two or three groups with a partial last one (40
+    and 69 tiles) and of 34 groups (1,075 tiles: two chunks of 32 groups'
+    lanes), every mask kind (a whole first group masked, which at one
+    group is every candidate), one, two and eight warps a query tile."""
+    rng = np.random.default_rng(n + m + split)
     traj, cands = track(rng, n, offset, kind), track(rng, m, offset + 0.3, kind)
-    if masking == "random":
-        mask = rng.uniform(size=m) > 0.1
-    elif masking == "all-masked":
+    mask = rng.uniform(size=m) > 0.1
+    if masking == "all-masked":
         mask = np.zeros(m, bool)
-    else:  # whole tiles and runs of segments masked out, one tile left with a single fix
-        mask = rng.uniform(size=m) > 0.1
+    elif masking == "part-masked":  # whole tiles and runs of segments masked out, one tile left with a single fix
         mask[: min(m, kernels.TILE_M)] = False
         mask[min(m - 1, 3)] = True
         mask[m // 2 : m // 2 + 3 * kernels.SUB] = False
+    elif masking == "group-masked":
+        mask[:GROUP_M] = False
     args = [torch.tensor(a) for a in (traj, cands, mask)]
     want = kernels.tile_keep_mask(*kernels.bounds_operands(*args)).numpy()
-    got, read = emulate_keep_kernel(*args, Q, chunk)
+    got, read = emulate_keep_kernel(*args, split, batch, seed=n + split)
     np.testing.assert_array_equal(got, want)
     n_tiles, m_tiles = want.shape
-    if masking == "all-masked":
-        assert want.all()  # no finite upper bound: every tile kept, as in the JAX mask
-    elif kind == "walk" and m == 5000 and masking == "random":
-        # The tile-level test bites: under half of the first version's two
-        # reads of every segment box per query tile.
+    assert (m_tiles > kernels.GROUP_TILES) == (m > GROUP_M)
+    if masking == "all-masked" or (masking == "group-masked" and m <= GROUP_M):
+        assert want.all() and read == 0  # no finite upper bound: every tile kept, no box read
+    elif kind == "walk" and masking == "random" and m >= 5000:
+        # The levels bite: under half of the first version's two reads of
+        # every segment box per query tile.
         assert read < n_tiles * m_tiles * (kernels.TILE_M // kernels.SUB)
 
 
@@ -1182,58 +1329,63 @@ def test_batched_nn_calls_the_routed_wrapper(monkeypatch, grid_min, want):
 
 def emulate_batched_keep_boxes(traj, cands, mask):
     """The keep-list kernel's box scratch for a batch: per row, at offset
-    box_stride * row with box_stride = 6 (n_sub + m_sub + m_tiles), the
-    query segments' boxes (6, n_sub), the candidate segments' (6, m_sub) and
-    the candidate tiles' (6, m_tiles), lo then hi per axis, written by the
-    segment-box step and read back through the same offsets; the keep step
-    then runs the single-row order of work (``emulate_keep_kernel``'s
-    passes) on each row's boxes."""
-    tp, cp, vm = (x.numpy() for x in kernels.bounds_operands(traj, cands, mask))
-    B = tp.shape[0]
-    per_c = kernels.TILE_M // kernels.SUB
-    n_sub, m_sub = tp.shape[1] // kernels.SUB, cp.shape[1] // kernels.SUB
-    m_tiles = m_sub // per_c
-    stride = 6 * (n_sub + m_sub + m_tiles)
+    box_stride * row with box_stride = 6 (n_sub + m_sub + m_tiles + groups),
+    the query segments' boxes (6, n_sub), the candidate segments' (6,
+    m_sub), the candidate tiles' (6, m_tiles) and the groups' (6, groups),
+    lo then hi per axis, written by the box steps into one flat buffer and
+    read back through the same offsets, as ``keep_boxes`` dicts (the keep
+    step's operands)."""
+    B = traj.shape[0]
+    rows = [keep_boxes(traj[y], cands[y], mask[y]) for y in range(B)]
+    names = ("query", "seg", "tile", "group")
+    counts = [len(rows[0][k][0]) for k in names]
+    per_c, m_tiles = kernels.TILE_M // kernels.SUB, counts[2]
+    assert counts[1] == per_c * m_tiles and counts[3] == -(-m_tiles // kernels.GROUP_TILES)
+    stride = 6 * sum(counts)
     scratch = np.full(B * stride, np.nan)
-    for y in range(B):
-        tb = tp[y].reshape(n_sub, kernels.SUB, 3)
-        cb, v = cp[y].reshape(m_sub, kernels.SUB, 3), vm[y].reshape(m_sub, kernels.SUB, 1)
-        c_lo, c_hi = np.where(v, cb, np.inf).min(1), np.where(v, cb, -np.inf).max(1)
-        boxes = [np.concatenate([tb.min(1), tb.max(1)], 1).T.ravel(),
-                 np.concatenate([c_lo, c_hi], 1).T.ravel(),
-                 np.concatenate([c_lo.reshape(m_tiles, per_c, 3).min(1),
-                                 c_hi.reshape(m_tiles, per_c, 3).max(1)], 1).T.ravel()]
-        scratch[stride * y : stride * (y + 1)] = np.concatenate(boxes)
+    for y, row in enumerate(rows):
+        scratch[stride * y : stride * (y + 1)] = np.concatenate(
+            [np.concatenate(row[k], 1).T.ravel() for k in names])
     assert not np.isnan(scratch).any()
-    rows = []
+    out = []
     for y in range(B):
-        s = scratch[stride * y :]
-        tbox = s[: 6 * n_sub].reshape(6, n_sub)
-        cbox = s[6 * n_sub : 6 * (n_sub + m_sub)].reshape(6, m_sub)
-        tilebox = s[6 * (n_sub + m_sub) : stride].reshape(6, m_tiles)
-        rows.append((tbox, cbox, tilebox))
-    return rows
+        s, at, row = scratch[stride * y :], 0, {}
+        for k, c in zip(names, counts):
+            box = s[at : at + 6 * c].reshape(6, c)
+            row[k] = (box[:3].T, box[3:].T)
+            at += 6 * c
+        out.append(row)
+    return out
 
 
-def test_batched_keep_kernel_reads_its_rows_boxes():
+@pytest.mark.parametrize("ms,split", [((5000, 1025, 7), 1), ((40_000, 33_000, 7), 1), ((40_000, 33_000, 7), 2)])
+def test_batched_keep_kernel_reads_its_rows_boxes(ms, split):
     """Each row's boxes, written and read through the batch grid's offsets,
-    are the row's own (the single-row emulation's operands), and the batched
-    plain mask equals the single-row mask on every row."""
+    are the row's own (segments, tiles, and groups where a row has two or
+    more), the kernel's walk on them gives the row's plain mask, and the
+    batched plain mask equals the single-row mask on every row."""
     rng = np.random.default_rng(3)
-    traj, cands, mask = batch_of(rng, (700, 300, 130), (5000, 1025, 7))
+    traj, cands, mask = batch_of(rng, (700, 300, 130), ms)
     want = kernels.tile_keep_mask(*kernels.bounds_operands(traj, cands, mask))
-    for y, (tbox, cbox, tilebox) in enumerate(emulate_batched_keep_boxes(traj, cands, mask)):
+    for y, boxes in enumerate(emulate_batched_keep_boxes(traj, cands, mask)):
         tp, cp, vm = (x.numpy() for x in kernels.bounds_operands(traj[y], cands[y], mask[y]))
         tb = tp.reshape(-1, kernels.SUB, 3)
-        np.testing.assert_array_equal(tbox, np.concatenate([tb.min(1), tb.max(1)], 1).T)
+        np.testing.assert_array_equal(boxes["query"][0], tb.min(1))
+        np.testing.assert_array_equal(boxes["query"][1], tb.max(1))
         cb, v = cp.reshape(-1, kernels.SUB, 3), vm.reshape(-1, kernels.SUB, 1)
         c_lo, c_hi = np.where(v, cb, np.inf).min(1), np.where(v, cb, -np.inf).max(1)
-        np.testing.assert_array_equal(cbox, np.concatenate([c_lo, c_hi], 1).T)
+        np.testing.assert_array_equal(boxes["seg"][0], c_lo)
+        np.testing.assert_array_equal(boxes["seg"][1], c_hi)
         per_c = kernels.TILE_M // kernels.SUB
-        np.testing.assert_array_equal(tilebox[:3].T, c_lo.reshape(-1, per_c, 3).min(1))
+        np.testing.assert_array_equal(boxes["tile"][0], c_lo.reshape(-1, per_c, 3).min(1))
+        tiles = len(boxes["tile"][0])
+        for g in range(len(boxes["group"][0])):
+            t = slice(g * kernels.GROUP_TILES, (g + 1) * kernels.GROUP_TILES)
+            np.testing.assert_array_equal(boxes["group"][1][g], boxes["tile"][1][t].max(0))
+        assert len(boxes["group"][0]) == -(-tiles // kernels.GROUP_TILES)
         single = kernels.tile_keep_mask(*kernels.bounds_operands(traj[y], cands[y], mask[y]))
         assert torch.equal(want[y], single)
-        got, _ = emulate_keep_kernel(traj[y], cands[y], mask[y], Q=2, chunk=3)
+        got, _ = emulate_keep_walk(boxes, split=split, seed=y)
         np.testing.assert_array_equal(got, single.numpy())
 
 
