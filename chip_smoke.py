@@ -71,7 +71,10 @@ Phases:
      shuffled candidates (every tile kept, long keep lists), at 700 to
      16,384 queries, on the same inputs, the times that place the routing
      thresholds on this card; the batch grids (``@batch`` entries): K1,
-     every combine, the keep lists with K3, and K5, each at the eleven KITTI
+     every combine (a thread-block cluster a row on the cluster path for
+     every combine but the filter; each entry with its tile, cluster size
+     and registers at both batches and at phase 10's rows), the keep lists
+     with K3, and K5, each at the eleven KITTI
      lengths as one ragged batch and at 64 x 4661, against the batched plain
      version and row by row against the single-row kernel (K1 to TOL, the
      others bit for bit), timed at 64 x 4661 in float32; K2, every combine,
@@ -583,6 +586,36 @@ def build_registers(log: str) -> dict:
             out[name] = [None, int(m.group(1))]
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out.setdefault(name, [None, 0])[0] = int(m.group(1))
+    return out
+
+
+SCAN_KERNEL_RE = r"(cluster|lookback)_scan_kernelINS_\d+(\w+?)I([fd])EE[fd]Li(\d+)ELb([01])ELi(\d+)E"
+SCAN_COMBINES = {"QuatChain": "quat_chain", "Filter": "filter", "RtsSuffix": "rts", "Mobius": "mobius",
+                 "Affine3": "affine3", "Add2": "add2", "Max3": "max3", "Min3": "min3"}
+
+
+def scan_kernel_registers(log: str) -> dict:
+    """{"path/op/dtype/tile/threads/items": [registers, bytes of spill
+    stores]} of every instantiation of K1's two kernels (``cluster`` and
+    ``lookback``; tile ``ladder`` or ``runs``) in nvcc's ``-Xptxas -v``
+    output; empty when an up-to-date library was found and nothing was
+    compiled."""
+    import re
+
+    rx = re.compile(SCAN_KERNEL_RE)
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = rx.search(line)
+            key = None
+            if m and m.group(2) in SCAN_COMBINES:
+                dt = "float32" if m.group(3) == "f" else "float64"
+                tile = "runs" if m.group(5) == "1" else "ladder"
+                key = f"{m.group(1)}/{SCAN_COMBINES[m.group(2)]}/{dt}/{tile}/{m.group(6)}/{m.group(4)}"
+        elif key and (m := re.search(r"(\d+) bytes spill stores", line)):
+            out.setdefault(key, [None, 0])[1] = int(m.group(1))
+        elif key and (m := re.search(r"Used (\d+) registers", line)):
+            out.setdefault(key, [None, 0])[0] = int(m.group(1))
     return out
 
 
@@ -1554,6 +1587,30 @@ def batched_scan_inputs(op: str, ns, gen, dtype, device):
     return torch.stack(rows, 1).contiguous()
 
 
+def batched_scan_paths(op: str) -> dict:
+    """{dtype: {shape: {"tile", "cluster", "registers_and_spills"}}} of K1's
+    launch at phase 1's two batches and phase 10's rows: its tile, its
+    cluster size (0: the look-back path) and the registers and spill bytes
+    of the kernel it launches (``scan_kernel_registers``; none where an
+    up-to-date library was found)."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import _build, scan
+
+    regs = scan_kernel_registers(_build.BUILD_INFO.get("log", ""))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = dtype_name(dtype)
+        for label, (B, n) in (("kitti", (len(KITTI_LENGTHS), max(KITTI_LENGTHS))), ("fleet", FLEET),
+                              ("phase10", (len(LONG_LOG_LENGTHS), max(LONG_LOG_LENGTHS)))):
+            tile, cluster = scan.block_tile(op, dtype, n, B), scan.block_cluster(op, dtype, n, B)
+            path = "cluster" if cluster else "lookback"
+            kernel = {k: v for k, v in regs.items() if k.startswith(f"{path}/{op}/{name}/")
+                      and int(k.split("/")[-2]) * int(k.split("/")[-1]) == tile}
+            out.setdefault(name, {})[label] = {"tile": tile, "cluster": cluster, "registers_and_spills": kernel}
+    return out
+
+
 def phase1_batched_scan(device, gen):
     """K1's batch grid, every combine in both directions the main path
     scans it, float32 and float64: the eleven KITTI lengths as one ragged
@@ -1600,8 +1657,10 @@ def phase1_batched_scan(device, gen):
         emit({"phase": 1, "kernel": f"scan_block/{op}@batch", "rel_err": worst, "ms": ms, "plain_ms": plain_ms,
               "library_ms": lib_ms, "device_ms": dev, "library_device_ms": lib_dev,
               "rows_within_tol_of_k1_alone": True,
-              "shape": list(x.shape), "dtype": "float32", "ragged_rows": list(KITTI_LENGTHS)})
-        entries.append(kernel_entry(f"scan_block/{op}@batch", "scan.cu", "pallas_scan.py:227", "float32", aerr,
+              "shape": list(x.shape), "dtype": "float32", "ragged_rows": list(KITTI_LENGTHS),
+              "paths": batched_scan_paths(op)})
+        source = "scan_cluster.cu" if scan.block_cluster(op, x.dtype, x.shape[-1], x.shape[1]) else "scan.cu"
+        entries.append(kernel_entry(f"scan_block/{op}@batch", source, "pallas_scan.py:227", "float32", aerr,
                                     ms, plain_ms, scan_bound(op, x), lib_ms, dev, lib_dev))
     return entries
 
@@ -3358,6 +3417,15 @@ MESH_SHARDS = 3  # (d)'s mesh: the eleven KITTI rows padded to twelve
 DISTRIBUTED_RUNS = ((2, "gloo"), (1, "nccl"))
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (the first card)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def card_name() -> str:
     import torch
 
@@ -3840,6 +3908,8 @@ def phase10_kernels(nn_args, scan_calls, count_args) -> dict:
         want = scan.scan_plain(op, x, reverse)
         out[f"scan_block/{op}@batch"] = {
             "shape": list(x.shape), "reverse": reverse,
+            "tile": scan.block_tile(op, x.dtype, x.shape[-1], x.shape[1]),
+            "cluster": scan.block_cluster(op, x.dtype, x.shape[-1], x.shape[1]),
             "rel_err": rel_err(scan.scan_block(op, x, reverse).reshape(-1, x.shape[-1]),
                                want.reshape(-1, x.shape[-1])),
             "ms": cuda_ms(lambda: scan.scan_block(op, x, reverse)),
@@ -4035,10 +4105,7 @@ def main() -> int:
     from gps_optimize_slam_tpu_torch.utils import graphs
 
     device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0

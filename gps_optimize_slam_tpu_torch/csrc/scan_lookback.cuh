@@ -65,6 +65,11 @@
 // min3), to the scan's tolerance where the walk's association rounds (the
 // float64 filter showed it on the card).
 //
+// A batch whose rows fit in a thread-block cluster does not come here: K1
+// launches it on the cluster path of scan_cluster.cuh (a cluster a row, the
+// carry read from the other blocks' shared memory). This kernel takes the
+// batches of longer rows, every single row and every filter launch.
+//
 // What bounds it on this card: bytes for the 2-4-leaf combines at long n
 // (each leaf read once and written once), operations for the 27-leaf filter
 // (489 flops a combine, about two combines an element), and below a few
@@ -96,6 +101,13 @@
 // fewer than kRunsMinF32 / kRunsMinF64 elements keep the ladder tile.
 // Nothing a thread holds lives across the look-back: the runs' first
 // elements carry the lane prefixes, the warp totals are in shared memory.
+// rts (12 leaves) and quat_chain (4: a square root and a division a
+// combine) take the runs tile too in batches of 2^15 elements or more
+// (RunsTile): their ladder tile spent about five combines an element in
+// serial steps, and a block's loads, folds and stores follow one another,
+// so fewer combines and more blocks an SM, each folding while another
+// loads, shorten a launch (phase 10's rows: rts 0.258 -> 0.211 ms,
+// quat_chain 0.093 -> 0.085, PERF.md). A single row keeps the ladder tile.
 #pragma once
 
 #include "scan_ops.cuh"
@@ -121,13 +133,38 @@ constexpr int kRunsThreads = 128;
 constexpr long long kRunsMinF32 = 65536;
 constexpr long long kRunsMinF64 = 32769;
 
-// Whether a combine of L leaves has the work-efficient runs tile, and
-// whether a launch of `batch` rows of n elements of T takes it.
-__host__ __device__ constexpr bool runs_tile(int L) { return L >= 27; }
+// Which combines have the work-efficient runs tile, whether only in a
+// batch grid, its items a thread and threads a block, and the fewest
+// elements of a launch that take it, by type.
+template <bool HAS, bool BATCH_ONLY, int ITEMS, int THREADS, long long MIN_F32, long long MIN_F64>
+struct RunsShape {
+  static constexpr bool kHas = HAS, kBatchOnly = BATCH_ONLY;
+  static constexpr int kItems = ITEMS, kThreads = THREADS;
+  static constexpr long long kMinF32 = MIN_F32, kMinF64 = MIN_F64;
+};
+template <class Op>
+struct RunsTile : RunsShape<false, false, 1, kScanThreads, 0, 0> {};
 template <typename T>
-__host__ __device__ constexpr bool takes_runs(int L, int n, int batch) {
-  return runs_tile(L) &&
-         (long long)n * batch >= (sizeof(T) == 4 ? kRunsMinF32 : kRunsMinF64);
+struct RunsTile<Filter<T>> : RunsShape<true, false, kRunsItems, kRunsThreads, kRunsMinF32, kRunsMinF64> {};
+// rts and quat_chain in a batch grid, from 2^15 elements a launch: every
+// batch measured there and past it (2 to 64 rows of 16,385, phase 10's four
+// rows of up to 524,288) was faster on these tiles than on the ladder tile
+// in both types (tools/scan_tile_sweep.py on an H100, PERF.md); smaller
+// batched launches were not measured and keep the ladder. rts at 4 items a
+// thread (within 2 % of the fastest tile at phase 10's rows in float64,
+// the fastest below them); quat_chain at 8 (at 4 it lost to the ladder at
+// phase 10's rows: 0.097 against 0.093 ms).
+template <typename T>
+struct RunsTile<RtsSuffix<T>> : RunsShape<true, true, 4, 128, 1LL << 15, 1LL << 15> {};
+template <typename T>
+struct RunsTile<QuatChain<T>> : RunsShape<true, true, 8, 128, 1LL << 15, 1LL << 15> {};
+
+// Whether a launch of `batch` rows of n elements of T takes Op's runs tile.
+template <class Op, typename T>
+__host__ __device__ constexpr bool takes_runs(int n, int batch) {
+  using R = RunsTile<Op>;
+  return R::kHas && (batch > 1 || !R::kBatchOnly) &&
+         (long long)n * batch >= (sizeof(T) == 4 ? R::kMinF32 : R::kMinF64);
 }
 
 // Shared-memory index of tile element e: one pad element per 32.
@@ -561,9 +598,10 @@ struct LookbackScan {
   static cudaError_t run(const void* in, void* out, int n, int batch, int reverse, void* scratch,
                          cudaStream_t stream) {
     if (n <= 0 || batch <= 0) return batch < 0 ? cudaErrorInvalidValue : cudaSuccess;
-    if constexpr (runs_tile(Op::L)) {
-      if (takes_runs<T>(Op::L, n, batch))
-        return launch<kRunsItems, true, kRunsThreads>(in, out, n, batch, reverse, scratch, stream);
+    using R = RunsTile<Op>;
+    if constexpr (R::kHas) {
+      if (takes_runs<Op, T>(n, batch))
+        return launch<R::kItems, true, R::kThreads>(in, out, n, batch, reverse, scratch, stream);
     }
     return launch<scan_items(Op::L), false, kScanThreads>(in, out, n, batch, reverse, scratch, stream);
   }
@@ -574,13 +612,10 @@ struct LookbackScan {
 template <class Op, typename T>
 struct LookbackScratch {
   static cudaError_t run(int n, int batch, long long* bytes) {
-    if constexpr (runs_tile(Op::L)) {
-      if (takes_runs<T>(Op::L, n, batch)) {
-        *bytes = (long long)LookbackLayout<Op, T, kRunsItems, kRunsThreads>::scratch_bytes(n, batch);
-        return cudaSuccess;
-      }
-    }
-    *bytes = (long long)LookbackLayout<Op, T>::scratch_bytes(n, batch);
+    using R = RunsTile<Op>;
+    *bytes = takes_runs<Op, T>(n, batch)
+                 ? (long long)LookbackLayout<Op, T, R::kItems, R::kThreads>::scratch_bytes(n, batch)
+                 : (long long)LookbackLayout<Op, T>::scratch_bytes(n, batch);
     return cudaSuccess;
   }
 };
@@ -590,8 +625,9 @@ struct LookbackScratch {
 template <class Op, typename T>
 struct LookbackTile {
   static cudaError_t run(int n, int batch, int* tile) {
-    *tile = takes_runs<T>(Op::L, n, batch) ? LookbackLayout<Op, T, kRunsItems, kRunsThreads>::kTile
-                                        : LookbackLayout<Op, T>::kTile;
+    using R = RunsTile<Op>;
+    *tile = takes_runs<Op, T>(n, batch) ? LookbackLayout<Op, T, R::kItems, R::kThreads>::kTile
+                                       : LookbackLayout<Op, T>::kTile;
     return cudaSuccess;
   }
 };

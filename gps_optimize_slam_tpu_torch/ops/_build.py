@@ -59,6 +59,7 @@ _SIGNATURES = {
     "gps_scan": ([_I, _I, _VP, _VP, _I, _I, _I, _VP, _VP], _I),
     "gps_scan_scratch_bytes": ([_I, _I, _I, _I], _LL),
     "gps_scan_tile": ([_I, _I, _I, _I], _I),
+    "gps_scan_cluster": ([_I, _I, _I, _I], _I),
     "gps_scan_tiled": ([_I, _I, _VP, _VP, _VP, _LL, _I, _I, _I, _VP], _I),
     "gps_scan_tiled_scratch_bytes": ([_I, _I, _I, _I], _LL),
     "gps_scan_tiled_tile": ([_I, _I], _I),

@@ -280,18 +280,36 @@ def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.T
 
 def block_tile(op: str, dtype: torch.dtype = torch.float32, n: int = 1, batch: int = 1) -> int:
     """Elements per tile (one thread block) of K1 for ``op`` in ``dtype`` at
-    ``batch`` rows of ``n`` elements: kScanThreads times the combine's items
-    per thread (``csrc/scan_lookback.cuh``; the filter takes its runs tile, 128
-    threads of 4 items, from 65,536 float32 or 32,769 float64 elements a
-    launch, the ladder tile's one item below). Builds the kernels on first use."""
+    ``batch`` rows of ``n`` elements: on the cluster path
+    (:func:`block_cluster`) the combine's cluster tile, else kScanThreads
+    times the combine's items per thread (``csrc/scan_lookback.cuh``; the
+    filter takes its runs tile, 128 threads of 4 items, from 65,536 float32
+    or 32,769 float64 elements a launch, the ladder tile's one item below;
+    rts and quat_chain take theirs in batches past their crossovers). Builds
+    the kernels on first use."""
     code = _build.dtype_code(torch.empty(0, dtype=dtype))
     return _build.library().gps_scan_tile(OPS[op][0], code, n, batch)
 
 
+def block_cluster(op: str, dtype: torch.dtype = torch.float32, n: int = 1, batch: int = 1) -> int:
+    """Blocks a thread-block cluster of K1 for ``op`` in ``dtype`` at
+    ``batch`` rows of ``n`` elements: one cluster a row, a block a tile,
+    where ``batch`` > 1 and a row fits in at most 16 tiles of the
+    combine's cluster tile (``csrc/scan_cluster.cuh``: the carry read from
+    the other blocks' shared memory, no look-back, no scratch); 0 where the
+    launch takes the look-back path (single rows, the filter, long rows).
+    Chosen in the C launch from the shape, read-only here. Builds the
+    kernels on first use."""
+    code = _build.dtype_code(torch.empty(0, dtype=dtype))
+    return _build.library().gps_scan_cluster(OPS[op][0], code, n, batch)
+
+
 def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """K1: the single-pass look-back scan (``csrc/scan.cu``), at any n, on
-    (L, n) leaves or, in one launch over every row's tiles, on (L, B, n)
-    leaves. CPU tensors take :func:`scan_plain`."""
+    """K1 (``csrc/scan.cu``), at any n, on (L, n) leaves (the single-pass
+    look-back scan) or, in one launch, on (L, B, n) leaves: a
+    thread-block cluster a row where :func:`block_cluster` gives one, else
+    the look-back scan over every row's tiles. A launch the card refuses
+    raises. CPU tensors take :func:`scan_plain`."""
     _check(op, x)
     if x.device.type == "cpu":
         return scan_plain(op, x, reverse)

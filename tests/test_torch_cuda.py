@@ -622,6 +622,126 @@ def test_batched_scan_kernel_matches_plain_and_each_row(cuda, op, dtype):
                 assert chip_smoke.rel_err(got[:, r], alone) <= TOL[dtype], (B, n, r)
 
 
+# K1's cluster tile at a row of 4,661 (csrc/scan_cluster.cuh ClusterTile;
+# the CPU emulation runs the same geometry, tests/test_torch_scan.py
+# CLUSTER_TILE): elements a tile and blocks a cluster.
+CLUSTER_AT_4661 = {"quat_chain": (512, 10), "rts": (512, 10), "mobius": (512, 10), "affine3": (1024, 5),
+                   "add2": (1024, 5), "max3": (1024, 5), "min3": (1024, 5)}
+
+
+def batched_path_cases(op, dtype):
+    """(B, n, cluster wanted) for each of K1's batch paths: on the cluster
+    path one block a row, two, the largest cluster, the fleet; past it the
+    look-back path (its ladder tile, and for rts and quat_chain their runs
+    tile past its crossover); the filter always the look-back path."""
+    if op == "filter":
+        return [(3, 300, False), (11, 4661, False), (2, 40_000, False)]
+    tile = scan.block_tile(op, dtype, 1, 2)
+    cases = [(3, tile, True), (3, tile + 1, True), (3, 8 * tile, True), (3, 8 * tile + 1, True), (64, 4661, True)]
+    last = next(n for n in range(tile, 1 << 20, tile) if not scan.block_cluster(op, dtype, n + 1, 2))
+    cases += [(3, last, True), (2, last + 1, False)]
+    if op in ("rts", "quat_chain"):  # their runs tile past 2^15 elements a launch
+        cases.append((4, 300_000, False))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", list(scan.OPS))
+def test_batched_scan_paths_match_plain_and_each_row(cuda, op, dtype):
+    """K1's batch grid on each of its paths (``batched_path_cases``), both
+    directions: against the plain scan and, row by row (all rows of a small
+    batch, the first and last of a large one), against K1 on that row
+    alone; the cluster path twice on the same leaves bit for bit (its fold
+    order is fixed by the ranks), with no scratch; the cluster tile at a
+    row of 4,661 as the CPU emulation takes it."""
+    from gps_optimize_slam_tpu_torch.ops import _build
+
+    gen = torch.Generator().manual_seed(17)
+    if op in CLUSTER_AT_4661:
+        assert (scan.block_tile(op, dtype, 4661, 64), scan.block_cluster(op, dtype, 4661, 64)) == CLUSTER_AT_4661[op]
+    for B, n, on_cluster in batched_path_cases(op, dtype):
+        assert (scan.block_cluster(op, dtype, n, B) > 0) == on_cluster, (B, n)
+        assert scan.block_cluster(op, dtype, n, 1) == 0  # a single row keeps the look-back path
+        if on_cluster:
+            assert _build.library().gps_scan_scratch_bytes(scan.OPS[op][0], int(dtype == torch.float64), n, B) == 0
+        x = torch.stack([chip_smoke.scan_inputs(op, n, gen, dtype, cuda) for _ in range(B)], 1).contiguous()
+        for reverse in (False, True):
+            got = scan.scan_block(op, x, reverse)
+            torch.cuda.synchronize()
+            err = chip_smoke.rel_err(got.reshape(-1, n), scan.scan_plain(op, x, reverse).reshape(-1, n))
+            assert err <= TOL[dtype], (B, n, reverse, err)
+            for r in (range(B) if B <= 4 else (0, B - 1)):
+                alone = scan.scan_block(op, x[:, r].contiguous(), reverse)
+                assert chip_smoke.rel_err(got[:, r], alone) <= TOL[dtype], (B, n, r)
+            if on_cluster:
+                assert torch.equal(scan.scan_block(op, x, reverse), got)
+
+
+def test_cluster_launch_replays_in_captured_programs(cuda):
+    """K1's cluster launch inside a CUDA graph: the fleet's quat_chain scan
+    captured with ``torch.cuda.graph`` and replayed equals the eager call
+    bit for bit; and a batched fusion whose batched scans take the cluster
+    path (recorded from its eager call), replayed by ``utils.graphs``,
+    equals eager dispatch within the batched rows' bound."""
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    gen = torch.Generator().manual_seed(18)
+    x = torch.stack([chip_smoke.scan_inputs("quat_chain", 4661, gen, torch.float32, cuda) for _ in range(64)], 1)
+    x = x.contiguous()
+    assert scan.block_cluster("quat_chain", torch.float32, 4661, 64) > 0
+    eager = scan.scan_block("quat_chain", x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        scan.scan_block("quat_chain", x)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = scan.scan_block("quat_chain", x)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+    call = entry_point("fuse_batch", cuda)
+    calls = []
+    with graphs.eager(), chip_smoke.recording(scan, "scan_block", calls):
+        want = call()
+    batched = [(op, t.dtype, t.shape[-1], t.shape[1]) for op, t, *_ in calls if t.ndim == 3]
+    assert batched and any(scan.block_cluster(*c) > 0 for c in batched)
+    graphs.clear()
+    graphs.reset_stats()
+    results = [call() for _ in range(3)]  # eager, capture, replay
+    torch.cuda.synchronize()
+    assert graphs.stats()["replays"] >= 2
+    for res in results:
+        same_result(res, want, 1e-12)
+
+
+def test_a_refused_cluster_launch_raises_without_falling_back(cuda, monkeypatch):
+    """A batched K1 call on the cluster path whose launch the card refuses
+    (the C entry point returns cudaErrorInvalidConfiguration, as it does
+    where a cluster does not fit) raises, and launches nothing in its
+    place: no look-back launch, no K2, no plain version."""
+    from gps_optimize_slam_tpu_torch.ops import _build
+
+    lib = _build.library()
+    gen = torch.Generator().manual_seed(19)
+    x = torch.stack([chip_smoke.scan_inputs("rts", 4661, gen, torch.float64, cuda) for _ in range(3)], 1)
+    assert scan.block_cluster("rts", torch.float64, 4661, 3) > 0
+
+    class Refusing(_FailingLaunch):
+        def __getattr__(self, name):
+            if name == "gps_scan":
+                return lambda *args: 9  # cudaErrorInvalidConfiguration
+            return getattr(self._lib, name)
+
+    monkeypatch.setattr(_build, "library", lambda: Refusing(lib, "gps_scan"))
+    before = (dict(scan.scan_block.launches), dict(scan.scan_tiled.launches))
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        scan.associative_scan("rts", x.contiguous(), True)
+    assert (scan.scan_block.launches, scan.scan_tiled.launches) == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_batched_keep_lists_and_nn_kernel_match_plain_and_each_row(cuda, dtype):
     """The keep lists and K3 with a batch grid: ragged rows with an

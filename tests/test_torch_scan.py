@@ -393,17 +393,18 @@ def _tile_finish_runs(op, t, carry, runs, wscan, warp, warps, items):
 # thread, so that each run folds in registers; the filter's input is its
 # ladder cases' 31 elements (3 tiles of 8 and a ragged tail), whose JAX
 # reference those cases compile already.
-EMULATED_RUNS = {"mobius": (4, 2, 2, 4), "rts": (4, 2, 2, 4), "filter": (2, 2, 2, 2)}
+EMULATED_RUNS = {"mobius": (4, 2, 2, 4), "rts": (4, 2, 2, 4), "quat_chain": (4, 2, 2, 4), "filter": (2, 2, 2, 2)}
 
 
-def _window_fold(op, vals, last, window):
+def _window_fold(op, vals, last, window, swap=False):
     """Lane 0's fold of a look-back window vals (L, window), lane 0 the
     nearest predecessor, over lanes [0, last] (shuffle-down tree, the
-    farther half first)."""
+    farther half first; ``swap`` puts the nearer half first, the slip the
+    tests show the emulations catch)."""
     d = 1
     while d <= last:
         moved = torch.cat([vals[:, d:], _ident(op, d)], 1)  # lane k reads lane k + d
-        new = _comb(op, moved, vals)
+        new = _comb(op, vals, moved) if swap else _comb(op, moved, vals)
         vals = torch.where(torch.arange(window) + d < window, new, vals)
         d *= 2
     return vals[:, 0]
@@ -482,6 +483,44 @@ def emulate_lookback_scan(op, x, reverse, schedule, warp, warps, items, window, 
             incl[slot(t)] = _comb(op, run, tot)
         finish = _tile_finish_runs if tile_kind == "runs" else _tile_finish
         out[:, row, t * tile : (t + 1) * tile] = finish(op, t, carry, wl, wscan, warp, warps, items).reshape(L, tile)
+    out = out[..., :n]
+    out = out.flip(-1) if reverse else out
+    return out if batched else out[:, 0]
+
+
+def emulate_cluster_scan(op, x, reverse, warp, warps, items, tile="ladder", max_cluster=16, swap=False):
+    """K1's cluster path (csrc/scan_cluster.cuh) on (L, n) or (L, B, n)
+    leaves: a cluster a row of C = tiles(n) <= ``max_cluster`` blocks; block
+    rank r stages scan-order tile r of its row and reduces it (``tile``:
+    the ladder's steps, or the runs tile's), and after the cluster barrier
+    lane k of its warp 0 holds the aggregate of rank r - 1 - k (the
+    identity past rank 0, 32 lanes), folded in the look-back's
+    shuffle-down tree, the farther (earlier) half first: the carry, ranks
+    0..r-1 composed with the earlier composite first. The tile is then
+    finished from that carry as the look-back path finishes it. ``swap``
+    folds the nearer composite first, the slip the tests show is caught."""
+    batched = x.ndim == 3
+    xs = x if batched else x[:, None]
+    xs = xs.flip(-1) if reverse else xs  # scan order
+    L, B, n = xs.shape
+    T = warp * warps
+    size = T * items
+    C = -(-n // size)
+    assert 1 <= C <= max_cluster, f"{n} elements take {C} tiles of {size}"
+    padded = torch.cat([xs, _ident(op, B, C * size - n)], -1)
+    out = torch.empty_like(padded)
+    reduce = _tile_reduce_runs if tile == "runs" else _tile_reduce
+    finish = _tile_finish_runs if tile == "runs" else _tile_finish
+    for row in range(B):
+        tiles = [reduce(op, padded[:, row, r * size : (r + 1) * size].reshape(L, T, items), warp, warps, items)
+                 for r in range(C)]
+        for r, (wl, wscan, _) in enumerate(tiles):
+            carry = None
+            if r > 0:
+                lanes = torch.stack([tiles[r - 1 - k][2] if k < r else _ident(op) for k in range(32)], 1)
+                carry = _window_fold(op, lanes, r - 1, 32, swap)
+            out[:, row, r * size : (r + 1) * size] = finish(op, r, carry, wl, wscan, warp, warps,
+                                                            items).reshape(L, size)
     out = out[..., :n]
     out = out.flip(-1) if reverse else out
     return out if batched else out[:, 0]
@@ -604,7 +643,7 @@ def emulate_tiled_scan(op, x, reverse, warp, warps, items, window, blocks, seed=
 # (warp, warps, items, window) per combine: small tiles, so that 7 tiles
 # stay short where the JAX references compile slowly (lax.associative_scan
 # of the 27-leaf filter: ~27 s at 31 elements on an 8-core Xeon host).
-EMULATED = {"mobius": (4, 2, 2, 4), "rts": (4, 2, 2, 4), "filter": (2, 2, 1, 2)}
+EMULATED = {"mobius": (4, 2, 2, 4), "rts": (4, 2, 2, 4), "quat_chain": (4, 2, 2, 4), "filter": (2, 2, 1, 2)}
 # K2's tile shape: more items a thread (the float32 filter has 2).
 EMULATED_TILED = {"mobius": (4, 2, 4, 4), "rts": (4, 2, 4, 4), "filter": (2, 2, 2, 2)}
 
@@ -646,12 +685,13 @@ def test_lookback_structure_matches_plain_and_jax(op, reverse, schedule):
 
 @pytest.mark.parametrize("schedule", ["random", "aggregates"])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("op", ["mobius", "rts", "filter"])
+@pytest.mark.parametrize("op", list(EMULATED_RUNS))
 def test_runs_tile_schedule_matches_plain_and_jax(op, reverse, schedule):
-    """The filter's runs tile at two items a thread and two warps
+    """The runs tile at two items a thread and two warps
     (``EMULATED_RUNS``), on the filter itself (its ladder cases' input: 1,
-    2 and 3 tiles plus a ragged tail) and on the cheap non-commutative
-    combines (1, 2 and 7 tiles plus a ragged tail): the runs folded in
+    2 and 3 tiles plus a ragged tail), on rts and quat_chain (which take it
+    in long batches) and on mobius (1, 2 and 7 tiles plus a ragged tail):
+    the runs folded in
     registers, the ladder over the thread totals, the lane prefix in the
     run's first element, the warp's composite once a warp, against the
     plain and JAX scans, and two rows in one batch grid against each row
@@ -735,3 +775,117 @@ def test_batched_plain_scan_equals_each_row_alone(op):
             assert torch.equal(got[:, r], scan.scan_plain(op, x[:, r].contiguous(), reverse))
         assert torch.equal(got, scan.scan_tiled(op, x, reverse))  # K2's batch grid, its plain version
     assert (scan.scan_block.launches, scan.scan_tiled.launches) == before
+
+
+# --- K1's cluster path (csrc/scan_cluster.cuh), emulated --------------------
+#
+# A batch of short rows launches a thread-block cluster a row: block rank r
+# reduces tile r, and after the cluster barrier folds the aggregates of
+# ranks 0..r-1, read from their shared memory, in the look-back's
+# shuffle-down tree (``emulate_cluster_scan``). No schedule: the order is
+# fixed by the ranks, so a row's result is the same in any batch.
+
+CLUSTER_OPS = [op for op in scan.OPS if op != "filter"]  # the filter keeps the look-back path
+# The cluster tile of each combine at the fleet's rows (csrc/scan_cluster.cuh
+# ClusterTile: its steps, threads, items a thread): a row of 4,661 takes
+# 10 or 5 blocks. The card's tests hold these to ``scan.block_tile`` /
+# ``scan.block_cluster``.
+CLUSTER_TILE = {"quat_chain": ("runs", 128, 4), "rts": ("runs", 128, 4), "mobius": ("runs", 128, 4),
+                "affine3": ("runs", 128, 8), "add2": ("runs", 128, 8), "max3": ("runs", 128, 8),
+                "min3": ("runs", 128, 8)}
+KITTI = (4541, 1101, 4661, 801, 271, 2761, 1101, 1101, 4071, 1591, 1201)  # the odometry sequences 00-10
+NONCOMMUTATIVE = ("quat_chain", "rts", "mobius")
+RUNS_ITEMS = {"rts": 4, "quat_chain": 8}  # csrc/scan_lookback.cuh RunsTile: 128 threads
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_reference(op, reverse):
+    """The input at 7 tiles of 16 plus a ragged tail of 3 (8 tiles, the
+    largest cluster) and ``jax.lax.associative_scan`` of it."""
+    n = 7 * 16 + 3
+    combine, tree_of, _ = JAX_COMBINES[op]
+    x = scan_input(op, n, seed=5)
+    tree = tree_of([jnp.asarray(v) for v in x])
+    return x, _leaves_back(op, jax.jit(lambda e: jax.lax.associative_scan(combine, e, reverse=reverse))(tree))
+
+
+@pytest.mark.parametrize("tile", ["ladder", "runs"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", CLUSTER_OPS)
+def test_cluster_order_matches_plain_and_jax(op, reverse, tile):
+    """Every combine of the cluster path at 16-element tiles (4 lanes x 2
+    warps x 2 items) on the ladder's and the runs tile's steps: one tile,
+    one element past a tile, two tiles and eight (7 plus a ragged tail),
+    against the plain scan and JAX's, and two rows in one batch, each equal
+    bit for bit to the row alone (the order does not depend on the batch)."""
+    x, want = cluster_reference(op, reverse)
+    n_max = x.shape[1]
+    for n in (16, 17, 32, n_max):
+        sl = slice(n_max - n, n_max) if reverse else slice(0, n)
+        xt = torch.tensor(x[:, sl])
+        got = emulate_cluster_scan(op, xt, reverse, 4, 2, 2, tile=tile).numpy()
+        _assert_close(op, got, scan.scan_plain(op, xt, reverse).numpy(), rtol=1e-12)
+        _assert_close(op, got, want[:, sl], rtol=1e-12)
+    rows = torch.stack([torch.tensor(x[:, :40]), torch.tensor(x[:, 9:49])], 1)
+    got = emulate_cluster_scan(op, rows, reverse, 4, 2, 2, tile=tile)
+    for r in range(2):
+        assert torch.equal(got[:, r], emulate_cluster_scan(op, rows[:, r].contiguous(), reverse, 4, 2, 2, tile=tile))
+
+
+def kitti_rows(op, ns, n):
+    """(L, len(ns), n) float64 leaves: row r is ``scan_input`` at ns[r]
+    (seeded apart), then the combine's identity to n, as the padded rows of
+    a bucket end."""
+    ident = torch.tensor(scan.OPS[op][2], dtype=torch.float64)[:, None]
+    return torch.stack([torch.cat([torch.tensor(scan_input(op, k, seed=20 + r)), ident.expand(-1, n - k)], 1)
+                        for r, k in enumerate(ns)], 1)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", CLUSTER_OPS)
+def test_cluster_path_on_ragged_kitti_rows(op, reverse):
+    """The cluster path at the card's geometry (32 lanes, the combine's
+    cluster tile): the eleven KITTI lengths as one ragged batch of 4,661 (5
+    or 10 blocks a row) and two rows one element past a tile (2 blocks), each row against the plain scan to the file's tolerance, and
+    bit for bit against the same row scanned alone."""
+    tile, threads, items = CLUSTER_TILE[op]
+    size = threads * items
+    for ns, n in ((KITTI, max(KITTI)), ((size + 1, size - 7), size + 1)):
+        x = kitti_rows(op, ns, n)
+        got = emulate_cluster_scan(op, x, reverse, 32, threads // 32, items, tile=tile)
+        plain = scan.scan_plain(op, x, reverse)
+        for r in range(len(ns)):
+            _assert_close(op, got[:, r].numpy(), plain[:, r].numpy())
+        alone = emulate_cluster_scan(op, x[:, 1].contiguous(), reverse, 32, threads // 32, items, tile=tile)
+        assert torch.equal(got[:, 1], alone)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", ["rts", "quat_chain"])
+def test_runs_tile_on_ragged_kitti_rows(op, reverse):
+    """rts and quat_chain on the look-back path's runs tile at the card's
+    geometry for them (32 lanes, 4 warps, 4 items a thread for rts and 8
+    for quat_chain: 10 or 5 tiles a row), the eleven KITTI lengths as one
+    ragged batch, tickets over every row's tiles with a random schedule of
+    published prefixes: each row against the plain scan to the file's
+    tolerance."""
+    x = kitti_rows(op, KITTI, max(KITTI))
+    got = emulate_lookback_scan(op, x, reverse, "random", 32, 4, RUNS_ITEMS[op], 32, tile="runs")
+    plain = scan.scan_plain(op, x, reverse)
+    for r in range(len(KITTI)):
+        _assert_close(op, got[:, r].numpy(), plain[:, r].numpy())
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", NONCOMMUTATIVE)
+def test_a_swapped_cluster_fold_fails(op, reverse):
+    """The emulation catches an argument-order slip in the carry's fold:
+    with the nearer composite first (``swap``) the non-commutative combines
+    leave the plain scan by far more than the file's tolerance in both
+    directions, while the right order stays within it."""
+    x, _ = cluster_reference(op, reverse)
+    xt = torch.tensor(x)
+    plain = scan.scan_plain(op, xt, reverse).numpy()
+    _assert_close(op, emulate_cluster_scan(op, xt, reverse, 4, 2, 2).numpy(), plain)
+    with pytest.raises(AssertionError, match="rel err"):
+        _assert_close(op, emulate_cluster_scan(op, xt, reverse, 4, 2, 2, swap=True).numpy(), plain)
