@@ -2304,6 +2304,184 @@ def profile_device(fn, host_ops: bool = True) -> dict:
             "top_kernels": [[name, ms, count] for name, (ms, count) in top]}
 
 
+def copy_kind(name: str) -> str:
+    """A profiler copy event's kind: "HtoD pinned", "HtoD pageable", "DtoH
+    pinned", "DtoH pageable", "DtoD" or "memset", from names such as
+    ``Memcpy HtoD (Pinned -> Device)``."""
+    if name.startswith("Memset"):
+        return "memset"
+    for way in ("HtoD", "DtoH"):
+        if way in name:
+            return f"{way} {'pageable' if 'Pageable' in name else 'pinned'}"
+    return "DtoD"
+
+
+def union_us(spans) -> list:
+    """The union of (start, end) intervals, as sorted disjoint intervals."""
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def overlap_us(a, b) -> float:
+    """The length of the intersection of two sorted disjoint interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_profile(fn) -> dict:
+    """One run of ``fn`` with the device traced (``torch.profiler``, CUDA
+    activity only, read from its exported trace): the wall, the kernels'
+    device time, the busy time (the union of kernels and copies) and idle
+    share, and for each kind of copy (``copy_kind``) its count, device ms,
+    bytes and GB/s (bytes over its device time), and the device time in
+    which a copy ran beside a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels, copies, kinds = [], [], {}
+    for e in events:
+        cat = e.get("cat", "")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if cat == "kernel":
+            kernels.append(span)
+            continue
+        copies.append(span)
+        k = kinds.setdefault(copy_kind(e["name"]), {"count": 0, "ms": 0.0, "bytes": 0})
+        k["count"] += 1
+        k["ms"] += float(e["dur"]) / 1e3
+        k["bytes"] += int(e.get("args", {}).get("bytes", 0))
+    for k in kinds.values():
+        k["gb_s"] = k["bytes"] / (k["ms"] * 1e6) if k["ms"] > 0 else None
+    busy = union_us(kernels + copies)
+    busy_ms = sum(e - s for s, e in busy) / 1e3
+    return {"wall_ms": wall_ms, "kernel_ms": sum(e - s for s, e in kernels) / 1e3, "kernels": len(kernels),
+            "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms, "copies": kinds,
+            "copy_beside_kernel_ms": overlap_us(union_us(kernels), union_us(copies)) / 1e3}
+
+
+@contextlib.contextmanager
+def watched_streams():
+    """Within it every ``utils.streaming.stream_chunks`` call records the
+    ``streaming.Fetched`` handles its launches return, in item order, and
+    every ``streaming.fetch`` its handle in call order. Yields (streams,
+    fetches): a list of handle lists, and the list of all handles."""
+    from gps_optimize_slam_tpu_torch.utils import streaming
+
+    saved_stream, saved_fetch = streaming.stream_chunks, streaming.fetch
+    streams, fetches = [], []
+
+    def stream_chunks(items, stage, launch, drain):
+        handles = []
+        streams.append(handles)
+
+        def launching(item, staged):
+            out = launch(item, staged)
+            if isinstance(out, streaming.Fetched):
+                handles.append(out)
+            return out
+
+        return saved_stream(items, stage, launching, drain)
+
+    def fetch(tensors):
+        out = saved_fetch(tensors)
+        fetches.append(out)
+        return out
+
+    streaming.stream_chunks, streaming.fetch = stream_chunks, fetch
+    try:
+        yield streams, fetches
+    finally:
+        streaming.stream_chunks, streaming.fetch = saved_stream, saved_fetch
+
+
+DRAIN_SLACK_MS = 0.05  # a download that starts this long after it could have, past the next chunk's end, waited
+
+
+def drain_waits(streams, fetches) -> dict:
+    """Read from the events of a run's fetched chunks (``watched_streams``,
+    after a synchronise) whether a drain waited for the next chunk: for
+    each pair of consecutive chunks i-1, i of a stream, chunk i-1's
+    download could start once its own work was done (``ready``) and the
+    download before it on the card had ended; ``lag`` is how long after
+    that it started. It waited for chunk i when it started after chunk i's
+    work was done and its lag exceeds ``DRAIN_SLACK_MS``. Also counted: the
+    pairs whose download ended before chunk i's work did (the copy hidden
+    behind the compute), and the bytes fetched."""
+    order = {id(h): k for k, h in enumerate(fetches)}
+    pairs = waited = hidden = 0
+    lags = []
+    for handles in streams:
+        for prev, nxt in zip(handles, handles[1:]):
+            k = order[id(prev)]
+            before = next((h for h in reversed(fetches[:k]) if h.device == prev.device), None)
+            free = prev.ready
+            if before is not None and before.copied.elapsed_time(prev.ready) < 0:
+                free = before.copied
+            lag = free.elapsed_time(prev.started)
+            lags.append(lag)
+            pairs += 1
+            waited += nxt.ready.elapsed_time(prev.started) >= 0 and lag > DRAIN_SLACK_MS
+            hidden += prev.copied.elapsed_time(nxt.ready) >= 0
+    return {"pairs": pairs, "waited_for_next": waited, "copy_done_before_next_chunk": hidden,
+            "max_lag_ms": max(lags, default=0.0), "fetches": len(fetches),
+            "fetched_mb": sum(h.nbytes for h in fetches) / 2**20}
+
+
+def pinned_mb():
+    """The pinned host memory PyTorch's caching host allocator holds (MB),
+    or None where this PyTorch does not report it."""
+    import torch
+
+    stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    held = stats.get("allocated_bytes.current")
+    return None if held is None else held / 2**20
+
+
+def stream_report(label: str, fn) -> dict:
+    """One traced run of ``fn`` (warm: its programs captured before) with
+    its chunk streams watched: ``stream_profile``, ``drain_waits`` and the
+    pinned MB held after it. Fails if a drain waited for the next chunk
+    or a copy ran from pageable memory."""
+    import torch
+
+    with watched_streams() as (streams, fetches):
+        prof = stream_profile(fn)
+        torch.cuda.synchronize()
+        waits = drain_waits(streams, fetches)
+    report = {**prof, "drains": waits, "pinned_mb": pinned_mb()}
+    if waits["waited_for_next"]:
+        raise AssertionError(f"{label}: a drain waited for the next chunk: {waits}")
+    pageable = {k: v for k, v in prof["copies"].items() if "pageable" in k}
+    if pageable:
+        raise AssertionError(f"{label}: copies from pageable memory: {pageable}")
+    return report
+
+
 def graph_stats() -> dict:
     """The captured programs (``utils.graphs``): first calls (eager),
     captures and replays since the counts were last set to 0, and the
@@ -2551,6 +2729,8 @@ def phase5(device):
     fuse_cmp = graph_vs_eager(fuse, chunked_dist, runs=3, eager_runs=2)
     eval_cmp = graph_vs_eager(lambda: evaluate(res, CHUNK), eval_dist, runs=3, eager_runs=2)
     fuse_s, eval_s = fuse_cmp["graph_ms"] / 1e3, eval_cmp["graph_ms"] / 1e3
+    streams = {"chunked_fuse": stream_report("phase 5 chunked fusion", fuse),
+               "evaluate": stream_report("phase 5 chunked evaluation", lambda: evaluate(res, CHUNK))}
     stages = chunked_stage_split(st, sp, sq, gt, gp, gv, cfg, device)
 
     pos_err = float(np.abs(res.corrected_pos - ref_pos).max())
@@ -2570,7 +2750,7 @@ def phase5(device):
           "launches": launches,
           "chunked_fuse_warm_s": fuse_s, "poses_per_s": CHUNKED_N / fuse_s,
           "evaluate_warm_s": eval_s, "incore_fuse_first_s": incore_s,
-          "fuse_stage_ms": stages, "fuse_graphs_against_eager": fuse_cmp,
+          "fuse_stage_ms": stages, "streams": streams, "fuse_graphs_against_eager": fuse_cmp,
           "evaluate_graphs_against_eager": eval_cmp,
           "evaluate_k4_forced_replay": k4_replay, "evaluate_k4_forced_graphs_against_eager": grid_cmp,
           "max_memory_allocated_mb": {"chunked_fuse": fuse_peak / 2**20, "evaluate": eval_peak / 2**20},
@@ -2867,6 +3047,7 @@ def phase6_chunked(device):
     res, n_fuse = counted(fuse)
     fuse_cmp = graph_vs_eager(fuse, chunked_dist, runs=2, eager_runs=1)
     fuse_s = fuse_cmp["graph_ms"] / 1e3
+    stream = stream_report("phase 6 robust chunked fusion", fuse)
     # Two chunks: each gate pass and the final fusion take two quaternion chains.
     passes = n_fuse["scan_tiled/quat_chain"] // 2 - 1
     say(f"fuse_core_chunked(robust=True) at {CHUNKED_N} poses, {CHUNK}-pose chunks, float64, warm wall: "
@@ -2904,7 +3085,7 @@ def phase6_chunked(device):
           "gate_converged_in_core": bool(rres.gate_converged),
           "accepted": int(res.robust_accepted.sum()), "rejected": int((~res.robust_accepted & avail).sum()),
           "outliers_survived": survived, "robust_chunked_fuse_warm_s": fuse_s,
-          "robust_chunked_graphs_against_eager": fuse_cmp,
+          "robust_chunked_graphs_against_eager": fuse_cmp, "robust_chunked_stream": stream,
           "chunked_gate_pass_warm_s": pass_s,
           "chunked_vs_incore": {"same_mask": same_mask, "corrected_pos_max_err_m": pos_err,
                                 "corrected_quat_max_err": quat_err, "nis_max_rel_err": nis_rel},
@@ -3060,12 +3241,15 @@ def phase7_kitti(device):
 
     compare = graph_vs_eager(lambda: mesh.fuse_buckets(buckets, seeds, config=cfg, device=device, dtype=f64),
                              fusion_dist, runs=3)
+    stream = stream_report("phase 7 fuse_buckets", lambda: mesh.fuse_buckets(buckets, seeds, config=cfg,
+                                                                              device=device, dtype=f64))
     row_loop = [1e3 * timed_s(lambda: [o.corrected_pos.cpu() for o in loop()])[0] for _ in range(3)]
     emit({"phase": 7, "part": "kitti", "sequences": len(seqs), "poses": list(KITTI_LENGTHS), "dtype": "float64",
           "buckets": per_bucket, "row_vs_single_max_err_m": pos_err, "masks_equal": masks_equal,
           "evaluate_vs_single_max_rel_err": eval_err, "seq04_vs_golden_m": golden_err,
           "fuse_buckets_warm_ms": compare["graph_warm_ms"], "fuse_buckets_eager_warm_ms": compare["eager_warm_ms"],
-          "row_loop_warm_ms": row_loop, "graphs_against_eager": compare, "launches": total})
+          "row_loop_warm_ms": row_loop, "graphs_against_eager": compare, "fuse_buckets_stream": stream,
+          "launches": total})
     check_graph_gap("phase 7 kitti", compare["graph_vs_eager"], 1e-9)
     if len(buckets) != 3 or not ok:
         raise AssertionError(f"phase 7: {len(buckets)} buckets (3 expected) or a failed alignment")
@@ -4031,6 +4215,9 @@ def phase10(device):
     torch.cuda.reset_peak_memory_stats()
     timed_s(bucket_run)
     peak = torch.cuda.max_memory_allocated()
+    # ``fuse_buckets`` again, its programs warm: the stream of one bucket.
+    stream = stream_report("phase 10 fuse_buckets", lambda: mesh.fuse_buckets(
+        buckets, list(range(len(rows))), config=cfg, device=device, dtype=f64))
     command = phase10_command()
     # Two association orders of the same float64 scans at these rows'
     # hundreds of kilometres differ by a few ulps of the coordinates (2^-30 m
@@ -4049,7 +4236,7 @@ def phase10(device):
           "launches": launches, "single_row_launches": single_launches,
           "bucket_warm_ms": compare["graph_warm_ms"], "bucket_eager_warm_ms": compare["eager_warm_ms"],
           "row_loop_warm_ms": row_loop, "max_memory_allocated_mb": peak / 2**20, "profile": prof,
-          "graphs_against_eager": compare, "command": command})
+          "graphs_against_eager": compare, "fuse_buckets_stream": stream, "command": command})
     if not ok or not (pos_err <= tol_m and masks_equal and eval_err <= tol_m and buckets_err <= tol_m):
         raise AssertionError(f"phase 10: ok {ok}, rows {pos_err:.3e} m, masks {masks_equal}, evaluation "
                              f"{eval_err:.3e} m, fuse_buckets {buckets_err:.3e} m (bound {tol_m:.3e} m)")

@@ -54,7 +54,32 @@ class ChunkedFusionResult(NamedTuple):
 
 
 def _sim3_on(sim3: Sim3, dtype: torch.dtype, device: torch.device):
-    return tuple(torch.as_tensor(x).to(dtype=dtype, device=device) for x in (sim3.R, sim3.t, sim3.scale))
+    """(R, t, scale) on ``device`` in ``dtype``; host values are staged by
+    ``streaming.to_device``."""
+
+    def on(x):
+        x = torch.as_tensor(x)
+        if x.device.type == "cpu" and device.type != "cpu":
+            (x,) = streaming.to_device((x,), device)
+        return x.to(dtype=dtype, device=device)
+
+    return tuple(on(x) for x in (sim3.R, sim3.t, sim3.scale))
+
+
+def _stage_rows(arrays, a: int, b: int, rows: int, np_dt, device):
+    """Rows a..b of each host array (a NumPy array or memmap, or a
+    callable ``f(a, b)`` giving them) built in a ``streaming.host_buffer``
+    of ``rows`` rows of ``np_dt`` (bool for a mask), zero-padded, and copied
+    to ``device`` by ``streaming.to_device``."""
+    bufs = []
+    for src, dt in arrays:
+        x = src(a, b) if callable(src) else src[a:b]
+        buf = streaming.host_buffer((rows, *np.shape(x)[1:]), dt, device)
+        view = buf.numpy()
+        view[: b - a] = x
+        view[b - a :] = 0
+        bufs.append(buf)
+    return streaming.to_device(bufs, device)
 
 
 def transform_trajectory_chunked(
@@ -78,29 +103,17 @@ def transform_trajectory_chunked(
     out_quat = np.empty((n, 4), np_dt) if out_quat is None else out_quat
     R, t, s = _sim3_on(sim3, dtype, device)
 
-    def _stage(ab):
+    def _drain(ab, fetched):
         a, b = ab
-        return tuple(torch.as_tensor(np.asarray(x[a:b], np_dt), device=device) for x in (slam_pos, slam_quat))
-
-    def _drain(ab, pq):
-        a, b = ab
-        out_pos[a:b] = pq[0].cpu().numpy()
-        out_quat[a:b] = pq[1].cpu().numpy()
+        out_pos[a:b], out_quat[a:b] = fetched.numpy()
 
     streaming.stream_chunks(
         ((a, min(a + chunk_size, n)) for a in range(0, n, chunk_size)),
-        _stage,
-        lambda ab, staged: graphs.run(se3.transform_trajectory, *staged, R, t, s),
+        lambda ab: _stage_rows(((slam_pos, np_dt), (slam_quat, np_dt)), *ab, ab[1] - ab[0], np_dt, device),
+        lambda ab, staged: streaming.fetch(graphs.run(se3.transform_trajectory, *staged, R, t, s)),
         _drain,
     )
     return out_pos, out_quat
-
-
-def _pad_rows(arr: np.ndarray, size: int) -> np.ndarray:
-    if arr.shape[0] == size:
-        return arr
-    pad = np.zeros((size - arr.shape[0],) + arr.shape[1:], arr.dtype)
-    return np.concatenate([arr, pad], axis=0)
 
 
 def _round_up8(x: int) -> int:
@@ -121,6 +134,7 @@ def nn_errors_streamed(
     traj_mask: np.ndarray,
     chunk_size: int = 65536,
     dtype: torch.dtype = torch.float64,
+    out: Optional[np.ndarray] = None,
     device=None,
 ) -> np.ndarray:
     """The reference NN metric (EKFGPSSLAM.py:1030-1031, quirk Q6) streamed
@@ -128,7 +142,8 @@ def nn_errors_streamed(
     candidate, with no (N, M) matrix and no full trajectory on the device.
     ``traj_chunk_fn(a, b)`` yields trajectory rows [a, b); candidates and
     masks are host arrays. Invalid points get +inf, as in
-    ``metrics.nn_errors``.
+    ``metrics.nn_errors``. Returns the (N,) distances: ``out`` when given
+    (a preallocated host buffer, a ``np.memmap`` too; every row is written).
 
     Blocks hold ``chunk_size`` queries and candidates on the card (the JAX
     package's accelerator branch, so its K3/K4 routing sees the same block
@@ -136,28 +151,21 @@ def nn_errors_streamed(
     materialises (block, block) distances."""
     device = resolve_device(device)
     np_dt = numpy_dtype(dtype)
-    out = np.full(n, np.inf, np_dt)
+    out = np.full(n, np.inf, np_dt) if out is None else out
     m = candidates.shape[0]
     blk = chunk_size if device.type != "cpu" else min(chunk_size, 4096)
     blk = min(blk, max(_round_up8(n), _round_up8(m)))
     cands_np = np.nan_to_num(np.asarray(candidates, np_dt), nan=0.0)
     for a in range(0, n, blk):
         b = min(a + blk, n)
-        traj_blk = _pad_rows(np.asarray(traj_chunk_fn(a, b), np_dt), blk)
-        tmask_blk = np.zeros(blk, bool)
-        tmask_blk[: b - a] = np.asarray(traj_mask[a:b], bool)
         running = torch.full((blk,), float("inf"), dtype=dtype, device=device)
-        tdev = torch.as_tensor(traj_blk, device=device)
-        tmdev = torch.as_tensor(tmask_blk, device=device)
+        tdev, tmdev = _stage_rows(((traj_chunk_fn, np_dt), (traj_mask, bool)), a, b, blk, np_dt, device)
 
         def _cstage(cd):
             c, d = cd
-            cmask_blk = np.zeros(blk, bool)
-            cmask_blk[: d - c] = np.asarray(cand_mask[c:d], bool)
-            if not cmask_blk.any():
+            if not np.asarray(cand_mask[c:d], bool).any():
                 return None
-            return (torch.as_tensor(_pad_rows(cands_np[c:d], blk), device=device),
-                    torch.as_tensor(cmask_blk, device=device))
+            return _stage_rows(((cands_np, np_dt), (cand_mask, bool)), c, d, blk, np_dt, device)
 
         def _claunch(cd, staged):
             nonlocal running
@@ -168,7 +176,7 @@ def nn_errors_streamed(
         streaming.stream_chunks(
             ((c, min(c + blk, m)) for c in range(0, m, blk)), _cstage, _claunch, None
         )
-        out[a:b] = running[: b - a].cpu().numpy()
+        out[a:b] = streaming.fetch((running[: b - a],)).numpy()[0]
     return out
 
 
@@ -260,15 +268,13 @@ def _evaluate_streamed(
     gate = np.asarray(valid, bool) & (st > st[0] + skip_seconds)
     R, t, s = _sim3_on(result.sim3, dtype, device)
 
-    def dev(x):
-        return torch.as_tensor(np.asarray(x, np_dt), device=device)
-
     def slam_chunk(a, b):
         return slam_pos[a:b]
 
     def sim3_chunk(a, b):
-        p, _ = graphs.run(se3.transform_trajectory, dev(slam_pos[a:b]), dev(slam_quat[a:b]), R, t, s)
-        return p.cpu().numpy()
+        staged = _stage_rows(((slam_pos, np_dt), (slam_quat, np_dt)), a, b, b - a, np_dt, device)
+        p, _ = graphs.run(se3.transform_trajectory, *staged, R, t, s)
+        return streaming.fetch((p,)).numpy()[0]
 
     def ekf_chunk(a, b):
         return result.corrected_pos[a:b]
@@ -283,16 +289,15 @@ def _evaluate_streamed(
         e = np.full(n, np.inf, np_dt)
 
         def _stage(ab):
-            a, b = ab
-            return dev(fn(a, b)), dev(ref_np[a:b]), torch.as_tensor(gate[a:b], device=device)
+            return _stage_rows(((fn, np_dt), (ref_np, np_dt), (gate, bool)), *ab, ab[1] - ab[0], np_dt, device)
 
-        def _drain(ab, out_blk):
-            e[ab[0] : ab[1]] = out_blk.cpu().numpy()
+        def _drain(ab, fetched):
+            e[ab[0] : ab[1]] = fetched.numpy()[0]
 
         streaming.stream_chunks(
             ((a, min(a + chunk_size, n)) for a in range(0, n, chunk_size)),
             _stage,
-            lambda ab, staged: graphs.run(metrics.paired_errors, *staged),
+            lambda ab, staged: streaming.fetch((graphs.run(metrics.paired_errors, *staged),)),
             _drain,
         )
         return _stats_host(e, gate)

@@ -385,7 +385,7 @@ def gated_availability_chunked(
     accepted[0] = bool(avail_eval[0])
 
     def dev(a):
-        return torch.as_tensor(np.asarray(a, np_dt), device=device)
+        return streaming.to_device((np.asarray(a, np_dt),), device)[0]
 
     params = ekf_params(ekf_cfg, dtype=dtype, device=device)
     Q_pos_diag = torch.diagonal(params.Q_per_sec)[:3]
@@ -404,13 +404,12 @@ def gated_availability_chunked(
         acc, nis, q_carry, elem_carry = kalman_chunked.run_chunk(
             _gate_chunk, *staged, gate_chi2, q_carry, elem_carry, Q_pos_diag, R_diag, scan_fn=scan_fn
         )
-        return acc, nis
+        lb = ab[1] - ab[0]
+        return streaming.fetch((acc[:lb], nis[:lb]))
 
-    def _drain(ab, launched):
+    def _drain(ab, fetched):
         a, b = ab
-        acc, nis = launched
-        accepted[a + 1 : b + 1] = acc[: b - a].cpu().numpy()
-        nis_all[a + 1 : b + 1] = nis[: b - a].cpu().numpy()
+        accepted[a + 1 : b + 1], nis_all[a + 1 : b + 1] = fetched.numpy()
 
     streaming.stream_chunks(kalman_chunked.forward_chunk_bounds(n, L), _stage, _launch, _drain)
     return accepted, nis_all

@@ -155,6 +155,9 @@ def align_gps_to_slam_chunked(
     chunk_size: int = 65536,
     halo: int = 64,
     dtype: torch.dtype = torch.float64,
+    out_aligned: Optional[np.ndarray] = None,
+    out_valid: Optional[np.ndarray] = None,
+    compact: Optional[CompactGPS] = None,
     device=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """``alignment.align_gps_to_slam`` for host-resident (memory-mappable)
@@ -162,19 +165,25 @@ def align_gps_to_slam_chunked(
     each evaluated against the GPS window covering its span plus a ``halo``
     of knots on each side (see the module docstring for why that is exact).
 
-    Returns host ``(aligned (N,3), valid (N,))``. Device residency is
-    O(chunk + window).
+    Returns host ``(aligned (N,3), valid (N,))``: ``out_aligned`` and
+    ``out_valid`` when given (preallocated host buffers, a ``np.memmap``
+    too). ``compact`` is the GNSS stream's ``compact_gps_host`` when the
+    caller has it already (the offset and gap threshold it was made with
+    are its own; the three GNSS arguments are then not read). Device
+    residency is O(chunk + window).
     """
     device = resolve_device(device)
     np_dt = numpy_dtype(dtype)
     n = len(slam_times)
-    t_c, p_c, ok_c = compact_gps_host(
-        gps_times, gps_positions, gps_valid, time_offset=time_offset,
-        gap_threshold=cfg.max_gps_gap_threshold, dtype=dtype,
-    )
+    if compact is None:
+        compact = compact_gps_host(
+            gps_times, gps_positions, gps_valid, time_offset=time_offset,
+            gap_threshold=cfg.max_gps_gap_threshold, dtype=dtype,
+        )
+    t_c, p_c, ok_c = compact
     m = len(t_c)
-    out_aligned = np.empty((n, 3), np_dt)
-    out_valid = np.empty(n, bool)
+    out_aligned = np.empty((n, 3), np_dt) if out_aligned is None else out_aligned
+    out_valid = np.empty(n, bool) if out_valid is None else out_valid
     if m == 0:
         out_aligned[:] = np.nan
         out_valid[:] = False
@@ -199,26 +208,28 @@ def align_gps_to_slam_chunked(
         a, b, lo, hi = item
         hi = min(max(hi, lo + w), m)
         lo = max(hi - w, 0)
-        st = np.full(nc, np.inf, np_dt)
-        st[: b - a] = np.asarray(slam_times[a:b], np_dt)
-        wt = np.full(w, np.inf, np_dt)
-        wp = np.zeros((w, 3), np_dt)
-        wo = np.zeros(w, bool)
-        wt[: hi - lo] = t_c[lo:hi]
-        wp[: hi - lo] = p_c[lo:hi]
-        wo[: hi - lo] = ok_c[lo:hi]
+        k = hi - lo
+        bufs = [streaming.host_buffer(shape, dt, device)
+                for shape, dt in (((nc,), np_dt), ((w,), np_dt), ((w, 3), np_dt), ((w,), bool))]
+        st, wt, wp, wo = (x.numpy() for x in bufs)
+        st[: b - a] = slam_times[a:b]
+        st[b - a :] = np.inf
+        wt[:k], wt[k:] = t_c[lo:hi], np.inf
+        wp[:k], wp[k:] = p_c[lo:hi], 0.0
+        wo[:k], wo[k:] = ok_c[lo:hi], False
         # A SLAM timestamp earlier than the window's first knot is marked
         # invalid by the alignment (slam_times >= t[0]), which is also
         # globally right since lo > 0 implies t_c[lo] <= ta.
-        return tuple(torch.as_tensor(x, device=device) for x in (st, wt, wp, wo))
+        return streaming.to_device(bufs, device)
 
     def _launch(item, staged):
-        return graphs.run(_align_chunk, *staged, cfg)
+        aligned, valid = graphs.run(_align_chunk, *staged, cfg)
+        k = item[1] - item[0]
+        return streaming.fetch((aligned[:k], valid[:k]))
 
-    def _drain(item, out):
+    def _drain(item, fetched):
         a, b = item[0], item[1]
-        out_aligned[a:b] = out[0][: b - a].cpu().numpy()
-        out_valid[a:b] = out[1][: b - a].cpu().numpy()
+        out_aligned[a:b], out_valid[a:b] = fetched.numpy()
 
     streaming.stream_chunks(bounds, _stage, _launch, _drain)
     return out_aligned, out_valid
@@ -328,12 +339,12 @@ def sim3_ransac_streaming(
         return StreamingSim3Result(
             sim3=Sim3(R=eye, t=torch.zeros(3, dtype=dtype, device=device),
                       scale=torch.ones((), dtype=dtype, device=device),
-                      ok=torch.tensor(False, device=device)),
+                      ok=torch.zeros((), dtype=torch.bool, device=device)),
             num_inliers=0, num_window=n_win, subsampled=False,
         )
 
     def dev(a, dt=dtype):
-        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+        return streaming.to_device((np.asarray(a),), device)[0].to(dt)
 
     subsampled = n_win > max_ransac_points
     sub = idx[:: -(-n_win // max_ransac_points)] if subsampled else idx
@@ -352,29 +363,29 @@ def sim3_ransac_streaming(
            torch.zeros(3, dtype=f64, device=device)]
 
     def _stage(ci):
-        return dev(src_np[ci]), dev(dst_np[ci])
+        return tuple(x.to(dtype) for x in streaming.to_device((src_np[ci], dst_np[ci]), device))
 
     def _pass1(ci, staged):
         w, *sums = graphs.run(_moments_pass1, *staged, R, t, s, thr2, *acc)
         acc[:] = sums
-        return w
+        return streaming.fetch((w,))
 
     streaming.stream_chunks(
         (idx[a : a + chunk_size] for a in range(0, n_win, chunk_size)),
-        _stage, _pass1, lambda ci, w: chunks.append((ci, w.cpu().numpy())),
+        _stage, _pass1, lambda ci, fetched: chunks.append((ci, fetched.numpy()[0])),
     )
     wsum = acc[0]
     n_inl = int(wsum)
     if n_inl < cfg.min_inliers_needed:
         return StreamingSim3Result(
-            sim3=Sim3(R=R, t=t, scale=s, ok=torch.tensor(False, device=device)),
+            sim3=Sim3(R=R, t=t, scale=s, ok=torch.zeros((), dtype=torch.bool, device=device)),
             num_inliers=n_inl, num_window=n_win, subsampled=True,
         )
     acc2 = [torch.zeros((3, 3), dtype=f64, device=device), torch.zeros((), dtype=f64, device=device)]
 
     def _stage2(cw):
         ci, w = cw
-        return dev(src_np[ci], f64), dev(dst_np[ci], f64), dev(w, f64)
+        return tuple(x.to(f64) for x in streaming.to_device((src_np[ci], dst_np[ci], w), device))
 
     def _pass2(cw, staged):
         acc2[:] = graphs.run(_moments_pass2, *staged, *acc, *acc2)
@@ -384,6 +395,6 @@ def sim3_ransac_streaming(
     ok = bool(refit.ok) and n_inl >= cfg.min_inliers_needed
     return StreamingSim3Result(
         sim3=Sim3(R=refit.R.to(dtype), t=refit.t.to(dtype), scale=refit.scale.to(dtype),
-                  ok=torch.tensor(ok, device=device)),
+                  ok=torch.full((), ok, dtype=torch.bool, device=device)),
         num_inliers=n_inl, num_window=n_win, subsampled=True,
     )

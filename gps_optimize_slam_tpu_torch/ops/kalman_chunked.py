@@ -18,10 +18,12 @@ scans run over chunk_size + 1 elements and go through ``ops.scan``: K1 on
 the card up to 65,536 elements, K2 (the tiled scan) beyond, which is every
 chunk of the default 262,144 poses.
 
-The host loop streams chunk inputs (NumPy arrays or memmaps) with
-``torch.as_tensor(..., device=device)`` and writes outputs into host NumPy
-arrays: device residency is O(chunk), host residency O(N). Control signals (outage runs, recovery analysis, RTS membership) are
-recomputed in NumPy (``controls_numpy``). Matches
+The host loop builds each chunk's padded inputs (from NumPy arrays or
+memmaps) in pinned host buffers, copies them with ``utils.streaming.to_device``
+and reads the outputs back with ``utils.streaming.fetch`` into host NumPy
+arrays: device residency is O(chunk), host residency O(N). Control signals
+(outage runs, recovery analysis, RTS membership) are recomputed in NumPy
+(``controls_numpy``). Matches
 ``kalman_parallel.fuse_ekf_rts_parallel`` (same element algebra, same
 combine order); hard updates only (transition steps ≡ 0).
 
@@ -34,7 +36,8 @@ On a card each chunk body (``forward_chunk``, ``_backward_chunk``) is a
 captured program (``utils.graphs``, :func:`run_chunk`), as the JAX package
 jits one program a chunk body: every chunk is padded to the chunk shape, so
 the second chunk of a run captures and the others replay. The carries go
-in and come out as tensors; the host staging and the read-back stay.
+in and come out as tensors; the host staging and the read-back stay,
+overlapping the chunks' device work (``utils.streaming``).
 """
 
 from __future__ import annotations
@@ -158,24 +161,30 @@ def forward_chunk_bounds(n: int, chunk_size: int):
 
 def stage_forward_chunk(ab, chunk_size, np_dt, device, slam_times, slam_pos, slam_quat, aligned_gps, *masks):
     """Host prep + transfer of one forward chunk: poses a..b, the
-    measurements and the per-step ``masks`` of poses a+1..b. The last chunk
-    is padded to the fixed chunk shape with repeats (zero motion, masks
-    False: inert steps whose outputs are discarded; the carries are unused
-    after the final chunk)."""
+    measurements and the per-step ``masks`` of poses a+1..b, built in
+    ``streaming.host_buffer``s (pinned on a card) and copied by
+    ``streaming.to_device``. The last chunk is padded to the fixed chunk
+    shape with repeats (zero motion, masks False: inert steps whose outputs
+    are discarded; the carries are unused after the final chunk)."""
     a, b = ab
-    sl_t = np.asarray(slam_times[a : b + 1], np_dt)
-    sl_p = np.asarray(slam_pos[a : b + 1], np_dt)
-    sl_q = np.asarray(slam_quat[a : b + 1], np_dt)
-    z = np.asarray(aligned_gps[a + 1 : b + 1], np_dt)
-    masks = [np.asarray(m[a + 1 : b + 1], bool) for m in masks]
-    padp = chunk_size - (b - a)
-    if padp > 0:
-        sl_t = np.concatenate([sl_t, sl_t[-1] + 1e-3 * np.arange(1, padp + 1)])
-        sl_p = np.concatenate([sl_p, np.repeat(sl_p[-1:], padp, 0)])
-        sl_q = np.concatenate([sl_q, np.repeat(sl_q[-1:], padp, 0)])
-        z = np.concatenate([z, np.zeros((padp, 3), np_dt)])
-        masks = [np.concatenate([m, np.zeros(padp, bool)]) for m in masks]
-    return tuple(torch.as_tensor(x, device=device) for x in (sl_t, sl_p, sl_q, z, *masks))
+    n = b - a
+    bufs = [streaming.host_buffer(shape, dt, device) for shape, dt in (
+        ((chunk_size + 1,), np_dt), ((chunk_size + 1, 3), np_dt), ((chunk_size + 1, 4), np_dt),
+        ((chunk_size, 3), np_dt), *(((chunk_size,), bool) for _ in masks))]
+    t, p, q, z, *ms = (x.numpy() for x in bufs)
+    t[: n + 1] = slam_times[a : b + 1]
+    p[: n + 1] = slam_pos[a : b + 1]
+    q[: n + 1] = slam_quat[a : b + 1]
+    z[:n] = aligned_gps[a + 1 : b + 1]
+    for m, src in zip(ms, masks):
+        m[:n] = np.asarray(src[a + 1 : b + 1], bool)
+        m[n:] = False
+    if n < chunk_size:
+        t[n + 1 :] = t[n] + 1e-3 * np.arange(1, chunk_size - n + 1)
+        p[n + 1 :] = p[n]
+        q[n + 1 :] = q[n]
+        z[n:] = 0.0
+    return streaming.to_device(bufs, device)
 
 
 def _backward_chunk(m_f, P_f6, d, Qd_diag, interior, carry_M, carry_c, scan_fn: Optional[ScanFn] = None):
@@ -246,7 +255,7 @@ def fuse_ekf_rts_chunked(
     Qd_all = np.empty((max(n - 1, 0), 3), np_dt)
 
     def dev(a):
-        return torch.as_tensor(a, device=device)
+        return streaming.to_device((a,), device)[0]
 
     params = ekf_params(ekf_cfg, dtype=dtype, device=device)
     Q_pos_diag = torch.diagonal(params.Q_per_sec)[:3]
@@ -274,12 +283,12 @@ def fuse_ekf_rts_chunked(
         qf, m_f, P_f6, d, Qd, elem_carry = run_chunk(forward_chunk, *staged, q_carry, elem_carry, Q_pos_diag,
                                                      R_diag, scan_fn=scan_fn)
         q_carry = qf[-1]
-        return qf[1:], m_f[1:], P_f6[1:], d, Qd
+        lb = ab[1] - ab[0]
+        return streaming.fetch((qf[1 : lb + 1], m_f[1 : lb + 1], P_f6[1 : lb + 1], d[:lb], Qd[:lb]))
 
-    def _fwd_drain(ab, launched):
+    def _fwd_drain(ab, fetched):
         a, b = ab
-        lb = b - a
-        qf, m_f, P_f6, d, Qd = (x[:lb].cpu().numpy() for x in launched)
+        qf, m_f, P_f6, d, Qd = fetched.numpy()
         out_quat[a + 1 : b + 1] = qf
         m_f_all[a + 1 : b + 1] = m_f
         P_f6_all[a + 1 : b + 1] = P_f6
@@ -298,33 +307,27 @@ def fuse_ekf_rts_chunked(
 
     def _bwd_stage(ab):
         a, b = ab
-        lb = b - a
-        m_f = m_f_all[a:b]
-        P_f6 = P_f6_all[a:b]
-        d = d_all[a:b]
-        Qd = Qd_all[a:b]
-        it = interior_steps[a:b]
-        if lb < L:
-            padp = L - lb
-            # Left-pad with inert steps (interior False, m_f = 0): non-interior
-            # elements are (M = 0, c = m_f) resets, so the pad rows give pad
-            # outputs that are discarded.
-            m_f = np.concatenate([np.zeros((padp, 3), np_dt), m_f])
-            P_f6 = np.concatenate([np.tile(np.asarray([1.0, 0, 0, 1.0, 0, 1.0], np_dt), (padp, 1)), P_f6])
-            d = np.concatenate([np.zeros((padp, 3), np_dt), d])
-            Qd = np.concatenate([np.ones((padp, 3), np_dt), Qd])
-            it = np.concatenate([np.zeros(padp, bool), it])
-        return tuple(dev(np.ascontiguousarray(x)) for x in (m_f, P_f6, d, Qd, it))
+        # Left-pad a short chunk with inert steps (interior False, m_f = 0):
+        # non-interior elements are (M = 0, c = m_f) resets, so the pad rows
+        # give pad outputs that are discarded.
+        padp = L - (b - a)
+        bufs = [streaming.host_buffer(shape, dt, device) for shape, dt in (
+            ((L, 3), np_dt), ((L, 6), np_dt), ((L, 3), np_dt), ((L, 3), np_dt), ((L,), bool))]
+        pads = (0.0, np.asarray([1.0, 0, 0, 1.0, 0, 1.0], np_dt), 0.0, 1.0, False)
+        for buf, pad, src in zip(bufs, pads, (m_f_all, P_f6_all, d_all, Qd_all, interior_steps)):
+            x = buf.numpy()
+            x[:padp] = pad
+            x[padp:] = src[a:b]
+        return streaming.to_device(bufs, device)
 
     def _bwd_launch(ab, staged):
         nonlocal carry_M, carry_c
         m_s, carry_M, carry_c = run_chunk(_backward_chunk, *staged, carry_M, carry_c, scan_fn=scan_fn)
-        return m_s
+        return streaming.fetch((m_s[L - (ab[1] - ab[0]) :],))
 
-    def _bwd_drain(ab, m_s):
+    def _bwd_drain(ab, fetched):
         a, b = ab
-        lb = b - a
-        m_s_all[a:b] = m_s[L - lb :].cpu().numpy()
+        m_s_all[a:b] = fetched.numpy()[0]
 
     streaming.stream_chunks(
         ((max(b - L, 0), b) for b in range(n - 1, 0, -L)), _bwd_stage, _bwd_launch, _bwd_drain

@@ -187,7 +187,7 @@ def estimate_offsets_batch(
             n_grid=n_grid)))[:b]
 
     def dev(a, dt=dtype):
-        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+        return streaming.to_device((np.asarray(a),), device)[0].to(dt)
 
     out = graphs.run(
         alignment.estimate_time_offset_xcorr_device,
@@ -195,7 +195,7 @@ def estimate_offsets_batch(
         slam_mask=dev(batch.slam_mask, torch.bool), gps_valid=dev(batch.gps_valid, torch.bool),
         max_lag_seconds=max_lag_seconds, n_grid=n_grid,
     )
-    return out.cpu().numpy()
+    return streaming.fetch((out,)).numpy()[0].copy()
 
 
 class StagedBatch(NamedTuple):
@@ -264,7 +264,7 @@ def stage_batch(
         )
 
     def dev(a, dt=dtype):
-        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+        return streaming.to_device((np.asarray(a),), device)[0].to(dt)
 
     args = (
         dev(batch.slam_times), dev(batch.slam_pos), dev(batch.slam_quat), dev(batch.gps_times),
@@ -339,10 +339,19 @@ def _fuse_sharded(sharded: ShardedBatch, config: FusionConfig, sim3_draws) -> fu
     )
 
 
-def _to_host(out: fusion.FusionOutputs) -> fusion.FusionOutputs:
-    """Every leaf of a fusion's outputs as a host NumPy array."""
-    d = {k: v.cpu().numpy() for k, v in out._asdict().items() if k != "sim3"}
-    return fusion.FusionOutputs(**d, sim3=Sim3(*(v.cpu().numpy() for v in out.sim3)))
+_LEAVES = tuple(k for k in fusion.FusionOutputs._fields if k != "sim3")
+
+
+def _fetch_outputs(out: fusion.FusionOutputs) -> streaming.Fetched:
+    """Every leaf of a fusion's outputs on its way to the host
+    (``streaming.fetch``; ``_host_outputs`` takes them)."""
+    return streaming.fetch([getattr(out, k) for k in _LEAVES] + list(out.sim3))
+
+
+def _host_outputs(fetched: streaming.Fetched) -> fusion.FusionOutputs:
+    """The fetched leaves as host ``FusionOutputs`` of NumPy arrays."""
+    leaves = fetched.numpy()
+    return fusion.FusionOutputs(**dict(zip(_LEAVES, leaves)), sim3=Sim3(*leaves[len(_LEAVES):]))
 
 
 def _sweep(pending, seeds, results, config, device, dtype, estimate_offsets, mesh=None, on_bucket=None) -> None:
@@ -358,19 +367,21 @@ def _sweep(pending, seeds, results, config, device, dtype, estimate_offsets, mes
         return stage_batch(b, seeds[idxs], device=device, dtype=dtype, time_offsets=toff, mesh=mesh)
 
     def _launch(jb, staged):
-        return fuse_batch(staged, config=config)
+        return _fetch_outputs(fuse_batch(staged, config=config))
 
-    def _drain(jb, out):
+    def _drain(jb, fetched):
         j, (idxs, b) = jb
-        host = _to_host(out)
+        host = _host_outputs(fetched)
         n_max = b.slam_times.shape[1]
         rows = []
         for row, i in enumerate(idxs):
             n = int(b.n_slam[row])
 
             def slice_leaf(x):
+                # A copy: the fetched leaves are pinned buffers, returned to
+                # the host allocator's pool once the bucket is drained.
                 x_row = x[row]
-                return x_row[:n] if x_row.ndim >= 1 and x_row.shape[0] == n_max else x_row
+                return (x_row[:n] if x_row.ndim >= 1 and x_row.shape[0] == n_max else x_row).copy()
 
             results[int(i)] = fusion.FusionOutputs(
                 **{k: slice_leaf(v) for k, v in host._asdict().items() if k != "sim3"},

@@ -50,6 +50,54 @@ def test_stream_chunks_keeps_the_naive_loop_order():
     assert calls == []
 
 
+def test_to_device_and_fetch_hand_cpu_arrays_through_unchanged():
+    """On the CPU ``to_device`` is ``torch.as_tensor`` (the same memory
+    where it can share), a ``host_buffer`` is an ordinary host tensor, and
+    ``fetch`` returns the tensors themselves, its ``numpy()`` their arrays
+    with nothing copied."""
+    rng = np.random.default_rng(0)
+    a, mask = rng.normal(size=(7, 3)), rng.uniform(size=7) > 0.5
+    buf = streaming.host_buffer((7, 3), np.float64, "cpu")
+    buf.numpy()[:] = a
+    assert not buf.is_pinned() and buf.dtype == torch.float64
+    ta, tm, tb = streaming.to_device((a, mask, buf), "cpu")
+    assert ta.data_ptr() == a.__array_interface__["data"][0] and tb is buf
+    np.testing.assert_array_equal(tm.numpy(), mask)
+    fetched = streaming.fetch((ta, tm))
+    assert fetched.ready is fetched.started is fetched.copied is None
+    assert fetched.nbytes == a.nbytes + mask.nbytes
+    got_a, got_m = fetched.numpy()
+    assert np.shares_memory(got_a, a) and np.array_equal(got_m, mask)
+
+
+def test_stream_chunks_order_with_staging_and_fetches():
+    """The callbacks as the chunked paths write them (``to_device`` in the
+    stage, ``fetch`` at the end of the launch, ``numpy()`` in the drain),
+    with fakes that log each call: launches and fetches in item order,
+    stage i+1 and launch i+1 before drain i, and every value through."""
+    log = []
+
+    def stage(i):
+        log.append(("stage", i))
+        return streaming.to_device((np.full(3, float(i)),), "cpu")
+
+    def launch(i, staged):
+        log.append(("launch", i))
+        out = streaming.fetch((staged[0] * 2,))
+        log.append(("fetch", i))
+        return out
+
+    def drain(i, fetched):
+        (x,) = fetched.numpy()
+        log.append(("drain", i, float(x[0])))
+
+    streaming.stream_chunks(range(4), stage, launch, drain)
+    assert log == [("stage", 0), ("launch", 0), ("fetch", 0), ("stage", 1)] + [
+        e for i in range(1, 4) for e in (("launch", i), ("fetch", i), ("stage", i + 1) if i < 3 else None,
+                                         ("drain", i - 1, 2.0 * (i - 1))) if e is not None
+    ] + [("drain", 3, 6.0)]
+
+
 def test_controls_numpy_matches_jax():
     t, pos, quat, gps_nan, valid = kalman_scenario(seed=5)
     for mode in ("outage", "full"):
@@ -99,6 +147,49 @@ def test_align_gps_to_slam_chunked_matches_jax(seed, chunk_size, halo):
     assert 0 < got_v.sum() < len(st)
     np.testing.assert_allclose(got_a[got_v], want_a[want_v], atol=1e-10, rtol=0)
     assert np.isnan(got_a[~got_v]).all()
+
+
+def test_align_gps_to_slam_chunked_writes_given_buffers_and_takes_a_compact_stream(tmp_path):
+    """``out_aligned``/``out_valid`` (memory-mapped ``.npy`` files) receive
+    the alignment and are what is returned; a precomputed ``CompactGPS``
+    (the JAX package's and the port's own) gives what the computed one
+    gives; all as JAX's with the same options."""
+    (st, _, _), (gt, gp, gv) = fusion_scenario(seed=0)
+    n = len(st)
+    cfg = FusionConfig().time_alignment
+
+    def buffers(tag):
+        return (np.lib.format.open_memmap(tmp_path / f"{tag}_aligned.npy", mode="w+", dtype=np.float64, shape=(n, 3)),
+                np.lib.format.open_memmap(tmp_path / f"{tag}_valid.npy", mode="w+", dtype=bool, shape=(n,)))
+
+    jcompact = jac.compact_gps_host(gt, gp, gv, time_offset=0.1)
+    jbuf = buffers("jax")
+    want_a, want_v = jac.align_gps_to_slam_chunked(st, gt, gp, gps_valid=gv, time_offset=0.1, chunk_size=128,
+                                                   halo=24, out_aligned=jbuf[0], out_valid=jbuf[1], compact=jcompact)
+    assert want_a is jbuf[0] and want_v is jbuf[1]
+    computed = alignment_chunked.align_gps_to_slam_chunked(st, gt, gp, gps_valid=gv, time_offset=0.1, cfg=cfg,
+                                                           chunk_size=128, halo=24, device="cpu")
+    compact = alignment_chunked.compact_gps_host(gt, gp, gv, time_offset=0.1)
+    for given in (compact, alignment_chunked.CompactGPS(*jcompact)):
+        out_a, out_v = buffers("port")
+        got_a, got_v = alignment_chunked.align_gps_to_slam_chunked(
+            st, None, None, cfg=cfg, chunk_size=128, halo=24, out_aligned=out_a, out_valid=out_v,
+            compact=given, device="cpu")
+        assert got_a is out_a and got_v is out_v
+        out_a.flush()
+        out_v.flush()
+        np.testing.assert_array_equal(np.load(tmp_path / "port_aligned.npy"), computed[0])
+        np.testing.assert_array_equal(np.load(tmp_path / "port_valid.npy"), computed[1])
+        np.testing.assert_array_equal(got_v, want_v)
+        assert 0 < got_v.sum() < n
+        np.testing.assert_allclose(got_a[got_v], want_a[want_v], atol=1e-10, rtol=0)
+        assert np.isnan(got_a[~got_v]).all()
+    # No usable fix: the given buffers are filled with NaN and False.
+    empty = alignment_chunked.CompactGPS(np.zeros(0), np.zeros((0, 3)), np.zeros(0, bool))
+    out_a, out_v = buffers("empty")
+    got_a, got_v = alignment_chunked.align_gps_to_slam_chunked(st, None, None, out_aligned=out_a, out_valid=out_v,
+                                                               compact=empty, device="cpu")
+    assert got_a is out_a and np.isnan(got_a).all() and not got_v.any()
 
 
 def test_compact_gps_host_matches_jax():

@@ -17,7 +17,8 @@ robust fusion, the ground-truth evaluation and the device offset estimator
 on the card against the same functions on CPU tensors: accept masks equal,
 positions ≤1e-6 m, statistics ≤1e-9 relative, offsets ≤1e-9 s; robust
 chunked against in-core on the card ≤1e-6 m, quaternions ≤1e-8, the
-bounds of the JAX package's own chunked tests.
+bounds of the JAX package's own chunked tests; the chunk streams
+(``utils.streaming``) replayed against eager dispatch bit for bit.
 """
 
 import os
@@ -1618,3 +1619,172 @@ def test_a_failed_capture_of_a_new_program_raises(cuda, monkeypatch):
     monkeypatch.undo()
     with graphs.eager():
         assert call().gate_converged
+
+
+# The chunk streams (``utils.streaming``): pinned staging on the card's
+# upload stream, read-back on its download stream after the chunk's own
+# event. A launch that holds the card (``torch.cuda._sleep``, ~0.1 s a
+# chunk) shows what each host call waits for.
+
+SLEEP_CYCLES = 200_000_000
+
+
+def test_drain_and_stage_return_while_a_chunk_runs(cuda):
+    """(a) ``drain(i-1)``'s ``numpy()`` returns while chunk i's work is not
+    done; (b) ``stage(i+1)`` (``to_device``) returns while chunk i runs;
+    every chunk's values come through, in order."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch.utils import streaming
+
+    handles, ran_during_stage, ran_during_drain, drained = [], [], [], []
+
+    def stage(i):
+        out = streaming.to_device((np.full(1000, float(i)),), cuda)
+        if handles:  # chunk i-1 was launched: is it still running?
+            ran_during_stage.append(not handles[-1].ready.query())
+        return out
+
+    def launch(i, staged):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        handles.append(streaming.fetch((staged[0] * 2,)))
+        return handles[-1]
+
+    def drain(i, fetched):
+        (x,) = fetched.numpy()
+        if i + 1 < len(handles):
+            ran_during_drain.append(not handles[i + 1].ready.query())
+        drained.append(float(x[0]))
+
+    torch.cuda.synchronize()
+    streaming.stream_chunks(range(4), stage, launch, drain)
+    torch.cuda.synchronize()
+    assert drained == [0.0, 2.0, 4.0, 6.0]
+    assert ran_during_stage == [True] * 3 and ran_during_drain == [True] * 3
+    # The download of chunk i-1 started before chunk i's work was done.
+    for prev, nxt in zip(handles, handles[1:]):
+        assert prev.started.elapsed_time(nxt.ready) > 0 and prev.copied.elapsed_time(nxt.ready) > 0
+
+
+def test_to_device_and_fetch_on_the_card(cuda):
+    """``to_device`` gives the values, dtypes and shapes of its host inputs
+    (a NumPy array, a non-contiguous view, a bool mask, a pinned
+    ``host_buffer``, a 0-d array); ``fetch`` of non-contiguous and bool
+    tensors gives ``.cpu()``'s values into pinned host tensors; a tensor
+    already on the card is refused."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch.utils import streaming
+
+    rng = np.random.default_rng(3)
+    a = rng.normal(size=(50, 6))
+    mask = rng.uniform(size=50) > 0.5
+    buf = streaming.host_buffer((50, 3), np.float32, cuda)
+    buf.numpy()[:] = a[:, :3]
+    assert buf.is_pinned()
+    inputs = (a, a[:, ::2], mask, buf, np.asarray(2.5))
+    got = streaming.to_device(inputs, cuda)
+    for g, x in zip(got, inputs):
+        x = x.numpy() if isinstance(x, torch.Tensor) else x
+        assert g.is_cuda and g.shape == x.shape and g.dtype == torch.from_numpy(np.asarray(x)).dtype
+        np.testing.assert_array_equal(g.cpu().numpy(), x)
+    t = got[0].T  # non-contiguous
+    fetched = streaming.fetch((t, got[2], got[4]))
+    assert all(h.is_pinned() for h in fetched.hosts) and fetched.nbytes == t.numel() * 8 + 50 + 8
+    for h, want in zip(fetched.numpy(), (t, got[2], got[4])):
+        np.testing.assert_array_equal(h, want.cpu().numpy())
+    with pytest.raises(ValueError, match="host data"):
+        streaming.to_device((got[0],), cuda)
+
+
+def chunked_stream_calls(device):
+    """The chunk streams of this slice at 70,000 poses, 16,384-pose chunks
+    (five chunks a stream) and a three-bucket sweep of replica sequences,
+    float64: callables of the chunked fusion, its evaluation, the robust
+    chunked fusion and ``fuse_buckets``."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion_chunked
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+
+    slam, gt, gps, _, _ = robust_case(70_000)
+    st, sp, sq = slam["timestamps"], slam["positions"], slam["quaternions"]
+    cfg = FusionConfig(gps_sorted=True)
+
+    def fuse(**kw):
+        return fusion_chunked.fuse_core_chunked(st, sp, sq, gt, gps.positions, gps.valid, config=cfg,
+                                                chunk_size=16_384, dtype=torch.float64, device=device, **kw)
+
+    res = fuse()
+    seqs = [chip_smoke.replica_sequence(n, seed=s) for n, s in ((1101, 1), (2801, 2), (1201, 3), (5001, 4))]
+    buckets = pbatch.bucket_by_length([s for s, _, _ in seqs], [t for _, t, _ in seqs], [p for _, _, p in seqs],
+                                      max_waste=1.5)
+    return {
+        "chunked_fuse": fuse,
+        "chunked_evaluate": lambda: fusion_chunked.evaluate_chunked(st, sp, sq, res, chunk_size=16_384,
+                                                                    dtype=torch.float64, device=device),
+        "chunked_robust": lambda: fuse(robust=True, robust_iterations=8),
+        "fuse_buckets": lambda: mesh.fuse_buckets(buckets, config=FusionConfig(), device=device,
+                                                  dtype=torch.float64),
+    }, len(buckets)
+
+
+@pytest.mark.parametrize("name", ["chunked_fuse", "chunked_evaluate", "chunked_robust", "fuse_buckets"])
+def test_chunk_streams_replayed_equal_eager_and_never_copy_pageable(cuda, name, monkeypatch):
+    """Each chunk stream, its programs replayed, equals the same call under
+    ``graphs.eager()`` bit for bit (the same kernels on the same inputs),
+    and the calls stage through ``to_device`` and read back through
+    ``fetch`` only: ``torch.as_tensor`` onto a card and ``Tensor.cpu`` of a
+    card's tensor raise inside them."""
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    calls, n_buckets = chunked_stream_calls(cuda)
+    assert n_buckets >= 2
+    call = calls[name]
+    with graphs.eager():
+        want = call()
+    real_as_tensor, real_cpu = torch.as_tensor, torch.Tensor.cpu
+
+    def as_tensor(data, *args, **kwargs):
+        device = kwargs.get("device", args[1] if len(args) > 1 else None)
+        if device is not None and torch.device(device).type == "cuda":
+            raise AssertionError("a pageable torch.as_tensor onto the card")
+        return real_as_tensor(data, *args, **kwargs)
+
+    def cpu(self, *args, **kwargs):
+        if self.is_cuda:
+            raise AssertionError("a .cpu() read-back on a chunk stream")
+        return real_cpu(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "as_tensor", as_tensor)
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    graphs.clear()
+    first, second, got = call(), call(), call()
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    for res in (first, second, got):
+        leaves_within(res, want, 0.0)
+
+
+def test_chunked_fusion_on_the_card_matches_in_core(cuda):
+    """The chunked fusion at 70,000 poses in 16,384-pose chunks against
+    ``fusion.fuse_core`` on the same arrays and seed on the card: ≤1e-6 m,
+    quaternions ≤1e-8, scale ≤1e-9 relative (the JAX package's bounds for
+    chunked against in-core)."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch.config import FusionConfig
+    from gps_optimize_slam_tpu_torch.models import fusion
+
+    calls, _ = chunked_stream_calls(cuda)
+    res = calls["chunked_fuse"]()
+    slam, gt, gps, _, _ = robust_case(70_000)
+    t = [torch.as_tensor(a, device=cuda) for a in (slam["timestamps"], slam["positions"], slam["quaternions"], gt,
+                                                  gps.positions, gps.valid)]
+    ref = fusion.fuse_core(*t, FusionConfig(gps_sorted=True), seed=0)
+    assert res.ok and bool(ref.ok)
+    assert np.abs(res.corrected_pos - ref.corrected_pos.cpu().numpy()).max() <= 1e-6
+    assert np.abs(res.corrected_quat - ref.corrected_quat.cpu().numpy()).max() <= 1e-8
+    assert abs(float(res.sim3.scale) - float(ref.sim3.scale)) <= 1e-9 * abs(float(ref.sim3.scale))

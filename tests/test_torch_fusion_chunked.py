@@ -120,6 +120,34 @@ def test_evaluate_chunked_matches_jax(jax_chunked):
             assert abs(float(getattr(g, stat)) - float(getattr(w, stat))) <= 1e-9, (part, stat)
 
 
+def test_nn_errors_streamed_writes_a_given_buffer_as_jax(jax_chunked, tmp_path):
+    """``out`` (a memory-mapped ``.npy`` file) receives the streamed NN
+    distances and is what is returned, as JAX's with ``out``: 131-row
+    blocks split the queries and candidates mid-gate with padded tails, an
+    unfilled buffer is written in every row (+inf for invalid points)."""
+    (st, sp, sq, *_), _, jres, _ = jax_chunked
+    n = len(st)
+    gate = np.asarray(jres.gps_valid, bool) & (st > st[0] + 5.0)
+    cands = np.asarray(jres.aligned_gps)
+
+    def traj(a, b):
+        return np.asarray(jres.corrected_pos)[a:b]
+
+    jout = np.lib.format.open_memmap(tmp_path / "jax.npy", mode="w+", dtype=np.float64, shape=(n,))
+    want = jfc.nn_errors_streamed(traj, n, cands, gate, gate, chunk_size=131, out=jout)
+    out = np.lib.format.open_memmap(tmp_path / "port.npy", mode="w+", dtype=np.float64, shape=(n,))
+    out[:] = np.nan  # every row is written
+    got = fusion_chunked.nn_errors_streamed(traj, n, cands, gate, gate, chunk_size=131, out=out, device="cpu")
+    assert got is out and want is jout
+    out.flush()
+    back = np.load(tmp_path / "port.npy")
+    np.testing.assert_array_equal(back, got)
+    assert np.isinf(back[~gate]).all() and np.isfinite(back[gate]).all()
+    np.testing.assert_allclose(back[gate], np.asarray(want)[gate], atol=1e-12, rtol=0)
+    np.testing.assert_array_equal(back, fusion_chunked.nn_errors_streamed(traj, n, cands, gate, gate,
+                                                                          chunk_size=131, device="cpu"))
+
+
 @pytest.mark.parametrize("rts_mode", ["outage", "full"])
 def test_fuse_core_chunked_matches_the_in_core_port(rts_mode):
     (st, sp, sq), (gt, gp, gv) = _scenario(seed=1)

@@ -272,16 +272,19 @@ def test_nn_blocks_equal_the_running_minimum_closure(monkeypatch):
     got = fusion_chunked.nn_errors_streamed(lambda a, b: traj[a:b], 300, cands, cmask, tmask, chunk_size=128,
                                             device="cpu")
     assert len(set(keys_of(calls, "_nn_block"))) == 1 and len(keys_of(calls, "_nn_block")) == 3 * 6
+    def pad_rows(x, size):
+        return np.concatenate([x, np.zeros((size - len(x), 3))])
+
     want = np.full(300, np.inf)
     for a in range(0, 300, 128):
-        q = fusion_chunked._pad_rows(traj[a : a + 128], 128)
+        q = pad_rows(traj[a : a + 128], 128)
         qm = np.zeros(128, bool)
         qm[: len(traj[a : a + 128])] = tmask[a : a + 128]
         running = torch.full((128,), float("inf"), dtype=torch.float64)
         for c in range(0, 700, 128):
             cm = np.zeros(128, bool)
             cm[: len(cands[c : c + 128])] = cmask[c : c + 128]
-            e = metrics.nn_errors_auto(torch.tensor(q), torch.tensor(fusion_chunked._pad_rows(cands[c : c + 128], 128)),
+            e = metrics.nn_errors_auto(torch.tensor(q), torch.tensor(pad_rows(cands[c : c + 128], 128)),
                                        torch.tensor(qm), torch.tensor(cm))
             running = torch.minimum(running, e)
         want[a : a + 128] = running[: len(traj[a : a + 128])].numpy()
