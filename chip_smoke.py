@@ -1314,7 +1314,9 @@ def phase1_routes(device, gen):
     plain version) for every combine in both dtypes at ``ROUTE_LENGTHS``
     and at the last length within the JAX package's 4 MiB budget, with the
     library call where there is one, and K1's batch grid against K2's at
-    ``ROUTE_BATCHES`` (``scan.scan_route`` is set from these times)."""
+    ``ROUTE_BATCHES`` (``scan.scan_route``'s single-row rule is set from
+    these times, its batch rule from ``tools/scan_launch_compare.py
+    --kernel k2 --route``)."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import scan
@@ -1352,7 +1354,7 @@ def phase1_routes(device, gen):
             batches[f"{op}/float64/{b}x{n}"] = {
                 "k1_ms": cuda_ms(lambda: scan.scan_block(op, x, rev), reps=5),
                 "k2_ms": cuda_ms(lambda: scan.scan_tiled(op, x, rev), reps=5),
-                "route": scan.scan_route(x.shape[0], n, x.element_size(), b)}
+                "route": scan.scan_route(x.shape[0], n, x.element_size(), b, op)}
             del x, k1, k2
         torch.cuda.empty_cache()
     emit({"phase": 1, "routes": "scan@batch", "times": batches})
@@ -1754,6 +1756,7 @@ def phase1_batched_nn(device, gen):
 # blocks), and four rows of 20,001 (fewer tiles in all than blocks).
 TILED_BATCH = (CHUNK + 1, 393_217, 300_001, 20_001)
 TILED_BATCH_FEW = (20_001,) * 4
+FUSE_BATCH = (70_001,) * 2  # the fuse-batch command's two logs of 70,000 poses (phase 10), a scan row each
 EXACT_COMBINES = ("add2", "max3", "min3")  # add2 on 0/1 counts: every sum exact
 
 
@@ -1771,22 +1774,61 @@ def identity_padded_rows(op: str, ns, gen, dtype, device):
     return torch.stack(rows, 1).contiguous()
 
 
+TILED_GRID_RE = r"tiled_grid_kernelINS_\d+(\w+?)I([fd])EE[fd]NS_\d+GridOfIS\d+_[fd]EEEE"
+
+
+def tiled_grid_layouts() -> dict:
+    """{"op/dtype": layout} of K2's batch grid on this card
+    (``scan.tiled_grid_layout``: compute warps, items a thread, stages,
+    tile, blocks an SM, shared-memory bytes), each with the registers and
+    spill bytes of its instantiation (nvcc's ``-Xptxas -v``; none where an
+    up-to-date library was found)."""
+    import re
+
+    import torch
+
+    from gps_optimize_slam_tpu_torch.ops import _build, scan
+
+    _build.library()  # the log is the build's
+    regs, key = {}, None
+    for line in _build.BUILD_INFO.get("log", "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(TILED_GRID_RE, line)
+            key = (f"{SCAN_COMBINES[m.group(1)]}/{'float32' if m.group(2) == 'f' else 'float64'}"
+                   if m and m.group(1) in SCAN_COMBINES else None)
+        elif key and (m := re.search(r"(\d+) bytes spill stores", line)):
+            regs.setdefault(key, [None, 0])[1] = int(m.group(1))
+        elif key and (m := re.search(r"Used (\d+) registers", line)):
+            regs.setdefault(key, [None, 0])[0] = int(m.group(1))
+    out = {}
+    for op in scan.OPS:
+        for dtype in (torch.float32, torch.float64):
+            key = f"{op}/{dtype_name(dtype)}"
+            out[key] = {**scan.tiled_grid_layout(op, dtype), "registers_and_spills": regs.get(key)}
+    return out
+
+
 def phase1_batched_tiled_scan(device, gen):
     """K2's batch grid, every combine in the directions the main path scans
-    it, float64: ``TILED_BATCH`` and ``TILED_BATCH_FEW``, one launch each,
-    against the batched plain ladder and, row by row, against K2 on that
-    row alone (and, forward, on its real elements alone), bit for bit where
-    the combine is exact and to TOL elsewhere. Times at ``TILED_BATCH``
-    beside K1's batch grid on the same leaves, with the bound over all rows
-    and the library call where there is one."""
+    it, float64: ``TILED_BATCH``, ``TILED_BATCH_FEW`` and ``FUSE_BATCH``
+    (the fuse-batch command's two logs), one launch each, against the
+    batched plain ladder and, row by row, against K2 on that row alone
+    (and, forward, on its real elements alone): bit for bit where the
+    combine is exact (add2 on counts, max3, min3), to TOL elsewhere, since
+    a row alone takes the single-row kernel's tile and the batch grid its
+    own. The grid's layout a combine and dtype (``tiled_grid_layouts``) on a
+    line before. Times at ``TILED_BATCH`` beside K1's batch grid on the same
+    leaves, with the bound over all rows and the library call where there
+    is one; the device times at ``FUSE_BATCH`` beside K1's."""
     import torch
 
     from gps_optimize_slam_tpu_torch.ops import scan
 
+    emit({"phase": 1, "kernel": "scan_tiled@batch", "grid_layouts": tiled_grid_layouts()})
     entries = []
     for op in scan.OPS:
         worst = 0.0
-        for ns in (TILED_BATCH, TILED_BATCH_FEW):
+        for ns in (TILED_BATCH, TILED_BATCH_FEW, FUSE_BATCH):
             x = identity_padded_rows(op, ns, gen, torch.float64, device)
             for rev in directions(op):
                 got = scan.scan_tiled(op, x, rev)
@@ -1807,6 +1849,11 @@ def phase1_batched_tiled_scan(device, gen):
                 worst = max(worst, err)
                 if ns == TILED_BATCH and rev == REVERSE_OF.get(op, False):
                     timed = (x, rev, abs_err(got, want))
+                if ns == FUSE_BATCH and rev == REVERSE_OF.get(op, False):
+                    fuse = {"device_ms": device_ms(lambda: scan.scan_tiled(op, x, rev)),
+                            "k1_batch_device_ms": device_ms(lambda: scan.scan_block(op, x, rev)),
+                            "bound": scan_bound(op, x),
+                            "route": scan.scan_route(x.shape[0], x.shape[-1], x.element_size(), x.shape[1], op)}
                 del got, want
         x, rev, aerr = timed
         ms = cuda_ms(lambda: scan.scan_tiled(op, x, rev))
@@ -1815,12 +1862,12 @@ def phase1_batched_tiled_scan(device, gen):
         dev = device_ms(lambda: scan.scan_tiled(op, x, rev))
         lib_dev = library_device_ms(op, x, rev)
         emit({"phase": 1, "kernel": f"scan_tiled/{op}@batch", "rel_err": worst, "rows": list(TILED_BATCH),
-              "rows_few_tiles": list(TILED_BATCH_FEW), "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-              "library_device_ms": lib_dev,
+              "rows_few_tiles": list(TILED_BATCH_FEW), "rows_fuse_batch": list(FUSE_BATCH), "ms": ms,
+              "plain_ms": plain_ms, "library_ms": lib_ms, "library_device_ms": lib_dev,
               "device_ms": dev, "k1_batch_ms": cuda_ms(lambda: scan.scan_block(op, x, rev)),
               "k1_batch_device_ms": device_ms(lambda: scan.scan_block(op, x, rev)),
-              "route": scan.scan_route(x.shape[0], x.shape[-1], x.element_size(), x.shape[1]),
-              "shape": list(x.shape), "dtype": "float64"})
+              "route": scan.scan_route(x.shape[0], x.shape[-1], x.element_size(), x.shape[1], op),
+              "fuse_batch": fuse, "shape": list(x.shape), "dtype": "float64"})
         entries.append(kernel_entry(f"scan_tiled/{op}@batch", "scan_tiled.cu", "pallas_scan.py:361", "float64",
                                     aerr, ms, plain_ms, scan_bound(op, x), lib_ms, dev, lib_dev))
         del x
@@ -3940,7 +3987,7 @@ def phase9(device):
 
 
 LONG_LOG_SHIFT_S = 86_400.0  # each long log a day after the one before
-COMMAND_LOG_POSES = 70_000  # the fuse-batch subprocess's two logs: past K1's route
+COMMAND_LOG_POSES = 70_000  # the fuse-batch subprocess's two logs: rows past K1's single-row route
 
 
 def long_logs():
@@ -3979,8 +4026,8 @@ def write_replica_files(tmp: str, name: str, n: int, seed: int):
 
 def phase10_command():
     """``fuse-batch --json`` as a subprocess on two TUM/GNSS file pairs of
-    ``COMMAND_LOG_POSES`` poses (one bucket of two rows past K1's route and
-    within ``BATCH_TILED_MAX_ELEMENTS``: K2's batch grid by the route); a
+    ``COMMAND_LOG_POSES`` poses (one bucket of two rows of 70,000: K1's
+    batch grid by the route, where it measured faster than K2's); a
     non-zero exit, other keys or a malformed output fail."""
     with tempfile.TemporaryDirectory() as tmp:
         pairs = [write_replica_files(tmp, f"log{i}", COMMAND_LOG_POSES, seed=500 + i) for i in range(2)]
@@ -4022,13 +4069,14 @@ def recording(module, name: str, calls: list):
         setattr(module, name, real)
 
 
-def phase10_kernels(nn_args, scan_calls, count_args) -> dict:
+def phase10_kernels(nn_args, scan_calls, count_args, tiled_calls) -> dict:
     """The kernels at the long-log bucket's own shapes (not counted, not
     captured): K3's batch grid and the keep lists on the operands of the
     evaluation's first NN call (the coherent ``outage_sequence`` replicas),
     with their kept tile pairs, K3's block size, bounds and the plain
-    version's time and error on every 64th query; K1's batch grid on
-    the first leaves of each combine the routed fusion scanned, with the
+    version's time and error on every 64th query; K1's and K2's batch
+    grids on the first leaves of each combine the routed fusion scanned on
+    them (``scan_calls``, ``tiled_calls``), K1's beside K2's, with the
     library call where there is one; and K5's batch grid on the fusion's
     own operands (each row's Sim(3) window mask, 1000 trials a row), its
     counts equal to the plain ones, each row's valid share, the pairs
@@ -4085,22 +4133,30 @@ def phase10_kernels(nn_args, scan_calls, count_args) -> dict:
         "plain_ms": cuda_ms(lambda: plain_keep_lists(traj, cand, mask), reps=2),
         "bound": keep_bound(traj, cand, mask, nkept, cand3)}
     del operands, order, nkept, cand3, got, want
-    firsts = {}
-    for op, x, reverse in scan_calls:
-        firsts.setdefault(op, (x, reverse))
-    for op, (x, reverse) in firsts.items():
-        want = scan.scan_plain(op, x, reverse)
-        out[f"scan_block/{op}@batch"] = {
-            "shape": list(x.shape), "reverse": reverse,
-            "tile": scan.block_tile(op, x.dtype, x.shape[-1], x.shape[1]),
-            "cluster": scan.block_cluster(op, x.dtype, x.shape[-1], x.shape[1]),
-            "rel_err": rel_err(scan.scan_block(op, x, reverse).reshape(-1, x.shape[-1]),
-                               want.reshape(-1, x.shape[-1])),
-            "ms": cuda_ms(lambda: scan.scan_block(op, x, reverse)),
-            "launch_device_ms": launch_device_ms(lambda: scan.scan_block(op, x, reverse), "scan_kernel"),
-            "plain_ms": cuda_ms(lambda: scan.scan_plain(op, x, reverse), reps=2),
-            "library_ms": scan_library_ms(op, x, reverse), "bound": scan_bound(op, x)}
-        del want
+    for name, calls in (("scan_block", scan_calls), ("scan_tiled", tiled_calls)):
+        firsts = {}
+        for op, x, reverse in calls:
+            firsts.setdefault(op, (x, reverse))
+        for op, (x, reverse) in firsts.items():
+            want = scan.scan_plain(op, x, reverse)
+            wrapper = getattr(scan, name)
+            entry = {
+                "shape": list(x.shape), "reverse": reverse,
+                "rel_err": rel_err(wrapper(op, x, reverse).reshape(-1, x.shape[-1]), want.reshape(-1, x.shape[-1])),
+                "ms": cuda_ms(lambda: wrapper(op, x, reverse)),
+                "launch_device_ms": launch_device_ms(lambda: wrapper(op, x, reverse),
+                                                     "scan_kernel" if name == "scan_block" else "tiled_"),
+                "plain_ms": cuda_ms(lambda: scan.scan_plain(op, x, reverse), reps=2),
+                "library_ms": scan_library_ms(op, x, reverse), "bound": scan_bound(op, x)}
+            if name == "scan_block":
+                entry.update(tile=scan.block_tile(op, x.dtype, x.shape[-1], x.shape[1]),
+                             cluster=scan.block_cluster(op, x.dtype, x.shape[-1], x.shape[1]))
+            else:  # K1's batch grid beside it, on the same leaves
+                entry.update(tile=scan.tiled_tile(op, x.dtype, x.shape[1]),
+                             k1_launch_device_ms=launch_device_ms(lambda: scan.scan_block(op, x, reverse),
+                                                                  "scan_kernel"))
+            out[f"{name}/{op}@batch"] = entry
+            del want
     torch.cuda.empty_cache()
     return {**count_out, **out}
 
@@ -4110,7 +4166,8 @@ def phase10(device):
     ``LONG_LOG_LENGTHS`` poses (``long_logs``), one bucket under
     ``bucket_by_length(max_waste=2.0)``. The counted main path is
     ``mesh.fuse_batch`` + ``evaluate_batch`` on the kernels the routes pick
-    (the scans K1's batch grid at this size, the NN calls K3's), then the
+    (the scans K2's batch grid for rts, mobius and affine3 at this size and
+    K1's for the rest, the NN calls K3's), then the
     evaluation once more with its NN calls forced onto K4
     (``forced_route``), held bit for bit to the routed one, and the
     fusion once more with every scan forced onto K2's batch grid
@@ -4157,7 +4214,8 @@ def phase10(device):
                                cfg.replace(gps_sorted=True), seed=i)
         return out, fusion.evaluate(dev(s["timestamps"]), dev(s["positions"]), out)
 
-    routes = {"scan": scan.scan_route(27, n_pad, 8, B), "nn": kernels.nn_route(n_pad, n_pad, B)}
+    routes = {"scan": {op: scan.scan_route(len(scan.OPS[op][2]), n_pad, 8, B, op) for op in scan.OPS},
+              "nn": kernels.nn_route(n_pad, n_pad, B)}
     # The main path: its counts are set to 0 just before it and read just
     # after. The fusion and evaluation on the kernels the routes pick, then
     # the evaluation with the NN calls forced onto K4 and the fusion with
@@ -4252,7 +4310,7 @@ def phase10(device):
     per_fusion.update(affine3=2, max3=2, min3=2)
     want = {f"scan_tiled/{op}": c for op, c in per_fusion.items()}
     for op, c in per_fusion.items():
-        key = f"scan_{routes['scan']}/{op}"
+        key = f"scan_{routes['scan'][op]}/{op}"
         want[key] = want.get(key, 0) + c
     want.update({"nn_keep": 6, f"nn_{routes['nn']}": 3, "ransac_counts": 2})
     want["nn_grid"] = want.get("nn_grid", 0) + 3
@@ -4266,12 +4324,13 @@ def phase10(device):
                              f"expected {want_alone} (routes {routes})")
     # The kernels at this bucket's own shapes, on the inputs an eager run of
     # the routed fusion and evaluation hands them (after the counted runs).
-    nn_calls, scan_calls, count_calls = [], [], []
+    nn_calls, scan_calls, tiled_calls, count_calls = [], [], [], []
     with recording(kernels, "nn_resident", nn_calls), recording(scan, "scan_block", scan_calls), \
-            recording(ransac, "ransac_counts", count_calls), graphs.eager():
+            recording(scan, "scan_tiled", tiled_calls), recording(ransac, "ransac_counts", count_calls), \
+            graphs.eager():
         mesh.evaluate_batch(b, fuse())
     emit({"phase": 10, "part": "kernels at the bucket's shapes",
-          **phase10_kernels(nn_calls[0], scan_calls, count_calls[0])})
+          **phase10_kernels(nn_calls[0], scan_calls, count_calls[0], tiled_calls)})
     return launches
 
 

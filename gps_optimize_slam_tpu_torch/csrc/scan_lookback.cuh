@@ -223,27 +223,34 @@ struct LookbackLayout {
   static size_t smem_bytes() { return (size_t)Op::L * kStride * sizeof(T); }
 };
 
+// Publishes a tile's aggregate `tot` (flag A), or for tile 0 its inclusive
+// prefix (flag P); one thread.
+template <class Op, typename T>
+__device__ __forceinline__ void publish_aggregate(int tile, const T* tot, int* flags, T* agg, T* incl) {
+  constexpr int L = Op::L;
+  if (tile == 0) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) incl[l] = tot[l];
+    store_release(flags, kTilePrefix);
+    return;
+  }
+#pragma unroll
+  for (int l = 0; l < L; ++l) agg[(size_t)tile * L + l] = tot[l];
+  store_release(flags + tile, kTileAggregate);
+}
+
 // Warp 0's part of step 4. `tot` is the tile aggregate and `carry` the
 // tile's exclusive composite (both shared); lane 0 accumulates the walk in
-// `carry` (tile > 0) and publishes the tile's inclusive prefix.
-template <class Op, typename T>
+// `carry` (tile > 0) and publishes the tile's inclusive prefix. PUBLISHED:
+// the aggregate (tile 0: the prefix) was published already
+// (publish_aggregate), as K2's batch grid does as soon as a tile is reduced.
+template <class Op, typename T, bool PUBLISHED = false>
 __device__ __forceinline__ void look_back(int tile, const T* tot, int* flags, T* agg, T* incl,
                                           T* carry) {
   constexpr int L = Op::L;
   const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) {
-#pragma unroll
-      for (int l = 0; l < L; ++l) incl[l] = tot[l];
-      store_release(flags, kTilePrefix);
-    }
-    return;
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int l = 0; l < L; ++l) agg[(size_t)tile * L + l] = tot[l];
-    store_release(flags + tile, kTileAggregate);
-  }
+  if (!PUBLISHED && lane == 0) publish_aggregate<Op, T>(tile, tot, flags, agg, incl);
+  if (tile == 0) return;
   T v[L], x[L], y[L];
   bool have = false;
   for (int base = tile - 1;; base -= 32) {
@@ -415,25 +422,46 @@ __device__ __forceinline__ void tile_finish(int tile, T* s, T (*s_warp)[Op::L], 
   __syncthreads();
 }
 
+// A barrier of the THREADS threads that scan a tile: the whole block
+// (__syncthreads) where BAR < 0, else named barrier BAR, which K2's batch
+// grid takes so that its producer warp is not held at the compute warps'
+// barriers.
+template <int BAR, int THREADS>
+__device__ __forceinline__ void tile_sync() {
+  if constexpr (BAR < 0) __syncthreads();
+  else asm volatile("bar.sync %0, %1;" ::"n"(BAR), "n"(THREADS) : "memory");
+}
+
+// Leaf l's scan-order element e of a staged tile: K1's layout
+// (s[l * STRIDE + padded(e)]), or a staged tile of K2's batch grid, which
+// names its own (StagedTile, scan_tiled.cu).
+template <int STRIDE, typename T>
+__device__ __forceinline__ T& tile_at(T* s, int l, int e) {
+  return s[l * STRIDE + padded(e)];
+}
+template <int STRIDE, class Tile>
+__device__ __forceinline__ auto& tile_at(const Tile& s, int l, int e) {
+  return s(l, e);
+}
+
 // Step 3 of the runs tile: each thread folds its ITEMS consecutive elements
 // into a total, the warp's ladder scans the totals, the lane's exclusive
 // prefix within the warp is folded into its run's first element in place,
 // and the inclusive warp prefixes go to `s_warp` (the last is the tile
-// aggregate). Barriers inside; one ends the call.
-template <class Op, typename T, int ITEMS, int THREADS>
-__device__ __forceinline__ void tile_reduce_runs(T* s, T (*s_warp)[Op::L]) {
+// aggregate). Barriers inside (tile_sync<BAR, THREADS>); one ends the call.
+template <class Op, typename T, int ITEMS, int THREADS, int BAR = -1, class Tile>
+__device__ __forceinline__ void tile_reduce_runs(const Tile& s, T (*s_warp)[Op::L]) {
   constexpr int L = Op::L;
   constexpr int STRIDE = padded(THREADS * ITEMS);
   constexpr int WARPS = THREADS / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int at0 = padded(tid * ITEMS);
+  const int e0 = tid * ITEMS;
   T acc[L], x[L], y[L];
 #pragma unroll
-  for (int l = 0; l < L; ++l) acc[l] = s[l * STRIDE + at0];
+  for (int l = 0; l < L; ++l) acc[l] = tile_at<STRIDE>(s, l, e0);
   for (int i = 1; i < ITEMS; ++i) {
-    const int at = padded(tid * ITEMS + i);
 #pragma unroll
-    for (int l = 0; l < L; ++l) x[l] = s[l * STRIDE + at];
+    for (int l = 0; l < L; ++l) x[l] = tile_at<STRIDE>(s, l, e0 + i);
     Op::apply(acc, x, y);
     copy_leaves<L>(y, acc);
   }
@@ -449,12 +477,12 @@ __device__ __forceinline__ void tile_reduce_runs(T* s, T (*s_warp)[Op::L]) {
   shfl_up_leaves<L>(acc, 1, x);  // the lane's exclusive prefix within the warp
   if (lane > 0) {
 #pragma unroll
-    for (int l = 0; l < L; ++l) acc[l] = s[l * STRIDE + at0];
+    for (int l = 0; l < L; ++l) acc[l] = tile_at<STRIDE>(s, l, e0);
     Op::apply(x, acc, y);
 #pragma unroll
-    for (int l = 0; l < L; ++l) s[l * STRIDE + at0] = y[l];
+    for (int l = 0; l < L; ++l) tile_at<STRIDE>(s, l, e0) = y[l];
   }
-  __syncthreads();
+  tile_sync<BAR, THREADS>();
   if (warp == 0) {
     T w[L];
     if (lane < WARPS) copy_leaves<L>(s_warp[lane], w);
@@ -469,7 +497,7 @@ __device__ __forceinline__ void tile_reduce_runs(T* s, T (*s_warp)[Op::L]) {
     }
     if (lane < WARPS) copy_leaves<L>(w, s_warp[lane]);
   }
-  __syncthreads();
+  tile_sync<BAR, THREADS>();
 }
 
 // Step 5 of the runs tile: the warp's exclusive composite (tile carry, then
@@ -479,8 +507,8 @@ __device__ __forceinline__ void tile_reduce_runs(T* s, T (*s_warp)[Op::L]) {
 // as the plain ladder's very first element meets it, and the others from
 // their first element, which holds their lane prefix already. A barrier
 // ends the call.
-template <class Op, typename T, int ITEMS, int THREADS>
-__device__ __forceinline__ void tile_finish_runs(int tile, T* s, T (*s_warp)[Op::L], const T* s_carry) {
+template <class Op, typename T, int ITEMS, int THREADS, int BAR = -1, class Tile>
+__device__ __forceinline__ void tile_finish_runs(int tile, const Tile& s, T (*s_warp)[Op::L], const T* s_carry) {
   constexpr int L = Op::L;
   constexpr int STRIDE = padded(THREADS * ITEMS);
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -499,9 +527,9 @@ __device__ __forceinline__ void tile_finish_runs(int tile, T* s, T (*s_warp)[Op:
     Op::identity(acc);
   }
   for (int i = 0; i < ITEMS; ++i) {
-    const int at = padded(tid * ITEMS + i);
+    const int e = tid * ITEMS + i;
 #pragma unroll
-    for (int l = 0; l < L; ++l) x[l] = s[l * STRIDE + at];
+    for (int l = 0; l < L; ++l) x[l] = tile_at<STRIDE>(s, l, e);
     if (have) {
       Op::apply(acc, x, y);
       copy_leaves<L>(y, acc);
@@ -510,9 +538,9 @@ __device__ __forceinline__ void tile_finish_runs(int tile, T* s, T (*s_warp)[Op:
       have = true;
     }
 #pragma unroll
-    for (int l = 0; l < L; ++l) s[l * STRIDE + at] = acc[l];
+    for (int l = 0; l < L; ++l) tile_at<STRIDE>(s, l, e) = acc[l];
   }
-  __syncthreads();
+  tile_sync<BAR, THREADS>();
 }
 
 // The finished tile from `s` to the output leaves, coalesced; leaf l of the

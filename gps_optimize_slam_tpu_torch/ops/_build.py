@@ -62,7 +62,8 @@ _SIGNATURES = {
     "gps_scan_cluster": ([_I, _I, _I, _I], _I),
     "gps_scan_tiled": ([_I, _I, _VP, _VP, _VP, _LL, _I, _I, _I, _VP], _I),
     "gps_scan_tiled_scratch_bytes": ([_I, _I, _I, _I], _LL),
-    "gps_scan_tiled_tile": ([_I, _I], _I),
+    "gps_scan_tiled_tile": ([_I, _I, _I], _I),
+    "gps_scan_tiled_grid_layout": ([_I, _I, _VP], _I),
     "gps_nn_min_dist2": ([_I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP, _VP], _I),
     "gps_nn_keep": ([_I, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _I, _VP, _VP, _VP, _VP], _I),
     "gps_nn_keep_split": ([_I, _I, _I], _I),

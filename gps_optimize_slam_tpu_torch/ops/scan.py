@@ -42,7 +42,7 @@ arithmetic order.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -235,35 +235,45 @@ def scan_plain(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
 # are kept for the other seven combines: a rule for the filter alone would
 # leave K2's filter on no routed path.
 #
-# A batch of rows (the same card, chip_smoke.py phase 1 "routes", float64,
-# every combine, 2 to 64 rows of 16,385 to 524,289 elements, two runs)
-# follows rows x elements: up to about 2^20 elements in all the two batch
-# grids were level within the runs' spread (the median combine's ratio
-# 0.95-1.06), and from 2^21 (4 x 524,289, 8 x 524,289, 16 x 131,073, 64 x
-# 65,537) K1's grid was ahead (the median combine 1.08-1.18x, up to 1.5x).
-# K1's blocks (one a tile, up to three an SM) keep more warps in flight
-# than K2's one persistent block an SM once a batch fills the card, and
-# K2's larger tiles no longer pay for it. So a batch takes K2 for rows past
-# BLOCK_MAX_ELEMENTS while it holds at most BATCH_TILED_MAX_ELEMENTS
-# elements, K1's grid beyond; a single row keeps the single-row rule.
+# A batch of rows (B > 1) on the same card: tools/scan_launch_compare.py
+# --kernel k2 --route, float64, K2's batch grid (csrc/scan_tiled.cu
+# tiled_grid_kernel) against K1's batch grid on the same leaves, at 2, 4, 8
+# and 16 rows of 65,537, 131,073, 262,145 and 524,289 elements, and at
+# chip_smoke's TILED_BATCH (4 x 524,289 to 20,001), TILED_BATCH_FEW (4 x
+# 20,001), FUSE_BATCH (the fuse-batch command's 2 x 70,001) and phase 10's
+# four rows of 524,288 (PERF.md). The grid was faster (2-7 % of device
+# time, mobius up to 28 %) only for mobius, affine3 and rts, and only with rows of at least
+# 131,073 elements and 2^20 elements in all; below that it was level or
+# slower (few tiles a block: a tile's latency), and for the other five
+# combines it was slower at every shape measured (the filter 1.6-2.0x: its
+# ~250 registers a thread leave one block of 7 compute warps an SM). So a
+# batch takes K2's grid there (BATCH_TILED_OPS, BATCH_TILED_MIN_ROW,
+# BATCH_TILED_MIN_ELEMENTS) and K1's grid everywhere else; a single row
+# keeps the single-row rule.
 BLOCK_MAX_ELEMENTS = 65_536
-BATCH_TILED_MAX_ELEMENTS = 1 << 20
+BATCH_TILED_OPS = ("rts", "mobius", "affine3")
+BATCH_TILED_MIN_ROW = 131_073
+BATCH_TILED_MIN_ELEMENTS = 1 << 20
 
 
-def scan_route(n_leaves: int, n: int, itemsize: int, batch: int = 1) -> str:
+def scan_route(n_leaves: int, n: int, itemsize: int, batch: int = 1, op: Optional[str] = None) -> str:
     """"block" (K1) or "tiled" (K2) for a scan of ``n_leaves`` leaves of
-    ``n`` elements of ``itemsize`` bytes, in each of ``batch`` rows: K2 for
-    rows of more than ``BLOCK_MAX_ELEMENTS`` elements, one row or a batch
-    of at most ``BATCH_TILED_MAX_ELEMENTS`` elements in all, K1 otherwise,
-    the crossovers measured on this card for the 2- to 12-leaf combines
-    (the filter's K1 is now ahead of K2 at every length measured: see the
-    note above). Phase 4's 4,661 poses and
-    phase 7's buckets stay on K1, and so does phase 10's bucket of four
-    long logs (2,097,152 elements a leaf); the chunked path's 262,145-element
-    chunks and the fuse-batch command's two 70,000-pose logs take K2."""
+    ``n`` elements of ``itemsize`` bytes, in each of ``batch`` rows, of the
+    combine ``op``: a single row takes K2 past ``BLOCK_MAX_ELEMENTS``
+    elements, K1 up to it; a batch takes K2's batch grid for the combines
+    of ``BATCH_TILED_OPS`` at rows of ``BATCH_TILED_MIN_ROW`` elements or
+    more and ``BATCH_TILED_MIN_ELEMENTS`` in all, K1's grid otherwise (the
+    crossovers measured on this card: see the note above). Phase 4's 4,661
+    poses, phase 7's buckets and the fuse-batch command's two 70,000-pose
+    logs stay on K1; phase 10's bucket of four long logs (524,288 elements a
+    row) takes K2's grid for rts, mobius and affine3; the chunked path's
+    262,145-element chunks take K2."""
     if n <= BLOCK_MAX_ELEMENTS:
         return "block"
-    return "tiled" if batch == 1 or batch * n <= BATCH_TILED_MAX_ELEMENTS else "block"
+    if batch == 1:
+        return "tiled"
+    grid = op in BATCH_TILED_OPS and n >= BATCH_TILED_MIN_ROW and batch * n >= BATCH_TILED_MIN_ELEMENTS
+    return "tiled" if grid else "block"
 
 
 def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -273,7 +283,7 @@ def associative_scan(op: str, x: torch.Tensor, reverse: bool = False) -> torch.T
     for CPU tensors."""
     _check(op, x)
     batch = x.shape[1] if x.ndim == 3 else 1
-    if scan_route(x.shape[0], x.shape[-1], x.element_size(), batch) == "block":
+    if scan_route(x.shape[0], x.shape[-1], x.element_size(), batch, op) == "block":
         return scan_block(op, x, reverse)
     return scan_tiled(op, x, reverse)
 
@@ -331,23 +341,53 @@ def scan_block(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     return out
 
 
-def tiled_tile(op: str, dtype: torch.dtype) -> int:
-    """Elements per tile of K2 for ``op`` in ``dtype``: kScanThreads times
-    the items per thread that two staging buffers allow
-    (``csrc/scan_tiled.cu``). Builds the kernels on first use."""
-    return _build.library().gps_scan_tiled_tile(OPS[op][0], _build.dtype_code(torch.empty(0, dtype=dtype)))
+def tiled_tile(op: str, dtype: torch.dtype, batch: int = 1) -> int:
+    """Elements per tile of K2 for ``op`` in ``dtype`` at ``batch`` rows: a
+    single row's tile (kScanThreads times the items a thread its staging
+    buffers allow), or the batch grid's (its compute threads times its
+    items a thread, ``csrc/scan_tiled.cu`` GridOf). Builds the kernels on
+    first use."""
+    return _build.library().gps_scan_tiled_tile(OPS[op][0], _build.dtype_code(torch.empty(0, dtype=dtype)), batch)
+
+
+def tiled_grid_layout(op: str, dtype: torch.dtype, device=None) -> Dict[str, int]:
+    """K2's batch grid for ``op`` in ``dtype`` on a card (the current one, or
+    ``device``): compute warps (one producer warp besides), items a thread,
+    stages of its ring, tile, blocks an SM and shared-memory bytes a block
+    (``csrc/scan_tiled.cu`` GridOf, the occupancy asked of the card). Builds
+    the kernels on first use."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = _build.library().gps_scan_tiled_grid_layout(
+            OPS[op][0], _build.dtype_code(torch.empty(0, dtype=dtype)), out)
+    _build.check(rc, f"tiled grid layout {op}")
+    return dict(zip(("warps", "items", "stages", "tile", "blocks_per_sm", "smem_bytes"), out))
+
+
+# The parts of a round of K2's batch grid that a build with
+# -DGPS_TILED_CLOCKS times (tools/torch_scan_tiled_clocks.py --batch): the
+# compute warps' (wait for the tile's copy, reduce, wait for the carry,
+# finish, store and free the stage) and the producer warp's (wait for the
+# reduce, look-back, wait for a free stage and stage the next tile).
+TILED_BATCH_CLOCK_PARTS = ("wait_tile", "reduce", "wait_carry", "finish", "store",
+                           "wait_reduced", "look_back", "stage_next")
 
 
 def scan_tiled(op: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """K2: the single-pass look-back scan for long leaves
-    (``csrc/scan_tiled.cu``), at any n, on (L, n) leaves or, in the same one
-    launch with tickets over every row's tiles, on (L, B, n) leaves: about
-    one block per SM slot, each drawing tiles in ticket order and copying
-    the next tile (the next row's first, at a row's end) into a second
+    (``csrc/scan_tiled.cu``), at any n, in one launch of persistent blocks.
+    On (L, n) leaves (one row) about one block per SM slot, each drawing
+    tiles in ticket order and copying the next tile into a second
     shared-memory buffer (``cp.async``) while the present one is folded,
-    looked back and written. The 2-4-leaf combines are bound by their bytes,
-    the 27-leaf filter by the operations of the scan's own structure. CPU
-    tensors take :func:`scan_plain`."""
+    looked back and written. On (L, B, n) leaves, B > 1, the batch grid:
+    tickets over every row's tiles, each block a producer warp (tickets,
+    bulk copies of each leaf's span into a ring of staged tiles, the
+    look-back) beside compute warps that scan with the runs tile, reducing
+    the next tile while the producer looks the present one back
+    (:func:`tiled_grid_layout`). Bound by bytes, the 27-leaf filter by its
+    operations. CPU tensors take :func:`scan_plain`."""
     _check(op, x)
     if x.device.type == "cpu":
         return scan_plain(op, x, reverse)

@@ -1092,6 +1092,24 @@ def test_batched_tiled_scan_kernel_matches_plain_and_each_row(cuda, op, dtype):
                     assert chip_smoke.rel_err(a, b) <= TOL[dtype], (ns, r, reverse)
 
 
+def test_tiled_grid_layout_fits_and_spills_nothing(cuda):
+    """K2's batch grid for every combine and dtype: a block of its compute
+    warps (4 to 8) plus a producer warp fits the card at least once an SM,
+    its ring of two or more stages within a block's shared memory, and no
+    instantiation spills (``-Xptxas -v``, where this run compiled the
+    library)."""
+    from gps_optimize_slam_tpu_torch.ops import _build
+
+    layouts = chip_smoke.tiled_grid_layouts()
+    for key, layout in layouts.items():
+        assert 4 <= layout["warps"] <= 8 and layout["stages"] >= 2, key
+        assert layout["tile"] == 32 * layout["warps"] * layout["items"], key
+        assert layout["blocks_per_sm"] >= 1 and layout["smem_bytes"] <= 227 * 1024, key
+        if _build.BUILD_INFO.get("log"):
+            registers, spilled = layout["registers_and_spills"]
+            assert registers <= 255 and spilled == 0, (key, registers, spilled)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_batched_grid_nn_kernel_equals_resident_kernel(cuda, dtype):
     """K4's batch grid bit for bit against K3's batch grid: ragged rows with
@@ -1123,19 +1141,21 @@ def test_batched_grid_nn_kernel_equals_resident_kernel(cuda, dtype):
 
 
 def test_batched_routes_pick_each_kernel(cuda):
-    """A batch of rows past K1's route of at most
-    ``BATCH_TILED_MAX_ELEMENTS`` elements launches K2's grid, a larger one
-    K1's; a few query tiles against ``GRID_MIN_CANDIDATES`` candidates
-    launch K4's grid, many K3's; each batched call once."""
+    """A batch of rts, mobius or affine3 rows of at least
+    ``BATCH_TILED_MIN_ROW`` elements and ``BATCH_TILED_MIN_ELEMENTS`` in all
+    launches K2's grid, a batch of fewer elements or of another combine K1's;
+    a few query tiles against ``GRID_MIN_CANDIDATES`` candidates launch K4's
+    grid, many K3's; each batched call once."""
     gen = torch.Generator().manual_seed(14)
-    n = scan.BLOCK_MAX_ELEMENTS + 1
-    most = scan.BATCH_TILED_MAX_ELEMENTS // n
-    for B, kernel in ((most, scan.scan_tiled), (most + 1, scan.scan_block)):
-        x = torch.stack([chip_smoke.scan_inputs("add2", n, gen, torch.float64, cuda) for _ in range(B)], 1)
+    n = scan.BATCH_TILED_MIN_ROW
+    most = -(-scan.BATCH_TILED_MIN_ELEMENTS // n)
+    for op, B, kernel in (("affine3", most, scan.scan_tiled), ("affine3", most - 1, scan.scan_block),
+                          ("add2", most, scan.scan_block)):
+        x = torch.stack([chip_smoke.scan_inputs(op, n, gen, torch.float64, cuda) for _ in range(B)], 1)
         before = (dict(scan.scan_block.launches), dict(scan.scan_tiled.launches))
-        scan.associative_scan("add2", x.contiguous())
+        scan.associative_scan(op, x.contiguous())
         after = (scan.scan_block.launches, scan.scan_tiled.launches)
-        moved = {k.__name__: after[i]["add2"] - before[i]["add2"] for i, k in enumerate((scan.scan_block, scan.scan_tiled))}
+        moved = {k.__name__: after[i][op] - before[i][op] for i, k in enumerate((scan.scan_block, scan.scan_tiled))}
         assert moved == {"scan_block": int(kernel is scan.scan_block), "scan_tiled": int(kernel is scan.scan_tiled)}
     m = kernels.GRID_MIN_CANDIDATES
     cands = torch.stack([walk(gen, m, torch.float64, cuda, offset=0.3) for _ in range(2)]).contiguous()
@@ -1169,11 +1189,13 @@ def test_a_failed_batched_launch_raises_without_falling_back(cuda, monkeypatch):
 
     lib = _build.library()
     gen = torch.Generator().manual_seed(15)
-    x = torch.stack([chip_smoke.scan_inputs("filter", 70_001, gen, torch.float64, cuda) for _ in range(2)], 1)
+    x = torch.stack([chip_smoke.scan_inputs("mobius", scan.BATCH_TILED_MIN_ROW, gen, torch.float64, cuda)
+                     for _ in range(8)], 1)
+    assert scan.scan_route(4, x.shape[-1], 8, x.shape[1], "mobius") == "tiled"
     traj = torch.stack([walk(gen, 700, torch.float64, cuda) for _ in range(2)])
     cands = torch.stack([walk(gen, kernels.GRID_MIN_CANDIDATES, torch.float64, cuda) for _ in range(2)])
     mask = torch.ones(cands.shape[:2], dtype=torch.bool, device=cuda)
-    for entry, call in (("gps_scan_tiled", lambda: scan.associative_scan("filter", x.contiguous())),
+    for entry, call in (("gps_scan_tiled", lambda: scan.associative_scan("mobius", x.contiguous())),
                         ("gps_nn_grid", lambda: kernels.nn_min_dist2(traj, cands.contiguous(), mask))):
         monkeypatch.setattr(_build, "library", lambda e=entry: _FailingLaunch(lib, e))
         before = (dict(scan.scan_block.launches), dict(scan.scan_tiled.launches), kernels.nn_resident.launches,

@@ -8,9 +8,10 @@ with its own 2 cm of GNSS noise and GNSS outages of 8 s placed apart from
 row to row) go through ``parallel.mesh.fuse_batch`` + ``evaluate_batch`` in
 the port (on the CPU) and in the JAX package, from the same NumPy arrays.
 The port's route thresholds are lowered so that these rows are "long":
-every batched scan past 1,024 elements takes ``scan_tiled`` (K2's batch
-grid) and every batched NN call ``nn_grid`` (K4's), which on CPU tensors
-run their plain versions; both wrappers are counted.
+every batched scan of every combine past 1,024 elements takes
+``scan_tiled`` (K2's batch grid) and every batched NN call ``nn_grid``
+(K4's), which on CPU tensors run their plain versions; both wrappers are
+counted.
 
 Tolerances: those ``test_torch_batch.py`` holds the KITTI buckets to
 against JAX, whose RANSAC draws are replayed: positions ≤1e-8 m, scale
@@ -70,6 +71,9 @@ def test_long_log_bucket_on_k2_and_k4_routes_matches_jax(bucket, jax_run, monkey
     padded, _ = bucket
     jout, jev = jax_run
     monkeypatch.setattr(scan, "BLOCK_MAX_ELEMENTS", 1024)
+    monkeypatch.setattr(scan, "BATCH_TILED_OPS", tuple(scan.OPS))
+    monkeypatch.setattr(scan, "BATCH_TILED_MIN_ROW", 1025)
+    monkeypatch.setattr(scan, "BATCH_TILED_MIN_ELEMENTS", 0)
     monkeypatch.setattr(kernels, "GRID_MIN_CANDIDATES", 1)
     monkeypatch.setattr(kernels, "GRID_MAX_QUERY_TILES", 10**6)
     calls = {"scan_block": 0, "scan_tiled": 0, "nn_resident": 0, "nn_grid": 0}

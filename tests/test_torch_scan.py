@@ -640,6 +640,213 @@ def emulate_tiled_scan(op, x, reverse, warp, warps, items, window, blocks, seed=
     return got if batched else got[:, 0]
 
 
+def emulate_tiled_grid(op, x, reverse, warp, warps, items, window, blocks, stages, seed=0, vec=2, misalign=0,
+                       swap=False):
+    """K2's batch grid (csrc/scan_tiled.cu ``tiled_grid_kernel``) on (L, B,
+    n) or (L, n) leaves, as its persistent blocks run it. Each block is
+    three interleaved actors over a ring of ``stages`` tiles. Its producer
+    warp draws a ticket (one counter over every row's tiles, row-major) only
+    when a stage is free (its tile stored and that tile's aggregate out),
+    stages that tile at once, and, once the compute warps have reduced a
+    tile, walks its look-back (windows of ``window`` predecessors folded in
+    the shuffle-down tree, the window on the left of what was walked;
+    ``swap`` puts the nearer composite first, the slip the tests show is
+    caught) and hands over the carry. Its compute warps reduce tile i with
+    the runs tile, then finish and store tile i - 1 with its carry and free
+    its stage. Its publisher warp publishes each reduced tile's aggregate (a
+    row's first tile: its prefix) whenever the schedule lets it run (the
+    filter's blocks have no publisher warp: their compute thread 0
+    publishes, in the same order of work). A stage is staged by the
+    kernel's own arithmetic: each leaf's span lands in memory order at the
+    offset that puts its 16-byte interior on a boundary (``vec`` elements,
+    the image's first element ``misalign`` elements past one), the identity
+    past the row's end, and ``reverse`` reads it backwards
+    (``StagedTile``). The actors interleave at random (``seed``) wherever
+    the kernel may wait or be overtaken; a schedule that stops making
+    progress fails the emulation."""
+    rng = np.random.default_rng(seed)
+    batched = x.ndim == 3
+    xs = x if batched else x[:, None]
+    L, B, n = xs.shape
+    T = warp * warps
+    tile = T * items
+    stride = tile + vec
+    n_tiles = -(-n // tile)
+    tickets = B * n_tiles
+    ld = B * n
+    image = xs.reshape(L, ld).clone()  # leaf l of row r at l * B * n + r * n
+    out = torch.full_like(image, float("nan"))
+    ident = _ident(op)
+    counter = [0]
+    flags = np.zeros(tickets, int)  # 0 empty, 1 aggregate, 2 prefix
+    agg, incl = {}, {}
+
+    def span(t):
+        row, k = divmod(t, n_tiles)
+        k0 = k * tile
+        cnt = min(tile, n - k0)
+        return row, k, k0, cnt, (n - k0 - cnt if reverse else k0)
+
+    def offset(l, mis0, pad):
+        mis = (mis0 + l * ld) % vec
+        return ((mis - pad) % vec) + tile - 1 if reverse else mis
+
+    def index(l, e, mis0, pad):
+        return offset(l, mis0, pad) - e if reverse else offset(l, mis0, pad) + e
+
+    def stage_tile(t):
+        """The ring stage the producer writes for ticket t."""
+        row, _, k0, cnt, m0 = span(t)
+        pad = tile - cnt
+        first = row * n + m0
+        mis0 = (misalign + first) % vec
+        buf = torch.full((L, stride), float("nan"), dtype=image.dtype)
+        for l in range(L):
+            mis = (misalign + l * ld + first) % vec
+            assert mis == (mis0 + l * ld) % vec
+            head = min((vec - mis) % vec, cnt)
+            body = (cnt - head) // vec * vec
+            q0 = offset(l, mis0, pad) - (cnt - 1) if reverse else offset(l, mis0, pad)
+            assert 0 <= q0 and q0 + cnt <= stride and (body == 0 or (q0 + head) % vec == 0)
+            buf[l, q0 : q0 + cnt] = image[l, first : first + cnt]  # head, bulk interior, tail
+            for e in range(cnt, tile):
+                buf[l, index(l, e, mis0, pad)] = ident[l]
+        return {"t": t, "buf": buf, "mis0": mis0, "pad": pad}
+
+    def scan_order(st):
+        e = torch.arange(tile)
+        cols = torch.stack([torch.tensor([index(l, int(k), st["mis0"], st["pad"]) for k in e]) for l in range(L)])
+        return torch.gather(st["buf"], 1, cols).reshape(L, T, items)
+
+    def draw():
+        counter[0] += 1
+        return counter[0] - 1
+
+    def actors():
+        ring = [None] * stages
+        done = {"full": [0] * stages, "reduced": [0] * stages, "published": [0] * stages, "carried": [0] * stages,
+                "freed": [0] * stages}
+
+        def stage(s):
+            t = draw()
+            ring[s] = stage_tile(t) if t < tickets else {"t": t}
+            done["full"][s] += 1
+            return t < tickets
+
+        def producer():
+            more = True
+            for s in range(stages):
+                if not more:
+                    break
+                more = stage(s)
+                yield
+            i = 0
+            while True:
+                s, use = i % stages, i // stages
+                t = ring[s]["t"]
+                if t >= tickets:
+                    return
+                while done["reduced"][s] <= use:
+                    yield "spin"
+                row, tt = divmod(t, n_tiles)
+                base = row * n_tiles
+                tot = ring[s]["tot"]
+                if tt > 0:  # its aggregate (tile 0: its prefix) goes out from the publisher
+                    run, pos = None, tt - 1
+                    while True:
+                        preds = [pos - k for k in range(window)]
+                        while any(p >= 0 and flags[base + p] == 0 for p in preds):
+                            yield "spin"
+                        prefix = [p >= 0 and flags[base + p] == 2 for p in preds]
+                        last = prefix.index(True) if any(prefix) else window - 1
+                        vals = torch.stack([
+                            (incl[base + p] if prefix[k] else agg[base + p]) if (k <= last and p >= 0)
+                            else _ident(op) for k, p in enumerate(preds)], 1)
+                        folded = _window_fold(op, vals, last, window, swap)
+                        run = folded if run is None else (_comb(op, run, folded) if swap else _comb(op, folded, run))
+                        if any(prefix):
+                            break
+                        pos -= window
+                        yield
+                    ring[s]["carry"] = run
+                    incl[base + tt], flags[base + tt] = _comb(op, run, tot), 2
+                done["carried"][s] += 1
+                yield
+                if more:  # the stage is free once its tile is stored and its aggregate out
+                    while done["freed"][s] <= use or done["published"][s] <= use:
+                        yield "spin"
+                    more = stage(s)
+                    yield
+                i += 1
+
+        def publisher():
+            i = 0
+            while True:
+                s, use = i % stages, i // stages
+                while done["full"][s] <= use:
+                    yield "spin"
+                if ring[s]["t"] >= tickets:
+                    return
+                while done["reduced"][s] <= use:
+                    yield "spin"
+                row, tt = divmod(ring[s]["t"], n_tiles)
+                if tt == 0:
+                    incl[row * n_tiles], flags[row * n_tiles] = ring[s]["tot"], 2
+                else:
+                    agg[row * n_tiles + tt], flags[row * n_tiles + tt] = ring[s]["tot"], 1
+                done["published"][s] += 1
+                yield
+                i += 1
+
+        def finish(i):
+            s, use = i % stages, i // stages
+            while done["carried"][s] <= use:
+                yield "spin"
+            st = ring[s]
+            row, tt, k0, cnt, _ = span(st["t"])
+            res = _tile_finish_runs(op, tt, st.get("carry"), st["runs"], st["wscan"], warp, warps, items).reshape(L, tile)
+            e = torch.arange(cnt)
+            out[:, row * n + ((n - 1 - k0 - e) if reverse else (k0 + e))] = res[:, :cnt]
+            done["freed"][s] += 1
+            yield
+
+        def consumer():
+            i = 0
+            while True:
+                s, use = i % stages, i // stages
+                while done["full"][s] <= use:
+                    yield "spin"
+                st = ring[s]
+                if st["t"] >= tickets:
+                    break
+                st["runs"], st["wscan"], st["tot"] = _tile_reduce_runs(op, scan_order(st), warp, warps, items)
+                done["reduced"][s] += 1
+                yield
+                if i > 0:
+                    yield from finish(i - 1)
+                i += 1
+            if i > 0:
+                yield from finish(i - 1)
+
+        return [producer(), consumer(), publisher()]
+
+    live = [a for _ in range(blocks) for a in actors()]
+    spins = 0
+    while live:
+        k = int(rng.integers(len(live)))
+        try:
+            step = next(live[k])
+        except StopIteration:
+            live.pop(k)
+            continue
+        spins = spins + 1 if step == "spin" else 0
+        assert spins < 1000 * blocks, "the blocks stopped making progress"
+    assert counter[0] == tickets + blocks  # every block drew one ticket past the last
+    assert not torch.isnan(out).any()
+    got = out.reshape(L, B, n)
+    return got if batched else got[:, 0]
+
+
 # (warp, warps, items, window) per combine: small tiles, so that 7 tiles
 # stay short where the JAX references compile slowly (lax.associative_scan
 # of the 27-leaf filter: ~27 s at 31 elements on an 8-core Xeon host).
