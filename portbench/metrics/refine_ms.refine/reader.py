@@ -1,0 +1,14 @@
+"""The refine_ms.refine metric (ms).
+
+read(ctx) returns its value from what a run gathered, or None where it finds
+nothing to read."""
+
+import numpy as np
+
+
+def read(ctx):
+    """The median, over a traced run's requests outside the trace, of the host
+    span around ``pipeline.refine_pose_graph``, the devices synchronised at
+    both ends."""
+    ms = ctx["spans"].get("refine")
+    return float(np.median(ms)) if ms else None
