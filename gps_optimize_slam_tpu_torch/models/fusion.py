@@ -30,7 +30,7 @@ from gps_optimize_slam_tpu_torch.ops import (
     se3,
 )
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
-from gps_optimize_slam_tpu_torch.utils import graphs
+from gps_optimize_slam_tpu_torch.utils import graphs, profiling
 
 
 class FusionOutputs(NamedTuple):
@@ -104,8 +104,10 @@ def fuse_core(
         time_offset = torch.full((), float(time_offset), dtype=torch.float64, device=device)
     uniforms = None
     if sim3_draws is None:
-        uniforms = ransac.seeded_uniforms(seed, tuple(slam_pos.shape[:-2]), ransac.sim3_trials(config.sim3_ransac),
-                                          config.sim3_ransac.min_samples, device)
+        with profiling.span("fuse.uniforms"):
+            uniforms = ransac.seeded_uniforms(seed, tuple(slam_pos.shape[:-2]),
+                                              ransac.sim3_trials(config.sim3_ransac),
+                                              config.sim3_ransac.min_samples, device)
     else:
         sim3_draws = sim3_draws.to(device)
     return graphs.run(_fuse_core, slam_times, slam_pos, slam_quat, gps_times, gps_positions, gps_valid,
@@ -115,51 +117,59 @@ def fuse_core(
 def _fuse_core(slam_times, slam_pos, slam_quat, gps_times, gps_positions, gps_valid, slam_mask, time_offset,
                sim3_draws, uniforms, config: FusionConfig) -> FusionOutputs:
     """The program of :func:`fuse_core`: RANSAC takes ``sim3_draws``, or
-    the draws scaled from ``uniforms``."""
-    aligned = alignment.align_gps_to_slam(
-        slam_times,
-        gps_times,
-        gps_positions,
-        gps_valid=gps_valid,
-        time_offset=time_offset,
-        cfg=config.time_alignment,
-        assume_sorted=config.gps_sorted,
-    )
-    if slam_mask is not None:
-        aligned = alignment.AlignedGPS(
-            aligned=torch.where(slam_mask[..., None], aligned.aligned, float("nan")),
-            valid=aligned.valid & slam_mask,
+    the draws scaled from ``uniforms``. Traced, its five stages lie between
+    device marks (``utils.profiling``): alignment, Sim(3) window, RANSAC,
+    transform, EKF/RTS."""
+    device = slam_pos.device
+    with profiling.device_span("fuse.alignment", device):
+        aligned = alignment.align_gps_to_slam(
+            slam_times,
+            gps_times,
+            gps_positions,
+            gps_valid=gps_valid,
+            time_offset=time_offset,
+            cfg=config.time_alignment,
+            assume_sorted=config.gps_sorted,
         )
-    window = alignment.sim3_window_mask(
-        slam_times,
-        aligned.valid,
-        gap_threshold=config.time_alignment.max_gps_gap_threshold,
-        max_duration=config.sim3_ransac.max_initial_duration,
-        min_samples=config.sim3_ransac.min_samples,
-    )
-    sim3_res = ransac.sim3_ransac(
-        slam_pos,
-        torch.nan_to_num(aligned.aligned, nan=0.0),
-        valid=window,
-        cfg=config.sim3_ransac,
-        draws=sim3_draws,
-        uniforms=uniforms,
-    )
+        if slam_mask is not None:
+            aligned = alignment.AlignedGPS(
+                aligned=torch.where(slam_mask[..., None], aligned.aligned, float("nan")),
+                valid=aligned.valid & slam_mask,
+            )
+    with profiling.device_span("fuse.sim3_window", device):
+        window = alignment.sim3_window_mask(
+            slam_times,
+            aligned.valid,
+            gap_threshold=config.time_alignment.max_gps_gap_threshold,
+            max_duration=config.sim3_ransac.max_initial_duration,
+            min_samples=config.sim3_ransac.min_samples,
+        )
+    with profiling.device_span("fuse.ransac", device):
+        sim3_res = ransac.sim3_ransac(
+            slam_pos,
+            torch.nan_to_num(aligned.aligned, nan=0.0),
+            valid=window,
+            cfg=config.sim3_ransac,
+            draws=sim3_draws,
+            uniforms=uniforms,
+        )
     sim3 = sim3_res.sim3
-    sim3_pos, sim3_quat = se3.transform_trajectory(slam_pos, slam_quat, sim3.R, sim3.t, sim3.scale)
+    with profiling.device_span("fuse.transform", device):
+        sim3_pos, sim3_quat = se3.transform_trajectory(slam_pos, slam_quat, sim3.R, sim3.t, sim3.scale)
 
-    corrected_pos, corrected_quat = ekf_fuse_fn(config)(
-        slam_times,
-        slam_pos,
-        slam_quat,
-        sim3_pos,
-        sim3_quat,
-        aligned.aligned,
-        aligned.valid,
-        config.ekf,
-        config.rts_decision,
-        rts_mode=config.rts_mode,
-    )
+    with profiling.device_span("fuse.ekf_rts", device):
+        corrected_pos, corrected_quat = ekf_fuse_fn(config)(
+            slam_times,
+            slam_pos,
+            slam_quat,
+            sim3_pos,
+            sim3_quat,
+            aligned.aligned,
+            aligned.valid,
+            config.ekf,
+            config.rts_decision,
+            rts_mode=config.rts_mode,
+        )
     return FusionOutputs(
         corrected_pos=corrected_pos,
         corrected_quat=corrected_quat,

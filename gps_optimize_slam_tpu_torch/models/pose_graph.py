@@ -43,7 +43,7 @@ from torch.func import vjp
 from gps_optimize_slam_tpu_torch.ops import quaternion as quat
 from gps_optimize_slam_tpu_torch.ops import se3
 from gps_optimize_slam_tpu_torch.utils import checkpoint as ckpt
-from gps_optimize_slam_tpu_torch.utils import graphs
+from gps_optimize_slam_tpu_torch.utils import graphs, profiling
 from gps_optimize_slam_tpu_torch.utils.device import resolve_device
 
 
@@ -156,14 +156,19 @@ def _cg(hvp, b: torch.Tensor, maxiter: int, tol: float) -> torch.Tensor:
     iterations. The while loop runs as ``maxiter`` iterations in which a
     finished solve keeps its values (a selection on the device, not a
     multiply by a mask: α may be 0/0 in a finished step), so the result is
-    the while loop's with no host sync."""
+    the while loop's with no host sync. Traced, the iterations that did
+    work (``active``) are summed into the device counter
+    ``cg.iters_active``."""
     atol2 = torch.clamp(tol * tol * _vdot(b, b), min=0.0)
     x = torch.zeros_like(b)
     r = b - hvp(x)
     p = r
     gamma = _vdot(r, r)
+    actives = [] if profiling.enabled() else None
     for _ in range(maxiter):
         active = gamma > atol2
+        if actives is not None:
+            actives.append(active)
         ap = hvp(p)
         alpha = gamma / _vdot(p, ap)
         x_new = x + alpha * p
@@ -174,6 +179,8 @@ def _cg(hvp, b: torch.Tensor, maxiter: int, tol: float) -> torch.Tensor:
         r = torch.where(active, r_new, r)
         p = torch.where(active, p_new, p)
         gamma = torch.where(active, gamma_new, gamma)
+    if actives:
+        profiling.count_device("cg.iters_active", torch.stack(actives).sum())
     return x
 
 
@@ -212,9 +219,13 @@ def _gn_step(state: PoseGraphState, data: PoseGraphData, cg_iters: int, damping:
     The program :func:`solve_pose_graph` replays on a card. It is the
     smallest one: the pullbacks hold tensors the step's own linearisation
     saved, so a graph of one CG iteration would read a finished step's
-    addresses."""
-    grad, hvp = _normal_equations(state, data, damping)
-    delta = _cg(hvp, -grad, maxiter=cg_iters, tol=1e-10)
+    addresses. Traced, the linearisation and the CG solve lie between
+    device marks (``gn.linearise``, ``gn.cg``)."""
+    device = state.positions.device
+    with profiling.device_span("gn.linearise", device):
+        grad, hvp = _normal_equations(state, data, damping)
+    with profiling.device_span("gn.cg", device):
+        delta = _cg(hvp, -grad, maxiter=cg_iters, tol=1e-10)
     new_state = _retract(state, delta)
     c_new = _cost(new_state, data)
     improved = c_new < c_old
@@ -235,12 +246,15 @@ def solve_pose_graph(
     Each iteration linearises the residual around the current state in the
     tangent space (δ ∈ R^{N×6}), solves (JᵀJ + λI)δ = −Jᵀr by conjugate
     gradients on Hessian-vector products, and retracts: one
-    :func:`_gn_step`, a captured program on a card (``utils.graphs``)."""
+    :func:`_gn_step`, a captured program on a card (``utils.graphs``).
+    Traced, each step adds its ``cg_iters`` to the host counter
+    ``cg.iters_run``."""
     state = init
     cost = _cost(init, data)
     costs = [cost]
     for _ in range(iterations):
         state, cost = graphs.run(_gn_step, state, data, cg_iters, damping, cost)
+        profiling.count("cg.iters_run", cg_iters)
         costs.append(cost)
     history = torch.stack(costs)
     return GNResult(

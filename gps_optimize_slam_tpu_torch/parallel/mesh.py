@@ -51,7 +51,7 @@ from gps_optimize_slam_tpu_torch.models import fusion
 from gps_optimize_slam_tpu_torch.ops import alignment
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
 from gps_optimize_slam_tpu_torch.parallel.batch import SequenceBatch, _round_up
-from gps_optimize_slam_tpu_torch.utils import graphs, streaming
+from gps_optimize_slam_tpu_torch.utils import graphs, profiling, streaming
 from gps_optimize_slam_tpu_torch.utils.device import resolve_device
 
 SEQ_AXIS = "seq"
@@ -359,35 +359,42 @@ def _sweep(pending, seeds, results, config, device, dtype, estimate_offsets, mes
     ``results`` (in original order, each leaf sliced to its sequence's
     length), pipelined with ``utils.streaming.stream_chunks``, each bucket
     on ``device`` or sharded over ``mesh``; then ``on_bucket(j, idxs,
-    rows)`` for each bucket as it drains."""
+    rows)`` for each bucket as it drains. Traced, each callback is a host
+    span (``sweep.stage``, ``sweep.launch``, and the drain's wait for its
+    copy, ``sweep.drain.wait``, and its per-row slicing,
+    ``sweep.drain.rows``)."""
 
     def _stage(jb):
-        idxs, b = jb[1]
-        toff = estimate_offsets_batch(b, device=device, dtype=dtype, mesh=mesh) if estimate_offsets else None
-        return stage_batch(b, seeds[idxs], device=device, dtype=dtype, time_offsets=toff, mesh=mesh)
+        with profiling.span("sweep.stage"):
+            idxs, b = jb[1]
+            toff = estimate_offsets_batch(b, device=device, dtype=dtype, mesh=mesh) if estimate_offsets else None
+            return stage_batch(b, seeds[idxs], device=device, dtype=dtype, time_offsets=toff, mesh=mesh)
 
     def _launch(jb, staged):
-        return _fetch_outputs(fuse_batch(staged, config=config))
+        with profiling.span("sweep.launch"):
+            return _fetch_outputs(fuse_batch(staged, config=config))
 
     def _drain(jb, fetched):
         j, (idxs, b) = jb
-        host = _host_outputs(fetched)
+        with profiling.span("sweep.drain.wait"):
+            host = _host_outputs(fetched)
         n_max = b.slam_times.shape[1]
         rows = []
-        for row, i in enumerate(idxs):
-            n = int(b.n_slam[row])
+        with profiling.span("sweep.drain.rows"):
+            for row, i in enumerate(idxs):
+                n = int(b.n_slam[row])
 
-            def slice_leaf(x):
-                # A copy: the fetched leaves are pinned buffers, returned to
-                # the host allocator's pool once the bucket is drained.
-                x_row = x[row]
-                return (x_row[:n] if x_row.ndim >= 1 and x_row.shape[0] == n_max else x_row).copy()
+                def slice_leaf(x):
+                    # A copy: the fetched leaves are pinned buffers, returned to
+                    # the host allocator's pool once the bucket is drained.
+                    x_row = x[row]
+                    return (x_row[:n] if x_row.ndim >= 1 and x_row.shape[0] == n_max else x_row).copy()
 
-            results[int(i)] = fusion.FusionOutputs(
-                **{k: slice_leaf(v) for k, v in host._asdict().items() if k != "sim3"},
-                sim3=Sim3(*(slice_leaf(v) for v in host.sim3)),
-            )
-            rows.append(results[int(i)])
+                results[int(i)] = fusion.FusionOutputs(
+                    **{k: slice_leaf(v) for k, v in host._asdict().items() if k != "sim3"},
+                    sim3=Sim3(*(slice_leaf(v) for v in host.sim3)),
+                )
+                rows.append(results[int(i)])
         if on_bucket is not None:
             on_bucket(j, idxs, rows)
 

@@ -31,6 +31,7 @@ from gps_optimize_slam_tpu_torch.io import tum as tum_io
 from gps_optimize_slam_tpu_torch.models import fusion, fusion_chunked
 from gps_optimize_slam_tpu_torch.models import robust as robust_mod
 from gps_optimize_slam_tpu_torch.ops import alignment, geodesy, ransac
+from gps_optimize_slam_tpu_torch.utils import profiling
 from gps_optimize_slam_tpu_torch.utils.device import resolve_device
 from gps_optimize_slam_tpu_torch.utils.logging import get_logger, step
 
@@ -540,26 +541,29 @@ def refine_pose_graph(
     loop_kwargs = {}
     loop_info = {"n_loops": 0, "loop_ij": []}
     if propose_loops:
-        loop_ij, _, _, loop_valid = pose_graph.propose_loop_closures(
-            o.corrected_pos, times, o.sim3_quat, radius=loop_radius, min_time_gap=loop_min_time_gap,
-            max_loops=max_loops,
-        )
-        # Measurements from the Sim3 trajectory (metric SLAM geometry).
-        i_sel, j_sel = loop_ij[:, 0], loop_ij[:, 1]
-        q_i_inv = quat_ops.conj(quat_ops.normalize(o.sim3_quat[i_sel]))
-        loop_dp = quat_ops.rotate(q_i_inv, o.sim3_pos[j_sel] - o.sim3_pos[i_sel])
-        loop_dq = quat_ops.mul(q_i_inv, quat_ops.normalize(o.sim3_quat[j_sel]))
-        loop_kwargs = dict(loop_ij=loop_ij, loop_dp=loop_dp, loop_dq=loop_dq, loop_valid=loop_valid)
-        valid = loop_valid.cpu().numpy()
-        loop_info = {"n_loops": int(valid.sum()), "loop_ij": loop_ij.cpu().numpy()[valid].tolist()}
+        with profiling.span("refine.propose"):
+            loop_ij, _, _, loop_valid = pose_graph.propose_loop_closures(
+                o.corrected_pos, times, o.sim3_quat, radius=loop_radius, min_time_gap=loop_min_time_gap,
+                max_loops=max_loops,
+            )
+            # Measurements from the Sim3 trajectory (metric SLAM geometry).
+            i_sel, j_sel = loop_ij[:, 0], loop_ij[:, 1]
+            q_i_inv = quat_ops.conj(quat_ops.normalize(o.sim3_quat[i_sel]))
+            loop_dp = quat_ops.rotate(q_i_inv, o.sim3_pos[j_sel] - o.sim3_pos[i_sel])
+            loop_dq = quat_ops.mul(q_i_inv, quat_ops.normalize(o.sim3_quat[j_sel]))
+            loop_kwargs = dict(loop_ij=loop_ij, loop_dp=loop_dp, loop_dq=loop_dq, loop_valid=loop_valid)
+            valid = loop_valid.cpu().numpy()
+            loop_info = {"n_loops": int(valid.sum()), "loop_ij": loop_ij.cpu().numpy()[valid].tolist()}
 
-    data = pose_graph.build_data_from_fusion(
-        o.sim3_pos, o.sim3_quat, o.aligned_gps, o.gps_valid, **loop_kwargs, **weights
-    )
-    init = pose_graph.PoseGraphState(positions=o.corrected_pos, quaternions=o.corrected_quat)
-    gn = pose_graph.solve_pose_graph_checkpointed(
-        init, data, iterations=iterations, cg_iters=cg_iters, damping=damping, checkpoint_dir=checkpoint_dir
-    )
+    with profiling.span("refine.build"):
+        data = pose_graph.build_data_from_fusion(
+            o.sim3_pos, o.sim3_quat, o.aligned_gps, o.gps_valid, **loop_kwargs, **weights
+        )
+        init = pose_graph.PoseGraphState(positions=o.corrected_pos, quaternions=o.corrected_quat)
+    with profiling.span("refine.solve"):
+        gn = pose_graph.solve_pose_graph_checkpointed(
+            init, data, iterations=iterations, cg_iters=cg_iters, damping=damping, checkpoint_dir=checkpoint_dir
+        )
     return gn, loop_info
 
 

@@ -30,6 +30,13 @@ static leaves, and each tensor's shape, dtype and device.
   ``MAX_PROGRAMS`` a device whose static inputs and outputs take at most
   ``MAX_HELD_SHARE`` of the card's memory; ``stats()`` reports the pools'
   and the held bytes. ``clear()`` drops them all.
+* Traced (``utils.profiling`` on), a call records host spans of its key,
+  copy-in, launch (the ``replay()`` call), clone-out, first call and
+  capture, each ``<span>:<function name>``; a replay lies between two
+  device marks (``graphs.replay``) and adds its graph's kernel nodes,
+  counted at capture, to the ``graph.kernels:<function name>`` counter.
+  Whether the tracer is on is part of the key: an untraced call replays
+  the untraced graph.
 * Tensors off the card run ``fn`` directly: the caller asked for the CPU.
   So does a call inside ``eager()`` (the counterpart of
   ``jax.disable_jit()``), and a call made inside another program's first
@@ -61,6 +68,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from gps_optimize_slam_tpu_torch.ops import _build
+from gps_optimize_slam_tpu_torch.utils import profiling
 
 # Programs kept a device: a sequence-parallel run over four blocks of one
 # card holds about thirty (seven stages a block and the folds).
@@ -85,6 +93,8 @@ class _Program(NamedTuple):
     launches: dict  # the kernel launches of one replay (ops._build.tally_launches)
     input_bytes: int
     output_bytes: int
+    name: str = ""  # the function's name, for the tracer's spans and counters
+    kernels: int = 0  # the graph's kernel nodes (-1 where they could not be counted)
 
 
 class _Device:
@@ -144,11 +154,14 @@ def _split(args, kwargs):
 
 def _key(fn, spec, leaves, tensors) -> tuple:
     static = tuple(None if isinstance(x, torch.Tensor) else x for x in leaves)
-    return fn, spec, static, tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+    return (fn, spec, static, tuple((tuple(t.shape), t.dtype, t.device) for t in tensors),
+            profiling.enabled())
 
 
 def key_of(fn: Callable, *args, **kwargs) -> tuple:
-    """The cache key of ``run(fn, *args, **kwargs)``."""
+    """The cache key of ``run(fn, *args, **kwargs)``: a program captured
+    while the tracer is on (``utils.profiling``) holds its marks and device
+    counters, so whether it is on is part of the key."""
     leaves, spec, tensors = _split(args, kwargs)
     return _key(fn, spec, leaves, tensors)
 
@@ -166,14 +179,17 @@ def run(fn: Callable, *args, **kwargs):
     """``fn(*args, **kwargs)``: on a card, eagerly on the first call for
     the key, then its captured program replayed; on the CPU, inside
     ``eager()`` or inside another program, the call itself."""
-    leaves, spec, tensors = _split(args, kwargs)
-    devices = {t.device for t in tensors}
-    if _EAGER or getattr(_LOCAL, "inside", False) or all(d.type != "cuda" for d in devices):
+    with profiling.span("graphs.key", fn):
+        leaves, spec, tensors = _split(args, kwargs)
+        devices = {t.device for t in tensors}
+        direct = _EAGER or getattr(_LOCAL, "inside", False) or all(d.type != "cuda" for d in devices)
+        if not direct and len(devices) == 1:
+            key = _key(fn, spec, leaves, tensors)
+    if direct:
         return fn(*args, **kwargs)
     if len(devices) > 1:
         raise ValueError(f"a captured program takes tensors on one device, got {sorted(map(str, devices))}")
     (device,) = devices
-    key = _key(fn, spec, leaves, tensors)
     with _LOCK:
         dev = _DEVICES.get(device) or _DEVICES.setdefault(device, _Device(device))
     with torch.cuda.device(device), dev.lock:
@@ -185,10 +201,12 @@ def run(fn: Callable, *args, **kwargs):
             if len(dev.seen) > MAX_SEEN:
                 dev.seen.popitem(last=False)
             _count("first_calls")
-            return _first_call(dev, fn, args, kwargs)
+            with profiling.span("graphs.first_call", fn):
+                return _first_call(dev, fn, args, kwargs)
         else:
             del dev.seen[key]
-            program = _capture(dev, fn, spec, leaves, tensors)
+            with profiling.span("graphs.capture", fn):
+                program = _capture(dev, fn, spec, leaves, tensors)
             _keep(dev, key, program)
             _count("captures")
         return _replay(dev, program, tensors)
@@ -217,7 +235,8 @@ def _first_call(dev: _Device, fn, args, kwargs):
 
 def _capture(dev: _Device, fn, spec, leaves, tensors) -> _Program:
     """``fn`` captured on the capture stream into the device's shared pool,
-    reading static buffers shaped as ``tensors`` (filled by each replay)."""
+    reading static buffers shaped as ``tensors`` (filled by each replay);
+    its kernel nodes counted before the capture ends."""
     device = dev.device
     inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=device) for t in tensors)
     it = iter(inputs)
@@ -229,6 +248,7 @@ def _capture(dev: _Device, fn, spec, leaves, tensors) -> _Program:
     stream.wait_stream(torch.cuda.current_stream(device))
     graph = torch.cuda.CUDAGraph()
     reserved = torch.cuda.memory_reserved(device)
+    lib = _build.library()
     with torch.cuda.stream(stream), _inside(capture=True), _build.tally_launches() as launches:
         graph.capture_begin(pool=dev.pool, capture_error_mode="thread_local")
         try:
@@ -237,9 +257,11 @@ def _capture(dev: _Device, fn, spec, leaves, tensors) -> _Program:
             with contextlib.suppress(RuntimeError):  # the capture's own fault is the one to report
                 graph.capture_end()
             raise
+        kernels = int(lib.gps_capture_kernel_nodes(stream.cuda_stream))
         graph.capture_end()
     dev.pool_bytes += torch.cuda.memory_reserved(device) - reserved
-    return _Program(graph, inputs, outputs, launches, _nbytes(inputs), _nbytes(outputs))
+    name = getattr(fn, "__name__", type(fn).__name__)
+    return _Program(graph, inputs, outputs, launches, _nbytes(inputs), _nbytes(outputs), name, kernels)
 
 
 def _held_budget(device: torch.device) -> int:
@@ -260,15 +282,21 @@ def _keep(dev: _Device, key, program: _Program) -> None:
 
 def _replay(dev: _Device, program: _Program, tensors):
     """Copy ``tensors`` in, replay, add the capture's launches and return
-    clones of the outputs, after the device's previous replay."""
+    clones of the outputs, after the device's previous replay. Traced: the
+    replay between two device marks, and its kernel nodes added to the
+    ``graph.kernels`` counter."""
     current = torch.cuda.current_stream(dev.device)
     if dev.last is not None and dev.last != current:
         current.wait_stream(dev.last)
-    for buf, t in zip(program.inputs, tensors):
-        buf.copy_(t)
-    program.graph.replay()
+    with profiling.span("graphs.copy_in", program.name):
+        for buf, t in zip(program.inputs, tensors):
+            buf.copy_(t)
+    with profiling.device_span("graphs.replay", dev.device), profiling.span("graphs.launch", program.name):
+        program.graph.replay()
     _build.add_launches(program.launches)
-    out = pytree.tree_map_only(torch.Tensor, torch.clone, program.outputs)
+    profiling.count("graph.kernels", program.kernels, program.name)
+    with profiling.span("graphs.clone_out", program.name):
+        out = pytree.tree_map_only(torch.Tensor, torch.clone, program.outputs)
     dev.last = current
     _count("replays")
     return out

@@ -33,6 +33,7 @@ from gps_optimize_slam_tpu_torch.ops import alignment, ransac
 from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
 from gps_optimize_slam_tpu_torch.parallel import mesh
 from tests.test_parallel import make_sequences
+from tests.test_torch_profiling import tracer  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PARTS = ("nn_slam", "nn_sim3", "nn_ekf", "ate_sim3", "ate_ekf")
@@ -352,3 +353,26 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(padded, pair_files, m
                  lambda: cli.main(["fuse-batch", pair_files[1], "--json"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_fuse_core_is_bit_equal_traced_and_records_its_five_stages(padded, tracer):  # noqa: F811
+    """The tracer on (``utils.profiling``): ``fuse_core`` gives the untraced
+    outputs bit for bit, and each call records its five device spans in
+    order, one after another, with the eager draws' host span before them."""
+    args = [torch.as_tensor(a) for a in (padded.slam_times, padded.slam_pos, padded.slam_quat, padded.gps_times,
+                                          padded.gps_pos, padded.gps_valid)]
+    kw = dict(seed=[3, 4, 5, 6], slam_mask=torch.as_tensor(padded.slam_mask))
+    off = fusion.fuse_core(*args, GPU_LADDER, **kw)
+    tracer.enable()
+    on = [fusion.fuse_core(*args, GPU_LADDER, **kw) for _ in range(2)]
+    rec = tracer.records()
+    tracer.disable()
+    for out in on:
+        for a, b in zip(torch.utils._pytree.tree_leaves(out), torch.utils._pytree.tree_leaves(off)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)  # NaN past each row's end
+    stages = ["fuse.alignment", "fuse.sim3_window", "fuse.ransac", "fuse.transform", "fuse.ekf_rts"]
+    marks = sorted(rec["marks"], key=lambda m: m[2])
+    assert [m[0] for m in marks] == stages * 2 and {m[1] for m in marks} == {-1}
+    assert all(a[3] <= b[2] for a, b in zip(marks, marks[1:]))
+    uniforms = [s for s in rec["spans"] if s[0] == "fuse.uniforms"]
+    assert len(uniforms) == 2 and uniforms[0][3] <= marks[0][2] and uniforms[1][3] <= marks[5][2]

@@ -1810,3 +1810,145 @@ def test_chunked_fusion_on_the_card_matches_in_core(cuda):
     assert np.abs(res.corrected_pos - ref.corrected_pos.cpu().numpy()).max() <= 1e-6
     assert np.abs(res.corrected_quat - ref.corrected_quat.cpu().numpy()).max() <= 1e-8
     assert abs(float(res.sim3.scale) - float(ref.sim3.scale)) <= 1e-9 * abs(float(ref.sim3.scale))
+
+
+# The tracer (``utils.profiling``) on the card: device marks captured into a
+# program run on every replay; each program's kernel nodes are counted at
+# capture.
+
+
+@pytest.fixture
+def tracer(monkeypatch):
+    """The tracer's state fresh for one test, as in tests/test_torch_profiling.py
+    (this file imports no other test module)."""
+    from gps_optimize_slam_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_ON", False)
+    for name in ("_SPANS", "_MARKS"):
+        monkeypatch.setattr(profiling, name, [])
+    for name in ("_COUNTS", "_COUNTER_SLOTS", "_RINGS"):
+        monkeypatch.setattr(profiling, name, {})
+    monkeypatch.setattr(profiling, "_LOST", {"dropped": 0, "unpaired": 0})
+    yield profiling
+
+
+def kept_graphs(monkeypatch):
+    """Programs captured from here on keep their ``cudaGraph_t``
+    (``CUDAGraph(keep_graph=True)``: instantiated at the first replay), so
+    that its nodes can be read back."""
+    real = torch.cuda.CUDAGraph
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: real(keep_graph=True))
+
+
+def raw_kernel_nodes(program) -> int:
+    """The kernel nodes of a held program's graph, read from the graph."""
+    from gps_optimize_slam_tpu_torch.ops import _build
+
+    return int(_build.library().gps_graph_kernel_nodes(program.graph.raw_cuda_graph()))
+
+
+def held_programs(device) -> dict:
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    dev = graphs._DEVICES.get(torch.device("cuda", index))
+    return {} if dev is None else dict(dev.programs)
+
+
+def test_a_traced_program_writes_its_marks_on_every_replay(cuda, tracer, monkeypatch):
+    """A program with a device span and a device counter, called five
+    times with the tracer on (eager, captured and replayed, three replays):
+    its marks come back from every call, each replay's inside that replay's
+    own marks, all within the host's clock around the calls; the counter
+    holds every call's sum; ``graph.kernels`` four times the graph's kernel
+    nodes. Each capture, traced or not, counted its kernel nodes right (the
+    graph read back); the traced graph holds the untraced one's two, its
+    two marks and the counter's own."""
+    import time
+
+    from gps_optimize_slam_tpu_torch.utils import graphs, profiling
+
+    def marked(x):
+        with profiling.device_span("body", x.device):
+            y = x * 2.0 + 1.0
+        if profiling.enabled():
+            profiling.count_device("positive", (y > 0).sum())
+        return y
+
+    kept_graphs(monkeypatch)
+    x = torch.arange(1000, dtype=torch.float64, device=cuda)
+    graphs.clear()
+    for _ in range(2):
+        graphs.run(marked, x)
+    (untraced,) = held_programs(cuda).values()
+    tracer.enable()
+    tracer.reset()
+    t0 = time.time_ns()
+    outs = [graphs.run(marked, x + k) for k in range(5)]
+    torch.cuda.synchronize()
+    t1 = time.time_ns()
+    rec = tracer.records()
+    tracer.disable()
+    traced = next(p for p in held_programs(cuda).values() if p is not untraced)
+    counts = (untraced.kernels, raw_kernel_nodes(untraced), traced.kernels, raw_kernel_nodes(traced))
+    graphs.clear()
+    for k, y in enumerate(outs):
+        assert torch.equal(y, (x + k) * 2.0 + 1.0)
+    body = sorted(m for m in rec["marks"] if m[0] == "body")
+    replays = sorted(m for m in rec["marks"] if m[0] == "graphs.replay")
+    assert len(body) == 5 and len(replays) == 4 and rec["dropped"] == 0 and rec["unpaired"] == 0
+    for r, b in zip(replays, body[1:]):
+        assert r[2] <= b[2] <= b[3] <= r[3]
+    assert all(t0 - 50_000 <= m[2] <= m[3] <= t1 + 50_000 for m in rec["marks"])
+    assert rec["device_counts"] == {"positive": 5000.0}
+    assert counts[0] == counts[1] == 2 and counts[2] == counts[3] >= 2 + 2 + 3  # mul, add; 2 marks; gt, sum, add_
+    assert rec["counts"]["graph.kernels:marked"] == 4 * counts[2]
+
+
+def test_cell_programs_untraced_hold_no_trace_nodes(cuda, tracer, monkeypatch):
+    """The benchmark's four bucket programs (``batch-kitti22``) and its
+    Gauss-Newton step (``refine-kitti00``), captured with the tracer off and
+    on: each capture's kernel count equals its graph's kernel nodes read
+    back, and an untraced program holds exactly the traced one's nodes less
+    its marks (the fusion's five stages: 10; the step's linearisation and
+    CG: 4) and the step's counter (``cg.iters_active``: the nodes of a
+    program that only stacks, sums and adds 50 flags into a counter)."""
+    from gps_optimize_slam_tpu_torch.utils import graphs, profiling
+    from portbench import harness
+
+    def flow(name):
+        cell = harness.cell(name)
+        return harness.flow_class(cell["flow"])(cell, harness.config(cell["config"]), 7, [cuda], harness.Spans())
+
+    def count_flags(flags):
+        profiling.count_device("flags", torch.stack(flags).sum())
+
+    kept_graphs(monkeypatch)
+    graphs.clear()
+    tracer.enable()
+    flags = [torch.tensor(True, device=cuda) for _ in range(50)]
+    graphs.run(count_flags, flags)
+    graphs.run(count_flags, flags)
+    (counter,) = held_programs(cuda).values()
+    assert counter.kernels == raw_kernel_nodes(counter) > 0
+    tracer.disable()
+    batch, refine = flow("batch-kitti22"), flow("refine-kitti00")
+    nodes = {}
+    for traced in (False, True):
+        graphs.clear()
+        if traced:
+            tracer.enable()
+        batch.request(0)
+        batch.request(1)  # captures the bucket programs
+        refine.request(0)  # its second step captures the step
+        torch.cuda.synchronize()
+        tracer.disable()
+        for key, program in held_programs(cuda).items():
+            if program.name in ("_fuse_core", "_gn_step"):
+                assert program.kernels == raw_kernel_nodes(program) > 0, program.name
+                nodes.setdefault(traced, {})[(program.name, key[3])] = program.kernels
+    graphs.clear()
+    assert sorted(name for name, _ in nodes[False]) == ["_fuse_core"] * 4 + ["_gn_step"]
+    assert nodes[False].keys() == nodes[True].keys()
+    for (name, shapes), n in nodes[False].items():
+        assert nodes[True][(name, shapes)] - n == (10 if name == "_fuse_core" else 4 + counter.kernels), name

@@ -34,6 +34,7 @@ from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
 from gps_optimize_slam_tpu_torch.parallel import mesh, seqpar
 from gps_optimize_slam_tpu_torch.utils import graphs
 from tests.test_parallel import make_sequences
+from tests.test_torch_profiling import tracer  # noqa: F401
 from tests.test_torch_ransac_alignment import jax_loop_counts, jax_sim3_draws, sim3_problem  # noqa: F401
 
 PARALLEL = FusionConfig(platform="gpu", ekf_scan="parallel", gps_sorted=True)
@@ -168,6 +169,18 @@ def test_keys_follow_shapes_dtypes_and_static_arguments():
         program, x, y, 2.0, cfg=FusionConfig(rts_mode="full"))  # a static config
     assert graphs.key_of(program, x, y, 2.0, cfg=FusionConfig()) == graphs.key_of(
         program, x, y, 2.0, cfg=FusionConfig())
+
+
+def test_keys_differ_with_the_tracer_on_and_off(tracer):  # noqa: F811
+    """A program captured while the tracer is on holds its marks and device
+    counters: it is another key than the untraced one, which stays the
+    key it was before any tracing."""
+    x, y = torch.zeros(4), torch.ones(4)
+    off = graphs.key_of(program, x, y, 2.0)
+    tracer.enable()
+    on = graphs.key_of(program, x, y, 2.0)
+    tracer.disable()
+    assert on != off and on[:4] == off[:4] and graphs.key_of(program, x, y, 2.0) == off
 
 
 def test_eager_nests_and_restores():

@@ -26,6 +26,7 @@ from gps_optimize_slam_tpu_torch.ops import _build, kernels, scan
 from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
 from gps_optimize_slam_tpu_torch.parallel import mesh
 from tests.test_parallel import make_sequences
+from tests.test_torch_profiling import tracer  # noqa: F401
 
 GPU_LADDER = FusionConfig(platform="gpu")  # the parallel filter, through the plain K1 ladder on CPU tensors
 
@@ -296,3 +297,28 @@ def test_launch_counts_survive_many_threads(monkeypatch):
     finally:
         sys.setswitchinterval(interval)
     assert scan.scan_block.launches["add2"] == 16 * 200
+
+
+def test_fuse_buckets_stages_the_next_bucket_before_draining_this_one(tracer):  # noqa: F811
+    """Traced, ``fuse_buckets``' sweep records a span for each stage, launch,
+    drain wait and drain's row slicing: bucket i+1's stage starts (and ends)
+    before bucket i's drain starts, its launch after bucket i's launch."""
+    seqs = make_sequences(n_seqs=4, base_n=60)
+    buckets = pbatch.bucket_by_length(*seqs, max_waste=0.0)
+    assert len(buckets) == 4
+    tracer.enable()
+    mesh.fuse_buckets(buckets, config=FusionConfig(platform="gpu"), device="cpu")
+    rec = tracer.records()
+    tracer.disable()
+    by = {}
+    for name, _, start, end in rec["spans"]:
+        if name.startswith("sweep."):
+            by.setdefault(name, []).append((start, end))
+    assert {k: len(v) for k, v in by.items()} == {k: 4 for k in ("sweep.stage", "sweep.launch", "sweep.drain.wait",
+                                                                 "sweep.drain.rows")}
+    for k in by:
+        by[k].sort()
+    for i in range(3):
+        assert by["sweep.stage"][i + 1][1] <= by["sweep.drain.wait"][i][0]
+        assert by["sweep.launch"][i][1] <= by["sweep.stage"][i + 1][0] <= by["sweep.launch"][i + 1][0]
+        assert by["sweep.drain.wait"][i][1] <= by["sweep.drain.rows"][i][0]

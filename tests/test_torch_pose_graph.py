@@ -35,6 +35,7 @@ from gps_optimize_slam_tpu_torch.ops import quaternion as quat
 from gps_optimize_slam_tpu_torch.ops import se3
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
 from tests.test_extensions import integrate_odometry, make_drifting_graph
+from tests.test_torch_profiling import tracer  # noqa: F401
 
 GOLDEN = "tests/golden/seq04_golden.npz"
 
@@ -428,3 +429,47 @@ def test_refine_pose_graph_runs_on_the_results_device_and_dtype():
     gn, info = pipeline.refine_pose_graph(res, iterations=1, cg_iters=5)
     assert gn.state.positions.dtype == torch.float32 and gn.state.positions.device.type == "cpu"
     assert info == {"n_loops": 0, "loop_ij": []} and bool(torch.isfinite(gn.state.positions).all())
+
+
+def plain_cg_active_iterations(hvp, b, maxiter, tol=1e-10) -> int:
+    """The iterations of ``pose_graph._cg``'s recurrence that run before
+    γ = r·r falls to tol²·b·b, counted by a plain loop that stops there."""
+    atol2 = torch.clamp(tol * tol * torch.sum(b * b), min=0.0)
+    x = torch.zeros_like(b)
+    r = b - hvp(x)
+    p, gamma = r, torch.sum(r * r)
+    for k in range(maxiter):
+        if not gamma > atol2:
+            return k
+        ap = hvp(p)
+        alpha = gamma / torch.sum(p * ap)
+        x, r_new = x + alpha * p, r - alpha * ap
+        gamma_new = torch.sum(r_new * r_new)
+        p, r, gamma = r_new + (gamma_new / gamma) * p, r_new, gamma_new
+    return maxiter
+
+
+def test_traced_solve_is_bit_equal_and_counts_the_active_cg_iterations(tracer):  # noqa: F811
+    """The tracer on: the solve's states and costs equal the untraced ones
+    bit for bit; each step records its linearisation and CG device spans;
+    ``cg.iters_active`` is the count of a plain loop over the same CG at
+    each step's state, and ``cg.iters_run`` the iterations issued."""
+    init, data, _, _ = drifting_problem(n=4)
+    off = pose_graph.solve_pose_graph(init, data, iterations=3)
+    tracer.enable()
+    on = pose_graph.solve_pose_graph(init, data, iterations=3)
+    rec = tracer.records()
+    tracer.disable()
+    for a, b in ((on.state.positions, off.state.positions), (on.state.quaternions, off.state.quaternions),
+                 (on.cost_history, off.cost_history)):
+        assert torch.equal(a, b)
+    state, cost, active = init, pose_graph._cost(init, data), 0
+    for _ in range(3):
+        grad, hvp = pose_graph._normal_equations(state, data, 1e-6)
+        active += plain_cg_active_iterations(hvp, -grad, 50)
+        state, cost = pose_graph._gn_step(state, data, 50, 1e-6, cost)
+    assert 0 < active < 150  # the case holds converged iterations
+    assert rec["device_counts"] == {"cg.iters_active": float(active)} and rec["counts"] == {"cg.iters_run": 150}
+    marks = sorted(rec["marks"], key=lambda m: m[2])
+    assert [m[0] for m in marks] == ["gn.linearise", "gn.cg"] * 3
+    assert all(a[3] <= b[2] for a, b in zip(marks, marks[1:]))
