@@ -325,6 +325,13 @@ NN_PAIR_FLOPS = 8  # 3 differences, 3 squares, 2 sums per (query, candidate)
 # makes the pairs it takes a property of its design, so its bound is bytes.
 KEEP_PAIR_FLOPS = 33
 COUNT_FLOPS = 30  # s*R*p + t - d, squared and summed, compared, per (trial, valid point)
+# Operations of one CG iteration of pose_cg: a factor's u = J·[p_i; p_j]
+# (6 rows of 12 multiplies and 11 adds) and Jᵀu (12 columns of 6 multiplies
+# and 5 adds); a pose's 6 elements each join their two odometry sums (1),
+# add λp (2), p·Ap (2), x += αp (2), r −= αAp (2), r·r (2) and p = r + βp (2).
+POSE_CG_FACTOR_FLOPS = 138 + 132
+POSE_CG_POSE_FLOPS = 6 * 13
+POSE_CG_ITERS = 50  # the refine's CG iterations a Gauss-Newton step (REFINE)
 
 
 def emit(obj) -> None:
@@ -755,7 +762,8 @@ def launch_counts() -> dict:
     counts = {f"scan_block/{op}": c for op, c in scan.scan_block.launches.items()}
     counts.update({f"scan_tiled/{op}": c for op, c in scan.scan_tiled.launches.items()})
     counts.update(nn_keep=kernels.keep_lists.launches, nn_resident=kernels.nn_resident.launches,
-                  nn_grid=kernels.nn_grid.launches, ransac_counts=kernels.ransac_counts.launches)
+                  nn_grid=kernels.nn_grid.launches, ransac_counts=kernels.ransac_counts.launches,
+                  pose_cg=kernels.pose_cg.launches)
     return counts
 
 
@@ -769,6 +777,7 @@ def reset_launch_counts() -> None:
     kernels.nn_resident.launches = 0
     kernels.nn_grid.launches = 0
     kernels.ransac_counts.launches = 0
+    kernels.pose_cg.launches = 0
 
 
 def walk(gen, n: int, dtype, device, scale: float = 0.8):
@@ -1458,6 +1467,69 @@ def phase1_counts(device, gen):
                          float(diff32), ms, plain_ms, count_bound(args), None, dev)]
 
 
+def phase1_pose_cg(device, gen):
+    """The pose graph's CG kernel at the refine's own step: the 4,541-pose
+    shuttle fused on the card in float64, its 32 closures proposed, the
+    factors' blocks taken at the fused trajectory (``pose_graph._linearise``),
+    50 iterations. δ within TOL of ``pose_cg_plain`` on CPU copies of the
+    same operands, the same count of active iterations (all 50), two
+    launches bit-equal; call ms, the plain version's ms on the card (ATen)
+    and the launch's device ms, all from this run."""
+    import torch
+
+    from gps_optimize_slam_tpu_torch import pipeline
+    from gps_optimize_slam_tpu_torch.models import pose_graph
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    slam, gt, gp = shuttle_sequence()
+    res = pipeline.fuse_arrays(slam, shuttle_gps(gt, gp), dtype=torch.float64, device=device)
+    o = res.outputs
+    times = torch.as_tensor(slam["timestamps"], dtype=torch.float64, device=device)
+    loops = pose_graph.propose_loop_closures(o.corrected_pos, times, o.sim3_quat, radius=REFINE["loop_radius"],
+                                             min_time_gap=REFINE["loop_min_time_gap"],
+                                             max_loops=REFINE["max_loops"])
+    data = pose_graph.build_data_from_fusion(o.sim3_pos, o.sim3_quat, o.aligned_gps, o.gps_valid, *loops)
+    lin = pose_graph._linearise(pose_graph.PoseGraphState(o.corrected_pos, o.corrected_quat), data)
+    args = (lin.blocks, lin.r0, lin.r_gps, data.gps_valid, data.w_gps, data.loop_ij, 1e-6, POSE_CG_ITERS)
+    got, count = kernels.pose_cg(*args)
+    again, count_again = kernels.pose_cg(*args)
+    torch.cuda.synchronize()
+    want, want_count = kernels.pose_cg_plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    err = rel_err(got.cpu(), want)
+    closures = int(loops[3].sum())
+    what = f"pose_cg float64 {SHUTTLE_N} poses, {closures} closures"
+    if not torch.equal(got, again) or not torch.equal(count, count_again):
+        raise AssertionError(f"{what}: two launches on the same inputs differ")
+    if not err <= TOL["float64"] or not int(count) == int(want_count) == POSE_CG_ITERS:
+        raise AssertionError(f"{what}: {err} off the plain version, counts {int(count)} / {int(want_count)}")
+    ms = cuda_ms(lambda: kernels.pose_cg(*args))
+    plain_ms = cuda_ms(lambda: kernels.pose_cg_plain(*args), reps=3)
+    dev, traced = launch_device_ms(lambda: kernels.pose_cg(*args), "pose_cg")
+    by = pose_cg_bound(args)
+    emit({"phase": 1, "kernel": "pose_cg", "poses": SHUTTLE_N, "closures": closures, "iterations": POSE_CG_ITERS,
+          "max_rel_err": err, "active_iterations": int(count), "identical_runs": True, "ms": ms,
+          "plain_ms": plain_ms, "device_ms": dev, "traced_launches": traced, "bound_ms": by[0],
+          "bound_bytes_ms": by[2], "bound_operations_ms": by[3], "dtype": "float64"})
+    entry = kernel_entry("pose_cg", "pose_cg.cu", "", "float64", err, ms, plain_ms, by, None, dev)
+    entry["replaces"] = "gps_optimize_slam_tpu/models/pose_graph.py"  # no TPU kernel: jax.scipy's CG
+    return [entry]
+
+
+def pose_cg_bound(args):
+    """pose_cg's least time on ``args``: the blocks, r0, the GNSS residual
+    and mask and the closures' pairs read once and δ written once, and in
+    each iteration x, r, p and Ap (N × 6 each) read once and written once
+    (a floor at the memory's rate: the vectors may stay in L2 or shared
+    memory); ``POSE_CG_FACTOR_FLOPS`` a factor and ``POSE_CG_POSE_FLOPS`` a
+    pose an iteration, and b = −Jᵀr0 once."""
+    blocks, r0, r_gps, valid, loop_ij, iters = args[0], args[1], args[2], args[3], args[5], args[7]
+    size, m, n = blocks.element_size(), blocks.shape[0], valid.shape[0]
+    once = (blocks.numel() + r0.numel() + r_gps.numel() + 6 * n) * size + valid.numel() + 8 * loop_ij.numel()
+    moved = once + iters * 8 * 6 * n * size
+    flops = iters * (POSE_CG_FACTOR_FLOPS * m + POSE_CG_POSE_FLOPS * n) + 132 * m
+    return bound(moved, flops, dtype_name(blocks.dtype))
+
+
 def count_bound(args):
     """K5's least time on ``args``: the valid points (p and d) and every
     trial read once, the mask read once, the counts written once; 30
@@ -2086,6 +2158,7 @@ def phase1(device):
     entries += phase1_batched_counts(device, gen)
     entries += phase1_batched_tiled_scan(device, gen)
     entries += phase1_batched_grid(device, gen)
+    entries += phase1_pose_cg(device, gen)
     phase1_tiers(device, gen)
     phase1_routes(device, gen)
     phase1_nn_routes(device, gen)
@@ -2313,8 +2386,8 @@ def profile_device(fn, host_ops: bool = True) -> dict:
     device's idle share of the wall (1 − busy/wall, not clamped, so a busy
     time past the wall shows as a negative share), and the five kernels with
     the most device time. ``host_ops=False`` traces the device alone, as
-    phase 8 does for the refine's ~7·10⁵ launches: tracing their host ops
-    too slows the traced run and takes long to read (``PERF.md``, from
+    phase 8 does for its refines (~2·10⁴ kernels each): tracing their host
+    ops too slows the traced run and takes long to read (``PERF.md``, from
     ``tools/torch_pose_graph_probe.py --profiler-cost``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3461,9 +3534,6 @@ def refine_gaps(gn, info, ref, ref_info) -> dict:
             "loop_ij_equal": info["loop_ij"] == ref_info["loop_ij"]}
 
 
-PROFILED_STEPS = 2  # Gauss-Newton steps of phase 8's traced refines
-
-
 def phase8_refine(device):
     """The pose-graph path at KITTI seq-00's length: ``fuse_arrays`` then
     ``refine_pose_graph`` (10 Gauss-Newton steps of 50 CG iterations,
@@ -3479,8 +3549,9 @@ def phase8_refine(device):
     ``graphs.eager()`` (3 steps, ≤1e-9 m); warm walls of the replayed
     refine with closures (median of 3) and one eager refine with closures
     as its yardstick (held to the replays as the card is held to the CPU);
-    the idle shares of both from traces of ``PROFILED_STEPS`` steps; peak
-    memory and the proposal's share of the refine's wall."""
+    the idle shares of both from traces of a whole refine each; peak
+    memory and the proposal's share of the refine's wall. Each refine makes
+    one ``pose_cg`` launch a Gauss-Newton step."""
     import torch
 
     from gps_optimize_slam_tpu_torch import pipeline
@@ -3544,12 +3615,9 @@ def phase8_refine(device):
     with graphs.eager():
         eager_s, (gn_eager, info_eager) = timed_s(lambda: pipeline.refine_pose_graph(res, **REFINE))
     eager_gaps = refine_gaps(gn, info, gn_eager, info_eager)
-    # The idle shares from two steps of each (reading the trace of a whole
-    # refine, ~7·10⁵ kernels, takes minutes).
-    profiled = {**REFINE, "iterations": PROFILED_STEPS}
-    prof = profile_device(lambda: pipeline.refine_pose_graph(res, **profiled), host_ops=False)
+    prof = profile_device(lambda: pipeline.refine_pose_graph(res, **REFINE), host_ops=False)
     with graphs.eager():
-        eager_prof = profile_device(lambda: pipeline.refine_pose_graph(res, **profiled), host_ops=False)
+        eager_prof = profile_device(lambda: pipeline.refine_pose_graph(res, **REFINE), host_ops=False)
     refine_ms = float(np.median(walls["refine"]))
     emit({"phase": 8, "part": "refine", "poses": SHUTTLE_N, "gnss": int(len(gt)), "dtype": "float64",
           "loops_proposed": info["n_loops"], "loop_pairs": info["loop_ij"][:8], "cost_history":
@@ -3557,7 +3625,7 @@ def phase8_refine(device):
           "resumed_equal_bit_for_bit": resumed_equal, "launches": launches, "fuse_warm_ms": walls["fuse"],
           "refine_warm_ms": walls["refine"], "fuse_refine_warm_ms_median3": float(np.median(
               [a + b for a, b in zip(walls["fuse"], walls["refine"])])), "refine_warm_ms_median3": refine_ms,
-          "refine_eager_ms": 1e3 * eager_s, "refine_graph_vs_eager": eager_gaps, "profiled_steps": PROFILED_STEPS,
+          "refine_eager_ms": 1e3 * eager_s, "refine_graph_vs_eager": eager_gaps,
           "refine_no_loops_graph_vs_eager": no_loops_gap, "gn_step_program": step,
           "cpu_fuse_refine_wall_ms": 1e3 * cpu_s, "propose_ms": propose_ms,
           "propose_share_of_refine": float(np.median(propose_ms)) / refine_ms, "refine_profile": prof,
@@ -3579,6 +3647,8 @@ def phase8_refine(device):
     missing += [] if any(launches[f"scan_block/{op}"] for op in ("quat_chain", "filter", "rts")) else ["scan_block"]
     if missing:
         raise AssertionError(f"phase 8: kernels not launched by fuse + refine: {missing}")
+    if launches["pose_cg"] != REFINE["iterations"]:
+        raise AssertionError(f"phase 8: {launches['pose_cg']} pose_cg launches, not one a Gauss-Newton step")
     return launches
 
 

@@ -304,8 +304,8 @@ def _cmd_fuse_batch(args) -> int:
 
 
 def _cmd_refine_graph(args) -> int:
-    """Fuse, then refine globally with the matrix-free Gauss-Newton pose
-    graph (``models.pose_graph``) seeded from the fusion, with loop closures
+    """Fuse, then refine globally with the Gauss-Newton pose graph
+    (``models.pose_graph``) seeded from the fusion, with loop closures
     proposed by proximity over the fused trajectory."""
     import numpy as np
     import torch

@@ -7,28 +7,27 @@ The global alternative to filtering: all poses are optimised jointly over
 * GNSS unary position priors (masked),
 * loop-closure (binary) factors between arbitrary pose pairs (masked),
 
-minimising the weighted squared residual norm. The normal equations
-(JᵀJ + λI)δ = −Jᵀr are solved matrix-free, so each Gauss-Newton step is
-conjugate gradients on Hessian-vector products and no matrix is assembled:
-Jᵀu is the pullback of ``torch.func.vjp``, and Jv the pullback of that
-pullback (it is linear in u, so its vjp is J), both built once a step. The
-JAX package takes Jv from ``jax.jvp``; ``torch.func.jvp`` gives the same
-products several times slower (``tools/torch_pose_graph_probe.py`` times
-both): under forward mode every op with a constant operand (a measurement,
-a weight, a literal) builds a zero tangent whose shape is worked out in
-Python. Rotations live on SO(3): the
-state is updated through a tangent retraction (the quaternion exp map),
-orientation residuals go through the log map.
+minimising the weighted squared residual norm. Each Gauss-Newton step takes
+every binary factor's residual and its 6 × 12 Jacobian block against the
+tangent steps of its two poses, once (``torch.func``: ``vmap`` over the
+factors of ``jacrev`` of one pair's residual); the GNSS rows stay implicit
+(w_gps on the positions of the valid poses). The normal equations
+(JᵀJ + λI)δ = −Jᵀr are then solved by conjugate gradients over those
+blocks with no matrix assembled: on a card in one launch of
+``ops.kernels.pose_cg`` (``csrc/pose_cg.cu``, every iteration inside it), on
+the CPU by its plain version. Rotations live on SO(3): the state is updated
+through a tangent retraction (the quaternion exp map), orientation
+residuals go through the log map.
 
 Everything has a fixed shape (loop closures are a padded (max_loops, 2)
 index array with a validity mask), and the solve makes no host sync: the
 cost safeguard and the conjugate-gradient stopping rule are selections on
-the device. On a card one Gauss-Newton step (the linearisation, both
-pullbacks, the CG iterations, the retraction and the safeguard) is one
-captured program (``utils.graphs``) a shape and static setting, as the JAX
-package jits its whole solve: a step is a pure function of its tensors, so
-every step of a solve and of each checkpoint round replays it. The
-proposal of loop closures is a program of its own.
+the device. On a card one Gauss-Newton step (the blocks, the CG launch, the
+retraction and the safeguard) is one captured program (``utils.graphs``) a
+shape and static setting, as the JAX package jits its whole solve: a step is
+a pure function of its tensors, so every step of a solve and of each
+checkpoint round replays it. The proposal of loop closures is a program of
+its own.
 """
 
 from __future__ import annotations
@@ -38,8 +37,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import vjp
+from torch.func import jacrev, vmap
 
+from gps_optimize_slam_tpu_torch.ops import kernels
 from gps_optimize_slam_tpu_torch.ops import quaternion as quat
 from gps_optimize_slam_tpu_torch.ops import se3
 from gps_optimize_slam_tpu_torch.utils import checkpoint as ckpt
@@ -102,10 +102,10 @@ class PoseGraphState(NamedTuple):
 
 def _retract(state: PoseGraphState, delta: torch.Tensor) -> PoseGraphState:
     """Apply a tangent update δ = (N,6): [δp, δθ] with right-multiplied
-    SO(3) increments."""
+    SO(3) increments (or one pose's: (3,), (4,) and δ (6,))."""
     return PoseGraphState(
-        positions=state.positions + delta[:, :3],
-        quaternions=quat.normalize(quat.mul(state.quaternions, quat.exp_map(delta[:, 3:]))),
+        positions=state.positions + delta[..., :3],
+        quaternions=quat.normalize(quat.mul(state.quaternions, quat.exp_map(delta[..., 3:]))),
     )
 
 
@@ -145,87 +145,82 @@ def _cost(state: PoseGraphState, data: PoseGraphData) -> torch.Tensor:
     return 0.5 * torch.sum(r * r)
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b)
+class Linearisation(NamedTuple):
+    """A Gauss-Newton step's linearisation at δ = 0: the M = (N−1) + L binary
+    factors (odometry (k, k+1), then the closures of ``loop_ij``), each
+    factor's residual and its Jacobian block against the tangent steps of
+    its two poses (columns 0-5 pose i, 6-11 pose j), an invalid closure's
+    zero; and the masked GNSS residual, whose Jacobian is w_gps on the
+    positions of the valid poses."""
+
+    blocks: torch.Tensor  # (M, 6, 12)
+    r0: torch.Tensor  # (M, 6)
+    r_gps: torch.Tensor  # (N, 3)
 
 
-def _cg(hvp, b: torch.Tensor, maxiter: int, tol: float) -> torch.Tensor:
-    """Conjugate gradients from x0 = 0, the recurrence of JAX's
-    ``jax.scipy.sparse.linalg.cg`` (``_cg_solve``, no preconditioner):
-    r0 = b − A(x0), stop once γ = r·r ≤ tol²·b·b or after ``maxiter``
-    iterations. The while loop runs as ``maxiter`` iterations in which a
-    finished solve keeps its values (a selection on the device, not a
-    multiply by a mask: α may be 0/0 in a finished step), so the result is
-    the while loop's with no host sync. Traced, the iterations that did
-    work (``active``) are summed into the device counter
-    ``cg.iters_active``."""
-    atol2 = torch.clamp(tol * tol * _vdot(b, b), min=0.0)
-    x = torch.zeros_like(b)
-    r = b - hvp(x)
-    p = r
-    gamma = _vdot(r, r)
-    actives = [] if profiling.enabled() else None
-    for _ in range(maxiter):
-        active = gamma > atol2
-        if actives is not None:
-            actives.append(active)
-        ap = hvp(p)
-        alpha = gamma / _vdot(p, ap)
-        x_new = x + alpha * p
-        r_new = r - alpha * ap
-        gamma_new = _vdot(r_new, r_new)
-        p_new = r_new + (gamma_new / gamma) * p
-        x = torch.where(active, x_new, x)
-        r = torch.where(active, r_new, r)
-        p = torch.where(active, p_new, p)
-        gamma = torch.where(active, gamma_new, gamma)
-    if actives:
-        profiling.count_device("cg.iters_active", torch.stack(actives).sum())
-    return x
+def _pair_residual(d, p_i, q_i, p_j, q_j, meas_dp, meas_dq, w_p, w_q):
+    """One binary factor's residual at the tangent steps d (12,) of its two
+    poses (``residuals`` ∘ ``_retract`` for one pose pair), twice: the
+    Jacobian's function and its value."""
+    a = _retract(PoseGraphState(p_i, q_i), d[:6])
+    b = _retract(PoseGraphState(p_j, q_j), d[6:])
+    r = _relative_residual(a.positions, a.quaternions, b.positions, b.quaternions, meas_dp, meas_dq, w_p, w_q)
+    return r, r
 
 
-def _linearisation(state: PoseGraphState, data: PoseGraphData):
-    """The residual at ``state`` and its Jacobian in the tangent space
-    (δ ∈ R^{N×6}), matrix-free: (r0, u ↦ Jᵀu, v ↦ Jv)."""
-    n = state.positions.shape[0]
+_pair_jacobians = vmap(jacrev(_pair_residual, has_aux=True), in_dims=(None, 0, 0, 0, 0, 0, 0, 0, 0))
 
-    def r_of_delta(delta):
-        return residuals(_retract(state, delta), data)
 
-    delta0 = torch.zeros((n, 6), dtype=state.positions.dtype, device=state.positions.device)
-    r0, pullback = vjp(r_of_delta, delta0)  # u ↦ Jᵀu
-    # v ↦ Jv as the pullback's own pullback: the pullback is linear in u, so
-    # its vjp (at any u) is J. Both are built once a step and serve every CG
-    # iteration; see the module docstring for why not torch.func.jvp.
-    _, push = vjp(lambda u: pullback(u)[0], torch.zeros_like(r0))
-    return r0, lambda u: pullback(u)[0], lambda v: push(v)[0]
+def _linearise(state: PoseGraphState, data: PoseGraphData) -> Linearisation:
+    """Every factor's residual and Jacobian block at ``state``, in one
+    batched forward and backward over the factors."""
+    p, q = state.positions, state.quaternions
+    n, dev = p.shape[0], p.device
+    like = dict(dtype=p.dtype, device=dev)
+    odo = torch.arange(n - 1, device=dev)
+    pi = torch.cat([odo, data.loop_ij[:, 0]])
+    pj = torch.cat([odo + 1, data.loop_ij[:, 1]])
+    n_loop = data.loop_ij.shape[0]
+    w_p = torch.cat([torch.full((n - 1,), data.w_odo_p, **like), torch.full((n_loop,), data.w_loop_p, **like)])
+    w_q = torch.cat([torch.full((n - 1,), data.w_odo_q, **like), torch.full((n_loop,), data.w_loop_q, **like)])
+    blocks, r0 = _pair_jacobians(torch.zeros(12, **like), p[pi], q[pi], p[pj], q[pj],
+                                 torch.cat([data.odo_dp, data.loop_dp]), torch.cat([data.odo_dq, data.loop_dq]),
+                                 w_p, w_q)
+    valid = torch.cat([torch.ones(n - 1, dtype=torch.bool, device=dev), data.loop_valid])
+    blocks = torch.where(valid[:, None, None], blocks, torch.zeros_like(blocks))
+    r0 = torch.where(valid[:, None], r0, torch.zeros_like(r0))
+    r_gps = (p - data.gps) * data.w_gps
+    r_gps = torch.where(data.gps_valid[:, None], r_gps, torch.zeros_like(r_gps))
+    return Linearisation(blocks.contiguous(), r0.contiguous(), r_gps)
 
 
 def _normal_equations(state: PoseGraphState, data: PoseGraphData, damping: float):
     """The Gauss-Newton linearisation at ``state`` in the tangent space:
-    (Jᵀr, v ↦ (JᵀJ + λI)v), the products matrix-free."""
-    r0, jt, j = _linearisation(state, data)
-
-    def hvp(v):
-        return jt(j(v)) + damping * v
-
-    return jt(r0), hvp
+    (Jᵀr, v ↦ (JᵀJ + λI)v), the products over the factors' blocks
+    (``kernels.pose_products``, the plain version's own)."""
+    lin = _linearise(state, data)
+    jt, hvp = kernels.pose_products(lin.blocks, data.loop_ij, data.gps_valid, data.w_gps, damping)
+    return jt(lin.r0, lin.r_gps), hvp
 
 
 def _gn_step(state: PoseGraphState, data: PoseGraphData, cg_iters: int, damping: float, c_old: torch.Tensor):
-    """One Gauss-Newton step: solve (JᵀJ + λI)δ = −Jᵀr by CG, retract, and
-    keep the step only if the cost falls. Returns (state, its cost).
+    """One Gauss-Newton step: take the factors' blocks, solve
+    (JᵀJ + λI)δ = −Jᵀr by CG over them (``kernels.pose_cg``: one launch on a
+    card), retract, and keep the step only if the cost falls. Returns
+    (state, its cost).
 
-    The program :func:`solve_pose_graph` replays on a card. It is the
-    smallest one: the pullbacks hold tensors the step's own linearisation
-    saved, so a graph of one CG iteration would read a finished step's
-    addresses. Traced, the linearisation and the CG solve lie between
-    device marks (``gn.linearise``, ``gn.cg``)."""
+    The program :func:`solve_pose_graph` replays on a card. Traced, the
+    blocks and the CG solve lie between device marks (``gn.linearise``,
+    ``gn.cg``), and the solve's active iterations (those that ran before
+    the residual met the tolerance) are added to the device counter
+    ``cg.iters_active``."""
     device = state.positions.device
     with profiling.device_span("gn.linearise", device):
-        grad, hvp = _normal_equations(state, data, damping)
+        lin = _linearise(state, data)
     with profiling.device_span("gn.cg", device):
-        delta = _cg(hvp, -grad, maxiter=cg_iters, tol=1e-10)
+        delta, active = kernels.pose_cg(lin.blocks, lin.r0, lin.r_gps, data.gps_valid, data.w_gps, data.loop_ij,
+                                        damping, cg_iters, tol=1e-10)
+    profiling.count_device("cg.iters_active", active)
     new_state = _retract(state, delta)
     c_new = _cost(new_state, data)
     improved = c_new < c_old
@@ -240,12 +235,12 @@ def solve_pose_graph(
     cg_iters: int = 50,
     damping: float = 1e-6,
 ) -> GNResult:
-    """Gauss-Newton with matrix-free CG normal-equation solves, on the device
-    of ``init`` (no host sync until the caller reads the result).
+    """Gauss-Newton with CG normal-equation solves, on the device of ``init``
+    (no host sync until the caller reads the result).
 
     Each iteration linearises the residual around the current state in the
-    tangent space (δ ∈ R^{N×6}), solves (JᵀJ + λI)δ = −Jᵀr by conjugate
-    gradients on Hessian-vector products, and retracts: one
+    tangent space (δ ∈ R^{N×6}) as per-factor Jacobian blocks, solves
+    (JᵀJ + λI)δ = −Jᵀr by conjugate gradients over them, and retracts: one
     :func:`_gn_step`, a captured program on a card (``utils.graphs``).
     Traced, each step adds its ``cg_iters`` to the host counter
     ``cg.iters_run``."""

@@ -71,6 +71,7 @@ _SIGNATURES = {
     "gps_nn_grid_run": ([], _I),
     "gps_ransac_counts": ([_I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _D, _VP, _VP, _I, _VP, _VP], _I),
     "gps_ransac_counts_scratch": ([_I, _I, _I], _LL),
+    "gps_pose_cg": ([_I, _I, _I, _VP, _VP, _VP, _VP, _D, _VP, _D, _I, _D, _VP, _VP, _VP, _VP], _I),
     "gps_trace_mark": ([_VP, _VP, _VP, _I, _I, _VP], _I),
     "gps_capture_kernel_nodes": ([_VP], _LL),
     "gps_graph_kernel_nodes": ([_VP], _LL),

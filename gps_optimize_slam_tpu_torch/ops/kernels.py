@@ -1,5 +1,5 @@
-"""K3 and K4 (nearest-neighbour distance), their keep lists, and K5
-(RANSAC consensus counts).
+"""K3 and K4 (nearest-neighbour distance), their keep lists, K5 (RANSAC
+consensus counts), and the pose graph's conjugate-gradient solve.
 
 Ports the three Pallas kernels of ``gps_optimize_slam_tpu/ops/pallas_kernels.py``
 and the array code around them:
@@ -34,6 +34,11 @@ and the array code around them:
   decides and the pairs inside the band recounted in the plain elementwise
   order, integer partial counts added into a zeroed output: the plain
   version's counts exactly.
+* :func:`pose_cg`: a Gauss-Newton step's normal equations
+  (JᵀJ + λI)δ = −Jᵀr solved by conjugate gradients over per-factor Jacobian
+  blocks, every iteration inside one launch of ``csrc/pose_cg.cu`` (a
+  thread-block cluster; no TPU kernel: the JAX package runs ``jax.scipy``'s
+  CG on Hessian-vector products).
 
 Batch axis: :func:`keep_lists`, :func:`nn_resident`, :func:`nn_min_dist2`
 and :func:`ransac_counts` (and their plain versions) also take a leading
@@ -626,3 +631,133 @@ def counts_launch(
 
 
 ransac_counts.launches = 0
+
+
+def pose_products(blocks: torch.Tensor, loop_ij: torch.Tensor, gps_valid: torch.Tensor, w_gps: float,
+                  damping: float):
+    """The pose graph's products over per-factor Jacobian blocks, the plain
+    version's: ``(jt, hvp)`` with ``jt(u, u_gps)`` = Jᵀu for the factors'
+    rows u (M, 6) and the GNSS rows u_gps (N, 3), and ``hvp(v)`` =
+    (JᵀJ + λI)v for v (N, 6).
+
+    ``blocks`` (M, 6, 12): the N − 1 odometry factors (k, k + 1), then the
+    closures of ``loop_ij`` (L, 2), columns 0-5 against pose i and 6-11
+    against pose j. The GNSS rows are w_gps·I₃ on the positions of the
+    poses ``gps_valid`` marks. A pose's sum runs as the kernel's: its
+    odometry factors (k, then k − 1), the GNSS row, then the closures in
+    order of (closure, end)."""
+    n = gps_valid.shape[0]
+    odo = torch.arange(n - 1, device=blocks.device)
+    ends = torch.stack([loop_ij[:, 0], loop_ij[:, 1]], -1).reshape(-1)
+    pi = torch.cat([odo, loop_ij[:, 0]])
+    pj = torch.cat([odo + 1, loop_ij[:, 1]])
+    valid = gps_valid[:, None]
+
+    def jt(u: torch.Tensor, u_gps: torch.Tensor) -> torch.Tensor:
+        t = torch.einsum("mrc,mr->mc", blocks, u)
+        out = torch.zeros((n, 6), dtype=blocks.dtype, device=blocks.device)
+        out[:-1] = t[: n - 1, :6]
+        out[1:] += t[: n - 1, 6:]
+        out[:, :3] += torch.where(valid, w_gps * u_gps, torch.zeros_like(u_gps))
+        return out.index_add_(0, ends, t[n - 1 :].reshape(-1, 6))
+
+    def hvp(v: torch.Tensor) -> torch.Tensor:
+        u = torch.einsum("mrc,mc->mr", blocks, torch.cat([v[pi], v[pj]], -1))
+        return jt(u, w_gps * v[:, :3]) + damping * v
+
+    return jt, hvp
+
+
+def pose_cg_plain(
+    blocks: torch.Tensor,
+    r0: torch.Tensor,
+    r_gps: torch.Tensor,
+    gps_valid: torch.Tensor,
+    w_gps: float,
+    loop_ij: torch.Tensor,
+    damping: float,
+    maxiter: int,
+    tol: float = 1e-10,
+):
+    """The plain version of :func:`pose_cg`: b = −Jᵀr0, then conjugate
+    gradients from x₀ = 0, the recurrence of JAX's
+    ``jax.scipy.sparse.linalg.cg`` (``_cg_solve``, no preconditioner):
+    r₀ = b (A·0 = 0), stop once γ = r·r ≤ tol²·b·b or after ``maxiter``
+    iterations. The while loop runs as ``maxiter`` iterations in which a
+    finished solve keeps its values (a selection, not a multiply by a mask:
+    α may be 0/0 in a finished step), so nothing is read on the host.
+    Returns (δ (N, 6), the active iterations as a 0-d int64 tensor)."""
+    jt, hvp = pose_products(blocks, loop_ij, gps_valid, w_gps, damping)
+    b = -jt(r0, r_gps)
+    bb = torch.sum(b * b)
+    atol2 = torch.clamp(tol * tol * bb, min=0.0)
+    x, r, p, gamma = torch.zeros_like(b), b, b, bb
+    count = torch.zeros((), dtype=torch.int64, device=b.device)
+    for _ in range(maxiter):
+        active = gamma > atol2
+        ap = hvp(p)
+        alpha = gamma / torch.sum(p * ap)
+        x_new = x + alpha * p
+        r_new = r - alpha * ap
+        gamma_new = torch.sum(r_new * r_new)
+        p_new = r_new + (gamma_new / gamma) * p
+        x = torch.where(active, x_new, x)
+        r = torch.where(active, r_new, r)
+        p = torch.where(active, p_new, p)
+        gamma = torch.where(active, gamma_new, gamma)
+        count = count + active
+    return x, count
+
+
+def pose_cg(
+    blocks: torch.Tensor,
+    r0: torch.Tensor,
+    r_gps: torch.Tensor,
+    gps_valid: torch.Tensor,
+    w_gps: float,
+    loop_ij: torch.Tensor,
+    damping: float,
+    maxiter: int,
+    tol: float = 1e-10,
+):
+    """Solve (JᵀJ + λI)δ = −Jᵀr0 by :func:`pose_cg_plain`'s recurrence over
+    per-factor Jacobian blocks, every iteration in one launch of
+    ``csrc/pose_cg.cu``: a thread-block cluster of up to 16 blocks (at
+    least 32 poses a block), each owning a contiguous range of poses; dot
+    products folded in a fixed order, so two launches give the same bits.
+
+    ``blocks`` (M, 6, 12) and ``r0`` (M, 6): the N − 1 odometry factors,
+    then the L closures of ``loop_ij`` (L, 2) (an invalid closure's zero);
+    ``r_gps`` (N, 3) the masked GNSS residual, its rows w_gps·I₃ on the
+    positions of the poses ``gps_valid`` (N,) marks. Returns (δ (N, 6), the
+    iterations that ran before γ met the tolerance, a 0-d int32 tensor on
+    the device). CPU tensors take :func:`pose_cg_plain`."""
+    if blocks.device.type == "cpu":
+        return pose_cg_plain(blocks, r0, r_gps, gps_valid, w_gps, loop_ij, damping, maxiter, tol)
+    _build.require_cuda(blocks, r0, r_gps, gps_valid, loop_ij)
+    n, n_loop = r_gps.shape[0], loop_ij.shape[0]
+    m = n - 1 + n_loop
+    if n < 1 or blocks.shape != (m, 6, 12) or r0.shape != (m, 6) or r_gps.shape != (n, 3) \
+            or gps_valid.shape != (n,) or loop_ij.shape != (n_loop, 2):
+        raise ValueError("pose_cg takes blocks (N - 1 + L, 6, 12), r0 (N - 1 + L, 6), r_gps (N, 3), "
+                         "gps_valid (N,) and loop_ij (L, 2)")
+    if blocks.dtype != r0.dtype or blocks.dtype != r_gps.dtype or gps_valid.dtype != torch.bool \
+            or loop_ij.dtype != torch.int64:
+        raise TypeError("blocks, r0 and r_gps share one float dtype; gps_valid is bool, loop_ij int64")
+    if maxiter < 0:
+        raise ValueError("maxiter must be at least 0")
+    delta = torch.empty((n, 6), dtype=blocks.dtype, device=blocks.device)
+    scratch = torch.empty((3, n, 6), dtype=blocks.dtype, device=blocks.device)
+    count = torch.empty((), dtype=torch.int32, device=blocks.device)
+    with torch.cuda.device(blocks.device):
+        rc = _build.library().gps_pose_cg(
+            _build.dtype_code(blocks), n, n_loop, blocks.data_ptr(), r0.data_ptr(), r_gps.data_ptr(),
+            gps_valid.data_ptr(), float(w_gps), loop_ij.data_ptr(), float(damping), int(maxiter), float(tol),
+            delta.data_ptr(), scratch.data_ptr(), count.data_ptr(), _build.stream(blocks.device),
+        )
+    _build.check(rc, "pose_cg")
+    _build.count_launch(pose_cg)
+    return delta, count
+
+
+pose_cg.launches = 0

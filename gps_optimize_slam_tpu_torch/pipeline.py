@@ -526,8 +526,8 @@ def refine_pose_graph(
     ``propose_loops``, proximity-proposed loop closures over the fused
     trajectory whose relative measurements are read from the Sim3
     trajectory. The solve starts from the EKF/RTS output and runs
-    matrix-free Gauss-Newton + CG, checkpointed to ``checkpoint_dir`` when
-    one is given.
+    Gauss-Newton + CG over per-factor Jacobian blocks, checkpointed to
+    ``checkpoint_dir`` when one is given.
 
     Returns ``(GNResult, loop_info)``, ``loop_info`` a dict with the number
     of proposed closures and their valid pairs."""

@@ -914,6 +914,179 @@ def test_pose_graph_pieces_on_the_card_match_the_cpu(cuda):
     assert float((hv - hvp_c(v.to(cuda)).cpu()).abs().max() / hv.abs().max()) <= 1e-12
 
 
+def pose_graph_case(n, n_loop, dtype, device, seed=0):
+    """A pose graph of ``n`` poses along a drifting track, its state off its
+    measurements by centimetres and degrees, GNSS on three poses of four,
+    and ``n_loop`` closures between random poses (i > j among them, every
+    fifth invalid; at n = 1 the pose closed on itself), as
+    ``pose_graph._linearise`` takes them."""
+    from gps_optimize_slam_tpu_torch.models import pose_graph
+    from gps_optimize_slam_tpu_torch.ops import quaternion as quat
+
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, dtype=torch.float64)  # noqa: E731
+    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float64)
+    pos = torch.cumsum(torch.tensor([1.0, 0.2, 0.0]) + 0.3 * rnd(n, 3), 0)
+    q = quat.normalize(ident + 0.2 * rnd(n, 4))
+    qi = quat.conj(q[:-1])
+    ij = torch.randint(0, n, (n_loop, 2), generator=gen)
+    li, lj = ij[:, 0], ij[:, 1]
+    data = pose_graph.PoseGraphData(
+        odo_dp=quat.rotate(qi, pos[1:] - pos[:-1]) + 0.02 * rnd(n - 1, 3),
+        odo_dq=quat.normalize(quat.mul(qi, q[1:]) + 0.01 * rnd(n - 1, 4)),
+        gps=pos + 0.05 * rnd(n, 3), gps_valid=torch.arange(n) % 4 != 3, loop_ij=ij,
+        loop_dp=quat.rotate(quat.conj(q[li]), pos[lj] - pos[li]) + 0.02 * rnd(n_loop, 3),
+        loop_dq=quat.normalize(quat.mul(quat.conj(q[li]), q[lj]) + 0.01 * rnd(n_loop, 4)),
+        loop_valid=torch.arange(n_loop) % 5 != 4)
+    state = pose_graph.PoseGraphState(pos + 0.05 * rnd(n, 3), quat.normalize(q + 0.02 * rnd(n, 4)))
+
+    def to(x):
+        x = x.to(device)
+        return x.to(dtype) if x.is_floating_point() else x
+
+    return (pose_graph.PoseGraphState(*map(to, state)),
+            pose_graph.PoseGraphData(*(to(x) if torch.is_tensor(x) else x for x in data)))
+
+
+def pose_cg_args(state, data):
+    """``pose_graph._linearise`` at ``state``: ``kernels.pose_cg``'s operands
+    but the iterations."""
+    from gps_optimize_slam_tpu_torch.models import pose_graph
+
+    lin = pose_graph._linearise(state, data)
+    return (lin.blocks, lin.r0, lin.r_gps, data.gps_valid, data.w_gps, data.loop_ij, 1e-6)
+
+
+def pose_cg_on_the_card_and_plain(args, maxiter):
+    """Two launches of ``kernels.pose_cg`` (asserted bit-equal, counts
+    included) and ``pose_cg_plain`` on CPU copies of the operands."""
+    got, count = kernels.pose_cg(*args, maxiter)
+    again, count_again = kernels.pose_cg(*args, maxiter)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(count, count_again)
+    assert got.device.type == "cuda" and count.dtype == torch.int32
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    want, want_count = kernels.pose_cg_plain(*cpu, maxiter)
+    return got.cpu(), int(count), want, int(want_count)
+
+
+# (N, L) at the boundaries of the cluster's size (``pose_cg.cu``: at least 32
+# poses a block, at most 16 blocks): one pose, two (one block), 33 (two
+# blocks), 517 (16 blocks of 32 or 33 poses); and 16 blocks whose poses
+# outgrow their shared memory and live in the global scratch (12,000 in
+# float64, 25,000 in float32).
+POSE_CG_SHAPES = [(1, 2), (2, 2), (33, 32), (517, 32), (12_000, 32), (25_000, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,n_loop", POSE_CG_SHAPES)
+def test_pose_cg_kernel_matches_plain(cuda, n, n_loop, dtype):
+    """``pose_cg`` against ``pose_cg_plain`` on the same blocks (closures
+    across the blocks' pose ranges, i > j, invalid ones, a pose closed on
+    itself): after 5 iterations δ within TOL; after 50 δ within TOL where
+    the float64 solve converged (n ≤ 2; one pose converges within 5); the
+    same count of active iterations. Not compared: δ run on to 50
+    iterations unconverged (these random graphs move it by up to 1e-3 under
+    another order of summation, whichever code sums: the CPU's dense CG
+    shows it too), and the count of a float32 solve that converges (its
+    stop, γ ≤ 1e-20·b·b, lies below float32's rounding of γ, so whether and
+    when an iteration meets it is the rounding's: at n = 2 the kernel ran
+    all 50 where the plain version stopped). Two launches are bit-equal."""
+    state, data = pose_graph_case(n, n_loop, dtype, cuda)
+    args = pose_cg_args(state, data)
+    for maxiter in (5, 50):
+        got, count, want, want_count = pose_cg_on_the_card_and_plain(args, maxiter)
+        converged = n == 1 or (n == 2 and maxiter == 50)
+        if dtype == torch.float64 or not converged:
+            assert count == want_count and (count < maxiter) == converged
+        if maxiter == 5 or (converged and dtype == torch.float64):
+            assert chip_smoke.rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pose_cg_kernel_at_the_cells_shape(cuda, dtype):
+    """The refine cell's own step: the 4,541-pose shuttle fused on the
+    card, its 32 closures proposed, linearised at the fused trajectory.
+    float64: δ within TOL of the plain version after 5 and 50 iterations
+    (all 50 active on both); float32 after 5. Two launches bit-equal."""
+    from gps_optimize_slam_tpu_torch import pipeline
+    from gps_optimize_slam_tpu_torch.models import pose_graph
+
+    slam, gt, gp = chip_smoke.shuttle_sequence(chip_smoke.SHUTTLE_N)
+    res = pipeline.fuse_arrays(slam, chip_smoke.shuttle_gps(gt, gp), dtype=dtype, device=cuda)
+    o = res.outputs
+    times = torch.as_tensor(slam["timestamps"], dtype=dtype, device=cuda)
+    loops = pose_graph.propose_loop_closures(o.corrected_pos, times, o.sim3_quat)
+    assert int(loops[3].sum()) == 32
+    data = pose_graph.build_data_from_fusion(o.sim3_pos, o.sim3_quat, o.aligned_gps, o.gps_valid, *loops)
+    args = pose_cg_args(pose_graph.PoseGraphState(o.corrected_pos, o.corrected_quat), data)
+    assert args[0].shape == (chip_smoke.SHUTTLE_N - 1 + 32, 6, 12)
+    for maxiter in (5, 50) if dtype == torch.float64 else (5,):
+        got, count, want, want_count = pose_cg_on_the_card_and_plain(args, maxiter)
+        assert count == want_count == maxiter and chip_smoke.rel_err(got, want) <= TOL[dtype]
+
+
+def test_each_gauss_newton_step_launches_pose_cg_once_and_counts_its_iterations(cuda, tracer, monkeypatch):
+    """A solve of 4 steps makes 4 ``pose_cg`` launches (eager, captured and
+    replayed alike); traced, a one-step solve's ``cg.iters_active`` equals
+    the plain version's count on the same operands (a graph whose CG
+    converges before 50 iterations); a CUDA tensor never takes the plain
+    path."""
+    from gps_optimize_slam_tpu_torch.models import pose_graph
+    from gps_optimize_slam_tpu_torch.utils import graphs
+
+    state, data = pose_graph_case(2, 2, torch.float64, cuda)
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in pose_cg_args(state, data)]
+    _, want = kernels.pose_cg_plain(*cpu, 50)
+    graphs.clear()
+    before = kernels.pose_cg.launches
+    monkeypatch.setattr(kernels, "pose_cg_plain", None)  # any call of the plain version fails
+    pose_graph.solve_pose_graph(state, data, iterations=4)
+    torch.cuda.synchronize()
+    assert kernels.pose_cg.launches == before + 4
+    tracer.enable()
+    pose_graph.solve_pose_graph(state, data, iterations=1)
+    rec = tracer.records()
+    tracer.disable()
+    graphs.clear()
+    assert 0 < int(want) < 50 and rec["device_counts"] == {"cg.iters_active": float(want)}
+    assert kernels.pose_cg.launches == before + 5
+
+
+def test_pose_cg_refuses_what_the_kernel_does_not_take(cuda, monkeypatch):
+    """Shapes, dtypes and devices the kernel does not take raise, and a
+    launch the card refuses (the C entry point returns
+    cudaErrorInvalidConfiguration, as where no cluster fits) raises, with
+    nothing run in its place: no launch counted, no plain version."""
+    from gps_optimize_slam_tpu_torch.ops import _build
+
+    state, data = pose_graph_case(33, 4, torch.float64, cuda)
+    args = list(pose_cg_args(state, data))
+    for k, bad in ((0, args[0][:-1]), (2, args[2][:-1]), (5, args[5][:, :1])):
+        with pytest.raises(ValueError):
+            kernels.pose_cg(*args[:k], bad, *args[k + 1:], 5)
+    with pytest.raises(TypeError):
+        kernels.pose_cg(args[0].float(), *args[1:], 5)
+    with pytest.raises(ValueError):
+        kernels.pose_cg(*args[:3], args[3].cpu(), *args[4:], 5)
+    with pytest.raises(ValueError):
+        kernels.pose_cg(*args, -1)
+    lib = _build.library()
+
+    class Refusing(_FailingLaunch):
+        def __getattr__(self, name):
+            if name == "gps_pose_cg":
+                return lambda *a: 9  # cudaErrorInvalidConfiguration
+            return getattr(self._lib, name)
+
+    monkeypatch.setattr(_build, "library", lambda: Refusing(lib, "gps_pose_cg"))
+    monkeypatch.setattr(kernels, "pose_cg_plain", None)
+    before = kernels.pose_cg.launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        kernels.pose_cg(*args, 5)
+    assert kernels.pose_cg.launches == before
+
+
 def seqpar_case(n, device, seed=5):
     """A replica sequence with a start without GNSS and an outage, its GNSS
     interpolated onto the poses: the seven seqpar inputs on ``device``."""
@@ -1912,7 +2085,7 @@ def test_cell_programs_untraced_hold_no_trace_nodes(cuda, tracer, monkeypatch):
     back, and an untraced program holds exactly the traced one's nodes less
     its marks (the fusion's five stages: 10; the step's linearisation and
     CG: 4) and the step's counter (``cg.iters_active``: the nodes of a
-    program that only stacks, sums and adds 50 flags into a counter)."""
+    program that only adds the CG kernel's int32 count into a counter)."""
     from gps_optimize_slam_tpu_torch.utils import graphs, profiling
     from portbench import harness
 
@@ -1920,17 +2093,17 @@ def test_cell_programs_untraced_hold_no_trace_nodes(cuda, tracer, monkeypatch):
         cell = harness.cell(name)
         return harness.flow_class(cell["flow"])(cell, harness.config(cell["config"]), 7, [cuda], harness.Spans())
 
-    def count_flags(flags):
-        profiling.count_device("flags", torch.stack(flags).sum())
+    def count_active(active):
+        profiling.count_device("active", active)
 
     kept_graphs(monkeypatch)
     graphs.clear()
     tracer.enable()
-    flags = [torch.tensor(True, device=cuda) for _ in range(50)]
-    graphs.run(count_flags, flags)
-    graphs.run(count_flags, flags)
+    active = torch.tensor(50, dtype=torch.int32, device=cuda)
+    graphs.run(count_active, active)
+    graphs.run(count_active, active)
     (counter,) = held_programs(cuda).values()
-    assert counter.kernels == raw_kernel_nodes(counter) > 0
+    assert counter.kernels == raw_kernel_nodes(counter) == 1
     tracer.disable()
     batch, refine = flow("batch-kitti22"), flow("refine-kitti00")
     nodes = {}

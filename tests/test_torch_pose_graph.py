@@ -31,6 +31,7 @@ from gps_optimize_slam_tpu.ops.umeyama import Sim3 as JSim3
 from gps_optimize_slam_tpu_torch import pipeline
 from gps_optimize_slam_tpu_torch.models import fusion
 from gps_optimize_slam_tpu_torch.models import pose_graph
+from gps_optimize_slam_tpu_torch.ops import kernels
 from gps_optimize_slam_tpu_torch.ops import quaternion as quat
 from gps_optimize_slam_tpu_torch.ops import se3
 from gps_optimize_slam_tpu_torch.ops.umeyama import Sim3
@@ -432,8 +433,9 @@ def test_refine_pose_graph_runs_on_the_results_device_and_dtype():
 
 
 def plain_cg_active_iterations(hvp, b, maxiter, tol=1e-10) -> int:
-    """The iterations of ``pose_graph._cg``'s recurrence that run before
-    γ = r·r falls to tol²·b·b, counted by a plain loop that stops there."""
+    """The iterations of ``kernels.pose_cg_plain``'s recurrence (``pose_cg``'s
+    on a card) that run before γ = r·r falls to tol²·b·b, counted by a plain
+    loop that stops there."""
     atol2 = torch.clamp(tol * tol * torch.sum(b * b), min=0.0)
     x = torch.zeros_like(b)
     r = b - hvp(x)
@@ -473,3 +475,142 @@ def test_traced_solve_is_bit_equal_and_counts_the_active_cg_iterations(tracer): 
     marks = sorted(rec["marks"], key=lambda m: m[2])
     assert [m[0] for m in marks] == ["gn.linearise", "gn.cg"] * 3
     assert all(a[3] <= b[2] for a, b in zip(marks, marks[1:]))
+
+
+# The per-factor Jacobian blocks and the CG over them (``pose_graph._linearise``,
+# ``kernels.pose_cg_plain``).
+
+# Closures of each case: (i, j, valid); (5, 3) and (1, 0) have i > j, and
+# (0, 0) closes the one pose on itself.
+BLOCK_CASES = {
+    1: [(0, 0, True), (0, 0, False)],
+    2: [(1, 0, True), (0, 1, False)],
+    12: [(2, 9, True), (5, 3, True), (4, 7, False), (10, 1, True), (2, 9, True)],
+}
+
+
+def random_graph(n, seed=0, dtype=torch.float64):
+    """A pose graph of ``n`` poses off its measurements (every residual of
+    the order of the offsets), closures as ``BLOCK_CASES``, GNSS on every
+    third pose."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, dtype=torch.float64)  # noqa: E731
+    pos, q = 3.0 * rnd(n, 3), quat.normalize(rnd(n, 4))
+    loops = BLOCK_CASES[n]
+    data = pose_graph.PoseGraphData(
+        odo_dp=rnd(n - 1, 3), odo_dq=quat.normalize(rnd(n - 1, 4)), gps=pos + 0.5 * rnd(n, 3),
+        gps_valid=torch.arange(n) % 3 != 1, loop_ij=torch.tensor([[i, j] for i, j, _ in loops]),
+        loop_dp=rnd(len(loops), 3), loop_dq=quat.normalize(rnd(len(loops), 4)),
+        loop_valid=torch.tensor([v for _, _, v in loops]))
+    data = data._replace(**{k: v.to(dtype) for k, v in data._asdict().items()
+                            if torch.is_tensor(v) and v.is_floating_point()})
+    return pose_graph.PoseGraphState(pos.to(dtype), q.to(dtype)), data
+
+
+def dense_jacobian(lin, data):
+    """The blocks placed in the rows of ``residuals`` (odometry, GNSS,
+    closures) against δ ∈ R^{6N}, and the residual so ordered."""
+    n, n_loop = data.gps_valid.shape[0], data.loop_ij.shape[0]
+    rows = 6 * (n - 1) + 3 * n + 6 * n_loop
+    J = torch.zeros((rows, 6 * n), dtype=lin.blocks.dtype)
+    for k in range(n - 1):
+        J[6 * k : 6 * k + 6, 6 * k : 6 * k + 12] = lin.blocks[k]
+    g0 = 6 * (n - 1)
+    for k in range(n):
+        if data.gps_valid[k]:
+            J[g0 + 3 * k : g0 + 3 * k + 3, 6 * k : 6 * k + 3] = data.w_gps * torch.eye(3, dtype=J.dtype)
+    l0 = g0 + 3 * n
+    for m, (i, j) in enumerate(data.loop_ij.tolist()):
+        J[l0 + 6 * m : l0 + 6 * m + 6, 6 * i : 6 * i + 6] += lin.blocks[n - 1 + m, :, :6]
+        J[l0 + 6 * m : l0 + 6 * m + 6, 6 * j : 6 * j + 6] += lin.blocks[n - 1 + m, :, 6:]
+    r = torch.cat([lin.r0[: n - 1].reshape(-1), lin.r_gps.reshape(-1), lin.r0[n - 1 :].reshape(-1)])
+    return J, r
+
+
+@pytest.mark.parametrize("n", sorted(BLOCK_CASES))
+def test_blocks_equal_the_jacobian_of_the_whole_residual(n):
+    """Placed in a dense matrix, the blocks equal ``torch.func.jacrev`` of
+    ``residuals`` ∘ ``_retract`` over the whole state (≤1e-12 relative), an
+    invalid closure's rows zero, and the residuals are ``residuals`` at δ
+    = 0."""
+    state, data = random_graph(n, seed=n)
+    lin = pose_graph._linearise(state, data)
+    J, r = dense_jacobian(lin, data)
+
+    def r_of_delta(delta):
+        return pose_graph.residuals(pose_graph._retract(state, delta.reshape(n, 6)), data)
+
+    zero = torch.zeros(6 * n, dtype=torch.float64)
+    want = torch.func.jacrev(r_of_delta)(zero)
+    assert J.shape == want.shape and rel(J.numpy(), want.numpy()) <= 1e-12
+    assert rel(r.numpy(), r_of_delta(zero).numpy()) <= 1e-12
+    invalid = [n - 1 + m for m, (_, _, v) in enumerate(BLOCK_CASES[n]) if not v]
+    assert invalid and not lin.blocks[invalid].any() and not lin.r0[invalid].any()
+    assert bool(lin.blocks[n - 1 :].any(dim=(1, 2)).sum() == len(BLOCK_CASES[n]) - len(invalid))
+
+
+def dense_cg(A, b, maxiter, tol=1e-10):
+    """``jax.scipy.sparse.linalg.cg``'s recurrence on a dense matrix, a
+    plain loop that stops at γ ≤ tol²·b·b: (x, iterations run)."""
+    atol2 = max(tol * tol * float(b @ b), 0.0)
+    x, r = torch.zeros_like(b), b.clone()
+    p, gamma = r, r @ r
+    for k in range(maxiter):
+        if not gamma > atol2:
+            return x, k
+        ap = A @ p
+        alpha = gamma / (p @ ap)
+        x, r_new = x + alpha * p, r - alpha * ap
+        gamma_new = r_new @ r_new
+        p, r, gamma = r_new + (gamma_new / gamma) * p, r_new, gamma_new
+    return x, maxiter
+
+
+@pytest.mark.parametrize("n,maxiter", [(1, 50), (2, 50), (12, 7), (12, 12)])
+def test_plain_pose_cg_equals_a_dense_cg_on_the_blocks(n, maxiter):
+    """``kernels.pose_cg_plain`` against the same recurrence on the dense
+    (JᵀJ + λI) and −Jᵀr of the blocks: δ ≤1e-9 relative and the same count
+    of active iterations, converged (n = 1, 2) or cut short (n = 12); its
+    products equal the dense ones ≤1e-13 relative. (Run on to 50
+    iterations, n = 12 has not converged, and δ moves by up to 1e-3 under
+    another order of summation: the recurrence amplifies rounding there,
+    whichever code sums.)"""
+    state, data = random_graph(n, seed=10 + n)
+    lin = pose_graph._linearise(state, data)
+    J, r = dense_jacobian(lin, data)
+    A = J.T @ J + 1e-6 * torch.eye(6 * n, dtype=J.dtype)
+    want, want_count = dense_cg(A, -(J.T @ r), maxiter)
+    got, count = kernels.pose_cg_plain(lin.blocks, lin.r0, lin.r_gps, data.gps_valid, data.w_gps, data.loop_ij,
+                                       1e-6, maxiter)
+    assert got.shape == (n, 6) and count.dtype == torch.int64 and int(count) == want_count
+    assert (want_count < maxiter) == (n < 12)
+    assert rel(got.reshape(-1).numpy(), want.numpy()) <= 1e-9
+    grad, hvp = pose_graph._normal_equations(state, data, 1e-6)
+    v = torch.randn(n, 6, generator=torch.Generator().manual_seed(n), dtype=torch.float64)
+    assert rel(grad.reshape(-1).numpy(), (J.T @ r).numpy()) <= 1e-13
+    assert rel(hvp(v).reshape(-1).numpy(), (A @ v.reshape(-1)).numpy()) <= 1e-13
+
+
+@pytest.mark.parametrize("n", sorted(BLOCK_CASES))
+def test_float32_blocks_and_solve_run(n):
+    """The float32 path: blocks and residuals in float32 within 1e-4 of the
+    float64 ones (relative), the plain CG's δ finite and its change of the
+    residuals, Jδ, within 1e-3 of the float64 solve's (δ itself is not
+    compared: a direction J does not see, such as the rotation of the one
+    pose closed on itself, is λ = 1e-6 times rounding), and a float32
+    Gauss-Newton step keeps a finite state."""
+    state, data = random_graph(n, seed=20 + n)
+    state32, data32 = random_graph(n, seed=20 + n, dtype=torch.float32)
+    lin, lin32 = pose_graph._linearise(state, data), pose_graph._linearise(state32, data32)
+    assert lin32.blocks.dtype == lin32.r0.dtype == lin32.r_gps.dtype == torch.float32
+    for a, b in zip(lin32, lin):
+        assert rel(a.numpy(), b.numpy()) <= 1e-4
+    args = (data.gps_valid, data.w_gps, data.loop_ij, 1e-6, 10)
+    want, _ = kernels.pose_cg_plain(lin.blocks, lin.r0, lin.r_gps, *args)
+    got, count = kernels.pose_cg_plain(lin32.blocks, lin32.r0, lin32.r_gps, *args)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all()) and 0 < int(count) <= 10
+    J, _ = dense_jacobian(lin, data)
+    assert rel((J @ got.double().reshape(-1)).numpy(), (J @ want.reshape(-1)).numpy()) <= 1e-3
+    kept, cost = pose_graph._gn_step(state32, data32, 10, 1e-6, pose_graph._cost(state32, data32))
+    assert kept.positions.dtype == torch.float32 and bool(torch.isfinite(kept.positions).all())
+    assert float(cost) <= float(pose_graph._cost(state32, data32))

@@ -7,14 +7,15 @@ Fuses the shuttle of ``chip_smoke.shuttle_sequence`` (``--poses`` poses,
 float64), proposes its loop closures, linearises the pose graph at the
 fused trajectory, and prints as one JSON line:
 
-* the leaf ATen ops of one Hessian-vector product, of building a step's
-  pullbacks, and of one whole step (50 CG iterations), counted by
+* the leaf ATen ops of one step's linearisation (``pose_graph._linearise``,
+  the per-factor Jacobian blocks) and of one whole step, counted by
   ``torch.profiler`` on the host (on the card, each op that is not a view or
   an allocation is one kernel launch);
-* the time of one Jv by ``torch.func.jvp`` and by the pullback of the
-  pullback the solver uses (``pose_graph._linearisation``), and of one Jᵀu
-  (CUDA events on the card, the host clock on the CPU), and their largest
-  relative difference;
+* the time of one linearisation and of one 50-iteration CG solve over its
+  blocks (``kernels.pose_cg``: one launch on the card, the plain version on
+  the CPU; CUDA events on the card, the host clock on the CPU), and the
+  largest relative difference of the blocks' Jv from ``torch.func.jvp`` of
+  the whole residual;
 * with ``--sensitivity``, how far a refinement moves when the fused
   positions change by one part in 1e15: the shuttle's (``chip_smoke.REFINE``)
   and seq-04's golden fusion with closures proposed 2 s apart within 40 m
@@ -47,6 +48,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from gps_optimize_slam_tpu_torch import pipeline  # noqa: E402
 from gps_optimize_slam_tpu_torch.models import pose_graph  # noqa: E402
+from gps_optimize_slam_tpu_torch.ops import kernels  # noqa: E402
 
 
 def leaf_ops(fn) -> dict:
@@ -138,31 +140,33 @@ def main() -> int:
     loops = pose_graph.propose_loop_closures(o.corrected_pos, times, o.sim3_quat)
     data = pose_graph.build_data_from_fusion(o.sim3_pos, o.sim3_quat, o.aligned_gps, o.gps_valid, *loops)
     state = pose_graph.PoseGraphState(o.corrected_pos, o.corrected_quat)
-    r0, jt, j = pose_graph._linearisation(state, data)
-    _, hvp = pose_graph._normal_equations(state, data, 1e-6)
-    v = torch.randn((state.positions.shape[0], 6), generator=torch.Generator().manual_seed(8),
-                    dtype=r0.dtype).to(device)
+    lin = pose_graph._linearise(state, data)
+    n = state.positions.shape[0]
+    v = torch.randn((n, 6), generator=torch.Generator().manual_seed(8), dtype=lin.blocks.dtype).to(device)
     cost = pose_graph._cost(state, data)
+    cg_args = (lin.blocks, lin.r0, lin.r_gps, data.gps_valid, data.w_gps, data.loop_ij, 1e-6, 50)
 
     def r_of_delta(delta):
         """The residual on the tangent space, for ``torch.func.jvp``."""
         return pose_graph.residuals(pose_graph._retract(state, delta), data)
 
-    d0 = torch.zeros_like(v)
-    a, b = jvp(r_of_delta, (d0,), (v,))[1], j(v)
+    want = jvp(r_of_delta, (torch.zeros_like(v),), (v,))[1]
+    pi = torch.cat([torch.arange(n - 1, device=device), data.loop_ij[:, 0]])
+    pj = torch.cat([torch.arange(1, n, device=device), data.loop_ij[:, 1]])
+    u = torch.einsum("mrc,mc->mr", lin.blocks, torch.cat([v[pi], v[pj]], -1))
+    gps = torch.where(data.gps_valid[:, None], data.w_gps * v[:, :3], torch.zeros_like(v[:, :3]))
+    got = torch.cat([u[: n - 1].reshape(-1), gps.reshape(-1), u[n - 1 :].reshape(-1)])
     out = {
         "device": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu",
         "poses": args.poses,
         "loops": int(loops[3].sum()),
         "leaf_ops": {
-            "hessian_vector_product": leaf_ops(lambda: hvp(v)),
-            "build_pullbacks": leaf_ops(lambda: pose_graph._normal_equations(state, data, 1e-6)),
+            "linearise": leaf_ops(lambda: pose_graph._linearise(state, data)),
             "gn_step": leaf_ops(lambda: pose_graph._gn_step(state, data, 50, 1e-6, cost))["total"],
         },
-        "jvp_ms": ms(lambda: jvp(r_of_delta, (d0,), (v,)), device),
-        "pullback_of_pullback_ms": ms(lambda: j(v), device),
-        "pullback_ms": ms(lambda: jt(b), device),
-        "jv_rel_diff": float((a - b).abs().max() / b.abs().max()),
+        "linearise_ms": ms(lambda: pose_graph._linearise(state, data), device),
+        "pose_cg_ms": ms(lambda: kernels.pose_cg(*cg_args), device),
+        "jv_rel_diff": float((got - want).abs().max() / want.abs().max()),
     }
     if args.sensitivity:
         out["sensitivity_1e-15"] = {"shuttle": sensitivity(res, chip_smoke.REFINE),
