@@ -8,13 +8,16 @@ import torch
 from portbench import checks, harness
 from portbench.traffic import generate
 
+# A launch counter's key where it is not the wrapper's name.
+COUNTER_KEYS = {"keep_lists": "nn_keep"}
+
 
 class FlowBase:
     """A flow over the requests of a cell: ``variants`` requests made from
     the seed, sent in turn (request k is variant k mod ``variants``).
 
     ``cell["traffic_params"]``, where given, replaces the mix's file (the
-    tests' small requests)."""
+    CPU tests put the cell's ``small`` mix there)."""
 
     def __init__(self, cell: dict, cfg: dict, seed: int, devices: list, spans):
         from gps_optimize_slam_tpu_torch.config import config_from_dict
@@ -30,10 +33,11 @@ class FlowBase:
     def poses(self, k: int) -> int:
         return generate.real_poses(self.requests[k % self.variants])
 
-    def warm(self, work: list) -> None:
-        """Every shape of the cell's requests: a first call (eager, its work
-        recorded), a second (captured) and a third (replayed)."""
-        with harness.recording(work):
+    def warm(self, work: list, metrics=()) -> None:
+        """Every shape of the cell's requests: a first call (eager, the
+        calls that ``metrics``' records name written to ``work``), a second
+        (captured) and a third (replayed)."""
+        with harness.recording(work, metrics):
             self.request(0)
         for k in range(1, 3):
             self.request(k)
@@ -69,12 +73,23 @@ class FlowBase:
 
     @staticmethod
     def launch_counts() -> dict:
+        """Every launch counter (a ``launches`` attribute) of the kernel
+        wrappers of the port's ``ops.kernels`` and ``ops.scan``: a counter by
+        combine as ``<wrapper>/<op>`` where not 0, any other as ``<wrapper>``
+        (the keep lists' as ``nn_keep``)."""
         from gps_optimize_slam_tpu_torch.ops import kernels, scan
 
-        counts = {f"scan_block/{op}": c for op, c in scan.scan_block.launches.items() if c}
-        counts.update({f"scan_tiled/{op}": c for op, c in scan.scan_tiled.launches.items() if c})
-        counts.update(nn_keep=kernels.keep_lists.launches, nn_resident=kernels.nn_resident.launches,
-                      nn_grid=kernels.nn_grid.launches, ransac_counts=kernels.ransac_counts.launches)
+        counts = {}
+        for module in (kernels, scan):
+            for name, fn in vars(module).items():
+                launches = getattr(fn, "launches", None)
+                if launches is None or not callable(fn) or fn.__module__ != module.__name__:
+                    continue
+                key = COUNTER_KEYS.get(name, name)
+                if isinstance(launches, dict):
+                    counts.update({f"{key}/{op}": c for op, c in launches.items() if c})
+                else:
+                    counts[key] = launches
         return counts
 
 

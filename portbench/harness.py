@@ -4,18 +4,25 @@ the recording of the work a request hands the kernels, and the device
 trace and its reading (``run.py`` holds the measured window).
 
 A cell (``workloads/<cell>.json``) names its configuration
-(``configs/<name>.json``), its traffic mix (``traffic/<name>.json``), its
-flow (``flows/<flow>.py``, which builds, warms and drives one entry of the
-program and compares a request's outputs with the plain reference) and the
-limits of that comparison. A metric is a folder ``metrics/<name>/`` with
-``metric.json`` and ``reader.py``, whose ``read(ctx)`` returns the metric's
-value from what a run gathered, or None where it finds nothing to read.
+(``configs/<name>.json``), its traffic mix (``traffic/<name>.json``, whose
+``kind`` is a module ``traffic/kinds/<kind>.py``), its CPU tests' small mix
+(``small``), its flow (``flows/<flow>.py``, which builds, warms and drives
+one entry of the program and compares a request's outputs with the plain
+reference; the tests' faults of a flow are ``tests/faults/<flow>.py``) and
+the limits of that comparison. A metric is a folder ``metrics/<name>/``
+with ``metric.json`` and ``reader.py``, whose ``read(ctx)`` returns the
+metric's value from what a run gathered, or None where it finds nothing to
+read; a ``records.py`` there names the program calls whose work set-up
+records for it, in the cells that report it. ``BENCHMARK.json`` alone lists which cells report which
+metric. So a configuration, a cell, a kind of mix, a flow and a metric are
+added as new files and new entries in ``BENCHMARK.json``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import glob
 import importlib
 import importlib.util
@@ -52,13 +59,30 @@ def flow_class(name: str):
     return importlib.import_module(f"portbench.flows.{name}").Flow
 
 
-def metric_reader(name: str):
-    """The ``read`` function of ``metrics/<name>/reader.py``."""
-    path = os.path.join(HERE, "metrics", name, "reader.py")
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{re.sub(r'[^A-Za-z0-9_]', '_', name)}", path)
+def _metric_module(name: str, file: str):
+    """The module ``metrics/<name>/<file>.py``."""
+    path = os.path.join(HERE, "metrics", name, f"{file}.py")
+    spec = importlib.util.spec_from_file_location(f"portbench_{file}_{re.sub(r'[^A-Za-z0-9_]', '_', name)}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str):
+    """The ``read`` function of ``metrics/<name>/reader.py``."""
+    return _metric_module(name, "reader").read
+
+
+def declared_records(metrics) -> list:
+    """``[(module, function, note)]``: the program calls that the
+    ``records.py`` files of the folders of ``metrics`` name (their
+    ``RECORDS``), in the metrics' order; ``note(*args, **kwargs)`` makes a
+    call's entry, a tuple whose first item names its kind."""
+    out = []
+    for name in metrics:
+        if os.path.isfile(os.path.join(HERE, "metrics", name, "records.py")):
+            out += _metric_module(name, "records").RECORDS
+    return out
 
 
 def cell_metrics(bench: dict, name: str, trace: bool) -> list:
@@ -66,6 +90,11 @@ def cell_metrics(bench: dict, name: str, trace: bool) -> list:
     end-to-end metrics untraced, its per-layer metrics traced."""
     group = bench["per_layer"] if trace else bench["end_to_end"]
     return [m["name"] for m in group if "workloads" not in m or name in m["workloads"]]
+
+
+def reported_metrics(bench: dict, name: str) -> list:
+    """Every metric that some run of cell ``name`` reports."""
+    return cell_metrics(bench, name, False) + cell_metrics(bench, name, True)
 
 
 def kernel_patterns(metric_dir: str) -> list:
@@ -132,35 +161,32 @@ class Spans:
 
 
 @contextlib.contextmanager
-def recording(work: list):
-    """Within it, each call of the program's scan kernel wrappers is also
-    written to ``work``: ``("scan", op, shape, dtype)``. The wrappers'
+def recording(work: list, metrics):
+    """Within it, each call of a program function that the ``records.py``
+    of one of ``metrics`` names is also written to ``work``, as that
+    record's note makes it of the call's arguments. A wrapped function's
     launch counts go on."""
-    from gps_optimize_slam_tpu_torch.ops import scan
 
-    def dtype_name(t):
-        return str(t.dtype).split(".")[-1]
-
-    saved = []
-
-    def wrap(module, name, note):
-        real = getattr(module, name)
-
+    def wrap(real, note):
+        @functools.wraps(real)
         def recorded(*args, **kwargs):
-            work.append(note(*args))
+            work.append(note(*args, **kwargs))
             return real(*args, **kwargs)
 
-        recorded.launches = real.launches
-        saved.append((module, name, real))
-        setattr(module, name, recorded)
+        return recorded
 
-    for name in ("scan_block", "scan_tiled"):
-        wrap(scan, name, lambda op, x, *rest: ("scan", op, tuple(x.shape), dtype_name(x)))
+    saved = []
     try:
+        for module_name, name, note in declared_records(metrics):
+            module = importlib.import_module(module_name)
+            real = getattr(module, name)
+            saved.append((module, name, real))
+            setattr(module, name, wrap(real, note))
         yield work
     finally:
-        for module, name, real in saved:
-            real.launches = getattr(module, name).launches
+        for module, name, real in reversed(saved):
+            if hasattr(real, "launches"):
+                real.launches = getattr(module, name).launches
             setattr(module, name, real)
 
 

@@ -10,13 +10,15 @@ translation in the earlier pose's frame and the relative rotation), unary
 GNSS priors from the aligned track where valid, each residual weighted by
 its configured weight, orientation errors through the rotation log. The
 state moves on the tangent space (a position step and a right-multiplied
-rotation vector a pose). Where the program differentiates the whole
-residual with pullbacks and never forms the Jacobian, this reference takes
-each factor's 6 x 12 (or 3 x 6) Jacobian by automatic differentiation and
-assembles the sparse matrix; the conjugate-gradient recurrence (from zero,
-stopping once the residual's square falls to ``1e-20`` of the right-hand
-side's, at most ``cg_iters`` iterations) and the step's acceptance only
-where the cost falls are the recipe's.
+rotation vector a pose). The program keeps each binary factor's 6 x 12
+Jacobian block and never assembles a matrix: its conjugate gradients run
+in one hand-written CUDA kernel over the blocks, the GNSS rows implicit,
+the products folded in a fixed order. This reference takes each factor's
+6 x 12 (or 3 x 6) Jacobian by automatic differentiation on its own, builds
+the sparse matrix with SciPy and runs the recurrence on it in NumPy; the
+recurrence (from zero, stopping once the residual's square falls to
+``1e-20`` of the right-hand side's, at most ``cg_iters`` iterations) and
+the step's acceptance only where the cost falls are the recipe's.
 """
 
 from __future__ import annotations

@@ -112,7 +112,7 @@ def run_cell(args, cell: dict, cfg: dict, devices: list, bench: dict) -> dict:
     spans = harness.Spans(sync)
     flow = harness.flow_class(cell["flow"])(cell, cfg, args.seed, devices, spans)
     work: list = []
-    flow.warm(work)
+    flow.warm(work, harness.reported_metrics(bench, args.workload))
     sync()
     for d in devices:
         torch.cuda.reset_peak_memory_stats(d)

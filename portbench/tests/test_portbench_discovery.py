@@ -30,7 +30,9 @@ def test_config_found_by_name(cfg):
     assert sorted(cfg) == ["file", "name", "reduced", "source", "why"]
     assert cfg["file"] == f"portbench/configs/{cfg['name']}.json"
     on_disk = harness.config(cfg["name"])
-    assert on_disk["name"] == cfg["name"] and on_disk["reduced"] == cfg["reduced"] == []
+    assert on_disk["name"] == cfg["name"] and on_disk["reduced"] == cfg["reduced"]
+    assert len(cfg["reduced"]) <= 16
+    assert all(isinstance(k, str) and len(k) <= 200 and NAME.match(k) for k in cfg["reduced"])
     assert on_disk["chips"] in (1, 4) and on_disk["dtype"] in ("float32", "float64")
     assert any(w["config"] == cfg["name"] for w in BENCH["workloads"])
     assert 1 <= len(cfg["source"]) <= 200 and 1 <= len(cfg["why"]) <= 200
@@ -43,7 +45,9 @@ def test_cell_found_by_name(wl):
     cell = harness.cell(wl["name"])
     assert cell["config"] == wl["config"] and cell["traffic"] == wl["traffic"] and cell["why"] == wl["why"]
     assert harness.config(wl["config"])["chips"] == wl["chips"]
-    assert generate.load(wl["traffic"])["kind"] in ("fleet", "shuttle")
+    kind = generate.kind_module(generate.load(wl["traffic"])["kind"])
+    assert callable(kind.drives)
+    assert cell["small"]["kind"] == generate.load(wl["traffic"])["kind"], "the CPU tests' small mix"
     flow = harness.flow_class(cell["flow"])
     assert callable(flow.request) and callable(flow.check) and callable(flow.control)
     assert cell["limits"], "every cell compares its outputs with the reference"
@@ -59,8 +63,9 @@ def test_metric_found_by_name(m):
     meta = harness.load_json("metrics", m["name"], "metric.json")
     assert meta["unit"] == m["unit"] and meta["better"] == m["better"] and meta["source"] == m["source"]
     assert callable(harness.metric_reader(m["name"]))
+    assert "cells" not in meta, "BENCHMARK.json alone lists a metric's cells"
     cells = m.get("workloads", [w["name"] for w in BENCH["workloads"]])
-    assert sorted(meta["cells"]) == sorted(cells)
+    assert set(cells) <= {w["name"] for w in BENCH["workloads"]}
     if "bound" in m:
         assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25
     else:
@@ -84,5 +89,22 @@ def test_at_most_a_quarter_of_the_cells_take_four_chips():
 
 def test_flows_found_by_name():
     for wl in BENCH["workloads"]:
-        importlib.import_module(f"portbench.flows.{harness.cell(wl['name'])['flow']}")
+        flow = harness.cell(wl["name"])["flow"]
+        importlib.import_module(f"portbench.flows.{flow}")
+        faults = importlib.import_module(f"portbench.tests.faults.{flow}").FAULTS
+        assert "altered_answer" in [f.__name__ for f in faults], f"faults/{flow}.py alters no answer"
     assert os.path.isfile(generate.GOLDEN)
+
+
+def test_records_name_program_calls():
+    records = harness.declared_records(sorted(os.listdir(os.path.join(harness.HERE, "metrics"))))
+    for module, name, note in records:
+        assert callable(getattr(importlib.import_module(module), name)) and callable(note)
+    assert ("gps_optimize_slam_tpu_torch.ops.scan", "scan_block") in {r[:2] for r in records}
+    assert harness.declared_records(["poses_per_s"]) == [], "a metric without records.py records nothing"
+
+
+def test_unknown_kind_of_mix_is_refused():
+    for kind in ("no_such_kind", "../generate", "generate.x", ""):
+        with pytest.raises(ValueError):
+            generate.kind_module(kind)

@@ -2,29 +2,30 @@
 card skipped: the program's outputs come out correct against the plain
 reference with each cell's limits; the control (the reference in float32
 in the program's place) fails them; and with the timed path broken
-underneath, ``correct`` comes out false: an answer altered where it is
-produced, half of a batch left out, a Gauss-Newton step that returns its
-state unchanged."""
+underneath, ``correct`` comes out false under each fault of the cell's flow
+(``faults/<flow>.py``: in every flow an answer altered where the flow's
+outputs are produced, and such as half of a batch left out, a
+Gauss-Newton step that returns its state unchanged, a refined pose
+moved). Each cell's small mix
+is its ``small`` (``workloads/<cell>.json``)."""
 
 import argparse
 import contextlib
+import importlib
 from unittest import mock
 
 import pytest
 import torch
 
 from portbench import harness, run
+from portbench.traffic import generate
 
-SMALL = {
-    "batch-kitti22": {"kind": "fleet", "lengths": [271, 601, 271, 601], "noise_m": 0.02, "variants": 3},
-    "refine-kitti00": {"kind": "shuttle", "poses": 900, "outage_leg": 2, "noise_m": 0.02, "variants": 3},
-}
 CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
 
 
 def small_cell(name):
     cell = harness.cell(name)
-    cell["traffic_params"] = SMALL[name]
+    cell["traffic_params"] = cell["small"]
     return cell, harness.config(cell["config"])
 
 
@@ -39,8 +40,11 @@ def run_on_cpu(name, seed=2**31 + 5, fault=contextlib.nullcontext):
         return run.run_cell(args, cell, cfg, devices, harness.benchmark())
 
 
-def test_small_mixes_cover_every_cell():
-    assert sorted(SMALL) == sorted(CELLS)
+@pytest.mark.parametrize("name", CELLS)
+def test_small_mixes_cover_every_cell(name):
+    cell = harness.cell(name)
+    assert "small" in cell, f"workloads/{name}.json has no small mix for the CPU tests"
+    assert cell["small"]["kind"] == generate.load(cell["traffic"])["kind"]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -58,68 +62,12 @@ def test_control_fails_a_limit(name):
     assert any(v > cell["limits"][k] for k, v in readings.items()), readings
 
 
-@contextlib.contextmanager
-def altered_answer():
-    """One fused position moved by 1 mm where the fusion produces it."""
-    from gps_optimize_slam_tpu_torch.models import fusion
-
-    real = fusion._fuse_core
-
-    def fuse(*args, **kwargs):
-        out = real(*args, **kwargs)
-        pos = out.corrected_pos.clone()
-        pos[..., 5, 0] += 1e-3
-        return out._replace(corrected_pos=pos)
-
-    with mock.patch.object(fusion, "_fuse_core", fuse):
-        yield
+def flow_faults(name):
+    """The faults of cell ``name``: its flow's (``faults/<flow>.py``)."""
+    return importlib.import_module(f"portbench.tests.faults.{harness.cell(name)['flow']}").FAULTS
 
 
-@contextlib.contextmanager
-def half_the_fleet():
-    """The bucketing leaves out the second half of the drives."""
-    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
-
-    real = pbatch.bucket_by_length
-
-    def bucket(slams, gts, gps, **kw):
-        h = len(slams) // 2
-        return real(slams[:h], gts[:h], gps[:h], **kw)
-
-    with mock.patch.object(pbatch, "bucket_by_length", bucket):
-        yield
-
-
-@contextlib.contextmanager
-def unchanged_step():
-    """Each Gauss-Newton step returns its state and cost unchanged."""
-    from gps_optimize_slam_tpu_torch.models import pose_graph
-
-    with mock.patch.object(pose_graph, "_gn_step", lambda state, data, cg, damping, c_old: (state, c_old)):
-        yield
-
-
-@contextlib.contextmanager
-def altered_refinement():
-    """One refined position moved by 1 mm where the solve produces it."""
-    from gps_optimize_slam_tpu_torch.models import pose_graph
-
-    real = pose_graph.solve_pose_graph_checkpointed
-
-    def solve(*args, **kwargs):
-        res = real(*args, **kwargs)
-        pos = res.state.positions.clone()
-        pos[7, 1] += 1e-3
-        return res._replace(state=res.state._replace(positions=pos))
-
-    with mock.patch.object(pose_graph, "solve_pose_graph_checkpointed", solve):
-        yield
-
-
-FAULTS = [
-    ("batch-kitti22", altered_answer), ("batch-kitti22", half_the_fleet),
-    ("refine-kitti00", altered_answer), ("refine-kitti00", unchanged_step), ("refine-kitti00", altered_refinement),
-]
+FAULTS = [(name, fault) for name in CELLS for fault in flow_faults(name)]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS,

@@ -1,7 +1,9 @@
 """The yardstick's arithmetic against hand counts, the pad waste of the
-cells' own requests, and the readers on a made-up trace."""
+cells' own requests, the readers on a made-up trace, and the work and
+launch counts that set-up and the window gather."""
 
 import pytest
+import torch
 
 from portbench import harness, peaks
 from portbench.traffic import generate
@@ -86,3 +88,39 @@ def test_end_to_end_readers():
     assert harness.metric_reader("setup_s")(ctx) == 12.5
     assert harness.metric_reader("graph_replay_pct")({"graphs": {"first_calls": 0, "captures": 1, "replays": 3}}) == 75.0
     assert harness.metric_reader("pad_waste_pct")({"pad": {"padded": 125, "real": 100}}) == 25.0
+
+
+def test_recording_writes_the_declared_calls_and_restores_them():
+    from gps_optimize_slam_tpu_torch.ops import scan
+
+    real, counts = scan.scan_block, dict(scan.scan_block.launches)
+    work = []
+    with harness.recording(work, ["poses_per_s", "scan_roofline_pct"]):
+        assert scan.scan_block is not real and scan.scan_block.launches is real.launches
+        scan.associative_scan("add2", torch.zeros(2, 5, dtype=torch.float64))
+        scan.associative_scan("max3", torch.zeros(3, 4, 7, dtype=torch.float32), reverse=True)
+    assert work == [("scan", "add2", (2, 5), "float64"), ("scan", "max3", (3, 4, 7), "float32")]
+    assert scan.scan_block is real and scan.scan_block.launches == counts
+    # Metrics that declare no records leave the program as it is.
+    with harness.recording(work, ["poses_per_s", "device_idle_pct"]):
+        assert scan.scan_block is real
+        scan.associative_scan("add2", torch.zeros(2, 5, dtype=torch.float64))
+    assert len(work) == 2
+
+
+def test_launch_counts_find_every_counter(monkeypatch):
+    from gps_optimize_slam_tpu_torch.ops import kernels, scan
+    from portbench.flows.common import FlowBase
+
+    monkeypatch.setattr(kernels.pose_cg, "launches", 3)
+    monkeypatch.setattr(kernels.keep_lists, "launches", 2)
+    monkeypatch.setitem(scan.scan_block.launches, "rts", 5)
+    monkeypatch.setitem(scan.scan_tiled.launches, "filter", 1)
+    counts = FlowBase.launch_counts()
+    # The keys a traced run printed before pose_cg joined keep their names.
+    assert {"nn_keep", "nn_resident", "nn_grid", "ransac_counts", "pose_cg"} <= set(counts)
+    assert counts["pose_cg"] == 3 and counts["nn_keep"] == 2
+    assert counts["scan_block/rts"] == 5 and counts["scan_tiled/filter"] == 1
+    scans = {f"scan_block/{op}" for op, c in scan.scan_block.launches.items() if c}
+    scans |= {f"scan_tiled/{op}" for op, c in scan.scan_tiled.launches.items() if c}
+    assert set(counts) == {"nn_keep", "nn_resident", "nn_grid", "ransac_counts", "pose_cg"} | scans
