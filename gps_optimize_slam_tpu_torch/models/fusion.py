@@ -195,24 +195,28 @@ def _evaluate_against(slam_times, slam_pos, sim3_pos, corrected_pos, aligned, va
     """NN and paired-ATE stats of the raw SLAM / Sim3-aligned / EKF-fused
     trajectories against the track ``(aligned, valid)`` on the SLAM
     timestamps, with the post-skip gate. The three NN evaluations go through
-    K3 (or K4) on CUDA."""
+    K3 (or K4) on CUDA. Traced, the three NN evaluations and the two ATEs
+    lie between device marks (``utils.profiling``): ``eval.nn_slam``,
+    ``eval.nn_sim3``, ``eval.nn_ekf`` and ``eval.ate`` (the gate's mask and
+    the candidates before the first)."""
+    device = slam_pos.device
     gate = metrics.eval_mask(slam_times, valid, skip_seconds)
     cands = torch.nan_to_num(aligned, nan=0.0)
 
-    def nn(traj):
-        e = metrics.nn_errors_auto(traj, cands, gate, gate)
-        return metrics.error_stats(e, gate)
+    def nn(traj, name):
+        with profiling.device_span(name, device):
+            e = metrics.nn_errors_auto(traj, cands, gate, gate)
+            return metrics.error_stats(e, gate)
 
     def ate(traj):
         return metrics.error_stats(metrics.paired_errors(traj, aligned, gate), gate)
 
-    return Evaluation(
-        nn_slam=nn(slam_pos),
-        nn_sim3=nn(sim3_pos),
-        nn_ekf=nn(corrected_pos),
-        ate_sim3=ate(sim3_pos),
-        ate_ekf=ate(corrected_pos),
-    )
+    nn_slam = nn(slam_pos, "eval.nn_slam")
+    nn_sim3 = nn(sim3_pos, "eval.nn_sim3")
+    nn_ekf = nn(corrected_pos, "eval.nn_ekf")
+    with profiling.device_span("eval.ate", device):
+        ate_sim3, ate_ekf = ate(sim3_pos), ate(corrected_pos)
+    return Evaluation(nn_slam=nn_slam, nn_sim3=nn_sim3, nn_ekf=nn_ekf, ate_sim3=ate_sim3, ate_ekf=ate_ekf)
 
 
 def evaluate(

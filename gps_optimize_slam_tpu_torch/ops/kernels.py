@@ -63,6 +63,7 @@ from typing import Optional
 import torch
 
 from gps_optimize_slam_tpu_torch.ops import _build
+from gps_optimize_slam_tpu_torch.utils import profiling
 
 TILE_N = 128  # queries per keep list: a block of csrc/nn_grid.cu, 1-8 blocks of csrc/nn.cu
 TILE_M = 1024  # candidates per tile of both
@@ -276,10 +277,15 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
     a query tile down the levels, so its floor on the card is the bytes
     (coordinates read once, packed candidates and lists written once). CPU
     tensors take :func:`keep_lists_plain` of :func:`tile_keep_mask` and
-    :func:`pack_candidates_plain`."""
+    :func:`pack_candidates_plain`.
+
+    Traced (``utils.profiling`` on), a call adds its kept tile pairs, the
+    sum of ``nkept``, to the device counter ``nn.tiles_kept`` and its tile
+    pairs, B × n_tiles × m_tiles, to the host counter ``nn.tiles_total``."""
     n_tiles, m_tiles = _tiles(traj.shape[-2], candidates.shape[-2])
     if traj.device.type == "cpu":
         order, nkept = keep_lists_plain(tile_keep_mask(*bounds_operands(traj, candidates, cand_mask)))
+        _count_tiles(nkept, n_tiles, m_tiles)
         return order, nkept, pack_candidates_plain(candidates, cand_mask, m_tiles)
     _check_nn(traj, candidates, cand_mask)
     lead, batch = traj.shape[:-2], (traj.shape[0] if traj.ndim == 3 else 1)
@@ -302,7 +308,18 @@ def keep_lists(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Te
         )
     _build.check(rc, "nn keep lists")
     _build.count_launch(keep_lists)
+    _count_tiles(nkept, n_tiles, m_tiles)
     return order, nkept, cand3
+
+
+def _count_tiles(nkept: torch.Tensor, n_tiles: int, m_tiles: int) -> None:
+    """The tracer's counters of a keep-list call: the kept tile pairs on the
+    device (no host read, so a capture holds it) and all tile pairs on the
+    host; nothing while the tracer is off."""
+    if not profiling.enabled():
+        return
+    profiling.count_device("nn.tiles_kept", nkept.sum(dtype=torch.float64))
+    profiling.count("nn.tiles_total", (nkept.shape[0] if nkept.ndim == 2 else 1) * n_tiles * m_tiles)
 
 
 def nn_grid_operands(traj: torch.Tensor, candidates: torch.Tensor, cand_mask: torch.Tensor):

@@ -41,7 +41,7 @@ from __future__ import annotations
 import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -504,14 +504,18 @@ def fuse_buckets_checkpointed(
     return results
 
 
-def evaluate_batch(batch: SequenceBatch, outputs: fusion.FusionOutputs, skip_seconds: float = 5.0):
+def evaluate_batch(batch: Union[SequenceBatch, StagedBatch], outputs: fusion.FusionOutputs,
+                   skip_seconds: float = 5.0):
     """Batched evaluation (``fusion.evaluate`` with the batch axis, one
     captured program a shape on a card), masked to real poses, on the
-    outputs' device and in their dtype."""
+    outputs' device and in their dtype. ``batch`` is the ``SequenceBatch``
+    that was fused (its SLAM times and positions copied to the device), or
+    the ``StagedBatch`` that ``fuse_batch`` took (its device SLAM times and
+    positions, copied nowhere): the same evaluation bit for bit."""
     dt, device = outputs.corrected_pos.dtype, outputs.corrected_pos.device
-    return fusion.evaluate(
-        torch.as_tensor(np.asarray(batch.slam_times), device=device).to(dt),
-        torch.as_tensor(np.asarray(batch.slam_pos), device=device).to(dt),
-        outputs,
-        skip_seconds=skip_seconds,
-    )
+    if isinstance(batch, StagedBatch):
+        slam_times, slam_pos = (x.to(device=device, dtype=dt) for x in batch.args[:2])
+    else:
+        slam_times, slam_pos = (torch.as_tensor(np.asarray(a), device=device).to(dt)
+                                for a in (batch.slam_times, batch.slam_pos))
+    return fusion.evaluate(slam_times, slam_pos, outputs, skip_seconds=skip_seconds)

@@ -34,7 +34,8 @@ static leaves, and each tensor's shape, dtype and device.
   copy-in, launch (the ``replay()`` call), clone-out, first call and
   capture, each ``<span>:<function name>``; a replay lies between two
   device marks (``graphs.replay``) and adds its graph's kernel nodes,
-  counted at capture, to the ``graph.kernels:<function name>`` counter.
+  counted at capture, to the ``graph.kernels:<function name>`` counter,
+  and the host counts its body made at capture (``profiling.tally_counts``).
   Whether the tracer is on is part of the key: an untraced call replays
   the untraced graph.
 * Tensors off the card run ``fn`` directly: the caller asked for the CPU.
@@ -95,6 +96,7 @@ class _Program(NamedTuple):
     output_bytes: int
     name: str = ""  # the function's name, for the tracer's spans and counters
     kernels: int = 0  # the graph's kernel nodes (-1 where they could not be counted)
+    counts: Optional[dict] = None  # the host counts of one replay (utils.profiling.tally_counts)
 
 
 class _Device:
@@ -249,7 +251,8 @@ def _capture(dev: _Device, fn, spec, leaves, tensors) -> _Program:
     graph = torch.cuda.CUDAGraph()
     reserved = torch.cuda.memory_reserved(device)
     lib = _build.library()
-    with torch.cuda.stream(stream), _inside(capture=True), _build.tally_launches() as launches:
+    with torch.cuda.stream(stream), _inside(capture=True), _build.tally_launches() as launches, \
+            profiling.tally_counts() as counts:
         graph.capture_begin(pool=dev.pool, capture_error_mode="thread_local")
         try:
             outputs = fn(*static_args, **static_kwargs)
@@ -261,7 +264,7 @@ def _capture(dev: _Device, fn, spec, leaves, tensors) -> _Program:
         graph.capture_end()
     dev.pool_bytes += torch.cuda.memory_reserved(device) - reserved
     name = getattr(fn, "__name__", type(fn).__name__)
-    return _Program(graph, inputs, outputs, launches, _nbytes(inputs), _nbytes(outputs), name, kernels)
+    return _Program(graph, inputs, outputs, launches, _nbytes(inputs), _nbytes(outputs), name, kernels, counts)
 
 
 def _held_budget(device: torch.device) -> int:
@@ -283,8 +286,8 @@ def _keep(dev: _Device, key, program: _Program) -> None:
 def _replay(dev: _Device, program: _Program, tensors):
     """Copy ``tensors`` in, replay, add the capture's launches and return
     clones of the outputs, after the device's previous replay. Traced: the
-    replay between two device marks, and its kernel nodes added to the
-    ``graph.kernels`` counter."""
+    replay between two device marks, its kernel nodes added to the
+    ``graph.kernels`` counter and the capture's host counts added."""
     current = torch.cuda.current_stream(dev.device)
     if dev.last is not None and dev.last != current:
         current.wait_stream(dev.last)
@@ -295,6 +298,7 @@ def _replay(dev: _Device, program: _Program, tensors):
         program.graph.replay()
     _build.add_launches(program.launches)
     profiling.count("graph.kernels", program.kernels, program.name)
+    profiling.add_counts(program.counts)
     with profiling.span("graphs.clone_out", program.name):
         out = pytree.tree_map_only(torch.Tensor, torch.clone, program.outputs)
     dev.last = current

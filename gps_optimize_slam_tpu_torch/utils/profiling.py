@@ -25,7 +25,10 @@
     in a graph would be overwritten by the next replay before being read.
     A mark that finds its ring full is dropped and counted. On the CPU a
     mark writes ``time.time_ns()`` into a host ring decoded the same way.
-  - ``count(name, n)``: a host counter. ``count_device(name, t)``: adds the
+  - ``count(name, n)``: a host counter. Counted inside a capture
+    (``utils.graphs``) it goes to the capture's tally, which each replay of
+    the program adds (``tally_counts``, ``add_counts``), as the kernels'
+    launch counts do. ``count_device(name, t)``: adds the
     device value ``t`` into the device's counters, a tensor allocated once
     and zeroed in place by ``reset()`` (a captured program holds its
     address).
@@ -68,6 +71,7 @@ _MARK_IDS: Dict[str, int] = {}
 _COUNTER_SLOTS: Dict[str, int] = {}
 _RINGS: Dict[torch.device, "_Ring"] = {}
 _LOST = {"dropped": 0, "unpaired": 0}
+_TALLY = threading.local()  # ``counts``: the host counts of this thread's capture, or None
 
 
 def _devices(result) -> set:
@@ -343,8 +347,35 @@ def count(name: str, n=1, detail=None) -> None:
     if not _ON:
         return
     label = _label(name, detail)
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        tally[label] = tally.get(label, 0) + n
+        return
     with _LOCK:
         _COUNTS[label] = _COUNTS.get(label, 0) + n
+
+
+@contextlib.contextmanager
+def tally_counts():
+    """Within it (a capture), this thread's host counts go to the yielded
+    dict and not to the records: the capture runs the program's host code
+    once, and ``add_counts`` adds the tally at each replay."""
+    saved = getattr(_TALLY, "counts", None)
+    _TALLY.counts = tally = {}
+    try:
+        yield tally
+    finally:
+        _TALLY.counts = saved
+
+
+def add_counts(tally: dict) -> None:
+    """Add a capture's tally of host counts (``tally_counts``) to the
+    records."""
+    if not _ON or not tally:
+        return
+    with _LOCK:
+        for label, n in tally.items():
+            _COUNTS[label] = _COUNTS.get(label, 0) + n
 
 
 def count_device(name: str, value: torch.Tensor) -> None:

@@ -1,0 +1,13 @@
+"""The longlog_ms.fuse metric (ms).
+
+read(ctx) returns its value from what a run gathered, or None where it finds
+nothing to read."""
+
+import numpy as np
+
+
+def read(ctx):
+    """The median, over a traced run's requests outside the trace, of the host
+    span ``fuse`` around ``parallel.mesh.fuse_batch`` on the staged batch, the devices synchronised at both ends."""
+    ms = ctx["spans"].get("fuse")
+    return float(np.median(ms)) if ms else None

@@ -1,0 +1,10 @@
+"""The benchmark's own tests in this suite:
+``portbench/tests/test_portbench_pinned.py`` (the older cells' pinned
+traffic, and what set-up records for each cell's metrics). One module a file
+of ``portbench/tests``, so that the suite's workers, which take a module
+each, spread them; each test on one torch thread
+(``tests/portbench_suite.py``)."""
+
+from tests.portbench_suite import one_torch_thread  # noqa: F401
+
+from portbench.tests.test_portbench_pinned import *  # noqa: F401,F403

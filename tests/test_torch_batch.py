@@ -134,6 +134,69 @@ def test_evaluate_batch_matches_jax(jax_oracle, port_run):
     assert (ev.nn_ekf.count > 5).all() and (ev.nn_ekf.rmse < 1.0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_evaluate_batch_on_the_staged_batch_equals_the_host_batch(padded, port_run, dtype):
+    """``evaluate_batch`` given the ``StagedBatch`` that ``fuse_batch`` took
+    (its device SLAM times and positions) gives the evaluation of the
+    ``SequenceBatch`` it was staged from bit for bit, in either dtype."""
+    draws, out, ev = port_run
+    staged = mesh.stage_batch(padded, device="cpu", dtype=dtype)
+    if dtype != torch.float64:
+        out = mesh.fuse_batch(staged, config=GPU_LADDER, sim3_draws=draws)
+        ev = mesh.evaluate_batch(padded, out)
+    got = mesh.evaluate_batch(staged, out)
+    for part in PARTS:
+        for stat in STATS:
+            a, b = getattr(getattr(got, part), stat), getattr(getattr(ev, part), stat)
+            assert a.dtype == b.dtype and a.shape == (4,), (part, stat)
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"{part}.{stat}")
+    assert bool((got.nn_ekf.count > 5).all())
+
+
+def test_evaluate_records_its_four_spans_only_when_traced(padded, port_run, tracer):  # noqa: F811
+    """The tracer on: each evaluation records ``eval.nn_slam``,
+    ``eval.nn_sim3``, ``eval.nn_ekf`` and ``eval.ate`` in that order, one
+    after another, and gives the untraced statistics bit for bit; off, it
+    records nothing."""
+    _, out, ev = port_run
+    mesh.evaluate_batch(padded, out)
+    assert tracer.records()["marks"] == []
+    tracer.enable()
+    on = [mesh.evaluate_batch(padded, out) for _ in range(2)]
+    rec = tracer.records()
+    tracer.disable()
+    for got in on:
+        for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(ev)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    names = ["eval.nn_slam", "eval.nn_sim3", "eval.nn_ekf", "eval.ate"]
+    marks = sorted(rec["marks"], key=lambda m: m[2])
+    assert [m[0] for m in marks] == names * 2 and {m[1] for m in marks} == {-1}
+    assert all(a[3] <= b[2] for a, b in zip(marks, marks[1:]))
+
+
+def test_keep_lists_count_kept_and_total_tile_pairs_only_when_traced(tracer):  # noqa: F811
+    """``kernels.keep_lists`` traced adds the sum of its ``nkept`` to the
+    device counter ``nn.tiles_kept`` and B × n_tiles × m_tiles to the host
+    counter ``nn.tiles_total``, a call; off, nothing."""
+    from gps_optimize_slam_tpu_torch.ops import kernels
+
+    gen = torch.Generator().manual_seed(3)
+    traj = torch.cumsum(torch.randn(2, 300, 3, generator=gen, dtype=torch.float64), 1)
+    cands = torch.cumsum(torch.randn(2, 2100, 3, generator=gen, dtype=torch.float64), 1)
+    mask = torch.rand(2, 2100, generator=gen) > 0.2
+    _, nkept, _ = kernels.keep_lists(traj, cands, mask)
+    _, single, _ = kernels.keep_lists(traj[1], cands[1], mask[1])
+    assert tracer.records()["counts"] == {} and tracer.records()["device_counts"] == {}
+    tracer.enable()
+    kernels.keep_lists(traj, cands, mask)
+    kernels.keep_lists(traj[1], cands[1], mask[1])
+    rec = tracer.records()
+    tracer.disable()
+    assert nkept.shape == (2, 3) and 0 < int(nkept.sum()) < 2 * 3 * 3
+    assert rec["device_counts"] == {"nn.tiles_kept": float(nkept.sum() + single.sum())}
+    assert rec["counts"] == {"nn.tiles_total": 2 * 3 * 3 + 3 * 3}
+
+
 @pytest.mark.parametrize("platform", ["cpu", "gpu"])
 def test_rows_match_the_single_row_fuse_core(seqs, padded, port_run, platform):
     """platform="cpu" takes the sequential filter (a row at a time), "gpu"

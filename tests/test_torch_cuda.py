@@ -2078,6 +2078,62 @@ def test_a_traced_program_writes_its_marks_on_every_replay(cuda, tracer, monkeyp
     assert rec["counts"]["graph.kernels:marked"] == 4 * counts[2]
 
 
+def test_evaluation_records_its_spans_and_nn_counters_only_when_traced(cuda, tracer):
+    """``mesh.evaluate_batch`` on a staged batch of two long rows (the keep
+    lists and K3 by the route), three calls with the tracer on (eager,
+    captured, replayed): each records ``eval.nn_slam``, ``eval.nn_sim3``,
+    ``eval.nn_ekf`` and ``eval.ate`` in order, a replay's inside its
+    ``graphs.replay`` marks; ``nn.tiles_kept`` holds three calls' sums of
+    every NN call's ``nkept`` (the keep lists rebuilt untraced) and
+    ``nn.tiles_total`` three calls' B × n_tiles × m_tiles of each; the
+    statistics equal the untraced ones bit for bit. Off, three more calls
+    record nothing."""
+    import numpy as np
+
+    from gps_optimize_slam_tpu_torch.ops import metrics
+    from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
+    from gps_optimize_slam_tpu_torch.parallel import mesh
+    from gps_optimize_slam_tpu_torch.utils import graphs
+    from portbench.traffic.kinds import resampled
+
+    rng = np.random.default_rng(7)
+    drives = [resampled.resampled_sequence(n, 100.0, 2, rng, 0.02) for n in (30_000, 26_000)]
+    b = pbatch.pad_batch([d[0] for d in drives], [d[1] for d in drives], [d[2] for d in drives])
+    staged = mesh.stage_batch(b, device=cuda)
+    out = mesh.fuse_batch(staged)
+    graphs.clear()
+    want = mesh.evaluate_batch(staged, out)
+    st, sp = staged.args[:2]
+    gate = metrics.eval_mask(st, out.gps_valid)
+    cands = torch.nan_to_num(out.aligned_gps, nan=0.0)
+    kept = sum(float(kernels.keep_lists(traj.contiguous(), cands, gate)[1].sum())
+               for traj in (sp, out.sim3_pos, out.corrected_pos))
+    n_tiles, m_tiles = kernels._tiles(st.shape[1], st.shape[1])
+    tracer.enable()
+    tracer.reset()
+    got = [mesh.evaluate_batch(staged, out) for _ in range(3)]
+    rec = tracer.records()
+    tracer.disable()
+    for ev in got:
+        for a, w in zip(torch.utils._pytree.tree_leaves(ev), torch.utils._pytree.tree_leaves(want)):
+            assert torch.equal(a, w)
+    names = ["eval.nn_slam", "eval.nn_sim3", "eval.nn_ekf", "eval.ate"]
+    marks = sorted((m for m in rec["marks"] if m[0].startswith("eval.")), key=lambda m: m[2])
+    replays = sorted(m for m in rec["marks"] if m[0] == "graphs.replay")
+    assert [m[0] for m in marks] == names * 3 and len(replays) == 2 and rec["dropped"] == rec["unpaired"] == 0
+    for r, call in zip(replays, (marks[4:8], marks[8:])):
+        assert all(r[2] <= m[2] <= m[3] <= r[3] for m in call)
+    assert 0 < kept < 3 * 2 * n_tiles * m_tiles
+    assert rec["device_counts"] == {"nn.tiles_kept": 3 * kept}
+    assert rec["counts"]["nn.tiles_total"] == 3 * 3 * 2 * n_tiles * m_tiles
+    tracer.reset()
+    for _ in range(3):
+        mesh.evaluate_batch(staged, out)
+    rec = tracer.records()
+    graphs.clear()
+    assert rec["marks"] == [] and rec["counts"] == {} and rec["device_counts"] == {"nn.tiles_kept": 0.0}
+
+
 def test_cell_programs_untraced_hold_no_trace_nodes(cuda, tracer, monkeypatch):
     """The benchmark's four bucket programs (``batch-kitti22``) and its
     Gauss-Newton step (``refine-kitti00``), captured with the tracer off and

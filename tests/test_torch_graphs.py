@@ -32,7 +32,7 @@ from gps_optimize_slam_tpu_torch.models import fusion
 from gps_optimize_slam_tpu_torch.ops import _build, kalman, kalman_parallel, quaternion, ransac, scan
 from gps_optimize_slam_tpu_torch.parallel import batch as pbatch
 from gps_optimize_slam_tpu_torch.parallel import mesh, seqpar
-from gps_optimize_slam_tpu_torch.utils import graphs
+from gps_optimize_slam_tpu_torch.utils import graphs, profiling
 from tests.test_parallel import make_sequences
 from tests.test_torch_profiling import tracer  # noqa: F401
 from tests.test_torch_ransac_alignment import jax_loop_counts, jax_sim3_draws, sim3_problem  # noqa: F401
@@ -246,8 +246,9 @@ def fake_cuda(monkeypatch):
 def fake_capture(graph, counted_wrapper=None, copies=None):
     """A stand-in for ``graphs._capture``: static buffers shaped as the
     tensors, whose ``copy_`` appends its source to ``copies``; the
-    program's outputs computed on them (its static leaves as given); two
-    launches of ``counted_wrapper`` tallied."""
+    program's outputs computed on them (its static leaves as given), its
+    host counts tallied as a capture tallies them; two launches of
+    ``counted_wrapper`` tallied."""
     copies = [] if copies is None else copies
 
     def capture(dev, fn, spec, leaves, tensors):
@@ -261,8 +262,10 @@ def fake_capture(graph, counted_wrapper=None, copies=None):
             if counted_wrapper is not None:
                 _build.count_launch(counted_wrapper)
                 _build.count_launch(counted_wrapper)
-        outputs = fn(*args, **kwargs)
-        return graphs._Program(graph, inputs, outputs, launches, graphs._nbytes(inputs), graphs._nbytes(outputs))
+        with graphs._inside(capture=True), profiling.tally_counts() as counts:
+            outputs = fn(*args, **kwargs)
+        return graphs._Program(graph, inputs, outputs, launches, graphs._nbytes(inputs), graphs._nbytes(outputs),
+                               counts=counts)
 
     return capture
 
@@ -304,6 +307,31 @@ def test_a_replay_copies_in_counts_and_returns_clones(fake_cuda, monkeypatch):
     assert a["sum"] is not prog.outputs["sum"] and b["sum"] is not a["sum"]
     assert graphs.stats() == {"first_calls": 1, "captures": 1, "replays": 3, "programs": 1, "pool_bytes": 0,
                               "input_bytes": 32, "output_bytes": 16}
+
+
+def test_a_host_count_in_a_program_counts_once_a_call(fake_cuda, tracer, monkeypatch):  # noqa: F811
+    """A host counter counted inside a program's body (``profiling.count``)
+    adds once a call as the body would eagerly: at the first call, and from
+    the capture's tally at the capture's replay and at every later one;
+    with the tracer off nothing."""
+    monkeypatch.setattr(profiling, "device_span", lambda name, device: profiling._NULL)
+    monkeypatch.setattr(graphs, "_capture", fake_capture(_FakeGraph()))
+
+    def counted(x):
+        profiling.count("body.items", x.shape[0])
+        return x * 2.0
+
+    x = torch.zeros(4, device="cuda")
+    tracer.enable()
+    for _ in range(4):
+        graphs.run(counted, x)
+    rec = tracer.records()
+    tracer.disable()
+    assert graphs.stats()["captures"] == 1 and graphs.stats()["replays"] == 3
+    assert rec["counts"]["body.items"] == 16 and profiling._TALLY.counts is None
+    for _ in range(2):
+        graphs.run(counted, x)  # off: a first call, then a capture of the untraced program
+    assert tracer.records()["counts"] == rec["counts"]
 
 
 def test_a_shape_called_once_is_never_captured(fake_cuda, monkeypatch):

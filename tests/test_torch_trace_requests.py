@@ -57,8 +57,29 @@ def test_metrics_are_medians_after_the_profiled_requests_and_none_once_a_mark_dr
     assert got["fuse_device_ms.ekf_rts"] == pytest.approx(4.0) and got["fuse_device_ms.ransac"] == pytest.approx(2.0)
     assert got["replay_device_ms"] == pytest.approx(9.2) and got["gn_device_ms.cg"] is None
     assert got["graph_kernels_per_request"] == 7000 and got["cg_active_pct"] == 25.0
+    assert got["eval_device_ms.nn_ekf"] is None and got["nn_kept_pct"] is None
     assert set(got) == set(tr.METRICS) | set(tr.COUNTERS)
     assert tr.metrics(records(spans, marks, counts, dropped=1), windows, skip=1) == dict.fromkeys(got)
+
+
+def test_evaluation_stages_and_the_kept_share_of_nn_tile_pairs():
+    """Each request's evaluation stages on the device (``eval.*`` marks)
+    are read as ``eval_device_ms.<stage>``; ``nn_kept_pct`` is the window's
+    kept tile pairs (a device counter) over all tile pairs (a host counter),
+    None without the latter."""
+    windows = [(k * 100 * MS, (k + 1) * 100 * MS - 1) for k in range(3)]
+    marks = []
+    for k in range(3):
+        at = k * 100 * MS + 10 * MS
+        for stage, ms in zip(tr.EVAL_STAGES, (3, 2, 2 + k, 1)):
+            marks.append((f"eval.{stage}", 0, at, at + ms * MS))
+            at += ms * MS
+    rec = records(marks=marks, counts={"nn.tiles_total": 3 * 9 * 4000}, device_counts={"nn.tiles_kept": 2700.0})
+    got = tr.metrics(rec, windows, skip=0)
+    assert got["eval_device_ms.nn_slam"] == pytest.approx(3.0) and got["eval_device_ms.ate"] == pytest.approx(1.0)
+    assert got["eval_device_ms.nn_ekf"] == pytest.approx(3.0) and got["fuse_device_ms.ransac"] is None
+    assert got["nn_kept_pct"] == pytest.approx(2.5)
+    assert tr.metrics(records(marks=marks, device_counts={"nn.tiles_kept": 9.0}), windows, 0)["nn_kept_pct"] is None
 
 
 def test_requests_split_into_two_speeds_at_the_widest_gap():

@@ -19,7 +19,10 @@ tool prints one JSON object (also written to ``--out``):
 
 * ``metrics``: the per-layer numbers of ``METRICS`` and ``COUNTERS``: the
   median, over the requests after the profiled ones, of each request's
-  total; a counter's window total a request; None where a ring dropped a
+  total (the fusion's and the evaluation's stages on the device among
+  them, ``fuse_device_ms.<stage>`` and ``eval_device_ms.<stage>``); a
+  counter's window total a request, or the window's share (``nn_kept_pct``:
+  ``nn.tiles_kept`` over ``nn.tiles_total``); None where a ring dropped a
   mark or the cell has no such record.
 * ``requests``: each request's wall ms, its spans' and marks' ms by name,
   and the card's clocks after it (NVML: SM and memory MHz, performance
@@ -61,6 +64,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 STAGES = ("alignment", "sim3_window", "ransac", "transform", "ekf_rts")
+EVAL_STAGES = ("nn_slam", "nn_sim3", "nn_ekf", "ate")
 # Per-layer metric -> the record whose per-request total it takes (host
 # spans by name, a prefix "name" summing every "name:<program>"; device
 # spans as "device:<name>").
@@ -70,10 +74,11 @@ METRICS = {
     "sweep_host_ms.stage": "sweep.stage",
     "sweep_host_ms.rows": "sweep.drain.rows",
     **{f"fuse_device_ms.{s}": f"device:fuse.{s}" for s in STAGES},
+    **{f"eval_device_ms.{s}": f"device:eval.{s}" for s in EVAL_STAGES},
     "gn_device_ms.linearise": "device:gn.linearise",
     "gn_device_ms.cg": "device:gn.cg",
 }
-COUNTERS = ("graph_kernels_per_request", "cg_active_pct")
+COUNTERS = ("graph_kernels_per_request", "cg_active_pct", "nn_kept_pct")
 
 
 def per_request(records: dict, windows: list) -> list:
@@ -99,8 +104,9 @@ def total(parts: dict, name: str) -> float:
 def metrics(records: dict, windows: list, skip: int) -> dict:
     """``METRICS``: the median over the requests after the first ``skip``
     of each request's total (None where no request has the record);
-    ``COUNTERS``: the kernel nodes the replays ran a request, and the share
-    of issued CG iterations that did work. All None where a ring dropped a
+    ``COUNTERS``: the kernel nodes the replays ran a request, the share
+    of issued CG iterations that did work, and the share of the NN calls'
+    tile pairs that the keep lists kept. All None where a ring dropped a
     mark."""
     names = list(METRICS) + list(COUNTERS)
     if records["dropped"] or not windows:
@@ -115,6 +121,9 @@ def metrics(records: dict, windows: list, skip: int) -> dict:
     run = records["counts"].get("cg.iters_run", 0)
     active = records["device_counts"].get("cg.iters_active")
     out["cg_active_pct"] = 100.0 * active / run if run and active is not None else None
+    pairs = records["counts"].get("nn.tiles_total", 0)
+    kept = records["device_counts"].get("nn.tiles_kept")
+    out["nn_kept_pct"] = 100.0 * kept / pairs if pairs and kept is not None else None
     return out
 
 
